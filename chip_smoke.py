@@ -1,0 +1,504 @@
+#!/usr/bin/env python3
+"""Drive paimon_tpu_torch's main path on one CUDA card and check it.
+
+Run from the root of a checkout on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py [--rows N]
+
+Phases, each of which raises on failure (no result line is printed
+then):
+
+1. the card's name and power limit (nvidia-smi);
+2. build the CUDA kernels from paimon_tpu_torch/csrc with nvcc;
+3. the port's device_sorted_winners on cuda against cpu (identical
+   perm/winner/prev) for 4M random rows;
+4. the main path, with the kernels' launch counts set to 0 just before
+   it and read just after: a primary-key table (id BIGINT NOT NULL, v1
+   BIGINT, v2 DOUBLE, v3 INT; bucket=1, write-only, deduplicate,
+   parquet) is written as 10 commits of uniform ids in [0, rows/2)
+   drawn from seed 7, read merge-on-read, fully compacted (the streamed
+   path) and read back; then a small table keyed by long strings takes
+   the same steps, so the kernel's offset-value-code variant runs on
+   the full-order merge that truncated string keys need (a coverage
+   check: its rates are not metrics).  Results are held row for row
+   against a numpy last-writer-wins oracle of the generated data;
+5. each kernel held against its plain PyTorch version on the card
+   (exact equality) at every shape the main path gave it, on the inputs
+   it gave there, and at further sizes of synthetic keys; both timed
+   with CUDA events, beside the least time the bytes they must move
+   take at the card's memory rate.
+
+The last two lines of standard output are one JSON object per line:
+the kernels with their launches on the main path and their times, then
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` calls (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+class KernelStats:
+    def __init__(self, name: str, replaces: str):
+        self.name = name
+        self.replaces = replaces
+        self.cases = []
+
+    def record(self, launches: int) -> dict:
+        # times at the largest shape the main path gave the kernel
+        main = [c for c in self.cases if c["main_path"]]
+        if not main:
+            raise AssertionError(f"{self.name}: no main-path shape checked")
+        top = max(main, key=lambda c: c["n"] * c["lanes"])
+        return {"name": self.name, "route": "cuda",
+                "source": "paimon_tpu_torch/csrc/eq_next_mask.cu",
+                "replaces": self.replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in self.cases),
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "n": top["n"], "lanes": top["lanes"]}
+
+
+class LaunchCapture:
+    """Records what the main path hands the kernel wrapper.
+
+    For the length of the main-path run it wraps the merge's reference to
+    kernels.eq_next_mask: it counts calls per (variant, lanes, n) shape
+    and keeps a host copy of the first call's inputs at each shape, so
+    the kernels are checked and timed afterwards on exactly those
+    inputs.  The wrapper and its launch counters are left as they are;
+    the host time spent copying is kept out of the phase times."""
+
+    def __init__(self):
+        self.cases: dict = {}
+        self.calls: dict = {}
+        self.where = ""
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from paimon_tpu_torch.ops import merge
+        self._merge = merge
+        self._kernel = merge.eq_next_mask
+
+        def shim(lanes, invalid, ovc_off=None, perm=None,
+                 num_key_lanes=None):
+            key = ("ovc" if ovc_off is not None else "plain",
+                   lanes.shape[0], lanes.shape[1])
+            with self._lock:
+                self.calls[key] = self.calls.get(key, 0) + 1
+                if key not in self.cases:
+                    t0 = time.perf_counter()
+                    self.cases[key] = {
+                        "where": self.where,
+                        "args": tuple(None if t is None else t.cpu()
+                                      for t in (lanes, invalid, ovc_off,
+                                                perm)),
+                        "num_key_lanes": num_key_lanes}
+                    self.seconds += time.perf_counter() - t0
+            return self._kernel(lanes, invalid, ovc_off, perm, num_key_lanes)
+
+        merge.eq_next_mask = shim
+        return self
+
+    def __exit__(self, *exc):
+        self._merge.eq_next_mask = self._kernel
+
+
+def needed_bytes(lanes, ovc_off, perm):
+    """(bytes, share of lane words) the function must move on these
+    inputs: invalid of every row (with codes also ovc_off and perm), one
+    byte out per row, and the lane words the compare needs.  A pair's
+    lane l is needed only where the code leaves the pair open and lanes
+    0..l-1 are equal; a row's word is needed if either of its pairs
+    needs it."""
+    import torch
+    num_lanes, n = lanes.shape
+    per_row = 4 + 1 + (8 if ovc_off is not None else 0)
+    open_pairs = torch.ones(n - 1, dtype=torch.bool, device=lanes.device)
+    if ovc_off is not None:
+        open_pairs = ~((perm[1:] == perm[:-1] + 1) & (ovc_off[1:] != -1))
+    words = 0
+    for lane in range(num_lanes):
+        need = torch.zeros(n, dtype=torch.bool, device=lanes.device)
+        need[:-1] |= open_pairs
+        need[1:] |= open_pairs
+        words += int(need.sum())
+        open_pairs &= lanes[lane, :-1] == lanes[lane, 1:]
+    return n * per_row + 4 * words, words / (num_lanes * n)
+
+
+def check_case(stats: KernelStats, label: str, args, num_key_lanes,
+               main_path: bool) -> None:
+    """Hold the kernel against its plain version on the card (exact
+    equality), time both and compute the bound."""
+    import torch
+
+    from paimon_tpu_torch.ops import kernels
+
+    lanes, inv, off, perm = args
+    got = kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes)
+    want = kernels.eq_next_mask_plain(lanes, inv, off, perm, num_key_lanes)
+    err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
+    if err:
+        raise AssertionError(f"{stats.name} != plain on {label}")
+    num_lanes, n = lanes.shape
+    iters = 50 if n >= 1 << 26 else 200
+    ms = cuda_ms(lambda: kernels.eq_next_mask(lanes, inv, off, perm,
+                                              num_key_lanes), iters)
+    plain_ms = cuda_ms(lambda: kernels.eq_next_mask_plain(
+        lanes, inv, off, perm, num_key_lanes), max(5, iters // 10))
+    nbytes, lane_share = needed_bytes(lanes, off, perm)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    stats.cases.append({"label": label, "n": n, "lanes": num_lanes,
+                        "main_path": main_path, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "max_abs_err": err})
+    log(f"{stats.name} {label} n={n} L={num_lanes}: exact; {ms:.4f} ms "
+        f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms = "
+        f"{bound_ms / ms:.1%} of bound; lane words needed "
+        f"{lane_share:.1%}")
+
+
+def sorted_int_keys(rng, n: int):
+    """Sorted 2-lane keys with ~2 rows per key and a padded tail, as a
+    merge of one fixed-width key hands them over."""
+    import torch
+    keys = np.sort(rng.integers(0, n // 2, n, dtype=np.uint64))
+    lanes = torch.from_numpy(np.stack([
+        (keys >> np.uint64(32)).astype(np.uint32),
+        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)])
+        .view(np.int32)).cuda()
+    inv = torch.zeros(n, dtype=torch.int32, device="cuda")
+    inv[n - n // 8:] = 1
+    return lanes, inv, None, None
+
+
+def coded_runs(rng, n: int, runs: int = 10):
+    """2-lane keys of `runs` sorted runs with their offset-value codes,
+    then sorted as a merge sorts them."""
+    import torch
+
+    from paimon_tpu_torch.ops.ovc import run_ovc_offsets
+    per = n // runs
+    parts = [np.sort(rng.integers(0, n // 2, per, dtype=np.uint64))
+             for _ in range(runs)]
+    parts.append(np.zeros(n - per * runs, dtype=np.uint64))
+    keys = np.concatenate(parts)
+    mat = np.stack([(keys >> np.uint64(32)).astype(np.uint32),
+                    (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                   axis=1)
+    starts = np.arange(0, per * runs + 1, per, dtype=np.int64)
+    off = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    off[:per * runs] = run_ovc_offsets(mat[:per * runs], starts)
+    valid = np.arange(n) < per * runs
+    order = np.lexsort((np.arange(n), keys, ~valid))
+    return (torch.from_numpy(np.ascontiguousarray(mat[order].T)
+                             .view(np.int32)).cuda(),
+            torch.from_numpy((~valid[order]).astype(np.int32)).cuda(),
+            torch.from_numpy(off[order].view(np.int32)).cuda(),
+            torch.from_numpy(order.astype(np.int32)).cuda())
+
+
+def check_kernels(captured: LaunchCapture, k1: KernelStats,
+                  k2: KernelStats) -> None:
+    """Every shape the main path gave each kernel, on the inputs it gave
+    at that shape first; then further sizes of synthetic keys."""
+    import torch
+
+    for key in sorted(captured.cases, key=lambda k: (k[0], k[2], k[1])):
+        case = captured.cases.pop(key)
+        args = tuple(None if t is None else t.cuda() for t in case["args"])
+        check_case(k2 if key[0] == "ovc" else k1,
+                   f"main path ({case['where']}, {captured.calls[key]} "
+                   f"launches at this shape)", args,
+                   case["num_key_lanes"], main_path=True)
+        del args, case
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(11)
+    for n in (1 << 26, (1 << 20) + 37):
+        check_case(k1, "sorted int keys", sorted_int_keys(rng, n), 2,
+                   main_path=False)
+        torch.cuda.empty_cache()
+    check_case(k2, "10 coded runs of int keys", coded_runs(rng, 1 << 24), 2,
+               main_path=False)
+
+
+def check_sorted_winners() -> None:
+    from paimon_tpu_torch.ops.merge import device_sorted_winners
+
+    rng = np.random.default_rng(5)
+    n = 4 << 20
+    lanes = rng.integers(0, 1 << 21, (n, 2), dtype=np.uint64) \
+        .astype(np.uint32)
+    seq = rng.permutation(n).astype(np.int64)
+    runs = 10
+    starts = np.linspace(0, n, runs + 1).astype(np.int64)
+    sorted_runs = np.concatenate([
+        lanes[a:b][np.lexsort(lanes[a:b].T[::-1])]
+        for a, b in zip(starts[:-1], starts[1:])])
+    cases = [("keep=last", dict(lanes=lanes, keep="last")),
+             ("keep=first", dict(lanes=lanes, keep="first")),
+             ("keep=last winners-only", dict(lanes=lanes, keep="last",
+                                             winners_only=True)),
+             ("ovc full order", dict(lanes=sorted_runs, keep="last",
+                                     run_starts=starts))]
+    for name, kw in cases:
+        lanes_arg = kw.pop("lanes")
+        t0 = time.perf_counter()
+        on_card = device_sorted_winners(lanes_arg, seq, device="cuda", **kw)
+        t1 = time.perf_counter()
+        on_cpu = device_sorted_winners(lanes_arg, seq, device="cpu", **kw)
+        t2 = time.perf_counter()
+        for what, a, b in zip(("perm", "winner", "prev"), on_card, on_cpu):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"device_sorted_winners {name}: {what} "
+                                     f"differs between cuda and cpu")
+        log(f"device_sorted_winners n={n} {name}: cuda == cpu "
+            f"(cuda {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s host clock)")
+
+
+def last_writer_oracle(ids: np.ndarray) -> np.ndarray:
+    """Global row index of the last write of each id, in id order."""
+    order = np.argsort(ids, kind="stable")
+    s = ids[order]
+    last = np.flatnonzero(np.r_[s[1:] != s[:-1], True])
+    return order[last]
+
+
+def check_rows(what: str, got, cols: dict, win: np.ndarray,
+               key: str) -> None:
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    if got.num_rows != len(win):
+        raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
+                             f"{len(win)}")
+    got = got.take(pc.sort_indices(got, sort_keys=[(key, "ascending")]))
+    for name, full in cols.items():
+        col = got.column(name).combine_chunks()
+        want = full.take(pa.array(win)) if isinstance(full, pa.Array) \
+            else full[win]
+        if isinstance(full, pa.Array):
+            same = col.equals(want)
+        else:
+            same = np.array_equal(col.to_numpy(zero_copy_only=False), want)
+        if not same:
+            raise AssertionError(f"{what}: column {name} differs from the "
+                                 f"oracle")
+
+
+def drive_table(path, schema, batches, cols, key, counts, phases,
+                capture):
+    """create -> write one commit per batch -> merge-on-read scan ->
+    compact(full=True) -> read back; checks both reads against the
+    oracle and records each phase's rows/s and kernel launches."""
+    import torch
+
+    from paimon_tpu_torch.table import FileStoreTable
+
+    rows = sum(b.num_rows for b in batches)
+    keys = cols[key]
+    win = last_writer_oracle(
+        keys if isinstance(keys, np.ndarray)
+        else np.asarray(keys.to_pylist(), dtype=object))
+    table = FileStoreTable.create(path, schema)     # device=None: cuda
+
+    def phase(name, fn):
+        capture.where = f"{os.path.basename(path)} {name}"
+        before = counts()
+        copied = capture.seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0 - (capture.seconds - copied)
+        after = counts()
+        launches = tuple(a - b for a, b in zip(after, before))
+        phases.append({"table": os.path.basename(path), "phase": name,
+                       "rows": rows, "s": dt, "rows_per_s": rows / dt,
+                       "launches_plain": launches[0],
+                       "launches_ovc": launches[1]})
+        log(f"  {os.path.basename(path)} {name}: {rows} rows in {dt:.2f} s "
+            f"= {rows / dt:,.0f} rows/s; launches plain={launches[0]} "
+            f"ovc={launches[1]}")
+        return out
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+
+    phase("write", write)
+    scanned = phase("scan", table.to_arrow)
+    check_rows(f"{path} merge-on-read scan", scanned, cols, win, key)
+    del scanned
+    if phase("compact", lambda: table.compact(full=True)) is None:
+        raise AssertionError("full compaction committed nothing")
+    back = phase("read", table.to_arrow)
+    check_rows(f"{path} read after compaction", back, cols, win, key)
+    return table
+
+
+def main_path(rows: int, phases: list, capture: LaunchCapture):
+    import pyarrow as pa
+    import torch
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.ops import kernels
+    from paimon_tpu_torch.types import BigIntType, DoubleType, IntType, \
+        VarCharType
+
+    def counts():
+        return (kernels.EQ_NEXT_LAUNCHES - kernels.EQ_NEXT_OVC_LAUNCHES,
+                kernels.EQ_NEXT_OVC_LAUNCHES)
+
+    work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
+    try:
+        runs = 10
+        per_run = rows // runs
+        rng = np.random.default_rng(7)
+        batches = []
+        for _ in range(runs):
+            batches.append(pa.table({
+                "id": pa.array(rng.integers(0, rows // 2, per_run),
+                               pa.int64()),
+                "v1": pa.array(rng.integers(0, 1 << 40, per_run),
+                               pa.int64()),
+                "v2": pa.array(rng.random(per_run), pa.float64()),
+                "v3": pa.array(rng.integers(0, 100, per_run)
+                               .astype(np.int32), pa.int32()),
+            }))
+        cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+                for c in ("id", "v1", "v2", "v3")}
+        options = {"bucket": "1", "write-only": "true",
+                   "parquet.enable.dictionary": "false"}
+        schema = (Schema.builder().column("id", BigIntType(False))
+                  .column("v1", BigIntType()).column("v2", DoubleType())
+                  .column("v3", IntType()).primary_key("id")
+                  .options(options).build())
+
+        # kernel coverage, not a cell: string keys, 1 in 64 ids longer
+        # than the 16-byte key prefix, so merges take the full-order
+        # path with run codes; small because truncated keys are fixed
+        # up by a host loop
+        s_rows, s_runs = 1 << 18, 10
+        s_per = s_rows // s_runs
+        srng = np.random.default_rng(7)
+        s_batches = []
+        for _ in range(s_runs):
+            ids = srng.integers(0, s_rows // 2, s_per)
+            names = [f"user-{i:09d}" + ("-profile-archive" if i % 64 == 0
+                                        else "") for i in ids.tolist()]
+            s_batches.append(pa.table({
+                "name": pa.array(names, pa.string()),
+                "v1": pa.array(srng.integers(0, 1 << 40, s_per),
+                               pa.int64())}))
+        s_cols = {"name": pa.concat_arrays(
+                      [b.column("name").combine_chunks() for b in s_batches]),
+                  "v1": np.concatenate([b.column("v1").to_numpy()
+                                        for b in s_batches])}
+        s_schema = (Schema.builder().column("name", VarCharType(False))
+                    .column("v1", BigIntType()).primary_key("name")
+                    .options(options).build())
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.EQ_NEXT_LAUNCHES = 0
+        kernels.EQ_NEXT_OVC_LAUNCHES = 0
+        with capture:
+            drive_table(os.path.join(work, "dedup_bigint"), schema, batches,
+                        cols, "id", counts, phases, capture)
+            drive_table(os.path.join(work, "string_key_coverage"), s_schema,
+                        s_batches, s_cols, "name", counts, phases, capture)
+        launches = counts()
+        log(f"main path launches: plain={launches[0]} ovc={launches[1]}; "
+            f"by (variant, lanes, n): {sorted(capture.calls.items())}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; inputs "
+            f"copied aside in {capture.seconds:.2f} s (not in phase times)")
+        for p in phases:
+            if p["phase"] in ("write", "scan", "compact") and \
+                    p["launches_plain"] + p["launches_ovc"] == 0:
+                raise AssertionError(f"{p['table']} {p['phase']}: no kernel "
+                                     f"launch")
+        if launches[0] == 0 or launches[1] == 0:
+            raise AssertionError(f"a kernel was not launched on the main "
+                                 f"path: {launches}")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=100_000_000,
+                    help="rows of the main-path table (10 commits)")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import paimon_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from paimon_tpu_torch.ops import kernels
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip())
+    t_start = time.perf_counter()
+    log(f"kernel build: {kernels.build():.2f} s (nvcc, sm_90a)")
+
+    check_sorted_winners()
+    phases: list = []
+    capture = LaunchCapture()
+    launches = main_path(args.rows, phases, capture)
+    k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
+    k2 = KernelStats("eq_next_mask_ovc",
+                     "paimon_tpu/ops/pallas_kernels.py:72")
+    check_kernels(capture, k1, k2)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"phases": phases}))
+    print(json.dumps({"kernels": [k1.record(launches[0]),
+                                  k2.record(launches[1])]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,372 @@
+"""Compaction manager + rewriter for one (partition, bucket).
+
+Counterpart of paimon_tpu/compact/manager.py for the deduplicate and
+first-row engines without changelog producers; every merge runs on the
+manager's torch device.
+
+reference: mergetree/compact/MergeTreeCompactManager.java:54
+(triggerCompaction:136, submitCompaction:211), MergeTreeCompactTask.java:41
+(doCompact:83 -- upgrade:124 metadata-only promotion vs rewrite),
+MergeTreeCompactRewriter.java:78.
+
+Deviation: the rewrite reads the unit's files to Arrow, merges the
+whole bucket in one device kernel (no IntervalPartition sections -- the
+sort absorbs arbitrary overlap), and rolls the result into output-level
+files. Drop-delete applies when the output is the highest non-empty level.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import pyarrow as pa
+
+from paimon_tpu_torch.compact.levels import Levels
+from paimon_tpu_torch.compact.universal import (
+    CompactUnit, UniversalCompaction, pick_full_compaction,
+)
+from paimon_tpu_torch.core.kv_file import KEY_PREFIX, KeyValueFileWriter, read_kv_file
+from paimon_tpu_torch.core.read import assemble_runs
+from paimon_tpu_torch.fs import FileIO
+from paimon_tpu_torch.manifest import DataFileMeta, FileSource
+from paimon_tpu_torch.options import CoreOptions, MergeEngine
+from paimon_tpu_torch.ops.merge import merge_runs
+from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
+from paimon_tpu_torch.schema.table_schema import TableSchema
+from paimon_tpu_torch.types import data_type_to_arrow
+from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
+
+__all__ = ["MergeTreeCompactManager", "CompactResult"]
+
+
+@dataclass
+class CompactResult:
+    before: List[DataFileMeta]
+    after: List[DataFileMeta]
+
+    def is_empty(self) -> bool:
+        return not self.before and not self.after
+
+
+def _prefetch(it, depth: int = 2):
+    """Run a chunk iterator in a background thread with a small bounded
+    queue so file decode overlaps the merge kernel (decode releases the
+    GIL). One thread per sorted run of a streamed rewrite.  The pump
+    polls a cancel flag on every bounded put, so a consumer that
+    abandons the generator early (merge error elsewhere) releases the
+    thread and its pinned chunks instead of leaking them."""
+    import queue as _queue
+    import threading as _threading
+
+    q: "_queue.Queue" = _queue.Queue(maxsize=depth)
+    _SENTINEL = object()
+    cancelled = _threading.Event()
+
+    def pump():
+        try:
+            for item in it:
+                while not cancelled.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        break
+                    except _queue.Full:
+                        continue
+                if cancelled.is_set():
+                    return
+            q.put(_SENTINEL)
+        except BaseException as e:       # noqa: BLE001
+            if not cancelled.is_set():
+                q.put(("__prefetch_error__", e))
+
+    from paimon_tpu_torch.parallel.executors import spawn_thread
+    spawn_thread(pump, name="paimon-prefetch-pump")
+    try:
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                return
+            if isinstance(item, tuple) and len(item) == 2 and \
+                    item[0] == "__prefetch_error__":
+                raise item[1]
+            yield item
+    finally:
+        cancelled.set()
+
+
+class MergeTreeCompactManager:
+    def __init__(self, file_io: FileIO, table_path: str,
+                 schema: TableSchema, options: CoreOptions,
+                 partition: Tuple, bucket: int,
+                 files: List[DataFileMeta], schema_manager=None,
+                 device=None):
+        self.file_io = file_io
+        self.device = device
+        self.schema = schema
+        self.options = options
+        self.partition = partition
+        self.bucket = bucket
+        self.schema_manager = schema_manager
+        self._schema_cache = {schema.id: schema}
+        self.levels = Levels(files, options.num_levels)
+        self.strategy = UniversalCompaction(
+            max_size_amp=options.max_size_amplification_percent,
+            size_ratio=options.size_ratio,
+            num_run_trigger=options.num_sorted_runs_compaction_trigger,
+            total_size_threshold=options.get(
+                CoreOptions.COMPACTION_TOTAL_SIZE_THRESHOLD),
+            file_num_limit=options.get(
+                CoreOptions.COMPACTION_FILE_NUM_LIMIT),
+            offpeak_hours=(
+                options.get(CoreOptions.COMPACTION_OFFPEAK_START_HOUR),
+                options.get(CoreOptions.COMPACTION_OFFPEAK_END_HOUR)),
+            offpeak_ratio=options.get(
+                CoreOptions.COMPACTION_OFFPEAK_RATIO))
+        self.path_factory = FileStorePathFactory.from_options(
+            table_path, schema.partition_keys, options)
+        self.kv_writer = KeyValueFileWriter(
+            file_io, self.path_factory, schema,
+            file_format=options.file_format,
+            compression=options.file_compression,
+            target_file_size=options.target_file_size,
+            format_per_level=options.file_format_per_level,
+            format_options=options.format_options,
+            **options.kv_writer_kwargs())
+        rt = schema.logical_row_type()
+        self.trimmed_pk = schema.trimmed_primary_keys()
+        self.key_cols = [KEY_PREFIX + k for k in self.trimmed_pk]
+        self.key_encoder = NormalizedKeyEncoder(
+            [data_type_to_arrow(rt.get_field(k).type)
+             for k in self.trimmed_pk],
+            nullable=[rt.get_field(k).type.nullable
+                      for k in self.trimmed_pk])
+
+    # -- picking -------------------------------------------------------------
+
+    def pick(self, full: bool = False) -> Optional[CompactUnit]:
+        runs = self.levels.level_sorted_runs()
+        if full:
+            return pick_full_compaction(
+                self.options.num_levels, runs,
+                force_rewrite_all=self.options.get(
+                    CoreOptions.COMPACTION_FORCE_REWRITE_ALL_FILES))
+        return self.strategy.pick(self.options.num_levels, runs)
+
+    # -- execution -----------------------------------------------------------
+
+    def compact(self, full: bool = False) -> Optional[CompactResult]:
+        unit = self.pick(full)
+        if unit is None or not unit.files:
+            return None
+        return self.do_compact(unit)
+
+    def do_compact(self, unit: CompactUnit) -> CompactResult:
+        """reference MergeTreeCompactTask.doCompact:83."""
+        files = unit.files
+        # upgrade fast path: single file, no rewrite needed
+        force_rewrite = self.options.get(
+            CoreOptions.COMPACTION_FORCE_REWRITE_ALL_FILES)
+        if len(files) == 1 and not force_rewrite:
+            f = files[0]
+            if f.level == unit.output_level:
+                return CompactResult([], [])
+            # file.format.per.level: a metadata-only promotion would
+            # carry the wrong format into the target level (reference
+            # upgrade rewrites on format change)
+            blocked = (self.kv_writer.format_per_level and
+                       self.kv_writer.format_per_level.get(
+                           unit.output_level,
+                           self.options.file_format.lower())
+                       != f.file_name.rsplit(".", 1)[-1].lower())
+            # metadata-only promotion unless deletes must be dropped at the
+            # top level (reference MergeTreeCompactTask.upgrade:124)
+            if (unit.output_level < self.levels.max_level
+                    or (f.delete_row_count or 0) == 0) and not blocked:
+                upgraded = f.upgrade(unit.output_level)
+                return CompactResult([f], [upgraded])
+
+        drop_delete = (unit.output_level != 0
+                       and unit.output_level
+                       >= self.levels.non_empty_highest_level())
+        total_rows = sum(f.row_count for f in files)
+        threshold = self.options.get(
+            CoreOptions.MERGE_STREAM_THRESHOLD_ROWS)
+        if total_rows > threshold:
+            # bounded-memory path: stream key windows through the kernel
+            after = self._rewrite_streamed(files, unit.output_level,
+                                           drop_delete)
+            return CompactResult(list(files), after)
+        merged = self._merged_state(files, drop_deletes=drop_delete)
+        after = self.kv_writer.write(self.partition, self.bucket, merged,
+                                     level=unit.output_level,
+                                     file_source=FileSource.COMPACT)
+        return CompactResult(list(files), after)
+
+    def _rewrite_streamed(self, files: List[DataFileMeta],
+                          output_level: int,
+                          drop_delete: bool) -> List[DataFileMeta]:
+        """Streamed whole-bucket rewrite (ops/merge_stream.py): peak
+        memory ~ runs x chunk + one key window, independent of bucket
+        size — SURVEY hard part (d)."""
+        from paimon_tpu_torch.core.read import evolve_table
+        from paimon_tpu_torch.format import get_format
+        from paimon_tpu_torch.ops.merge_stream import merge_runs_streamed
+
+        chunk_rows = self.options.get(CoreOptions.MERGE_CHUNK_ROWS)
+        runs_meta = assemble_runs(files)
+
+        def run_iter(run_files):
+            # yields (table, lanes, truncated, packed): the lane encode
+            # runs HERE, inside the prefetch thread, overlapping the merge
+            for f in run_files:
+                ext = f.file_name.rsplit(".", 1)[-1]
+                fmt = get_format(ext)
+                path = f.external_path or self.path_factory.data_file_path(
+                    self.partition, self.bucket, f.file_name)
+                for batch in fmt.create_reader().read_batches(
+                        self.file_io, path, batch_rows=chunk_rows):
+                    t = evolve_table(batch, f.schema_id, self.schema,
+                                     self.schema_manager,
+                                     self._schema_cache,
+                                     keep_sys_cols=True)
+                    yield (t, *self.key_encoder.encode_table_ex(
+                        t, self.key_cols))
+
+        # three-stage pipeline: prefetch threads decode+lane-encode,
+        # merge workers sort/dedup windows on the device (upload, sort
+        # and download overlap the next window's decode and cut), and a
+        # write pool encodes output files.
+        # Futures are consumed in submission order at every stage, so
+        # output files stay in key order regardless of completion.
+        futures = []
+        acc: List[pa.Table] = []
+        acc_bytes = 0
+
+        def _write_one(merged: pa.Table) -> List[DataFileMeta]:
+            return self.kv_writer.write(
+                self.partition, self.bucket, merged, level=output_level,
+                file_source=FileSource.COMPACT)
+
+        # two merge workers: device work and the numpy epilogues release
+        # the GIL, so adjacent windows overlap; both launch on the
+        # current stream of the device; futures are still consumed in
+        # submission order so output files stay in key order
+        with ThreadPoolExecutor(max_workers=3) as pool, \
+                ThreadPoolExecutor(max_workers=2) as merge_pool:
+
+            def merge_window(items):
+                tables = [item[0] for item in items]
+                encoded = [item[1:] for item in items]
+                return merge_pool.submit(
+                    self._merge_tables, tables, drop_delete,
+                    encoded=encoded)
+
+            def flush():
+                nonlocal acc, acc_bytes
+                if not acc:
+                    return
+                # surface an already-failed write now instead of merging
+                # every remaining window first
+                for f in futures:
+                    if f.done() and f.exception() is not None:
+                        f.result()
+                # backpressure: at most 3 file-sized tables in flight so
+                # a slow disk can't unbound the streamed path's memory
+                pending = [f for f in futures if not f.done()]
+                if len(pending) >= 3:
+                    pending[0].result()
+                merged = pa.concat_tables(acc, promote_options="none")
+                futures.append(pool.submit(_write_one, merged))
+                acc, acc_bytes = [], 0
+
+            merge_futs: List = []
+
+            def _collect(fut) -> None:
+                nonlocal acc_bytes
+                window = fut.result()
+                if window.num_rows == 0:
+                    return
+                acc.append(window)
+                acc_bytes += window.nbytes
+                if acc_bytes >= self.kv_writer.target_file_size:
+                    flush()
+
+            def emit(fut):
+                merge_futs.append(fut)
+                # collect any already-finished merges in order, and cap
+                # the lookahead at 2 windows so memory stays bounded
+                while merge_futs and (merge_futs[0].done()
+                                      or len(merge_futs) > 2):
+                    _collect(merge_futs.pop(0))
+
+            merge_runs_streamed(
+                [_prefetch(run_iter(rf)) for rf in runs_meta],
+                self.key_cols, self.key_encoder, emit, merge_window,
+                pass_encoded=True,
+                window_rows=self.options.get(
+                    CoreOptions.MERGE_WINDOW_ROWS))
+            while merge_futs:
+                _collect(merge_futs.pop(0))
+            flush()
+            out: List[DataFileMeta] = []
+            for f in futures:
+                out.extend(f.result())
+        return out
+
+    # -- merged-state helpers ------------------------------------------------
+
+    def _read_file(self, f: DataFileMeta) -> pa.Table:
+        """Read+evolve one data file."""
+        from paimon_tpu_torch.core.read import evolve_table
+
+        raw = read_kv_file(self.file_io, self.path_factory, self.partition,
+                           self.bucket, f)
+        return evolve_table(raw, f.schema_id, self.schema,
+                            self.schema_manager, self._schema_cache,
+                            keep_sys_cols=True)
+
+    def _read_runs(self, files: List[DataFileMeta]) -> List[pa.Table]:
+        runs_meta = assemble_runs(files)
+        # parquet decode releases the GIL: fan the file reads over a
+        # small thread pool
+        flat = [f for rf in runs_meta for f in rf]
+        with ThreadPoolExecutor(max_workers=min(8, len(flat))) as pool:
+            decoded = dict(zip((f.file_name for f in flat),
+                               pool.map(self._read_file, flat)))
+        runs = []
+        for run_files in runs_meta:
+            tables = [decoded[f.file_name] for f in run_files]
+            runs.append(pa.concat_tables(tables, promote_options="none")
+                        if len(tables) > 1 else tables[0])
+        return runs
+
+    def _record_level_expire(self, merged: pa.Table) -> pa.Table:
+        from paimon_tpu_torch.core.read import record_level_expire_filter
+        return record_level_expire_filter(self.options, merged)
+
+    def _merge_tables(self, run_tables: List[pa.Table],
+                      drop_deletes: bool, encoded=None) -> pa.Table:
+        """Merge run-ordered tables under the table's merge engine —
+        the single dispatch shared by the one-shot and streamed paths.
+        `encoded`: optional pre-computed (lanes, truncated[, packed])
+        per table (the streamed path encodes once for the window cut)."""
+        engine = self.options.merge_engine
+        if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
+            raise NotImplementedError(
+                f"merge-engine {engine!r} is not ported yet (ROADMAP.md: "
+                f"aggregation and partial-update)")
+        res = merge_runs(
+            run_tables, self.key_cols, merge_engine=engine,
+            drop_deletes=drop_deletes, key_encoder=self.key_encoder,
+            seq_fields=self.options.sequence_field or None,
+            seq_desc=self.options.sequence_field_descending,
+            encoded=encoded, device=self.device)
+        return self._record_level_expire(res.take())
+
+    def _merged_state(self, files: List[DataFileMeta],
+                      drop_deletes: bool = True) -> Optional[pa.Table]:
+        """KV-shaped, key-sorted, key-unique merged state of `files`."""
+        if not files:
+            return None
+        return self._merge_tables(self._read_runs(files), drop_deletes)

@@ -1,0 +1,186 @@
+"""Universal compaction strategy (RocksDB-style).
+
+reference: mergetree/compact/UniversalCompaction.java:42 -- pick order:
+size-amplification (:125, trigger `candidateSize*100 > maxSizeAmp *
+earliestRunSize` at :139) -> size-ratio (:150-168) -> sorted-run count
+(num-sorted-run.compaction-trigger, CoreOptions.java:876). Semantics match
+the reference so LSM shapes evolve identically.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from paimon_tpu_torch.compact.levels import LevelSortedRun
+from paimon_tpu_torch.manifest import DataFileMeta
+
+__all__ = ["CompactUnit", "UniversalCompaction"]
+
+
+@dataclass
+class CompactUnit:
+    output_level: int
+    files: List[DataFileMeta]
+    file_count_trigger: bool = False
+
+    @staticmethod
+    def from_runs(output_level: int,
+                  runs: List[LevelSortedRun]) -> "CompactUnit":
+        files: List[DataFileMeta] = []
+        for r in runs:
+            files.extend(r.run.files)
+        return CompactUnit(output_level, files)
+
+
+class UniversalCompaction:
+    def __init__(self, max_size_amp: int = 200, size_ratio: int = 1,
+                 num_run_trigger: int = 5,
+                 total_size_threshold: Optional[int] = None,
+                 file_num_limit: Optional[int] = None,
+                 offpeak_hours: Optional[tuple] = None,
+                 offpeak_ratio: int = 0,
+                 now_hour_fn=None):
+        self.max_size_amp = max_size_amp
+        self._size_ratio = size_ratio
+        self.num_run_trigger = num_run_trigger
+        self.total_size_threshold = total_size_threshold
+        self.file_num_limit = file_num_limit
+        # (start, end) local hours; during the window size_ratio is
+        # replaced by offpeak_ratio (reference UniversalCompaction's
+        # off-peak handling of compaction.offpeak-ratio)
+        self.offpeak_hours = offpeak_hours
+        self.offpeak_ratio = offpeak_ratio
+        self._now_hour_fn = now_hour_fn
+
+    @property
+    def size_ratio(self) -> int:
+        if self.offpeak_hours is not None:
+            start, end = self.offpeak_hours
+            if start >= 0 and end >= 0:
+                if self._now_hour_fn is not None:
+                    hour = self._now_hour_fn()
+                else:
+                    import time
+                    hour = time.localtime().tm_hour
+                in_window = (start <= hour < end) if start <= end else \
+                    (hour >= start or hour < end)   # wraps midnight
+                if in_window:
+                    return max(self.offpeak_ratio, self._size_ratio)
+        return self._size_ratio
+
+    @size_ratio.setter
+    def size_ratio(self, v: int):
+        self._size_ratio = v
+
+    def pick(self, num_levels: int,
+             runs: List[LevelSortedRun]) -> Optional[CompactUnit]:
+        max_level = num_levels - 1
+        # tiny buckets full-compact outright: below the threshold a
+        # whole-bucket rewrite is cheaper than tracking run shapes
+        # (reference compaction.total-size-threshold)
+        if self.total_size_threshold is not None and len(runs) > 1 and \
+                sum(r.run.total_size for r in runs) < \
+                self.total_size_threshold:
+            return CompactUnit.from_runs(max_level, runs)
+        # too many loose files (regardless of run sizes): force a pick
+        # (reference compaction.file-num-limit)
+        if self.file_num_limit is not None and \
+                sum(len(r.run.files) for r in runs) >= \
+                self.file_num_limit and len(runs) > 1:
+            return CompactUnit.from_runs(max_level, runs)
+        unit = self.pick_for_size_amp(max_level, runs)
+        if unit is not None:
+            return unit
+        unit = self.pick_for_size_ratio(max_level, runs)
+        if unit is not None:
+            return unit
+        if len(runs) > self.num_run_trigger:
+            candidate_count = len(runs) - self.num_run_trigger + 1
+            return self._pick_for_size_ratio_from(max_level, runs,
+                                                  candidate_count)
+        return None
+
+    def pick_for_size_amp(self, max_level: int,
+                          runs: List[LevelSortedRun]
+                          ) -> Optional[CompactUnit]:
+        if len(runs) < self.num_run_trigger:
+            return None
+        candidate_size = sum(r.run.total_size for r in runs[:-1])
+        earliest = runs[-1].run.total_size
+        if candidate_size * 100 > self.max_size_amp * earliest:
+            return CompactUnit.from_runs(max_level, runs)
+        return None
+
+    def pick_for_size_ratio(self, max_level: int,
+                            runs: List[LevelSortedRun]
+                            ) -> Optional[CompactUnit]:
+        if len(runs) < self.num_run_trigger:
+            return None
+        return self._pick_for_size_ratio_from(max_level, runs, 1)
+
+    def _pick_for_size_ratio_from(self, max_level: int,
+                                  runs: List[LevelSortedRun],
+                                  candidate_count: int,
+                                  force: bool = False
+                                  ) -> Optional[CompactUnit]:
+        candidate_size = sum(r.run.total_size
+                             for r in runs[:candidate_count])
+        for i in range(candidate_count, len(runs)):
+            nxt = runs[i]
+            if candidate_size * (100.0 + self.size_ratio) / 100.0 < \
+                    nxt.run.total_size:
+                break
+            candidate_size += nxt.run.total_size
+            candidate_count += 1
+        if force or candidate_count > 1:
+            return self._create_unit(runs, max_level, candidate_count)
+        return None
+
+    def force_pick_l0(self, num_levels: int,
+                      runs: List[LevelSortedRun]) -> Optional[CompactUnit]:
+        count = 0
+        for r in runs:
+            if r.level > 0:
+                break
+            count += 1
+        if count == 0:
+            return None
+        return self._pick_for_size_ratio_from(num_levels - 1, runs, count,
+                                              force=True)
+
+    def _create_unit(self, runs: List[LevelSortedRun], max_level: int,
+                     run_count: int) -> CompactUnit:
+        if run_count == len(runs):
+            output_level = max_level
+        else:
+            output_level = max(0, runs[run_count].level - 1)
+        if output_level == 0:
+            # never output to level 0: extend to swallow the next
+            # non-zero-level run (reference createUnit)
+            for i in range(run_count, len(runs)):
+                nxt = runs[i]
+                run_count += 1
+                if nxt.level != 0:
+                    output_level = nxt.level
+                    break
+            else:
+                output_level = max_level
+        return CompactUnit.from_runs(output_level, runs[:run_count])
+
+
+def pick_full_compaction(num_levels: int,
+                         runs: List[LevelSortedRun],
+                         force_rewrite_all: bool = False
+                         ) -> Optional[CompactUnit]:
+    """reference CompactStrategy.pickFullCompaction:53: everything to max
+    level; skip if already fully compacted there — unless
+    compaction.force-rewrite-all-files demands the rewrite anyway
+    (DV folding / format migration / external-path moves)."""
+    max_level = num_levels - 1
+    if not runs:
+        return None
+    if len(runs) == 1 and runs[0].level == max_level and \
+            not force_rewrite_all:
+        return None
+    return CompactUnit.from_runs(max_level, runs)

@@ -1,0 +1,207 @@
+"""FileFormat SPI: reader/writer factories over Arrow tables.
+
+Counterpart of paimon_tpu/format/format.py, reduced to parquet data
+files (Arrow C++ decode and encode); the other data-file formats are
+not ported yet.  reference boundary: paimon-common/.../format/
+FileFormat.java:43 + SimpleStatsExtractor.
+"""
+
+from __future__ import annotations
+
+import io
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import pyarrow as pa
+import pyarrow.parquet as pq
+
+from paimon_tpu_torch.fs import FileIO
+
+__all__ = ["FileFormatFactory", "get_format", "FormatReader",
+           "FormatWriter", "extract_simple_stats", "CorruptDataError"]
+
+
+class CorruptDataError(OSError):
+    """Decode-time corruption: the bytes were already fetched, so the
+    failure is deterministic — NOT a transient store fault, never worth
+    retrying (parallel/fault.py), but eligible for the
+    scan.ignore-corrupt-files skip.  Subclasses OSError because modern
+    pyarrow surfaces decode corruption (torn footers, corrupt
+    compressed pages) as plain OSError and existing handlers expect
+    that; the distinct type is what lets the fault taxonomy separate
+    'bad bytes' from 'bad store'."""
+
+
+@contextmanager
+def _decode_errors(path: str):
+    """Re-raise decode-phase OSErrors as CorruptDataError (fetch-phase
+    store faults never pass through here)."""
+    try:
+        yield
+    except CorruptDataError:
+        raise
+    except OSError as e:
+        raise CorruptDataError(f"corrupt data in {path}: {e}") from e
+
+
+class FormatReader:
+    """Reads a file into an Arrow table, with projection + row-group
+    filtering."""
+
+    def read(self, file_io: FileIO, path: str,
+             projection: Optional[List[str]] = None,
+             batch_size: int = 1 << 20) -> pa.Table:
+        raise NotImplementedError
+
+    def read_batches(self, file_io: FileIO, path: str,
+                     projection: Optional[List[str]] = None,
+                     batch_rows: int = 1 << 20):
+        """Yield the file as bounded-size Arrow tables (streamed decode
+        where the format supports it; whole-file fallback otherwise)."""
+        yield self.read(file_io, path, projection)
+
+
+class FormatWriter:
+    """Writer contract: constructors take (compression, format_options)
+    — format_options is the raw option map (e.g. parquet.*) and writers
+    ignore keys that aren't theirs."""
+
+    def write(self, file_io: FileIO, path: str, table: pa.Table) -> int:
+        """Write table, return file size in bytes."""
+        raise NotImplementedError
+
+
+class _ParquetReader(FormatReader):
+    @staticmethod
+    def _open(file_io, path) -> "pq.ParquetFile":
+        data = file_io.read_bytes(path)  # store faults propagate
+        with _decode_errors(path):
+            return pq.ParquetFile(io.BytesIO(data))
+
+    def read(self, file_io, path, projection=None, batch_size=1 << 20):
+        pf = self._open(file_io, path)
+        with _decode_errors(path):
+            return pf.read(columns=projection)
+
+    def read_batches(self, file_io, path, projection=None,
+                     batch_rows: int = 1 << 20):
+        # compressed bytes stay resident; decode is incremental per batch
+        pf = self._open(file_io, path)
+        with _decode_errors(path):
+            for rb in pf.iter_batches(batch_size=batch_rows,
+                                      columns=projection):
+                yield pa.Table.from_batches([rb])
+
+
+def split_compression(spec: str):
+    """'zstd' or 'zstd:7' -> (codec, level or None)
+    (file.compression.zstd-level wiring)."""
+    if spec and ":" in spec:
+        codec, _, lvl = spec.partition(":")
+        try:
+            return codec, int(lvl)
+        except ValueError:
+            return codec, None
+    return spec, None
+
+
+class _ParquetWriter(FormatWriter):
+    def __init__(self, compression: str = "zstd",
+                 row_group_rows: int = 1 << 20,
+                 format_options: Optional[Dict[str, str]] = None):
+        self.compression, self.level = split_compression(compression)
+        fo = format_options or {}
+        self.row_group_rows = int(fo.get("parquet.row-group.rows",
+                                         row_group_rows))
+        # file.block-size (reference CoreOptions FILE_BLOCK_SIZE):
+        # parquet row-group granularity in BYTES; converted to rows per
+        # table at write time
+        self.block_bytes = int(fo["file.block-size"]) \
+            if "file.block-size" in fo else None
+        # parquet.enable.dictionary (reference parquet writer option):
+        # dictionary encoding is pure overhead on high-cardinality data
+        self.use_dictionary = fo.get(
+            "parquet.enable.dictionary", "true").lower() != "false"
+
+    def write(self, file_io, path, table):
+        buf = io.BytesIO()
+        rg = self.row_group_rows
+        if self.block_bytes and table.num_rows:
+            per_row = max(1, table.nbytes // table.num_rows)
+            rg = max(1024, self.block_bytes // per_row)
+        pq.write_table(table, buf, compression=self.compression,
+                       compression_level=self.level,
+                       row_group_size=rg,
+                       use_dictionary=self.use_dictionary,
+                       write_statistics=True)
+        data = buf.getvalue()
+        file_io.write_bytes(path, data, overwrite=False)
+        return len(data)
+
+
+class FileFormatFactory:
+    def __init__(self, identifier: str, reader: FormatReader,
+                 writer_cls, extension: Optional[str] = None):
+        self.identifier = identifier
+        self.reader = reader
+        self._writer_cls = writer_cls
+        self.extension = extension or identifier
+
+    def create_reader(self) -> FormatReader:
+        return self.reader
+
+    def create_writer(self, compression: str = "zstd",
+                      format_options: Optional[Dict[str, str]] = None
+                      ) -> FormatWriter:
+        return self._writer_cls(compression,
+                                 format_options=format_options)
+
+
+_FORMATS: Dict[str, FileFormatFactory] = {
+    "parquet": FileFormatFactory("parquet", _ParquetReader(),
+                                 _ParquetWriter),
+}
+
+# formats the reference reads and writes that this package does not yet
+_NOT_PORTED = ("orc", "avro", "csv", "json", "mosaic")
+
+
+def get_format(identifier: str) -> FileFormatFactory:
+    """reference FileFormat.fromIdentifier (FileFormat.java:76)."""
+    ident = identifier.lower()
+    if ident in _NOT_PORTED:
+        raise NotImplementedError(
+            f"file format {identifier!r} is not ported yet (ROADMAP.md: "
+            f"the remaining planes); parquet is")
+    if ident not in _FORMATS:
+        raise ValueError(f"Unknown file format {identifier!r}; "
+                         f"available: {sorted(_FORMATS)}")
+    return _FORMATS[ident]
+
+
+def extract_simple_stats(table: pa.Table,
+                         columns: Optional[Sequence[str]] = None
+                         ) -> Tuple[List[Any], List[Any], List[int]]:
+    """Column (min, max, null_count) triples from an Arrow table.
+
+    Role of reference SimpleStatsExtractor/SimpleStatsCollector: stats
+    computed at write time and stored in manifests for pruning.
+    """
+    import pyarrow.compute as pc
+    names = list(columns) if columns else table.column_names
+    mins, maxs, nulls = [], [], []
+    for name in names:
+        col = table.column(name)
+        nulls.append(col.null_count)
+        if col.null_count == len(col) or len(col) == 0:
+            mins.append(None)
+            maxs.append(None)
+            continue
+        try:
+            mm = pc.min_max(col)
+            mins.append(mm["min"].as_py())
+            maxs.append(mm["max"].as_py())
+        except pa.ArrowNotImplementedError:
+            mins.append(None)
+            maxs.append(None)
+    return mins, maxs, nulls

@@ -1,0 +1,182 @@
+"""Hand-written CUDA kernels of the merge plane, and their plain versions.
+
+Counterpart of paimon_tpu/ops/pallas_kernels.py.  The one kernel is the
+winner-select's neighbour-equality mask (`_eq_next_fn` there, plain and
+offset-value-code variants), written in CUDA C++ for sm_90a in
+csrc/eq_next_mask.cu.  It is built with nvcc into a shared library with
+a plain C interface at first use and loaded with ctypes.
+
+`eq_next_mask` launches the kernel for CUDA tensors and runs
+`eq_next_mask_plain` for CPU tensors; nothing else selects between the
+two.  `EQ_NEXT_LAUNCHES` counts kernel launches, so a run can show that
+its merges went through the kernel; `EQ_NEXT_OVC_LAUNCHES` counts the
+launches of the offset-value-code variant among them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+import torch
+
+__all__ = ["eq_next_mask", "eq_next_mask_plain", "build",
+           "EQ_NEXT_LAUNCHES", "EQ_NEXT_OVC_LAUNCHES", "OVC_SENTINEL_I32"]
+
+# ovc_off value marking rows whose offset-value code is unusable (run
+# starts), as the int32 bit pattern of ops/ovc.OVC_OFF_SENTINEL
+OVC_SENTINEL_I32 = -1
+
+EQ_NEXT_LAUNCHES = 0
+EQ_NEXT_OVC_LAUNCHES = 0
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "eq_next_mask.cu")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libeq_next_mask.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build_command():
+    return [_nvcc(), *NVCC_FLAGS, "-o", _LIB_PATH, _SOURCE]
+
+
+def build() -> float:
+    """Compile csrc/eq_next_mask.cu into _build/ unless an up-to-date
+    library is there; returns the seconds the compile took (0.0 when
+    none was needed)."""
+    if os.path.exists(_LIB_PATH) and \
+            os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SOURCE):
+        return 0.0
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    cmd = build_command()
+    tmp = _LIB_PATH + f".{os.getpid()}.tmp"
+    cmd[cmd.index(_LIB_PATH)] = tmp
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    return time.perf_counter() - t0
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(_LIB_PATH)
+            fn = lib.paimon_eq_next_mask
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def eq_next_mask_plain(lanes: torch.Tensor, invalid: torch.Tensor,
+                       ovc_off: Optional[torch.Tensor] = None,
+                       perm: Optional[torch.Tensor] = None,
+                       num_key_lanes: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version with exactly the semantics of
+    paimon_tpu/ops/pallas_kernels.py `_eq_next_xla`."""
+    if num_key_lanes is None:
+        num_key_lanes = lanes.shape[0]
+    eq = (lanes[:, :-1] == lanes[:, 1:]).all(dim=0)
+    if ovc_off is not None:
+        consec = perm[1:] == perm[:-1] + 1
+        known = ovc_off[1:] != OVC_SENTINEL_I32
+        # known codes are small non-negative offsets, so the signed
+        # compare equals the reference's unsigned one where it is used
+        eq_code = ovc_off[1:] >= num_key_lanes
+        eq = torch.where(consec & known, eq_code, eq)
+    eq = eq & (invalid[:-1] == invalid[1:])
+    return torch.cat([eq, torch.zeros(1, dtype=torch.bool,
+                                      device=eq.device)])
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 (uint32 bit patterns), "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def eq_next_mask(lanes: torch.Tensor, invalid: torch.Tensor,
+                 ovc_off: Optional[torch.Tensor] = None,
+                 perm: Optional[torch.Tensor] = None,
+                 num_key_lanes: Optional[int] = None) -> torch.Tensor:
+    """bool[N]: sorted row i continues the same (validity, lanes...)
+    segment at row i+1.
+
+    lanes: int32[L, N] key lanes (uint32 bit patterns), most significant
+    first; invalid: int32[N].  `ovc_off` (int32[N], sorted-order
+    offset-value-code offsets, -1 where unknown) and `perm` (int32[N],
+    the sort permutation) switch on the code variant.  A CUDA tensor
+    launches the kernel, a CPU tensor runs the plain version."""
+    if (ovc_off is None) != (perm is None):
+        raise ValueError("ovc_off and perm go together")
+    if num_key_lanes is None:
+        num_key_lanes = lanes.shape[0]
+    if lanes.device.type == "cpu":
+        return eq_next_mask_plain(lanes, invalid, ovc_off, perm,
+                                  num_key_lanes)
+    if lanes.device.type != "cuda":
+        raise ValueError(f"eq_next_mask: unsupported device {lanes.device}")
+    if lanes.dim() != 2 or lanes.shape[0] < 1:
+        raise ValueError("lanes must be [L, N] with L >= 1")
+    n = lanes.shape[1]
+    dev = lanes.device
+    _check("lanes", lanes, (lanes.shape[0], n), dev)
+    _check("invalid", invalid, (n,), dev)
+    if ovc_off is not None:
+        _check("ovc_off", ovc_off, (n,), dev)
+        _check("perm", perm, (n,), dev)
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out.view(torch.bool)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.paimon_eq_next_mask(
+            lanes.data_ptr(), lanes.shape[0], n, invalid.data_ptr(),
+            ovc_off.data_ptr() if ovc_off is not None else None,
+            perm.data_ptr() if perm is not None else None,
+            num_key_lanes, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"eq_next_mask kernel launch failed: CUDA "
+                           f"error {rc}")
+    global EQ_NEXT_LAUNCHES, EQ_NEXT_OVC_LAUNCHES
+    with _lock:
+        EQ_NEXT_LAUNCHES += 1
+        if ovc_off is not None:
+            EQ_NEXT_OVC_LAUNCHES += 1
+    return out.view(torch.bool)

@@ -1,0 +1,493 @@
+"""K-way sorted-run merge on the device, in PyTorch.
+
+Counterpart of paimon_tpu/ops/merge.py, with the same plan:
+
+1. concatenate the k runs oldest-first (keeps input order for stable ties),
+2. stable device sort by (validity, key lanes..., seq_hi, seq_lo, iota),
+3. segmented winner selection: the neighbour-equality mask over the
+   sorted lanes (ops/kernels.eq_next_mask, a CUDA kernel on the card)
+   gives per-key segments; deduplicate keeps the last row of each
+   segment, first-row keeps the first,
+4. return take-indices into the concatenated input; the host applies
+   them to the Arrow table.
+
+Every merge takes this device path; there is no host sort.  Inputs are
+padded to the reference's power-of-two sizes with invalid=1 rows, so the
+returned perm/winner/prev arrays equal the reference's element for
+element.  Lanes travel as int32 tensors holding uint32 bit patterns.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+from paimon_tpu_torch.device import resolve_device
+from paimon_tpu_torch.ops.kernels import eq_next_mask
+from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
+from paimon_tpu_torch.types import RowKind
+
+__all__ = ["merge_runs", "MergeResult", "device_sorted_winners",
+           "segmented_merge_body", "sort_table", "user_seq_order_lanes",
+           "SEQ_COL", "KIND_COL"]
+
+SEQ_COL = "_SEQUENCE_NUMBER"
+KIND_COL = "_VALUE_KIND"
+
+_INT32_MIN = -0x80000000
+
+
+@dataclass
+class MergeResult:
+    """Indices into the concatenated input table, in key order."""
+    table: pa.Table          # concatenated input (runs oldest-first)
+    indices: np.ndarray      # winners, sorted by key
+    # per-winner previous-version indices (for changelog), -1 if none
+    prev_indices: Optional[np.ndarray] = None
+
+    def take(self, columns: Optional[List[str]] = None) -> pa.Table:
+        t = self.table.select(columns) if columns else self.table
+        return t.take(pa.array(self.indices))
+
+
+def _pad_size(n: int) -> int:
+    if n <= 1024:
+        return 1024
+    return 1 << (n - 1).bit_length()
+
+
+def _join_i32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 whose high and low words are the bit patterns of the
+    int32 tensors `hi` and `lo` (assembled in memory, no shifts)."""
+    out = torch.empty((lo.shape[0], 2), dtype=torch.int32, device=lo.device)
+    out[:, 0] = lo                              # little-endian
+    out[:, 1] = hi
+    return out.view(torch.int64).view(-1)
+
+
+def _u32_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 sort key of one 32-bit lane, in unsigned order."""
+    return _join_i32(torch.zeros_like(x), x)
+
+
+def _u64_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 sort key whose signed order is the unsigned order of the
+    lane pair (hi, lo): hi's sign bit flipped, then joined."""
+    return _join_i32(hi ^ _INT32_MIN, lo)
+
+
+def _stable_argsort(keys: List[torch.Tensor]) -> torch.Tensor:
+    """Permutation of a stable lexicographic sort by `keys` (most
+    significant first), as a least-significant-first chain of stable
+    sorts; ties keep input order."""
+    perm = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
+def segmented_merge_body(lanes: torch.Tensor, seq_hi: torch.Tensor,
+                         seq_lo: torch.Tensor, invalid: torch.Tensor,
+                         keep: str, num_key_lanes: Optional[int] = None,
+                         ovc_off: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """(perm, winner, prev_in_seg) over one padded batch.
+
+    lanes: int32[L, N] (uint32 bit patterns, most significant first);
+    the first `num_key_lanes` define segment identity, further lanes are
+    user-defined sequence order.  seq_hi/seq_lo/invalid: int32[N].
+    ovc_off: optional int32[N] offset-value-code offsets vs the run
+    predecessor (ops/ovc.run_ovc_offsets), carried through the sort for
+    the kernel's code variant.
+
+    The sort equals jax.lax.sort over (invalid, lanes..., seq_hi,
+    seq_lo, iota) with is_stable=True: 32-bit keys are joined in pairs
+    into int64 keys, and the 1-bit validity key is a stable partition."""
+    num_lanes = lanes.shape[0]
+    if num_key_lanes is None:
+        num_key_lanes = num_lanes
+    cols = [lanes[i] for i in range(num_lanes)] + [seq_hi, seq_lo]
+    keys: List[torch.Tensor] = []
+    while cols:
+        if len(cols) >= 2:
+            keys.insert(0, _u64_key(cols[-2], cols[-1]))
+            cols = cols[:-2]
+        else:
+            keys.insert(0, _u32_key(cols[-1]))
+            cols = []
+    perm = _stable_argsort(keys)
+    s_inv = invalid[perm]
+    perm = torch.cat([perm[s_inv == 0], perm[s_inv != 0]])
+    perm32 = perm.to(torch.int32)
+    s_invalid = invalid[perm]
+    s_lanes = lanes[:num_key_lanes].index_select(1, perm).contiguous()
+    s_off = ovc_off[perm].contiguous() if ovc_off is not None else None
+    eq_next = eq_next_mask(s_lanes, s_invalid.contiguous(), ovc_off=s_off,
+                           perm=perm32 if s_off is not None else None,
+                           num_key_lanes=num_key_lanes)
+    eq_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
+                                     device=eq_next.device), eq_next[:-1]])
+    valid = s_invalid == 0
+    if keep == "last":
+        winner = ~eq_next & valid
+    else:  # "first"
+        winner = ~eq_prev & valid
+    # previous version of each winner: its predecessor within the same
+    # segment, for changelog derivation
+    prev_in_seg = torch.where(eq_prev, torch.roll(perm32, 1),
+                              torch.full_like(perm32, -1))
+    return perm32, winner, prev_in_seg
+
+
+def _merge_fn(lanes, seq_hi, seq_lo, invalid, keep: str,
+              num_key_lanes: int, ovc_off=None):
+    """Full variant: (perm, winner, prev) tensors."""
+    return segmented_merge_body(lanes, seq_hi, seq_lo, invalid, keep,
+                                num_key_lanes=num_key_lanes,
+                                ovc_off=ovc_off)
+
+
+def _merge_fn_packed(lanes, seq_hi, seq_lo, invalid, keep: str,
+                     num_key_lanes: int) -> torch.Tensor:
+    """Winners-only variant: ONE int32[N] word per row, perm in the low
+    31 bits and the winner flag in bit 31 (the reference's uint32 word,
+    as an int32 bit pattern)."""
+    perm, winner, _ = segmented_merge_body(lanes, seq_hi, seq_lo, invalid,
+                                           keep,
+                                           num_key_lanes=num_key_lanes)
+    return perm | torch.where(winner, _INT32_MIN, 0).to(torch.int32)
+
+
+def _split_i64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) int32 halves of an int64 tensor, as bit patterns."""
+    halves = x.contiguous().view(torch.int32).view(-1, 2)
+    return halves[:, 1], halves[:, 0]       # little-endian
+
+
+def _writable(a, dtype) -> np.ndarray:
+    """Contiguous, writable array for torch.from_numpy (Arrow-backed
+    numpy views are read-only; torch warns on those)."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    return a if a.flags.writeable else a.copy()
+
+
+def device_sorted_winners(lanes, seq: np.ndarray, keep: str = "last",
+                          order_lanes: Optional[np.ndarray] = None,
+                          winners_only: bool = False,
+                          packed: Optional[np.ndarray] = None,
+                          run_starts: Optional[np.ndarray] = None,
+                          device=None
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Run the merge kernel on `device` (None = cuda).
+
+    lanes: uint32[N, L] (segment identity; may be a lazy view);
+    seq: int64[N] (non-negative); order_lanes: optional uint32[N, O]
+    user-defined sequence lanes that rank within a key BEFORE the
+    internal sequence.  `winners_only=True` promises the caller reads
+    only the winner rows, so one packed word per row comes back.
+    `packed`: the encoder's u64 key when the key is one fixed-width
+    column; it is uploaded in place of the lane matrix.
+    `run_starts`: int64[k+1] boundaries of k (key, seq)-sorted input
+    runs; with the full variant their offset-value codes feed the
+    kernel's code variant.
+    Returns numpy (perm, winner_mask, prev_in_segment) of the
+    power-of-two padded size, equal to the reference's device path."""
+    dev = resolve_device(device)
+    n, num_key_lanes = lanes.shape
+    no_user_order = order_lanes is None or order_lanes.shape[1] == 0
+    num_lanes = num_key_lanes + (0 if no_user_order
+                                 else order_lanes.shape[1])
+    m = _pad_size(n)
+    lanes_p = torch.zeros((num_lanes, m), dtype=torch.int32, device=dev)
+    if n:
+        if packed is not None and no_user_order and num_key_lanes == 2:
+            p = torch.from_numpy(_writable(packed, np.uint64)
+                                 .view(np.int64)).to(dev)
+            lanes_p[0, :n], lanes_p[1, :n] = _split_i64(p)
+        else:
+            mat = np.asarray(lanes)
+            if not no_user_order:
+                mat = np.concatenate([mat, order_lanes], axis=1)
+            t = torch.from_numpy(np.ascontiguousarray(mat, dtype=np.uint32)
+                                 .view(np.int32)).to(dev)
+            lanes_p[:, :n] = t.T
+    seq_t = torch.zeros(m, dtype=torch.int64, device=dev)
+    seq_t[:n] = torch.from_numpy(_writable(seq, np.int64))
+    seq_hi, seq_lo = _split_i64(seq_t)
+    invalid = torch.ones(m, dtype=torch.int32, device=dev)
+    invalid[:n] = 0
+
+    if winners_only:
+        word = _merge_fn_packed(lanes_p, seq_hi, seq_lo, invalid, keep,
+                                num_key_lanes)
+        w = word.cpu().numpy().view(np.uint32)
+        perm = (w & np.uint32(0x7FFFFFFF)).astype(np.int32)
+        winner = (w >> np.uint32(31)).astype(bool)
+        return perm, winner, np.broadcast_to(np.int32(-1), m)
+    ovc_t = None
+    if run_starts is not None:
+        from paimon_tpu_torch.ops.ovc import OVC_OFF_SENTINEL, run_ovc_offsets
+        off = np.full(m, OVC_OFF_SENTINEL, dtype=np.uint32)
+        off[:n] = run_ovc_offsets(lanes, run_starts)
+        ovc_t = torch.from_numpy(off.view(np.int32)).to(dev)
+    perm, winner, prev = _merge_fn(lanes_p, seq_hi, seq_lo, invalid, keep,
+                                   num_key_lanes, ovc_off=ovc_t)
+    return perm.cpu().numpy(), winner.cpu().numpy(), prev.cpu().numpy()
+
+
+def user_seq_order_lanes(table: pa.Table,
+                         seq_fields: Sequence[str],
+                         descending: bool = False) -> np.ndarray:
+    """uint32[N, O] order lanes for user-defined sequence columns
+    (reference utils/UserDefinedSeqComparator). Nulls rank FIRST — a row
+    with a null sequence always loses to any non-null one (in either
+    sort order).  `descending` implements
+    sequence.field.sort-order=descending: the SMALLER user sequence
+    wins, via bitwise inversion of the value lanes."""
+    for f in seq_fields:
+        t = table.schema.field(f).type
+        if pa.types.is_string(t) or pa.types.is_large_string(t) or \
+                pa.types.is_binary(t) or pa.types.is_large_binary(t):
+            raise ValueError(
+                f"sequence.field {f!r} must be numeric/temporal; string "
+                f"sequences would compare only by a fixed-width prefix")
+    enc = NormalizedKeyEncoder(
+        [table.schema.field(f).type for f in seq_fields],
+        nullable=[True] * len(seq_fields))
+    lanes, _ = enc.encode_table(table, seq_fields)
+    pos = 0
+    for nl in enc.lanes_per_col:
+        # encoder presence lane sorts nulls last; sequences need the
+        # opposite (null = smallest, so null always loses)
+        lanes[:, pos] = 1 - lanes[:, pos]
+        if descending:
+            for p in range(pos + 1, pos + nl):
+                lanes[:, p] = np.uint32(0xFFFFFFFF) - lanes[:, p]
+        pos += nl
+    return lanes
+
+
+def sort_table(table: pa.Table, key_names: Sequence[str],
+               key_encoder: Optional[NormalizedKeyEncoder] = None,
+               device=None) -> np.ndarray:
+    """Full sort permutation by (key, seq). Returns indices into `table`
+    in sorted order (stable: arrival order for ties)."""
+    n = table.num_rows
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    if key_encoder is None:
+        key_encoder = NormalizedKeyEncoder(
+            [table.schema.field(k).type for k in key_names],
+            nullable=[table.schema.field(k).nullable for k in key_names])
+    lanes, truncated = key_encoder.encode_table(table, key_names)
+    seq = np.asarray(table.column(SEQ_COL).combine_chunks().cast(pa.int64()))
+    perm, _, _ = device_sorted_winners(lanes, seq, "last", device=device)
+    order = perm[perm < n].astype(np.int64)
+    if truncated.any():
+        # prefix ties may misorder full keys; host re-sort of affected rows
+        key_cols = [table.column(k) for k in key_names]
+
+        def full_key(i):
+            return tuple(c[int(i)].as_py() for c in key_cols)
+
+        order = np.array(
+            sorted(order.tolist(),
+                   key=lambda i: (full_key(i), int(seq[i]))),
+            dtype=np.int64)
+    return order
+
+
+class _LazyLanes:
+    """Deferred np.concatenate of per-run lane matrices: the packed-key
+    upload never reads the lane matrix, so the 8N-byte copy per window
+    is usually skipped.  Exposes .shape; np.asarray(...) materializes
+    with a one-shot cache."""
+
+    def __init__(self, parts: List[np.ndarray]):
+        self._parts = parts
+        n = sum(p.shape[0] for p in parts)
+        self.shape = (n, parts[0].shape[1] if parts else 0)
+        self._mat: Optional[np.ndarray] = None
+
+    def __array__(self, dtype=None, copy=None):
+        if self._mat is None:
+            self._mat = (np.concatenate([np.asarray(p) for p in self._parts])
+                         if len(self._parts) > 1
+                         else np.asarray(self._parts[0]))
+        out = self._mat if dtype is None else self._mat.astype(dtype)
+        if copy and out is self._mat:
+            out = out.copy()
+        return out
+
+
+def merge_runs(runs: Sequence[pa.Table], key_names: Sequence[str],
+               merge_engine: str = "deduplicate",
+               drop_deletes: bool = True,
+               key_encoder: Optional[NormalizedKeyEncoder] = None,
+               with_prev: bool = False,
+               seq_fields: Optional[Sequence[str]] = None,
+               seq_desc: bool = False,
+               encoded: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]]
+               = None,
+               device=None) -> MergeResult:
+    """Merge k sorted runs (oldest first) into the latest row per key
+    (deduplicate) or the first (first-row), on `device`.
+
+    Equivalent reference path: MergeTreeReaders.readerForMergeTree
+    (mergetree/MergeTreeReaders.java:44) + DeduplicateMergeFunction /
+    FirstRowMergeFunction + DropDeleteReader.
+    """
+    if not runs:
+        raise ValueError("No runs to merge")
+    if merge_engine not in ("deduplicate", "first-row"):
+        raise NotImplementedError(
+            f"merge-engine {merge_engine!r} is not ported yet "
+            f"(ROADMAP.md: aggregation and partial-update)")
+    table = pa.concat_tables(runs, promote_options="none")
+    n = table.num_rows
+    if n == 0:
+        return MergeResult(table, np.zeros(0, dtype=np.int64))
+
+    if key_encoder is None:
+        key_encoder = NormalizedKeyEncoder(
+            [table.schema.field(k).type for k in key_names],
+            nullable=[table.schema.field(k).nullable for k in key_names])
+    packed = None
+    if encoded is not None:
+        # caller already lane-encoded each run (streamed windows encode
+        # once for the window cut); items are (lanes, truncated[, packed])
+        truncated = (np.concatenate([e[1] for e in encoded])
+                     if len(encoded) > 1 else np.asarray(encoded[0][1]))
+        packs = [e[2] if len(e) > 2 else None for e in encoded]
+        if all(p is not None for p in packs):
+            packed = (np.concatenate(packs) if len(packs) > 1
+                      else np.asarray(packs[0]))
+        lanes = _LazyLanes([e[0] for e in encoded])
+        run_lens = [e[0].shape[0] for e in encoded]
+    else:
+        lanes, truncated, packed = key_encoder.encode_table_ex(
+            table, key_names)
+        run_lens = [r.num_rows for r in runs]
+    seq = np.asarray(table.column(SEQ_COL).combine_chunks().cast(pa.int64()))
+    # sorted-run boundaries for the kernel's offset-value-code variant:
+    # every input run (or window chunk of one) is (key, seq)-sorted
+    run_starts = np.concatenate([[0], np.cumsum(run_lens)]).astype(np.int64)
+
+    keep = "first" if merge_engine == "first-row" else "last"
+    if seq_fields and keep == "first":
+        raise ValueError(
+            "sequence.field cannot be used with merge-engine first-row")
+    order_lanes = user_seq_order_lanes(table, seq_fields, seq_desc) \
+        if seq_fields else None
+    # without changelog derivation the caller consumes only winner rows
+    # — unless a key was prefix-truncated: _refine_truncated needs the
+    # full variant's seq-ordered segments
+    perm, winner, prev = device_sorted_winners(
+        lanes, seq, keep, order_lanes,
+        winners_only=not with_prev and not truncated.any(),
+        packed=packed,
+        run_starts=run_starts if order_lanes is None else None,
+        device=device)
+
+    win_pos = np.flatnonzero(winner)
+    indices = perm[win_pos].astype(np.int64)
+    prev_idx = prev[win_pos].astype(np.int64) if with_prev else None
+
+    if truncated.any():
+        indices, prev_idx = _refine_truncated(
+            table, key_names, perm, winner, truncated, seq, keep,
+            with_prev, prev)
+
+    if drop_deletes and KIND_COL in table.column_names:
+        # a uniformly +I or +U batch (min == max in {0, 2}) has no -U/-D
+        import pyarrow.compute as pc
+        mm = pc.min_max(table.column(KIND_COL))
+        lo, hi = mm["min"].as_py(), mm["max"].as_py()
+        if not (lo == hi and lo in (RowKind.INSERT,
+                                    RowKind.UPDATE_AFTER)):
+            kinds = np.asarray(table.column(KIND_COL).combine_chunks()
+                               .cast(pa.int8()))
+            keep_mask = (kinds[indices] == RowKind.INSERT) | \
+                        (kinds[indices] == RowKind.UPDATE_AFTER)
+            indices = indices[keep_mask]
+            if prev_idx is not None:
+                prev_idx = prev_idx[keep_mask]
+
+    return MergeResult(table, indices, prev_idx)
+
+
+def _refine_truncated(table: pa.Table, key_names, perm, winner, truncated,
+                      seq, keep: str, with_prev: bool, prev=None):
+    """Host fix-up for prefix-truncated string keys: rows whose prefix
+    collided may belong to different real keys, so device segments can
+    over-group. Only the sorted spans that contain a truncated row are
+    re-grouped by full key on the host; all other winners keep the device
+    result. Rare path (keys longer than the prefix sharing a prefix)."""
+    n = len(seq)
+    winner = np.asarray(winner)
+    sorted_real_mask = perm < n
+    sorted_real = perm[sorted_real_mask]              # sorted positions
+    win_sorted = winner[sorted_real_mask]
+    s_trunc = truncated[sorted_real]
+
+    m = len(sorted_real)
+    if keep == "last":
+        seg_end = win_sorted.copy()
+        seg_end[-1] = True
+        seg_id = np.concatenate([[0], np.cumsum(seg_end[:-1])])
+    else:
+        seg_start = win_sorted.copy()
+        seg_start[0] = True
+        seg_id = np.cumsum(seg_start) - 1
+
+    # spans affected by truncation
+    affected_segs = set(np.unique(seg_id[s_trunc]).tolist())
+    if not affected_segs:
+        win_pos = np.flatnonzero(winner)
+        prev_idx = (np.asarray(prev)[win_pos].astype(np.int64)
+                    if with_prev and prev is not None else None)
+        return (perm[win_pos].astype(np.int64), prev_idx)
+
+    key_cols = [table.column(k) for k in key_names]
+
+    def full_key(i: int):
+        return tuple(c[int(i)].as_py() for c in key_cols)
+
+    idx_out: List[int] = []
+    prev_out: List[int] = []
+    i = 0
+    while i < m:
+        sid = seg_id[i]
+        j = i
+        while j < m and seg_id[j] == sid:
+            j += 1
+        span = sorted_real[i:j]
+        if sid not in affected_segs:
+            for p, w in zip(span, win_sorted[i:j]):
+                if w:
+                    idx_out.append(int(p))
+                    if with_prev:
+                        pos = list(span).index(p)
+                        prev_out.append(int(span[pos - 1]) if pos > 0 else -1)
+        else:
+            # re-group by full key; span order is (prefix, seq) so within a
+            # real key rows remain seq-ordered
+            groups: dict = {}
+            for p in span:
+                groups.setdefault(full_key(p), []).append(int(p))
+            for k in sorted(groups):
+                g = groups[k]
+                if keep == "last":
+                    idx_out.append(g[-1])
+                    prev_out.append(g[-2] if len(g) > 1 else -1)
+                else:
+                    idx_out.append(g[0])
+                    prev_out.append(-1)
+        i = j
+    return (np.array(idx_out, dtype=np.int64),
+            np.array(prev_out, dtype=np.int64) if with_prev else None)

@@ -1,0 +1,291 @@
+"""Normalized keys: order-preserving fixed-width encoding of key columns.
+
+The reference compares keys via codegen'd comparators over BinaryRow's
+memcmp-comparable layout (paimon-common/.../codegen NormalizedKeyComputer,
+sort/BinaryIndexedSortable). On the device we need keys as fixed-width vector
+lanes instead: each row's key becomes L uint32 lanes such that
+lexicographic lane comparison == key comparison.
+
+Encodings (all big-endian style, most-significant lane first):
+- signed ints: value XOR sign bit -> unsigned of same width
+- floats: IEEE total order trick (negative -> flip all bits, else flip
+  sign bit)
+- strings/bytes: first `prefix_bytes` bytes as big-endian lanes, zero
+  padded; a `truncated` flag marks rows whose key exceeded the prefix, so
+  callers can resolve rare prefix-equal ties on the host
+- date/time/timestamp: underlying ints
+
+Null ordering: nulls-last via a dedicated leading presence LANE per
+nullable column (0 = present, 1 = null), so a null is never byte-identical
+to any real value (INT64_MAX, all-0xFF string prefixes). Columns declared
+non-nullable (primary keys) skip the lane.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+
+__all__ = ["NormalizedKeyEncoder"]
+
+
+def _ints_to_u64(arr: np.ndarray) -> np.ndarray:
+    """Signed int array -> order-preserving uint64."""
+    a = arr.astype(np.int64, copy=False)
+    return (a.view(np.uint64) ^ np.uint64(1 << 63))
+
+
+def _floats_to_u64(arr: np.ndarray) -> np.ndarray:
+    a = arr.astype(np.float64, copy=False)
+    bits = a.view(np.uint64)
+    neg = bits >> np.uint64(63) != 0
+    out = np.where(neg, ~bits, bits ^ np.uint64(1 << 63))
+    return out
+
+
+def _split_u64(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    return ((x >> np.uint64(32)).astype(np.uint32),
+            (x & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+class LazyPackedLanes:
+    """[n, 2] u32 lane-matrix VIEW over a packed u64 key vector.
+
+    The hot single-fixed-key paths (OVC merge, packed radix, the
+    searchsorted window cut) sort the packed u64 and never read the
+    lane matrix, so the encoder hands back this deferred view instead
+    of paying a [n, 2] allocation + two strided column writes per
+    chunk; np.asarray(...) materializes with a one-shot cache for the
+    paths that do want lanes (device kernels, lexsort fallbacks)."""
+
+    def __init__(self, packed: np.ndarray):
+        self.packed = packed
+        self.shape = (len(packed), 2)
+        self._mat: Optional[np.ndarray] = None
+
+    def _materialize(self) -> np.ndarray:
+        if self._mat is None:
+            hi, lo = _split_u64(self.packed)
+            self._mat = np.stack([hi, lo], axis=1)
+        return self._mat
+
+    def __array__(self, dtype=None, copy=None):
+        out = self._materialize()
+        if dtype is not None:
+            out = out.astype(dtype)
+        if copy and out is self._mat:
+            out = out.copy()
+        return out
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LazyPackedLanes(self.packed[idx])
+        return self._materialize()[idx]
+
+
+class NormalizedKeyEncoder:
+    """Encodes the key columns of Arrow batches into uint32 lane matrices."""
+
+    def __init__(self, key_types: Sequence[pa.DataType],
+                 string_prefix_bytes: int = 16,
+                 nullable: Optional[Sequence[bool]] = None):
+        self.key_types = list(key_types)
+        self.string_prefix_bytes = ((string_prefix_bytes + 7) // 8) * 8
+        self.nullable = (list(nullable) if nullable is not None
+                         else [True] * len(self.key_types))
+        assert len(self.nullable) == len(self.key_types)
+        self.lanes_per_col: List[int] = []
+        self._kinds: List[str] = []
+        for t in self.key_types:
+            if pa.types.is_integer(t) or pa.types.is_date(t) \
+                    or pa.types.is_time(t) or pa.types.is_timestamp(t) \
+                    or pa.types.is_boolean(t):
+                self._kinds.append("int")
+                self.lanes_per_col.append(2)
+            elif pa.types.is_floating(t):
+                self._kinds.append("float")
+                self.lanes_per_col.append(2)
+            elif pa.types.is_decimal(t):
+                self._kinds.append("decimal")
+                self.lanes_per_col.append(2)
+            elif (pa.types.is_string(t) or pa.types.is_large_string(t)
+                  or pa.types.is_binary(t) or pa.types.is_large_binary(t)):
+                self._kinds.append("bytes")
+                self.lanes_per_col.append(self.string_prefix_bytes // 4)
+            else:
+                raise ValueError(f"Unsupported key type {t}")
+        # one leading presence lane per nullable column (0=value, 1=null)
+        self.lanes_per_col = [
+            nl + (1 if nul else 0)
+            for nl, nul in zip(self.lanes_per_col, self.nullable)]
+
+    @property
+    def num_lanes(self) -> int:
+        return sum(self.lanes_per_col)
+
+    @property
+    def packs_single_key(self) -> bool:
+        """True when this encoder's keys pack into ONE u64 (single
+        non-null fixed-width column — the hot pk shape): encode_*_ex
+        then returns a LazyPackedLanes view and consumers may compare
+        by the packed integer alone."""
+        return (self.num_lanes == 2 and len(self.key_types) == 1
+                and not self.nullable[0]
+                and self._kinds[0] in ("int", "float"))
+
+    def encode_columns(self, columns: Sequence[pa.ChunkedArray],
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (lanes uint32[N, num_lanes], truncated bool[N])."""
+        lanes, truncated, _ = self.encode_columns_ex(columns)
+        return np.asarray(lanes), truncated
+
+    def encode_columns_ex(self, columns: Sequence[pa.ChunkedArray],
+                          ) -> Tuple[np.ndarray, np.ndarray,
+                                     Optional[np.ndarray]]:
+        """-> (lanes, truncated, packed): like encode_columns, plus the
+        u64 packed normalized key when the key is a single two-lane
+        fixed-width non-null column (the hot pk shape) — the host merge
+        fast path then sorts the u64 we already computed instead of
+        re-packing the lanes (3 temporaries saved at bucket scale)."""
+        assert len(columns) == len(self.key_types)
+        n = len(columns[0]) if columns else 0
+        if self.packs_single_key and n > 0:
+            # hot pk shape: ONLY the packed u64 is computed; the [n, 2]
+            # lane matrix is a deferred view most consumers never touch
+            arr = columns[0]
+            arr = arr.combine_chunks() \
+                if isinstance(arr, pa.ChunkedArray) else arr
+            if arr.null_count:
+                raise ValueError(
+                    "null value in a key column declared NOT NULL")
+            if self._kinds[0] == "int":
+                u = _ints_to_u64(np.asarray(arr.cast(pa.int64())))
+            else:
+                u = _floats_to_u64(np.asarray(arr.cast(pa.float64())))
+            return LazyPackedLanes(u), np.zeros(n, dtype=bool), u
+        lanes = np.zeros((n, self.num_lanes), dtype=np.uint32)
+        truncated = np.zeros(n, dtype=bool)
+        packed: Optional[np.ndarray] = None
+        want_packed = (self.num_lanes == 2 and len(columns) == 1
+                       and not self.nullable[0]
+                       and self._kinds[0] in ("int", "float", "decimal"))
+        lane_pos = 0
+        for col, kind, total_nl, t, nul in zip(
+                columns, self._kinds, self.lanes_per_col, self.key_types,
+                self.nullable):
+            arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) \
+                else col
+            # null_count is O(1) metadata: null-free columns (the
+            # common pk case) skip materializing a per-row mask
+            has_nulls = bool(arr.null_count)
+            null_mask = np.asarray(arr.is_null()) if has_nulls \
+                else np.zeros(n, dtype=bool)
+            if nul:
+                if has_nulls:
+                    lanes[:, lane_pos] = null_mask.astype(np.uint32)
+                lane_pos += 1
+                nl = total_nl - 1
+            else:
+                if has_nulls:
+                    raise ValueError(
+                        "null value in a key column declared NOT NULL")
+                nl = total_nl
+            if kind == "int":
+                cast = arr.cast(pa.int64())
+                # fill_null is a full copy at millions of rows: skip it
+                # for null-free columns (the common pk case)
+                if cast.null_count:
+                    cast = cast.fill_null(0)
+                vals = np.asarray(cast)
+                u = _ints_to_u64(vals)
+                if want_packed:
+                    packed = u
+                hi, lo = _split_u64(u)
+                lanes[:, lane_pos] = hi
+                lanes[:, lane_pos + 1] = lo
+            elif kind == "float":
+                cast = arr.cast(pa.float64())
+                if cast.null_count:
+                    cast = cast.fill_null(0)
+                vals = np.asarray(cast)
+                u = _floats_to_u64(vals)
+                if want_packed:
+                    packed = u
+                hi, lo = _split_u64(u)
+                lanes[:, lane_pos] = hi
+                lanes[:, lane_pos + 1] = lo
+            elif kind == "decimal":
+                # scale-preserving: compare by unscaled value (same scale
+                # within a column)
+                vals = np.array(
+                    [0 if v is None else int(v.scaleb(t.scale))
+                     for v in arr.to_pylist()], dtype=np.int64)
+                u = _ints_to_u64(vals)
+                if want_packed:
+                    packed = u
+                hi, lo = _split_u64(u)
+                lanes[:, lane_pos] = hi
+                lanes[:, lane_pos + 1] = lo
+            else:  # bytes
+                trunc_col = self._encode_bytes(arr, lanes, lane_pos, nl)
+                truncated |= trunc_col & ~null_mask
+            if null_mask.any():
+                # value lanes of null rows are zeroed (presence lane alone
+                # decides the order; any residue from fill_null is wiped)
+                lanes[null_mask, lane_pos:lane_pos + nl] = np.uint32(0)
+            lane_pos += nl
+        return lanes, truncated, packed
+
+    def _encode_bytes(self, arr: pa.Array, lanes: np.ndarray, lane_pos: int,
+                      nl: int) -> np.ndarray:
+        pb = self.string_prefix_bytes
+        if pa.types.is_string(arr.type) or pa.types.is_large_string(arr.type):
+            arr = arr.cast(pa.binary())
+        arr = arr.cast(pa.large_binary())
+        # vectorized: buffer + offsets
+        arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
+        offsets = np.asarray(arr.buffers()[1]).view(np.int64)
+        data = np.frombuffer(arr.buffers()[2], dtype=np.uint8) \
+            if arr.buffers()[2] is not None else np.zeros(0, np.uint8)
+        n = len(arr)
+        starts = offsets[:-1]
+        ends = offsets[1:]
+        lengths = ends - starts
+        truncated = lengths > pb
+        # gather first pb bytes of each value, zero-padded
+        take = np.minimum(lengths, pb)
+        padded = np.zeros((n, pb), dtype=np.uint8)
+        # index matrix trick: for each row, positions starts[i]..starts[i]+take[i]
+        col_idx = np.arange(pb)[None, :]
+        src_idx = starts[:, None] + col_idx
+        valid = col_idx < take[:, None]
+        src_idx = np.where(valid, src_idx, 0)
+        if len(data):
+            padded = np.where(valid, data[src_idx], 0).astype(np.uint8)
+        # big-endian u32 lanes
+        as_u32 = padded.reshape(n, pb // 4, 4)
+        lanes_col = (as_u32[:, :, 0].astype(np.uint32) << 24) | \
+                    (as_u32[:, :, 1].astype(np.uint32) << 16) | \
+                    (as_u32[:, :, 2].astype(np.uint32) << 8) | \
+                    as_u32[:, :, 3].astype(np.uint32)
+        lanes[:, lane_pos:lane_pos + nl] = lanes_col
+        return truncated
+
+    def encode_table(self, table: pa.Table,
+                     key_names: Sequence[str]) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+        cols = [table.column(n) for n in key_names]
+        return self.encode_columns(cols)
+
+    def encode_table_ex(self, table: pa.Table,
+                        key_names: Sequence[str]
+                        ) -> Tuple[np.ndarray, np.ndarray,
+                                   Optional[np.ndarray]]:
+        cols = [table.column(n) for n in key_names]
+        return self.encode_columns_ex(cols)

@@ -1,0 +1,630 @@
+"""Config system.
+
+Counterpart of paimon_tpu/options.py, reduced to the options this
+package reads; keys are spelled exactly as the reference spells them.
+Unknown keys round-trip through ``Options`` untouched, so a table's
+stored options mean the same thing in both packages.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, Dict, Iterable, Optional
+
+__all__ = ["ConfigOption", "Options", "CoreOptions", "MergeEngine",
+           "ChangelogProducer", "parse_memory_size"]
+
+
+_SIZE_RE = re.compile(r"^\s*(\d+)\s*([kKmMgGtT]?)[bB]?\s*$")
+_UNITS = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
+
+
+def parse_memory_size(v) -> int:
+    """'128 mb' / '1g' / 1024 -> bytes (reference options/MemorySize.java)."""
+    if isinstance(v, int):
+        return v
+    m = _SIZE_RE.match(str(v))
+    if not m:
+        raise ValueError(f"Cannot parse memory size: {v!r}")
+    return int(m.group(1)) * _UNITS[m.group(2).lower()]
+
+
+def _parse_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("true", "1", "yes")
+
+
+def _validate_enum(v, allowed):
+    s = str(v).upper()
+    if s not in allowed:
+        raise ValueError(f"{v!r} not in {allowed}")
+    return s
+
+
+def _enum(*allowed):
+    """Named enum validator (the name renders in generated docs)."""
+    def validate(v):
+        return _validate_enum(v, allowed)
+    validate.__name__ = "enum[" + "|".join(allowed) + "]"
+    return validate
+
+
+def _parse_duration_ms(v) -> int:
+    """'1 s' / '5 min' / '100ms' -> milliseconds."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    s = str(v).strip().lower()
+    m = re.match(r"^(\d+)\s*([a-z]*)$", s)
+    if not m:
+        raise ValueError(f"Cannot parse duration: {v!r}")
+    n, unit = int(m.group(1)), m.group(2)
+    mult = {"": 1, "ms": 1, "s": 1000, "sec": 1000, "min": 60000,
+            "m": 60000, "h": 3600000, "d": 86400000}[unit]
+    return n * mult
+
+
+class ConfigOption:
+    """A typed option with key, default, and description."""
+
+    def __init__(self, key: str, typ: Callable[[Any], Any], default: Any,
+                 description: str = ""):
+        self.key = key
+        self.typ = typ
+        self.default = default
+        self.description = description
+
+    def parse(self, raw: Any) -> Any:
+        if raw is None:
+            return self.default
+        return self.typ(raw)
+
+    def __repr__(self):
+        return f"ConfigOption({self.key!r}, default={self.default!r})"
+
+
+class Options:
+    """String->string map with typed access (reference options/Options.java)."""
+
+    def __init__(self, conf: Optional[Dict[str, Any]] = None):
+        self._map: Dict[str, str] = {}
+        if conf:
+            for k, v in conf.items():
+                self.set(k, v)
+
+    def set(self, key, value) -> "Options":
+        if isinstance(key, ConfigOption):
+            key = key.key
+        self._map[key] = str(value) if not isinstance(value, str) else value
+        return self
+
+    def get(self, option):
+        if isinstance(option, ConfigOption):
+            return option.parse(self._map.get(option.key))
+        return self._map.get(option)
+
+    def get_or(self, key: str, default):
+        return self._map.get(key, default)
+
+    def contains(self, key) -> bool:
+        if isinstance(key, ConfigOption):
+            key = key.key
+        return key in self._map
+
+    def remove(self, key: str):
+        self._map.pop(key, None)
+
+    def keys(self) -> Iterable[str]:
+        return self._map.keys()
+
+    def to_map(self) -> Dict[str, str]:
+        return dict(self._map)
+
+    def copy(self) -> "Options":
+        return Options(dict(self._map))
+
+    def __eq__(self, other):
+        return isinstance(other, Options) and self._map == other._map
+
+    def __repr__(self):
+        return f"Options({self._map})"
+
+
+# -- enums (reference CoreOptions.java:4590,4619,4759) -----------------------
+
+class MergeEngine:
+    DEDUPLICATE = "deduplicate"
+    PARTIAL_UPDATE = "partial-update"
+    AGGREGATE = "aggregation"
+    FIRST_ROW = "first-row"
+
+
+class ChangelogProducer:
+    NONE = "none"
+    INPUT = "input"
+    FULL_COMPACTION = "full-compaction"
+    LOOKUP = "lookup"
+
+
+class CoreOptions:
+    """Typed view over table options (reference CoreOptions.java)."""
+
+    BUCKET = ConfigOption("bucket", int, -1, "Bucket count; -1 = unaware/dynamic")
+    FILE_FORMAT = ConfigOption("file.format", str, "parquet", "Data file format")
+    FILE_FORMAT_PER_LEVEL = ConfigOption(
+        "file.format.per.level", str, None,
+        "Per-LSM-level format overrides, e.g. '0:avro,5:parquet' — "
+        "fast row codec for hot L0, columnar for settled levels "
+        "(reference CoreOptions file.format.per.level)")
+    FILE_COMPRESSION_ZSTD_LEVEL = ConfigOption(
+        "file.compression.zstd-level", int, None,
+        "zstd level for data files (reference CoreOptions"
+        ".FILE_COMPRESSION_ZSTD_LEVEL); None = codec default")
+    FILE_COMPRESSION = ConfigOption("file.compression", str, "zstd",
+                                    "Data file compression")
+    MANIFEST_MERGE_MIN_COUNT = ConfigOption("manifest.merge-min-count", int, 30,
+                                            "Min manifests to trigger full rewrite")
+    MERGE_ENGINE = ConfigOption("merge-engine", str, MergeEngine.DEDUPLICATE,
+                                "deduplicate | partial-update | aggregation | first-row")
+    CHANGELOG_PRODUCER = ConfigOption("changelog-producer", str,
+                                      ChangelogProducer.NONE, "")
+    SEQUENCE_FIELD = ConfigOption("sequence.field", str, None,
+                                  "User-defined sequence column(s)")
+    PARTITION_DEFAULT_NAME = ConfigOption("partition.default-name", str,
+                                          "__DEFAULT_PARTITION__", "")
+    TARGET_FILE_SIZE = ConfigOption("target-file-size", parse_memory_size,
+                                    128 << 20, "Target data file size")
+    WRITE_BUFFER_SPILLABLE = ConfigOption(
+        "write-buffer-spillable", _parse_bool, False,
+        "Primary-key writers only: spill full write buffers to local "
+        "sorted runs (zstd Arrow IPC) and merge them into L0 at "
+        "prepare-commit — fewer, larger L0 files than flushing one "
+        "file per buffer-full")
+    WRITE_BUFFER_SIZE = ConfigOption("write-buffer-size", parse_memory_size,
+                                     256 << 20, "Sort buffer memory")
+    WRITE_ONLY = ConfigOption("write-only", _parse_bool, False,
+                              "Skip compaction on write")
+    NUM_SORTED_RUNS_COMPACTION_TRIGGER = ConfigOption(
+        "num-sorted-run.compaction-trigger", int, 5,
+        "Sorted runs triggering compaction (reference CoreOptions.java:876)")
+    NUM_SORTED_RUNS_STOP_TRIGGER = ConfigOption(
+        "num-sorted-run.stop-trigger", int, None, "Write-stall threshold")
+    NUM_LEVELS = ConfigOption("num-levels", int, None, "LSM levels")
+    COMPACTION_MAX_SIZE_AMPLIFICATION_PERCENT = ConfigOption(
+        "compaction.max-size-amplification-percent", int, 200, "")
+    COMPACTION_SIZE_RATIO = ConfigOption("compaction.size-ratio", int, 1, "")
+    SCAN_SNAPSHOT_ID = ConfigOption("scan.snapshot-id", int, None, "")
+    SCAN_TAG_NAME = ConfigOption("scan.tag-name", str, None, "")
+    SCAN_TIMESTAMP_MILLIS = ConfigOption("scan.timestamp-millis", int, None, "")
+    SCAN_FALLBACK_BRANCH = ConfigOption("scan.fallback-branch", str, None, "")
+    INCREMENTAL_BETWEEN = ConfigOption("incremental-between", str, None, "")
+    DELETION_VECTORS_ENABLED = ConfigOption("deletion-vectors.enabled",
+                                            _parse_bool, False, "")
+    MERGE_STREAM_THRESHOLD_ROWS = ConfigOption(
+        "tpu.merge.stream-threshold-rows", int, 8 << 20,
+        "Above this many input rows a compaction merges in streamed key "
+        "windows instead of one whole-bucket kernel: the streamed "
+        "pipeline overlaps decode/encode with the merge and bounds "
+        "memory (ours)")
+    MERGE_CHUNK_ROWS = ConfigOption(
+        "tpu.merge.chunk-rows", int, 4 << 20,
+        "Decoded chunk rows per run for the streamed merge (ours); "
+        "larger windows amortize per-window sync/flush overhead at "
+        "~runs x rows x row-bytes peak memory")
+    MERGE_WINDOW_ROWS = ConfigOption(
+        "tpu.merge.window-rows", int, 1 << 18,
+        "Per-run row cap of one streamed merge key window (ours): the "
+        "window bound is lowered to the smallest buffered key at this "
+        "row index, so a window carries ~runs x this many rows and "
+        "adjacent windows overlap on the merge workers instead of one "
+        "window swallowing the whole bucket; a key group wider than "
+        "the cap falls back to the natural bound (keys never straddle "
+        "windows)")
+    MESH_COMPACT = ConfigOption(
+        "tpu.mesh.compact", _parse_bool, False,
+        "Route full compactions of primary-key tables through the "
+        "streaming mesh engine (parallel/mesh_engine.py): all buckets "
+        "compact in one mesh program, streamed in bounded key windows "
+        "with skew-aware bucket->device packing (ours)")
+    BRANCH = ConfigOption("branch", str, "main", "")
+    RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time",
+                                            _parse_duration_ms, None, "")
+    RECORD_LEVEL_TIME_FIELD = ConfigOption("record-level.time-field", str,
+                                           None, "")
+    FILE_INDEX_BLOOM_COLUMNS = ConfigOption(
+        "file-index.bloom-filter.columns", str, None,
+        "Columns to build per-file bloom filters for")
+    FILE_INDEX_BITMAP_COLUMNS = ConfigOption(
+        "file-index.bitmap.columns", str, None,
+        "Columns to build per-file value->row-position bitmap indexes "
+        "for (reference fileindex/bitmap/BitmapFileIndex.java)")
+    FILE_INDEX_BSI_COLUMNS = ConfigOption(
+        "file-index.bsi.columns", str, None,
+        "Integer columns to build per-file bit-sliced indexes for "
+        "(reference fileindex/bsi/BitSliceIndexBitmap.java)")
+    FILE_INDEX_RANGE_BITMAP_COLUMNS = ConfigOption(
+        "file-index.range-bitmap.columns", str, None,
+        "Numeric columns to build per-file range-encoded bin bitmaps "
+        "for (reference fileindex/rangebitmap/RangeBitmap.java)")
+    ROW_TRACKING_ENABLED = ConfigOption("row-tracking.enabled", _parse_bool,
+                                        False, "")
+    LOCAL_MERGE_BUFFER_SIZE = ConfigOption("local-merge-buffer-size",
+                                           parse_memory_size, None, "")
+    MANIFEST_COMPRESSION = ConfigOption("manifest.compression", str, "zstd", "")
+
+    COMMIT_MAX_RETRIES = ConfigOption(
+        "commit.max-retries", int, 10,
+        "CAS attempts before the commit raises a conflict")
+    COMMIT_MIN_RETRY_WAIT = ConfigOption(
+        "commit.min-retry-wait", _parse_duration_ms, 10, "")
+    COMMIT_MAX_RETRY_WAIT = ConfigOption(
+        "commit.max-retry-wait", _parse_duration_ms, 10_000, "")
+    COMMIT_FORCE_CREATE_SNAPSHOT = ConfigOption(
+        "commit.force-create-snapshot", _parse_bool, False, "")
+    SNAPSHOT_IGNORE_EMPTY_COMMIT = ConfigOption(
+        "snapshot.ignore-empty-commit", _parse_bool, None,
+        "Skip the snapshot when a commit carries no changes (defaults "
+        "on for batch writers, off for streaming exactly-once "
+        "progress; reference CoreOptions.java:2497)")
+
+
+    SCAN_SPLIT_PARALLELISM = ConfigOption(
+        "scan.split.parallelism", int, None,
+        "Worker threads reading/decoding splits concurrently in the "
+        "pipelined scan executor (Arrow C++ decode and file IO release "
+        "the GIL); None = min(8, cpu count), 1 = serial read path")
+    READ_PREFETCH_SPLITS = ConfigOption(
+        "read.prefetch.splits", int, 2,
+        "Extra splits submitted beyond the worker pool width so the "
+        "next split's files download while the current one merges")
+    READ_DEVICE_DECODE = ConfigOption(
+        "read.device-decode", _parse_bool, False,
+        "Route parquet data-file reads through the device decode plane "
+        "(format/rawpage.py + ops/decode.py): undecoded column-chunk "
+        "pages are sliced via ranged reads (riding the block-range "
+        "cache and SSD tier) and every per-value transform — "
+        "RLE/bit-packed level expansion, dictionary gather, PLAIN "
+        "reinterpret — runs as vectorized device ops; files outside "
+        "the covered encodings fall back to the pyarrow host path "
+        "(scan group device_decode_files/_fallbacks counters)")
+
+    WRITE_FLUSH_PARALLELISM = ConfigOption(
+        "write.flush.parallelism", int, None,
+        "Worker threads running per-(partition,bucket) flushes (sort + "
+        "encode + upload) concurrently in the pipelined write engine; "
+        "None = min(8, cpu count), 1 = the serial inline write path")
+    WRITE_FLUSH_MAX_BYTES = ConfigOption(
+        "write.flush.max-bytes", parse_memory_size, 1 << 30,
+        "Hard budget on the estimated buffered bytes of flushes in "
+        "flight at once; producers block at write() until the pool "
+        "drains below it, and at least one flush is always admitted so "
+        "a budget below one buffer's size cannot deadlock")
+
+
+    SCAN_PLAN_SORT_PARTITION = ConfigOption(
+        "scan.plan-sort-partition", _parse_bool, False,
+        "Sort plan splits by partition value")
+
+    SEQUENCE_FIELD_SORT_ORDER = ConfigOption(
+        "sequence.field.sort-order", str, "ascending",
+        "ascending: larger sequence wins; descending: smaller wins")
+
+    COMPACTION_TOTAL_SIZE_THRESHOLD = ConfigOption(
+        "compaction.total-size-threshold", parse_memory_size, None,
+        "Full-compact a bucket whenever its total size is below this")
+    COMPACTION_FILE_NUM_LIMIT = ConfigOption(
+        "compaction.file-num-limit", int, None,
+        "Force a compaction pick once a bucket holds this many files")
+
+    CHANGELOG_FILE_PREFIX = ConfigOption("changelog-file.prefix", str,
+                                         "changelog-", "")
+
+
+    MANIFEST_TARGET_FILE_SIZE = ConfigOption(
+        "manifest.target-file-size", parse_memory_size, 8 << 20, "")
+    SCAN_MANIFEST_PARALLELISM = ConfigOption(
+        "scan.manifest.parallelism", int, None,
+        "Threads for reading manifest files during scan planning "
+        "(None = serial)")
+    MANIFEST_STATS_SIDECAR = ConfigOption(
+        "manifest.stats.sidecar", _parse_bool, True,
+        "Write a columnar partition/bucket/key-range stats sidecar "
+        "next to every manifest list (vectorized manifest pruning)")
+
+
+    DATA_FILE_PREFIX = ConfigOption(
+        "data-file.prefix", str, "data-",
+        "File-name prefix of data files")
+    DATA_FILE_PATH_DIRECTORY = ConfigOption(
+        "data-file.path-directory", str, None,
+        "Subdirectory (under the table path) holding data files; "
+        "None = partition/bucket directories at the table root")
+    FILE_BLOCK_SIZE = ConfigOption(
+        "file.block-size", parse_memory_size, None,
+        "Format block granularity: parquet row-group bytes / orc "
+        "stripe bytes; None = format default")
+    TARGET_FILE_ROW_NUM = ConfigOption(
+        "target-file-row-num", int, None,
+        "Roll data files at this many rows, in addition to "
+        "target-file-size")
+    FILE_COMPRESSION_PER_LEVEL = ConfigOption(
+        "file.compression.per.level", str, None,
+        "Per-LSM-level compression overrides, e.g. '0:lz4,5:zstd' — "
+        "cheap codec for hot L0, dense for settled levels")
+
+    METADATA_STATS_MODE_PER_LEVEL = ConfigOption(
+        "metadata.stats-mode.per.level", str, None,
+        "Per-level stats-mode overrides, e.g. '0:none,5:full' — skip "
+        "stats work for short-lived L0 files")
+    METADATA_STATS_KEEP_FIRST_N_COLUMNS = ConfigOption(
+        "metadata.stats-keep-first-n-columns", int, None,
+        "Collect file stats only for the first N value columns")
+
+
+    COMMIT_TIMEOUT = ConfigOption(
+        "commit.timeout", _parse_duration_ms, None,
+        "Give up CAS retries after this long (None = retries only)")
+
+
+    def field_default_values(self) -> Dict[str, str]:
+        """{column: raw default} from fields.<col>.default-value keys."""
+        out = {}
+        for k in self.options.keys():
+            if k.startswith("fields.") and k.endswith(".default-value"):
+                col = k[len("fields."):-len(".default-value")]
+                if col and col != "#":
+                    out[col] = self.options.get_or(k, None)
+        return out
+
+
+    DATA_FILE_EXTERNAL_PATHS = ConfigOption(
+        "data-file.external-paths", str, None,
+        "Comma-separated storage roots for NEW data files; readers "
+        "follow the per-file external path recorded in the manifest")
+    DATA_FILE_EXTERNAL_PATHS_STRATEGY = ConfigOption(
+        "data-file.external-paths.strategy",
+        _enum("NONE", "ROUND-ROBIN", "SPECIFIC-FS"), "NONE",
+        "none: ignore external paths; round-robin: rotate across "
+        "them; specific-fs: only roots whose scheme matches "
+        "data-file.external-paths.specific-fs")
+    DATA_FILE_EXTERNAL_PATHS_SPECIFIC_FS = ConfigOption(
+        "data-file.external-paths.specific-fs", str, None,
+        "Scheme filter (e.g. 'oss', 's3') for strategy=specific-fs")
+
+
+    TABLE_READ_SEQUENCE_NUMBER = ConfigOption(
+        "table-read.sequence-number.enabled", _parse_bool, False,
+        "Expose _SEQUENCE_NUMBER as a metadata column in merge-on-read "
+        "scans")
+    KV_SEQUENCE_NUMBER_ENABLED = ConfigOption(
+        "key-value.sequence_number.enabled", _parse_bool, True,
+        "Maintain per-record sequence numbers in the KV plane (false: "
+        "arrival order within a commit is the only order)")
+
+    COMPACTION_FORCE_REWRITE_ALL_FILES = ConfigOption(
+        "compaction.force-rewrite-all-files", _parse_bool, False,
+        "Full compaction rewrites every file even when the bucket is "
+        "already a single top-level run (forces DV folding / format "
+        "upgrades)")
+    COMPACTION_OFFPEAK_START_HOUR = ConfigOption(
+        "compaction.offpeak.start.hour", int, -1,
+        "Start hour (0-23) of the off-peak window; -1 disables")
+    COMPACTION_OFFPEAK_END_HOUR = ConfigOption(
+        "compaction.offpeak.end.hour", int, -1,
+        "End hour (0-23, exclusive) of the off-peak window; -1 "
+        "disables")
+    COMPACTION_OFFPEAK_RATIO = ConfigOption(
+        "compaction.offpeak-ratio", int, 0,
+        "compaction.size-ratio used during off-peak hours (larger = "
+        "more aggressive merges while the cluster is idle)")
+
+
+    def __init__(self, options):
+        if isinstance(options, dict):
+            options = Options(options)
+        self.options: Options = options
+
+
+    def get(self, option: ConfigOption):
+        return self.options.get(option)
+
+    @property
+    def bucket(self) -> int:
+        return self.options.get(CoreOptions.BUCKET)
+
+
+    @property
+    def file_format(self) -> str:
+        return self.options.get(CoreOptions.FILE_FORMAT)
+
+    @property
+    def file_format_per_level(self):
+        """{level: format} overrides (reference
+        CoreOptions.fileFormatPerLevel)."""
+        v = self.options.get(CoreOptions.FILE_FORMAT_PER_LEVEL)
+        out = {}
+        if v:
+            for part in v.split(","):
+                lvl, sep, fmt = part.partition(":")
+                if not sep or not fmt.strip() or not lvl.strip():
+                    raise ValueError(
+                        f"file.format.per.level entry {part!r} must be "
+                        f"'<level>:<format>' (e.g. '0:avro,5:parquet')")
+                try:
+                    level = int(lvl.strip())
+                except ValueError:
+                    raise ValueError(
+                        f"file.format.per.level level {lvl.strip()!r} "
+                        f"is not an integer") from None
+                out[level] = fmt.strip().lower()
+        return out
+
+    @property
+    def format_options(self):
+        """Raw format-writer tuning options, forwarded to the format SPI
+        (reference FileFormat factories receive the full options and
+        read their own prefix, e.g. parquet.enable.dictionary).
+        file.block-size rides along as the cross-format block/stripe
+        granularity."""
+        out = {k: v for k, v in self.options._map.items()
+               if k.startswith(("parquet.", "orc.", "avro."))}
+        bs = self.options.get(CoreOptions.FILE_BLOCK_SIZE)
+        if bs is not None:
+            out["file.block-size"] = str(bs)
+        return out
+
+    @property
+    def file_compression_per_level(self):
+        """{level: codec} overrides (reference
+        CoreOptions.fileCompressionPerLevel)."""
+        v = self.options.get(CoreOptions.FILE_COMPRESSION_PER_LEVEL)
+        out = {}
+        if v:
+            for part in v.split(","):
+                lvl, sep, codec = part.partition(":")
+                if not sep or not codec.strip() or not lvl.strip():
+                    raise ValueError(
+                        f"file.compression.per.level entry {part!r} "
+                        f"must be '<level>:<codec>'")
+                out[int(lvl.strip())] = codec.strip().lower()
+        return out
+
+    @property
+    def stats_mode_per_level(self):
+        """{level: stats-mode} overrides (reference
+        CoreOptions.statsModePerLevel)."""
+        v = self.options.get(CoreOptions.METADATA_STATS_MODE_PER_LEVEL)
+        out = {}
+        if v:
+            for part in v.split(","):
+                lvl, sep, mode = part.partition(":")
+                if not sep or not mode.strip() or not lvl.strip():
+                    raise ValueError(
+                        f"metadata.stats-mode.per.level entry {part!r} "
+                        f"must be '<level>:<mode>'")
+                out[int(lvl.strip())] = mode.strip().lower()
+        return out
+
+    def kv_writer_kwargs(self) -> Dict[str, Any]:
+        """The per-level / stats / rolling tuning shared by every
+        KeyValueFileWriter construction site."""
+        return {
+            "compression_per_level": self.file_compression_per_level,
+            "target_file_row_num": self.options.get(
+                CoreOptions.TARGET_FILE_ROW_NUM),
+            "stats_mode_per_level": self.stats_mode_per_level,
+            "stats_keep_first_n": self.options.get(
+                CoreOptions.METADATA_STATS_KEEP_FIRST_N_COLUMNS),
+        }
+
+    @property
+    def file_compression(self) -> str:
+        codec = self.options.get(CoreOptions.FILE_COMPRESSION)
+        level = self.options.get(CoreOptions.FILE_COMPRESSION_ZSTD_LEVEL)
+        if level is not None and codec == "zstd":
+            # "codec:level" spec understood by the format writers
+            return f"zstd:{level}"
+        return codec
+
+    @property
+    def merge_engine(self) -> str:
+        return self.options.get(CoreOptions.MERGE_ENGINE)
+
+    @property
+    def changelog_producer(self) -> str:
+        return self.options.get(CoreOptions.CHANGELOG_PRODUCER)
+
+    @property
+    def sequence_field(self):
+        v = self.options.get(CoreOptions.SEQUENCE_FIELD)
+        return [s.strip() for s in v.split(",")] if v else []
+
+    @property
+    def sequence_field_descending(self) -> bool:
+        return self.options.get(
+            CoreOptions.SEQUENCE_FIELD_SORT_ORDER) == "descending"
+
+
+    @property
+    def changelog_file_prefix(self) -> str:
+        return self.options.get(CoreOptions.CHANGELOG_FILE_PREFIX)
+
+    @property
+    def target_file_size(self) -> int:
+        return self.options.get(CoreOptions.TARGET_FILE_SIZE)
+
+    @property
+    def write_buffer_size(self) -> int:
+        return self.options.get(CoreOptions.WRITE_BUFFER_SIZE)
+
+    @property
+    def write_only(self) -> bool:
+        return self.options.get(CoreOptions.WRITE_ONLY)
+
+    @property
+    def num_sorted_runs_compaction_trigger(self) -> int:
+        return self.options.get(CoreOptions.NUM_SORTED_RUNS_COMPACTION_TRIGGER)
+
+    @property
+    def num_sorted_runs_stop_trigger(self) -> int:
+        v = self.options.get(CoreOptions.NUM_SORTED_RUNS_STOP_TRIGGER)
+        if v is None:
+            return self.num_sorted_runs_compaction_trigger + 3
+        return v
+
+    @property
+    def num_levels(self) -> int:
+        v = self.options.get(CoreOptions.NUM_LEVELS)
+        if v is None:
+            return self.num_sorted_runs_compaction_trigger + 1
+        return v
+
+    @property
+    def max_level(self) -> int:
+        """The LSM's top level — the single definition shared by the
+        read-optimized view (system.py, iceberg/metadata.py) and the
+        sharded compaction/rescale output level."""
+        return self.num_levels - 1
+
+    @property
+    def max_size_amplification_percent(self) -> int:
+        return self.options.get(
+            CoreOptions.COMPACTION_MAX_SIZE_AMPLIFICATION_PERCENT)
+
+    @property
+    def size_ratio(self) -> int:
+        return self.options.get(CoreOptions.COMPACTION_SIZE_RATIO)
+
+
+    @property
+    def file_index_spec(self):
+        """index-type name -> column list, for every configured
+        file-index kind (consumed by index/file_index.py)."""
+        spec = {}
+        for name, opt in (
+                ("bloom-filter", CoreOptions.FILE_INDEX_BLOOM_COLUMNS),
+                ("bitmap", CoreOptions.FILE_INDEX_BITMAP_COLUMNS),
+                ("bsi", CoreOptions.FILE_INDEX_BSI_COLUMNS),
+                ("range-bitmap",
+                 CoreOptions.FILE_INDEX_RANGE_BITMAP_COLUMNS)):
+            v = self.options.get(opt)
+            cols = [c.strip() for c in v.split(",") if c.strip()] \
+                if v else []
+            if cols:
+                spec[name] = cols
+        return spec
+
+
+    @property
+    def branch(self) -> str:
+        return self.options.get(CoreOptions.BRANCH)
+
+
+    @property
+    def record_level_expire_time_ms(self):
+        return self.options.get(CoreOptions.RECORD_LEVEL_EXPIRE_TIME)
+
+    @property
+    def record_level_time_field(self):
+        return self.options.get(CoreOptions.RECORD_LEVEL_TIME_FIELD)
+
