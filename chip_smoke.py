@@ -24,12 +24,24 @@ then):
    against a numpy last-writer-wins oracle of the generated data;
 5. each kernel held against its plain PyTorch version on the card
    (exact equality) at every shape the main path gave it, on the inputs
-   it gave there, and at further sizes of synthetic keys; both timed
-   with CUDA events, beside the least time the bytes they must move
-   take at the card's memory rate.
+   it gave there, and at further sizes of synthetic keys (among them 10
+   clustered coded runs, where the codes decide almost every pair).  At
+   each such shape it reports the kernel's device time per launch (the
+   profiler's kernel durations), the wrapper's host time per call (host
+   clock over 1000 calls), the time of back-to-back calls between two
+   CUDA events and the plain version's, beside the
+   least time the bytes these inputs need take at the card's memory
+   rate and the earlier design's time for the same shape; and the
+   wrapper's host cost at n = 1024 split into allocation, the C entry
+   point and the launch;
+6. both variants held exactly against the plain version at edge sizes
+   (n from 1 to 2^21 + 4 around every boundary of the rows a thread,
+   a warp and a block take, L in 1, 2, 5, 8), and with inputs that are
+   not 16-byte aligned.
 
 The last two lines of standard output are one JSON object per line:
-the kernels with their launches on the main path and their times, then
+the kernels with their launches on the main path and their times
+(`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
 """
 
@@ -54,8 +66,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the earlier design's (one row a thread) kernel time at each shape it
+# was timed at, as PERF.md's Findings record it (CUDA events around
+# back-to-back wrapper calls), by (variant, lanes, n); "synthetic" marks
+# synthetic inputs
+EARLIER_MS = {("plain", 2, 1 << 27): 0.9565, ("plain", 2, 1 << 24): 0.1223,
+          ("plain", 2, 1 << 22): 0.0338, ("plain", 2, 1 << 21): 0.0307,
+          ("plain", 2, 1 << 20): 0.0297, ("ovc", 5, 1 << 18): 0.0290,
+          ("ovc", 5, 1 << 15): 0.0244,
+          ("plain", 2, 1 << 26, "synthetic"): 0.4828,
+          ("plain", 2, (1 << 20) + 37, "synthetic"): 0.0405,
+          ("ovc", 2, 1 << 24, "synthetic"): 0.1637}
+KERNEL_NAME = "eq_next_kernel"     # the CUDA kernel's symbol
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` calls (CUDA events)."""
+    """Mean time of fn() over `iters` back-to-back calls between two CUDA
+    events: the device time where the device is the slower side, the
+    host's issue rate where the host is."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -69,6 +97,46 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fns, iters: int = 20) -> list:
+    """Each kernel's own device time per launch (ms), from the profiler's
+    durations of the kernels named KERNEL_NAME in one session where each
+    fn runs `iters` times in turn.  Run after every host-clock timing: a
+    profiler session leaves later launches slower on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if KERNEL_NAME in e.name
+                   and e.device_type == torch.autograd.DeviceType.CUDA)
+    if len(spans) != iters * len(fns):
+        raise AssertionError(f"profiler recorded {len(spans)} launches of "
+                             f"{KERNEL_NAME}, expected {iters * len(fns)}")
+    return [sum(us for _, us in spans[k * iters:(k + 1) * iters])
+            / iters / 1e3 for k in range(len(fns))]
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host clock per call over `calls` calls, synchronised at the end
+    only: the wrapper's host cost where the device keeps up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 class KernelStats:
     def __init__(self, name: str, replaces: str):
         self.name = name
@@ -76,18 +144,22 @@ class KernelStats:
         self.cases = []
 
     def record(self, launches: int) -> dict:
-        # times at the largest shape the main path gave the kernel
+        # times at the largest shape the main path gave the kernel; the
+        # host cost at its smallest, where the device keeps up
         main = [c for c in self.cases if c["main_path"]]
         if not main:
             raise AssertionError(f"{self.name}: no main-path shape checked")
         top = max(main, key=lambda c: c["n"] * c["lanes"])
+        low = min(main, key=lambda c: c["n"] * c["lanes"])
         return {"name": self.name, "route": "cuda",
                 "source": "paimon_tpu_torch/csrc/eq_next_mask.cu",
                 "replaces": self.replaces, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in self.cases),
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": "bytes",
-                "library_ms": None, "n": top["n"], "lanes": top["lanes"]}
+                "library_ms": None, "n": top["n"], "lanes": top["lanes"],
+                "device_ms": top["device_ms"],
+                "host_us": low["host_us"], "host_us_n": low["n"]}
 
 
 class LaunchCapture:
@@ -159,10 +231,9 @@ def needed_bytes(lanes, ovc_off, perm):
     return n * per_row + 4 * words, words / (num_lanes * n)
 
 
-def check_case(stats: KernelStats, label: str, args, num_key_lanes,
-               main_path: bool) -> None:
-    """Hold the kernel against its plain version on the card (exact
-    equality), time both and compute the bound."""
+def exact(stats_name: str, label: str, args, num_key_lanes) -> int:
+    """Kernel against plain version on the card; raises on any
+    difference, else returns the largest difference (0)."""
     import torch
 
     from paimon_tpu_torch.ops import kernels
@@ -170,25 +241,94 @@ def check_case(stats: KernelStats, label: str, args, num_key_lanes,
     lanes, inv, off, perm = args
     got = kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes)
     want = kernels.eq_next_mask_plain(lanes, inv, off, perm, num_key_lanes)
+    torch.cuda.synchronize()
     err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
-    if err:
-        raise AssertionError(f"{stats.name} != plain on {label}")
+    if err or got.shape != want.shape:
+        raise AssertionError(f"{stats_name} != plain on {label}")
+    return err
+
+
+def check_case(stats: KernelStats, label: str, args, num_key_lanes,
+               main_path: bool, earlier_key=None) -> dict:
+    """Hold the kernel against its plain version on the card (exact
+    equality), time the kernel's calls on the host clock and between
+    CUDA events, time the plain version, and compute the bound; the
+    device time per launch comes later (`report_device_times`), so the
+    case keeps its inputs."""
+    from paimon_tpu_torch.ops import kernels
+
+    lanes, inv, off, perm = args
+    err = exact(stats.name, label, args, num_key_lanes)
     num_lanes, n = lanes.shape
+
+    def kernel():
+        return kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes)
+
     iters = 50 if n >= 1 << 26 else 200
-    ms = cuda_ms(lambda: kernels.eq_next_mask(lanes, inv, off, perm,
-                                              num_key_lanes), iters)
+    ms = cuda_ms(kernel, iters)
+    h_us = host_us(kernel)
     plain_ms = cuda_ms(lambda: kernels.eq_next_mask_plain(
         lanes, inv, off, perm, num_key_lanes), max(5, iters // 10))
     nbytes, lane_share = needed_bytes(lanes, off, perm)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    stats.cases.append({"label": label, "n": n, "lanes": num_lanes,
-                        "main_path": main_path, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "max_abs_err": err})
-    log(f"{stats.name} {label} n={n} L={num_lanes}: exact; {ms:.4f} ms "
-        f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms = "
-        f"{bound_ms / ms:.1%} of bound; lane words needed "
-        f"{lane_share:.1%}")
+    case = {"label": label, "n": n, "lanes": num_lanes,
+            "main_path": main_path, "ms": ms, "host_us": h_us,
+            "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "lane_share": lane_share, "max_abs_err": err,
+            "earlier_ms": EARLIER_MS.get(earlier_key), "call": kernel}
+    stats.cases.append(case)
+    return case
+
+
+def host_breakdown(rng) -> dict:
+    """The wrapper's host cost per call at the smallest main-path shape
+    (n = 1024, L = 2), split by host_us into the output's allocation,
+    the bound C entry point alone (n = 0 returns before the launch), the
+    entry point with the launch, and the whole wrapper."""
+    import torch
+
+    from paimon_tpu_torch.ops import kernels
+
+    lanes, inv, _, _ = sorted_int_keys(rng, 1024)
+    kernels.eq_next_mask(lanes, inv)
+    out = torch.empty_like(inv, dtype=torch.bool)
+    call = [lanes.data_ptr(), 2, 0, inv.data_ptr(), None, None, 2,
+            out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(lanes.device.index)]
+    parts = {"alloc": host_us(lambda: torch.empty_like(inv,
+                                                       dtype=torch.bool)),
+             "entry": host_us(lambda: kernels._fn(*call))}
+    call[2] = 1024
+    parts["entry_launch"] = host_us(lambda: kernels._fn(*call))
+    parts["wrapper"] = host_us(lambda: kernels.eq_next_mask(lanes, inv))
+    rest = parts["wrapper"] - parts["alloc"] - parts["entry_launch"]
+    log(f"wrapper host cost at n=1024, L=2: {parts['wrapper']:.2f} us/call "
+        f"= allocation {parts['alloc']:.2f} + C entry through ctypes "
+        f"{parts['entry']:.2f} + launch "
+        f"{parts['entry_launch'] - parts['entry']:.2f} + checks and the "
+        f"rest {rest:.2f}")
+    return parts
+
+
+def report_device_times(stats_list) -> None:
+    """Device time per launch of every case, in one profiler session;
+    then one line per case with all its numbers.  Drops the inputs."""
+    import torch
+
+    cases = [(st, c) for st in stats_list for c in st.cases]
+    times = device_ms([c.pop("call") for _, c in cases])
+    for (st, c), dev_ms in zip(cases, times):
+        c["device_ms"] = dev_ms
+        earlier = c["earlier_ms"]
+        log(f"{st.name} {c['label']} n={c['n']} L={c['lanes']}: exact; "
+            f"device {c['device_ms']:.4f} ms = "
+            f"{c['bound_ms'] / c['device_ms']:.1%} of bound "
+            f"{c['bound_ms']:.4f} ms; host {c['host_us']:.2f} us/call; "
+            f"back-to-back {c['ms']:.4f} ms (earlier design: "
+            f"{'not timed' if earlier is None else f'{earlier:.4f} ms'}"
+            f"); plain {c['plain_ms']:.4f} ms; lane words needed "
+            f"{c['lane_share']:.1%}")
+    torch.cuda.empty_cache()
 
 
 def sorted_int_keys(rng, n: int):
@@ -205,15 +345,22 @@ def sorted_int_keys(rng, n: int):
     return lanes, inv, None, None
 
 
-def coded_runs(rng, n: int, runs: int = 10):
+def coded_runs(rng, n: int, runs: int = 10, clustered: bool = False):
     """2-lane keys of `runs` sorted runs with their offset-value codes,
-    then sorted as a merge sorts them."""
+    then sorted as a merge sorts them.  Uniform keys overlap across runs,
+    so sorted neighbours rarely come from one run; clustered runs each
+    hold consecutive ids of a range of their own, so the codes decide
+    almost every pair."""
     import torch
 
     from paimon_tpu_torch.ops.ovc import run_ovc_offsets
     per = n // runs
-    parts = [np.sort(rng.integers(0, n // 2, per, dtype=np.uint64))
-             for _ in range(runs)]
+    if clustered:
+        parts = [np.arange(k * per, (k + 1) * per, dtype=np.uint64)
+                 for k in rng.permutation(runs)]
+    else:
+        parts = [np.sort(rng.integers(0, n // 2, per, dtype=np.uint64))
+                 for _ in range(runs)]
     parts.append(np.zeros(n - per * runs, dtype=np.uint64))
     keys = np.concatenate(parts)
     mat = np.stack([(keys >> np.uint64(32)).astype(np.uint32),
@@ -235,24 +382,84 @@ def check_kernels(captured: LaunchCapture, k1: KernelStats,
                   k2: KernelStats) -> None:
     """Every shape the main path gave each kernel, on the inputs it gave
     at that shape first; then further sizes of synthetic keys."""
-    import torch
-
     for key in sorted(captured.cases, key=lambda k: (k[0], k[2], k[1])):
         case = captured.cases.pop(key)
         args = tuple(None if t is None else t.cuda() for t in case["args"])
         check_case(k2 if key[0] == "ovc" else k1,
                    f"main path ({case['where']}, {captured.calls[key]} "
                    f"launches at this shape)", args,
-                   case["num_key_lanes"], main_path=True)
-        del args, case
-        torch.cuda.empty_cache()
+                   case["num_key_lanes"], main_path=True, earlier_key=key)
+    host_breakdown(np.random.default_rng(17))
     rng = np.random.default_rng(11)
     for n in (1 << 26, (1 << 20) + 37):
         check_case(k1, "sorted int keys", sorted_int_keys(rng, n), 2,
-                   main_path=False)
-        torch.cuda.empty_cache()
+                   main_path=False, earlier_key=("plain", 2, n, "synthetic"))
     check_case(k2, "10 coded runs of int keys", coded_runs(rng, 1 << 24), 2,
+               main_path=False, earlier_key=("ovc", 2, 1 << 24, "synthetic"))
+    check_case(k2, "10 clustered coded runs of int keys",
+               coded_runs(rng, 1 << 24, clustered=True), 2,
                main_path=False)
+    report_device_times([k1, k2])
+
+
+EDGE_SIZES = (1, 2, 3, 4, 5, 8, 31, 32, 33, 124, 127, 128, 129, 132, 252,
+              256, 260, 508, 512, 516, 1020, 1023, 1024, 1025, 1028, 2044,
+              2048, 2052, (1 << 20) + 3, (1 << 20) + 4, (1 << 20) + 37,
+              (1 << 21) + 4)
+EDGE_LANES = (1, 2, 5, 8)
+
+
+def edge_inputs(rng, n: int, num_lanes: int):
+    """Host inputs in sorted order as a merge hands them over: up to four
+    sorted runs of keys drawn from {0, 1, 2} per lane (so neighbours are
+    often equal), concatenated and sorted by (invalid, lanes), with an
+    invalid padded tail; (lanes[L, n], invalid, ovc_off, perm) as int32."""
+    from paimon_tpu_torch.ops.ovc import run_ovc_offsets
+    real = n - int(rng.integers(0, n // 8 + 1))
+    lanes = rng.integers(0, 3, (n, num_lanes)).astype(np.uint32)
+    lanes[real:] = 0
+    cuts = np.sort(rng.choice(np.arange(1, real), min(3, real - 1),
+                              replace=False)) if real > 1 else []
+    starts = np.concatenate([[0], cuts, [real]]).astype(np.int64)
+    for a, b in zip(starts[:-1], starts[1:]):
+        lanes[a:b] = lanes[a:b][np.lexsort(lanes[a:b].T[::-1])]
+    invalid = (np.arange(n) >= real).astype(np.uint32)
+    off = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    off[:real] = run_ovc_offsets(lanes[:real], starts)
+    order = np.lexsort((np.arange(n),) + tuple(lanes.T[::-1]) + (invalid,))
+    return (np.ascontiguousarray(lanes[order].T).view(np.int32),
+            invalid[order].view(np.int32), off[order].view(np.int32),
+            order.astype(np.int32))
+
+
+def check_edges() -> int:
+    """Both variants exact at every edge size and lane count, and with
+    inputs that start 4 bytes past a 16-byte boundary; returns the
+    number of cases checked."""
+    import torch
+
+    def on_card(a, shift: int = 0):
+        # a contiguous copy of `a` starting `shift` words into a buffer
+        buf = torch.empty(a.size + shift, dtype=torch.int32, device="cuda")
+        t = buf[shift:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+
+    rng = np.random.default_rng(13)
+    cases = 0
+    for n in EDGE_SIZES:
+        for num_lanes in EDGE_LANES:
+            host = edge_inputs(rng, n, num_lanes)
+            shifts = (0, 1) if n in (1024, 2048, (1 << 20) + 4) else (0,)
+            for shift in shifts:
+                lanes, inv, off, perm = (on_card(a, shift) for a in host)
+                where = f"edge n={n} L={num_lanes} shift={shift}"
+                exact("eq_next_mask", where, (lanes, inv, None, None),
+                      num_lanes)
+                exact("eq_next_mask_ovc", where, (lanes, inv, off, perm),
+                      num_lanes)
+                cases += 2
+    return cases
 
 
 def check_sorted_winners() -> None:
@@ -489,6 +696,8 @@ def main() -> int:
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
     check_kernels(capture, k1, k2)
+    log(f"edge sizes: {check_edges()} cases exact (sizes {EDGE_SIZES}, "
+        f"lanes {EDGE_LANES}, aligned and shifted by 4 bytes)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"phases": phases}))

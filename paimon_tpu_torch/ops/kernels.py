@@ -43,7 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+# the bound C entry point, set once by _bind()
+_fn = None
 
 
 def _nvcc() -> str:
@@ -81,19 +82,19 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _bind():
+    """Build and load the library once; returns its entry point."""
+    global _fn
     with _lock:
-        if _lib is None:
+        if _fn is None:
             build()
-            lib = ctypes.CDLL(_LIB_PATH)
-            fn = lib.paimon_eq_next_mask
+            fn = ctypes.CDLL(_LIB_PATH).paimon_eq_next_mask
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _fn = fn
+    return _fn
 
 
 def eq_next_mask_plain(lanes: torch.Tensor, invalid: torch.Tensor,
@@ -118,10 +119,10 @@ def eq_next_mask_plain(lanes: torch.Tensor, invalid: torch.Tensor,
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.int32:
+    if t.dtype is not torch.int32:
         raise TypeError(f"{name} must be int32 (uint32 bit patterns), "
                         f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if t.device != device:
@@ -141,42 +142,50 @@ def eq_next_mask(lanes: torch.Tensor, invalid: torch.Tensor,
     first; invalid: int32[N].  `ovc_off` (int32[N], sorted-order
     offset-value-code offsets, -1 where unknown) and `perm` (int32[N],
     the sort permutation) switch on the code variant.  A CUDA tensor
-    launches the kernel, a CPU tensor runs the plain version."""
+    launches the kernel, a CPU tensor runs the plain version.  The
+    kernel launches on the current stream of the tensors' device; when
+    that is not the current device, it is made current for the launch."""
     if (ovc_off is None) != (perm is None):
         raise ValueError("ovc_off and perm go together")
-    if num_key_lanes is None:
-        num_key_lanes = lanes.shape[0]
-    if lanes.device.type == "cpu":
-        return eq_next_mask_plain(lanes, invalid, ovc_off, perm,
-                                  num_key_lanes)
-    if lanes.device.type != "cuda":
+    if not lanes.is_cuda:
+        if lanes.device.type == "cpu":
+            return eq_next_mask_plain(lanes, invalid, ovc_off, perm,
+                                      num_key_lanes)
         raise ValueError(f"eq_next_mask: unsupported device {lanes.device}")
-    if lanes.dim() != 2 or lanes.shape[0] < 1:
+    shape = lanes.shape
+    if len(shape) != 2 or shape[0] < 1:
         raise ValueError("lanes must be [L, N] with L >= 1")
-    n = lanes.shape[1]
+    num_lanes, n = shape
+    if num_key_lanes is None:
+        num_key_lanes = num_lanes
     dev = lanes.device
-    _check("lanes", lanes, (lanes.shape[0], n), dev)
+    _check("lanes", lanes, shape, dev)
     _check("invalid", invalid, (n,), dev)
     if ovc_off is not None:
         _check("ovc_off", ovc_off, (n,), dev)
         _check("perm", perm, (n,), dev)
-    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    # invalid is int32[n] on dev: the cheapest of torch's allocations here
+    out = torch.empty_like(invalid, dtype=torch.bool)
     if n == 0:
-        return out.view(torch.bool)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paimon_eq_next_mask(
-            lanes.data_ptr(), lanes.shape[0], n, invalid.data_ptr(),
-            ovc_off.data_ptr() if ovc_off is not None else None,
-            perm.data_ptr() if perm is not None else None,
-            num_key_lanes, out.data_ptr(), stream)
+        return out
+    fn = _fn or _bind()
+    index = dev.index
+    args = (lanes.data_ptr(), num_lanes, n, invalid.data_ptr(),
+            None if ovc_off is None else ovc_off.data_ptr(),
+            None if perm is None else perm.data_ptr(), num_key_lanes,
+            out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"eq_next_mask kernel launch failed: CUDA "
                            f"error {rc}")
     global EQ_NEXT_LAUNCHES, EQ_NEXT_OVC_LAUNCHES
+    # two merge threads launch concurrently: the count takes the lock
     with _lock:
         EQ_NEXT_LAUNCHES += 1
         if ovc_off is not None:
             EQ_NEXT_OVC_LAUNCHES += 1
-    return out.view(torch.bool)
+    return out

@@ -88,6 +88,80 @@ def test_plain_matches_reference_ragged(seed, n, with_ovc):
                                   _ref(*args, aligned=False))
 
 
+EDGE_SIZES = [1, 2, 3, 4, 5, 31, 32, 33, 127, 128, 129, 1023, 1025,
+              (1 << 20) + 3, (1 << 20) + 37]
+
+
+def _edge_inputs(seed: int, n: int, num_lanes: int, with_ovc: bool):
+    """As `_inputs` for any n >= 1: up to four sorted runs of keys drawn
+    from {0, 1, 2} per lane, so neighbours are often equal."""
+    rng = np.random.default_rng(seed)
+    real = n - int(rng.integers(0, n // 8 + 1))
+    lanes = rng.integers(0, 3, (n, num_lanes)).astype(np.uint32)
+    lanes[real:] = 0
+    cuts = np.sort(rng.choice(np.arange(1, real), min(3, real - 1),
+                              replace=False)) if real > 1 else []
+    starts = np.concatenate([[0], cuts, [real]]).astype(np.int64)
+    for a, b in zip(starts[:-1], starts[1:]):
+        lanes[a:b] = lanes[a:b][np.lexsort(lanes[a:b].T[::-1])]
+    invalid = (np.arange(n) >= real).astype(np.uint32)
+    off = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    off[:real] = run_ovc_offsets(lanes[:real], starts)
+    order = np.lexsort((np.arange(n),) + tuple(lanes.T[::-1]) + (invalid,))
+    return (lanes[order], invalid[order],
+            off[order] if with_ovc else None,
+            order.astype(np.int32) if with_ovc else None)
+
+
+@pytest.mark.parametrize("with_ovc", [False, True])
+@pytest.mark.parametrize("num_lanes", [1, 2, 5, 8])
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_plain_matches_reference_edge_sizes(n, num_lanes, with_ovc):
+    """Sizes around every boundary of the rows a thread (4), a warp
+    (128) and a block take in the kernel, and sizes it takes on its
+    scalar path (n % 4 != 0)."""
+    args = _edge_inputs(n + num_lanes, n, num_lanes, with_ovc)
+    got = _port(*args)
+    assert got.dtype == np.bool_ and got.shape == (n,)
+    np.testing.assert_array_equal(got, _ref(*args, aligned=False))
+
+
+def _clustered_runs(n: int, runs: int = 10):
+    """10 sorted runs of consecutive 64-bit ids (two lanes), each run's
+    range overlapping its neighbour's by 1/32 of a run, then merged:
+    the codes decide every pair except at run starts and in the
+    overlaps, where equal ids of two runs meet."""
+    per = n // runs
+    step = per - per // 32
+    keys = np.concatenate(
+        [np.arange(k * step, k * step + per, dtype=np.uint64)
+         for k in np.random.default_rng(n).permutation(runs)]
+        + [np.zeros(n - per * runs, dtype=np.uint64)])
+    lanes = np.stack([(keys >> np.uint64(32)).astype(np.uint32),
+                      (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                     axis=1)
+    starts = np.arange(0, per * runs + 1, per, dtype=np.int64)
+    off = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    off[:per * runs] = run_ovc_offsets(lanes[:per * runs], starts)
+    invalid = (np.arange(n) >= per * runs).astype(np.uint32)
+    order = np.lexsort((np.arange(n), keys, invalid))
+    return lanes[order], invalid[order], off[order], order.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [10 * 1024, 1 << 16, (1 << 16) + 37])
+def test_plain_matches_reference_clustered_runs(n):
+    args = _clustered_runs(n)
+    _, _, off, perm = args
+    decided = (perm[1:] == perm[:-1] + 1) & (off[1:] != 0xFFFFFFFF)
+    assert 0.9 < decided.mean() < 1.0
+    got = _port(*args)
+    np.testing.assert_array_equal(got, _ref(*args, aligned=False))
+    if n % ref.PALLAS_TILE == 0:
+        np.testing.assert_array_equal(got, _ref(*args, aligned=True))
+    # equal ids of two runs meet in the overlaps
+    assert got.any()
+
+
 def test_all_zero_keys_never_join_padding():
     """Real rows whose key encodes like padding (all-zero lanes) must
     not continue into the padding segment (validity is part of the
@@ -108,3 +182,18 @@ def test_cuda_wrapper_rejects_wrong_inputs():
     inv = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="go together"):
         kernels.eq_next_mask(lanes, inv, ovc_off=inv)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device", "layout"])
+def test_wrapper_checks_name_the_fault(case):
+    """The checks the wrapper runs before a launch reject each input the
+    kernel does not take, and name it."""
+    good = torch.zeros(8, dtype=torch.int32)
+    bad = {"dtype": good.to(torch.int64),
+           "shape": torch.zeros(9, dtype=torch.int32),
+           "device": torch.zeros(8, dtype=torch.int32, device="meta"),
+           "layout": torch.zeros((8, 2), dtype=torch.int32)[:, 0]}[case]
+    kernels._check("invalid", good, (8,), good.device)
+    with pytest.raises(TypeError if case == "dtype" else ValueError,
+                       match="invalid"):
+        kernels._check("invalid", bad, (8,), good.device)
