@@ -11,17 +11,35 @@ then):
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from paimon_tpu_torch/csrc with nvcc;
 3. the port's device_sorted_winners on cuda against cpu (identical
-   perm/winner/prev) for 4M random rows;
-4. the main path, with the kernels' launch counts set to 0 just before
-   it and read just after: a primary-key table (id BIGINT NOT NULL, v1
-   BIGINT, v2 DOUBLE, v3 INT; bucket=1, write-only, deduplicate,
-   parquet) is written as 10 commits of uniform ids in [0, rows/2)
-   drawn from seed 7, read merge-on-read, fully compacted (the streamed
-   path) and read back; then a small table keyed by long strings takes
-   the same steps, so the kernel's offset-value-code variant runs on
-   the full-order merge that truncated string keys need (a coverage
-   check: its rates are not metrics).  Results are held row for row
-   against a numpy last-writer-wins oracle of the generated data;
+   perm/winner/prev) for 4M random rows, and its segment reductions
+   (sum, product, max, min of int32, int64, float32, float64) on cuda
+   against cpu;
+4. the main path, four tables, each with the kernels' launch counts
+   set to 0 just before it and read just after; each is created,
+   written as one commit per batch, read merge-on-read, fully
+   compacted and read back, on the card:
+   - dedup_bigint: bench.py's table (id BIGINT NOT NULL, v1 BIGINT, v2
+     DOUBLE, v3 INT; bucket=1, write-only, deduplicate, parquet), 10
+     commits of uniform ids in [0, rows/2) drawn from seed 7 (the
+     streamed compaction), held row for row against a numpy
+     last-writer-wins oracle;
+   - agg_sum_max_orc: BASELINE config 4 on the same batches
+     (aggregation, v1 sum, v2 and v3 max; ORC runs at level 0 through
+     file.format.per.level=0:orc, parquet after compaction), held row
+     for row against numpy's per-id sum and max; its scan and
+     compaction must launch the offset-value-code variant;
+   - string_key_coverage: a small table keyed by strings, 1 in 64
+     longer than the 16-byte key prefix, so full-order merges of
+     truncated keys run the code variant too (a coverage check: its
+     rates are not metrics);
+   - partial_update_coverage: config 3's shape cut to 256K keys x 5
+     commits of 64 columns (a sequence group of 8, a DOUBLE sum, an INT
+     count, 1 row in 100 a DELETE), held against the same table run by
+     the port on the CPU (exact; the float sum within rtol 1e-12), its
+     float sum bit-identical across two scans on the card.
+   Each phase reports rows/s, launches, peak device memory and the
+   seconds spent in segment reductions (the port's reduction entry
+   point timed between two synchronisations);
 5. each kernel held against its plain PyTorch version on the card
    (exact equality) at every shape the main path gave it, on the inputs
    it gave there, and at further sizes of synthetic keys (among them 10
@@ -166,8 +184,8 @@ class LaunchCapture:
     """Records what the main path hands the kernel wrapper.
 
     For the length of the main-path run it wraps the merge's reference to
-    kernels.eq_next_mask: it counts calls per (variant, lanes, n) shape
-    and keeps a host copy of the first call's inputs at each shape, so
+    kernels.eq_next_mask: it counts the card's calls per (table, variant,
+    lanes, n) and keeps a host copy of the first call's inputs at each, so
     the kernels are checked and timed afterwards on exactly those
     inputs.  The wrapper and its launch counters are left as they are;
     the host time spent copying is kept out of the phase times."""
@@ -186,7 +204,11 @@ class LaunchCapture:
 
         def shim(lanes, invalid, ovc_off=None, perm=None,
                  num_key_lanes=None):
-            key = ("ovc" if ovc_off is not None else "plain",
+            if not lanes.is_cuda:       # the CPU reference run
+                return self._kernel(lanes, invalid, ovc_off, perm,
+                                    num_key_lanes)
+            key = (self.where.split()[0],
+                   "ovc" if ovc_off is not None else "plain",
                    lanes.shape[0], lanes.shape[1])
             with self._lock:
                 self.calls[key] = self.calls.get(key, 0) + 1
@@ -382,13 +404,14 @@ def check_kernels(captured: LaunchCapture, k1: KernelStats,
                   k2: KernelStats) -> None:
     """Every shape the main path gave each kernel, on the inputs it gave
     at that shape first; then further sizes of synthetic keys."""
-    for key in sorted(captured.cases, key=lambda k: (k[0], k[2], k[1])):
+    for key in sorted(captured.cases, key=lambda k: (k[1], k[0], k[3], k[2])):
         case = captured.cases.pop(key)
         args = tuple(None if t is None else t.cuda() for t in case["args"])
-        check_case(k2 if key[0] == "ovc" else k1,
+        check_case(k2 if key[1] == "ovc" else k1,
                    f"main path ({case['where']}, {captured.calls[key]} "
                    f"launches at this shape)", args,
-                   case["num_key_lanes"], main_path=True, earlier_key=key)
+                   case["num_key_lanes"], main_path=True,
+                   earlier_key=key[1:])
     host_breakdown(np.random.default_rng(17))
     rng = np.random.default_rng(11)
     for n in (1 << 26, (1 << 20) + 37):
@@ -496,9 +519,57 @@ def check_sorted_winners() -> None:
             f"(cuda {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s host clock)")
 
 
-def last_writer_oracle(ids: np.ndarray) -> np.ndarray:
-    """Global row index of the last write of each id, in id order."""
-    order = np.argsort(ids, kind="stable")
+def check_segment_reductions(device: str = "cuda") -> None:
+    """The port's segment reductions on `device` against the same calls
+    on the CPU, 4M rows in segments of 1 to 8: integers and float
+    max/min exact (NaN, infinities and -0.0 among the floats; a NaN's
+    payload may differ), float sum and product within rtol 1e-12
+    (float64) and 1e-5 (float32); says whether the float folds were
+    bit-identical too."""
+    from paimon_tpu_torch.ops.agg import Segments, segment_reduce
+
+    rng = np.random.default_rng(19)
+    n = 1 << 22
+    seg = np.repeat(np.arange(n), rng.integers(1, 9, n))[:n]
+    num = int(seg[-1]) + 1
+    card, cpu = Segments(seg, num, device), Segments(seg, num, "cpu")
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0])
+    for dtype in (np.int32, np.int64, np.float32, np.float64):
+        if np.issubdtype(dtype, np.floating):
+            vals = rng.standard_normal(n).astype(dtype)
+            pick = rng.random(n) < 0.01
+            vals[pick] = specials[rng.integers(0, 5, pick.sum())]
+        else:
+            vals = rng.integers(-1000, 1000, n).astype(dtype)
+        bits = []
+        for op in ("sum", "prod", "max", "min"):
+            got = segment_reduce(vals, op, card)
+            want = segment_reduce(vals, op, cpu)
+            # bit for bit, but for the payload of a NaN
+            itype = np.uint64 if got.itemsize == 8 else np.uint32
+            nan = np.isnan(got) & np.isnan(want) \
+                if np.issubdtype(dtype, np.floating) else False
+            same = bool(((got.view(itype) == want.view(itype)) | nan).all())
+            if not same:
+                if op in ("max", "min") or \
+                        not np.issubdtype(dtype, np.floating):
+                    raise AssertionError(f"segment {op} of {dtype.__name__}:"
+                                         f" card != cpu")
+                rtol = 1e-12 if dtype == np.float64 else 1e-5
+                if not np.allclose(got, want, rtol=rtol, atol=0.0,
+                                   equal_nan=True):
+                    raise AssertionError(f"segment {op} of {dtype.__name__}:"
+                                         f" card beyond rtol {rtol} of cpu")
+            bits.append(f"{op} {'bit-identical' if same else 'within rtol'}")
+        log(f"segment reductions of {dtype.__name__}, {n} rows in {num} "
+            f"segments: {device} against cpu: {', '.join(bits)}")
+
+
+def last_writer_oracle(ids: np.ndarray, order=None) -> np.ndarray:
+    """Global row index of the last write of each id, in id order
+    (`order`: a stable argsort of `ids`, when already at hand)."""
+    if order is None:
+        order = np.argsort(ids, kind="stable")
     s = ids[order]
     last = np.flatnonzero(np.r_[s[1:] != s[:-1], True])
     return order[last]
@@ -525,63 +596,264 @@ def check_rows(what: str, got, cols: dict, win: np.ndarray,
                                  f"oracle")
 
 
-def drive_table(path, schema, batches, cols, key, counts, phases,
-                capture):
-    """create -> write one commit per batch -> merge-on-read scan ->
-    compact(full=True) -> read back; checks both reads against the
-    oracle and records each phase's rows/s and kernel launches."""
+def agg_oracle(cols: dict, order: np.ndarray) -> dict:
+    """Config 4's aggregation by numpy alone: per id (in id order) the
+    sum of v1, the max of v2 and the max of v3, by reduceat over the
+    id-sorted rows."""
+    ids = cols["id"][order]
+    starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+    return {"id": ids[starts],
+            "v1": np.add.reduceat(cols["v1"][order], starts),
+            "v2": np.maximum.reduceat(cols["v2"][order], starts),
+            "v3": np.maximum.reduceat(cols["v3"][order], starts)}
+
+
+def check_agg(what: str, got, want: dict) -> None:
+    """Row for row, every column exactly equal to the oracle's."""
+    import pyarrow.compute as pc
+    if got.num_rows != len(want["id"]):
+        raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
+                             f"{len(want['id'])}")
+    got = got.take(pc.sort_indices(got, sort_keys=[("id", "ascending")]))
+    for name, col in want.items():
+        have = got.column(name).combine_chunks()
+        if have.null_count or not np.array_equal(have.to_numpy(), col):
+            raise AssertionError(f"{what}: column {name} differs from the "
+                                 f"oracle")
+
+
+class ReduceTimer:
+    """Seconds the aggregation engines spend in segment reductions.
+
+    For as long as it is entered it wraps the port's reduction entry
+    point (ops.agg.segment_reduce) and the upload of each merge's
+    segment ids (ops.agg.Segments), synchronising the card before and
+    after each call, and sums their host-clock time; the two merge
+    threads of a streamed compaction may overlap, so the sum can exceed
+    the time they cover."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.calls = 0
+        self._lock = threading.Lock()
+
+    def _timed(self, fn):
+        import torch
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            with self._lock:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+            return out
+        return call
+
+    def __enter__(self):
+        from paimon_tpu_torch.ops import agg
+        self._agg = agg
+        self._reduce = agg.segment_reduce
+        self._init = agg.Segments.__init__
+        agg.segment_reduce = self._timed(self._reduce)
+        agg.Segments.__init__ = self._timed(self._init)
+        return self
+
+    def __exit__(self, *exc):
+        self._agg.segment_reduce = self._reduce
+        self._agg.Segments.__init__ = self._init
+
+
+def drive_table(path, schema, batches, check, counts, phases, capture,
+                reducer, row_kinds=None, device=None,
+                repeat_scan: bool = False) -> dict:
+    """create -> write one commit per batch -> merge-on-read scan (twice
+    with `repeat_scan`) -> compact(full=True) -> read back, on `device`
+    (None: the card); hands every read to `check(what, table)` and
+    records each phase's rows/s, kernel launches, segment-reduction
+    seconds and peak device memory.  Returns the reads by phase."""
     import torch
 
     from paimon_tpu_torch.table import FileStoreTable
 
     rows = sum(b.num_rows for b in batches)
-    keys = cols[key]
-    win = last_writer_oracle(
-        keys if isinstance(keys, np.ndarray)
-        else np.asarray(keys.to_pylist(), dtype=object))
-    table = FileStoreTable.create(path, schema)     # device=None: cuda
+    name = os.path.basename(path)
+    table = FileStoreTable.create(path, schema, device=device)
+    on_card = table.device.type == "cuda"
 
-    def phase(name, fn):
-        capture.where = f"{os.path.basename(path)} {name}"
+    def phase(what, fn):
+        capture.where = f"{name} {what}"
         before = counts()
         copied = capture.seconds
-        torch.cuda.synchronize()
+        reduced, reduce_calls = reducer.seconds, reducer.calls
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        if on_card:
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - (capture.seconds - copied)
-        after = counts()
-        launches = tuple(a - b for a, b in zip(after, before))
-        phases.append({"table": os.path.basename(path), "phase": name,
-                       "rows": rows, "s": dt, "rows_per_s": rows / dt,
-                       "launches_plain": launches[0],
-                       "launches_ovc": launches[1]})
-        log(f"  {os.path.basename(path)} {name}: {rows} rows in {dt:.2f} s "
-            f"= {rows / dt:,.0f} rows/s; launches plain={launches[0]} "
-            f"ovc={launches[1]}")
+        launches = tuple(a - b for a, b in zip(counts(), before))
+        rec = {"table": name, "phase": what, "device": table.device.type,
+               "rows": rows, "s": dt, "rows_per_s": rows / dt,
+               "launches_plain": launches[0], "launches_ovc": launches[1],
+               "seg_reduce_s": reducer.seconds - reduced,
+               "seg_reduce_calls": reducer.calls - reduce_calls,
+               "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if on_card else None)}
+        phases.append(rec)
+        peak = "n/a" if rec["peak_gib"] is None \
+            else f"{rec['peak_gib']:.2f} GiB"
+        log(f"  {name} {what} ({table.device.type}): {rows} rows in "
+            f"{dt:.2f} s = {rows / dt:,.0f} rows/s; launches plain="
+            f"{launches[0]} ovc={launches[1]}; segment reductions "
+            f"{rec['seg_reduce_s']:.3f} s in {rec['seg_reduce_calls']} "
+            f"calls; peak device memory {peak}")
         return out
 
     def write():
-        for b in batches:
+        for k, b in enumerate(batches):
             wb = table.new_batch_write_builder()
             with wb.new_write() as w:
-                w.write_arrow(b)
+                w.write_arrow(b, None if row_kinds is None else row_kinds[k])
                 wb.new_commit().commit(w.prepare_commit())
 
     phase("write", write)
-    scanned = phase("scan", table.to_arrow)
-    check_rows(f"{path} merge-on-read scan", scanned, cols, win, key)
-    del scanned
+    reads = {}
+    for what in ("scan", "scan again") if repeat_scan else ("scan",):
+        reads[what] = phase(what, table.to_arrow)
+        check(f"{name} merge-on-read {what}", reads[what])
     if phase("compact", lambda: table.compact(full=True)) is None:
         raise AssertionError("full compaction committed nothing")
-    back = phase("read", table.to_arrow)
-    check_rows(f"{path} read after compaction", back, cols, win, key)
-    return table
+    reads["read"] = phase("read", table.to_arrow)
+    check(f"{name} read after compaction", reads["read"])
+    return reads
 
 
-def main_path(rows: int, phases: list, capture: LaunchCapture):
+def bigint_batches(rows: int, runs: int = 10, seed: int = 7):
+    """bench.py's build_table batches: `runs` commits of uniform ids in
+    [0, rows/2), v1 BIGINT, v2 DOUBLE, v3 INT, from `seed`."""
     import pyarrow as pa
-    import torch
+    per_run = rows // runs
+    rng = np.random.default_rng(seed)
+    return [pa.table({
+        "id": pa.array(rng.integers(0, rows // 2, per_run), pa.int64()),
+        "v1": pa.array(rng.integers(0, 1 << 40, per_run), pa.int64()),
+        "v2": pa.array(rng.random(per_run), pa.float64()),
+        "v3": pa.array(rng.integers(0, 100, per_run).astype(np.int32),
+                       pa.int32())}) for _ in range(runs)]
+
+
+def string_key_batches(rows: int = 1 << 18, runs: int = 10, seed: int = 7):
+    """Kernel coverage: string keys, 1 in 64 ids longer than the 16-byte
+    key prefix, so merges take the full-order path with run codes."""
+    import pyarrow as pa
+    per = rows // runs
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(runs):
+        ids = rng.integers(0, rows // 2, per)
+        names = [f"user-{i:09d}" + ("-profile-archive" if i % 64 == 0
+                                    else "") for i in ids.tolist()]
+        out.append(pa.table({
+            "name": pa.array(names, pa.string()),
+            "v1": pa.array(rng.integers(0, 1 << 40, per), pa.int64())}))
+    return out
+
+
+PU_MEMBERS = [f"m{i}" for i in range(8)]
+PU_PLAIN = [f"c{i}" for i in range(52)]
+PU_TYPES = ("BIGINT", "DOUBLE", "INT", "STRING")
+
+
+def partial_update_table(keys: int = 1 << 18, commits: int = 5,
+                         seed: int = 7):
+    """Config 3's shape cut to a coverage check: a partial-update table
+    of 64 columns (id; sequence field g with its group of 8 members; a
+    DOUBLE sum column and an INT count column; 52 plain columns), one
+    commit per pass over all `keys` keys in a random order.  Every
+    commit writes the key, g and its members, the sum and count
+    columns, and 14 plain columns of its own (a window that moves 14
+    columns a commit), nulls elsewhere; 1 row in 100 is a DELETE.
+    Returns (schema, batches, row kinds per batch)."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import parse_type_string
+    from paimon_tpu_torch.types import RowKind
+
+    rng = np.random.default_rng(seed)
+    plain_types = {c: PU_TYPES[i % 4] for i, c in enumerate(PU_PLAIN)}
+    builder = Schema.builder().column("id", parse_type_string(
+        "BIGINT NOT NULL")).column("g", parse_type_string("BIGINT"))
+    for c in PU_MEMBERS:
+        builder = builder.column(c, parse_type_string("INT"))
+    builder = builder.column("fsum", parse_type_string("DOUBLE")) \
+        .column("cnt", parse_type_string("INT"))
+    for c in PU_PLAIN:
+        builder = builder.column(c, parse_type_string(plain_types[c]))
+    schema = builder.primary_key("id").options({
+        "bucket": "1", "write-only": "true",
+        "parquet.enable.dictionary": "false",
+        "merge-engine": "partial-update",
+        "fields.g.sequence-group": ",".join(PU_MEMBERS),
+        "fields.fsum.aggregate-function": "sum",
+        "fields.cnt.aggregate-function": "count"}).build()
+    arrow = {"BIGINT": pa.int64(), "DOUBLE": pa.float64(),
+             "INT": pa.int32(), "STRING": pa.string()}
+
+    def values(t, n):
+        if t == "STRING":
+            return pa.array([f"s{v}" for v in rng.integers(0, 1000, n)])
+        if t == "DOUBLE":
+            return pa.array(rng.standard_normal(n))
+        return pa.array(rng.integers(-1000, 1000, n), arrow[t])
+
+    batches, kinds = [], []
+    for j in range(commits):
+        ids = rng.permutation(keys)
+        own = {PU_PLAIN[(14 * j + i) % 52] for i in range(14)}
+        cols = {"id": pa.array(ids, pa.int64()),
+                "g": pa.array(rng.integers(0, 1000, keys), pa.int64())}
+        for c in PU_MEMBERS:
+            cols[c] = values("INT", keys)
+        cols["fsum"] = values("DOUBLE", keys)
+        cols["cnt"] = values("INT", keys)
+        for c in PU_PLAIN:
+            cols[c] = values(plain_types[c], keys) if c in own \
+                else pa.nulls(keys, arrow[plain_types[c]])
+        batches.append(pa.table(cols))
+        kinds.append(np.where(rng.random(keys) < 0.01, RowKind.DELETE,
+                              RowKind.INSERT).astype(np.int8))
+    return schema, batches, kinds
+
+
+def same_tables(what: str, got, want, approx=(), rtol: float = 0.0) -> None:
+    """Exactly equal tables, except the `approx` float columns, equal
+    within `rtol` with the same nulls."""
+    if got.column_names != want.column_names or \
+            got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: shape or columns differ")
+    for name in want.column_names:
+        g = got.column(name).combine_chunks()
+        w = want.column(name).combine_chunks()
+        if name not in approx:
+            if not g.equals(w):
+                raise AssertionError(f"{what}: column {name} differs")
+            continue
+        gv = g.to_numpy(zero_copy_only=False)
+        wv = w.to_numpy(zero_copy_only=False)
+        if not (np.array_equal(np.isnan(gv), np.isnan(wv))
+                and np.allclose(gv, wv, rtol=rtol, atol=0.0,
+                                equal_nan=True)):
+            raise AssertionError(f"{what}: column {name} beyond rtol {rtol}")
+
+
+def main_path(rows: int, phases: list, capture: LaunchCapture,
+              reducer: ReduceTimer) -> tuple:
+    import pyarrow as pa
 
     from paimon_tpu_torch import Schema
     from paimon_tpu_torch.ops import kernels
@@ -592,78 +864,122 @@ def main_path(rows: int, phases: list, capture: LaunchCapture):
         return (kernels.EQ_NEXT_LAUNCHES - kernels.EQ_NEXT_OVC_LAUNCHES,
                 kernels.EQ_NEXT_OVC_LAUNCHES)
 
+    totals = [0, 0]
     work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
-    try:
-        runs = 10
-        per_run = rows // runs
-        rng = np.random.default_rng(7)
-        batches = []
-        for _ in range(runs):
-            batches.append(pa.table({
-                "id": pa.array(rng.integers(0, rows // 2, per_run),
-                               pa.int64()),
-                "v1": pa.array(rng.integers(0, 1 << 40, per_run),
-                               pa.int64()),
-                "v2": pa.array(rng.random(per_run), pa.float64()),
-                "v3": pa.array(rng.integers(0, 100, per_run)
-                               .astype(np.int32), pa.int32()),
-            }))
-        cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
-                for c in ("id", "v1", "v2", "v3")}
-        options = {"bucket": "1", "write-only": "true",
-                   "parquet.enable.dictionary": "false"}
-        schema = (Schema.builder().column("id", BigIntType(False))
-                  .column("v1", BigIntType()).column("v2", DoubleType())
-                  .column("v3", IntType()).primary_key("id")
-                  .options(options).build())
 
-        # kernel coverage, not a cell: string keys, 1 in 64 ids longer
-        # than the 16-byte key prefix, so merges take the full-order
-        # path with run codes; small because truncated keys are fixed
-        # up by a host loop
-        s_rows, s_runs = 1 << 18, 10
-        s_per = s_rows // s_runs
-        srng = np.random.default_rng(7)
-        s_batches = []
-        for _ in range(s_runs):
-            ids = srng.integers(0, s_rows // 2, s_per)
-            names = [f"user-{i:09d}" + ("-profile-archive" if i % 64 == 0
-                                        else "") for i in ids.tolist()]
-            s_batches.append(pa.table({
-                "name": pa.array(names, pa.string()),
-                "v1": pa.array(srng.integers(0, 1 << 40, s_per),
-                               pa.int64())}))
-        s_cols = {"name": pa.concat_arrays(
-                      [b.column("name").combine_chunks() for b in s_batches]),
-                  "v1": np.concatenate([b.column("v1").to_numpy()
-                                        for b in s_batches])}
-        s_schema = (Schema.builder().column("name", VarCharType(False))
-                    .column("v1", BigIntType()).primary_key("name")
-                    .options(options).build())
-
-        torch.cuda.reset_peak_memory_stats()
+    def drive(name, schema, batches, check, **kw):
+        """One path of the main path on the card: the launch counts set
+        to 0 just before it and read just after."""
         kernels.EQ_NEXT_LAUNCHES = 0
         kernels.EQ_NEXT_OVC_LAUNCHES = 0
-        with capture:
-            drive_table(os.path.join(work, "dedup_bigint"), schema, batches,
-                        cols, "id", counts, phases, capture)
-            drive_table(os.path.join(work, "string_key_coverage"), s_schema,
-                        s_batches, s_cols, "name", counts, phases, capture)
-        launches = counts()
-        log(f"main path launches: plain={launches[0]} ovc={launches[1]}; "
-            f"by (variant, lanes, n): {sorted(capture.calls.items())}; "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; inputs "
-            f"copied aside in {capture.seconds:.2f} s (not in phase times)")
+        out = drive_table(os.path.join(work, name), schema, batches, check,
+                          counts, phases, capture, reducer, **kw)
+        launched = counts()
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+        totals[0] += launched[0]
+        totals[1] += launched[1]
+        log(f"  {name}: launches plain={launched[0]} ovc={launched[1]}")
+        return out
+
+    try:
+        batches = bigint_batches(rows)
+        cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+                for c in ("id", "v1", "v2", "v3")}
+        t0 = time.perf_counter()
+        order = np.argsort(cols["id"], kind="stable")
+        win = last_writer_oracle(cols["id"], order)
+        agg_want = agg_oracle(cols, order)
+        del order
+        log(f"numpy oracles of {rows} rows: {time.perf_counter() - t0:.1f} s")
+        base = {"bucket": "1", "write-only": "true",
+                "parquet.enable.dictionary": "false"}
+
+        def bigint_schema(options):
+            return (Schema.builder().column("id", BigIntType(False))
+                    .column("v1", BigIntType()).column("v2", DoubleType())
+                    .column("v3", IntType()).primary_key("id")
+                    .options(options).build())
+
+        with capture, reducer:
+            drive("dedup_bigint", bigint_schema(base), batches,
+                  lambda what, got: check_rows(what, got, cols, win, "id"))
+            # BASELINE config 4 (bench.py BENCH_SHAPE=config4): the same
+            # batches under aggregation sum/max, ORC runs at level 0,
+            # parquet after compaction
+            drive("agg_sum_max_orc", bigint_schema({
+                **base, "merge-engine": "aggregation",
+                "fields.v1.aggregate-function": "sum",
+                "fields.v2.aggregate-function": "max",
+                "fields.v3.aggregate-function": "max",
+                "file.format": "parquet",
+                "file.format.per.level": "0:orc"}), batches,
+                lambda what, got: check_agg(what, got, agg_want))
+            del batches, cols, win, agg_want
+
+            s_batches = string_key_batches()
+            s_cols = {"name": pa.concat_arrays(
+                          [b.column("name").combine_chunks()
+                           for b in s_batches]),
+                      "v1": np.concatenate([b.column("v1").to_numpy()
+                                            for b in s_batches])}
+            s_win = last_writer_oracle(np.asarray(
+                s_cols["name"].to_pylist(), dtype=object))
+            s_schema = (Schema.builder().column("name", VarCharType(False))
+                        .column("v1", BigIntType()).primary_key("name")
+                        .options(base).build())
+            drive("string_key_coverage", s_schema, s_batches,
+                  lambda what, got: check_rows(what, got, s_cols, s_win,
+                                               "name"))
+
+            pu_keys = 1 << 18
+            pu_schema, pu_batches, pu_kinds = partial_update_table(pu_keys)
+
+            def pu_check(what, got):
+                # a scan folds a DELETE into its key's row; compaction
+                # then drops keys whose last version is a DELETE, as the
+                # reference does
+                if got.column_names != [f.name for f in pu_schema.fields] \
+                        or not 0 < got.num_rows <= pu_keys or \
+                        ("scan" in what and got.num_rows != pu_keys):
+                    raise AssertionError(f"{what}: {got.num_rows} rows")
+            card = drive("partial_update_coverage", pu_schema, pu_batches,
+                         pu_check, row_kinds=pu_kinds, repeat_scan=True)
+            # the same table run by the port on the CPU, as its reference
+            cpu = drive_table(os.path.join(work, "partial_update_cpu"),
+                              pu_schema, pu_batches, pu_check, counts,
+                              phases, capture, reducer, row_kinds=pu_kinds,
+                              device="cpu")
+        for what in ("scan", "read"):
+            same_tables(f"partial_update_coverage {what}: card vs cpu",
+                        card[what], cpu[what], approx=("fsum",), rtol=1e-12)
+        again = card["scan again"].column("fsum").combine_chunks()
+        if card["scan"].column("fsum").combine_chunks().to_numpy(
+                zero_copy_only=False).tobytes() != again.to_numpy(
+                zero_copy_only=False).tobytes():
+            raise AssertionError("partial_update_coverage: the float sum "
+                                 "differs between two scans on the card")
+        log("partial_update_coverage: card == cpu (fsum within rtol 1e-12); "
+            "fsum bit-identical across two scans on the card")
+        log(f"main path launches: plain={totals[0]} ovc={totals[1]}; by "
+            f"(table, variant, lanes, n): {sorted(capture.calls.items())}; "
+            f"inputs copied aside in {capture.seconds:.2f} s (not in phase "
+            f"times)")
         for p in phases:
-            if p["phase"] in ("write", "scan", "compact") and \
+            if p["device"] == "cuda" and p["phase"] in ("write", "scan",
+                                                         "compact") and \
                     p["launches_plain"] + p["launches_ovc"] == 0:
                 raise AssertionError(f"{p['table']} {p['phase']}: no kernel "
                                      f"launch")
-        if launches[0] == 0 or launches[1] == 0:
+            if p["table"] == "agg_sum_max_orc" and \
+                    p["phase"] in ("scan", "compact") and \
+                    p["launches_ovc"] == 0:
+                raise AssertionError(f"agg_sum_max_orc {p['phase']}: the "
+                                     f"offset-value-code variant did not "
+                                     f"launch")
+        if totals[0] == 0 or totals[1] == 0:
             raise AssertionError(f"a kernel was not launched on the main "
-                                 f"path: {launches}")
-        return launches
+                                 f"path: {totals}")
+        return tuple(totals)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -689,9 +1005,10 @@ def main() -> int:
     log(f"kernel build: {kernels.build():.2f} s (nvcc, sm_90a)")
 
     check_sorted_winners()
+    check_segment_reductions()
     phases: list = []
     capture = LaunchCapture()
-    launches = main_path(args.rows, phases, capture)
+    launches = main_path(args.rows, phases, capture, ReduceTimer())
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")

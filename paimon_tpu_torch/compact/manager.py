@@ -1,8 +1,7 @@
 """Compaction manager + rewriter for one (partition, bucket).
 
-Counterpart of paimon_tpu/compact/manager.py for the deduplicate and
-first-row engines without changelog producers; every merge runs on the
-manager's torch device.
+Counterpart of paimon_tpu/compact/manager.py without changelog
+producers; every merge runs on the manager's torch device.
 
 reference: mergetree/compact/MergeTreeCompactManager.java:54
 (triggerCompaction:136, submitCompaction:211), MergeTreeCompactTask.java:41
@@ -22,6 +21,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import pyarrow as pa
+import pyarrow.compute as pc
 
 from paimon_tpu_torch.compact.levels import Levels
 from paimon_tpu_torch.compact.universal import (
@@ -32,10 +32,11 @@ from paimon_tpu_torch.core.read import assemble_runs
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta, FileSource
 from paimon_tpu_torch.options import CoreOptions, MergeEngine
-from paimon_tpu_torch.ops.merge import merge_runs
+from paimon_tpu_torch.ops.agg import merge_runs_agg
+from paimon_tpu_torch.ops.merge import KIND_COL, merge_runs
 from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
 from paimon_tpu_torch.schema.table_schema import TableSchema
-from paimon_tpu_torch.types import data_type_to_arrow
+from paimon_tpu_torch.types import RowKind, data_type_to_arrow
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
 __all__ = ["MergeTreeCompactManager", "CompactResult"]
@@ -171,14 +172,22 @@ class MergeTreeCompactManager:
             f = files[0]
             if f.level == unit.output_level:
                 return CompactResult([], [])
-            # file.format.per.level: a metadata-only promotion would
-            # carry the wrong format into the target level (reference
-            # upgrade rewrites on format change)
-            blocked = (self.kv_writer.format_per_level and
-                       self.kv_writer.format_per_level.get(
-                           unit.output_level,
-                           self.options.file_format.lower())
-                       != f.file_name.rsplit(".", 1)[-1].lower())
+            blocked = (
+                # deferred-merge engines (partial-update / aggregation)
+                # sort but do NOT merge at L0 flush (core/write.py flush),
+                # so an L0 file may hold several versions of one key;
+                # promoting it without rewrite would let raw-convertible
+                # reads surface the duplicates
+                (f.level == 0 and self.options.merge_engine in
+                 (MergeEngine.PARTIAL_UPDATE, MergeEngine.AGGREGATE))
+                # file.format.per.level: a metadata-only promotion would
+                # carry the wrong format into the target level
+                # (reference upgrade rewrites on format change)
+                or (self.kv_writer.format_per_level and
+                    self.kv_writer.format_per_level.get(
+                        unit.output_level,
+                        self.options.file_format.lower())
+                    != f.file_name.rsplit(".", 1)[-1].lower()))
             # metadata-only promotion unless deletes must be dropped at the
             # top level (reference MergeTreeCompactTask.upgrade:124)
             if (unit.output_level < self.levels.max_level
@@ -341,6 +350,12 @@ class MergeTreeCompactManager:
                         if len(tables) > 1 else tables[0])
         return runs
 
+    def _live_view(self, merged: pa.Table) -> pa.Table:
+        kinds = merged.column(KIND_COL).combine_chunks().cast(pa.int8())
+        keep = pc.or_(pc.equal(kinds, RowKind.INSERT),
+                      pc.equal(kinds, RowKind.UPDATE_AFTER))
+        return merged.filter(keep)
+
     def _record_level_expire(self, merged: pa.Table) -> pa.Table:
         from paimon_tpu_torch.core.read import record_level_expire_filter
         return record_level_expire_filter(self.options, merged)
@@ -352,17 +367,23 @@ class MergeTreeCompactManager:
         `encoded`: optional pre-computed (lanes, truncated[, packed])
         per table (the streamed path encodes once for the window cut)."""
         engine = self.options.merge_engine
-        if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
-            raise NotImplementedError(
-                f"merge-engine {engine!r} is not ported yet (ROADMAP.md: "
-                f"aggregation and partial-update)")
-        res = merge_runs(
-            run_tables, self.key_cols, merge_engine=engine,
-            drop_deletes=drop_deletes, key_encoder=self.key_encoder,
-            seq_fields=self.options.sequence_field or None,
-            seq_desc=self.options.sequence_field_descending,
-            encoded=encoded, device=self.device)
-        return self._record_level_expire(res.take())
+        seq_fields = self.options.sequence_field or None
+        if engine in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
+            res = merge_runs(
+                run_tables, self.key_cols, merge_engine=engine,
+                drop_deletes=drop_deletes, key_encoder=self.key_encoder,
+                seq_fields=seq_fields,
+                seq_desc=self.options.sequence_field_descending,
+                encoded=encoded, device=self.device)
+            return self._record_level_expire(res.take())
+        merged = merge_runs_agg(run_tables, self.key_cols, self.schema,
+                                self.options,
+                                key_encoder=self.key_encoder,
+                                seq_fields=seq_fields, encoded=encoded,
+                                device=self.device)
+        if drop_deletes:
+            merged = self._live_view(merged)
+        return self._record_level_expire(merged)
 
     def _merged_state(self, files: List[DataFileMeta],
                       drop_deletes: bool = True) -> Optional[pa.Table]:

@@ -1,7 +1,8 @@
 """Read path: merge-on-read over DataSplits.
 
-Counterpart of paimon_tpu/core/read.py for the deduplicate and
-first-row engines; every merge runs on the reader's torch device.
+Counterpart of paimon_tpu/core/read.py; every merge runs on the
+reader's torch device (ops/merge.py for deduplicate and first-row,
+ops/agg.py for partial-update and aggregation).
 
 reference call stack (SURVEY §3.2): KeyValueTableRead ->
 MergeFileSplitRead.createMergeReader (operation/MergeFileSplitRead.java:
@@ -28,6 +29,7 @@ from paimon_tpu_torch.core.scan import DataSplit
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta
 from paimon_tpu_torch.options import CoreOptions, MergeEngine
+from paimon_tpu_torch.ops.agg import merge_runs_agg
 from paimon_tpu_torch.ops.merge import KIND_COL, SEQ_COL, merge_runs
 from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
 from paimon_tpu_torch.predicate import Predicate
@@ -278,13 +280,16 @@ class MergeFileSplitRead:
         if not runs:
             return self._empty_table()
         engine = self.options.merge_engine
+        seq_fields = self.options.sequence_field or None
         if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
-            raise NotImplementedError(
-                f"merge-engine {engine!r} is not ported yet (ROADMAP.md: "
-                f"aggregation and partial-update)")
+            return merge_runs_agg(runs, self.key_cols, self.schema,
+                                  self.options,
+                                  key_encoder=self.key_encoder,
+                                  seq_fields=seq_fields,
+                                  device=self.device).select(value_cols)
         res = merge_runs(runs, self.key_cols, merge_engine=engine,
                          key_encoder=self.key_encoder,
-                         seq_fields=self.options.sequence_field or None,
+                         seq_fields=seq_fields,
                          seq_desc=self.options.sequence_field_descending,
                          device=self.device)
         return res.take(value_cols)

@@ -1,9 +1,9 @@
 """Write path: buffered per-(partition,bucket) writers producing L0 files.
 
-Counterpart of paimon_tpu/core/write.py for fixed buckets under the
-deduplicate and first-row engines (spilling, local merge, changelog
-input and dynamic/postpone buckets are not ported yet); every flush
-merges on the writer's torch device.
+Counterpart of paimon_tpu/core/write.py for fixed buckets (spilling,
+local merge, changelog input and dynamic/postpone buckets are not ported
+yet); every flush merges (deduplicate, first-row) or sorts
+(partial-update, aggregation) on the writer's torch device.
 
 reference call stack (SURVEY §3.1): TableWriteImpl.write ->
 AbstractFileStoreWrite.write (operation/AbstractFileStoreWrite.java:186)
@@ -29,8 +29,10 @@ from paimon_tpu_torch.core.bucket import FixedBucketAssigner
 from paimon_tpu_torch.core.kv_file import KEY_PREFIX, KeyValueFileWriter
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta
-from paimon_tpu_torch.options import CoreOptions
-from paimon_tpu_torch.ops.merge import KIND_COL, SEQ_COL, merge_runs
+from paimon_tpu_torch.options import CoreOptions, MergeEngine
+from paimon_tpu_torch.ops.merge import (
+    KIND_COL, SEQ_COL, merge_runs, sort_table,
+)
 from paimon_tpu_torch.schema.table_schema import TableSchema
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
@@ -172,14 +174,23 @@ class _BucketWriter:
         return raw, kinds, seq
 
     def _sorted_chunk(self, snap) -> pa.Table:
-        """Merge one flush payload into a key-sorted KV chunk on the
-        device (worker side; nothing on `self` is mutated)."""
+        """Lay out one flush payload as a key-sorted KV chunk on the
+        device (worker side; nothing on `self` is mutated).  Deduplicate
+        and first-row merge it; the deferred engines (partial-update,
+        aggregation) only sort it, keeping every version for the read
+        or compaction merge to fold."""
         raw, kinds, seq = snap
         schema = self.parent.schema
         kv = build_kv_table(raw, schema, seq, kinds)
         key_cols = [KEY_PREFIX + k for k in schema.trimmed_primary_keys()]
         opts = self.parent.options
-        res = merge_runs([kv], key_cols, merge_engine=opts.merge_engine,
+        engine = opts.merge_engine
+        if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
+            order = sort_table(kv, key_cols,
+                               key_encoder=self.parent.key_encoder,
+                               device=self.parent.device)
+            return kv.take(pa.array(order))
+        res = merge_runs([kv], key_cols, merge_engine=engine,
                          drop_deletes=False,
                          key_encoder=self.parent.key_encoder,
                          seq_fields=opts.sequence_field or None,

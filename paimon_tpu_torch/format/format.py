@@ -1,8 +1,8 @@
 """FileFormat SPI: reader/writer factories over Arrow tables.
 
-Counterpart of paimon_tpu/format/format.py, reduced to parquet data
-files (Arrow C++ decode and encode); the other data-file formats are
-not ported yet.  reference boundary: paimon-common/.../format/
+Counterpart of paimon_tpu/format/format.py, reduced to parquet and ORC
+data files (Arrow C++ decode and encode); the other data-file formats
+are not ported yet.  reference boundary: paimon-common/.../format/
 FileFormat.java:43 + SimpleStatsExtractor.
 """
 
@@ -14,6 +14,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 import pyarrow.parquet as pq
+
+try:
+    from pyarrow import orc as pa_orc
+except ImportError:  # pragma: no cover
+    pa_orc = None
 
 from paimon_tpu_torch.fs import FileIO
 
@@ -157,13 +162,46 @@ class FileFormatFactory:
                                  format_options=format_options)
 
 
+class _OrcReader(FormatReader):
+    def read(self, file_io, path, projection=None, batch_size=1 << 20):
+        if pa_orc is None:
+            raise RuntimeError("pyarrow.orc unavailable")
+        data = file_io.read_bytes(path)      # store faults propagate
+        with _decode_errors(path):
+            f = pa_orc.ORCFile(io.BytesIO(data))
+            return f.read(columns=projection)
+
+
+class _OrcWriter(FormatWriter):
+    def __init__(self, compression: str = "zstd",
+                 format_options: Optional[Dict[str, str]] = None):
+        self.compression, _ = split_compression(compression)
+        fo = format_options or {}
+        # file.block-size -> orc stripe bytes
+        self.stripe_bytes = int(fo["file.block-size"]) \
+            if "file.block-size" in fo else None
+
+    def write(self, file_io, path, table):
+        if pa_orc is None:
+            raise RuntimeError("pyarrow.orc unavailable")
+        buf = io.BytesIO()
+        kw = {"stripe_size": self.stripe_bytes} if self.stripe_bytes \
+            else {}
+        pa_orc.write_table(table, buf,
+                           compression=self.compression.upper(), **kw)
+        data = buf.getvalue()
+        file_io.write_bytes(path, data, overwrite=False)
+        return len(data)
+
+
 _FORMATS: Dict[str, FileFormatFactory] = {
     "parquet": FileFormatFactory("parquet", _ParquetReader(),
                                  _ParquetWriter),
+    "orc": FileFormatFactory("orc", _OrcReader(), _OrcWriter),
 }
 
 # formats the reference reads and writes that this package does not yet
-_NOT_PORTED = ("orc", "avro", "csv", "json", "mosaic")
+_NOT_PORTED = ("avro", "csv", "json", "mosaic")
 
 
 def get_format(identifier: str) -> FileFormatFactory:

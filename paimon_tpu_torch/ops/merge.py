@@ -346,8 +346,9 @@ def merge_runs(runs: Sequence[pa.Table], key_names: Sequence[str],
         raise ValueError("No runs to merge")
     if merge_engine not in ("deduplicate", "first-row"):
         raise NotImplementedError(
-            f"merge-engine {merge_engine!r} is not ported yet "
-            f"(ROADMAP.md: aggregation and partial-update)")
+            f"merge_runs folds deduplicate and first-row only; "
+            f"merge-engine {merge_engine!r} merges through "
+            f"ops.agg.merge_runs_agg")
     table = pa.concat_tables(runs, promote_options="none")
     n = table.num_rows
     if n == 0:

@@ -166,12 +166,20 @@ class CoreOptions:
                                             "Min manifests to trigger full rewrite")
     MERGE_ENGINE = ConfigOption("merge-engine", str, MergeEngine.DEDUPLICATE,
                                 "deduplicate | partial-update | aggregation | first-row")
+    IGNORE_DELETE = ConfigOption("ignore-delete", _parse_bool, False, "")
     CHANGELOG_PRODUCER = ConfigOption("changelog-producer", str,
                                       ChangelogProducer.NONE, "")
     SEQUENCE_FIELD = ConfigOption("sequence.field", str, None,
                                   "User-defined sequence column(s)")
     PARTITION_DEFAULT_NAME = ConfigOption("partition.default-name", str,
                                           "__DEFAULT_PARTITION__", "")
+    PARTIAL_UPDATE_REMOVE_RECORD_ON_DELETE = ConfigOption(
+        "partial-update.remove-record-on-delete", _parse_bool, False,
+        "-D on a partial-update table drops the whole row instead of "
+        "being ignored")
+    AGGREGATION_REMOVE_RECORD_ON_DELETE = ConfigOption(
+        "aggregation.remove-record-on-delete", _parse_bool, False,
+        "-D on an aggregation table drops the accumulated row")
     TARGET_FILE_SIZE = ConfigOption("target-file-size", parse_memory_size,
                                     128 << 20, "Target data file size")
     WRITE_BUFFER_SPILLABLE = ConfigOption(

@@ -1,9 +1,10 @@
 """FileStoreTable and its read/write builders.
 
 Counterpart of paimon_tpu/table/table.py for this package's slice:
-primary-key tables with fixed buckets under the deduplicate and
-first-row engines.  Every table carries the torch device its merges run
-on (None means "cuda"; with no card, pass device="cpu").
+primary-key tables with fixed buckets under the deduplicate, first-row,
+partial-update and aggregation engines.  Every table carries the torch
+device its merges run on (None means "cuda"; with no card, pass
+device="cpu").
 
 reference: table/FileStoreTable.java, table/source/ReadBuilderImpl.java:49
 (newScan:190, newRead:241), table/sink/BatchWriteBuilder.java,
@@ -25,7 +26,7 @@ from paimon_tpu_torch.core.write import CommitMessage, KeyValueFileStoreWrite
 from paimon_tpu_torch.device import resolve_device
 from paimon_tpu_torch.fs import FileIO, get_file_io
 from paimon_tpu_torch.options import (
-    ChangelogProducer, CoreOptions, MergeEngine, Options,
+    ChangelogProducer, CoreOptions, Options,
 )
 from paimon_tpu_torch.predicate import Predicate
 from paimon_tpu_torch.schema.schema import Schema
@@ -56,10 +57,6 @@ def check_readable(schema: TableSchema, options: CoreOptions,
     if schema.cross_partition_update():
         _not_ported("cross-partition upsert (primary key without the "
                     "partition keys)", "the remaining planes")
-    if options.merge_engine not in (MergeEngine.DEDUPLICATE,
-                                    MergeEngine.FIRST_ROW):
-        _not_ported(f"merge-engine {options.merge_engine!r}",
-                    "aggregation and partial-update")
     if options.get(CoreOptions.READ_DEVICE_DECODE):
         _not_ported("read.device-decode", "device decode")
     if options.get(CoreOptions.DELETION_VECTORS_ENABLED):

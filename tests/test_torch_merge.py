@@ -255,6 +255,6 @@ def test_streamed_windows_equal_one_shot():
 
 
 def test_unported_engine_raises():
-    with pytest.raises(NotImplementedError, match="aggregation"):
+    with pytest.raises(NotImplementedError, match="ops.agg.merge_runs_agg"):
         port.merge_runs([make_run([1], [0])], ["k"],
                         merge_engine="aggregation")

@@ -286,8 +286,8 @@ def test_time_travel_snapshot(tmp_path):
 # -- out-of-slice features raise -------------------------------------------
 
 @pytest.mark.parametrize("options, item", [
-    ({"merge-engine": "aggregation"}, "aggregation and partial-update"),
-    ({"merge-engine": "partial-update"}, "aggregation and partial-update"),
+    ({"row-tracking.enabled": "true"}, "the remaining planes"),
+    ({"scan.tag-name": "v1"}, "the remaining planes"),
     ({"bucket": "-1"}, "the remaining planes"),
     ({"deletion-vectors.enabled": "true"}, "the remaining planes"),
     ({"read.device-decode": "true"}, "device decode")])
@@ -299,6 +299,8 @@ def test_unported_table_options_raise(tmp_path, options, item):
 
 @pytest.mark.parametrize("options, item", [
     ({"changelog-producer": "input"}, "changelog producers"),
+    ({"changelog-producer": "lookup"}, "changelog producers"),
+    ({"file-index.bloom-filter.columns": "v1"}, "the remaining planes"),
     ({"tpu.mesh.compact": "true"}, "mesh compaction and rescale")])
 def test_unported_write_options_raise(tmp_path, options, item):
     table = new_table(tmp_path, pk_schema(**options))
