@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--rows N]
+    python3 chip_smoke.py [--rows N] [--c5-keys N] [--c5-commits N]
+                          [--c5-rows-per-commit N]
 
 Phases, each of which raises on failure (no result line is printed
 then):
@@ -36,7 +37,19 @@ then):
      commits of 64 columns (a sequence group of 8, a DOUBLE sum, an INT
      count, 1 row in 100 a DELETE), held against the same table run by
      the port on the CPU (exact; the float sum within rtol 1e-12), its
-     float sum bit-identical across two scans on the card.
+     float sum bit-identical across two scans on the card;
+   - changelog_lookup_upsert: BASELINE config 5 (changelog-producer=
+     lookup): a 10M-key bucket written and fully compacted, a consumer
+     on latest-full with a consumer id, 20 streaming commits of 1M
+     upserts (90% updates of live ids) with inline compaction, the
+     consumer polling after each; every poll's changelog held against
+     a numpy oracle of the state transitions, the folded stream against
+     the batch read, a restored consumer finding nothing new; it
+     reports sustained upsert rows/s, changelog latency, the stream
+     read's rows/s and where the producer's time goes (ChangelogTimer);
+   - changelog_producers_coverage: input, lookup and full-compaction at
+     256K keys x 5 commits with deletes, each held file for file
+     against the same table run by the port on the CPU.
    Each phase reports rows/s, launches, peak device memory and the
    seconds spent in segment reductions (the port's reduction entry
    point timed between two synchronisations);
@@ -55,11 +68,13 @@ then):
 6. both variants held exactly against the plain version at edge sizes
    (n from 1 to 2^21 + 4 around every boundary of the rows a thread,
    a warp and a block take, L in 1, 2, 5, 8), and with inputs that are
-   not 16-byte aligned.
+   not 16-byte aligned;
+7. the changelog diff's key ranks on the card held exactly against
+   np.unique on the host (the reference's computation), both timed.
 
-The last two lines of standard output are one JSON object per line:
-the kernels with their launches on the main path and their times
-(`device_ms` and `host_us` beside `ms`), then
+The last lines of standard output are one JSON object per line: the
+config-5 metrics, the phases, the kernels with their launches on the
+main path and their times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
 """
 
@@ -183,12 +198,14 @@ class KernelStats:
 class LaunchCapture:
     """Records what the main path hands the kernel wrapper.
 
-    For the length of the main-path run it wraps the merge's reference to
-    kernels.eq_next_mask: it counts the card's calls per (table, variant,
-    lanes, n) and keeps a host copy of the first call's inputs at each, so
-    the kernels are checked and timed afterwards on exactly those
-    inputs.  The wrapper and its launch counters are left as they are;
-    the host time spent copying is kept out of the phase times."""
+    For the length of the main-path run it wraps the references to
+    kernels.eq_next_mask held by the merge (ops/merge.py) and by the
+    changelog diff's key ranks (ops/diff.py): it counts the card's calls
+    per (table, variant, lanes, n, caller) and keeps a host copy of the
+    first call's inputs at each, so the kernels are checked and timed
+    afterwards on exactly those inputs.  The wrapper and its launch
+    counters are left as they are; the host time spent copying is kept
+    out of the phase times."""
 
     def __init__(self):
         self.cases: dict = {}
@@ -197,37 +214,41 @@ class LaunchCapture:
         self.seconds = 0.0
         self._lock = threading.Lock()
 
-    def __enter__(self):
-        from paimon_tpu_torch.ops import merge
-        self._merge = merge
-        self._kernel = merge.eq_next_mask
+    def _shim(self, caller: str):
+        kernel = self._kernel
 
         def shim(lanes, invalid, ovc_off=None, perm=None,
                  num_key_lanes=None):
             if not lanes.is_cuda:       # the CPU reference run
-                return self._kernel(lanes, invalid, ovc_off, perm,
-                                    num_key_lanes)
+                return kernel(lanes, invalid, ovc_off, perm, num_key_lanes)
             key = (self.where.split()[0],
                    "ovc" if ovc_off is not None else "plain",
-                   lanes.shape[0], lanes.shape[1])
+                   lanes.shape[0], lanes.shape[1], caller)
             with self._lock:
                 self.calls[key] = self.calls.get(key, 0) + 1
                 if key not in self.cases:
                     t0 = time.perf_counter()
                     self.cases[key] = {
-                        "where": self.where,
+                        "where": f"{self.where}, {caller}",
                         "args": tuple(None if t is None else t.cpu()
                                       for t in (lanes, invalid, ovc_off,
                                                 perm)),
                         "num_key_lanes": num_key_lanes}
                     self.seconds += time.perf_counter() - t0
-            return self._kernel(lanes, invalid, ovc_off, perm, num_key_lanes)
+            return kernel(lanes, invalid, ovc_off, perm, num_key_lanes)
+        return shim
 
-        merge.eq_next_mask = shim
+    def __enter__(self):
+        from paimon_tpu_torch.ops import diff, kernels, merge
+        self._modules = (merge, diff)
+        self._kernel = kernels.eq_next_mask
+        merge.eq_next_mask = self._shim("merge")
+        diff.eq_next_mask = self._shim("diff ranks")
         return self
 
     def __exit__(self, *exc):
-        self._merge.eq_next_mask = self._kernel
+        for module in self._modules:
+            module.eq_next_mask = self._kernel
 
 
 def needed_bytes(lanes, ovc_off, perm):
@@ -404,14 +425,15 @@ def check_kernels(captured: LaunchCapture, k1: KernelStats,
                   k2: KernelStats) -> None:
     """Every shape the main path gave each kernel, on the inputs it gave
     at that shape first; then further sizes of synthetic keys."""
-    for key in sorted(captured.cases, key=lambda k: (k[1], k[0], k[3], k[2])):
+    for key in sorted(captured.cases,
+                      key=lambda k: (k[1], k[0], k[3], k[2], k[4])):
         case = captured.cases.pop(key)
         args = tuple(None if t is None else t.cuda() for t in case["args"])
         check_case(k2 if key[1] == "ovc" else k1,
                    f"main path ({case['where']}, {captured.calls[key]} "
                    f"launches at this shape)", args,
                    case["num_key_lanes"], main_path=True,
-                   earlier_key=key[1:])
+                   earlier_key=key[1:4])
     host_breakdown(np.random.default_rng(17))
     rng = np.random.default_rng(11)
     for n in (1 << 26, (1 << 20) + 37):
@@ -665,26 +687,26 @@ class ReduceTimer:
         self._agg.Segments.__init__ = self._init
 
 
-def drive_table(path, schema, batches, check, counts, phases, capture,
-                reducer, row_kinds=None, device=None,
-                repeat_scan: bool = False) -> dict:
-    """create -> write one commit per batch -> merge-on-read scan (twice
-    with `repeat_scan`) -> compact(full=True) -> read back, on `device`
-    (None: the card); hands every read to `check(what, table)` and
-    records each phase's rows/s, kernel launches, segment-reduction
-    seconds and peak device memory.  Returns the reads by phase."""
-    import torch
+class Recorder:
+    """Runs the phases of the main path: each timed on the host clock
+    between two synchronisations of the card, with its kernel launches,
+    segment-reduction seconds and peak device memory, appended to
+    `phases` and logged."""
 
-    from paimon_tpu_torch.table import FileStoreTable
+    def __init__(self, counts, phases: list, capture: LaunchCapture,
+                 reducer: ReduceTimer):
+        self.counts = counts
+        self.phases = phases
+        self.capture = capture
+        self.reducer = reducer
 
-    rows = sum(b.num_rows for b in batches)
-    name = os.path.basename(path)
-    table = FileStoreTable.create(path, schema, device=device)
-    on_card = table.device.type == "cuda"
+    def run(self, name: str, what: str, rows: int, device, fn):
+        import torch
 
-    def phase(what, fn):
+        on_card = device.type == "cuda"
+        capture, reducer = self.capture, self.reducer
         capture.where = f"{name} {what}"
-        before = counts()
+        before = self.counts()
         copied = capture.seconds
         reduced, reduce_calls = reducer.seconds, reducer.calls
         if on_card:
@@ -695,23 +717,51 @@ def drive_table(path, schema, batches, check, counts, phases, capture,
         if on_card:
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - (capture.seconds - copied)
-        launches = tuple(a - b for a, b in zip(counts(), before))
-        rec = {"table": name, "phase": what, "device": table.device.type,
-               "rows": rows, "s": dt, "rows_per_s": rows / dt,
+        launches = tuple(a - b for a, b in zip(self.counts(), before))
+        self.add(name, what, rows, device, dt, launches,
+                 reducer.seconds - reduced, reducer.calls - reduce_calls)
+        return out
+
+    def add(self, name: str, what: str, rows: int, device, seconds: float,
+            launches, seg_reduce_s: float = 0.0, seg_reduce_calls: int = 0,
+            **extra) -> dict:
+        """Record one phase measured by the caller (peak device memory
+        since the last reset of the card's peak)."""
+        import torch
+
+        rec = {"table": name, "phase": what, "device": device.type,
+               "rows": rows, "s": seconds, "rows_per_s": rows / seconds,
                "launches_plain": launches[0], "launches_ovc": launches[1],
-               "seg_reduce_s": reducer.seconds - reduced,
-               "seg_reduce_calls": reducer.calls - reduce_calls,
+               "seg_reduce_s": seg_reduce_s,
+               "seg_reduce_calls": seg_reduce_calls,
                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
-                            if on_card else None)}
-        phases.append(rec)
+                            if device.type == "cuda" else None), **extra}
+        self.phases.append(rec)
         peak = "n/a" if rec["peak_gib"] is None \
             else f"{rec['peak_gib']:.2f} GiB"
-        log(f"  {name} {what} ({table.device.type}): {rows} rows in "
-            f"{dt:.2f} s = {rows / dt:,.0f} rows/s; launches plain="
-            f"{launches[0]} ovc={launches[1]}; segment reductions "
-            f"{rec['seg_reduce_s']:.3f} s in {rec['seg_reduce_calls']} "
-            f"calls; peak device memory {peak}")
-        return out
+        log(f"  {name} {what} ({device.type}): {rows} rows in "
+            f"{seconds:.2f} s = {rows / seconds:,.0f} rows/s; launches "
+            f"plain={launches[0]} ovc={launches[1]}; segment reductions "
+            f"{seg_reduce_s:.3f} s in {seg_reduce_calls} calls; peak "
+            f"device memory {peak}")
+        return rec
+
+
+def drive_table(path, schema, batches, check, rec: Recorder,
+                row_kinds=None, device=None,
+                repeat_scan: bool = False) -> dict:
+    """create -> write one commit per batch -> merge-on-read scan (twice
+    with `repeat_scan`) -> compact(full=True) -> read back, on `device`
+    (None: the card); hands every read to `check(what, table)` and
+    records each phase through `rec`.  Returns the reads by phase."""
+    from paimon_tpu_torch.table import FileStoreTable
+
+    rows = sum(b.num_rows for b in batches)
+    name = os.path.basename(path)
+    table = FileStoreTable.create(path, schema, device=device)
+
+    def phase(what, fn):
+        return rec.run(name, what, rows, table.device, fn)
 
     def write():
         for k, b in enumerate(batches):
@@ -851,14 +901,562 @@ def same_tables(what: str, got, want, approx=(), rtol: float = 0.0) -> None:
             raise AssertionError(f"{what}: column {name} beyond rtol {rtol}")
 
 
+# BASELINE config 5 (changelog-producer=lookup): the bucket's state, its
+# streaming commits and the share of commits that update a live id
+C5_KEYS = 10_000_000
+C5_COMMITS = 20
+C5_PER_COMMIT = 1_000_000        # one 5 s checkpoint at 200k rows/s
+C5_UPDATE_SHARE = 0.9
+C5_VALUE_COLS = ("v1", "v2", "v3")
+
+
+def rss_gib() -> float:
+    """The host's resident set of this process, GiB (/proc)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+class ChangelogTimer:
+    """Where the compaction changelog producers spend their time.
+
+    For as long as it is entered it wraps, from this script, the
+    manager's producer (MergeTreeCompactManager._produce_changelog), the
+    merges made while a producer runs (_merge_tables: the lookup
+    replay's state merges), the diff as the manager calls it
+    (keyed_changelog_diff) and the diff's two key-rank parts in
+    ops/diff.py: _encode_lanes (host lane encode) and _device_ranks
+    (upload, sort, the kernel, running count), each between two
+    synchronisations of the card.  The diff's Arrow take, value compare
+    and concatenation are its time less those two.  At the end of each
+    producer run, while the compaction's file memo is still held, it
+    samples the host's resident set."""
+
+    FIELDS = ("producer", "state_merge", "diff", "encode", "ranks")
+
+    def __init__(self):
+        self.s = {f: 0.0 for f in self.FIELDS}
+        self.calls = {f: 0 for f in self.FIELDS}
+        self.rss_max_gib = 0.0
+        self._in_producer = False
+
+    def snapshot(self) -> dict:
+        out = {f"{f}_s": v for f, v in self.s.items()}
+        out.update({f"{f}_calls": v for f, v in self.calls.items()})
+        return out
+
+    def delta(self, before: dict) -> dict:
+        now = self.snapshot()
+        out = {k: now[k] - before[k] for k in now}
+        out["arrow_s"] = out["diff_s"] - out["encode_s"] - out["ranks_s"]
+        return out
+
+    def _timed(self, field: str, fn, only_in_producer: bool = False):
+        import torch
+
+        def call(*args, **kwargs):
+            if only_in_producer and not self._in_producer:
+                return fn(*args, **kwargs)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if field == "producer":
+                self._in_producer = True
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                if field == "producer":
+                    self._in_producer = False
+                    self.rss_max_gib = max(self.rss_max_gib, rss_gib())
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.s[field] += time.perf_counter() - t0
+            self.calls[field] += 1
+            return out
+        return call
+
+    def __enter__(self):
+        from paimon_tpu_torch.compact import manager
+        from paimon_tpu_torch.ops import diff
+        mgr = manager.MergeTreeCompactManager
+        self._saved = []
+        for owner, attr, field, only in (
+                (manager, "keyed_changelog_diff", "diff", False),
+                (diff, "_encode_lanes", "encode", False),
+                (diff, "_device_ranks", "ranks", False),
+                (mgr, "_produce_changelog", "producer", False),
+                (mgr, "_merge_tables", "state_merge", True)):
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, self._timed(field, fn, only))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+
+def bigint_schema(options):
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
+    return (Schema.builder().column("id", BigIntType(False))
+            .column("v1", BigIntType()).column("v2", DoubleType())
+            .column("v3", IntType()).primary_key("id")
+            .options(options).build())
+
+
+def random_values(rng, n: int) -> dict:
+    """bench.py's value columns: v1 BIGINT, v2 DOUBLE, v3 INT."""
+    return {"v1": rng.integers(0, 1 << 40, n),
+            "v2": rng.random(n),
+            "v3": rng.integers(0, 100, n).astype(np.int32)}
+
+
+def value_table(ids: np.ndarray, vals: dict):
+    import pyarrow as pa
+    return pa.table({"id": pa.array(ids, pa.int64()),
+                     "v1": pa.array(vals["v1"], pa.int64()),
+                     "v2": pa.array(vals["v2"], pa.float64()),
+                     "v3": pa.array(vals["v3"], pa.int32())})
+
+
+class DenseState:
+    """The visible rows of a table whose ids are dense non-negative
+    integers, held in numpy: the oracle of the changelog and the fold of
+    a consumer's stream."""
+
+    def __init__(self, capacity: int):
+        self.live = np.zeros(capacity, dtype=bool)
+        self.cols = {"v1": np.zeros(capacity, np.int64),
+                     "v2": np.zeros(capacity, np.float64),
+                     "v3": np.zeros(capacity, np.int32)}
+
+    def transitions(self, ids: np.ndarray, vals: dict) -> dict:
+        """Apply one commit of upserts (the last value of an id in the
+        commit wins) and return the changelog it implies: +I for an id
+        that was not live, -U with the old row then +U with the new one
+        for a changed value, nothing for an unchanged one."""
+        order = np.argsort(ids, kind="stable")
+        s = ids[order]
+        last = order[np.r_[s[1:] != s[:-1], True]]
+        u = ids[last]
+        new = {c: v[last] for c, v in vals.items()}
+        was = self.live[u]
+        changed = was & np.any([self.cols[c][u] != new[c]
+                                for c in C5_VALUE_COLS], axis=0)
+        ins, upd = ~was, u[changed]
+        out = {"id": np.concatenate([u[ins], upd, upd]),
+               "kind": np.concatenate([
+                   np.full(int(ins.sum()), 0, np.int8),
+                   np.full(len(upd), 1, np.int8),
+                   np.full(len(upd), 2, np.int8)])}
+        for c in C5_VALUE_COLS:
+            out[c] = np.concatenate([new[c][ins], self.cols[c][upd],
+                                     new[c][changed]])
+        self.live[u] = True
+        for c in C5_VALUE_COLS:
+            self.cols[c][u] = new[c]
+        return out
+
+    def fold(self, rows: dict) -> None:
+        """Apply changelog rows in their order: an id's last row decides
+        (+I/+U sets the row, -U/-D removes it)."""
+        ids = rows["id"]
+        _, first_rev = np.unique(ids[::-1], return_index=True)
+        last = len(ids) - 1 - first_rev
+        u, kinds = ids[last], rows["kind"][last]
+        keep = (kinds == 0) | (kinds == 2)
+        self.live[u[~keep]] = False
+        self.live[u[keep]] = True
+        for c in C5_VALUE_COLS:
+            self.cols[c][u[keep]] = rows[c][last][keep]
+
+    def rows(self) -> dict:
+        ids = np.flatnonzero(self.live)
+        return {"id": ids, **{c: v[ids] for c, v in self.cols.items()}}
+
+
+def arrow_rows(t) -> dict:
+    """Column arrays of a stream read: id, the values, kind, sequence."""
+    from paimon_tpu_torch.core.read import ROW_KIND_COL
+    from paimon_tpu_torch.ops.merge import SEQ_COL
+    out = {c: t.column(c).combine_chunks().to_numpy()
+           for c in ("id",) + C5_VALUE_COLS}
+    out["kind"] = t.column(ROW_KIND_COL).combine_chunks().to_numpy()
+    out["seq"] = t.column(SEQ_COL).combine_chunks().to_numpy()
+    return out
+
+
+def same_multiset(what: str, got: dict, want: dict) -> None:
+    """Equal rows (kind, id, values) counted with multiplicity."""
+    cols = ("kind", "id") + C5_VALUE_COLS
+    if len(got["id"]) != len(want["id"]):
+        raise AssertionError(f"{what}: {len(got['id'])} changelog rows, "
+                             f"oracle {len(want['id'])}")
+    og = np.lexsort([got[c] for c in reversed(cols)])
+    ow = np.lexsort([want[c] for c in reversed(cols)])
+    for c in cols:
+        if not np.array_equal(got[c][og], want[c][ow]):
+            raise AssertionError(f"{what}: column {c} differs from the "
+                                 f"oracle")
+
+
+def check_adjacent_updates(what: str, rows: dict) -> None:
+    """Every -U directly followed by the +U of the same id, and no +U
+    without its -U."""
+    kinds, ids = rows["kind"], rows["id"]
+    ub = np.flatnonzero(kinds == 1)
+    nxt = ub + 1
+    if (nxt >= len(kinds)).any() or not (kinds[nxt] == 2).all() or \
+            not (ids[nxt] == ids[ub]).all() or \
+            int((kinds == 2).sum()) != len(ub):
+        raise AssertionError(f"{what}: a -U is not directly followed by "
+                             f"its +U")
+
+
+def latency_stats(seconds: list, commits: list) -> dict:
+    """p50 and max of the changelog latencies, in seconds and in commits
+    (None where no commit's changelog arrived within the loop)."""
+    out = {}
+    for unit, values in (("s", seconds), ("commits", commits)):
+        out[f"latency_{unit}_p50"] = \
+            float(np.percentile(values, 50)) if values else None
+        out[f"latency_{unit}_max"] = max(values) if values else None
+    return out
+
+
+def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
+                            keys: int = C5_KEYS, commits: int = C5_COMMITS,
+                            per_commit: int = C5_PER_COMMIT,
+                            device=None) -> dict:
+    """BASELINE config 5 at full size: a `keys`-row bucket (ids 0 ..
+    keys-1) written as one commit and fully compacted (the first
+    changelog: every row +I), a consumer on the default startup mode
+    (latest-full) with a consumer id, then `commits` streaming commits
+    of `per_commit` upserts (each an update of a live id with
+    probability C5_UPDATE_SHARE, else a new id; values from seed 7)
+    with inline compaction, the consumer polling after each until it is
+    caught up.  Every poll's changelog is held against a numpy oracle of
+    the state transitions, the folded stream against the batch read,
+    and a restored consumer must find nothing new.  Returns the
+    config's metrics."""
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "changelog_lookup_upsert"
+    table = FileStoreTable.create(os.path.join(work, name), bigint_schema({
+        "bucket": "1", "parquet.enable.dictionary": "false",
+        "changelog-producer": "lookup"}), device=device)
+    dev = table.device
+    capture = rec.capture
+    rng = np.random.default_rng(7)
+    capacity = keys + commits * per_commit
+    oracle = DenseState(capacity)
+    ids = np.arange(keys, dtype=np.int64)
+    vals = random_values(rng, keys)
+    oracle.transitions(ids, vals)
+
+    def write_state():
+        wb = table.new_batch_write_builder()
+        with wb.new_write() as w:
+            w.write_arrow(value_table(ids, vals))
+            wb.new_commit().commit(w.prepare_commit())
+
+    rec.run(name, "state write", keys, dev, write_state)
+    t_before = timer.snapshot()
+    if rec.run(name, "state full compaction", keys, dev,
+               lambda: table.compact(full=True)) is None:
+        raise AssertionError(f"{name}: the full compaction committed "
+                             f"nothing")
+    state_split = timer.delta(t_before)
+    first_cl = table.latest_snapshot().changelog_record_count
+    if first_cl != keys:
+        raise AssertionError(f"{name}: the first changelog holds "
+                             f"{first_cl} rows, expected {keys} +I")
+    del ids, vals
+
+    consumer = table.copy({"consumer-id": "config5",
+                           "table-read.sequence-number.enabled": "true"})
+    rb = consumer.new_read_builder()
+    scan, read = rb.new_stream_scan(), rb.new_read()
+    first = arrow_rows(rec.run(name, "stream first plan (latest-full)",
+                               keys, dev, lambda: read.to_arrow(scan.plan())))
+    scan.notify_checkpoint_complete(scan.checkpoint())
+    want = oracle.rows()
+    order = np.argsort(first["id"], kind="stable")
+    if (first["kind"] != 0).any() or not all(
+            np.array_equal(first[c][order], want[c])
+            for c in ("id",) + C5_VALUE_COLS):
+        raise AssertionError(f"{name}: the first plan is not the state "
+                             f"as +I")
+    fold = DenseState(capacity)
+    fold.fold(first)
+    del first, want, order
+
+    seq0 = keys                      # the first streaming row's sequence
+    expected: dict = {}
+    commit_done: dict = {}
+    delivered: dict = {}             # commit -> (poll time, at commit)
+    stats = {"cycle_s": [], "poll_s": 0.0, "poll_rows": 0, "polls": 0,
+             "changelog_snapshots": 0}
+
+    def poll(at: int) -> None:
+        """Poll until caught up; check each plan's changelog and fold
+        it into the consumer's state."""
+        while True:
+            t0 = time.perf_counter()
+            plan = scan.plan()
+            if plan is None:
+                stats["poll_s"] += time.perf_counter() - t0
+                return
+            got = read.to_arrow(plan)
+            scan.notify_checkpoint_complete(scan.checkpoint())
+            t1 = time.perf_counter()
+            stats["poll_s"] += t1 - t0
+            stats["polls"] += 1
+            stats["poll_rows"] += got.num_rows
+            if not got.num_rows:
+                continue
+            rows = arrow_rows(got)
+            stats["changelog_snapshots"] += 1
+            newer = (rows["kind"] == 0) | (rows["kind"] == 2)
+            covered = np.unique((rows["seq"][newer] - seq0) // per_commit
+                                + 1)
+            what = f"{name} snapshot {plan.snapshot_id}"
+            if covered.min() < 1 or covered.max() > at or \
+                    any(int(c) in delivered for c in covered):
+                raise AssertionError(f"{what}: changelog of commits "
+                                     f"{covered.tolist()} at commit {at}")
+            want = [expected.pop(int(c)) for c in covered]
+            same_multiset(what, rows, {c: np.concatenate([w[c] for w in want])
+                                       for c in want[0]})
+            check_adjacent_updates(what, rows)
+            for c in covered:
+                delivered[int(c)] = (t1, at)
+            fold.fold(rows)
+
+    writer_builder = table.new_stream_write_builder() \
+        .with_commit_user("config5")
+    writer, committer = writer_builder.new_write(), writer_builder.new_commit()
+    live = keys
+    launches_before = rec.counts()
+    t_before = timer.snapshot()
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    capture.where = f"{name} upsert"
+    try:
+        for k in range(1, commits + 1):
+            update = rng.random(per_commit) < C5_UPDATE_SHARE
+            ids = np.empty(per_commit, dtype=np.int64)
+            ids[update] = rng.integers(0, live, int(update.sum()))
+            fresh = per_commit - int(update.sum())
+            ids[~update] = live + np.arange(fresh)
+            live += fresh
+            vals = random_values(rng, per_commit)
+            expected[k] = oracle.transitions(ids, vals)
+            batch = value_table(ids, vals)
+            copied = capture.seconds
+            t0 = time.perf_counter()
+            writer.write_arrow(batch)
+            committer.commit(writer.prepare_commit(), commit_identifier=k)
+            commit_done[k] = time.perf_counter()
+            stats["cycle_s"].append(commit_done[k] - t0
+                                    - (capture.seconds - copied))
+            poll(k)
+    finally:
+        writer.close()
+    upsert_split = timer.delta(t_before)
+    launches = tuple(a - b for a, b in zip(rec.counts(), launches_before))
+    upserts = commits * per_commit
+    upsert_s = float(sum(stats["cycle_s"]))
+    rec.add(name, f"upsert ({commits} streaming commits, inline "
+            f"compaction)", upserts, dev, upsert_s, launches,
+            **{f"changelog_{k}": v for k, v in upsert_split.items()})
+    rec.add(name, "stream read (changelog polls)", stats["poll_rows"], dev,
+            stats["poll_s"], (0, 0))
+
+    lat_s = [delivered[k][0] - commit_done[k] for k in sorted(delivered)]
+    lat_commits = [delivered[k][1] - k for k in sorted(delivered)]
+    pending = [k for k in range(1, commits + 1) if k not in delivered]
+    # the commits still in L0 get their changelog from one more full
+    # compaction (outside the latency figures)
+    rec.run(name, "final full compaction", live, dev,
+            lambda: table.compact(full=True))
+    poll(commits)
+    if expected:
+        raise AssertionError(f"{name}: no changelog for commits "
+                             f"{sorted(expected)}")
+    batch_read = table.to_arrow()
+    want = fold.rows()
+    order = np.argsort(batch_read.column("id").to_numpy(), kind="stable")
+    if batch_read.num_rows != len(want["id"]) or not all(
+            np.array_equal(batch_read.column(c).combine_chunks()
+                           .to_numpy()[order], want[c])
+            for c in ("id",) + C5_VALUE_COLS):
+        raise AssertionError(f"{name}: the folded stream differs from the "
+                             f"batch read")
+    if not all(np.array_equal(want[c], v) for c, v in oracle.rows().items()):
+        raise AssertionError(f"{name}: the folded stream differs from the "
+                             f"oracle")
+    restored = rb.new_stream_scan()
+    restored.restore(scan.checkpoint())
+    if restored.plan() is not None or rb.new_stream_scan().plan() \
+            is not None:
+        raise AssertionError(f"{name}: a restored consumer found new rows")
+    out = {
+        "keys": keys, "commits": commits, "rows_per_commit": per_commit,
+        "upsert_rows_per_s": upserts / upsert_s,
+        "upsert_s": upsert_s, "cycle_s": stats["cycle_s"],
+        **latency_stats(lat_s, lat_commits),
+        "delivered_in_loop": len(lat_s), "pending_at_end": pending,
+        "stream_read_rows_per_s": stats["poll_rows"] / stats["poll_s"],
+        "stream_read_rows": stats["poll_rows"], "polls": stats["polls"],
+        "changelog_snapshots": stats["changelog_snapshots"],
+        "state_compaction_split": state_split,
+        "upsert_split": upsert_split,
+        "host_rss_max_gib": timer.rss_max_gib,
+        "live_keys_at_end": len(want["id"])}
+    latency = (f"p50 {out['latency_s_p50']:.2f} s / "
+               f"{out['latency_commits_p50']:.1f} commits, max "
+               f"{out['latency_s_max']:.2f} s / "
+               f"{out['latency_commits_max']} commits" if lat_s
+               else "none within the loop")
+    log(f"  {name}: {upserts / upsert_s:,.0f} upsert rows/s over "
+        f"{commits} commits; changelog latency {latency} ({len(pending)} "
+        f"commits pending at the end); stream read "
+        f"{out['stream_read_rows_per_s']:,.0f} rows/s; diffs "
+        f"{upsert_split['diff_s']:.2f} s = encode "
+        f"{upsert_split['encode_s']:.2f} + device ranks "
+        f"{upsert_split['ranks_s']:.2f} + Arrow "
+        f"{upsert_split['arrow_s']:.2f}; state merges "
+        f"{upsert_split['state_merge_s']:.2f} s; host RSS max "
+        f"{timer.rss_max_gib:.2f} GiB; checks passed")
+    table.file_io.delete(table.path, recursive=True)
+    return out
+
+
+def check_joint_ranks(n: int = 1 << 21, seed: int = 23) -> dict:
+    """The diff's key ranks on the card against their plain numpy
+    version (np.unique over the lanes, the reference's computation) on
+    the host, on three tables shaped like a lookup replay's before,
+    after and delta (key-sorted BIGINT ids, n rows in all): equal
+    exactly, and both timed on the host clock."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch.ops import diff
+    from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
+
+    rng = np.random.default_rng(seed)
+    state = np.sort(rng.choice(4 * n, n * 9 // 20, replace=False))
+    delta = np.sort(rng.choice(4 * n, n // 10, replace=False))
+    tables = [pa.table({"_KEY_id": pa.array(k, pa.int64())})
+              for k in (state, np.union1d(state, delta), delta)]
+    enc = NormalizedKeyEncoder([pa.int64()], nullable=[False])
+    rows = sum(t.num_rows for t in tables)
+    diff.joint_key_ranks(tables, ["_KEY_id"], enc)          # warm
+    t0 = time.perf_counter()
+    got = diff.joint_key_ranks(tables, ["_KEY_id"], enc)
+    t1 = time.perf_counter()
+    want = diff.joint_key_ranks_plain(tables, ["_KEY_id"], enc)
+    t2 = time.perf_counter()
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("joint key ranks: card != np.unique")
+    out = {"rows": rows, "card_s": t1 - t0, "plain_host_s": t2 - t1}
+    log(f"joint key ranks of {rows} rows: card == np.unique; card "
+        f"{out['card_s']:.3f} s (encode, upload, sort, kernel, download), "
+        f"np.unique on the host {out['plain_host_s']:.3f} s")
+    return out
+
+
+def changelog_files(table) -> dict:
+    """{snapshot id: [each changelog file's rows as Arrow, in manifest
+    order]}, read with pyarrow alone."""
+    import pyarrow.parquet as pq
+    scan = table.new_scan()
+    out = {}
+    for snap in table.snapshot_manager.snapshots():
+        files = [pq.read_table(scan.path_factory.data_file_path(
+                     s.partition, s.bucket, f.file_name))
+                 for s in scan.plan_changelog(snap).splits
+                 for f in s.data_files]
+        if files:
+            out[snap.id] = files
+    return out
+
+
+def coverage_producer(path: str, producer: str, device, keys: int = 1 << 18,
+                      commits: int = 5, seed: int = 7):
+    """One producer at coverage size: `commits` streaming commits (inline
+    compaction on), each every key in a random order with random values
+    and 1 row in 100 a DELETE, then a full compaction.  Returns (the
+    changelog files by snapshot, the batch read)."""
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import RowKind
+
+    table = FileStoreTable.create(path, bigint_schema({
+        "bucket": "1", "parquet.enable.dictionary": "false",
+        "changelog-producer": producer}), device=device)
+    rng = np.random.default_rng(seed)
+    wb = table.new_stream_write_builder().with_commit_user("coverage")
+    with wb.new_write() as w:
+        c = wb.new_commit()
+        for k in range(1, commits + 1):
+            kinds = np.where(rng.random(keys) < 0.01, RowKind.DELETE,
+                             RowKind.INSERT).astype(np.int8)
+            w.write_arrow(value_table(rng.permutation(keys),
+                                      random_values(rng, keys)), kinds)
+            c.commit(w.prepare_commit(), commit_identifier=k)
+    table.compact(full=True)
+    return changelog_files(table), table.to_arrow()
+
+
+def changelog_producers_coverage(work: str, rec: Recorder) -> None:
+    """input, lookup and full-compaction on the card, each held against
+    the same table run by the port on the CPU: the changelog files of
+    every snapshot, file for file and row for row, and the batch read."""
+    import torch
+
+    name = "changelog_producers_coverage"
+    for producer in ("input", "lookup", "full-compaction"):
+        card = rec.run(name, producer, 5 << 18, torch.device("cuda"),
+                       lambda: coverage_producer(
+                           os.path.join(work, f"cov-{producer}-card"),
+                           producer, None))
+        cpu = coverage_producer(os.path.join(work, f"cov-{producer}-cpu"),
+                                producer, "cpu")
+        what = f"{name} {producer}"
+        if not card[0] or sorted(card[0]) != sorted(cpu[0]):
+            raise AssertionError(f"{what}: changelog snapshots "
+                                 f"{sorted(card[0])} vs cpu "
+                                 f"{sorted(cpu[0])}")
+        for sid in card[0]:
+            a, b = card[0][sid], cpu[0][sid]
+            if len(a) != len(b) or not all(x.equals(y)
+                                           for x, y in zip(a, b)):
+                raise AssertionError(f"{what}: the changelog of snapshot "
+                                     f"{sid} differs from the cpu run")
+        if not card[1].equals(cpu[1]):
+            raise AssertionError(f"{what}: the batch read differs from the "
+                                 f"cpu run")
+        rows = sum(t.num_rows for f in card[0].values() for t in f)
+        log(f"  {what}: card == cpu: {len(card[0])} changelog snapshots, "
+            f"{rows} changelog rows, batch read of {card[1].num_rows} rows")
+        for d in ("card", "cpu"):
+            shutil.rmtree(os.path.join(work, f"cov-{producer}-{d}"),
+                          ignore_errors=True)
+
+
 def main_path(rows: int, phases: list, capture: LaunchCapture,
-              reducer: ReduceTimer) -> tuple:
+              reducer: ReduceTimer, timer: ChangelogTimer,
+              c5: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
     from paimon_tpu_torch.ops import kernels
-    from paimon_tpu_torch.types import BigIntType, DoubleType, IntType, \
-        VarCharType
+    from paimon_tpu_torch.types import BigIntType, VarCharType
 
     def counts():
         return (kernels.EQ_NEXT_LAUNCHES - kernels.EQ_NEXT_OVC_LAUNCHES,
@@ -866,20 +1464,27 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
 
     totals = [0, 0]
     work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
+    rec = Recorder(counts, phases, capture, reducer)
 
-    def drive(name, schema, batches, check, **kw):
+    def path(name, fn):
         """One path of the main path on the card: the launch counts set
         to 0 just before it and read just after."""
         kernels.EQ_NEXT_LAUNCHES = 0
         kernels.EQ_NEXT_OVC_LAUNCHES = 0
-        out = drive_table(os.path.join(work, name), schema, batches, check,
-                          counts, phases, capture, reducer, **kw)
+        out = fn()
         launched = counts()
-        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
         totals[0] += launched[0]
         totals[1] += launched[1]
         log(f"  {name}: launches plain={launched[0]} ovc={launched[1]}")
         return out
+
+    def drive(name, schema, batches, check, **kw):
+        def run():
+            out = drive_table(os.path.join(work, name), schema, batches,
+                              check, rec, **kw)
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+            return out
+        return path(name, run)
 
     try:
         batches = bigint_batches(rows)
@@ -894,13 +1499,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         base = {"bucket": "1", "write-only": "true",
                 "parquet.enable.dictionary": "false"}
 
-        def bigint_schema(options):
-            return (Schema.builder().column("id", BigIntType(False))
-                    .column("v1", BigIntType()).column("v2", DoubleType())
-                    .column("v3", IntType()).primary_key("id")
-                    .options(options).build())
-
-        with capture, reducer:
+        with capture, reducer, timer:
             drive("dedup_bigint", bigint_schema(base), batches,
                   lambda what, got: check_rows(what, got, cols, win, "id"))
             # BASELINE config 4 (bench.py BENCH_SHAPE=config4): the same
@@ -946,9 +1545,14 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                          pu_check, row_kinds=pu_kinds, repeat_scan=True)
             # the same table run by the port on the CPU, as its reference
             cpu = drive_table(os.path.join(work, "partial_update_cpu"),
-                              pu_schema, pu_batches, pu_check, counts,
-                              phases, capture, reducer, row_kinds=pu_kinds,
-                              device="cpu")
+                              pu_schema, pu_batches, pu_check, rec,
+                              row_kinds=pu_kinds, device="cpu")
+            # BASELINE config 5: changelog-producer=lookup
+            c5.update(path("changelog_lookup_upsert",
+                           lambda: changelog_lookup_upsert(
+                               work, rec, timer, **c5)))
+            path("changelog_producers_coverage",
+                 lambda: changelog_producers_coverage(work, rec))
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -976,6 +1580,11 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                 raise AssertionError(f"agg_sum_max_orc {p['phase']}: the "
                                      f"offset-value-code variant did not "
                                      f"launch")
+        for caller in ("merge", "diff ranks"):
+            if not any(k[0] == "changelog_lookup_upsert" and k[4] == caller
+                       for k in capture.calls):
+                raise AssertionError(f"changelog_lookup_upsert: no kernel "
+                                     f"launch from the {caller}")
         if totals[0] == 0 or totals[1] == 0:
             raise AssertionError(f"a kernel was not launched on the main "
                                  f"path: {totals}")
@@ -988,6 +1597,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
                     help="rows of the main-path table (10 commits)")
+    ap.add_argument("--c5-keys", type=int, default=C5_KEYS,
+                    help="keys of the config-5 bucket")
+    ap.add_argument("--c5-commits", type=int, default=C5_COMMITS,
+                    help="streaming commits of config 5")
+    ap.add_argument("--c5-rows-per-commit", type=int, default=C5_PER_COMMIT,
+                    help="upserts in each config-5 commit")
     args = ap.parse_args()
 
     import torch
@@ -1008,7 +1623,10 @@ def main() -> int:
     check_segment_reductions()
     phases: list = []
     capture = LaunchCapture()
-    launches = main_path(args.rows, phases, capture, ReduceTimer())
+    c5 = {"keys": args.c5_keys, "commits": args.c5_commits,
+          "per_commit": args.c5_rows_per_commit}
+    launches = main_path(args.rows, phases, capture, ReduceTimer(),
+                         ChangelogTimer(), c5)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -1017,6 +1635,8 @@ def main() -> int:
         f"lanes {EDGE_LANES}, aligned and shifted by 4 bytes)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    c5["joint_ranks"] = check_joint_ranks()
+    print(json.dumps({"changelog_lookup_upsert": c5}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),
                                   k2.record(launches[1])]}))

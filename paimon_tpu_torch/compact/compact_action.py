@@ -58,7 +58,8 @@ def compact_table(table, full: bool = False,
             partition=partition, bucket=bucket,
             total_buckets=total_buckets[(pbytes, bucket)],
             compact_before=result.before,
-            compact_after=result.after))
+            compact_after=result.after,
+            compact_changelog=result.changelog))
 
     if not messages:
         return None

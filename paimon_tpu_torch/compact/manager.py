@@ -1,7 +1,8 @@
 """Compaction manager + rewriter for one (partition, bucket).
 
-Counterpart of paimon_tpu/compact/manager.py without changelog
-producers; every merge runs on the manager's torch device.
+Counterpart of paimon_tpu/compact/manager.py; every merge, and the key
+ranks of every changelog diff (ops/diff.py), run on the manager's torch
+device.
 
 reference: mergetree/compact/MergeTreeCompactManager.java:54
 (triggerCompaction:136, submitCompaction:211), MergeTreeCompactTask.java:41
@@ -17,7 +18,7 @@ files. Drop-delete applies when the output is the highest non-empty level.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import pyarrow as pa
@@ -27,12 +28,15 @@ from paimon_tpu_torch.compact.levels import Levels
 from paimon_tpu_torch.compact.universal import (
     CompactUnit, UniversalCompaction, pick_full_compaction,
 )
-from paimon_tpu_torch.core.kv_file import KEY_PREFIX, KeyValueFileWriter, read_kv_file
+from paimon_tpu_torch.core.kv_file import (
+    KEY_PREFIX, KeyValueFileWriter, read_kv_file, write_changelog_file,
+)
 from paimon_tpu_torch.core.read import assemble_runs
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta, FileSource
-from paimon_tpu_torch.options import CoreOptions, MergeEngine
+from paimon_tpu_torch.options import ChangelogProducer, CoreOptions, MergeEngine
 from paimon_tpu_torch.ops.agg import merge_runs_agg
+from paimon_tpu_torch.ops.diff import keyed_changelog_diff
 from paimon_tpu_torch.ops.merge import KIND_COL, merge_runs
 from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
 from paimon_tpu_torch.schema.table_schema import TableSchema
@@ -46,9 +50,10 @@ __all__ = ["MergeTreeCompactManager", "CompactResult"]
 class CompactResult:
     before: List[DataFileMeta]
     after: List[DataFileMeta]
+    changelog: List[DataFileMeta] = field(default_factory=list)
 
     def is_empty(self) -> bool:
-        return not self.before and not self.after
+        return not self.before and not self.after and not self.changelog
 
 
 def _prefetch(it, depth: int = 2):
@@ -110,6 +115,7 @@ class MergeTreeCompactManager:
         self.bucket = bucket
         self.schema_manager = schema_manager
         self._schema_cache = {schema.id: schema}
+        self._file_cache: dict = {}
         self.levels = Levels(files, options.num_levels)
         self.strategy = UniversalCompaction(
             max_size_amp=options.max_size_amplification_percent,
@@ -165,7 +171,12 @@ class MergeTreeCompactManager:
     def do_compact(self, unit: CompactUnit) -> CompactResult:
         """reference MergeTreeCompactTask.doCompact:83."""
         files = unit.files
-        # upgrade fast path: single file, no rewrite needed
+        producer = self.options.changelog_producer
+        # upgrade fast path: single file, no rewrite needed. Both
+        # compaction changelog producers must force a rewrite instead:
+        # lookup for any L0 promotion (its keys were never changelog'd),
+        # full-compaction when promoting INTO the top level (reference
+        # FullChangelogMergeTreeCompactRewriter.upgradeChangelog)
         force_rewrite = self.options.get(
             CoreOptions.COMPACTION_FORCE_REWRITE_ALL_FILES)
         if len(files) == 1 and not force_rewrite:
@@ -173,13 +184,17 @@ class MergeTreeCompactManager:
             if f.level == unit.output_level:
                 return CompactResult([], [])
             blocked = (
+                (producer == ChangelogProducer.LOOKUP and f.level == 0)
+                or (producer == ChangelogProducer.FULL_COMPACTION
+                    and unit.output_level == self.levels.max_level
+                    and f.level == 0)
                 # deferred-merge engines (partial-update / aggregation)
                 # sort but do NOT merge at L0 flush (core/write.py flush),
                 # so an L0 file may hold several versions of one key;
                 # promoting it without rewrite would let raw-convertible
                 # reads surface the duplicates
-                (f.level == 0 and self.options.merge_engine in
-                 (MergeEngine.PARTIAL_UPDATE, MergeEngine.AGGREGATE))
+                or (f.level == 0 and self.options.merge_engine in
+                    (MergeEngine.PARTIAL_UPDATE, MergeEngine.AGGREGATE))
                 # file.format.per.level: a metadata-only promotion would
                 # carry the wrong format into the target level
                 # (reference upgrade rewrites on format change)
@@ -201,7 +216,7 @@ class MergeTreeCompactManager:
         total_rows = sum(f.row_count for f in files)
         threshold = self.options.get(
             CoreOptions.MERGE_STREAM_THRESHOLD_ROWS)
-        if total_rows > threshold:
+        if producer == ChangelogProducer.NONE and total_rows > threshold:
             # bounded-memory path: stream key windows through the kernel
             after = self._rewrite_streamed(files, unit.output_level,
                                            drop_delete)
@@ -210,7 +225,8 @@ class MergeTreeCompactManager:
         after = self.kv_writer.write(self.partition, self.bucket, merged,
                                      level=unit.output_level,
                                      file_source=FileSource.COMPACT)
-        return CompactResult(list(files), after)
+        changelog = self._produce_changelog(unit, merged, drop_delete)
+        return CompactResult(list(files), after, changelog)
 
     def _rewrite_streamed(self, files: List[DataFileMeta],
                           output_level: int,
@@ -323,31 +339,110 @@ class MergeTreeCompactManager:
                 out.extend(f.result())
         return out
 
+    # -- changelog producers -------------------------------------------------
+
+    def _produce_changelog(self, unit: CompactUnit, merged: pa.Table,
+                           drop_delete: bool) -> List[DataFileMeta]:
+        producer = self.options.changelog_producer
+        value_cols = [f.name for f in self.schema.fields]
+        cl = None
+        if producer == ChangelogProducer.FULL_COMPACTION and \
+                unit.output_level == self.levels.max_level:
+            # diff previous top level vs the new full result
+            # (reference FullChangelogMergeTreeCompactRewriter)
+            top = self.levels.levels.get(self.levels.max_level)
+            before = self._merged_state(top.files) \
+                if top and top.files else None
+            live = merged if drop_delete else self._live_view(merged)
+            cl = keyed_changelog_diff(before, live, self.key_cols,
+                                      self.key_encoder, value_cols,
+                                      device=self.device)
+        elif producer == ChangelogProducer.LOOKUP:
+            # the reference's lookup producer changelogs EVERY commit
+            # (LookupChangelogMergeFunctionWrapper.java:54); batched at
+            # compaction time, completeness demands replaying the L0
+            # deltas in commit order against an evolving state — one
+            # aggregate before/after diff would silently swallow a key
+            # that was inserted AND deleted between two compactions
+            # (its +I was visible to any from-snapshot-full consumer)
+            l0 = sorted((f for f in unit.files if f.level == 0),
+                        key=lambda f: (f.max_sequence_number,
+                                       f.min_sequence_number))
+            if l0:
+                all_files = self.levels.all_files()
+                self._read_runs(l0, flatten=True)   # warm via the pool
+                state = self._merged_state(
+                    [f for f in all_files if f.level > 0])
+                pieces = []
+                for f in l0:
+                    delta = self._read_runs([f], flatten=True)[0]
+                    runs = ([state] if state is not None and
+                            state.num_rows else []) + [delta]
+                    # ENGINE-AWARE replay: the evolving state must merge
+                    # exactly like the table (partial-update/aggregation
+                    # fold, not last-write-wins)
+                    new_state = self._merge_tables(runs,
+                                                   drop_deletes=True)
+                    piece = keyed_changelog_diff(
+                        state, new_state, self.key_cols,
+                        self.key_encoder, value_cols,
+                        restrict_table=delta, device=self.device)
+                    if piece.num_rows:
+                        pieces.append(piece)
+                    state = new_state
+                if pieces:
+                    cl = pa.concat_tables(pieces,
+                                          promote_options="none")
+        if cl is None or cl.num_rows == 0:
+            return []
+        return write_changelog_file(
+            self.file_io, self.path_factory, self.schema,
+            self.options.changelog_file_format,
+            self.options.changelog_file_compression,
+            self.partition, self.bucket, cl,
+            prefix=self.options.changelog_file_prefix,
+            format_options=self.options.format_options)
+
     # -- merged-state helpers ------------------------------------------------
 
     def _read_file(self, f: DataFileMeta) -> pa.Table:
-        """Read+evolve one data file."""
+        """Read+evolve one data file, memoized: changelog producers walk
+        overlapping file sets (unit, levels>0, all, L0), so each file is
+        decoded at most once per compaction."""
         from paimon_tpu_torch.core.read import evolve_table
 
+        cached = self._file_cache.get(f.file_name)
+        if cached is not None:
+            return cached
         raw = read_kv_file(self.file_io, self.path_factory, self.partition,
                            self.bucket, f)
-        return evolve_table(raw, f.schema_id, self.schema,
-                            self.schema_manager, self._schema_cache,
-                            keep_sys_cols=True)
+        t = evolve_table(raw, f.schema_id, self.schema,
+                         self.schema_manager, self._schema_cache,
+                         keep_sys_cols=True)
+        self._file_cache[f.file_name] = t
+        return t
 
-    def _read_runs(self, files: List[DataFileMeta]) -> List[pa.Table]:
+    def _read_runs(self, files: List[DataFileMeta],
+                   flatten: bool = False) -> List[pa.Table]:
         runs_meta = assemble_runs(files)
-        # parquet decode releases the GIL: fan the file reads over a
-        # small thread pool
+        # parquet decode releases the GIL: fan the uncached file reads
+        # over a small thread pool
         flat = [f for rf in runs_meta for f in rf]
-        with ThreadPoolExecutor(max_workers=min(8, len(flat))) as pool:
-            decoded = dict(zip((f.file_name for f in flat),
-                               pool.map(self._read_file, flat)))
+        uncached = [f for f in flat
+                    if f.file_name not in self._file_cache]
+        if len(uncached) > 1:
+            with ThreadPoolExecutor(
+                    max_workers=min(8, len(uncached))) as pool:
+                list(pool.map(self._read_file, uncached))
         runs = []
         for run_files in runs_meta:
-            tables = [decoded[f.file_name] for f in run_files]
-            runs.append(pa.concat_tables(tables, promote_options="none")
-                        if len(tables) > 1 else tables[0])
+            tables = [self._read_file(f) for f in run_files]
+            if flatten:
+                runs.extend(tables)
+            else:
+                runs.append(pa.concat_tables(tables,
+                                             promote_options="none")
+                            if len(tables) > 1 else tables[0])
         return runs
 
     def _live_view(self, merged: pa.Table) -> pa.Table:

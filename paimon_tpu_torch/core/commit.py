@@ -1,7 +1,7 @@
 """FileStoreCommit: two-phase snapshot commit with optimistic retry.
 
-Counterpart of paimon_tpu/core/commit.py without changelog manifests,
-row tracking and request deadlines (not ported yet).
+Counterpart of paimon_tpu/core/commit.py without row tracking, index
+manifests and request deadlines (not ported yet).
 
 reference: operation/FileStoreCommitImpl.java:139 (javadoc :122-132:
 conflict check -> CAS publish; tryCommit retry loop :756), conflict
@@ -73,16 +73,23 @@ class FileStoreCommit:
                commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
                kind: Optional[str] = None,
                properties: Optional[Dict[str, str]] = None,
-               force_create: bool = False) -> Optional[int]:
+               force_create: bool = False,
+               watermark: Optional[int] = None) -> Optional[int]:
         """Commit append + compact changes. Returns snapshot id (or None if
         nothing to commit). Append and compact deltas are committed as
-        separate snapshots like the reference (APPEND then COMPACT)."""
+        separate snapshots like the reference (APPEND then COMPACT), each
+        with its own changelog manifest."""
         append_entries: List[ManifestEntry] = []
         compact_entries: List[ManifestEntry] = []
+        changelog_entries: List[ManifestEntry] = []
+        compact_changelog_entries: List[ManifestEntry] = []
         for msg in messages:
             pbytes = self._partition_codec.to_bytes(msg.partition)
             for f in msg.new_files:
                 append_entries.append(ManifestEntry(
+                    FileKind.ADD, pbytes, msg.bucket, msg.total_buckets, f))
+            for f in msg.changelog_files:
+                changelog_entries.append(ManifestEntry(
                     FileKind.ADD, pbytes, msg.bucket, msg.total_buckets, f))
             for f in msg.compact_before:
                 compact_entries.append(ManifestEntry(
@@ -91,6 +98,9 @@ class FileStoreCommit:
             for f in msg.compact_after:
                 compact_entries.append(ManifestEntry(
                     FileKind.ADD, pbytes, msg.bucket, msg.total_buckets, f))
+            for f in msg.compact_changelog:
+                compact_changelog_entries.append(ManifestEntry(
+                    FileKind.ADD, pbytes, msg.bucket, msg.total_buckets, f))
 
         last_id = None
         force_empty = (
@@ -98,14 +108,18 @@ class FileStoreCommit:
             self.options.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT) or
             self.options.get(
                 CoreOptions.SNAPSHOT_IGNORE_EMPTY_COMMIT) is False)
-        if append_entries or (force_empty and not compact_entries):
+        if append_entries or changelog_entries or \
+                (force_empty and not compact_entries):
             last_id = self._try_commit(
-                append_entries, commit_identifier,
-                kind or CommitKind.APPEND, properties=properties)
-        if compact_entries:
+                append_entries, changelog_entries, commit_identifier,
+                kind or CommitKind.APPEND, properties=properties,
+                watermark=watermark)
+        if compact_entries or compact_changelog_entries:
             last_id = self._try_commit(
-                compact_entries, commit_identifier, CommitKind.COMPACT,
-                check_deleted_files=True, properties=properties)
+                compact_entries, compact_changelog_entries,
+                commit_identifier, CommitKind.COMPACT,
+                check_deleted_files=True, properties=properties,
+                watermark=watermark)
         return last_id
 
     def overwrite(self, messages: Sequence[CommitMessage],
@@ -139,8 +153,18 @@ class FileStoreCommit:
                         e.total_buckets, e.file))
             return entries + adds
 
-        return self._try_commit([], commit_identifier,
+        return self._try_commit([], [], commit_identifier,
                                 CommitKind.OVERWRITE, entries_fn=entries_fn)
+
+    def filter_committed(self, commit_identifiers: Sequence[int]
+                         ) -> List[int]:
+        """Drop identifiers already committed by this user (exactly-once
+        replay dedup, reference FileStoreCommit.filterCommitted:52)."""
+        committed = set()
+        for snap in self.snapshot_manager.snapshots():
+            if snap.commit_user == self.commit_user:
+                committed.add(snap.commit_identifier)
+        return [c for c in commit_identifiers if c not in committed]
 
     # -- internals -----------------------------------------------------------
 
@@ -160,12 +184,14 @@ class FileStoreCommit:
         return True
 
     def _try_commit(self, entries: List[ManifestEntry],
+                    changelog_entries: List[ManifestEntry],
                     commit_identifier: int, kind: str,
                     check_deleted_files: bool = False,
                     properties: Optional[Dict[str, str]] = None,
                     entries_fn=None,
                     force_full_manifest_merge: bool = False,
-                    skip_missing_manifests: bool = False) -> int:
+                    skip_missing_manifests: bool = False,
+                    watermark: Optional[int] = None) -> int:
         from paimon_tpu_torch.utils.backoff import Backoff
 
         attempts = 0
@@ -176,15 +202,18 @@ class FileStoreCommit:
                           self.options.get(CoreOptions.COMMIT_MAX_RETRY_WAIT),
                           self.options.get(CoreOptions.COMMIT_TIMEOUT))
         new_manifest: Optional[ManifestFileMeta] = None
+        changelog_manifest: Optional[ManifestFileMeta] = None
         entries_orig = list(entries)
         while True:
             if attempts > max_retries or \
                     (attempts > 0 and backoff.budget_exhausted()):
-                # the per-attempt cleanup keeps the (reusable) delta
-                # manifest FILE; on giving up it would be orphaned
-                if new_manifest is not None:
-                    self.file_io.delete_quietly(
-                        self.manifest_file.path(new_manifest.file_name))
+                # the per-attempt cleanup keeps the (reusable) delta and
+                # changelog manifest FILES; on giving up they would be
+                # orphaned with no snapshot referencing them
+                for m in (new_manifest, changelog_manifest):
+                    if m is not None:
+                        self.file_io.delete_quietly(
+                            self.manifest_file.path(m.file_name))
                 raise CommitConflictError(
                     f"Commit lost the snapshot CAS race {attempts - 1} "
                     f"times (commit.max-retries={max_retries}, "
@@ -205,6 +234,9 @@ class FileStoreCommit:
             if new_manifest is None and entries:
                 new_manifest = self.manifest_file.write(
                     entries, schema_id=self.schema.id)
+            if changelog_manifest is None and changelog_entries:
+                changelog_manifest = self.manifest_file.write(
+                    changelog_entries, schema_id=self.schema.id)
 
             if latest is None:
                 base_metas: List[ManifestFileMeta] = []
@@ -224,6 +256,15 @@ class FileStoreCommit:
             base_name, base_size = self.manifest_list.write(base_metas)
             delta_metas = [new_manifest] if new_manifest else []
             delta_name, delta_size = self.manifest_list.write(delta_metas)
+            changelog_name = changelog_size = None
+            if changelog_manifest is not None:
+                changelog_name, changelog_size = self.manifest_list.write(
+                    [changelog_manifest])
+            # watermarks only advance (reference FileStoreCommitImpl:
+            # max of provided and previous)
+            wm_vals = [w for w in
+                       (watermark, latest.watermark if latest else None)
+                       if w is not None]
             if force_full_manifest_merge and \
                     getattr(self, "_force_merge_total", None) is not None:
                 # the full rewrite recounted every live entry — use the
@@ -233,6 +274,7 @@ class FileStoreCommit:
             delta_rows = sum(
                 (e.file.row_count if e.kind == FileKind.ADD
                  else -e.file.row_count) for e in entries)
+            changelog_rows = sum(e.file.row_count for e in changelog_entries)
             snapshot = Snapshot(
                 id=new_id,
                 schema_id=self.schema.id,
@@ -240,8 +282,8 @@ class FileStoreCommit:
                 base_manifest_list_size=base_size,
                 delta_manifest_list=delta_name,
                 delta_manifest_list_size=delta_size,
-                changelog_manifest_list=None,
-                changelog_manifest_list_size=None,
+                changelog_manifest_list=changelog_name,
+                changelog_manifest_list_size=changelog_size,
                 index_manifest=prev_index,
                 commit_user=self.commit_user,
                 commit_identifier=commit_identifier,
@@ -249,10 +291,10 @@ class FileStoreCommit:
                 time_millis=int(_time.time() * 1000),
                 total_record_count=prev_total + delta_rows,
                 delta_record_count=delta_rows,
-                changelog_record_count=None,
+                changelog_record_count=changelog_rows or None,
                 properties=properties,
                 next_row_id=latest.next_row_id if latest else None,
-                watermark=latest.watermark if latest else None,
+                watermark=max(wm_vals) if wm_vals else None,
             )
             if self.snapshot_manager.try_commit(snapshot):
                 return new_id
@@ -261,6 +303,8 @@ class FileStoreCommit:
             # manifest is reusable unless the entry set is dynamic)
             self.manifest_list.delete(base_name)
             self.manifest_list.delete(delta_name)
+            if changelog_name:
+                self.manifest_list.delete(changelog_name)
             for m in merged_manifests:
                 self.file_io.delete_quietly(
                     self.manifest_file.path(m.file_name))

@@ -1,7 +1,8 @@
 """KeyValue data-file writer/reader.
 
 Counterpart of paimon_tpu/core/kv_file.py without file indexes, blob
-columns and device decode (not ported yet).
+columns and device decode (not ported yet); changelog files are
+written by `write_changelog_file`.
 
 reference: paimon-core/.../io/KeyValueDataFileWriter.java (flattens
 KeyValue to `_KEY_<k...>, _SEQUENCE_NUMBER, _VALUE_KIND, value...`),
@@ -25,7 +26,8 @@ from paimon_tpu_torch.schema.table_schema import TableSchema
 from paimon_tpu_torch.types import DataType, SpecialFields
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
-__all__ = ["KeyValueFileWriter", "read_kv_file", "KEY_PREFIX"]
+__all__ = ["KeyValueFileWriter", "read_kv_file", "write_changelog_file",
+           "KEY_PREFIX"]
 
 KEY_PREFIX = SpecialFields.KEY_FIELD_PREFIX
 
@@ -165,6 +167,35 @@ def _safe_stats(types: Sequence[DataType], mins, maxs, nulls) -> SimpleStats:
     codec = BinaryRowCodec(safe_types)
     return SimpleStats(codec.to_bytes(safe_mins), codec.to_bytes(safe_maxs),
                        list(nulls))
+
+
+def write_changelog_file(file_io: FileIO,
+                         path_factory: FileStorePathFactory,
+                         schema: TableSchema, file_format: str,
+                         compression: str, partition: Tuple, bucket: int,
+                         table: pa.Table,
+                         prefix: Optional[str] = None,
+                         format_options: Optional[Dict[str, str]] = None
+                         ) -> List[DataFileMeta]:
+    """Write a changelog file (KV layout with _VALUE_KIND kinds kept).
+    Shared by changelog-producer=input (write path) and the compaction
+    changelog producers."""
+    import pyarrow.compute as pc
+
+    fmt = get_format(file_format)
+    name = path_factory.new_changelog_file_name(fmt.extension, prefix)
+    path, external = path_factory.new_data_file_location(
+        partition, bucket, name)
+    size = fmt.create_writer(compression, format_options).write(
+        file_io, path, table)
+    return [DataFileMeta(
+        file_name=name, file_size=size, row_count=table.num_rows,
+        min_key=b"", max_key=b"",
+        key_stats=SimpleStats.EMPTY,
+        value_stats=SimpleStats.EMPTY,
+        min_sequence_number=pc.min(table.column(SEQ_COL)).as_py(),
+        max_sequence_number=pc.max(table.column(SEQ_COL)).as_py(),
+        schema_id=schema.id, level=0, external_path=external)]
 
 
 def read_kv_file(file_io: FileIO, path_factory: FileStorePathFactory,

@@ -2,7 +2,9 @@
 
 Counterpart of paimon_tpu/core/read.py; every merge runs on the
 reader's torch device (ops/merge.py for deduplicate and first-row,
-ops/agg.py for partial-update and aggregation).
+ops/agg.py for partial-update and aggregation).  Streaming splits add a
+`_ROW_KIND` column: delta and changelog splits keep each row's kind,
+full-phase splits emit the merged state as +I.
 
 reference call stack (SURVEY §3.2): KeyValueTableRead ->
 MergeFileSplitRead.createMergeReader (operation/MergeFileSplitRead.java:
@@ -38,7 +40,10 @@ from paimon_tpu_torch.schema.table_schema import TableSchema
 from paimon_tpu_torch.types import RowKind, data_type_to_arrow
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
-__all__ = ["MergeFileSplitRead", "assemble_runs", "evolve_table"]
+__all__ = ["MergeFileSplitRead", "assemble_runs", "ROW_KIND_COL",
+           "evolve_table"]
+
+ROW_KIND_COL = "_ROW_KIND"
 
 
 def record_level_expire_filter(options: CoreOptions, table: pa.Table,
@@ -220,20 +225,26 @@ class MergeFileSplitRead:
         from paimon_tpu_torch.parallel.scan_pipeline import iter_split_tables
         return iter_split_tables(self, splits, self.options)
 
-    def read_splits(self, splits: Sequence[DataSplit]) -> pa.Table:
+    def read_splits(self, splits: Sequence[DataSplit],
+                    streaming: Optional[bool] = None) -> pa.Table:
         tables = [t for _, _, t in self.iter_splits(splits)
                   if t.num_rows > 0]
         if not tables:
-            return self._empty_table()
+            if streaming is None:
+                streaming = any(s.for_streaming for s in splits)
+            return self._empty_table(streaming)
         return pa.concat_tables(tables, promote_options="default")
 
-    def _empty_table(self) -> pa.Table:
-        """Typed empty result with a schema identical to non-empty reads."""
+    def _empty_table(self, streaming: bool) -> pa.Table:
+        """Typed empty result with a schema identical to non-empty reads
+        (streaming polls always carry _ROW_KIND)."""
         by_name = {f.name: f for f in self.schema.fields}
         cols = {c: pa.array([], data_type_to_arrow(by_name[c].type))
                 for c in self._value_columns()}
         if self.options.get(CoreOptions.TABLE_READ_SEQUENCE_NUMBER):
             cols[SEQ_COL] = pa.array([], pa.int64())
+        if streaming:
+            cols[ROW_KIND_COL] = pa.array([], pa.int8())
         return pa.table(cols)
 
     def _value_columns(self) -> List[str]:
@@ -259,14 +270,31 @@ class MergeFileSplitRead:
         tables = [self._read_file(split, f, read_cols)
                   for f in sorted(split.data_files, key=lambda f: f.min_key)]
         if not tables:
-            return self._empty_table()
+            return self._empty_table(split.for_streaming)
         merged = pa.concat_tables(tables, promote_options="none")
+        if split.for_streaming and split.is_delta:
+            # changelog consumers observe every row with its kind
+            # (reference streaming read preserves RowKind; -U/-D survive)
+            out = merged.select(value_cols)
+            return out.append_column(
+                ROW_KIND_COL,
+                merged.column(KIND_COL).combine_chunks().cast(pa.int8()))
         kinds = np.asarray(merged.column(KIND_COL).combine_chunks()
                            .cast(pa.int8()))
         keep = (kinds == RowKind.INSERT) | (kinds == RowKind.UPDATE_AFTER)
         if not keep.all():
             merged = merged.filter(pa.array(keep))
-        return merged.select(value_cols)
+        return self._as_inserts(merged.select(value_cols),
+                                split.for_streaming)
+
+    @staticmethod
+    def _as_inserts(out: pa.Table, streaming: bool) -> pa.Table:
+        """Full-phase streaming rows are the merged state: all +I."""
+        if not streaming:
+            return out
+        return out.append_column(
+            ROW_KIND_COL,
+            pa.array(np.zeros(out.num_rows, np.int8), pa.int8()))
 
     def _read_merged(self, split: DataSplit, read_cols: List[str],
                      value_cols: List[str]) -> pa.Table:
@@ -278,21 +306,22 @@ class MergeFileSplitRead:
             runs.append(pa.concat_tables(tables, promote_options="none")
                         if len(tables) > 1 else tables[0])
         if not runs:
-            return self._empty_table()
+            return self._empty_table(split.for_streaming)
         engine = self.options.merge_engine
         seq_fields = self.options.sequence_field or None
         if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
-            return merge_runs_agg(runs, self.key_cols, self.schema,
-                                  self.options,
-                                  key_encoder=self.key_encoder,
-                                  seq_fields=seq_fields,
-                                  device=self.device).select(value_cols)
-        res = merge_runs(runs, self.key_cols, merge_engine=engine,
-                         key_encoder=self.key_encoder,
-                         seq_fields=seq_fields,
-                         seq_desc=self.options.sequence_field_descending,
-                         device=self.device)
-        return res.take(value_cols)
+            out = merge_runs_agg(runs, self.key_cols, self.schema,
+                                 self.options,
+                                 key_encoder=self.key_encoder,
+                                 seq_fields=seq_fields,
+                                 device=self.device).select(value_cols)
+        else:
+            out = merge_runs(runs, self.key_cols, merge_engine=engine,
+                             key_encoder=self.key_encoder,
+                             seq_fields=seq_fields,
+                             seq_desc=self.options.sequence_field_descending,
+                             device=self.device).take(value_cols)
+        return self._as_inserts(out, split.for_streaming)
 
     # -- schema evolution ----------------------------------------------------
 

@@ -4,6 +4,8 @@ DataSplits.
 Counterpart of paimon_tpu/core/scan.py without the delta-apply plan
 cache, the columnar stats sidecar, file indexes and deletion vectors
 (not ported yet): every plan walks the snapshot's manifest lists.
+Streaming reads plan one snapshot's delta (`plan_delta`) or changelog
+(`plan_changelog`) files into splits that keep every row kind.
 
 reference: operation/AbstractFileStoreScan.java (manifest pruning),
 table/source/SnapshotReaderImpl.java:87 (generateSplits:412),
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import (
-    DataFileMeta, ManifestEntry, ManifestFile, ManifestList,
+    DataFileMeta, FileKind, ManifestEntry, ManifestFile, ManifestList,
     merge_manifest_entries,
 )
 from paimon_tpu_torch.options import CoreOptions
@@ -39,6 +41,11 @@ class DataSplit:
     total_buckets: int
     data_files: List[DataFileMeta]
     raw_convertible: bool = False
+    # streaming split: reads emit a _ROW_KIND column
+    for_streaming: bool = False
+    # delta/changelog split: true row kinds preserved (-U/-D survive);
+    # full-phase streaming splits emit merged state as all +I instead
+    is_delta: bool = False
 
     @property
     def row_count(self) -> int:
@@ -49,6 +56,9 @@ class DataSplit:
 class ScanPlan:
     snapshot_id: Optional[int]
     splits: List[DataSplit]
+    # plan produced by a streaming scan (reads stay schema-stable with a
+    # _ROW_KIND column even when splits is empty)
+    streaming: bool = False
 
     @property
     def row_count(self) -> int:
@@ -106,14 +116,45 @@ class FileStoreScan:
 
     # -- planning ------------------------------------------------------------
 
-    def plan(self, snapshot: Optional[Snapshot] = None) -> ScanPlan:
+    def plan(self, snapshot: Optional[Snapshot] = None,
+             streaming: bool = False) -> ScanPlan:
         if snapshot is None:
             snapshot = self.snapshot_manager.latest_snapshot()
         if snapshot is None:
-            return ScanPlan(None, [])
+            return ScanPlan(None, [], streaming=streaming)
         return ScanPlan(snapshot.id,
                         self.generate_splits(snapshot.id,
-                                             self.read_entries(snapshot)))
+                                             self.read_entries(snapshot),
+                                             for_streaming=streaming),
+                        streaming=streaming)
+
+    def plan_delta(self, snapshot: Snapshot,
+                   streaming: bool = False) -> ScanPlan:
+        """Only this snapshot's delta files (for incremental/streaming
+        reads, reference DeltaFollowUpScanner). With streaming=True the
+        splits preserve row kinds for changelog consumers."""
+        return self._plan_added(snapshot, snapshot.delta_manifest_list,
+                                streaming)
+
+    def plan_changelog(self, snapshot: Snapshot,
+                       streaming: bool = False) -> ScanPlan:
+        """Only this snapshot's changelog files (reference
+        ChangelogFollowUpScanner); an empty plan when it carries none."""
+        if not snapshot.changelog_manifest_list:
+            return ScanPlan(snapshot.id, [], streaming=streaming)
+        return self._plan_added(snapshot, snapshot.changelog_manifest_list,
+                                streaming)
+
+    def _plan_added(self, snapshot: Snapshot, manifest_list: str,
+                    streaming: bool) -> ScanPlan:
+        metas = self.manifest_list.read(manifest_list)
+        adds = [e for e in self._read_manifests(metas)
+                if e.kind == FileKind.ADD]
+        return ScanPlan(snapshot.id,
+                        self.generate_splits(snapshot.id, adds,
+                                             for_delta=True,
+                                             for_streaming=streaming),
+                        streaming=streaming)
 
     def read_entries(self, snapshot: Snapshot) -> List[ManifestEntry]:
         """Live (merged, ADD-only) entry set at one snapshot, after
@@ -239,7 +280,9 @@ class FileStoreScan:
         return any(self._value_stats_match(e) for e in group)
 
     def generate_splits(self, snapshot_id: int,
-                        entries: List[ManifestEntry]) -> List[DataSplit]:
+                        entries: List[ManifestEntry],
+                        for_delta: bool = False,
+                        for_streaming: bool = False) -> List[DataSplit]:
         groups: Dict[Tuple, List[ManifestEntry]] = {}
         for e in entries:
             if not self._entry_visible(e):
@@ -248,13 +291,16 @@ class FileStoreScan:
         splits = []
         for key, group in sorted(
                 groups.items(), key=lambda kv: (kv[0][0], kv[0][1])):
-            splits.extend(self._group_splits(snapshot_id, key, group))
+            splits.extend(self._group_splits(snapshot_id, key, group,
+                                             for_delta, for_streaming))
         return splits
 
     def _group_splits(self, snapshot_id: int, key: Tuple[bytes, int],
-                      group: List[ManifestEntry]) -> List[DataSplit]:
+                      group: List[ManifestEntry], for_delta: bool,
+                      for_streaming: bool) -> List[DataSplit]:
         """The split of ONE (partition, bucket) group of visible entries:
-        pk buckets stay whole for the merge."""
+        pk buckets stay whole for the merge; a delta or changelog split
+        reads its files raw."""
         if not group or not self._bucket_value_match(group):
             return []
         pbytes, bucket = key
@@ -262,8 +308,9 @@ class FileStoreScan:
         max_level = max(f.level for f in files)
         # raw-convertible only when a single non-L0 run fully covers
         # the bucket
-        raw = (all(f.level == max_level and max_level > 0 for f in files)
-               and all((f.delete_row_count or 0) == 0 for f in files))
+        raw = for_delta or (
+            all(f.level == max_level and max_level > 0 for f in files)
+            and all((f.delete_row_count or 0) == 0 for f in files))
         return [DataSplit(
             snapshot_id=snapshot_id,
             partition=self._partition_codec.from_bytes(pbytes),
@@ -271,6 +318,8 @@ class FileStoreScan:
             total_buckets=group[0].total_buckets,
             data_files=files,
             raw_convertible=raw,
+            for_streaming=for_streaming,
+            is_delta=for_delta,
         )]
 
     # -- helpers for writers -------------------------------------------------

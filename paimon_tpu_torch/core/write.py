@@ -1,9 +1,10 @@
 """Write path: buffered per-(partition,bucket) writers producing L0 files.
 
 Counterpart of paimon_tpu/core/write.py for fixed buckets (spilling,
-local merge, changelog input and dynamic/postpone buckets are not ported
-yet); every flush merges (deduplicate, first-row) or sorts
-(partial-update, aggregation) on the writer's torch device.
+local merge and dynamic/postpone buckets are not ported yet); every
+flush merges (deduplicate, first-row) or sorts (partial-update,
+aggregation) on the writer's torch device, and under
+changelog-producer=input also writes its raw rows as a changelog file.
 
 reference call stack (SURVEY §3.1): TableWriteImpl.write ->
 AbstractFileStoreWrite.write (operation/AbstractFileStoreWrite.java:186)
@@ -26,10 +27,13 @@ import numpy as np
 import pyarrow as pa
 
 from paimon_tpu_torch.core.bucket import FixedBucketAssigner
-from paimon_tpu_torch.core.kv_file import KEY_PREFIX, KeyValueFileWriter
+from paimon_tpu_torch.core.kv_file import (
+    KEY_PREFIX, KeyValueFileWriter, write_changelog_file,
+)
+from paimon_tpu_torch.core.read import ROW_KIND_COL
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta
-from paimon_tpu_torch.options import CoreOptions, MergeEngine
+from paimon_tpu_torch.options import ChangelogProducer, CoreOptions, MergeEngine
 from paimon_tpu_torch.ops.merge import (
     KIND_COL, SEQ_COL, merge_runs, sort_table,
 )
@@ -38,23 +42,24 @@ from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
 __all__ = ["CommitMessage", "KeyValueFileStoreWrite", "build_kv_table"]
 
-ROW_KIND_COL = "_ROW_KIND"
-
 
 @dataclass
 class CommitMessage:
-    """reference: table/sink/CommitMessageImpl.java (without changelog
-    files and index entries, which are not ported yet)."""
+    """reference: table/sink/CommitMessageImpl.java (without index
+    entries, which are not ported yet)."""
     partition: Tuple
     bucket: int
     total_buckets: int
     new_files: List[DataFileMeta] = dc_field(default_factory=list)
     compact_before: List[DataFileMeta] = dc_field(default_factory=list)
     compact_after: List[DataFileMeta] = dc_field(default_factory=list)
+    changelog_files: List[DataFileMeta] = dc_field(default_factory=list)
+    compact_changelog: List[DataFileMeta] = dc_field(default_factory=list)
 
     def is_empty(self) -> bool:
         return not (self.new_files or self.compact_before
-                    or self.compact_after)
+                    or self.compact_after or self.changelog_files
+                    or self.compact_changelog)
 
 
 def group_by_partition_bucket(table: pa.Table, buckets: np.ndarray,
@@ -112,8 +117,8 @@ class _BucketWriter:
     reserved at write() time, single-threaded, so pipelined flushes can
     never duplicate or reorder them.  The merge/encode/write bodies run
     as FlushPool tasks; tasks for this bucket execute strictly in
-    submission order (per-key actor), so `new_files` is only ever
-    touched by one task at a time."""
+    submission order (per-key actor), so `new_files` and
+    `changelog_files` are only ever touched by one task at a time."""
 
     def __init__(self, parent: "KeyValueFileStoreWrite", partition: Tuple,
                  bucket: int):
@@ -126,6 +131,7 @@ class _BucketWriter:
         self.buffered_bytes = 0
         self.next_seq: Optional[int] = None   # lazily restored
         self.new_files: List[DataFileMeta] = []
+        self.changelog_files: List[DataFileMeta] = []
 
     @property
     def _key(self) -> Tuple:
@@ -209,8 +215,16 @@ class _BucketWriter:
             metas = self.parent.kv_writer.write(
                 self.partition, self.bucket, self._sorted_chunk(snap),
                 level=0)
-            # publish only after the write succeeded
+            changelog: List[DataFileMeta] = []
+            if self.parent.changelog_input:
+                # changelog-producer=input: raw rows in arrival order
+                raw, kinds, seq = snap
+                changelog = self.parent.write_changelog(
+                    self.partition, self.bucket,
+                    build_kv_table(raw, self.parent.schema, seq, kinds))
+            # publish only after the writes succeeded
             self.new_files.extend(metas)
+            self.changelog_files.extend(changelog)
 
         self.parent.flush_pool().submit(self._key, snap[0].nbytes, task)
 
@@ -219,8 +233,10 @@ class _BucketWriter:
         prepare-commit barrier); caller thread only."""
         msg = CommitMessage(self.partition, self.bucket,
                             self.parent.total_buckets,
-                            new_files=list(self.new_files))
+                            new_files=list(self.new_files),
+                            changelog_files=list(self.changelog_files))
         self.new_files = []
+        self.changelog_files = []
         return None if msg.is_empty() else msg
 
 
@@ -301,6 +317,8 @@ class KeyValueFileStoreWrite:
         self._prep_pool = None
         self._prep = deque()
         self._restore_max_seq = restore_max_seq
+        self.changelog_input = (
+            options.changelog_producer == ChangelogProducer.INPUT)
 
     def flush_pool(self):
         """The shared bucket-flush executor (parallel/write_pipeline.py);
@@ -314,6 +332,16 @@ class KeyValueFileStoreWrite:
         if self._restore_max_seq is None:
             return -1
         return self._restore_max_seq(partition, bucket)
+
+    def write_changelog(self, partition: Tuple, bucket: int,
+                        table: pa.Table) -> List[DataFileMeta]:
+        return write_changelog_file(
+            self.file_io, self.path_factory, self.schema,
+            self.options.changelog_file_format,
+            self.options.changelog_file_compression,
+            partition, bucket, table,
+            prefix=self.options.changelog_file_prefix,
+            format_options=self.options.format_options)
 
     # -- writes --------------------------------------------------------------
 
@@ -427,6 +455,7 @@ class KeyValueFileStoreWrite:
             return
         msg.compact_before = result.before
         msg.compact_after = result.after
+        msg.compact_changelog = result.changelog
 
     def close(self):
         if self._prep_pool is not None:

@@ -41,6 +41,9 @@ class FileIO:
     def list_status(self, path: str) -> List[FileStatus]:
         raise NotImplementedError
 
+    def list_files(self, path: str) -> List[str]:
+        return [s.path for s in self.list_status(path) if not s.is_dir]
+
     def write_bytes(self, path: str, data: bytes, overwrite: bool = True):
         raise NotImplementedError
 

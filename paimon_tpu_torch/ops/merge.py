@@ -80,6 +80,22 @@ def _u64_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return _join_i32(hi ^ _INT32_MIN, lo)
 
 
+def _lane_sort_keys(cols: List[torch.Tensor]) -> List[torch.Tensor]:
+    """int64 sort keys (most significant first) whose lexicographic
+    order is the unsigned lexicographic order of the 32-bit lanes
+    `cols`: lanes join in pairs from the least significant end, so an
+    odd count leaves the most significant lane alone."""
+    keys: List[torch.Tensor] = []
+    while cols:
+        if len(cols) >= 2:
+            keys.insert(0, _u64_key(cols[-2], cols[-1]))
+            cols = cols[:-2]
+        else:
+            keys.insert(0, _u32_key(cols[-1]))
+            cols = []
+    return keys
+
+
 def _stable_argsort(keys: List[torch.Tensor]) -> torch.Tensor:
     """Permutation of a stable lexicographic sort by `keys` (most
     significant first), as a least-significant-first chain of stable
@@ -111,16 +127,8 @@ def segmented_merge_body(lanes: torch.Tensor, seq_hi: torch.Tensor,
     num_lanes = lanes.shape[0]
     if num_key_lanes is None:
         num_key_lanes = num_lanes
-    cols = [lanes[i] for i in range(num_lanes)] + [seq_hi, seq_lo]
-    keys: List[torch.Tensor] = []
-    while cols:
-        if len(cols) >= 2:
-            keys.insert(0, _u64_key(cols[-2], cols[-1]))
-            cols = cols[:-2]
-        else:
-            keys.insert(0, _u32_key(cols[-1]))
-            cols = []
-    perm = _stable_argsort(keys)
+    perm = _stable_argsort(_lane_sort_keys(
+        [lanes[i] for i in range(num_lanes)] + [seq_hi, seq_lo]))
     s_inv = invalid[perm]
     perm = torch.cat([perm[s_inv == 0], perm[s_inv != 0]])
     perm32 = perm.to(torch.int32)

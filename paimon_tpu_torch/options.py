@@ -12,7 +12,7 @@ import re
 from typing import Any, Callable, Dict, Iterable, Optional
 
 __all__ = ["ConfigOption", "Options", "CoreOptions", "MergeEngine",
-           "ChangelogProducer", "parse_memory_size"]
+           "ChangelogProducer", "StartupMode", "parse_memory_size"]
 
 
 _SIZE_RE = re.compile(r"^\s*(\d+)\s*([kKmMgGtT]?)[bB]?\s*$")
@@ -146,6 +146,18 @@ class ChangelogProducer:
     LOOKUP = "lookup"
 
 
+class StartupMode:
+    DEFAULT = "default"
+    LATEST_FULL = "latest-full"
+    FULL = "full"
+    LATEST = "latest"
+    COMPACTED_FULL = "compacted-full"
+    FROM_TIMESTAMP = "from-timestamp"
+    FROM_SNAPSHOT = "from-snapshot"
+    FROM_SNAPSHOT_FULL = "from-snapshot-full"
+    INCREMENTAL = "incremental"
+
+
 class CoreOptions:
     """Typed view over table options (reference CoreOptions.java)."""
 
@@ -201,11 +213,13 @@ class CoreOptions:
     COMPACTION_MAX_SIZE_AMPLIFICATION_PERCENT = ConfigOption(
         "compaction.max-size-amplification-percent", int, 200, "")
     COMPACTION_SIZE_RATIO = ConfigOption("compaction.size-ratio", int, 1, "")
+    SCAN_MODE = ConfigOption("scan.mode", str, StartupMode.DEFAULT, "")
     SCAN_SNAPSHOT_ID = ConfigOption("scan.snapshot-id", int, None, "")
     SCAN_TAG_NAME = ConfigOption("scan.tag-name", str, None, "")
     SCAN_TIMESTAMP_MILLIS = ConfigOption("scan.timestamp-millis", int, None, "")
     SCAN_FALLBACK_BRANCH = ConfigOption("scan.fallback-branch", str, None, "")
     INCREMENTAL_BETWEEN = ConfigOption("incremental-between", str, None, "")
+    CONSUMER_ID = ConfigOption("consumer-id", str, None, "")
     DELETION_VECTORS_ENABLED = ConfigOption("deletion-vectors.enabled",
                                             _parse_bool, False, "")
     MERGE_STREAM_THRESHOLD_ROWS = ConfigOption(
@@ -324,8 +338,34 @@ class CoreOptions:
         "compaction.file-num-limit", int, None,
         "Force a compaction pick once a bucket holds this many files")
 
+    TAG_AUTOMATIC_CREATION = ConfigOption("tag.automatic-creation", str,
+                                          "none", "")
+    COMMIT_CALLBACKS = ConfigOption(
+        "commit.callbacks", str, None,
+        "Comma-separated import paths ('pkg.mod:Class') instantiated "
+        "and invoked after every successful commit")
+    CHANGELOG_FILE_FORMAT = ConfigOption(
+        "changelog-file.format", str, None,
+        "Changelog files' format; defaults to file.format")
+    CHANGELOG_FILE_COMPRESSION = ConfigOption(
+        "changelog-file.compression", str, None,
+        "Changelog files' compression; defaults to file.compression")
     CHANGELOG_FILE_PREFIX = ConfigOption("changelog-file.prefix", str,
                                          "changelog-", "")
+
+    SCAN_BOUNDED_WATERMARK = ConfigOption(
+        "scan.bounded.watermark", int, None,
+        "End a stream once a snapshot watermark passes this bound")
+    STREAMING_READ_OVERWRITE = ConfigOption(
+        "streaming-read-overwrite", _parse_bool, False,
+        "Follow-up scanners also read OVERWRITE snapshots' deltas")
+    CONSUMER_IGNORE_PROGRESS = ConfigOption(
+        "consumer.ignore-progress", _parse_bool, False,
+        "Start fresh instead of resuming the consumer's progress")
+    STREAMING_READ_SNAPSHOT_DELAY = ConfigOption(
+        "streaming.read.snapshot.delay", _parse_duration_ms, None,
+        "Incremental snapshots become visible to streaming reads only "
+        "after aging this long (absorbs small out-of-order commits)")
 
 
     MANIFEST_TARGET_FILE_SIZE = ConfigOption(
@@ -554,6 +594,17 @@ class CoreOptions:
 
 
     @property
+    def changelog_file_format(self) -> str:
+        return self.options.get(CoreOptions.CHANGELOG_FILE_FORMAT) or \
+            self.file_format
+
+    @property
+    def changelog_file_compression(self) -> str:
+        return self.options.get(
+            CoreOptions.CHANGELOG_FILE_COMPRESSION) or \
+            self.file_compression
+
+    @property
     def changelog_file_prefix(self) -> str:
         return self.options.get(CoreOptions.CHANGELOG_FILE_PREFIX)
 
@@ -626,6 +677,23 @@ class CoreOptions:
     @property
     def branch(self) -> str:
         return self.options.get(CoreOptions.BRANCH)
+
+    @property
+    def consumer_id(self):
+        return self.options.get(CoreOptions.CONSUMER_ID)
+
+    @property
+    def startup_mode(self) -> str:
+        mode = self.options.get(CoreOptions.SCAN_MODE)
+        if mode == StartupMode.DEFAULT:
+            if self.options.get(CoreOptions.SCAN_SNAPSHOT_ID) is not None:
+                return StartupMode.FROM_SNAPSHOT
+            if self.options.get(CoreOptions.SCAN_TIMESTAMP_MILLIS) is not None:
+                return StartupMode.FROM_TIMESTAMP
+            if self.options.get(CoreOptions.INCREMENTAL_BETWEEN) is not None:
+                return StartupMode.INCREMENTAL
+            return StartupMode.LATEST_FULL
+        return mode
 
 
     @property

@@ -5,6 +5,7 @@ BatchWriteBuilder, TableWriteImpl, TableCommitImpl).
 """
 
 from paimon_tpu_torch.table.table import (  # noqa: F401
-    FileStoreTable, BatchWriteBuilder, ReadBuilder,
+    FileStoreTable, BatchWriteBuilder, StreamWriteBuilder, ReadBuilder,
     TableWrite, TableCommit, TableRead, TableScan,
 )
+from paimon_tpu_torch.table.stream_scan import DataTableStreamScan  # noqa: F401

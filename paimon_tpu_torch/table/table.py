@@ -2,9 +2,10 @@
 
 Counterpart of paimon_tpu/table/table.py for this package's slice:
 primary-key tables with fixed buckets under the deduplicate, first-row,
-partial-update and aggregation engines.  Every table carries the torch
-device its merges run on (None means "cuda"; with no card, pass
-device="cpu").
+partial-update and aggregation engines, their changelog producers,
+streaming writes with commit identifiers and stream scans.  Every table
+carries the torch device its merges run on (None means "cuda"; with no
+card, pass device="cpu").
 
 reference: table/FileStoreTable.java, table/source/ReadBuilderImpl.java:49
 (newScan:190, newRead:241), table/sink/BatchWriteBuilder.java,
@@ -32,11 +33,14 @@ from paimon_tpu_torch.predicate import Predicate
 from paimon_tpu_torch.schema.schema import Schema
 from paimon_tpu_torch.schema.schema_manager import SchemaManager
 from paimon_tpu_torch.schema.table_schema import TableSchema
-from paimon_tpu_torch.snapshot import Snapshot, SnapshotManager
+from paimon_tpu_torch.snapshot import (
+    ConsumerManager, Snapshot, SnapshotManager,
+)
 from paimon_tpu_torch.snapshot.snapshot import BATCH_COMMIT_IDENTIFIER
 
-__all__ = ["FileStoreTable", "BatchWriteBuilder", "ReadBuilder",
-           "TableWrite", "TableCommit", "TableRead", "TableScan"]
+__all__ = ["FileStoreTable", "BatchWriteBuilder", "StreamWriteBuilder",
+           "ReadBuilder", "TableWrite", "TableCommit", "TableRead",
+           "TableScan"]
 
 
 def _not_ported(feature: str, item: str):
@@ -74,17 +78,22 @@ def check_readable(schema: TableSchema, options: CoreOptions,
 def check_writable(options: CoreOptions) -> None:
     """Raise NotImplementedError for write and compaction options this
     package does not yet honor (a table with them still reads)."""
-    if options.changelog_producer != ChangelogProducer.NONE:
-        _not_ported(f"changelog-producer {options.changelog_producer!r}",
-                    "changelog producers")
     if options.get(CoreOptions.MESH_COMPACT):
         _not_ported("tpu.mesh.compact", "mesh compaction and rescale")
     if options.get(CoreOptions.WRITE_BUFFER_SPILLABLE):
         _not_ported("write-buffer-spillable", "the remaining planes")
     if options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE):
+        if options.changelog_producer == ChangelogProducer.INPUT:
+            raise ValueError(
+                "local-merge-buffer-size folds input rows, which "
+                "would drop changelog-producer=input events")
         _not_ported("local-merge-buffer-size", "the remaining planes")
     if options.file_index_spec:
         _not_ported("file indexes", "the remaining planes")
+    if options.get(CoreOptions.TAG_AUTOMATIC_CREATION) != "none":
+        _not_ported("tag.automatic-creation", "the remaining planes")
+    if options.get(CoreOptions.COMMIT_CALLBACKS):
+        _not_ported("commit.callbacks", "the remaining planes")
 
 
 class FileStoreTable:
@@ -109,6 +118,7 @@ class FileStoreTable:
         self.snapshot_manager = SnapshotManager(file_io, self.path,
                                                 self.branch)
         self.schema_manager = SchemaManager(file_io, self.path, self.branch)
+        self.consumer_manager = ConsumerManager(file_io, self.path)
 
     # -- creation / loading --------------------------------------------------
 
@@ -175,8 +185,8 @@ class FileStoreTable:
         return FileStoreScan(self.file_io, self.path, self.schema,
                              self.options, self.branch)
 
-    def new_stream_write_builder(self):
-        _not_ported("streaming writes", "the remaining planes")
+    def new_stream_write_builder(self) -> "StreamWriteBuilder":
+        return StreamWriteBuilder(self)
 
     def system_table(self, name: str):
         _not_ported("system tables", "the remaining planes")
@@ -227,6 +237,38 @@ class BatchWriteBuilder:
 
     def new_commit(self) -> "TableCommit":
         return TableCommit(self.table, self.commit_user, self._overwrite)
+
+
+class StreamWriteBuilder:
+    """Checkpoint-driven streaming writes with exactly-once commits keyed
+    by commit identifier (reference table/sink/StreamWriteBuilder.java +
+    flink/sink/CommitterOperator.java:196: on checkpoint complete, commit
+    every pending identifier not yet committed by this user).
+
+    Usage:
+        wb = table.new_stream_write_builder().with_commit_user("job-7")
+        w, c = wb.new_write(), wb.new_commit()
+        w.write_arrow(batch); msgs = w.prepare_commit()
+        c.commit(msgs, commit_identifier=checkpoint_id)
+        # on recovery: replay pending checkpoints through
+        # c.filter_committed([...]) to drop already-committed ones
+    """
+
+    def __init__(self, table: FileStoreTable):
+        self.table = table
+        self.commit_user = str(uuid.uuid4())
+
+    def with_commit_user(self, commit_user: str) -> "StreamWriteBuilder":
+        """A STABLE user id is what makes replay dedup work across
+        restarts; defaults to a random uuid like the reference."""
+        self.commit_user = commit_user
+        return self
+
+    def new_write(self) -> "TableWrite":
+        return TableWrite(self.table, self.commit_user)
+
+    def new_commit(self) -> "TableCommit":
+        return TableCommit(self.table, self.commit_user)
 
 
 class TableWrite:
@@ -315,13 +357,18 @@ class TableCommit:
 
     def commit(self, messages: Sequence[CommitMessage],
                commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
+               watermark: Optional[int] = None,
                properties: Optional[Dict[str, str]] = None
                ) -> Optional[int]:
         """Commit the messages as one snapshot; returns its id, or None
-        for an ignored empty batch commit.  `properties` are stored on
-        the snapshot itself (ignored on the overwrite path)."""
+        for an ignored empty batch commit.  `watermark` (epoch millis)
+        records event-time progress in the snapshot — it only ever
+        advances.  `properties` are stored on the snapshot itself
+        (ignored on the overwrite path)."""
         # empty batch commits produce no snapshot unless forced
-        # (reference snapshot.ignore-empty-commit)
+        # (reference snapshot.ignore-empty-commit, default on for batch
+        # writers; streaming keeps empty snapshots for exactly-once
+        # progress tracking)
         ignore_empty = self.table.options.get(
             CoreOptions.SNAPSHOT_IGNORE_EMPTY_COMMIT)
         if ignore_empty is None:
@@ -336,7 +383,14 @@ class TableCommit:
                 commit_identifier=commit_identifier)
         return self._commit.commit(messages, commit_identifier,
                                    properties=properties,
-                                   force_create=not ignore_empty)
+                                   # a streaming empty commit still
+                                   # snapshots so the identifier is
+                                   # durable for exactly-once replay dedup
+                                   force_create=not ignore_empty,
+                                   watermark=watermark)
+
+    def filter_committed(self, identifiers: Sequence[int]) -> List[int]:
+        return self._commit.filter_committed(identifiers)
 
     def close(self):
         pass
@@ -377,7 +431,8 @@ class ReadBuilder:
         return TableScan(self)
 
     def new_stream_scan(self):
-        _not_ported("stream scans", "the remaining planes")
+        from paimon_tpu_torch.table.stream_scan import DataTableStreamScan
+        return DataTableStreamScan(self)
 
     def new_read(self) -> "TableRead":
         return TableRead(self)
@@ -448,8 +503,10 @@ class TableRead:
 
     def to_arrow(self, splits) -> pa.Table:
         """Accepts a ScanPlan or a list of DataSplits."""
-        split_list = splits.splits if isinstance(splits, ScanPlan) \
-            else list(splits)
+        if isinstance(splits, ScanPlan):
+            split_list, streaming = splits.splits, splits.streaming
+        else:
+            split_list, streaming = list(splits), None
         limit = self.builder._limit
         if limit is not None and split_list:
             # early exit: stop admitting splits once enough rows are
@@ -461,16 +518,22 @@ class TableRead:
                     n += t.num_rows
                 if n >= limit:
                     break
+            if streaming is None:
+                streaming = any(s.for_streaming for s in split_list)
             out = pa.concat_tables(tables, promote_options="default") \
-                if tables else self._read.read_splits([])
+                if tables else self._read.read_splits([], streaming)
         else:
-            out = self._read.read_splits(split_list)
+            out = self._read.read_splits(split_list, streaming)
         return self._finalize(out)
 
     def _finalize(self, t: pa.Table) -> pa.Table:
         if self.builder._projection:
-            t = t.select([c for c in self.builder._projection
-                          if c in t.column_names])
+            from paimon_tpu_torch.core.read import ROW_KIND_COL
+            cols = [c for c in self.builder._projection
+                    if c in t.column_names]
+            if ROW_KIND_COL in t.column_names:
+                cols.append(ROW_KIND_COL)
+            t = t.select(cols)
         if self.builder._limit is not None:
             t = t.slice(0, self.builder._limit)
         return t

@@ -44,7 +44,11 @@ def test_no_jax_and_no_reference_package_loaded():
     for name in ("paimon_tpu_torch.ops.kernels", "paimon_tpu_torch.ops.merge",
                  "paimon_tpu_torch.ops.merge_stream",
                  "paimon_tpu_torch.compact.manager",
-                 "paimon_tpu_torch.table.table"):
+                 "paimon_tpu_torch.table.table",
+                 "paimon_tpu_torch.ops.diff",
+                 "paimon_tpu_torch.table.stream_scan",
+                 "paimon_tpu_torch.snapshot.consumer_manager",
+                 "paimon_tpu_torch.snapshot.changelog_manager"):
         assert name in out["modules"]
 
 

@@ -283,6 +283,30 @@ def test_time_travel_snapshot(tmp_path):
     assert out1.column("name").to_pylist() == ["a"]
 
 
+def test_compact_manifests_matches_reference(tmp_path):
+    """One full manifest rewrite commits a COMPACT snapshot under the
+    batch identifier, as the reference's does, and changes no row."""
+    from paimon_tpu.core.commit import FileStoreCommit as RefCommit
+    from paimon_tpu_torch.core.commit import FileStoreCommit
+
+    runs = seeded_runs(rows=600, runs=3)
+    port = FileStoreTable.create(str(tmp_path / "p"), port_schema(),
+                                 device="cpu")
+    ref = RefTable.create(str(tmp_path / "r"), ref_schema())
+    out = []
+    for table, commit_cls in ((port, FileStoreCommit), (ref, RefCommit)):
+        write(table, runs)
+        before = table.to_arrow().sort_by("id")
+        sid = commit_cls(table.file_io, table.path, table.schema,
+                         table.options).compact_manifests()
+        snap = table.snapshot_manager.snapshot(sid)
+        assert table.to_arrow().sort_by("id").equals(before)
+        out.append((sid, snap.commit_kind, snap.commit_identifier,
+                    snap.total_record_count))
+    assert out[0] == out[1]
+    assert out[0][1] == "COMPACT"
+
+
 # -- out-of-slice features raise -------------------------------------------
 
 @pytest.mark.parametrize("options, item", [
@@ -298,10 +322,12 @@ def test_unported_table_options_raise(tmp_path, options, item):
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"changelog-producer": "input"}, "changelog producers"),
-    ({"changelog-producer": "lookup"}, "changelog producers"),
+    ({"write-buffer-spillable": "true"}, "the remaining planes"),
+    ({"local-merge-buffer-size": "1mb"}, "the remaining planes"),
     ({"file-index.bloom-filter.columns": "v1"}, "the remaining planes"),
-    ({"tpu.mesh.compact": "true"}, "mesh compaction and rescale")])
+    ({"tpu.mesh.compact": "true"}, "mesh compaction and rescale"),
+    ({"tag.automatic-creation": "process-time"}, "the remaining planes"),
+    ({"commit.callbacks": "pkg.mod:Cb"}, "the remaining planes")])
 def test_unported_write_options_raise(tmp_path, options, item):
     table = new_table(tmp_path, pk_schema(**options))
     with pytest.raises(NotImplementedError, match=item):
@@ -316,10 +342,8 @@ def test_append_table_and_other_planes_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="append tables"):
         FileStoreTable.create(str(tmp_path / "a"), schema, device="cpu")
     table = new_table(tmp_path)
-    for call in (table.new_stream_write_builder,
-                 lambda: table.system_table("snapshots"),
+    for call in (lambda: table.system_table("snapshots"),
                  lambda: table.create_tag("v1"),
-                 lambda: table.create_branch("b1"),
-                 table.new_read_builder().new_stream_scan):
+                 lambda: table.create_branch("b1")):
         with pytest.raises(NotImplementedError):
             call()
