@@ -10,7 +10,9 @@ Phases, each of which raises on failure (no result line is printed
 then):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from paimon_tpu_torch/csrc with nvcc;
+2. build the CUDA kernels from paimon_tpu_torch/csrc with nvcc, and the
+   host merge routes' C library from paimon_tpu_torch/native with the
+   host compiler (the run fails if it does not load);
 3. the port's device_sorted_winners on cuda against cpu (identical
    perm/winner/prev) for 4M random rows, and its segment reductions
    (sum, product, max, min of int32, int64, float32, float64) on cuda
@@ -24,6 +26,11 @@ then):
      commits of uniform ids in [0, rows/2) drawn from seed 7 (the
      streamed compaction), held row for row against a numpy
      last-writer-wins oracle;
+   - device_decode_dedup: dedup_bigint's directory copied after its
+     commits and loaded with read.device-decode=true: merge-on-read
+     scan, streamed full compaction and read back, each held against
+     the same oracle, every file through the device decode plane (no
+     fallback), with the seconds of its four steps (DecodeTimer);
    - agg_sum_max_orc: BASELINE config 4 on the same batches
      (aggregation, v1 sum, v2 and v3 max; ORC runs at level 0 through
      file.format.per.level=0:orc, parquet after compaction), held row
@@ -49,10 +56,17 @@ then):
      read's rows/s and where the producer's time goes (ChangelogTimer);
    - changelog_producers_coverage: input, lookup and full-compaction at
      256K keys x 5 commits with deletes, each held file for file
-     against the same table run by the port on the CPU.
-   Each phase reports rows/s, launches, peak device memory and the
-   seconds spent in segment reductions (the port's reduction entry
-   point timed between two synchronisations);
+     against the same table run by the port on the CPU;
+   - device_decode_coverage: 4M rows of INT32, INT64, FLOAT, DOUBLE and
+     DATE columns (dictionary pages, 1 value in 8 null, several row
+     groups and pages a chunk) read on the card equal to pyarrow, a
+     string-keyed table that falls back once and reads the same, and
+     fused_decode_merge at 2^24 on the card equal to its CPU run.
+   Each phase reports rows/s, launches, the merge routes it took
+   (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
+   segment reductions (the port's reduction entry point timed between
+   two synchronisations); a write, scan or compaction of a 100M-row
+   table that took host merge routes only fails the run;
 5. each kernel held against its plain PyTorch version on the card
    (exact equality) at every shape the main path gave it, on the inputs
    it gave there, and at further sizes of synthetic keys (among them 10
@@ -70,11 +84,20 @@ then):
    a warp and a block take, L in 1, 2, 5, 8), and with inputs that are
    not 16-byte aligned;
 7. the changelog diff's key ranks on the card held exactly against
-   np.unique on the host (the reference's computation), both timed.
+   np.unique on the host (the reference's computation), both timed;
+8. merge_routes: every route of device_sorted_winners (device full with
+   and without run codes, device packed, bitmask, host native fast,
+   host numpy fast, host general up to 2^22, host OVC) at the main
+   path's merge shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at
+   2^14, 2^20 and 2^24, held equal under each route's contract and
+   timed; the link rates at 8 MiB (the cost model's) and 256 MiB; the
+   cost model's rates measured on this machine; the model's pick at
+   each shape at a winner fraction of 1.0 and at dedup_bigint's.
 
 The last lines of standard output are one JSON object per line: the
-config-5 metrics, the phases, the kernels with their launches on the
-main path and their times (`device_ms` and `host_us` beside `ms`), then
+config-5 metrics, the device decode results, the merge routes, the
+phases, the kernels with their launches on the main path and their
+times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
 """
 
@@ -705,8 +728,10 @@ class Recorder:
 
         on_card = device.type == "cuda"
         capture, reducer = self.capture, self.reducer
+        from paimon_tpu_torch.ops import merge
         capture.where = f"{name} {what}"
         before = self.counts()
+        routes = dict(merge.PATH_COUNTS)
         copied = capture.seconds
         reduced, reduce_calls = reducer.seconds, reducer.calls
         if on_card:
@@ -719,7 +744,9 @@ class Recorder:
         dt = time.perf_counter() - t0 - (capture.seconds - copied)
         launches = tuple(a - b for a, b in zip(self.counts(), before))
         self.add(name, what, rows, device, dt, launches,
-                 reducer.seconds - reduced, reducer.calls - reduce_calls)
+                 reducer.seconds - reduced, reducer.calls - reduce_calls,
+                 routes={k: v - routes[k]
+                         for k, v in merge.PATH_COUNTS.items()})
         return out
 
     def add(self, name: str, what: str, rows: int, device, seconds: float,
@@ -743,17 +770,20 @@ class Recorder:
             f"{seconds:.2f} s = {rows / seconds:,.0f} rows/s; launches "
             f"plain={launches[0]} ovc={launches[1]}; segment reductions "
             f"{seg_reduce_s:.3f} s in {seg_reduce_calls} calls; peak "
-            f"device memory {peak}")
+            f"device memory {peak}"
+            + (f"; merge routes {extra['routes']}" if "routes" in extra
+               else ""))
         return rec
 
 
 def drive_table(path, schema, batches, check, rec: Recorder,
                 row_kinds=None, device=None,
-                repeat_scan: bool = False) -> dict:
+                repeat_scan: bool = False, after_write=None) -> dict:
     """create -> write one commit per batch -> merge-on-read scan (twice
     with `repeat_scan`) -> compact(full=True) -> read back, on `device`
     (None: the card); hands every read to `check(what, table)` and
-    records each phase through `rec`.  Returns the reads by phase."""
+    records each phase through `rec`; calls `after_write()` between the
+    write and the scan.  Returns the reads by phase."""
     from paimon_tpu_torch.table import FileStoreTable
 
     rows = sum(b.num_rows for b in batches)
@@ -771,6 +801,8 @@ def drive_table(path, schema, batches, check, rec: Recorder,
                 wb.new_commit().commit(w.prepare_commit())
 
     phase("write", write)
+    if after_write is not None:
+        after_write()
     reads = {}
     for what in ("scan", "scan again") if repeat_scan else ("scan",):
         reads[what] = phase(what, table.to_arrow)
@@ -1449,9 +1481,395 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
                           ignore_errors=True)
 
 
+class DecodeTimer:
+    """Seconds the device decode plane spends in each of its four steps
+    (format/rawpage.py): host parse and decompression, the upload, the
+    device expansion and the download.  For as long as it is entered it
+    wraps the four step functions, synchronising the card before and
+    after each call; scan threads overlap, so the sums can exceed the
+    time they cover."""
+
+    STEPS = {"_plan_chunk": "host_parse_s", "_upload_chunk": "upload_s",
+             "_expand_chunk": "expand_s", "_download_chunk": "download_s"}
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(self.STEPS.values(), 0.0)
+        self._lock = threading.Lock()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.seconds)
+
+    def delta(self, before: dict) -> dict:
+        now = self.snapshot()
+        return {k: now[k] - before[k] for k in now}
+
+    def _timed(self, field: str, fn):
+        import torch
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            with self._lock:
+                self.seconds[field] += time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        from paimon_tpu_torch.format import rawpage
+        self._module = rawpage
+        self._fns = {name: getattr(rawpage, name) for name in self.STEPS}
+        for name, field in self.STEPS.items():
+            setattr(rawpage, name, self._timed(field, self._fns[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._fns.items():
+            setattr(self._module, name, fn)
+
+
+def device_decode_dedup(path: str, rows: int, rec: Recorder, cols: dict,
+                        win: np.ndarray, timer: DecodeTimer) -> dict:
+    """dedup_bigint's directory as it stood after its 10 commits, loaded
+    with read.device-decode=true: a merge-on-read scan, the streamed
+    full compaction and a read back on the card, each held row for row
+    against dedup_bigint's last-writer-wins oracle, with every file read
+    through the device decode plane (no fallback) and the seconds of its
+    four steps."""
+    from paimon_tpu_torch.format import rawpage
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "device_decode_dedup"
+    table = FileStoreTable.load(path, dynamic_options={
+        "read.device-decode": "true"})
+    rawpage.DECODE_COUNTS.update(files=0, fallbacks=0)
+    out = {}
+    for what, fn in (("scan", table.to_arrow),
+                     ("compact", lambda: table.compact(full=True)),
+                     ("read", table.to_arrow)):
+        before, files = timer.snapshot(), rawpage.DECODE_COUNTS["files"]
+        got = rec.run(name, what, rows, table.device, fn)
+        out[what] = {"rows_per_s": rec.phases[-1]["rows_per_s"],
+                     "s": rec.phases[-1]["s"],
+                     "files": rawpage.DECODE_COUNTS["files"] - files,
+                     **timer.delta(before)}
+        if what == "compact":
+            if got is None:
+                raise AssertionError(f"{name}: the full compaction "
+                                     f"committed nothing")
+        else:
+            check_rows(f"{name} {what}", got, cols, win, "id")
+        del got
+    counts = dict(rawpage.DECODE_COUNTS)
+    if counts["files"] == 0 or counts["fallbacks"] != 0:
+        raise AssertionError(f"{name}: decode counts {counts}")
+    out["decode_counts"] = counts
+    for what, split in out.items():
+        if what != "decode_counts":
+            log(f"  {name} {what}: {split['files']} files through the "
+                f"device decode plane; host parse and decompression "
+                f"{split['host_parse_s']:.2f} s, upload "
+                f"{split['upload_s']:.2f} s, device expand "
+                f"{split['expand_s']:.2f} s, download "
+                f"{split['download_s']:.2f} s (summed over threads)")
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def device_decode_coverage(work: str, rows: int = 1 << 22,
+                           seed: int = 29, device: str = "cuda") -> dict:
+    """read_parquet_device on the card against pyarrow on ~4M rows of
+    INT32, INT64, FLOAT, DOUBLE and DATE columns (dictionary pages on,
+    1 value in 8 null, 4 row groups a file, several pages a chunk), a
+    string-keyed table that must fall back (counted) and read the same,
+    and fused_decode_merge at 2^24 on the card against its CPU run."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.format import rawpage
+    from paimon_tpu_torch.fs import LocalFileIO
+    from paimon_tpu_torch.ops.decode import fused_decode_merge
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, VarCharType
+
+    rng = np.random.default_rng(seed)
+    fio = LocalFileIO()
+    rawpage.DECODE_COUNTS.update(files=0, fallbacks=0)
+    files = 4
+    per = rows // files
+    out = {"rows": rows, "decode_s": 0.0, "pyarrow_s": 0.0}
+    for k in range(files):
+        def col(values, typ):
+            return pa.array(values, typ, mask=rng.random(per) < 0.125)
+        table = pa.table({
+            "i32": col(rng.integers(-1 << 31, 1 << 31, per).astype(np.int32),
+                       pa.int32()),
+            "i64": col(rng.integers(0, 1000, per), pa.int64()),
+            "f32": col(rng.random(per).astype(np.float32), pa.float32()),
+            "f64": col(rng.integers(0, 50, per) / 4.0, pa.float64()),
+            "day": col(rng.integers(0, 20_000, per).astype(np.int32),
+                       pa.date32())})
+        path = os.path.join(work, f"coverage-{k}.parquet")
+        pq.write_table(table, path, compression="zstd",
+                       row_group_size=per // 4, data_page_size=256 << 10)
+        t0 = time.perf_counter()
+        got = rawpage.read_parquet_device(fio, path, device=device)
+        t1 = time.perf_counter()
+        want = pq.read_table(path)
+        out["decode_s"] += t1 - t0
+        out["pyarrow_s"] += time.perf_counter() - t1
+        if not got.equals(want):
+            raise AssertionError(f"device_decode_coverage: file {k} differs "
+                                 f"from pyarrow")
+        os.unlink(path)
+    if rawpage.DECODE_COUNTS != {"files": files, "fallbacks": 0}:
+        raise AssertionError(f"device_decode_coverage: decode counts "
+                             f"{rawpage.DECODE_COUNTS}")
+
+    schema = (Schema.builder().column("name", VarCharType(nullable=False))
+              .column("v1", BigIntType()).primary_key("name")
+              .options({"bucket": "1", "read.device-decode": "true"})
+              .build())
+    t = FileStoreTable.create(os.path.join(work, "coverage-strings"), schema,
+                              device=device)
+    wb = t.new_batch_write_builder()
+    with wb.new_write() as w:
+        w.write_arrow(pa.table({
+            "name": pa.array([f"key-{i}" for i in range(1 << 16)]),
+            "v1": pa.array(np.arange(1 << 16), pa.int64())}))
+        wb.new_commit().commit(w.prepare_commit())
+    got = t.to_arrow()
+    want = t.copy({"read.device-decode": "false"}).to_arrow()
+    if not got.equals(want) or rawpage.DECODE_COUNTS["fallbacks"] != 1:
+        raise AssertionError(f"device_decode_coverage: the string-keyed "
+                             f"table did not fall back once and read the "
+                             f"same ({rawpage.DECODE_COUNTS})")
+    t.file_io.delete(t.path, recursive=True)
+
+    n = 1 << 24
+    keys = rng.integers(-1 << 40, 1 << 40, n // 2).repeat(2)
+    rng.shuffle(keys)
+    seq = rng.permutation(n).astype(np.int64)
+    host = [torch.from_numpy(keys.view(np.uint8).copy()),
+            torch.from_numpy(seq.view(np.uint8).copy()),
+            torch.zeros(n, dtype=torch.int32)]
+    card = fused_decode_merge(*(x.to(device) for x in host))
+    cpu = fused_decode_merge(*host)
+    for what, a, b in zip(("perm", "winner", "packed"), card, cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"fused_decode_merge at 2^24: {what} "
+                                 f"card != cpu")
+    out["decode_counts"] = dict(rawpage.DECODE_COUNTS)
+    log(f"  device_decode_coverage: {files} files of {per} rows (INT32, "
+        f"INT64, FLOAT, DOUBLE, DATE; dictionary on, 1 in 8 null) equal to "
+        f"pyarrow, no fallback (card {out['decode_s']:.2f} s, pyarrow "
+        f"{out['pyarrow_s']:.2f} s); the string-keyed table fell back once "
+        f"and read the same; fused_decode_merge at 2^24: card == cpu")
+    return out
+
+
+def route_inputs(n: int, runs: int = 10, seed: int = 37):
+    """The main path's merge shapes: packed BIGINT keys (ids uniform in
+    [0, n/2), bench.py's duplicate ratio) in `runs` (key, seq)-sorted
+    runs, oldest first: (lanes u32[n, 2], seq, packed u64, run_starts)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, max(n // 2, 1), n)
+    starts = np.linspace(0, n, runs + 1).astype(np.int64)
+    for a, b in zip(starts[:-1], starts[1:]):
+        ids[a:b] = np.sort(ids[a:b])
+    packed = ids.view(np.uint64) ^ np.uint64(1 << 63)
+    lanes = np.stack([(packed >> np.uint64(32)).astype(np.uint32),
+                      (packed & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                     axis=1)
+    return lanes, np.arange(n, dtype=np.int64), packed, starts
+
+
+# route: (switches, winners_only, pass packed, pass run_starts, full order)
+ROUTES = {
+    "device full": (("PAIMON_FORCE_DEVICE_SORT",), False, True, False, True),
+    "device full, run codes": (("PAIMON_FORCE_DEVICE_SORT",), False, True,
+                               True, True),
+    "device packed": (("PAIMON_FORCE_DEVICE_SORT",), True, True, False,
+                      False),
+    "bitmask": (("PAIMON_FORCE_BITMASK_SORT",), True, True, False, False),
+    "host native fast": (("PAIMON_FORCE_HOST_SORT",), True, True, False,
+                         False),
+    "host numpy fast": (("PAIMON_FORCE_HOST_SORT", "PAIMON_DISABLE_NATIVE"),
+                        True, True, False, False),
+    "host general": (("PAIMON_FORCE_HOST_SORT",), False, False, False, True),
+    "host ovc": (("PAIMON_FORCE_HOST_SORT",), False, True, True, True),
+}
+ROUTE_SWITCHES = ("PAIMON_FORCE_DEVICE_SORT", "PAIMON_FORCE_HOST_SORT",
+                  "PAIMON_FORCE_BITMASK_SORT", "PAIMON_DISABLE_NATIVE",
+                  "PAIMON_DISABLE_OVC")
+HOST_GENERAL_MAX = 1 << 22
+
+
+class switched:
+    """Sets the given routing switches for the length of a block."""
+
+    def __init__(self, *names):
+        self.names = names
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in ROUTE_SWITCHES}
+        for name in self.names:
+            os.environ[name] = "1"
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def model_pick(n: int, overlapped: bool) -> str:
+    """The route device_sorted_winners' cost model takes for a
+    winners-only merge of `n` packed BIGINT keys on the card."""
+    from paimon_tpu_torch.ops import merge
+    if merge._bitmask_device_pays(n, 2, overlapped):
+        return "bitmask"
+    return "device" if merge._device_path_pays(n, 2, True, True) \
+        else "host"
+
+
+def measure_constants(dev) -> dict:
+    """The cost model's rates on this machine: the device's sort passes
+    plus the winner-select kernel on resident data (2 lanes, 2^24), and
+    the host's C radix fast route, numpy argsort fast route and general
+    lexsort route at 2^22, each the best of 3 host-clock runs."""
+    import torch
+
+    from paimon_tpu_torch.ops import merge
+
+    def best(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    n = 1 << 24
+    lanes, seq, packed, _ = route_inputs(n)
+    args = merge._upload(lanes, seq, None, packed, dev)
+    out = {"device_sort_rows_per_s": n / best(
+        lambda: merge.segmented_merge_body(*args, "last", 2))}
+    del args
+    m = HOST_GENERAL_MAX
+    lanes, seq, packed, _ = route_inputs(m)
+    out["host_fast_native_rows_per_s"] = m / best(
+        lambda: merge._host_sorted_winners_fast(lanes, seq, "last", packed))
+    with switched("PAIMON_DISABLE_NATIVE"):
+        out["host_fast_numpy_rows_per_s"] = m / best(
+            lambda: merge._host_sorted_winners_fast(lanes, seq, "last",
+                                                    packed))
+    out["host_general_rows_per_s"] = m / best(
+        lambda: merge._host_sorted_winners(lanes, seq, "last", 2))
+    log("cost-model rates measured here: " + ", ".join(
+        f"{k} {v:,.0f}" for k, v in out.items()))
+    return out
+
+
+def merge_routes(dedup_winner_frac: float, device: str = "cuda",
+                 shapes=(14, 20, 24)) -> dict:
+    """Every route of device_sorted_winners at the main path's merge
+    shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at 2^14, 2^20
+    and 2^24 (the host general route up to 2^22): the same winner rows
+    in key order on every route, and the full routes also the same perm
+    and prev on the real rows; each route timed on the host clock (best
+    of 3, one run at 2^24 on the host routes), the measured link rates
+    at 8 MiB (the model's) and 256 MiB, and the model's pick at each
+    shape, at the winner fraction 1.0 of a fresh process and at the
+    dedup table's."""
+    import torch
+
+    from paimon_tpu_torch import native
+    from paimon_tpu_torch.ops import merge
+
+    if native.load() is None:
+        raise AssertionError("merge_routes: the native library did not load")
+    dev = torch.device(device)
+    links = {f"{size >> 20}MiB": merge.link_bandwidth(dev, size)
+             for size in (8 << 20, 256 << 20)}
+    for k, (h2d, d2h) in links.items():
+        log(f"link at {k}: host to device {h2d / 1e9:.2f} GB/s, device to "
+            f"host {d2h / 1e9:.2f} GB/s (pageable)")
+    saved = (merge._LINK_BW, dict(merge._WINNER_FRAC))
+    merge._LINK_BW = links["8MiB"]
+    out = {"links": links, "constants": measure_constants(dev),
+           "shapes": {}}
+    for log2 in shapes:
+        n = 1 << log2
+        lanes, seq, packed, starts = route_inputs(n)
+        picks = {}
+        for frac_name, frac in (("1.0", None),
+                                ("dedup", dedup_winner_frac)):
+            merge._WINNER_FRAC.update(
+                num=0.0 if frac is None else frac * n,
+                den=0.0 if frac is None else float(n))
+            for overlapped in (False, True):
+                picks[f"frac {frac_name}, overlapped {overlapped}"] = \
+                    model_pick(n, overlapped)
+        times, winners, full = {}, {}, {}
+        for route, (switches, winners_only, with_packed, with_runs,
+                    full_order) in ROUTES.items():
+            if route == "host general" and n > HOST_GENERAL_MAX:
+                continue
+            reps = 1 if n >= 1 << 24 and route.startswith("host") else 3
+            best = None
+            with switched(*switches):
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    perm, winner, prev = merge.device_sorted_winners(
+                        lanes, seq, "last", winners_only=winners_only,
+                        packed=packed if with_packed else None,
+                        run_starts=starts if with_runs else None,
+                        device=dev)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    best = dt if best is None else min(best, dt)
+            times[route] = best
+            real = perm < n
+            winners[route] = perm[winner & real]
+            if full_order:
+                full[route] = (perm[real], np.asarray(prev)[real])
+        first = winners["device packed"]
+        for route, w in winners.items():
+            if not np.array_equal(w, first):
+                raise AssertionError(f"merge_routes n=2^{log2}: {route}'s "
+                                     f"winners differ from device packed's")
+        base = full["device full"]
+        for route, (p, q) in full.items():
+            if not (np.array_equal(p, base[0]) and np.array_equal(q, base[1])):
+                raise AssertionError(f"merge_routes n=2^{log2}: {route}'s "
+                                     f"perm or prev differs from device "
+                                     f"full's")
+        out["shapes"][f"2^{log2}"] = {"seconds": times, "model": picks}
+        log(f"merge routes at n=2^{log2} ({len(first)} winners): equal on "
+            f"every route; " + ", ".join(f"{r} {t * 1e3:.2f} ms"
+                                         for r, t in times.items())
+            + "; model picks " + ", ".join(f"{k}: {v}"
+                                           for k, v in picks.items()))
+    merge._LINK_BW, frac = saved
+    merge._WINNER_FRAC.update(frac)
+    return out
+
+
+# the 100M-row tables: none of their merge phases may take host routes only
+BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
+
+
 def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
-              c5: dict) -> tuple:
+              c5: dict, decode_timer: DecodeTimer, decoded: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -1499,9 +1917,27 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         base = {"bucket": "1", "write-only": "true",
                 "parquet.enable.dictionary": "false"}
 
-        with capture, reducer, timer:
+        decode_dir = os.path.join(work, "device_decode_dedup")
+
+        def copy_dedup():
+            t0 = time.perf_counter()
+            shutil.copytree(os.path.join(work, "dedup_bigint"), decode_dir)
+            log(f"  dedup_bigint copied after its commits for "
+                f"device_decode_dedup in {time.perf_counter() - t0:.1f} s")
+
+        with capture, reducer, timer, decode_timer:
             drive("dedup_bigint", bigint_schema(base), batches,
-                  lambda what, got: check_rows(what, got, cols, win, "id"))
+                  lambda what, got: check_rows(what, got, cols, win, "id"),
+                  after_write=copy_dedup)
+            # the same files read through the device decode plane
+            decoded["dedup"] = path("device_decode_dedup",
+                                    lambda: device_decode_dedup(
+                                        decode_dir, rows, rec, cols, win,
+                                        decode_timer))
+            decoded["dedup_winner_frac"] = len(win) / rows
+            decoded["pyarrow_rows_per_s"] = {
+                p["phase"]: p["rows_per_s"] for p in phases
+                if p["table"] == "dedup_bigint"}
             # BASELINE config 4 (bench.py BENCH_SHAPE=config4): the same
             # batches under aggregation sum/max, ORC runs at level 0,
             # parquet after compaction
@@ -1553,6 +1989,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                                work, rec, timer, **c5)))
             path("changelog_producers_coverage",
                  lambda: changelog_producers_coverage(work, rec))
+            decoded["coverage"] = path("device_decode_coverage",
+                                       lambda: device_decode_coverage(work))
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -1574,6 +2012,11 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                     p["launches_plain"] + p["launches_ovc"] == 0:
                 raise AssertionError(f"{p['table']} {p['phase']}: no kernel "
                                      f"launch")
+            if p["table"] in BIG_TABLES and p["device"] == "cuda" and \
+                    p["phase"] in ("write", "scan", "compact") and \
+                    p["routes"]["device"] == 0:
+                raise AssertionError(f"{p['table']} {p['phase']}: host merge "
+                                     f"routes only ({p['routes']})")
             if p["table"] == "agg_sum_max_orc" and \
                     p["phase"] in ("scan", "compact") and \
                     p["launches_ovc"] == 0:
@@ -1610,6 +2053,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import paimon_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from paimon_tpu_torch import native
     from paimon_tpu_torch.ops import kernels
 
     smi = subprocess.run(
@@ -1618,25 +2062,36 @@ def main() -> int:
     log(smi.stdout.strip())
     t_start = time.perf_counter()
     log(f"kernel build: {kernels.build():.2f} s (nvcc, sm_90a)")
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError("the host merge routes' C library did not "
+                             "build or load")
+    log(f"C library build and load: {time.perf_counter() - t0:.2f} s "
+        f"({native.load()._name})")
 
-    check_sorted_winners()
+    with switched("PAIMON_FORCE_DEVICE_SORT"):
+        check_sorted_winners()
     check_segment_reductions()
     phases: list = []
     capture = LaunchCapture()
     c5 = {"keys": args.c5_keys, "commits": args.c5_commits,
           "per_commit": args.c5_rows_per_commit}
+    decoded: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
-                         ChangelogTimer(), c5)
+                         ChangelogTimer(), c5, DecodeTimer(), decoded)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
     check_kernels(capture, k1, k2)
     log(f"edge sizes: {check_edges()} cases exact (sizes {EDGE_SIZES}, "
         f"lanes {EDGE_LANES}, aligned and shifted by 4 bytes)")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
 
     c5["joint_ranks"] = check_joint_ranks()
+    routes = merge_routes(decoded["dedup_winner_frac"])
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"changelog_lookup_upsert": c5}))
+    print(json.dumps({"device_decode": decoded}))
+    print(json.dumps({"merge_routes": routes}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),
                                   k2.record(launches[1])]}))

@@ -236,21 +236,39 @@ class MergeTreeCompactManager:
         size — SURVEY hard part (d)."""
         from paimon_tpu_torch.core.read import evolve_table
         from paimon_tpu_torch.format import get_format
+        from paimon_tpu_torch.format.rawpage import maybe_iter_batches_device
+        from paimon_tpu_torch.fs.caching import scoped_batches
         from paimon_tpu_torch.ops.merge_stream import merge_runs_streamed
 
         chunk_rows = self.options.get(CoreOptions.MERGE_CHUNK_ROWS)
         runs_meta = assemble_runs(files)
 
+        device_decode = self.options.get(CoreOptions.READ_DEVICE_DECODE)
+
+        def batches_of(f):
+            ext = f.file_name.rsplit(".", 1)[-1]
+            fmt = get_format(ext)
+            path = f.external_path or self.path_factory.data_file_path(
+                self.partition, self.bucket, f.file_name)
+            if fmt.identifier == "parquet" and device_decode:
+                # row group by row group through the device decode
+                # plane, keeping the streamed path's memory bound; a
+                # file outside coverage takes read_batches below
+                batches = maybe_iter_batches_device(
+                    self.file_io, path, chunk_rows, self.options,
+                    device=self.device)
+                if batches is not None:
+                    return batches
+            # scoped_batches holds the footer-cache gate only while
+            # advancing the reader, never across this generator's yields
+            return scoped_batches(fmt.create_reader().read_batches(
+                self.file_io, path, batch_rows=chunk_rows), self.options)
+
         def run_iter(run_files):
             # yields (table, lanes, truncated, packed): the lane encode
             # runs HERE, inside the prefetch thread, overlapping the merge
             for f in run_files:
-                ext = f.file_name.rsplit(".", 1)[-1]
-                fmt = get_format(ext)
-                path = f.external_path or self.path_factory.data_file_path(
-                    self.partition, self.bucket, f.file_name)
-                for batch in fmt.create_reader().read_batches(
-                        self.file_io, path, batch_rows=chunk_rows):
+                for batch in batches_of(f):
                     t = evolve_table(batch, f.schema_id, self.schema,
                                      self.schema_manager,
                                      self._schema_cache,
@@ -285,7 +303,7 @@ class MergeTreeCompactManager:
                 encoded = [item[1:] for item in items]
                 return merge_pool.submit(
                     self._merge_tables, tables, drop_delete,
-                    encoded=encoded)
+                    encoded=encoded, overlapped=True)
 
             def flush():
                 nonlocal acc, acc_bytes
@@ -415,7 +433,8 @@ class MergeTreeCompactManager:
         if cached is not None:
             return cached
         raw = read_kv_file(self.file_io, self.path_factory, self.partition,
-                           self.bucket, f)
+                           self.bucket, f, options=self.options,
+                           device=self.device)
         t = evolve_table(raw, f.schema_id, self.schema,
                          self.schema_manager, self._schema_cache,
                          keep_sys_cols=True)
@@ -456,11 +475,15 @@ class MergeTreeCompactManager:
         return record_level_expire_filter(self.options, merged)
 
     def _merge_tables(self, run_tables: List[pa.Table],
-                      drop_deletes: bool, encoded=None) -> pa.Table:
+                      drop_deletes: bool, encoded=None,
+                      overlapped: bool = False) -> pa.Table:
         """Merge run-ordered tables under the table's merge engine —
         the single dispatch shared by the one-shot and streamed paths.
         `encoded`: optional pre-computed (lanes, truncated[, packed])
-        per table (the streamed path encodes once for the window cut)."""
+        per table (the streamed path encodes once for the window cut).
+        `overlapped`: the caller runs merges on a pipeline worker, so
+        device transfers hide under the next window's decode and cut
+        (the bitmask route's cost model)."""
         engine = self.options.merge_engine
         seq_fields = self.options.sequence_field or None
         if engine in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
@@ -469,7 +492,8 @@ class MergeTreeCompactManager:
                 drop_deletes=drop_deletes, key_encoder=self.key_encoder,
                 seq_fields=seq_fields,
                 seq_desc=self.options.sequence_field_descending,
-                encoded=encoded, device=self.device)
+                encoded=encoded, overlapped=overlapped,
+                device=self.device)
             return self._record_level_expire(res.take())
         merged = merge_runs_agg(run_tables, self.key_cols, self.schema,
                                 self.options,

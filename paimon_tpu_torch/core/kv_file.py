@@ -1,8 +1,9 @@
 """KeyValue data-file writer/reader.
 
-Counterpart of paimon_tpu/core/kv_file.py without file indexes, blob
-columns and device decode (not ported yet); changelog files are
-written by `write_changelog_file`.
+Counterpart of paimon_tpu/core/kv_file.py without file indexes and
+blob columns (not ported yet); changelog files are written by
+`write_changelog_file`, and parquet reads take the device decode plane
+(format/rawpage.py) under read.device-decode.
 
 reference: paimon-core/.../io/KeyValueDataFileWriter.java (flattens
 KeyValue to `_KEY_<k...>, _SEQUENCE_NUMBER, _VALUE_KIND, value...`),
@@ -22,6 +23,7 @@ from paimon_tpu_torch.format.format import extract_simple_stats
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta, FileSource, SimpleStats
 from paimon_tpu_torch.ops.merge import KIND_COL, SEQ_COL
+from paimon_tpu_torch.options import CoreOptions
 from paimon_tpu_torch.schema.table_schema import TableSchema
 from paimon_tpu_torch.types import DataType, SpecialFields
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
@@ -201,11 +203,24 @@ def write_changelog_file(file_io: FileIO,
 def read_kv_file(file_io: FileIO, path_factory: FileStorePathFactory,
                  partition: Tuple, bucket: int, meta: DataFileMeta,
                  file_format: Optional[str] = None,
-                 projection: Optional[List[str]] = None) -> pa.Table:
-    """Read one KV data file into Arrow."""
+                 projection: Optional[List[str]] = None,
+                 options=None, device=None) -> pa.Table:
+    """Read one KV data file into Arrow.  `options` (the table's) gates
+    the footer cache (read.cache.footer) and, for parquet, the device
+    decode plane (read.device-decode) on `device`."""
     ext = meta.file_name.rsplit(".", 1)[-1]
     fmt = get_format(file_format or ext)
     path = path_factory.data_file_path(partition, bucket, meta.file_name)
     if meta.external_path:
         path = meta.external_path
-    return fmt.create_reader().read(file_io, path, projection=projection)
+    if fmt.identifier == "parquet" and options is not None \
+            and options.get(CoreOptions.READ_DEVICE_DECODE):
+        from paimon_tpu_torch.format.rawpage import maybe_read_device
+        table = maybe_read_device(file_io, path, projection, options,
+                                  device=device)
+        if table is not None:
+            return table
+    from paimon_tpu_torch.fs.caching import footer_cache_scope
+    with footer_cache_scope(options):
+        return fmt.create_reader().read(file_io, path,
+                                        projection=projection)

@@ -262,7 +262,8 @@ class MergeFileSplitRead:
     def _read_file(self, split: DataSplit, meta: DataFileMeta,
                    read_cols: List[str]) -> pa.Table:
         table = read_kv_file(self.file_io, self.path_factory,
-                             split.partition, split.bucket, meta)
+                             split.partition, split.bucket, meta,
+                             options=self.options, device=self.device)
         return self._evolve(table, meta.schema_id).select(read_cols)
 
     def _read_raw(self, split: DataSplit, read_cols: List[str],

@@ -79,9 +79,17 @@ class FormatWriter:
 class _ParquetReader(FormatReader):
     @staticmethod
     def _open(file_io, path) -> "pq.ParquetFile":
+        """ParquetFile over the file's bytes, reusing a previously
+        parsed footer from the process footer cache (fs/caching.py)."""
+        from paimon_tpu_torch.fs.caching import global_footer_cache
         data = file_io.read_bytes(path)  # store faults propagate
+        cache = global_footer_cache()
+        md = cache.get(path)
         with _decode_errors(path):
-            return pq.ParquetFile(io.BytesIO(data))
+            pf = pq.ParquetFile(io.BytesIO(data), metadata=md)
+        if md is None:
+            cache.put(path, pf.metadata)
+        return pf
 
     def read(self, file_io, path, projection=None, batch_size=1 << 20):
         pf = self._open(file_io, path)

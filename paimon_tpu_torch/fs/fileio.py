@@ -13,7 +13,7 @@ import os
 import shutil
 import uuid
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 __all__ = ["FileIO", "FileStatus", "LocalFileIO", "get_file_io"]
 
@@ -30,6 +30,21 @@ class FileIO:
     """Abstract file IO. All paths are absolute strings."""
 
     def read_bytes(self, path: str) -> bytes:
+        raise NotImplementedError
+
+    def read_range(self, path: str, offset: int, length: int) -> bytes:
+        data = self.read_bytes(path)
+        return data[offset:offset + length]
+
+    def read_ranges(self, path: str,
+                    ranges: List[Tuple[int, int]]) -> List[bytes]:
+        """Vectored read: many (offset, length) ranges in one call
+        (reference fs/VectoredReadable).  Default: one whole-file read,
+        sliced."""
+        data = self.read_bytes(path)
+        return [bytes(data[o:o + ln]) for o, ln in ranges]
+
+    def get_file_size(self, path: str) -> int:
         raise NotImplementedError
 
     def read_utf8(self, path: str) -> str:
@@ -80,6 +95,24 @@ class LocalFileIO(FileIO):
     def read_bytes(self, path: str) -> bytes:
         with open(self._strip(path), "rb") as f:
             return f.read()
+
+    def read_range(self, path: str, offset: int, length: int) -> bytes:
+        with open(self._strip(path), "rb") as f:
+            f.seek(offset)
+            return f.read(length)
+
+    def read_ranges(self, path: str,
+                    ranges: List[Tuple[int, int]]) -> List[bytes]:
+        """One open, N seeks — never the whole file."""
+        out = []
+        with open(self._strip(path), "rb") as f:
+            for offset, length in ranges:
+                f.seek(offset)
+                out.append(f.read(length))
+        return out
+
+    def get_file_size(self, path: str) -> int:
+        return os.path.getsize(self._strip(path))
 
     def exists(self, path: str) -> bool:
         return os.path.exists(self._strip(path))

@@ -1,6 +1,7 @@
-"""K-way sorted-run merge on the device, in PyTorch.
+"""K-way sorted-run merge, in PyTorch.
 
-Counterpart of paimon_tpu/ops/merge.py, with the same plan:
+Counterpart of paimon_tpu/ops/merge.py, with the same plan and the same
+routes.  The device routes:
 
 1. concatenate the k runs oldest-first (keeps input order for stable ties),
 2. stable device sort by (validity, key lanes..., seq_hi, seq_lo, iota),
@@ -11,14 +12,29 @@ Counterpart of paimon_tpu/ops/merge.py, with the same plan:
 4. return take-indices into the concatenated input; the host applies
    them to the Arrow table.
 
-Every merge takes this device path; there is no host sort.  Inputs are
-padded to the reference's power-of-two sizes with invalid=1 rows, so the
-returned perm/winner/prev arrays equal the reference's element for
-element.  Lanes travel as int32 tensors holding uint32 bit patterns.
+The device routes return the full variant (perm, winner, prev), one
+packed word per row (winners only), or one bit per row (the bitmask
+return: the host recovers key order by radix-sorting the winners'
+packed keys).  Their inputs are padded to the reference's power-of-two
+sizes with invalid=1 rows, so the returned arrays equal the reference's
+element for element.  Lanes travel as int32 tensors holding uint32 bit
+patterns.
+
+The host routes (the C radix or numpy fast route, the general lexsort,
+the offset-value-coded merge of ops/ovc.py) return unpadded arrays.
+On a CUDA device a cost model picks the route from the link rate the
+first merge measures (`_device_path_pays`, `_bitmask_device_pays`); on
+device="cpu", where the device routes run the kernels' plain versions,
+the device routes are kept.  PAIMON_FORCE_DEVICE_SORT,
+PAIMON_FORCE_HOST_SORT and PAIMON_FORCE_BITMASK_SORT pin a route on
+either device, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,6 +42,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from paimon_tpu_torch import native
 from paimon_tpu_torch.device import resolve_device
 from paimon_tpu_torch.ops.kernels import eq_next_mask
 from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
@@ -33,7 +50,7 @@ from paimon_tpu_torch.types import RowKind
 
 __all__ = ["merge_runs", "MergeResult", "device_sorted_winners",
            "segmented_merge_body", "sort_table", "user_seq_order_lanes",
-           "SEQ_COL", "KIND_COL"]
+           "link_bandwidth", "PATH_COUNTS", "SEQ_COL", "KIND_COL"]
 
 SEQ_COL = "_SEQUENCE_NUMBER"
 KIND_COL = "_VALUE_KIND"
@@ -171,6 +188,23 @@ def _merge_fn_packed(lanes, seq_hi, seq_lo, invalid, keep: str,
     return perm | torch.where(winner, _INT32_MIN, 0).to(torch.int32)
 
 
+def _merge_fn_bitmask(lanes, seq_hi, seq_lo, invalid, keep: str,
+                      num_key_lanes: int) -> torch.Tensor:
+    """Winner BITMASK variant: uint8[M/8], one bit a row, the winner
+    flags scattered back to the original row order (little-endian bit
+    order, as np.unpackbits(..., bitorder="little") reads it): 1/32nd
+    of the packed return."""
+    perm, winner, _ = segmented_merge_body(lanes, seq_hi, seq_lo, invalid,
+                                           keep,
+                                           num_key_lanes=num_key_lanes)
+    w_orig = torch.zeros_like(winner)
+    w_orig[perm.long()] = winner
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.int32,
+                           device=winner.device)
+    return (w_orig.view(-1, 8).to(torch.int32) * weights).sum(
+        dim=1, dtype=torch.int32).to(torch.uint8)
+
+
 def _split_i64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) int32 halves of an int64 tensor, as bit patterns."""
     halves = x.contiguous().view(torch.int32).view(-1, 2)
@@ -184,28 +218,10 @@ def _writable(a, dtype) -> np.ndarray:
     return a if a.flags.writeable else a.copy()
 
 
-def device_sorted_winners(lanes, seq: np.ndarray, keep: str = "last",
-                          order_lanes: Optional[np.ndarray] = None,
-                          winners_only: bool = False,
-                          packed: Optional[np.ndarray] = None,
-                          run_starts: Optional[np.ndarray] = None,
-                          device=None
-                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Run the merge kernel on `device` (None = cuda).
-
-    lanes: uint32[N, L] (segment identity; may be a lazy view);
-    seq: int64[N] (non-negative); order_lanes: optional uint32[N, O]
-    user-defined sequence lanes that rank within a key BEFORE the
-    internal sequence.  `winners_only=True` promises the caller reads
-    only the winner rows, so one packed word per row comes back.
-    `packed`: the encoder's u64 key when the key is one fixed-width
-    column; it is uploaded in place of the lane matrix.
-    `run_starts`: int64[k+1] boundaries of k (key, seq)-sorted input
-    runs; with the full variant their offset-value codes feed the
-    kernel's code variant.
-    Returns numpy (perm, winner_mask, prev_in_segment) of the
-    power-of-two padded size, equal to the reference's device path."""
-    dev = resolve_device(device)
+def _upload(lanes, seq: np.ndarray, order_lanes, packed, dev):
+    """Padded device inputs (lanes int32[L, M], seq_hi, seq_lo, invalid)
+    of one merge; the packed u64 key is uploaded in place of the lane
+    matrix when the key is one fixed-width column."""
     n, num_key_lanes = lanes.shape
     no_user_order = order_lanes is None or order_lanes.shape[1] == 0
     num_lanes = num_key_lanes + (0 if no_user_order
@@ -229,7 +245,332 @@ def device_sorted_winners(lanes, seq: np.ndarray, keep: str = "last",
     seq_hi, seq_lo = _split_i64(seq_t)
     invalid = torch.ones(m, dtype=torch.int32, device=dev)
     invalid[:n] = 0
+    return lanes_p, seq_hi, seq_lo, invalid
 
+
+# (host->device bytes/s, device->host bytes/s) of the card's link,
+# measured once per process on the merge's own kind of transfer: the
+# merge path choice hinges on exactly this number
+_LINK_BW: Optional[Tuple[float, float]] = None
+
+# merges taken per route this process: "device" counts every merge run
+# on the device (full, packed and bitmask returns), "bitmask" the
+# bitmask returns among them, "host" the host sorts and "ovc" the host
+# offset-value-coded merges
+PATH_COUNTS = {"host": 0, "device": 0, "ovc": 0, "bitmask": 0}
+# merge workers run concurrently: the routing state's updates take it
+_STATE_LOCK = threading.Lock()
+
+
+def _count_route(*keys: str) -> None:
+    with _STATE_LOCK:
+        for key in keys:
+            PATH_COUNTS[key] += 1
+
+# cost-model constants (rows/s), measured by chip_smoke.py's
+# merge_routes (measure_constants) on one NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit and the CPU of its host: the device rate is the
+# stable sort passes plus the winner-select kernel on resident data
+# (2 lanes, 2^24 rows), the host rates are the C radix fast route, the
+# numpy argsort fast route and the general lexsort route at 2^22 rows,
+# each the best of 3
+_DEVICE_SORT_ROWS_PER_SEC = 2.69e9
+_HOST_FAST_NUMPY_ROWS_PER_SEC = 11.1e6
+_HOST_FAST_NATIVE_ROWS_PER_SEC = 18.1e6
+_HOST_GENERAL_ROWS_PER_SEC = 10.2e6
+
+
+def _host_fast_rate() -> float:
+    # predict without triggering the C build: compiling inside the
+    # routing decision would stall first merges on processes that
+    # always route to the device
+    return (_HOST_FAST_NATIVE_ROWS_PER_SEC
+            if native.predicted_available()
+            else _HOST_FAST_NUMPY_ROWS_PER_SEC)
+
+
+def link_bandwidth(dev, size: int = 8 << 20,
+                   rounds: int = 2) -> Tuple[float, float]:
+    """(h2d, d2h) bytes/s of pageable host memory to and from `dev` (a
+    CUDA device), best of `rounds` after one unmeasured warm-up round:
+    the very first transfers absorb allocator and CUDA context warm-up."""
+    buf = np.zeros(size, np.uint8)
+    torch.from_numpy(buf).to(dev).cpu()
+    torch.cuda.synchronize(dev)
+    h2d = d2h = 0.0
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        d = torch.from_numpy(buf).to(dev)
+        torch.cuda.synchronize(dev)
+        h2d = max(h2d, size / max(time.perf_counter() - t0, 1e-9))
+        t0 = time.perf_counter()
+        d.cpu()
+        d2h = max(d2h, size / max(time.perf_counter() - t0, 1e-9))
+    return h2d, d2h
+
+
+def _measure_link_bandwidth(dev) -> Tuple[float, float]:
+    global _LINK_BW
+    if _LINK_BW is None:
+        _LINK_BW = link_bandwidth(dev)
+    return _LINK_BW
+
+
+def _device_path_pays(n: int, num_lanes: int, winners_only: bool,
+                      host_fast: bool, dev=None) -> bool:
+    """Cost model: offload the sort only when transfer+compute beats
+    the host sort."""
+    m = _pad_size(n)
+    h2d, d2h = _measure_link_bandwidth(dev)
+    bytes_in = m * (4 * num_lanes + 12)          # lanes + seq hi/lo + inv
+    bytes_out = m * (4 if winners_only else 9)   # packed vs perm+win+prev
+    t_dev = bytes_in / h2d + bytes_out / d2h + m / _DEVICE_SORT_ROWS_PER_SEC
+    host_rate = _host_fast_rate() if host_fast \
+        else _HOST_GENERAL_ROWS_PER_SEC
+    return t_dev < n / host_rate
+
+
+# measured winner fraction of recent merges (the duplicate-ratio
+# estimate of the bitmask cost model); starts at the conservative 1.0
+# (no dedup benefit assumed until observed).  Only the native fused
+# host route and the bitmask route update it.
+_WINNER_FRAC = {"num": 0.0, "den": 0.0}
+
+
+def _observe_winners(winners: int, rows: int) -> None:
+    with _STATE_LOCK:
+        _WINNER_FRAC["num"] += float(winners)
+        _WINNER_FRAC["den"] += float(rows)
+
+
+def _observed_winner_frac() -> float:
+    if _WINNER_FRAC["den"] < 1.0:
+        return 1.0
+    return max(0.05, _WINNER_FRAC["num"] / _WINNER_FRAC["den"])
+
+
+def _bitmask_device_pays(n: int, num_lanes: int, overlapped: bool,
+                         dev=None) -> bool:
+    """Cost model for the bitmask return: the device sorts and dedups,
+    the host re-sorts only the winners.  With `overlapped=True` the
+    caller runs merges on a pipeline worker, so upload, sort and
+    download hide under the next window's decode and cut; only the
+    host epilogue stays on the merge's critical path."""
+    m = _pad_size(n)
+    h2d, d2h = _measure_link_bandwidth(dev)
+    host_rate = _host_fast_rate()
+    frac = _observed_winner_frac()
+    t_link = (m * (4 * num_lanes + 12)) / h2d \
+        + m / _DEVICE_SORT_ROWS_PER_SEC + (m / 8) / d2h
+    t_epilogue = frac * n / host_rate      # radix of winners only
+    t_dev = t_epilogue + (0.0 if overlapped else t_link)
+    # even overlapped, the link must keep up with the pipeline or the
+    # worker stalls: charge any link time beyond the host-path budget
+    if overlapped:
+        budget = n / host_rate
+        t_dev += max(0.0, t_link - budget)
+    return t_dev < n / host_rate
+
+
+def _host_sorted_winners_fast(lanes, seq: np.ndarray, keep: str,
+                              packed: Optional[np.ndarray] = None
+                              ) -> Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray]:
+    """Packed-key fast route for exactly two key lanes (a fixed-width
+    64-bit key) and no changelog predecessor: one stable argsort of a
+    u64 key, then the winner per segment by segmented max/min of (seq,
+    arrival).  Winner = max seq (ties -> the later arrival) for
+    keep=last, min seq (ties -> the earlier arrival) for keep=first.
+    With the C library it is one fused radix sort and segment scan."""
+    n = lanes.shape[0]
+    if packed is not None:
+        key = packed
+    else:
+        lanes = np.asarray(lanes)    # materialize if lazily concatenated
+        key = (lanes[:, 0].astype(np.uint64) << np.uint64(32)) \
+            | lanes[:, 1].astype(np.uint64)
+    fused = native.merge_winners(key, seq, keep == "last")
+    if fused is not None:
+        perm, winner = fused
+        _observe_winners(np.count_nonzero(winner), n)
+        return perm, winner, np.broadcast_to(np.int64(-1), n)
+    perm = np.argsort(key, kind="stable").astype(np.int32)
+    k_sorted = key[perm]
+    starts_mask = np.empty(n, dtype=bool)
+    starts_mask[0] = True
+    starts_mask[1:] = k_sorted[1:] != k_sorted[:-1]
+    seg_starts = np.flatnonzero(starts_mask)
+    seg_id = np.cumsum(starts_mask) - 1
+    seq_sorted = seq[perm]
+    if keep == "last":
+        best_seq = np.maximum.reduceat(seq_sorted, seg_starts)
+        tie = seq_sorted == best_seq[seg_id]
+        cand = np.where(tie, perm, -1)
+        best_arrival = np.maximum.reduceat(cand, seg_starts)
+    else:
+        best_seq = np.minimum.reduceat(seq_sorted, seg_starts)
+        tie = seq_sorted == best_seq[seg_id]
+        cand = np.where(tie, perm, n)
+        best_arrival = np.minimum.reduceat(cand, seg_starts)
+    winner = tie & (perm == best_arrival[seg_id])
+    # winners_only contract: prev is never read
+    return perm, winner, np.broadcast_to(np.int64(-1), n)
+
+
+def _winner_epilogue(perm: np.ndarray, eq_neighbors: np.ndarray,
+                     keep: str) -> Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray]:
+    """Shared tail of every sorted-winner host route: `eq_neighbors[i]`
+    says sorted rows i and i+1 share a key.  Winner = segment end
+    (keep=last) or start (keep=first); prev = in-segment predecessor."""
+    eq_next = np.concatenate([eq_neighbors, [False]])
+    eq_prev = np.concatenate([[False], eq_neighbors])
+    winner = ~eq_next if keep == "last" else ~eq_prev
+    prev = np.where(eq_prev, np.roll(perm, 1), -1)
+    return perm, winner, prev
+
+
+def _host_sorted_winners(lanes, seq: np.ndarray, keep: str,
+                         num_key_lanes: int, need_prev: bool = True,
+                         packed: Optional[np.ndarray] = None
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host sort with exactly the kernel's semantics, unpadded."""
+    n, num_lanes = lanes.shape
+    if num_lanes == 2 and num_key_lanes == 2 and not need_prev and n > 0:
+        return _host_sorted_winners_fast(lanes, seq, keep, packed=packed)
+    if num_lanes == 2 and num_key_lanes == 2 and n > 0 \
+            and packed is not None:
+        # full-order variant of the packed fast route: two stable C
+        # radix passes (by seq, then by key) compose to the exact
+        # (key, seq, arrival) order of the lexsort
+        if native.load() is not None and int(seq.min()) >= 0:
+            useq = seq.astype(np.int64, copy=False).view(np.uint64)
+            p1 = native.radix_argsort(useq)
+            p2 = native.radix_argsort(np.ascontiguousarray(packed[p1])) \
+                if p1 is not None else None
+            if p2 is not None:
+                perm = p1[p2].astype(np.int32, copy=False)
+                k_sorted = packed[perm]
+                return _winner_epilogue(perm, k_sorted[1:] == k_sorted[:-1],
+                                        keep)
+    lanes = np.asarray(lanes)        # materialize if lazily concatenated
+    useq = seq.astype(np.int64, copy=False).view(np.uint64)
+    keys = ((useq & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (useq >> np.uint64(32)).astype(np.uint32),
+            *(lanes[:, i] for i in range(num_lanes - 1, -1, -1)))
+    perm = np.lexsort(keys).astype(np.int32)
+    s_lanes = lanes[:, :num_key_lanes][perm]
+    eq = np.all(s_lanes[:-1] == s_lanes[1:], axis=1)
+    return _winner_epilogue(perm, eq, keep)
+
+
+def _bitmask_sorted_winners(lanes, seq: np.ndarray, keep: str,
+                            order_lanes: Optional[np.ndarray],
+                            packed: np.ndarray, dev
+                            ) -> Tuple[np.ndarray, np.ndarray,
+                                       np.ndarray]:
+    """Device route with the N/8-byte return: upload the keys and seq,
+    the device sorts and computes the winner mask in original row
+    order, the host radix-sorts only the winners' packed keys to recover
+    key order.  Returns (winner indices in key order, all-true, -1):
+    valid under the winners_only contract."""
+    _count_route("device", "bitmask")
+    n = packed.shape[0]
+    lanes_p, seq_hi, seq_lo, invalid = _upload(lanes, seq, order_lanes,
+                                               packed, dev)
+    mask_bytes = _merge_fn_bitmask(lanes_p, seq_hi, seq_lo, invalid, keep,
+                                   2).cpu().numpy()
+    mask = np.unpackbits(mask_bytes, bitorder="little")[:n].astype(bool)
+    widx = np.flatnonzero(mask)           # winners, original row order
+    _observe_winners(len(widx), n)
+    wkeys = np.ascontiguousarray(packed[widx])
+    perm_w = native.radix_argsort(wkeys)
+    if perm_w is None:
+        perm_w = np.argsort(wkeys, kind="stable")
+    indices = widx[perm_w].astype(np.int32)
+    return (indices, np.ones(len(indices), dtype=bool),
+            np.broadcast_to(np.int64(-1), len(indices)))
+
+
+def device_sorted_winners(lanes, seq: np.ndarray, keep: str = "last",
+                          order_lanes: Optional[np.ndarray] = None,
+                          winners_only: bool = False,
+                          packed: Optional[np.ndarray] = None,
+                          overlapped: bool = False,
+                          run_starts: Optional[np.ndarray] = None,
+                          device=None
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sorted winners of a merge, on `device` (None = cuda) or the host.
+
+    lanes: uint32[N, L] (segment identity; may be a lazy view);
+    seq: int64[N] (non-negative); order_lanes: optional uint32[N, O]
+    user-defined sequence lanes that rank within a key BEFORE the
+    internal sequence.  `winners_only=True` promises the caller reads
+    only the winner rows, which admits the packed and bitmask returns
+    and the host fast route.  `packed`: the encoder's u64 key when the
+    key is one fixed-width column.  `overlapped`: the caller runs merges
+    on a pipeline worker (the bitmask cost model).  `run_starts`:
+    int64[k+1] boundaries of k (key, seq)-sorted input runs; the device
+    full variant feeds their offset-value codes to the kernel's code
+    variant, the host route merges them (ops/ovc.py).
+
+    Returns numpy (perm, winner_mask, prev_in_segment): of the
+    power-of-two padded size on the device routes, UNPADDED (length N,
+    all rows valid) on the host routes, and winners only (all-true
+    mask) on the bitmask route.  Callers select through the winner mask
+    and `perm < n`, never assume a padded length.
+
+    Route: on a CUDA device the first call measures the link, and each
+    merge takes the bitmask return where `_bitmask_device_pays`, else
+    the device where `_device_path_pays`, else the host; on the CPU the
+    device routes stay.  PAIMON_FORCE_DEVICE_SORT=1 pins the device
+    routes, PAIMON_FORCE_HOST_SORT=1 the host routes and
+    PAIMON_FORCE_BITMASK_SORT=1 the bitmask return where the caller
+    admits it."""
+    dev = resolve_device(device)
+    n, num_key_lanes = lanes.shape
+    force_device = os.environ.get("PAIMON_FORCE_DEVICE_SORT") == "1"
+    force_bitmask = os.environ.get("PAIMON_FORCE_BITMASK_SORT") == "1"
+    force_host = os.environ.get("PAIMON_FORCE_HOST_SORT") == "1"
+    no_user_order = order_lanes is None or order_lanes.shape[1] == 0
+    host_fast = num_key_lanes == 2 and winners_only and no_user_order
+    # bitmask return: winners-only callers with a pre-packed u64 key
+    bitmask_ok = winners_only and packed is not None and n > 0
+    nl_total = lanes.shape[1] + (0 if no_user_order
+                                 else order_lanes.shape[1])
+    use_bitmask = force_bitmask and bitmask_ok
+    use_host = force_host
+    if not use_host and not force_device and not force_bitmask and n > 0 \
+            and dev.type == "cuda":
+        use_bitmask = bitmask_ok and _bitmask_device_pays(
+            n, nl_total, overlapped, dev)
+        if not use_bitmask:
+            use_host = not _device_path_pays(n, nl_total, winners_only,
+                                             host_fast, dev)
+    if use_bitmask:
+        return _bitmask_sorted_winners(lanes, seq, keep, order_lanes,
+                                       np.asarray(packed), dev)
+    if use_host:
+        if run_starts is not None and no_user_order and len(run_starts) > 1:
+            # sorted-run inputs: the offset-value-coded merge replaces
+            # the sort
+            from paimon_tpu_torch.ops.ovc import ovc_sorted_winners
+            res = ovc_sorted_winners(lanes, seq, keep, run_starts,
+                                     num_key_lanes, packed=packed)
+            if res is not None:
+                _count_route("ovc")
+                return res
+        _count_route("host")
+        full = lanes if no_user_order \
+            else np.concatenate([np.asarray(lanes), order_lanes], axis=1)
+        return _host_sorted_winners(full, seq, keep, num_key_lanes,
+                                    need_prev=not winners_only,
+                                    packed=packed if no_user_order
+                                    else None)
+    _count_route("device")
+    lanes_p, seq_hi, seq_lo, invalid = _upload(lanes, seq, order_lanes,
+                                               packed, dev)
+    m = lanes_p.shape[1]
     if winners_only:
         word = _merge_fn_packed(lanes_p, seq_hi, seq_lo, invalid, keep,
                                 num_key_lanes)
@@ -342,9 +683,12 @@ def merge_runs(runs: Sequence[pa.Table], key_names: Sequence[str],
                seq_desc: bool = False,
                encoded: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]]
                = None,
+               overlapped: bool = False,
                device=None) -> MergeResult:
     """Merge k sorted runs (oldest first) into the latest row per key
-    (deduplicate) or the first (first-row), on `device`.
+    (deduplicate) or the first (first-row), on `device`.  `overlapped`:
+    the caller runs merges on a pipeline worker (device_sorted_winners'
+    bitmask cost model).
 
     Equivalent reference path: MergeTreeReaders.readerForMergeTree
     (mergetree/MergeTreeReaders.java:44) + DeduplicateMergeFunction /
@@ -399,7 +743,7 @@ def merge_runs(runs: Sequence[pa.Table], key_names: Sequence[str],
     perm, winner, prev = device_sorted_winners(
         lanes, seq, keep, order_lanes,
         winners_only=not with_prev and not truncated.any(),
-        packed=packed,
+        packed=packed, overlapped=overlapped,
         run_starts=run_starts if order_lanes is None else None,
         device=device)
 

@@ -299,16 +299,21 @@ class CoreOptions:
         "read.prefetch.splits", int, 2,
         "Extra splits submitted beyond the worker pool width so the "
         "next split's files download while the current one merges")
+    READ_CACHE_FOOTER = ConfigOption(
+        "read.cache.footer", _parse_bool, True,
+        "Cache parsed parquet footers of immutable data files in a "
+        "process-wide LRU so repeated scans skip metadata decode "
+        "(fs/caching.py)")
     READ_DEVICE_DECODE = ConfigOption(
         "read.device-decode", _parse_bool, False,
         "Route parquet data-file reads through the device decode plane "
         "(format/rawpage.py + ops/decode.py): undecoded column-chunk "
-        "pages are sliced via ranged reads (riding the block-range "
-        "cache and SSD tier) and every per-value transform — "
-        "RLE/bit-packed level expansion, dictionary gather, PLAIN "
-        "reinterpret — runs as vectorized device ops; files outside "
-        "the covered encodings fall back to the pyarrow host path "
-        "(scan group device_decode_files/_fallbacks counters)")
+        "pages are sliced via ranged reads, and every per-value "
+        "transform — RLE/bit-packed level expansion, dictionary "
+        "gather, PLAIN reinterpret, null expansion — runs as torch ops "
+        "on the table's device; files outside the covered encodings "
+        "fall back to the pyarrow host path (counted in "
+        "format.rawpage.DECODE_COUNTS)")
 
     WRITE_FLUSH_PARALLELISM = ConfigOption(
         "write.flush.parallelism", int, None,

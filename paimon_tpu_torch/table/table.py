@@ -61,8 +61,6 @@ def check_readable(schema: TableSchema, options: CoreOptions,
     if schema.cross_partition_update():
         _not_ported("cross-partition upsert (primary key without the "
                     "partition keys)", "the remaining planes")
-    if options.get(CoreOptions.READ_DEVICE_DECODE):
-        _not_ported("read.device-decode", "device decode")
     if options.get(CoreOptions.DELETION_VECTORS_ENABLED):
         _not_ported("deletion vectors", "the remaining planes")
     if options.get(CoreOptions.ROW_TRACKING_ENABLED):

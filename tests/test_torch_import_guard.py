@@ -20,11 +20,17 @@ names = [m.name for m in pkgutil.walk_packages(
     paimon_tpu_torch.__path__, "paimon_tpu_torch.")]
 for name in names:
     __import__(name)
+from paimon_tpu_torch import native
+lib = native.load()
 bad = sorted(m for m in sys.modules
              if m == "jax" and sys.modules[m] is not None
              or m.startswith("jax.")
              or m == "paimon_tpu" or m.startswith("paimon_tpu."))
-print(json.dumps({"modules": names, "bad": bad}))
+with open("/proc/self/maps") as f:
+    libs = sorted({line.split()[-1] for line in f
+                   if line.rstrip().endswith(".so")})
+print(json.dumps({"modules": names, "bad": bad, "libs": libs,
+                  "native": None if lib is None else lib._name}))
 """
 
 
@@ -48,8 +54,25 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.ops.diff",
                  "paimon_tpu_torch.table.stream_scan",
                  "paimon_tpu_torch.snapshot.consumer_manager",
-                 "paimon_tpu_torch.snapshot.changelog_manager"):
+                 "paimon_tpu_torch.snapshot.changelog_manager",
+                 "paimon_tpu_torch.ops.decode",
+                 "paimon_tpu_torch.ops.ovc",
+                 "paimon_tpu_torch.format.rawpage",
+                 "paimon_tpu_torch.fs.caching",
+                 "paimon_tpu_torch.native"):
         assert name in out["modules"]
+
+
+def test_native_library_is_the_ports_own():
+    """The port loads the C library it built from its own copy of the
+    sources into paimon_tpu_torch/_build/, never paimon_tpu/native/'s."""
+    out = _probe()
+    build = os.path.join(REPO, "paimon_tpu_torch", "_build")
+    assert out["native"] == os.path.join(build, "_paimon_torch_native.so")
+    loaded = [p for p in out["libs"] if "paimon" in os.path.basename(p)]
+    assert out["native"] in loaded
+    assert not [p for p in loaded
+                if os.path.join("paimon_tpu", "native") in p]
 
 
 @pytest.mark.parametrize("name, expected", [

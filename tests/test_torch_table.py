@@ -314,7 +314,7 @@ def test_compact_manifests_matches_reference(tmp_path):
     ({"scan.tag-name": "v1"}, "the remaining planes"),
     ({"bucket": "-1"}, "the remaining planes"),
     ({"deletion-vectors.enabled": "true"}, "the remaining planes"),
-    ({"read.device-decode": "true"}, "device decode")])
+    ({"scan.fallback-branch": "fb"}, "the remaining planes")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
         FileStoreTable.create(str(tmp_path / "t"), pk_schema(**options),
