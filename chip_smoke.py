@@ -9,7 +9,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each of which raises on failure (no result line is printed
 then):
 
-1. the card's name and power limit (nvidia-smi);
+1. the card's name and power limit (nvidia-smi), printed again after the
+   last phase;
 2. build the CUDA kernels from paimon_tpu_torch/csrc with nvcc, and the
    host merge routes' C library from paimon_tpu_torch/native with the
    host compiler (the run fails if it does not load);
@@ -61,7 +62,19 @@ then):
      DATE columns (dictionary pages, 1 value in 8 null, several row
      groups and pages a chunk) read on the card equal to pyarrow, a
      string-keyed table that falls back once and reads the same, and
-     fused_decode_merge at 2^24 on the card equal to its CPU run.
+     fused_decode_merge at 2^24 on the card equal to its CPU run;
+   - mesh_compaction: parallel/dryrun.run_engines' tables (id BIGINT
+     NOT NULL key, v DOUBLE, 8 buckets, write-only; deduplicate and
+     aggregation with v sum; commits of 5M ids uniform in [0, 10M)
+     from seed 6 until >= 10M rows enter the compaction) compacted by
+     compact_table_mesh on 8 lanes of the card, one batched merge a
+     window step; each held against a numpy oracle (exact; sums within
+     rtol 1e-12), with no retry, fallback or cleanup error and the
+     offset-value-code variant launched over 8 lanes at once; then the
+     deduplicate table rescaled to 16 buckets: read back equal, every
+     row in its formula's bucket, the schema's bucket option set, no row
+     dropped.  It reports windows, packing, the window merges' seconds
+     against the host run codes', and the launches by (B, N, L);
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -82,7 +95,10 @@ then):
 6. both variants held exactly against the plain version at edge sizes
    (n from 1 to 2^21 + 4 around every boundary of the rows a thread,
    a warp and a block take, L in 1, 2, 5, 8), and with inputs that are
-   not 16-byte aligned;
+   not 16-byte aligned; then the lane stride (B lanes of N rows in one
+   launch: B in 1, 3, 8, N in 1024, 2^20, L in 1, 2, 5, random lanes
+   and full lanes of one key whose perms and codes run on across every
+   boundary), exact and equal to B separate 1-D calls;
 7. the changelog diff's key ranks on the card held exactly against
    np.unique on the host (the reference's computation), both timed;
 8. merge_routes: every route of device_sorted_winners (device full with
@@ -95,7 +111,8 @@ then):
    each shape at a winner fraction of 1.0 and at dedup_bigint's.
 
 The last lines of standard output are one JSON object per line: the
-config-5 metrics, the device decode results, the merge routes, the
+config-5 metrics, the device decode results, the mesh compaction, the
+merge routes, the
 phases, the kernels with their launches on the main path and their
 times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
@@ -120,6 +137,14 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 # the earlier design's (one row a thread) kernel time at each shape it
@@ -215,7 +240,12 @@ class KernelStats:
                 "bound_ms": top["bound_ms"], "bound_by": "bytes",
                 "library_ms": None, "n": top["n"], "lanes": top["lanes"],
                 "device_ms": top["device_ms"],
-                "host_us": low["host_us"], "host_us_n": low["n"]}
+                "host_us": low["host_us"], "host_us_n": low["n"],
+                # the mesh's batched launches: b lanes of n / b rows
+                "batched": [{k: c[k] for k in (
+                    "batch", "n", "lanes", "launches", "ms", "device_ms",
+                    "bound_ms", "plain_ms")}
+                    for c in main if c["batch"] > 1]}
 
 
 class LaunchCapture:
@@ -224,7 +254,8 @@ class LaunchCapture:
     For the length of the main-path run it wraps the references to
     kernels.eq_next_mask held by the merge (ops/merge.py) and by the
     changelog diff's key ranks (ops/diff.py): it counts the card's calls
-    per (table, variant, lanes, n, caller) and keeps a host copy of the
+    per (table, variant, lanes, n, caller, batched lanes b) and keeps a
+    host copy of the
     first call's inputs at each, so the kernels are checked and timed
     afterwards on exactly those inputs.  The wrapper and its launch
     counters are left as they are; the host time spent copying is kept
@@ -241,12 +272,17 @@ class LaunchCapture:
         kernel = self._kernel
 
         def shim(lanes, invalid, ovc_off=None, perm=None,
-                 num_key_lanes=None):
+                 num_key_lanes=None, seg_len=None):
             if not lanes.is_cuda:       # the CPU reference run
-                return kernel(lanes, invalid, ovc_off, perm, num_key_lanes)
+                return kernel(lanes, invalid, ovc_off, perm, num_key_lanes,
+                              seg_len)
+            n = lanes.shape[1]
+            # batched merges (the mesh's bucket lanes): b lanes of
+            # seg_len rows in one launch
+            b = n // seg_len if seg_len and n else 1
             key = (self.where.split()[0],
                    "ovc" if ovc_off is not None else "plain",
-                   lanes.shape[0], lanes.shape[1], caller)
+                   lanes.shape[0], n, caller, b)
             with self._lock:
                 self.calls[key] = self.calls.get(key, 0) + 1
                 if key not in self.cases:
@@ -256,9 +292,11 @@ class LaunchCapture:
                         "args": tuple(None if t is None else t.cpu()
                                       for t in (lanes, invalid, ovc_off,
                                                 perm)),
-                        "num_key_lanes": num_key_lanes}
+                        "num_key_lanes": num_key_lanes,
+                        "seg_len": seg_len if b > 1 else None}
                     self.seconds += time.perf_counter() - t0
-            return kernel(lanes, invalid, ovc_off, perm, num_key_lanes)
+            return kernel(lanes, invalid, ovc_off, perm, num_key_lanes,
+                          seg_len)
         return shim
 
     def __enter__(self):
@@ -274,19 +312,21 @@ class LaunchCapture:
             module.eq_next_mask = self._kernel
 
 
-def needed_bytes(lanes, ovc_off, perm):
+def needed_bytes(lanes, ovc_off, perm, seg_len=None):
     """(bytes, share of lane words) the function must move on these
     inputs: invalid of every row (with codes also ovc_off and perm), one
     byte out per row, and the lane words the compare needs.  A pair's
-    lane l is needed only where the code leaves the pair open and lanes
-    0..l-1 are equal; a row's word is needed if either of its pairs
-    needs it."""
+    lane l is needed only where the code leaves the pair open, the pair
+    lies within one batched lane (`seg_len`) and lanes 0..l-1 are equal;
+    a row's word is needed if either of its pairs needs it."""
     import torch
     num_lanes, n = lanes.shape
     per_row = 4 + 1 + (8 if ovc_off is not None else 0)
     open_pairs = torch.ones(n - 1, dtype=torch.bool, device=lanes.device)
     if ovc_off is not None:
         open_pairs = ~((perm[1:] == perm[:-1] + 1) & (ovc_off[1:] != -1))
+    if seg_len is not None:
+        open_pairs[seg_len - 1::seg_len] = False
     words = 0
     for lane in range(num_lanes):
         need = torch.zeros(n, dtype=torch.bool, device=lanes.device)
@@ -297,7 +337,8 @@ def needed_bytes(lanes, ovc_off, perm):
     return n * per_row + 4 * words, words / (num_lanes * n)
 
 
-def exact(stats_name: str, label: str, args, num_key_lanes) -> int:
+def exact(stats_name: str, label: str, args, num_key_lanes,
+          seg_len=None) -> int:
     """Kernel against plain version on the card; raises on any
     difference, else returns the largest difference (0)."""
     import torch
@@ -305,8 +346,10 @@ def exact(stats_name: str, label: str, args, num_key_lanes) -> int:
     from paimon_tpu_torch.ops import kernels
 
     lanes, inv, off, perm = args
-    got = kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes)
-    want = kernels.eq_next_mask_plain(lanes, inv, off, perm, num_key_lanes)
+    got = kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes,
+                               seg_len)
+    want = kernels.eq_next_mask_plain(lanes, inv, off, perm, num_key_lanes,
+                                      seg_len)
     torch.cuda.synchronize()
     err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
     if err or got.shape != want.shape:
@@ -315,7 +358,8 @@ def exact(stats_name: str, label: str, args, num_key_lanes) -> int:
 
 
 def check_case(stats: KernelStats, label: str, args, num_key_lanes,
-               main_path: bool, earlier_key=None) -> dict:
+               main_path: bool, earlier_key=None, seg_len=None,
+               launches: int = 0) -> dict:
     """Hold the kernel against its plain version on the card (exact
     equality), time the kernel's calls on the host clock and between
     CUDA events, time the plain version, and compute the bound; the
@@ -324,19 +368,21 @@ def check_case(stats: KernelStats, label: str, args, num_key_lanes,
     from paimon_tpu_torch.ops import kernels
 
     lanes, inv, off, perm = args
-    err = exact(stats.name, label, args, num_key_lanes)
+    err = exact(stats.name, label, args, num_key_lanes, seg_len)
     num_lanes, n = lanes.shape
 
     def kernel():
-        return kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes)
+        return kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes,
+                                    seg_len)
 
     iters = 50 if n >= 1 << 26 else 200
     ms = cuda_ms(kernel, iters)
     h_us = host_us(kernel)
     plain_ms = cuda_ms(lambda: kernels.eq_next_mask_plain(
-        lanes, inv, off, perm, num_key_lanes), max(5, iters // 10))
-    nbytes, lane_share = needed_bytes(lanes, off, perm)
+        lanes, inv, off, perm, num_key_lanes, seg_len), max(5, iters // 10))
+    nbytes, lane_share = needed_bytes(lanes, off, perm, seg_len)
     case = {"label": label, "n": n, "lanes": num_lanes,
+            "batch": n // seg_len if seg_len else 1, "launches": launches,
             "main_path": main_path, "ms": ms, "host_us": h_us,
             "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -358,7 +404,7 @@ def host_breakdown(rng) -> dict:
     lanes, inv, _, _ = sorted_int_keys(rng, 1024)
     kernels.eq_next_mask(lanes, inv)
     out = torch.empty_like(inv, dtype=torch.bool)
-    call = [lanes.data_ptr(), 2, 0, inv.data_ptr(), None, None, 2,
+    call = [lanes.data_ptr(), 2, 0, inv.data_ptr(), None, None, 2, 1024,
             out.data_ptr(),
             torch._C._cuda_getCurrentRawStream(lanes.device.index)]
     parts = {"alloc": host_us(lambda: torch.empty_like(inv,
@@ -449,14 +495,15 @@ def check_kernels(captured: LaunchCapture, k1: KernelStats,
     """Every shape the main path gave each kernel, on the inputs it gave
     at that shape first; then further sizes of synthetic keys."""
     for key in sorted(captured.cases,
-                      key=lambda k: (k[1], k[0], k[3], k[2], k[4])):
+                      key=lambda k: (k[1], k[0], k[3], k[2], k[4], k[5])):
         case = captured.cases.pop(key)
         args = tuple(None if t is None else t.cuda() for t in case["args"])
         check_case(k2 if key[1] == "ovc" else k1,
                    f"main path ({case['where']}, {captured.calls[key]} "
                    f"launches at this shape)", args,
                    case["num_key_lanes"], main_path=True,
-                   earlier_key=key[1:4])
+                   earlier_key=key[1:4], seg_len=case["seg_len"],
+                   launches=captured.calls[key])
     host_breakdown(np.random.default_rng(17))
     rng = np.random.default_rng(11)
     for n in (1 << 26, (1 << 20) + 37):
@@ -500,19 +547,20 @@ def edge_inputs(rng, n: int, num_lanes: int):
             order.astype(np.int32))
 
 
+def on_card(a, shift: int = 0, device: str = "cuda"):
+    """A contiguous copy of int32 `a` on the card, starting `shift` words
+    into a buffer."""
+    import torch
+    buf = torch.empty(a.size + shift, dtype=torch.int32, device=device)
+    t = buf[shift:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
 def check_edges() -> int:
     """Both variants exact at every edge size and lane count, and with
     inputs that start 4 bytes past a 16-byte boundary; returns the
     number of cases checked."""
-    import torch
-
-    def on_card(a, shift: int = 0):
-        # a contiguous copy of `a` starting `shift` words into a buffer
-        buf = torch.empty(a.size + shift, dtype=torch.int32, device="cuda")
-        t = buf[shift:].view(a.shape)
-        t.copy_(torch.from_numpy(a))
-        return t
-
     rng = np.random.default_rng(13)
     cases = 0
     for n in EDGE_SIZES:
@@ -527,6 +575,71 @@ def check_edges() -> int:
                 exact("eq_next_mask_ovc", where, (lanes, inv, off, perm),
                       num_lanes)
                 cases += 2
+    return cases
+
+
+SEG_BATCHES = (1, 3, 8)
+SEG_ROWS = (1024, 1 << 20)
+SEG_LANES = (1, 2, 5)
+
+
+def seg_inputs(rng, b: int, n: int, num_lanes: int, kind: str):
+    """b batched lanes of n rows each, end to end, as (lanes[L, b*n],
+    invalid, ovc_off, perm) int32 host arrays.  "random": each lane
+    edge_inputs' sorted runs with their own perm and codes; "equal":
+    full lanes of one key (0), perms counting on across every lane
+    boundary and codes claiming equality everywhere, so only the lane
+    stride may cut a pair there."""
+    if kind == "random":
+        parts = [edge_inputs(rng, n, num_lanes) for _ in range(b)]
+        return (np.ascontiguousarray(np.concatenate([p[0] for p in parts],
+                                                    axis=1)),
+                *(np.concatenate([p[k] for p in parts]) for k in (1, 2, 3)))
+    return (np.zeros((num_lanes, b * n), dtype=np.int32),
+            np.zeros(b * n, dtype=np.int32),
+            np.full(b * n, num_lanes, dtype=np.int32),
+            np.arange(b * n, dtype=np.int32))
+
+
+def check_seg_edges(device: str = "cuda") -> int:
+    """The lane stride (seg_len) of both variants: for each batch B,
+    lane rows N and key lanes L, the kernel exact against the plain
+    version with the stride, and the plain version with the stride
+    equal to B separate 1-D calls (jax.vmap's semantics); returns the
+    number of cases checked."""
+    import torch
+
+    from paimon_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(29)
+    cases = 0
+    for b in SEG_BATCHES:
+        for n in SEG_ROWS:
+            for num_lanes in SEG_LANES:
+                for kind in ("random", "equal"):
+                    lanes, inv, off, perm = (on_card(a, device=device)
+                                             for a in seg_inputs(
+                                                 rng, b, n, num_lanes, kind))
+                    where = f"seg_len={n} B={b} L={num_lanes} {kind}"
+                    for name, args in (("eq_next_mask",
+                                        (lanes, inv, None, None)),
+                                       ("eq_next_mask_ovc",
+                                        (lanes, inv, off, perm))):
+                        if device == "cuda":
+                            exact(name, where, args, num_lanes, n)
+                        la, iv, of, pm = args
+                        whole = kernels.eq_next_mask_plain(
+                            la, iv, of, pm, num_lanes, n)
+                        apart = torch.cat([kernels.eq_next_mask_plain(
+                            la[:, k * n:(k + 1) * n], iv[k * n:(k + 1) * n],
+                            None if of is None else of[k * n:(k + 1) * n],
+                            None if pm is None else pm[k * n:(k + 1) * n],
+                            num_lanes) for k in range(b)])
+                        if not torch.equal(whole, apart):
+                            raise AssertionError(f"{name} {where}: the "
+                                                 f"stride differs from B "
+                                                 f"1-D calls")
+                        cases += 1
     return cases
 
 
@@ -723,7 +836,9 @@ class Recorder:
         self.capture = capture
         self.reducer = reducer
 
-    def run(self, name: str, what: str, rows: int, device, fn):
+    def run(self, name: str, what: str, rows, device, fn):
+        """`rows`: the phase's row count, or a callable that gives it
+        after the phase."""
         import torch
 
         on_card = device.type == "cuda"
@@ -743,6 +858,8 @@ class Recorder:
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - (capture.seconds - copied)
         launches = tuple(a - b for a, b in zip(self.counts(), before))
+        if callable(rows):
+            rows = rows()
         self.add(name, what, rows, device, dt, launches,
                  reducer.seconds - reduced, reducer.calls - reduce_calls,
                  routes={k: v - routes[k]
@@ -1481,6 +1598,184 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
                           ignore_errors=True)
 
 
+MESH_ROWS = 10_000_000
+MESH_LANES = 8
+
+
+class OvcTimer:
+    """Host seconds in the run-code offsets (ops.ovc.run_ovc_offsets)
+    while entered: the mesh engine computes them on the host for every
+    lane of every window."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        from paimon_tpu_torch.ops import ovc
+        self._ovc = ovc
+        self._fn = fn = ovc.run_ovc_offsets
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        ovc.run_ovc_offsets = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ovc.run_ovc_offsets = self._fn
+
+
+def check_sums(what: str, got, ids: np.ndarray, vals: np.ndarray) -> None:
+    """Per-id sums of v: ids exact, sums within rtol 1e-12 of numpy's
+    (the engine adds in sequence order, numpy in id-sorted order)."""
+    import pyarrow.compute as pc
+    order = np.argsort(ids, kind="stable")
+    s = ids[order]
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    got = got.take(pc.sort_indices(got, sort_keys=[("id", "ascending")]))
+    if got.num_rows != len(starts) or not np.array_equal(
+            got.column("id").to_numpy(), s[starts]):
+        raise AssertionError(f"{what}: ids differ from the oracle")
+    if not np.allclose(got.column("v").to_numpy(),
+                       np.add.reduceat(vals[order], starts),
+                       rtol=1e-12, atol=0.0):
+        raise AssertionError(f"{what}: sums beyond rtol 1e-12 of numpy's")
+
+
+def check_rescaled(what: str, table, buckets: int) -> None:
+    """Every row of every split in the bucket that the reference's
+    formula (core/bucket._bucket_from_hash) gives its key."""
+    from paimon_tpu_torch.core.bucket import KeyHasher, _bucket_from_hash
+
+    hasher = KeyHasher(["id"], [table.schema.logical_row_type()
+                                .get_field("id").type])
+    read = table.new_read_builder().new_read()
+    for split in table.new_scan().plan().splits:
+        rows = read.read_split(split)
+        h = (hasher.hashes(rows) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        if not (_bucket_from_hash(h, buckets) == split.bucket).all():
+            raise AssertionError(f"{what}: a row of bucket {split.bucket} "
+                                 f"belongs elsewhere")
+
+
+def mesh_compaction(work: str, rec: Recorder, rows: int = MESH_ROWS,
+                    device="cuda") -> dict:
+    """parallel/dryrun.run_engines on the card: deduplicate and
+    aggregation (v sum) tables of >= `rows` input rows, MESH_LANES
+    buckets, compacted by compact_table_mesh on MESH_LANES lanes of one
+    card (one batched merge a window step); each read held against a
+    numpy oracle, the engine's retries, fallbacks and cleanup errors 0,
+    the offset-value-code variant launched with MESH_LANES lanes in one
+    launch; then the deduplicate table rescaled to twice the buckets,
+    read back equal, every row in its formula's bucket, the schema's
+    bucket option updated and no row dropped by the dispatch."""
+    from paimon_tpu_torch.metrics import COMPACTION_WINDOW_MS, global_registry
+    from paimon_tpu_torch.parallel import (
+        bucket_mesh, compact_table_mesh, rescale, rescale_table_buckets,
+    )
+    from paimon_tpu_torch.parallel.dryrun import engine_table, input_rows
+    from paimon_tpu_torch.table import FileStoreTable
+
+    mesh = bucket_mesh(MESH_LANES, device=device)
+    window_ms = global_registry().compaction_metrics().histogram(
+        COMPACTION_WINDOW_MS)
+    out = {"lanes": MESH_LANES, "device": str(mesh.device)}
+    for engine in ("deduplicate", "aggregation"):
+        name = f"mesh_{engine}"
+        path = os.path.join(work, name)
+        # the table of parallel/dryrun.run_engines, with every row
+        # written kept for the oracles
+        built = []
+        rec.run(name, "write", lambda: len(built[0][1]), mesh.device,
+                lambda: built.append(engine_table(path, engine, MESH_LANES,
+                                                  rows, device)))
+        table, ids, vals = built[0]
+        if engine == "deduplicate":
+            win = last_writer_oracle(ids)
+
+            def check(what, got):
+                check_rows(what, got, {"id": ids, "v": vals}, win, "id")
+        else:
+            def check(what, got):
+                check_sums(what, got, ids, vals)
+        n_in = input_rows(table)
+        w0, timer = window_ms.total_sum, OvcTimer()
+        with timer:
+            stats = rec.run(name, "compact", n_in, table.device,
+                            lambda: compact_table_mesh(table, mesh))
+        compact_s, compact_gib = (rec.phases[-1]["s"],
+                                  rec.phases[-1]["peak_gib"])
+        if stats.snapshot_id is None or stats.retries or stats.fallbacks \
+                or stats.cleanup_errors:
+            raise AssertionError(f"{name}: snapshot {stats.snapshot_id}, "
+                                 f"{stats.retries} retries, "
+                                 f"{stats.fallbacks} fallbacks, "
+                                 f"{stats.cleanup_errors} cleanup errors")
+        got = rec.run(name, "read", n_in, table.device, table.to_arrow)
+        check(f"{name} read after mesh compaction", got)
+        if stats.output_rows != got.num_rows:
+            raise AssertionError(f"{name}: {stats.output_rows} output rows, "
+                                 f"{got.num_rows} read")
+        batched = sorted((k[5], k[3] // k[5], k[2], k[1], n)
+                         for k, n in rec.capture.calls.items()
+                         if k[0] == name and k[5] > 1)
+        if not any(b == MESH_LANES and v == "ovc"
+                   for b, _, _, v, _ in batched):
+            raise AssertionError(f"{name}: no offset-value-code launch of "
+                                 f"{MESH_LANES} lanes ({batched})")
+        res = {"input_rows": n_in, "output_rows": stats.output_rows,
+               "commits": len(ids) // (rows // 2), "compact_s": compact_s,
+               "rows_per_s": n_in / compact_s, "windows": stats.windows,
+               "peak_window_rows": stats.peak_window_rows,
+               "peak_buffered_rows": stats.peak_buffered_rows,
+               "skew": stats.skew, "lane_rows": stats.lane_rows,
+               "window_s": (window_ms.total_sum - w0) / 1e3,
+               "ovc_host_s": timer.seconds, "ovc_calls": timer.calls,
+               "peak_gib": compact_gib,
+               "batched_launches": [
+                   {"b": b, "n": n, "lanes": la, "variant": v,
+                    "launches": c} for b, n, la, v, c in batched]}
+        if engine == "deduplicate":
+            dispatches = []
+            kernel = rescale._dispatch_kernel
+
+            def recorded(*args, **kwargs):
+                blocks, dropped = kernel(*args, **kwargs)
+                dispatches.append({"cap": args[4], "dropped": dropped})
+                return blocks, dropped
+            rescale._dispatch_kernel = recorded
+            try:
+                sid = rec.run(name, "rescale", got.num_rows, table.device,
+                              lambda: rescale_table_buckets(
+                                  table, 2 * MESH_LANES, mesh))
+            finally:
+                rescale._dispatch_kernel = kernel
+            again = FileStoreTable.load(path, device=device)
+            if sid is None or again.options.bucket != 2 * MESH_LANES or \
+                    not dispatches or dispatches[-1]["dropped"]:
+                raise AssertionError(f"{name} rescale: snapshot {sid}, "
+                                     f"bucket {again.options.bucket}, "
+                                     f"dispatches {dispatches}")
+            check(f"{name} read after rescale", rec.run(
+                name, "read rescaled", got.num_rows, table.device,
+                again.to_arrow))
+            check_rescaled(f"{name} rescale", again, 2 * MESH_LANES)
+            res["rescale"] = {"rows": got.num_rows,
+                              "s": rec.phases[-2]["s"],
+                              "rows_per_s": rec.phases[-2]["rows_per_s"],
+                              "peak_gib": rec.phases[-2]["peak_gib"],
+                              "buckets": 2 * MESH_LANES,
+                              "dispatches": dispatches}
+        out[engine] = res
+        log(f"  {name}: {json.dumps(res)}")
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
 class DecodeTimer:
     """Seconds the device decode plane spends in each of its four steps
     (format/rawpage.py): host parse and decompression, the upload, the
@@ -1869,7 +2164,8 @@ BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 
 def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
-              c5: dict, decode_timer: DecodeTimer, decoded: dict) -> tuple:
+              c5: dict, decode_timer: DecodeTimer, decoded: dict,
+              mesh: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -1991,6 +2287,10 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                  lambda: changelog_producers_coverage(work, rec))
             decoded["coverage"] = path("device_decode_coverage",
                                        lambda: device_decode_coverage(work))
+            # many buckets compacted as lanes of one batched merge, and
+            # the all_to_all rescale
+            mesh.update(path("mesh_compaction",
+                             lambda: mesh_compaction(work, rec)))
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -2056,10 +2356,7 @@ def main() -> int:
     from paimon_tpu_torch import native
     from paimon_tpu_torch.ops import kernels
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    log(card_line())
     t_start = time.perf_counter()
     log(f"kernel build: {kernels.build():.2f} s (nvcc, sm_90a)")
     t0 = time.perf_counter()
@@ -2077,20 +2374,29 @@ def main() -> int:
     c5 = {"keys": args.c5_keys, "commits": args.c5_commits,
           "per_commit": args.c5_rows_per_commit}
     decoded: dict = {}
+    mesh: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
-                         ChangelogTimer(), c5, DecodeTimer(), decoded)
+                         ChangelogTimer(), c5, DecodeTimer(), decoded, mesh)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
     check_kernels(capture, k1, k2)
     log(f"edge sizes: {check_edges()} cases exact (sizes {EDGE_SIZES}, "
         f"lanes {EDGE_LANES}, aligned and shifted by 4 bytes)")
+    t0 = time.perf_counter()
+    log(f"lane stride: {check_seg_edges()} cases exact and equal to "
+        f"separate 1-D calls (B {SEG_BATCHES}, N {SEG_ROWS}, L "
+        f"{SEG_LANES}, random and all-equal lanes) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     c5["joint_ranks"] = check_joint_ranks()
     routes = merge_routes(decoded["dedup_winner_frac"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    # again at the end, so a reader of the output's tail has it too
+    log(card_line())
     print(json.dumps({"changelog_lookup_upsert": c5}))
     print(json.dumps({"device_decode": decoded}))
+    print(json.dumps({"mesh_compaction": mesh}))
     print(json.dumps({"merge_routes": routes}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),

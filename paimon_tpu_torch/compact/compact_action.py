@@ -1,10 +1,10 @@
 """Table-level compact action: pick + rewrite + commit per bucket.
 
 Counterpart of paimon_tpu/compact/compact_action.py for primary-key
-tables (append-table, row-tracked, mesh and sort compactions are not
-ported yet).  reference: the dedicated compaction job path (flink
-action/CompactAction -> StoreCompactOperator -> MergeTreeCompactManager),
-engine-free here.
+tables, with its tpu.mesh.compact route (append-table, row-tracked and
+sort compactions are not ported yet).  reference: the dedicated
+compaction job path (flink action/CompactAction -> StoreCompactOperator
+-> MergeTreeCompactManager), engine-free here.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Dict, List, Optional, Tuple
 from paimon_tpu_torch.compact.manager import MergeTreeCompactManager
 from paimon_tpu_torch.core.commit import FileStoreCommit
 from paimon_tpu_torch.core.write import CommitMessage
+from paimon_tpu_torch.options import ChangelogProducer, CoreOptions
 from paimon_tpu_torch.snapshot.snapshot import BATCH_COMMIT_IDENTIFIER
 
 __all__ = ["compact_table"]
@@ -35,7 +36,22 @@ def compact_table(table, full: bool = False,
                   ) -> Optional[int]:
     """Compact every (partition, bucket) that has work on the table's
     device; commit one COMPACT snapshot.  Returns the snapshot id or
-    None if there was nothing to do."""
+    None if there was nothing to do.
+
+    With `tpu.mesh.compact`, full compactions route per merge engine:
+    engines the mesh engine runs (parallel/mesh_engine.py) compact every
+    bucket in one streamed mesh program; anything else (other engines,
+    changelog producers, partition-filtered or non-full compactions)
+    takes the single-chip manager below."""
+    if (full and partition_filter is None
+            and table.options.get(CoreOptions.MESH_COMPACT)):
+        from paimon_tpu_torch.parallel.mesh_engine import (
+            SUPPORTED_MERGE_ENGINES, compact_table_mesh,
+        )
+        if (table.options.merge_engine in SUPPORTED_MERGE_ENGINES
+                and table.options.changelog_producer
+                == ChangelogProducer.NONE):
+            return compact_table_mesh(table).snapshot_id
     scan = table.new_scan()
     if partition_filter:
         scan.with_partition_filter(partition_filter)

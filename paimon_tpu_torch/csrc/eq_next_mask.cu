@@ -12,6 +12,11 @@
 // (ovc_off[i+1] != 0xFFFFFFFF) takes eq = ovc_off[i+1] >= num_key_lanes
 // instead of the lane compare; the invalid guard applies either way.
 //
+// Batched merges (many buckets in one launch) lay B lanes of seg_len
+// rows end to end: eq[i] = 0 wherever i % seg_len == seg_len - 1, so no
+// segment continues across a lane boundary, whatever the keys or codes
+// there say.  seg_len >= n (one lane) leaves the function as above.
+//
 // Bound: memory.  The function reads each input word once and writes one
 // byte per row: n * (4L + 4) bytes in (+ 8n with codes, less the lane
 // words of pairs the codes decide) and n bytes out.  At L = 2 and
@@ -37,6 +42,10 @@
 // - Any n is exact: when n % 4 != 0 or a pointer is not 16-byte
 //   aligned, the same kernel runs with R = 1 (scalar loads, one byte
 //   stored a row).
+// - A lane boundary closes its pair before the first lane pass, so the
+//   boundary pair reads no lane words and the warp vote skips passes
+//   as for any decided pair; the modulo runs once a thread and tile,
+//   and only when there is more than one lane.
 
 #include <atomic>
 #include <cstdint>
@@ -83,7 +92,7 @@ eq_next_kernel(const uint32_t* __restrict__ lanes, int num_lanes, int64_t n,
                const uint32_t* __restrict__ invalid,
                const uint32_t* __restrict__ ovc_off,
                const uint32_t* __restrict__ perm, uint32_t num_key_lanes,
-               uint8_t* __restrict__ out) {
+               int64_t seg_len, uint8_t* __restrict__ out) {
   const int lane_id = static_cast<int>(threadIdx.x & 31u);
   const bool last = lane_id == 31;
   constexpr int64_t kWarpRows = 32 * R;
@@ -98,6 +107,17 @@ eq_next_kernel(const uint32_t* __restrict__ lanes, int num_lanes, int64_t n,
     // R == 4 only when n % 4 == 0, so a thread's rows are all in or all out
     const bool in = row < n;
     const bool halo_in = row + R < n;
+    // cut[r]: pair (row + r, row + r + 1) straddles a lane boundary
+    bool cut[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) cut[r] = false;
+    if (seg_len < n) {
+      const uint32_t seg = static_cast<uint32_t>(seg_len);
+      const uint32_t m = static_cast<uint32_t>(row % seg_len);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        cut[r] = (m + static_cast<uint32_t>(r) + 1u) % seg == 0u;
+    }
 
     // eq[r]: pair (row + r, row + r + 1) exists and its key is equal so
     // far; open[r]: its lanes still have to be compared
@@ -115,7 +135,7 @@ eq_next_kernel(const uint32_t* __restrict__ lanes, int num_lanes, int64_t n,
       take_halo<R>(off, lh ? __ldg(ovc_off + row + R) : 0u, last);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const bool pair = (r + 1 < R) ? in : halo_in;
+        const bool pair = ((r + 1 < R) ? in : halo_in) && !cut[r];
         const bool decided = pm[r + 1] == pm[r] + 1u &&
                              off[r + 1] != kOvcSentinel;
         eq[r] = pair && (!decided || off[r + 1] >= num_key_lanes);
@@ -124,7 +144,7 @@ eq_next_kernel(const uint32_t* __restrict__ lanes, int num_lanes, int64_t n,
     } else {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        eq[r] = (r + 1 < R) ? in : halo_in;
+        eq[r] = ((r + 1 < R) ? in : halo_in) && !cut[r];
         open[r] = eq[r];
       }
     }
@@ -190,6 +210,7 @@ struct Args {
   const uint32_t* ovc_off;
   const uint32_t* perm;
   uint32_t num_key_lanes;
+  int64_t seg_len;
   uint8_t* out;
 };
 
@@ -233,7 +254,7 @@ void launch(const Args& a, cudaStream_t s) {
   const int blocks = static_cast<int>(wanted < resident ? wanted : resident);
   kernel<<<blocks, threads, 0, s>>>(a.lanes, a.num_lanes, a.n, a.invalid,
                                      a.ovc_off, a.perm, a.num_key_lanes,
-                                     a.out);
+                                     a.seg_len, a.out);
 }
 
 template <int R, bool kWithOvc>
@@ -254,19 +275,23 @@ bool aligned16(const void* p) {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 // `ovc_off` and `perm` are both null (plain variant) or both set.
+// `seg_len` (1 <= seg_len < 2^31, or >= n for one lane) is the rows of
+// each batched lane; n must be a multiple of it when it is below n.
 extern "C" int paimon_eq_next_mask(const void* lanes, int num_lanes,
                                    long long n, const void* invalid,
                                    const void* ovc_off, const void* perm,
-                                   int num_key_lanes, void* out,
-                                   void* stream) {
+                                   int num_key_lanes, long long seg_len,
+                                   void* out, void* stream) {
   if (n <= 0) return 0;
-  if (num_lanes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_lanes < 1 || seg_len < 1 ||
+      (seg_len < n && seg_len >= (1LL << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const uint32_t*>(lanes), num_lanes,
                static_cast<int64_t>(n), static_cast<const uint32_t*>(invalid),
                static_cast<const uint32_t*>(ovc_off),
                static_cast<const uint32_t*>(perm),
                static_cast<uint32_t>(num_key_lanes),
-               static_cast<uint8_t*>(out)};
+               static_cast<int64_t>(seg_len), static_cast<uint8_t*>(out)};
   const bool with_ovc = ovc_off != nullptr;
   const bool vec = n % 4 == 0 && aligned16(lanes) && aligned16(invalid) &&
                    (!with_ovc || (aligned16(ovc_off) && aligned16(perm))) &&

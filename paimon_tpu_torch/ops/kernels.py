@@ -8,9 +8,11 @@ a plain C interface at first use and loaded with ctypes.
 
 `eq_next_mask` launches the kernel for CUDA tensors and runs
 `eq_next_mask_plain` for CPU tensors; nothing else selects between the
-two.  `EQ_NEXT_LAUNCHES` counts kernel launches, so a run can show that
-its merges went through the kernel; `EQ_NEXT_OVC_LAUNCHES` counts the
-launches of the offset-value-code variant among them.
+two.  With `seg_len` one launch serves a batch of merges (the bucket
+lanes of a mesh step) laid end to end.  `EQ_NEXT_LAUNCHES` counts
+kernel launches, so a run can show that its merges went through the
+kernel; `EQ_NEXT_OVC_LAUNCHES` counts the launches of the
+offset-value-code variant among them.
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def _bind():
             fn = ctypes.CDLL(_LIB_PATH).paimon_eq_next_mask
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _fn = fn
     return _fn
@@ -100,9 +103,11 @@ def _bind():
 def eq_next_mask_plain(lanes: torch.Tensor, invalid: torch.Tensor,
                        ovc_off: Optional[torch.Tensor] = None,
                        perm: Optional[torch.Tensor] = None,
-                       num_key_lanes: Optional[int] = None) -> torch.Tensor:
+                       num_key_lanes: Optional[int] = None,
+                       seg_len: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version with exactly the semantics of
-    paimon_tpu/ops/pallas_kernels.py `_eq_next_xla`."""
+    paimon_tpu/ops/pallas_kernels.py `_eq_next_xla`, applied to each
+    lane of `seg_len` rows (`jax.vmap` of it over a [B, N] stack)."""
     if num_key_lanes is None:
         num_key_lanes = lanes.shape[0]
     eq = (lanes[:, :-1] == lanes[:, 1:]).all(dim=0)
@@ -114,8 +119,10 @@ def eq_next_mask_plain(lanes: torch.Tensor, invalid: torch.Tensor,
         eq_code = ovc_off[1:] >= num_key_lanes
         eq = torch.where(consec & known, eq_code, eq)
     eq = eq & (invalid[:-1] == invalid[1:])
-    return torch.cat([eq, torch.zeros(1, dtype=torch.bool,
-                                      device=eq.device)])
+    eq = torch.cat([eq, torch.zeros(1, dtype=torch.bool, device=eq.device)])
+    if seg_len is not None and seg_len < eq.shape[0]:
+        eq[seg_len - 1::seg_len] = False
+    return eq
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -134,23 +141,32 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 def eq_next_mask(lanes: torch.Tensor, invalid: torch.Tensor,
                  ovc_off: Optional[torch.Tensor] = None,
                  perm: Optional[torch.Tensor] = None,
-                 num_key_lanes: Optional[int] = None) -> torch.Tensor:
+                 num_key_lanes: Optional[int] = None,
+                 seg_len: Optional[int] = None) -> torch.Tensor:
     """bool[N]: sorted row i continues the same (validity, lanes...)
     segment at row i+1.
 
     lanes: int32[L, N] key lanes (uint32 bit patterns), most significant
     first; invalid: int32[N].  `ovc_off` (int32[N], sorted-order
     offset-value-code offsets, -1 where unknown) and `perm` (int32[N],
-    the sort permutation) switch on the code variant.  A CUDA tensor
+    the sort permutation) switch on the code variant.  `seg_len`: the
+    rows are B lanes of seg_len rows each (N = B * seg_len), merged
+    independently: no segment continues from a lane's last row, and
+    `perm` counts rows within each lane.  A CUDA tensor
     launches the kernel, a CPU tensor runs the plain version.  The
     kernel launches on the current stream of the tensors' device; when
     that is not the current device, it is made current for the launch."""
     if (ovc_off is None) != (perm is None):
         raise ValueError("ovc_off and perm go together")
+    n = lanes.shape[-1]
+    if seg_len is not None and (seg_len < 1 or (
+            seg_len < n and (n % seg_len or seg_len >= 1 << 31))):
+        raise ValueError(f"seg_len {seg_len} does not divide n = {n} into "
+                         f"lanes below 2^31 rows")
     if not lanes.is_cuda:
         if lanes.device.type == "cpu":
             return eq_next_mask_plain(lanes, invalid, ovc_off, perm,
-                                      num_key_lanes)
+                                      num_key_lanes, seg_len)
         raise ValueError(f"eq_next_mask: unsupported device {lanes.device}")
     shape = lanes.shape
     if len(shape) != 2 or shape[0] < 1:
@@ -158,6 +174,8 @@ def eq_next_mask(lanes: torch.Tensor, invalid: torch.Tensor,
     num_lanes, n = shape
     if num_key_lanes is None:
         num_key_lanes = num_lanes
+    if seg_len is None:
+        seg_len = n
     dev = lanes.device
     _check("lanes", lanes, shape, dev)
     _check("invalid", invalid, (n,), dev)
@@ -173,7 +191,8 @@ def eq_next_mask(lanes: torch.Tensor, invalid: torch.Tensor,
     args = (lanes.data_ptr(), num_lanes, n, invalid.data_ptr(),
             None if ovc_off is None else ovc_off.data_ptr(),
             None if perm is None else perm.data_ptr(), num_key_lanes,
-            out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
+            seg_len, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
     if index == torch._C._cuda_getDevice():
         rc = fn(*args)
     else:

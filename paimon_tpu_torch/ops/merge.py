@@ -80,10 +80,10 @@ def _pad_size(n: int) -> int:
 def _join_i32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """int64 whose high and low words are the bit patterns of the
     int32 tensors `hi` and `lo` (assembled in memory, no shifts)."""
-    out = torch.empty((lo.shape[0], 2), dtype=torch.int32, device=lo.device)
-    out[:, 0] = lo                              # little-endian
-    out[:, 1] = hi
-    return out.view(torch.int64).view(-1)
+    out = torch.empty(lo.shape + (2,), dtype=torch.int32, device=lo.device)
+    out[..., 0] = lo                            # little-endian
+    out[..., 1] = hi
+    return out.view(torch.int64).squeeze(-1)
 
 
 def _u32_key(x: torch.Tensor) -> torch.Tensor:
@@ -115,11 +115,13 @@ def _lane_sort_keys(cols: List[torch.Tensor]) -> List[torch.Tensor]:
 
 def _stable_argsort(keys: List[torch.Tensor]) -> torch.Tensor:
     """Permutation of a stable lexicographic sort by `keys` (most
-    significant first), as a least-significant-first chain of stable
-    sorts; ties keep input order."""
-    perm = torch.sort(keys[-1], stable=True).indices
+    significant first) along the last dimension, as a
+    least-significant-first chain of stable sorts; ties keep input
+    order.  Keys of shape [B, N] sort each row on its own."""
+    perm = torch.sort(keys[-1], dim=-1, stable=True).indices
     for k in reversed(keys[:-1]):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
+        perm = perm.gather(-1, torch.sort(k.gather(-1, perm), dim=-1,
+                                          stable=True).indices)
     return perm
 
 
@@ -129,34 +131,47 @@ def segmented_merge_body(lanes: torch.Tensor, seq_hi: torch.Tensor,
                          ovc_off: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
-    """(perm, winner, prev_in_seg) over one padded batch.
+    """(perm, winner, prev_in_seg) over one padded batch, or over a
+    [B, N] stack of B independent batches (the mesh's bucket lanes).
 
-    lanes: int32[L, N] (uint32 bit patterns, most significant first);
-    the first `num_key_lanes` define segment identity, further lanes are
-    user-defined sequence order.  seq_hi/seq_lo/invalid: int32[N].
-    ovc_off: optional int32[N] offset-value-code offsets vs the run
-    predecessor (ops/ovc.run_ovc_offsets), carried through the sort for
-    the kernel's code variant.
+    lanes: int32[L, N] or int32[L, B, N] (uint32 bit patterns, most
+    significant first); the first `num_key_lanes` define segment
+    identity, further lanes are user-defined sequence order.
+    seq_hi/seq_lo/invalid: int32[N] or int32[B, N].  ovc_off: optional
+    offset-value-code offsets vs the run predecessor
+    (ops/ovc.run_ovc_offsets), of invalid's shape, carried through the
+    sort for the kernel's code variant.  Outputs take invalid's shape;
+    perm counts rows within each batch.
 
     The sort equals jax.lax.sort over (invalid, lanes..., seq_hi,
-    seq_lo, iota) with is_stable=True: 32-bit keys are joined in pairs
-    into int64 keys, and the 1-bit validity key is a stable partition."""
-    num_lanes = lanes.shape[0]
+    seq_lo, iota) with is_stable=True (jax.vmap of it over B): 32-bit
+    keys are joined in pairs into int64 keys, and validity is the most
+    significant key, one 8-bit pass.  One winner-select launch serves
+    all B batches (the kernel's lane stride)."""
+    batched = invalid.dim() == 2
+    if not batched:
+        lanes, seq_hi, seq_lo, invalid = (
+            lanes.unsqueeze(1), seq_hi.unsqueeze(0), seq_lo.unsqueeze(0),
+            invalid.unsqueeze(0))
+        ovc_off = None if ovc_off is None else ovc_off.unsqueeze(0)
+    num_lanes, b, n = lanes.shape
     if num_key_lanes is None:
         num_key_lanes = num_lanes
-    perm = _stable_argsort(_lane_sort_keys(
+    perm = _stable_argsort([invalid.to(torch.uint8)] + _lane_sort_keys(
         [lanes[i] for i in range(num_lanes)] + [seq_hi, seq_lo]))
-    s_inv = invalid[perm]
-    perm = torch.cat([perm[s_inv == 0], perm[s_inv != 0]])
     perm32 = perm.to(torch.int32)
-    s_invalid = invalid[perm]
-    s_lanes = lanes[:num_key_lanes].index_select(1, perm).contiguous()
-    s_off = ovc_off[perm].contiguous() if ovc_off is not None else None
-    eq_next = eq_next_mask(s_lanes, s_invalid.contiguous(), ovc_off=s_off,
-                           perm=perm32 if s_off is not None else None,
-                           num_key_lanes=num_key_lanes)
-    eq_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
-                                     device=eq_next.device), eq_next[:-1]])
+    s_invalid = invalid.gather(-1, perm)
+    s_lanes = lanes[:num_key_lanes].gather(
+        -1, perm.unsqueeze(0).expand(num_key_lanes, b, n))
+    s_off = ovc_off.gather(-1, perm) if ovc_off is not None else None
+    eq_next = eq_next_mask(
+        s_lanes.view(num_key_lanes, b * n), s_invalid.view(-1),
+        ovc_off=None if s_off is None else s_off.view(-1),
+        perm=None if s_off is None else perm32.view(-1),
+        num_key_lanes=num_key_lanes, seg_len=n).view(b, n)
+    eq_prev = torch.cat([torch.zeros((b, 1), dtype=torch.bool,
+                                     device=eq_next.device),
+                         eq_next[:, :-1]], dim=1)
     valid = s_invalid == 0
     if keep == "last":
         winner = ~eq_next & valid
@@ -164,8 +179,10 @@ def segmented_merge_body(lanes: torch.Tensor, seq_hi: torch.Tensor,
         winner = ~eq_prev & valid
     # previous version of each winner: its predecessor within the same
     # segment, for changelog derivation
-    prev_in_seg = torch.where(eq_prev, torch.roll(perm32, 1),
+    prev_in_seg = torch.where(eq_prev, torch.roll(perm32, 1, dims=-1),
                               torch.full_like(perm32, -1))
+    if not batched:
+        return perm32[0], winner[0], prev_in_seg[0]
     return perm32, winner, prev_in_seg
 
 

@@ -248,6 +248,64 @@ class CoreOptions:
         "streaming mesh engine (parallel/mesh_engine.py): all buckets "
         "compact in one mesh program, streamed in bounded key windows "
         "with skew-aware bucket->device packing (ours)")
+    MESH_WINDOW_ROWS = ConfigOption(
+        "tpu.mesh.window-rows", int, 1 << 20,
+        "Decoded chunk rows per sorted run for the mesh engine's "
+        "bounded key windows (ours)")
+    COMPACTION_RETRY_MAX_ATTEMPTS = ConfigOption(
+        "compaction.retry.max-attempts", int, 3,
+        "Per-bucket attempts a mesh compaction makes on a transient "
+        "failure (503 storms, IO faults, lane or device loss) before "
+        "degrading that bucket to the single-chip path")
+    COMPACTION_RETRY_BACKOFF = ConfigOption(
+        "compaction.retry.backoff", _parse_duration_ms, 10,
+        "Base wait between per-bucket compaction retries; actual "
+        "waits use capped decorrelated jitter (utils/backoff.py)")
+    COMPACTION_MESH_FALLBACK = ConfigOption(
+        "compaction.mesh.fallback", _parse_bool, True,
+        "After retries are exhausted, degrade the failing bucket to "
+        "the single-chip compact/manager.py path instead of failing "
+        "the whole mesh job; false = raise once retries run out")
+    METRICS_ENABLED = ConfigOption(
+        "metrics.enabled", _parse_bool, True,
+        "Record per-stage latency histograms into the process metric "
+        "registry (metrics.py); process-global, synced from table "
+        "options at pipeline entry: an explicitly set value wins, an "
+        "absent key leaves the current process state")
+    TRACE_ENABLED = ConfigOption(
+        "trace.enabled", _parse_bool, False,
+        "Collect structured spans (obs/trace.py) into the bounded "
+        "in-process ring; process-global like metrics.enabled")
+    TRACE_BUFFER_SPANS = ConfigOption(
+        "trace.buffer.spans", int, 8192,
+        "Capacity of the bounded span ring; the oldest spans evict "
+        "first")
+    TRACE_EXPORT_PATH = ConfigOption(
+        "trace.export.path", str, None,
+        "When set (with trace.enabled), the span ring is written to "
+        "this file as Chrome trace-event JSON when a mesh compaction "
+        "finishes")
+    TRACE_EXPORT_DIR = ConfigOption(
+        "trace.export.dir", str, None,
+        "Spool directory: each process appends its spans to its own "
+        "<dir>/<process-tag>.jsonl at the same completion points")
+    # read by the reference and refused by table/table.py until their
+    # planes are ported (ROADMAP.md section A.8)
+    PARTITION_END_INPUT_TO_DONE = ConfigOption(
+        "partition.end-input-to-done", _parse_bool, False,
+        "Mark the partitions a batch write touched as done when its "
+        "commit lands")
+    SCAN_IGNORE_CORRUPT_FILES = ConfigOption(
+        "scan.ignore-corrupt-files", _parse_bool, False,
+        "Skip unreadable data files during scans (warn) instead of "
+        "failing the query")
+    WRITE_STAGE_DIR = ConfigOption(
+        "write.stage.dir", str, None,
+        "Encode flushed files to a staged local file here and upload "
+        "them asynchronously")
+    REQUEST_TIMEOUT = ConfigOption(
+        "request.timeout", _parse_duration_ms, None,
+        "End-to-end deadline for table entry points")
     BRANCH = ConfigOption("branch", str, "main", "")
     RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time",
                                             _parse_duration_ms, None, "")

@@ -7,4 +7,6 @@ SchemaChange.java, SchemaEvolutionUtil.java), spec docs/concepts/spec/schema.md.
 
 from paimon_tpu_torch.schema.schema import Schema  # noqa: F401
 from paimon_tpu_torch.schema.table_schema import TableSchema  # noqa: F401
-from paimon_tpu_torch.schema.schema_manager import SchemaManager  # noqa: F401
+from paimon_tpu_torch.schema.schema_manager import (  # noqa: F401
+    SchemaChange, SchemaManager,
+)

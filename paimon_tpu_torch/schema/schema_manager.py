@@ -1,9 +1,10 @@
 """SchemaManager: versioned schema files with optimistic-lock commit.
 
-Counterpart of paimon_tpu/schema/schema_manager.py without DDL (ALTER
-and schema evolution are not ported yet): schemas live at
-``<table>/schema/schema-<N>``, and table creation writes schema-0 via
-an atomic CAS.  reference: paimon-core/.../schema/SchemaManager.java.
+Counterpart of paimon_tpu/schema/schema_manager.py with option changes
+only (column DDL and schema evolution are not ported yet, ROADMAP.md
+A.8.1): schemas live at ``<table>/schema/schema-<N>``, table creation
+writes schema-0 and `commit_changes` schema-(N+1), each via an atomic
+CAS.  reference: paimon-core/.../schema/SchemaManager.java.
 """
 
 from __future__ import annotations
@@ -14,9 +15,30 @@ from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.schema.schema import Schema
 from paimon_tpu_torch.schema.table_schema import TableSchema
 
-__all__ = ["SchemaManager"]
+__all__ = ["SchemaManager", "SchemaChange"]
 
 SCHEMA_PREFIX = "schema-"
+
+# options fixed at creation (reference SchemaManager's immutable set)
+_IMMUTABLE_OPTIONS = {"bucket-key", "merge-engine", "sequence.field",
+                      "primary-key", "partition"}
+
+
+class SchemaChange:
+    """An option change (reference schema/SchemaChange.java); the
+    column changes are not ported yet."""
+
+    def __init__(self, kind: str, **kw):
+        self.kind = kind
+        self.kw = kw
+
+    @staticmethod
+    def set_option(key: str, value: str) -> "SchemaChange":
+        return SchemaChange("set-option", key=key, value=str(value))
+
+    @staticmethod
+    def remove_option(key: str) -> "SchemaChange":
+        return SchemaChange("remove-option", key=key)
 
 
 class SchemaManager:
@@ -71,6 +93,39 @@ class SchemaManager:
             raise RuntimeError("Concurrent table creation detected")
         return ts
 
+    def commit_changes(self, *changes) -> TableSchema:
+        """Apply option changes with optimistic retry (reference
+        SchemaManager.commitChanges): varargs of SchemaChange or one
+        list of them."""
+        if len(changes) == 1 and isinstance(changes[0], (list, tuple)):
+            changes = tuple(changes[0])
+        while True:
+            latest = self.latest()
+            if latest is None:
+                raise RuntimeError(f"Table not found: {self.table_path}")
+            new_schema = _apply(latest, changes)
+            if self._commit(new_schema):
+                return new_schema
+            # CAS lost: retry against the newer schema
+
     def _commit(self, ts: TableSchema) -> bool:
         return self.file_io.try_to_write_atomic(
             self.schema_path(ts.id), ts.to_json().encode("utf-8"))
+
+
+def _apply(base: TableSchema, changes) -> TableSchema:
+    options = dict(base.options)
+    for ch in changes:
+        key = ch.kw["key"]
+        if ch.kind == "set-option":
+            if key in _IMMUTABLE_OPTIONS:
+                raise ValueError(
+                    f"Option {key!r} cannot be changed after creation")
+            options[key] = ch.kw["value"]
+        elif ch.kind == "remove-option":
+            options.pop(key, None)
+        else:
+            raise ValueError(f"Unknown schema change {ch.kind}")
+    return TableSchema(base.id + 1, base.fields, base.highest_field_id,
+                       base.partition_keys, base.primary_keys, options,
+                       base.comment)

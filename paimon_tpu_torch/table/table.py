@@ -3,7 +3,8 @@
 Counterpart of paimon_tpu/table/table.py for this package's slice:
 primary-key tables with fixed buckets under the deduplicate, first-row,
 partial-update and aggregation engines, their changelog producers,
-streaming writes with commit identifiers and stream scans.  Every table
+streaming writes with commit identifiers, stream scans, mesh compaction
+(tpu.mesh.compact) and bucket rescale.  Every table
 carries the torch device its merges run on (None means "cuda"; with no
 card, pass device="cpu").
 
@@ -68,18 +69,31 @@ def check_readable(schema: TableSchema, options: CoreOptions,
     if branch != "main":
         _not_ported("branches", "the remaining planes")
     for key in (CoreOptions.SCAN_TAG_NAME, CoreOptions.INCREMENTAL_BETWEEN,
-                CoreOptions.SCAN_FALLBACK_BRANCH):
+                CoreOptions.SCAN_FALLBACK_BRANCH,
+                CoreOptions.SCAN_IGNORE_CORRUPT_FILES,
+                CoreOptions.REQUEST_TIMEOUT):
         if options.get(key):
             _not_ported(key.key, "the remaining planes")
+    _refuse_prefix(options, "read.retry.")
+
+
+def _refuse_prefix(options: CoreOptions, prefix: str) -> None:
+    """Refuse every set key under `prefix`: the reference reads these
+    retry knobs, which this package does not define yet."""
+    for key in options.options.keys():
+        if key.startswith(prefix):
+            _not_ported(key, "the remaining planes")
 
 
 def check_writable(options: CoreOptions) -> None:
     """Raise NotImplementedError for write and compaction options this
     package does not yet honor (a table with them still reads)."""
-    if options.get(CoreOptions.MESH_COMPACT):
-        _not_ported("tpu.mesh.compact", "mesh compaction and rescale")
-    if options.get(CoreOptions.WRITE_BUFFER_SPILLABLE):
-        _not_ported("write-buffer-spillable", "the remaining planes")
+    for key in (CoreOptions.WRITE_BUFFER_SPILLABLE,
+                CoreOptions.PARTITION_END_INPUT_TO_DONE,
+                CoreOptions.WRITE_STAGE_DIR):
+        if options.get(key):
+            _not_ported(key.key, "the remaining planes")
+    _refuse_prefix(options, "write.retry.")
     if options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE):
         if options.changelog_producer == ChangelogProducer.INPUT:
             raise ValueError(
@@ -217,6 +231,17 @@ class FileStoreTable:
         check_writable(self.options)
         return compact_table(self, full=full,
                              partition_filter=partition_filter)
+
+    def rescale_buckets(self, new_buckets: int, mesh=None
+                        ) -> Optional[int]:
+        """Change a fixed-bucket primary-key table's bucket count: the
+        mesh computes the row routing (abs(hash % B) and an all_to_all
+        repartition), the host rewrites the files and commits an
+        overwrite (reference rescale-bucket procedure via
+        ChannelComputer)."""
+        from paimon_tpu_torch.parallel.rescale import rescale_table_buckets
+        check_writable(self.options)
+        return rescale_table_buckets(self, new_buckets, mesh=mesh)
 
 
 class BatchWriteBuilder:

@@ -4,6 +4,7 @@ Counterpart of paimon_tpu/utils/backoff.py without request deadlines
 (not ported yet): the n-th wait is drawn uniformly from
 [base, 3 * previous_wait], clamped to a cap, with an optional
 max-elapsed-time budget after which the caller must give up.
+`wait_for` is the one sleep of the mesh compaction's retry deadlines.
 """
 
 from __future__ import annotations
@@ -12,7 +13,18 @@ import random
 import time
 from typing import Callable, Optional
 
-__all__ = ["Backoff"]
+__all__ = ["Backoff", "wait_for"]
+
+
+def wait_for(seconds: float, *,
+             sleep: Callable[[float], None] = time.sleep,
+             what: str = "wait") -> None:
+    """One library sleep.  The reference caps it to the current request
+    deadline and raises once that is spent; this package has no request
+    deadlines yet (request.timeout is refused), so it sleeps `seconds`.
+    `what` names the wait as the reference's message does."""
+    if seconds > 0:
+        sleep(seconds)
 
 
 class Backoff:

@@ -59,7 +59,17 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.ops.ovc",
                  "paimon_tpu_torch.format.rawpage",
                  "paimon_tpu_torch.fs.caching",
-                 "paimon_tpu_torch.native"):
+                 "paimon_tpu_torch.native",
+                 "paimon_tpu_torch.metrics",
+                 "paimon_tpu_torch.obs.trace",
+                 "paimon_tpu_torch.obs.flight",
+                 "paimon_tpu_torch.parallel.fault",
+                 "paimon_tpu_torch.parallel.packing",
+                 "paimon_tpu_torch.parallel.sharded_merge",
+                 "paimon_tpu_torch.parallel.mesh_engine",
+                 "paimon_tpu_torch.parallel.sharded_compact",
+                 "paimon_tpu_torch.parallel.rescale",
+                 "paimon_tpu_torch.parallel.dryrun"):
         assert name in out["modules"]
 
 

@@ -197,3 +197,58 @@ def test_wrapper_checks_name_the_fault(case):
     with pytest.raises(TypeError if case == "dtype" else ValueError,
                        match="invalid"):
         kernels._check("invalid", bad, (8,), good.device)
+
+
+@pytest.mark.parametrize("with_ovc", [False, True])
+@pytest.mark.parametrize("num_lanes", [1, 2, 5])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_lane_stride_matches_reference_per_lane(b, num_lanes, with_ovc):
+    """seg_len: B merges laid end to end equal the reference kernel run
+    on each (jax.vmap of it over the mesh's [B, N] stack)."""
+    n = 1024
+    parts = [_inputs(40 + k, n, num_lanes, with_ovc) for k in range(b)]
+    whole = [np.concatenate([p[i] for p in parts])
+             if parts[0][i] is not None else None for i in range(4)]
+    got = _port_strided(*whole, seg_len=n)
+    want = np.concatenate([_ref(*p, aligned=True) for p in parts])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("with_ovc", [False, True])
+def test_lane_stride_cuts_equal_keys_across_lanes(with_ovc):
+    """Full lanes of one key, perms running on across each lane boundary
+    and codes claiming equality there: only the stride cuts the pair."""
+    b, n, num_lanes = 4, 1024, 2
+    s_lanes = np.zeros((b * n, num_lanes), dtype=np.uint32)
+    invalid = np.zeros(b * n, dtype=np.uint32)
+    off = np.full(b * n, num_lanes, dtype=np.uint32) if with_ovc else None
+    perm = np.arange(b * n, dtype=np.int32) if with_ovc else None
+    got = _port_strided(s_lanes, invalid, off, perm, seg_len=n)
+    want = np.concatenate([_ref(s_lanes[k * n:(k + 1) * n],
+                                invalid[k * n:(k + 1) * n],
+                                None if off is None else off[:n],
+                                None if perm is None else perm[:n],
+                                aligned=True) for k in range(b)])
+    np.testing.assert_array_equal(got, want)
+    assert (~got).sum() == b and not got[n - 1::n].any()
+
+
+@pytest.mark.parametrize("seg_len", [0, 3, 5000])
+def test_lane_stride_must_divide_rows(seg_len):
+    lanes = torch.zeros((2, 4096), dtype=torch.int32)
+    inv = torch.zeros(4096, dtype=torch.int32)
+    if seg_len == 5000:                  # one lane longer than n: fine
+        assert kernels.eq_next_mask(lanes, inv, seg_len=seg_len)[:-1].all()
+        return
+    with pytest.raises(ValueError, match="seg_len"):
+        kernels.eq_next_mask(lanes, inv, seg_len=seg_len)
+
+
+def _port_strided(s_lanes, invalid, off, perm, seg_len):
+    lanes_t = torch.from_numpy(np.ascontiguousarray(s_lanes.T)
+                               .view(np.int32))
+    return kernels.eq_next_mask(
+        lanes_t, torch.from_numpy(invalid.view(np.int32)),
+        None if off is None else torch.from_numpy(off.view(np.int32)),
+        None if perm is None else torch.from_numpy(perm),
+        seg_len=seg_len).numpy()

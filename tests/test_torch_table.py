@@ -314,7 +314,11 @@ def test_compact_manifests_matches_reference(tmp_path):
     ({"scan.tag-name": "v1"}, "the remaining planes"),
     ({"bucket": "-1"}, "the remaining planes"),
     ({"deletion-vectors.enabled": "true"}, "the remaining planes"),
-    ({"scan.fallback-branch": "fb"}, "the remaining planes")])
+    ({"scan.fallback-branch": "fb"}, "the remaining planes"),
+    ({"scan.ignore-corrupt-files": "true"}, "the remaining planes"),
+    ({"read.retry.max-attempts": "5"}, "the remaining planes"),
+    ({"read.retry.backoff": "20 ms"}, "the remaining planes"),
+    ({"request.timeout": "30 s"}, "the remaining planes")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
         FileStoreTable.create(str(tmp_path / "t"), pk_schema(**options),
@@ -325,9 +329,12 @@ def test_unported_table_options_raise(tmp_path, options, item):
     ({"write-buffer-spillable": "true"}, "the remaining planes"),
     ({"local-merge-buffer-size": "1mb"}, "the remaining planes"),
     ({"file-index.bloom-filter.columns": "v1"}, "the remaining planes"),
-    ({"tpu.mesh.compact": "true"}, "mesh compaction and rescale"),
+    ({"partition.end-input-to-done": "true"}, "the remaining planes"),
     ({"tag.automatic-creation": "process-time"}, "the remaining planes"),
-    ({"commit.callbacks": "pkg.mod:Cb"}, "the remaining planes")])
+    ({"commit.callbacks": "pkg.mod:Cb"}, "the remaining planes"),
+    ({"write.retry.max-attempts": "5"}, "the remaining planes"),
+    ({"write.retry.backoff": "20 ms"}, "the remaining planes"),
+    ({"write.stage.dir": "/tmp/stage"}, "the remaining planes")])
 def test_unported_write_options_raise(tmp_path, options, item):
     table = new_table(tmp_path, pk_schema(**options))
     with pytest.raises(NotImplementedError, match=item):
