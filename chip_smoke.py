@@ -75,6 +75,20 @@ then):
      row in its formula's bucket, the schema's bucket option set, no row
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
+   - serving: point lookups and the one-replica query service on the
+     card (`serving` says what it drives): serve_dedup_10M, the
+     reference serving benchmark's table at 10M rows (cold and warm
+     /lookup, 64 keep-alive clients of 90% point gets and 10%
+     scan(limit=100), the engine's native and numpy probes, a serving
+     writer's read-your-writes through the delta tier, a full
+     compaction under 8 readers, an unbounded /scan), and
+     serve_agg_10M, the same rows under aggregation, whose every
+     lookup merges a bucket on the card (4 cold buckets built at once
+     from the server's handler threads).  Every answer is held against
+     a numpy oracle; no native probe may fall back; the flush, the
+     compaction, /scan and the merged builds must launch the kernel.
+     It prints a {"serving": ...} line with the card's name and power
+     limit;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -112,7 +126,7 @@ then):
 
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
-merge routes, the
+serving phase, the merge routes, the
 phases, the kernels with their launches on the main path and their
 times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
@@ -254,8 +268,8 @@ class LaunchCapture:
     For the length of the main-path run it wraps the references to
     kernels.eq_next_mask held by the merge (ops/merge.py) and by the
     changelog diff's key ranks (ops/diff.py): it counts the card's calls
-    per (table, variant, lanes, n, caller, batched lanes b) and keeps a
-    host copy of the
+    per (table, variant, lanes, n, caller, batched lanes b) and per
+    calling thread's name, and keeps a host copy of the
     first call's inputs at each, so the kernels are checked and timed
     afterwards on exactly those inputs.  The wrapper and its launch
     counters are left as they are; the host time spent copying is kept
@@ -264,6 +278,9 @@ class LaunchCapture:
     def __init__(self):
         self.cases: dict = {}
         self.calls: dict = {}
+        # (table, variant, thread-name prefix) -> launches: the serving
+        # phase's launches come from the query server's handler threads
+        self.threads: dict = {}
         self.where = ""
         self.seconds = 0.0
         self._lock = threading.Lock()
@@ -283,8 +300,11 @@ class LaunchCapture:
             key = (self.where.split()[0],
                    "ovc" if ovc_off is not None else "plain",
                    lanes.shape[0], n, caller, b)
+            thread = (key[0], key[1],
+                      threading.current_thread().name.rsplit("_", 1)[0])
             with self._lock:
                 self.calls[key] = self.calls.get(key, 0) + 1
+                self.threads[thread] = self.threads.get(thread, 0) + 1
                 if key not in self.cases:
                     t0 = time.perf_counter()
                     self.cases[key] = {
@@ -967,7 +987,11 @@ PU_PLAIN = [f"c{i}" for i in range(52)]
 PU_TYPES = ("BIGINT", "DOUBLE", "INT", "STRING")
 
 
-def partial_update_table(keys: int = 1 << 18, commits: int = 5,
+COVERAGE_KEYS = 1 << 16          # keys of the partial-update and
+                                 # changelog-producer coverage tables
+
+
+def partial_update_table(keys: int = COVERAGE_KEYS, commits: int = 5,
                          seed: int = 7):
     """Config 3's shape cut to a coverage check: a partial-update table
     of 64 columns (id; sequence field g with its group of 8 members; a
@@ -1536,8 +1560,9 @@ def changelog_files(table) -> dict:
     return out
 
 
-def coverage_producer(path: str, producer: str, device, keys: int = 1 << 18,
-                      commits: int = 5, seed: int = 7):
+def coverage_producer(path: str, producer: str, device,
+                      keys: int = COVERAGE_KEYS, commits: int = 5,
+                      seed: int = 7):
     """One producer at coverage size: `commits` streaming commits (inline
     compaction on), each every key in a random order with random values
     and 1 row in 100 a DELETE, then a full compaction.  Returns (the
@@ -1570,7 +1595,8 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
 
     name = "changelog_producers_coverage"
     for producer in ("input", "lookup", "full-compaction"):
-        card = rec.run(name, producer, 5 << 18, torch.device("cuda"),
+        card = rec.run(name, producer, 5 * COVERAGE_KEYS,
+                       torch.device("cuda"),
                        lambda: coverage_producer(
                            os.path.join(work, f"cov-{producer}-card"),
                            producer, None))
@@ -1773,6 +1799,628 @@ def mesh_compaction(work: str, rec: Recorder, rows: int = MESH_ROWS,
         out[engine] = res
         log(f"  {name}: {json.dumps(res)}")
         shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+# -- the serving plane: point lookups and the one-replica query service ------
+
+SERVE_ROWS = 10_000_000
+SERVE_COMMITS = 4
+SERVE_BUCKETS = 4
+SERVE_BATCH = 8                  # keys of a point-get request
+SERVE_WRITER_ROWS = 100_000
+SERVE_WRITER_BATCH = 10_000
+
+
+def serving_batches(rows: int, commits: int = SERVE_COMMITS, seed: int = 11):
+    """benchmarks/serve_bench.py build_serving_table's commits: `commits`
+    batches of rows / commits ids uniform in [0, rows), v uniform in
+    [0, 1), name "c<commit>-<id % 997>", from `seed`."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    per = rows // commits
+    out = []
+    for c in range(commits):
+        ids = rng.integers(0, rows, per)
+        out.append(pa.table({
+            "id": pa.array(ids, pa.int64()),
+            "v": pa.array(rng.random(per), pa.float64()),
+            "name": pa.array(np.char.add(f"c{c}-",
+                                         (ids % 997).astype(str)))}))
+    return out
+
+
+class ServeOracle:
+    """The served table by numpy alone, dense over the id range: per id
+    whether it is live, its v (the last writer's, or the per-id sum
+    under aggregation) and the tag of the last writer's name ("c<tag>-"
+    for a commit of serving_batches, "w<tag - 100>-" for a serving
+    writer batch)."""
+
+    def __init__(self, rows: int, batches, summed: bool = False):
+        self.rows = rows
+        self.live = np.zeros(rows, bool)
+        self.v = np.zeros(rows, np.float64)
+        self.tag = np.zeros(rows, np.int16)
+        for c, b in enumerate(batches):
+            ids = b.column("id").to_numpy()
+            v = b.column("v").to_numpy()
+            if summed:
+                self.v += np.bincount(ids, weights=v, minlength=rows)
+                self.live[ids] = True
+                last = np.unique(ids[::-1], return_index=True)[1]
+                self.tag[ids[::-1][last]] = c
+            else:
+                self.upsert(ids, v, c)
+
+    def upsert(self, ids, v, tag: int) -> None:
+        # within a batch the last occurrence of an id wins
+        keep = len(ids) - 1 - np.unique(ids[::-1], return_index=True)[1]
+        self.live[ids[keep]] = True
+        self.v[ids[keep]] = v[keep]
+        self.tag[ids[keep]] = tag
+
+    def name(self, i: int) -> str:
+        t = int(self.tag[i])
+        return f"c{t}-{i % 997}" if t < 100 else f"w{t - 100}-{i % 997}"
+
+    def check(self, what: str, ids, rows, rtol: float = 0.0) -> None:
+        """Every answer of a lookup batch: None for a dead id, else the
+        row (v exact, or within rtol under aggregation)."""
+        for i, row in zip(ids, rows):
+            i = int(i)
+            if not self.live[i]:
+                if row is not None:
+                    raise AssertionError(f"{what}: id {i} is not live, "
+                                         f"got {row}")
+                continue
+            want_v = float(self.v[i])
+            if row is None or row["id"] != i or \
+                    row["name"] != self.name(i) or not (
+                        row["v"] == want_v if rtol == 0.0 else
+                        abs(row["v"] - want_v) <= rtol * abs(want_v)):
+                raise AssertionError(f"{what}: id {i}: got {row}, want "
+                                     f"v={want_v!r} name={self.name(i)}")
+
+    def check_scan(self, what: str, rows, complete: bool = False) -> None:
+        """Scanned rows, vectorized: distinct live ids, each row exactly
+        the oracle's (`complete`: every live id)."""
+        n = len(rows)
+        ids = np.fromiter((r["id"] for r in rows), np.int64, n)
+        v = np.fromiter((r["v"] for r in rows), np.float64, n)
+        if len(np.unique(ids)) != n or not self.live[ids].all():
+            raise AssertionError(f"{what}: an id repeats or is not live")
+        if complete and n != int(self.live.sum()):
+            raise AssertionError(f"{what}: {n} rows, oracle "
+                                 f"{int(self.live.sum())}")
+        tags = self.tag[ids].astype(np.int64)
+        prefix = np.where(tags < 100, np.char.add("c", tags.astype(str)),
+                          np.char.add("w", (tags - 100).astype(str)))
+        names = np.char.add(np.char.add(prefix, "-"),
+                            (ids % 997).astype(str))
+        if not np.array_equal(v, self.v[ids]) or \
+                [r["name"] for r in rows] != names.tolist():
+            raise AssertionError(f"{what}: a row differs from the oracle")
+
+
+class BuildTimer:
+    """Seconds of the lookup store's SST builds: each `_spill` (lane
+    encode, host sort, SST write) with its rows, and each data-file read
+    of the fast path; the merged fallback's reads are timed by the
+    caller on its query's reader."""
+
+    def __init__(self):
+        self.spills = []         # (seconds, rows)
+        self.reads = []          # seconds
+
+    def __enter__(self):
+        from paimon_tpu_torch.lookup.local_query import LocalTableQuery
+        self._cls = LocalTableQuery
+        self._orig = (LocalTableQuery._spill,
+                      LocalTableQuery._file_reader_load)
+        spill, load = self._orig
+
+        def timed_spill(q, key, t):
+            t0 = time.perf_counter()
+            out = spill(q, key, t)
+            self.spills.append((time.perf_counter() - t0, t.num_rows))
+            return out
+
+        def timed_load(q, split, meta):
+            t0 = time.perf_counter()
+            out = load(q, split, meta)
+            self.reads.append(time.perf_counter() - t0)
+            return out
+        LocalTableQuery._spill = timed_spill
+        LocalTableQuery._file_reader_load = timed_load
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._spill, self._cls._file_reader_load = self._orig
+
+    def summary(self, since=(0, 0)) -> dict:
+        spills = self.spills[since[0]:]
+        reads = self.reads[since[1]:]
+        return {"ssts": len(spills),
+                "sst_rows": sum(r for _, r in spills),
+                "spill_s": sum(s for s, _ in spills),
+                "max_spill_s": max((s for s, _ in spills), default=0.0),
+                "file_reads": len(reads), "file_read_s": sum(reads)}
+
+    def mark(self):
+        return len(self.spills), len(self.reads)
+
+
+def pct(vals, p: float) -> float:
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(p / 100 * len(vals)))] if vals \
+        else 0.0
+
+
+def client_load(server, oracle: ServeOracle, clients: int, seconds: float,
+                scan_share: float, what: str, rtol: float = 0.0) -> dict:
+    """`clients` keep-alive client threads for `seconds`: point gets of
+    SERVE_BATCH keys uniform over the id range, and scan(limit=100) with
+    probability `scan_share`; every answer kept and held against the
+    oracle after the window (a 5xx or any other error fails)."""
+    from paimon_tpu_torch.service import KvQueryClient, ServiceBusyError
+    stop = threading.Event()
+    lock = threading.Lock()
+    got = {"lookups": [], "scans": [], "lat": [], "busy": 0, "errors": []}
+
+    def worker(seed):
+        r = np.random.default_rng(1000 + seed)
+        mine = {"lookups": [], "scans": [], "lat": [], "busy": 0}
+        try:
+            with KvQueryClient(address=server.address,
+                               tenant=f"t{seed % 8}") as c:
+                while not stop.is_set():
+                    try:
+                        if r.random() >= scan_share:
+                            ids = r.integers(0, oracle.rows, SERVE_BATCH)
+                            t1 = time.perf_counter()
+                            rows = c.lookup([{"id": int(i)} for i in ids])
+                            mine["lat"].append(
+                                (time.perf_counter() - t1) * 1000.0)
+                            mine["lookups"].append((ids, rows))
+                        else:
+                            mine["scans"].append(c.scan(limit=100))
+                    except ServiceBusyError:
+                        mine["busy"] += 1
+                        time.sleep(0.002)
+        except Exception as e:      # noqa: BLE001 -- reported, then raised
+            with lock:
+                got["errors"].append(repr(e))
+        with lock:
+            for k in ("lookups", "scans", "lat"):
+                got[k].extend(mine[k])
+            got["busy"] += mine["busy"]
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(clients)]
+    counters0 = lookup_counters()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    elapsed = time.perf_counter() - t0
+    if got["errors"] or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{what}: client errors {got['errors'][:3]}")
+    t1 = time.perf_counter()
+    for ids, rows in got["lookups"]:
+        oracle.check(what, ids, rows, rtol)
+    for rows in got["scans"]:
+        if len(rows) != 100:
+            raise AssertionError(f"{what}: scan(limit=100) gave "
+                                 f"{len(rows)} rows")
+        oracle.check_scan(what, rows)
+    n_l, n_s = len(got["lookups"]), len(got["scans"])
+    return {"clients": clients, "seconds": elapsed,
+            "lookup_counters": lookup_counters(counters0),
+            "qps": (n_l + n_s) / elapsed, "lookup_qps": n_l / elapsed,
+            "scan_qps": n_s / elapsed, "busy_429": got["busy"],
+            "lookups": n_l, "scans": n_s,
+            "p50_ms": pct(got["lat"], 50), "p95_ms": pct(got["lat"], 95),
+            "p99_ms": pct(got["lat"], 99),
+            "checked_s": time.perf_counter() - t1}
+
+
+def lookup_counters(since=None) -> dict:
+    """The lookup metric group's counters (block cache, SST builds and
+    reuses, native probes), as deltas from `since` when given."""
+    from paimon_tpu_torch.metrics import global_registry
+    now = {k: v for k, v in global_registry().snapshot().get(
+        "lookup", {}).items() if isinstance(v, int)}
+    return now if since is None else \
+        {k: v - since.get(k, 0) for k, v in now.items()}
+
+
+def served_rows(load: dict) -> int:
+    """Keys looked up plus rows scanned in a client_load window."""
+    return load["lookups"] * SERVE_BATCH + load["scans"] * 100
+
+
+def thread_launches(capture, name: str) -> dict:
+    """{thread-name prefix: (plain, ovc) launches} of table `name`."""
+    out = {}
+    for (table, variant, thread), n in capture.threads.items():
+        if table == name:
+            c = out.setdefault(thread, [0, 0])
+            c[variant == "ovc"] += n
+    return out
+
+
+def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
+                clients: int, seconds: float) -> dict:
+    """serve_dedup_10M: the reference serving benchmark's table at
+    `rows`, served by one KvQueryServer on the card; see `serving`."""
+    import torch
+
+    from paimon_tpu_torch.lookup.sst import force_python_probe
+    from paimon_tpu_torch.metrics import (
+        LOOKUP_NATIVE_FALLBACKS, LOOKUP_NATIVE_PROBES, global_registry,
+    )
+    from paimon_tpu_torch.service import KvQueryClient, KvQueryServer
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
+    from paimon_tpu_torch import Schema
+
+    name = "serve_dedup_10M"
+    path = os.path.join(work, name)
+    dev = torch.device(device)
+    lookups = global_registry().lookup_metrics()
+    probes0 = lookups.counter(LOOKUP_NATIVE_PROBES).count
+    fallbacks0 = lookups.counter(LOOKUP_NATIVE_FALLBACKS).count
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v", DoubleType())
+              .column("name", VarCharType.string_type()).primary_key("id")
+              .options({"bucket": str(SERVE_BUCKETS), "write-only": "true",
+                        "parquet.enable.dictionary": "false"}).build())
+    table = FileStoreTable.create(path, schema, device=device)
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    rec.run(name, "write", rows, dev, write)
+    oracle = ServeOracle(rows, batches)
+    out = {"rows": rows, "live": int(oracle.live.sum())}
+    served = FileStoreTable.load(path, device=device, dynamic_options={
+        "service.lookup.refresh-interval": "1000"})
+    rng = np.random.default_rng(3)
+    timer = BuildTimer()
+    server = KvQueryServer(served).start()
+    try:
+        with timer, KvQueryClient(address=server.address) as c:
+            ids = rng.integers(0, rows, SERVE_BATCH)
+            t0 = time.perf_counter()
+            got = c.lookup([{"id": int(i)} for i in ids])
+            out["cold_lookup_ms"] = (time.perf_counter() - t0) * 1000.0
+            oracle.check(f"{name} cold lookup", ids, got)
+            out["cold_builds"] = timer.summary()
+            mark = timer.mark()
+            ids = rng.integers(0, rows, 2048)
+            got = rec.run(name, "warm-up lookup", len(ids), dev,
+                          lambda: c.lookup([{"id": int(i)} for i in ids]))
+            oracle.check(f"{name} warm-up", ids, got)
+            out["warmup_builds"] = timer.summary(mark)
+            q = server.query()
+            n_files = sum(len(s.data_files) for s in q._splits.values())
+            if len(q.store.keys()) != n_files:
+                raise AssertionError(f"{name}: {len(q.store.keys())} SSTs "
+                                     f"after the warm-up, {n_files} files")
+            warm, single = [], []
+            for _ in range(300):
+                ids = rng.integers(0, rows, SERVE_BATCH)
+                t0 = time.perf_counter()
+                got = c.lookup([{"id": int(i)} for i in ids])
+                warm.append((time.perf_counter() - t0) * 1000.0)
+                oracle.check(f"{name} warm batch", ids, got)
+            for _ in range(100):
+                i = int(rng.integers(0, rows))
+                t0 = time.perf_counter()
+                got = c.lookup_row({"id": i})
+                single.append((time.perf_counter() - t0) * 1000.0)
+                oracle.check(f"{name} warm single", [i], [got])
+            out["warm_batch_p50_ms"] = pct(warm, 50)
+            out["warm_single_p50_ms"] = pct(single, 50)
+        out["mixed"] = mixed = {}
+        rec.run(name, "mixed 90/10", lambda: served_rows(mixed), dev,
+                lambda: mixed.update(client_load(
+                    server, oracle, clients, seconds, 0.1,
+                    f"{name} mixed")))
+        # the engine's warm probe over the same readers, native and numpy
+        keys = [{"id": int(i)} for i in rng.integers(0, rows, SERVE_BATCH)]
+        q.lookup(keys)
+
+        def per_batch_us():
+            reps, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < 0.5:
+                q.lookup(keys)
+                reps += 1
+            return (time.perf_counter() - t0) / reps * 1e6
+        out["engine_native_us_per_batch"] = per_batch_us()
+        with force_python_probe():
+            out["engine_numpy_us_per_batch"] = per_batch_us()
+        out["engine_native_again_us_per_batch"] = per_batch_us()
+
+        def serving_writer():
+            wr = np.random.default_rng(5)
+            sw = server.new_serving_writer()
+            res = {"batches": 0, "delta_read_s": 0.0, "commit_s": 0.0}
+            try:
+                with KvQueryClient(address=server.address) as wc:
+                    for k in range(SERVE_WRITER_ROWS // SERVE_WRITER_BATCH):
+                        live = np.flatnonzero(oracle.live)
+                        ids = wr.choice(live, SERVE_WRITER_BATCH,
+                                        replace=False)
+                        v = wr.random(len(ids))
+                        tag = 100 + k
+                        import pyarrow as pa
+                        sw.write_arrow(pa.table({
+                            "id": pa.array(ids, pa.int64()),
+                            "v": pa.array(v, pa.float64()),
+                            "name": pa.array(np.char.add(
+                                f"w{k}-", (ids % 997).astype(str)))}))
+                        oracle.upsert(ids, v, tag)
+                        t0 = time.perf_counter()
+                        for part in np.array_split(ids, 10):
+                            oracle.check(f"{name} writer batch {k} before "
+                                         f"commit", part, wc.lookup(
+                                             [{"id": int(i)} for i in part]))
+                        res["delta_read_s"] += time.perf_counter() - t0
+                        t0 = time.perf_counter()
+                        if sw.commit() is None:
+                            raise AssertionError(f"{name}: writer batch "
+                                                 f"{k} committed nothing")
+                        res["commit_s"] += time.perf_counter() - t0
+                        q.refresh()
+                        for part in np.array_split(ids, 10):
+                            oracle.check(f"{name} writer batch {k} after "
+                                         f"commit", part, wc.lookup(
+                                             [{"id": int(i)} for i in part]))
+                        delta = server._delta.stats()
+                        if delta["rows"]:
+                            raise AssertionError(f"{name}: delta tier holds "
+                                                 f"{delta} after the plan "
+                                                 f"covers the commit")
+                        res["batches"] += 1
+            finally:
+                sw.close()
+            return res
+        out["writer"] = rec.run(name, "serving writer", SERVE_WRITER_ROWS,
+                                dev, serving_writer)
+        out["writer"]["launches"] = rec.phases[-1]["launches_plain"]
+
+        # full compaction while 8 clients keep reading
+        old = {f.file_name for s in q._splits.values()
+               for f in s.data_files}
+        stop = threading.Event()
+        answers, errors = [], []
+
+        def reader(seed):
+            r = np.random.default_rng(2000 + seed)
+            try:
+                with KvQueryClient(address=server.address) as rc:
+                    while not stop.is_set():
+                        ids = r.integers(0, rows, SERVE_BATCH)
+                        answers.append((ids, rc.lookup(
+                            [{"id": int(i)} for i in ids])))
+            except Exception as e:      # noqa: BLE001 -- raised below
+                errors.append(repr(e))
+        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        try:
+            sid = rec.run(name, "compact", rows, dev,
+                          lambda: served.copy({"write-only": "false"})
+                          .compact(full=True))
+            q.refresh()
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        if sid is None or errors:
+            raise AssertionError(f"{name} compaction: snapshot {sid}, "
+                                 f"reader errors {errors[:3]}")
+        for ids, got in answers:
+            oracle.check(f"{name} during compaction", ids, got)
+        stale = [k for k in q.store.keys() if any(f in k for f in old)]
+        if stale:
+            raise AssertionError(f"{name}: readers of compacted-away files "
+                                 f"survive: {stale[:3]}")
+        out["compaction"] = {"reads": len(answers),
+                             "s": rec.phases[-1]["s"],
+                             "launches": rec.phases[-1]["launches_plain"]}
+        with KvQueryClient(address=server.address) as c:
+            full = rec.run(name, "unbounded scan", out["live"], dev,
+                           lambda: c.scan(limit=rows))
+        oracle.check_scan(f"{name} unbounded scan", full, complete=True)
+        out["unbounded_scan_s"] = rec.phases[-1]["s"]
+        stats = server.stats()
+    finally:
+        server.stop()
+    out["native_probes"] = lookups.counter(LOOKUP_NATIVE_PROBES).count \
+        - probes0
+    out["native_fallbacks"] = \
+        lookups.counter(LOOKUP_NATIVE_FALLBACKS).count - fallbacks0
+    out["server_lookup_p95_ms"] = stats["lookup_ms"]["p95"]
+    out["handler_cpu_per_key_ms_p50"] = stats["lookup_cpu_per_key_ms"]["p50"]
+    if out["native_probes"] <= 0 or out["native_fallbacks"]:
+        raise AssertionError(f"{name}: native probes {out['native_probes']}, "
+                             f"fallbacks {out['native_fallbacks']}")
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
+              clients: int, seconds: float) -> dict:
+    """serve_agg_10M: the same rows under aggregation (v sum), whose
+    every /lookup takes the merged fallback; see `serving`."""
+    import torch
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.service import KvQueryClient, KvQueryServer
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
+
+    name = "serve_agg_10M"
+    path = os.path.join(work, name)
+    dev = torch.device(device)
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v", DoubleType())
+              .column("name", VarCharType.string_type()).primary_key("id")
+              .options({"bucket": str(SERVE_BUCKETS), "write-only": "true",
+                        "parquet.enable.dictionary": "false",
+                        "merge-engine": "aggregation",
+                        "fields.v.aggregate-function": "sum"}).build())
+    table = FileStoreTable.create(path, schema, device=device)
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    rec.run(name, "write", rows, dev, write)
+    oracle = ServeOracle(rows, batches, summed=True)
+    out = {"rows": rows, "live": int(oracle.live.sum())}
+    served = FileStoreTable.load(path, device=device, dynamic_options={
+        "service.lookup.refresh-interval": "1000"})
+    server = KvQueryServer(served).start()
+    try:
+        q = server.query()
+        builds, read_split = [], q._read.read_split
+
+        def timed_read(split):
+            t0 = time.perf_counter()
+            res = read_split(split)
+            builds.append((split.bucket, t0, time.perf_counter(),
+                           res.num_rows))
+            return res
+        q._read.read_split = timed_read
+        # one key of each bucket from its own client thread at once
+        from paimon_tpu_torch.core.bucket import FixedBucketAssigner
+        import pyarrow as pa
+        probe = np.arange(4096)
+        bucket = FixedBucketAssigner(["id"], [BigIntType(False)],
+                                     SERVE_BUCKETS).assign(
+            pa.table({"id": pa.array(probe, pa.int64())}))
+        firsts = [int(probe[np.flatnonzero(bucket == b)[0]])
+                  for b in range(SERVE_BUCKETS)]
+        answers, errors = {}, []
+
+        def cold(i):
+            try:
+                with KvQueryClient(address=server.address) as c:
+                    answers[i] = c.lookup_row({"id": i})
+            except Exception as e:      # noqa: BLE001 -- raised below
+                errors.append(repr(e))
+
+        def cold_builds():
+            threads = [threading.Thread(target=cold, args=(i,), daemon=True)
+                       for i in firsts]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        rec.run(name, "cold merged builds", rows, dev, cold_builds)
+        if errors or len(answers) != SERVE_BUCKETS:
+            raise AssertionError(f"{name}: cold builds {errors[:3]}")
+        for i, row in answers.items():
+            oracle.check(f"{name} cold", [i], [row], rtol=1e-12)
+        if sorted(b for b, *_ in builds) != list(range(SERVE_BUCKETS)):
+            raise AssertionError(f"{name}: merged builds {builds}")
+        # how many bucket builds ran at once
+        edges = sorted([(t0, 1) for _, t0, _, _ in builds]
+                       + [(t1, -1) for _, _, t1, _ in builds])
+        overlap = max(np.cumsum([d for _, d in edges]))
+        out["merged_build_s"] = {str(b): t1 - t0 for b, t0, t1, _ in builds}
+        out["merged_rows"] = {str(b): n for b, _, _, n in builds}
+        out["builds_at_once"] = int(overlap)
+        out["cold_peak_gib"] = rec.phases[-1]["peak_gib"]
+        out["cold_s"] = rec.phases[-1]["s"]
+        if overlap < 2:
+            raise AssertionError(f"{name}: the bucket builds did not "
+                                 f"overlap ({builds})")
+        out["cold_thread_launches"] = thread_launches(rec.capture, name)
+        rng = np.random.default_rng(4)
+        with KvQueryClient(address=server.address) as c:
+            ids = rng.integers(0, rows, 2048)
+            oracle.check(f"{name} warm-up", ids,
+                         c.lookup([{"id": int(i)} for i in ids]),
+                         rtol=1e-12)
+        out["point_gets"] = gets = {}
+        rec.run(name, "point gets", lambda: served_rows(gets), dev,
+                lambda: gets.update(client_load(
+                    server, oracle, clients, seconds, 0.0,
+                    f"{name} point gets", rtol=1e-12)))
+    finally:
+        server.stop()
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
+            device="cuda", clients: int = 64, seconds: float = 10.0,
+            agg_seconds: float = 5.0) -> dict:
+    """The serving plane on the card.
+
+    serve_dedup_10M: benchmarks/serve_bench.py's table (id BIGINT NOT
+    NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
+    dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
+    11) served by one KvQueryServer with a refresh interval of 1000 ms:
+    the cold first /lookup of 8 keys, a 2048-key warm-up that builds
+    every file's SST, 300 warm batches of 8 and 100 single gets on one
+    keep-alive client, `clients` client threads for `seconds` (90% gets
+    of 8 keys, 10% scan(limit=100)), the engine's warm probe native
+    against numpy over the same readers, a serving writer's 100k
+    upserts of live ids in batches of 10k (each read back through the
+    delta tier before its commit and from the LSM after), a full
+    compaction while 8 clients read, and one unbounded /scan.
+    serve_agg_10M: the same rows under aggregation (v sum): 4 cold
+    buckets built at once from 4 client threads, each a full
+    merge-on-read on the card, a 2048-key warm-up, then `clients` client
+    threads of point gets for `agg_seconds`.  Every answer is held
+    against a numpy oracle; native probes must run and none fall back;
+    the flush, the compaction, /scan and the merged builds must launch
+    the winner-select kernel."""
+    t0 = time.perf_counter()
+    batches = serving_batches(rows)
+    out = {"card": card_line() if device == "cuda" else None,
+           "batch": SERVE_BATCH, "make_rows_s": time.perf_counter() - t0}
+    out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
+                               seconds)
+    launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
+                for p in rec.phases if p["table"] == "serve_dedup_10M"}
+    for what in ("mixed 90/10", "serving writer", "compact"):
+        if launches[what][0] == 0:
+            raise AssertionError(f"serve_dedup_10M {what}: no launch of the "
+                                 f"winner-select ({launches})")
+    out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
+                           agg_seconds)
+    ovc = sum(o for _, o in out["agg"]["cold_thread_launches"].values())
+    from_workers = sum(o for t, (_, o) in
+                       out["agg"]["cold_thread_launches"].items()
+                       if t.startswith("paimon-serve"))
+    if ovc == 0 or from_workers == 0:
+        raise AssertionError(f"serve_agg_10M: the offset-value-code "
+                             f"variant did not launch from the handler "
+                             f"threads ({out['agg']['cold_thread_launches']})")
+    out["launches"] = {f"{p['table']} {p['phase']}":
+                       [p["launches_plain"], p["launches_ovc"]]
+                       for p in rec.phases
+                       if p["table"].startswith("serve_")}
+    out["peak_gib"] = {f"{p['table']} {p['phase']}": p["peak_gib"]
+                       for p in rec.phases if p["table"].startswith("serve_")}
+    out["s"] = time.perf_counter() - t0
     return out
 
 
@@ -2165,7 +2813,7 @@ BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
-              mesh: dict) -> tuple:
+              mesh: dict, served: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -2185,11 +2833,13 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         to 0 just before it and read just after."""
         kernels.EQ_NEXT_LAUNCHES = 0
         kernels.EQ_NEXT_OVC_LAUNCHES = 0
+        t0 = time.perf_counter()
         out = fn()
         launched = counts()
         totals[0] += launched[0]
         totals[1] += launched[1]
-        log(f"  {name}: launches plain={launched[0]} ovc={launched[1]}")
+        log(f"  {name}: launches plain={launched[0]} ovc={launched[1]} "
+            f"in {time.perf_counter() - t0:.1f} s")
         return out
 
     def drive(name, schema, batches, check, **kw):
@@ -2201,7 +2851,10 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         return path(name, run)
 
     try:
+        t0 = time.perf_counter()
         batches = bigint_batches(rows)
+        log(f"batches of {rows} rows made in {time.perf_counter() - t0:.1f} "
+            f"s")
         cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
                 for c in ("id", "v1", "v2", "v3")}
         t0 = time.perf_counter()
@@ -2262,7 +2915,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                   lambda what, got: check_rows(what, got, s_cols, s_win,
                                                "name"))
 
-            pu_keys = 1 << 18
+            pu_keys = COVERAGE_KEYS
             pu_schema, pu_batches, pu_kinds = partial_update_table(pu_keys)
 
             def pu_check(what, got):
@@ -2291,6 +2944,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # the all_to_all rescale
             mesh.update(path("mesh_compaction",
                              lambda: mesh_compaction(work, rec)))
+            # point lookups and the one-replica query service
+            served.update(path("serving", lambda: serving(work, rec)))
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -2375,14 +3030,21 @@ def main() -> int:
           "per_commit": args.c5_rows_per_commit}
     decoded: dict = {}
     mesh: dict = {}
+    served: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
-                         ChangelogTimer(), c5, DecodeTimer(), decoded, mesh)
+                         ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
+                         served)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
+    t0 = time.perf_counter()
     check_kernels(capture, k1, k2)
+    log(f"kernel checks at the main path's shapes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     log(f"edge sizes: {check_edges()} cases exact (sizes {EDGE_SIZES}, "
-        f"lanes {EDGE_LANES}, aligned and shifted by 4 bytes)")
+        f"lanes {EDGE_LANES}, aligned and shifted by 4 bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     log(f"lane stride: {check_seg_edges()} cases exact and equal to "
         f"separate 1-D calls (B {SEG_BATCHES}, N {SEG_ROWS}, L "
@@ -2390,13 +3052,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     c5["joint_ranks"] = check_joint_ranks()
+    t0 = time.perf_counter()
     routes = merge_routes(decoded["dedup_winner_frac"])
+    log(f"merge routes: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     # again at the end, so a reader of the output's tail has it too
     log(card_line())
     print(json.dumps({"changelog_lookup_upsert": c5}))
     print(json.dumps({"device_decode": decoded}))
     print(json.dumps({"mesh_compaction": mesh}))
+    print(json.dumps({"serving": served}))
     print(json.dumps({"merge_routes": routes}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),

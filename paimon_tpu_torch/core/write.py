@@ -142,7 +142,15 @@ class _BucketWriter:
         self.kind_buffers.append(kinds)
         # sequence numbers are reserved HERE, on the single-threaded
         # caller, never inside a pooled flush task
-        self.seq_buffers.append(self._assign_seq(table.num_rows))
+        seqs = self._assign_seq(table.num_rows)
+        self.seq_buffers.append(seqs)
+        if self.parent.delta_listener is not None:
+            # the serving plane's delta tier (service/delta.py): the
+            # batch is point-lookup visible once buffered, after
+            # sequence reservation, so its newest-wins order is flush
+            # order
+            self.parent.delta_listener(self.partition, self.bucket,
+                                       table, kinds, seqs)
         self.buffered_bytes += table.nbytes
         if self.buffered_bytes >= self.parent.options.write_buffer_size:
             self.flush()
@@ -310,6 +318,10 @@ class KeyValueFileStoreWrite:
             nullable=[rt.get_field(k).type.nullable
                       for k in table_schema.trimmed_primary_keys()])
         self._writers: Dict[Tuple, _BucketWriter] = {}
+        # serving-plane hook (TableWrite.set_delta_listener): called with
+        # (partition, bucket, table, kinds, seqs) for every buffered
+        # batch, on the writing thread
+        self.delta_listener = None
         self._flush_pool = None       # lazily built (write_pipeline)
         # bounded dispatch lookahead: batch N+1's hash/group-by/take
         # runs on a prep worker while batch N routes (seq reservation
@@ -391,12 +403,13 @@ class KeyValueFileStoreWrite:
 
     def _prep_executor(self):
         """Lookahead pool (up to 4 workers, bounded by the flush
-        parallelism); None (inline) on the serial path."""
+        parallelism); None (inline) on the serial path, and with a delta
+        listener, whose contract is "readable when write() returns"."""
         from paimon_tpu_torch.parallel.write_pipeline import (
             resolve_flush_parallelism,
         )
         par = resolve_flush_parallelism(self.options)
-        if par <= 1:
+        if par <= 1 or self.delta_listener is not None:
             return None
         if self._prep_pool is None:
             from paimon_tpu_torch.parallel.executors import new_thread_pool

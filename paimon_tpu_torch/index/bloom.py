@@ -1,16 +1,22 @@
-"""The column hash of the bloom file index.
+"""Bloom filters over uint64 hashes, and the column hash of the bloom
+file index.
 
-Counterpart of paimon_tpu/index/bloom.py, reduced to `hash_column`, which
-the cardinality sketches of ops/sketch.py build on; the bloom filter
-itself is not ported yet (ROADMAP.md: the remaining planes).
+Counterpart of paimon_tpu/index/bloom.py, reduced to `BloomFilter`
+(the lookup SSTs' filter, lookup/sst.py; its serialized form is the
+reference's byte for byte) and `hash_column`, which the cardinality
+sketches of ops/sketch.py build on; the bloom file index is not ported
+yet (ROADMAP.md: the remaining planes).
 """
 
 from __future__ import annotations
 
+import math
+import struct
+
 import numpy as np
 import pyarrow as pa
 
-__all__ = ["hash_column"]
+__all__ = ["BloomFilter", "hash_column"]
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:
@@ -20,6 +26,54 @@ def _splitmix64(x: np.ndarray) -> np.ndarray:
     x = ((x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)) \
         & np.uint64(0xFFFFFFFFFFFFFFFF)
     return x ^ (x >> np.uint64(31))
+
+
+class BloomFilter:
+    """`k` probes of the double-hash sequence h1 + i * splitmix64(h1)
+    over `bits` (uint64 words); native/probe.c replicates the probe."""
+
+    def __init__(self, bits: np.ndarray, k: int):
+        self.bits = bits
+        self.k = k
+
+    @property
+    def num_bits(self) -> int:
+        return len(self.bits) * 64
+
+    @staticmethod
+    def build(hashes: np.ndarray, fpp: float = 0.01) -> "BloomFilter":
+        n = max(1, len(hashes))
+        m = max(64, int(-n * math.log(fpp) / (math.log(2) ** 2)))
+        m = ((m + 63) // 64) * 64
+        k = max(1, round(m / n * math.log(2)))
+        bits = np.zeros(m // 64, dtype=np.uint64)
+        h2 = _splitmix64(hashes)
+        for i in range(k):
+            pos = (hashes + np.uint64(i) * h2) % np.uint64(m)
+            np.bitwise_or.at(bits, (pos >> np.uint64(6)).astype(np.int64),
+                             np.uint64(1) << (pos & np.uint64(63)))
+        return BloomFilter(bits, k)
+
+    def might_contain_many(self, hashes: np.ndarray) -> np.ndarray:
+        """bool[n] for uint64 hashes[n], the probe sequence of build()."""
+        m = np.uint64(self.num_bits)
+        h1 = hashes.astype(np.uint64)
+        h2 = _splitmix64(h1)
+        out = np.ones(len(h1), dtype=bool)
+        for i in range(self.k):
+            pos = (h1 + np.uint64(i) * h2) % m
+            words = self.bits[(pos >> np.uint64(6)).astype(np.int64)]
+            out &= (words >> (pos & np.uint64(63))) & np.uint64(1) != 0
+        return out
+
+    def serialize(self) -> bytes:
+        return struct.pack("<HI", self.k, len(self.bits)) + \
+            self.bits.astype("<u8").tobytes()
+
+    @staticmethod
+    def deserialize(data: bytes) -> "BloomFilter":
+        k, nwords = struct.unpack_from("<HI", data, 0)
+        return BloomFilter(np.frombuffer(data, "<u8", nwords, 6).copy(), k)
 
 
 def hash_column(col: pa.ChunkedArray) -> np.ndarray:

@@ -1,14 +1,17 @@
-"""The host merge routes' C library, loaded through ctypes.
+"""The host C library, loaded through ctypes.
 
-Counterpart of paimon_tpu/native/__init__.py, reduced to the merge
-plane (radix_sort.c: the radix argsort, the fused winner select and the
-offset-value-coded merge).  The library compiles with the host C
+Counterpart of paimon_tpu/native/__init__.py: the merge plane's
+radix_sort.c (the radix argsort, the fused winner select and the
+offset-value-coded merge) and the point-lookup plane's probe.c (the
+batched SST probe: bloom filter and binary search over the flat sorted
+key buffer, GIL released for the call).  The library compiles with the host C
 compiler on first use into the package's gitignored `_build/`
 directory, never next to the source; the build writes a temporary name
 and renames it, so concurrent processes may build at once.  Every
 wrapper returns None when the library is unavailable (no compiler, a
 failed build, or PAIMON_DISABLE_NATIVE=1, read on every call), and the
-callers take their numpy routes.
+callers take their numpy routes; the probe is optional per call, so a
+library built before probe.c existed degrades the probe alone.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ import numpy as np
 
 __all__ = ["load", "predicted_available", "radix_argsort", "merge_winners",
            "ovc_codes_u64", "ovc_codes_lanes", "ovc_merge_u64",
-           "ovc_merge_lanes", "LIB_PATH", "SOURCES"]
+           "ovc_merge_lanes", "sst_probe", "sst_probe_prepare",
+           "sst_probe_prepared", "LIB_PATH", "SOURCES"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("radix_sort.c",)
+SOURCES = ("radix_sort.c", "probe.c")
 _SRCS = tuple(os.path.join(_DIR, s) for s in SOURCES)
 LIB_PATH = os.path.join(os.path.dirname(_DIR), "_build",
                         "_paimon_torch_native.so")
@@ -251,3 +255,78 @@ def ovc_merge_lanes(lanes: np.ndarray, seq: np.ndarray,
                            perm, code) != 0:
         return None
     return perm, code
+
+
+def sst_probe(flat_keys: np.ndarray, n_rows: int, key_width: int,
+              bloom_bits: Optional[np.ndarray], bloom_k: int,
+              qkeys: np.ndarray, qhashes: np.ndarray) -> Optional[tuple]:
+    """Batched SST probe, one C call for the whole query batch: per
+    query the matching row range (lo int64[m], hi int64[m]; lo == hi a
+    miss, -1/-1 a bloom rejection), or None when the library or its
+    probe symbol is unavailable."""
+    fn = _raw_probe()
+    if fn is None:
+        return None
+    return sst_probe_prepared(
+        _prepare(fn, flat_keys, n_rows, key_width, bloom_bits, bloom_k),
+        qkeys, qhashes)
+
+
+_RAW_PROBE: dict = {}
+
+
+def _raw_probe():
+    """`sst_probe_batch` bound through a raw CFUNCTYPE of c_void_p
+    arguments (no per-call ndpointer validation, which at a few keys a
+    probe rivals the search); one binding per loaded library.  Foreign
+    calls release the GIL."""
+    lib = load()
+    if lib is None or not hasattr(lib, "sst_probe_batch"):
+        return None
+    fn = _RAW_PROBE.get(id(lib))
+    if fn is None:
+        addr = ctypes.cast(lib.sst_probe_batch, ctypes.c_void_p).value
+        i64, vp = ctypes.c_int64, ctypes.c_void_p
+        fn = ctypes.CFUNCTYPE(ctypes.c_int, vp, i64, i64, vp, i64, i64,
+                              vp, vp, i64, vp, vp)(addr)
+        _RAW_PROBE[id(lib)] = fn
+    return fn
+
+
+def sst_probe_prepare(flat_keys: np.ndarray, n_rows: int, key_width: int,
+                      bloom_bits: Optional[np.ndarray],
+                      bloom_k: int) -> Optional[tuple]:
+    """Pin an SST's static probe arguments (flat key buffer and bloom
+    words) as raw pointers, once per reader; None when the probe is
+    unavailable."""
+    fn = _raw_probe()
+    if fn is None:
+        return None
+    return _prepare(fn, flat_keys, n_rows, key_width, bloom_bits, bloom_k)
+
+
+def _prepare(fn, flat_keys, n_rows, key_width, bloom_bits, bloom_k):
+    fk = np.ascontiguousarray(flat_keys, dtype=np.uint8)
+    bb = np.ascontiguousarray(bloom_bits, dtype=np.uint64) \
+        if bloom_bits is not None else np.zeros(0, dtype=np.uint64)
+    # the trailing arrays keep the pinned buffers alive with the tuple
+    return (fn, fk.ctypes.data, int(n_rows), int(key_width),
+            bb.ctypes.data, len(bb), int(bloom_k),
+            (fk, bb))
+
+
+def sst_probe_prepared(prep: tuple, qkeys: np.ndarray,
+                       qhashes: np.ndarray) -> Optional[tuple]:
+    """`sst_probe` over a `sst_probe_prepare` context: only the query
+    arrays cross per call; lo and hi share one allocation."""
+    fn, fk_ptr, n_rows, kw, bb_ptr, bb_len, bk, _pin = prep
+    qk = np.ascontiguousarray(qkeys, dtype=np.uint8)
+    qh = np.ascontiguousarray(qhashes, dtype=np.uint64)
+    m = len(qh)
+    res = np.empty(2 * m, dtype=np.int64)
+    base = res.__array_interface__["data"][0]
+    if fn(fk_ptr, n_rows, kw, bb_ptr, bb_len, bk,
+          qk.__array_interface__["data"][0],
+          qh.__array_interface__["data"][0], m, base, base + 8 * m) != 0:
+        return None
+    return res[:m], res[m:]

@@ -1,7 +1,8 @@
-"""Observability: span tracing (trace.py) and the flight recorder's
-event ring (flight.py).
+"""Observability: span tracing (trace.py), the flight recorder's event
+ring (flight.py), SLO burn rates (slo.py) and the Prometheus text of
+the metric registry (export.py).
 
-Counterpart of paimon_tpu/obs/, reduced to what the mesh compaction
-plane records; SLOs, fleet merge and the rest of the flight recorder
-are not ported yet (ROADMAP.md A.7).
+Counterpart of paimon_tpu/obs/; the fleet trace merge (merge.py),
+flight dumps and the router's SLO rollup are not ported yet (ROADMAP.md
+A.7b).
 """

@@ -10,8 +10,12 @@ process-global and synced from a table's options at pipeline entry
 (`sync_from_options`): an explicitly set key wins, an absent key
 leaves the current state.  `maybe_export` writes the ring as Chrome
 trace-event JSON to trace.export.path and appends new spans to a
-per-process spool under trace.export.dir.  Cross-process trace context
-and serving spans are not ported yet (ROADMAP.md A.7).
+per-process spool under trace.export.dir, whose first line names the
+process and its serving replica (`set_replica_id`).  The serving plane
+carries a request's context across processes: the client's hop span
+stamps X-Trace-Id / X-Parent-Span (`inject_headers`) and the server
+adopts them around its handler (`server_span`).  The fleet merge of
+spools (obs/merge.py) is not ported yet (ROADMAP.md A.7b).
 """
 
 from __future__ import annotations
@@ -30,9 +34,19 @@ from typing import Dict, List, Optional
 __all__ = ["Span", "TraceCollector", "span", "enable_tracing",
            "disable_tracing", "tracing_enabled", "set_metrics_enabled",
            "metrics_enabled", "collector", "take_spans",
-           "sync_from_options", "maybe_export", "export_chrome_trace"]
+           "sync_from_options", "maybe_export", "export_chrome_trace",
+           "set_replica_id", "inject_headers", "server_span",
+           "STAGE_SERVE_REQUEST",
+           "STAGE_CLIENT_REQUEST", "HDR_TRACE_ID", "HDR_PARENT_SPAN"]
 
 DEFAULT_BUFFER_SPANS = 8192
+
+# the serving plane's request spans and the headers that carry a
+# request's context from client to server
+STAGE_SERVE_REQUEST = "serve.request"
+STAGE_CLIENT_REQUEST = "client.request"
+HDR_TRACE_ID = "X-Trace-Id"
+HDR_PARENT_SPAN = "X-Parent-Span"
 
 
 class Span:
@@ -106,6 +120,10 @@ _export_dir: Optional[str] = None
 _ids = itertools.count(1)
 _current: contextvars.ContextVar = contextvars.ContextVar(
     "paimon_torch_current_span", default=None)
+_trace_id: contextvars.ContextVar = contextvars.ContextVar(
+    "paimon_torch_trace_id", default=None)
+_replica_id: Optional[str] = None
+_spool_header_done = False
 # spool file identity: the OS reuses pids, so a random salt follows it
 _PROC = "%s-%d-%s" % (platform.node(), os.getpid(), os.urandom(3).hex())
 _spool_lock = threading.Lock()
@@ -208,6 +226,70 @@ def span(name: str, *, cat: str = "", group: Optional[str] = None,
     return _LiveSpan(name, cat, group, metric or name, attrs)
 
 
+# -- cross-process context of the serving plane ------------------------------
+
+def set_replica_id(replica_id: Optional[str]) -> None:
+    """Name the serving replica in this process's spool header."""
+    global _replica_id
+    _replica_id = replica_id
+
+
+def inject_headers(headers: Dict[str, str]) -> Dict[str, str]:
+    """Stamp the trace id (minted on a request's first hop) and this
+    span as the remote parent onto an outbound request's headers; a
+    no-op unless tracing is on and a span is open."""
+    if not _enabled:
+        return headers
+    sid = _current.get()
+    if sid is None:
+        return headers
+    tid = _trace_id.get()
+    if tid is None:
+        tid = os.urandom(16).hex()
+        _trace_id.set(tid)
+    headers[HDR_TRACE_ID] = tid
+    headers[HDR_PARENT_SPAN] = f"{_PROC}:{sid}"
+    return headers
+
+
+class _AdoptedSpan:
+    """A server's request span that adopts the caller's context: the
+    trace id rides the context variable for the handler's duration and
+    the remote parent lands in the span's attrs."""
+
+    __slots__ = ("_headers", "_attrs", "_inner", "_tid_token")
+
+    def __init__(self, headers: Dict[str, str], attrs: Dict):
+        self._headers = headers
+        self._attrs = attrs
+
+    def __enter__(self):
+        tid = self._headers.get("x-trace-id")
+        parent = self._headers.get("x-parent-span")
+        self._tid_token = _trace_id.set(tid) if tid else None
+        if tid:
+            self._attrs["trace_id"] = tid
+        if parent:
+            self._attrs["remote_parent"] = parent
+        self._inner = _LiveSpan(STAGE_SERVE_REQUEST, "serve", None, None,
+                                self._attrs)
+        return self._inner.__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        out = self._inner.__exit__(exc_type, exc, tb)
+        if self._tid_token is not None:
+            _trace_id.reset(self._tid_token)
+        return out
+
+
+def server_span(headers: Optional[Dict[str, str]], **attrs):
+    """Wraps one inbound request's handler (`headers` lower-cased); the
+    shared no-op when tracing is off."""
+    if not _enabled:
+        return _NOOP
+    return _AdoptedSpan(headers or {}, attrs)
+
+
 # -- switches ----------------------------------------------------------------
 
 def enable_tracing(max_spans: Optional[int] = None):
@@ -305,14 +387,22 @@ def export_chrome_trace(path: str, spans=None) -> str:
 
 def _spool_flush() -> None:
     """Append spans newer than the last flush to
-    `<trace.export.dir>/<process tag>.jsonl`."""
-    global _spooled_through
+    `<trace.export.dir>/<process tag>.jsonl`, after a first line naming
+    the process, its replica and a (wall clock, perf_counter) anchor."""
+    global _spooled_through, _spool_header_done
     path = os.path.join(_export_dir, _PROC + ".jsonl")
     with _spool_lock:
         fresh = [s for s in _collector.snapshot()
                  if s.span_id > _spooled_through]
         os.makedirs(_export_dir, exist_ok=True)
         with open(path, "a") as f:
+            if not _spool_header_done:
+                f.write(json.dumps({
+                    "proc": _PROC, "pid": os.getpid(),
+                    "host": platform.node(), "replica": _replica_id,
+                    "wall_s": time.time(),
+                    "perf_s": time.perf_counter()}) + "\n")
+                _spool_header_done = True
             for s in fresh:
                 f.write(json.dumps({
                     "sid": s.span_id, "parent": s.parent_id,

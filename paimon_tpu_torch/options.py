@@ -306,6 +306,150 @@ class CoreOptions:
     REQUEST_TIMEOUT = ConfigOption(
         "request.timeout", _parse_duration_ms, None,
         "End-to-end deadline for table entry points")
+
+    # -- query serving plane (service/, lookup/; reference options.py
+    #    :325, :544-650, :865-985, :1165) ------------------------------------
+    SERVICE_REQUEST_TIMEOUT = ConfigOption(
+        "service.request.timeout", _parse_duration_ms, None,
+        "Default end-to-end deadline for /lookup, /scan and /changelog "
+        "requests (clients may override per request with "
+        "'timeout_ms'); an exceeded deadline answers HTTP 504.  None = "
+        "no server-side deadline")
+    SERVICE_BROWNOUT_ENABLED = ConfigOption(
+        "service.brownout.enabled", _parse_bool, True,
+        "Graceful load shedding (service/brownout.py): under queue or "
+        "failure pressure rung 1 marks the process degraded, rung 2 "
+        "also sheds low-priority requests with HTTP 429")
+    SERVICE_BROWNOUT_QUEUE_RATIO = ConfigOption(
+        "service.brownout.queue-ratio", float, 0.5,
+        "Admission-queue fill fraction past which the brownout ladder "
+        "starts climbing")
+    SERVICE_BROWNOUT_SHED_PRIORITY = ConfigOption(
+        "service.brownout.shed-priority", int, 100,
+        "At brownout rung 2, requests with priority below this are "
+        "shed with HTTP 429")
+    SERVICE_BROWNOUT_HOLD_MS = ConfigOption(
+        "service.brownout.hold-ms", _parse_duration_ms, 1000,
+        "Hysteresis: a brownout rung holds at least this long before "
+        "the ladder may step back down")
+    SERVICE_SLO_ENABLED = ConfigOption(
+        "service.slo.enabled", _parse_bool, True,
+        "Evaluate the availability and latency-p99 objectives as "
+        "multi-window burn rates (obs/slo.py, GET /slo)")
+    SERVICE_SLO_AVAILABILITY_TARGET = ConfigOption(
+        "service.slo.availability-target", float, 0.999,
+        "Fraction of requests that must succeed (429 and 5xx count "
+        "against the budget)")
+    SERVICE_SLO_LATENCY_P99_MS = ConfigOption(
+        "service.slo.latency-p99-ms", float, 250.0,
+        "99% of requests must finish within this many milliseconds")
+    SERVICE_SLO_FAST_WINDOW_S = ConfigOption(
+        "service.slo.fast-window-s", float, 300.0,
+        "Fast burn-rate window (seconds)")
+    SERVICE_SLO_SLOW_WINDOW_S = ConfigOption(
+        "service.slo.slow-window-s", float, 3600.0,
+        "Slow burn-rate window (seconds); at least the fast window")
+    SERVICE_SLO_BURN_THRESHOLD = ConfigOption(
+        "service.slo.burn-threshold", float, 2.0,
+        "Burn rate both windows must reach to raise the alert")
+    SERVICE_MAX_INFLIGHT_BYTES = ConfigOption(
+        "service.max-inflight-bytes", parse_memory_size, 1 << 30,
+        "Budget on the estimated bytes of requests admitted at once; "
+        "further requests queue, and an idle service always admits one")
+    SERVICE_TENANT_MAX_INFLIGHT_BYTES = ConfigOption(
+        "service.tenant.max-inflight-bytes", parse_memory_size, None,
+        "Per-tenant slice of the admission budget; None = the whole "
+        "service.max-inflight-bytes")
+    SERVICE_QUEUE_DEPTH = ConfigOption(
+        "service.queue.depth", int, 256,
+        "Bound on requests waiting for admission; a full queue answers "
+        "HTTP 429 at once")
+    SERVICE_QUEUE_TIMEOUT = ConfigOption(
+        "service.queue.timeout", _parse_duration_ms, 10_000,
+        "How long a queued request waits for budget before HTTP 429")
+    SERVICE_LOOKUP_REFRESH_INTERVAL = ConfigOption(
+        "service.lookup.refresh-interval", _parse_duration_ms, 100,
+        "Snapshot-refresh TTL of the serving point-lookup engine: "
+        "within it, lookups are answered from the cached plan (they "
+        "may trail commits by up to this long)")
+    SERVICE_CACHE_SHARED = ConfigOption(
+        "service.cache.shared", _parse_bool, True,
+        "Serve every request through the process-wide shared byte-"
+        "cache tier (fs/caching.py shared_cache_state)")
+    SERVICE_SCAN_ROW_BYTES = ConfigOption(
+        "service.scan.row-bytes-estimate", int, 256,
+        "Admission bytes charged per row of a /scan limit or a "
+        "/changelog poll")
+    SERVICE_LOOKUP_KEY_BYTES = ConfigOption(
+        "service.lookup.key-bytes-estimate", int, 4096,
+        "Admission bytes charged per /lookup key")
+    SERVICE_WORKERS = ConfigOption(
+        "service.workers", int, 16,
+        "Handler threads behind the event-loop request engine "
+        "(service/async_server.py)")
+    SERVICE_MAX_CONNECTIONS = ConfigOption(
+        "service.max-connections", int, 1024,
+        "Bound on open client connections; accepts past it answer 503")
+    SERVICE_PROBE_NATIVE = ConfigOption(
+        "service.probe.native", _parse_bool, True,
+        "Resolve SST probe batches with native/probe.c (bloom + binary "
+        "search, GIL released); a call that cannot degrades to the "
+        "numpy walk and counts lookup.native_fallbacks")
+    SERVICE_DELTA_ENABLED = ConfigOption(
+        "service.delta.enabled", _parse_bool, True,
+        "Serve point lookups from the in-memory delta tier of a serving "
+        "writer's unflushed rows (service/delta.py)")
+    SERVICE_DELTA_MAX_BYTES = ConfigOption(
+        "service.delta.max-bytes", parse_memory_size, 256 << 20,
+        "Soft bound on the delta tier's bytes: crossing it counts "
+        "delta_overflow (uncommitted rows are never dropped)")
+    # read by the reference's router, warm boot and disk tier; a
+    # server over a table that turns them on raises until ROADMAP A.7b
+    SERVICE_REPLICAS = ConfigOption(
+        "service.replicas", int, 1,
+        "Read replicas behind a consistent-hash router (A.7b)")
+    SERVICE_REPLICA_VNODES = ConfigOption(
+        "service.replicas.virtual-nodes", int, 64,
+        "Virtual nodes per replica on the router's ring (A.7b)")
+    SERVICE_REPLICA_HEALTH_INTERVAL = ConfigOption(
+        "service.replicas.health-interval", _parse_duration_ms, 1_000,
+        "Router health-check period of remote replicas (A.7b)")
+    SERVICE_WARMBOOT_ENABLED = ConfigOption(
+        "service.warmboot.enabled", _parse_bool, False,
+        "Boot serving replicas warm from persisted SSTs (A.7b)")
+    SERVICE_WARMBOOT_DIR = ConfigOption(
+        "service.warmboot.dir", str, None,
+        "Directory the warm-boot state persists into (A.7b)")
+    CACHE_DISK_DIR = ConfigOption(
+        "cache.disk.dir", str, None,
+        "Host-SSD second cache tier under the byte caches (A.7b)")
+    CACHE_DISK_MAX_BYTES = ConfigOption(
+        "cache.disk.max-bytes", parse_memory_size, 1 << 30,
+        "Bound on the cache.disk.dir tier's bytes (A.7b)")
+    CACHE_DISK_PROMOTE_HITS = ConfigOption(
+        "cache.disk.promote-after-hits", int, 2,
+        "Memory hits after which an entry is written to the disk tier "
+        "(A.7b)")
+    READ_HEDGE_ENABLED = ConfigOption(
+        "read.hedge.enabled", _parse_bool, False,
+        "Hedge slow object-store reads (A.7b)")
+    OBS_FLIGHT_ENABLED = ConfigOption(
+        "obs.flight.enabled", _parse_bool, True,
+        "Keep the flight recorder's bounded event ring (obs/flight.py)")
+    OBS_FLIGHT_EVENTS = ConfigOption(
+        "obs.flight.events", int, 512,
+        "Capacity of the flight recorder's event ring")
+    OBS_FLIGHT_DUMP_DIR = ConfigOption(
+        "obs.flight.dump.dir", str, None,
+        "Dump the flight ring on crash into this directory (A.7b)")
+    LOOKUP_CACHE_MAX_MEMORY_SIZE = ConfigOption(
+        "lookup.cache-max-memory-size", parse_memory_size, 256 << 20,
+        "Block-cache memory bound of the SST lookup store")
+    LOOKUP_CACHE_MAX_DISK_SIZE = ConfigOption(
+        "lookup.cache-max-disk-size", parse_memory_size,
+        9223372036854775807,
+        "Disk bound of the SST lookup store (least recently used files "
+        "evict first)")
     BRANCH = ConfigOption("branch", str, "main", "")
     RECORD_LEVEL_EXPIRE_TIME = ConfigOption("record-level.expire-time",
                                             _parse_duration_ms, None, "")
@@ -362,6 +506,13 @@ class CoreOptions:
         "Cache parsed parquet footers of immutable data files in a "
         "process-wide LRU so repeated scans skip metadata decode "
         "(fs/caching.py)")
+    READ_CACHE_RANGE = ConfigOption(
+        "read.cache.range", _parse_bool, False,
+        "Wrap the table's FileIO in the shared byte cache with a "
+        "block-range tier keyed by (path, offset, length)")
+    READ_CACHE_RANGE_MAX_BYTES = ConfigOption(
+        "read.cache.range.max-bytes", parse_memory_size, 128 << 20,
+        "Capacity of the block-range cache enabled by read.cache.range")
     READ_DEVICE_DECODE = ConfigOption(
         "read.device-decode", _parse_bool, False,
         "Route parquet data-file reads through the device decode plane "

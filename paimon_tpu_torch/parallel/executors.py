@@ -1,9 +1,10 @@
 """Shared thread/executor construction helpers.
 
-Counterpart of paimon_tpu/parallel/executors.py (without request
-deadlines, which are not ported yet): every pool and background thread
-of this package is created here, with a mandatory name so a leaked
-thread can be attributed to its subsystem.
+Counterpart of paimon_tpu/parallel/executors.py: every pool and
+background thread of this package is created here, with a mandatory
+name so a leaked thread can be attributed to its subsystem.  Pools
+carry the submitter's request deadline (utils/deadline.py) into each
+task.
 """
 
 from __future__ import annotations
@@ -26,8 +27,22 @@ def spawn_thread(target: Callable, *, name: str,
     return t
 
 
+class _DeadlinePropagatingPool(ThreadPoolExecutor):
+    """Runs each task under the submitting thread's request deadline:
+    context variables do not cross pool boundaries on their own."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        from paimon_tpu_torch.utils.deadline import (
+            current_deadline, run_with_deadline,
+        )
+        dl = current_deadline()
+        if dl is None:
+            return super().submit(fn, *args, **kwargs)
+        return super().submit(run_with_deadline, dl, fn, *args, **kwargs)
+
+
 def new_thread_pool(workers: int, prefix: str) -> ThreadPoolExecutor:
     """A named ThreadPoolExecutor (`prefix` becomes the thread-name
-    prefix)."""
-    return ThreadPoolExecutor(max_workers=max(1, int(workers)),
-                              thread_name_prefix=prefix)
+    prefix) whose tasks inherit the submitter's request deadline."""
+    return _DeadlinePropagatingPool(max_workers=max(1, int(workers)),
+                                    thread_name_prefix=prefix)

@@ -5,9 +5,12 @@ retries, corrupt-file skips and the in-flight byte budget (not ported
 yet).  `scan.split.parallelism` worker threads each run a full
 `read_split` (read, decode, run assembly, device merge), so split k's
 merge overlaps split k+1's reads; up to `parallelism +
-read.prefetch.splits` splits are in flight, and results are yielded in
-plan order.  The pool is shut down when iteration completes, raises,
-or the consumer abandons the generator.
+read.prefetch.splits` splits are in flight (no prefetch past the
+workers while the serving plane's brownout marks the process degraded,
+fs/resilience.py), and results are yielded in plan order, each wait
+bounded by the request's deadline (utils/deadline.py).  The pool is
+shut down when iteration completes, raises, or the consumer abandons
+the generator.
 """
 
 from __future__ import annotations
@@ -42,8 +45,12 @@ def iter_split_tables(read, splits: Sequence, options: CoreOptions
         for i, s in enumerate(splits):
             yield i, s, read.read_split(s)
         return
+    from paimon_tpu_torch.fs.resilience import is_degraded
     from paimon_tpu_torch.parallel.executors import new_thread_pool
-    window = par + max(0, options.get(CoreOptions.READ_PREFETCH_SPLITS))
+    from paimon_tpu_torch.utils.deadline import wait_future
+    extra = 0 if is_degraded() else \
+        max(0, options.get(CoreOptions.READ_PREFETCH_SPLITS))
+    window = par + extra
     pool = new_thread_pool(par, "paimon-scan")
     inflight = deque()
     next_i = 0
@@ -55,7 +62,7 @@ def iter_split_tables(read, splits: Sequence, options: CoreOptions
                 inflight.append((next_i, s, pool.submit(read.read_split, s)))
                 next_i += 1
             idx, s, fut = inflight.popleft()
-            yield idx, s, fut.result()
+            yield idx, s, wait_future(fut, "scan split")
     except GeneratorExit:
         # consumer stopped early (LIMIT satisfied): don't block it on
         # in-flight reads whose results are discarded

@@ -74,6 +74,10 @@ def check_readable(schema: TableSchema, options: CoreOptions,
                 CoreOptions.REQUEST_TIMEOUT):
         if options.get(key):
             _not_ported(key.key, "the remaining planes")
+    # the host-SSD cache tier and hedged store reads
+    for key in (CoreOptions.CACHE_DISK_DIR, CoreOptions.READ_HEDGE_ENABLED):
+        if options.get(key):
+            _not_ported(key.key, "A.7b")
     _refuse_prefix(options, "read.retry.")
 
 
@@ -126,6 +130,19 @@ class FileStoreTable:
         self.branch = self.options.branch
         check_readable(self.schema, self.options, self.branch)
         self.device = resolve_device(device)
+        if self.options.get(CoreOptions.READ_CACHE_RANGE):
+            from paimon_tpu_torch.fs.caching import (
+                CachingFileIO, shared_cache_state,
+            )
+            if not isinstance(file_io, CachingFileIO):
+                # range-only: whole-file capacity 0 keeps read_bytes a
+                # pass-through; ranged reads hit the process-wide tier
+                range_bytes = self.options.get(
+                    CoreOptions.READ_CACHE_RANGE_MAX_BYTES)
+                file_io = CachingFileIO(
+                    file_io, capacity_bytes=0,
+                    range_cache_bytes=range_bytes,
+                    state=shared_cache_state(0, range_bytes))
         self.file_io = file_io
         self.snapshot_manager = SnapshotManager(file_io, self.path,
                                                 self.branch)
@@ -341,6 +358,12 @@ class TableWrite:
             data = data.set_column(data.column_names.index(col), col,
                                    pc.fill_null(arr, scalar))
         return data
+
+    def set_delta_listener(self, listener):
+        """Serving-plane hook (service/delta.py): `listener(partition,
+        bucket, table, kinds, seqs)` fires for every buffered batch on
+        the writing thread, after sequence reservation."""
+        self._write.delta_listener = listener
 
     def write_dicts(self, rows: Sequence[dict],
                     row_kinds: Optional[Sequence[int]] = None):

@@ -69,7 +69,21 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.parallel.mesh_engine",
                  "paimon_tpu_torch.parallel.sharded_compact",
                  "paimon_tpu_torch.parallel.rescale",
-                 "paimon_tpu_torch.parallel.dryrun"):
+                 "paimon_tpu_torch.parallel.dryrun",
+                 "paimon_tpu_torch.utils.deadline",
+                 "paimon_tpu_torch.fs.resilience",
+                 "paimon_tpu_torch.obs.slo",
+                 "paimon_tpu_torch.obs.export",
+                 "paimon_tpu_torch.index.bloom",
+                 "paimon_tpu_torch.lookup",
+                 "paimon_tpu_torch.lookup.sst",
+                 "paimon_tpu_torch.lookup.local_query",
+                 "paimon_tpu_torch.service",
+                 "paimon_tpu_torch.service.admission",
+                 "paimon_tpu_torch.service.brownout",
+                 "paimon_tpu_torch.service.async_server",
+                 "paimon_tpu_torch.service.delta",
+                 "paimon_tpu_torch.service.query_service"):
         assert name in out["modules"]
 
 
