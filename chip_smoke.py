@@ -65,8 +65,8 @@ then):
      fused_decode_merge at 2^24 on the card equal to its CPU run;
    - mesh_compaction: parallel/dryrun.run_engines' tables (id BIGINT
      NOT NULL key, v DOUBLE, 8 buckets, write-only; deduplicate and
-     aggregation with v sum; commits of 5M ids uniform in [0, 10M)
-     from seed 6 until >= 10M rows enter the compaction) compacted by
+     aggregation with v sum; commits of 2.5M ids uniform in [0, 5M)
+     from seed 6 until >= 5M rows enter the compaction) compacted by
      compact_table_mesh on 8 lanes of the card, one batched merge a
      window step; each held against a numpy oracle (exact; sums within
      rtol 1e-12), with no retry, fallback or cleanup error and the
@@ -76,19 +76,41 @@ then):
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
    - serving: point lookups and the one-replica query service on the
-     card (`serving` says what it drives): serve_dedup_10M, the
-     reference serving benchmark's table at 10M rows (cold and warm
+     card (`serving` says what it drives): serve_dedup_5M, the
+     reference serving benchmark's table at 5M rows (cold and warm
      /lookup, 64 keep-alive clients of 90% point gets and 10%
      scan(limit=100), the engine's native and numpy probes, a serving
      writer's read-your-writes through the delta tier, a full
      compaction under 8 readers, an unbounded /scan), and
-     serve_agg_10M, the same rows under aggregation, whose every
+     serve_agg_5M, the same rows under aggregation, whose every
      lookup merges a bucket on the card (4 cold buckets built at once
      from the server's handler threads).  Every answer is held against
      a numpy oracle; no native probe may fall back; the flush, the
      compaction, /scan and the merged builds must launch the kernel.
      It prints a {"serving": ...} line with the card's name and power
      limit;
+   - bucket_modes: primary-key tables as users create them without a
+     `bucket` option, bench.py's rows (id BIGINT NOT NULL key, v1
+     BIGINT, v2 DOUBLE, v3 INT), each read held against a numpy oracle:
+     dyn_dedup_20M (dynamic buckets at dynamic-bucket.target-row-num's
+     default of 2M: 10 commits of 2M uniform ids in [0, 16M) from one
+     writer, a merge-on-read scan, a full compaction and a scan; the
+     hash index against the rows: each id in one bucket, every bucket
+     but the last at 2M hashes, the files' total the distinct 32-bit
+     hashes; a fresh table object's 1M upserts of existing ids landing
+     in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
+     RENAME v2 -> v2r and 2 commits of 2M upserts, a merge-on-read scan
+     over runs of both schemas, a full compaction and a scan),
+     xpart_upsert_8M (cross-partition upsert, partition dt INT of 4
+     values: 8M keys in 4 commits, then a fresh table object's 4
+     commits of 1M upserts, a quarter moving partition and some twice
+     in one batch, so the global index bootstraps; each id once, in the
+     partition of its last write, before and after a full compaction)
+     and postpone_8M (bucket=-2: 8M rows in 4 commits that a scan does
+     not see, then rescale_postpone at the postpone defaults and a
+     scan).  It logs the dynamic assigner's and the index bootstrap's
+     host seconds and each table's seconds, and prints a
+     {"bucket_modes": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -119,14 +141,14 @@ then):
    and without run codes, device packed, bitmask, host native fast,
    host numpy fast, host general up to 2^22, host OVC) at the main
    path's merge shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at
-   2^14, 2^20 and 2^24, held equal under each route's contract and
+   2^14, 2^20 and 2^22, held equal under each route's contract and
    timed; the link rates at 8 MiB (the cost model's) and 256 MiB; the
    cost model's rates measured on this machine; the model's pick at
    each shape at a winner fraction of 1.0 and at dedup_bigint's.
 
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
-serving phase, the merge routes, the
+serving phase, the merge routes, the bucket modes, the
 phases, the kernels with their launches on the main path and their
 times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
@@ -1624,7 +1646,7 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
                           ignore_errors=True)
 
 
-MESH_ROWS = 10_000_000
+MESH_ROWS = 5_000_000            # cut from 10M in PR 8 (script time)
 MESH_LANES = 8
 
 
@@ -1802,9 +1824,423 @@ def mesh_compaction(work: str, rec: Recorder, rows: int = MESH_ROWS,
     return out
 
 
+# -- primary-key tables in the bucket modes users create by default --------
+
+BM_TARGET = 2_000_000            # dynamic-bucket.target-row-num's default
+DYN_ROWS = 20_000_000            # dyn_dedup_20M: 10 commits of 2M
+DYN_KEYS = 16_000_000            # ids uniform in [0, 16M)
+DYN_COMMITS = 10
+DYN_FRESH = 1_000_000            # upserts of existing ids, a fresh table
+DYN_EVOLVED = 2_000_000          # upserts a commit under the new schema
+XPART_KEYS = 8_000_000           # xpart_upsert_8M: 4 commits of 2M keys
+XPART_UPSERTS = 1_000_000        # then 4 commits of 1M upserts
+XPART_PARTS = 4
+POSTPONE_ROWS = 8_000_000        # postpone_8M: 4 commits of 2M
+POSTPONE_TARGET = 5_000_000      # postpone.target-row-num-per-bucket
+
+
+class Clock:
+    """Host seconds of a table's steps outside its recorded phases (data
+    and oracles, checks), summed into `out[key]`."""
+
+    def __init__(self, out: dict):
+        self.out = out
+
+    def __call__(self, key: str, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        self.out[key] = self.out.get(key, 0.0) + time.perf_counter() - t0
+        return res
+
+
+def bucket_ids(table) -> tuple:
+    """(ids, bucket of each) of every live row, read split by split."""
+    rb = table.new_read_builder().with_projection(["id"])
+    read = rb.new_read()
+    ids, buckets = [], []
+    for split in rb.new_scan().plan().splits:
+        got = read.read_split(split).column("id").to_numpy()
+        ids.append(got)
+        buckets.append(np.full(len(got), split.bucket, np.int32))
+    ids, buckets = np.concatenate(ids), np.concatenate(buckets)
+    order = np.argsort(ids, kind="stable")
+    return ids[order], buckets[order]
+
+
+def distinct(x: np.ndarray) -> np.ndarray:
+    """Sorted distinct values (np.unique without its return arrays,
+    which numpy 2.3 runs through a hash table 40x slower than a sort at
+    ten million int32 values on the H100 machine's host)."""
+    s = np.sort(x)
+    return s[np.r_[True, s[1:] != s[:-1]]] if len(s) else s
+
+
+def check_hash_index(what: str, table, ids, buckets, target: int) -> dict:
+    """The dynamic-bucket hash index against the rows: each id in
+    exactly one bucket, whose index file holds the distinct hashes of
+    that bucket's ids and no other; every bucket but the last full at
+    `target` hashes, the last at most that; the files' total the
+    distinct 32-bit hashes of the live ids."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch.core.bucket import KeyHasher
+    from paimon_tpu_torch.core.dynamic_bucket import (
+        as_int32, hash_index_entries,
+    )
+    from paimon_tpu_torch.types import BigIntType
+
+    if len(ids) > 1 and not (ids[1:] > ids[:-1]).all():
+        raise AssertionError(f"{what}: an id lives in two buckets")
+    scan = table.new_scan()
+    entries = sorted(hash_index_entries(
+        scan, table.snapshot_manager.latest_snapshot()),
+        key=lambda e: e.bucket)
+    counts = [e.index_file.row_count for e in entries]
+    if [e.bucket for e in entries] != list(range(len(entries))) or \
+            any(c != target for c in counts[:-1]) or counts[-1] > target:
+        raise AssertionError(f"{what}: index buckets "
+                             f"{[(e.bucket, c) for e, c in zip(entries, counts)]}")
+    hashes = as_int32(KeyHasher(["id"], [BigIntType(False)]).hashes(
+        pa.table({"id": pa.array(ids, pa.int64())})))
+    if sum(counts) != len(distinct(hashes)):
+        raise AssertionError(f"{what}: {sum(counts)} hashes indexed, "
+                             f"{len(distinct(hashes))} distinct")
+    for e in entries:
+        data = table.file_io.read_bytes(
+            scan.path_factory.index_file_path(e.index_file.file_name))
+        listed = np.sort(np.frombuffer(data, ">i4").astype(np.int32))
+        if not np.array_equal(distinct(hashes[buckets == e.bucket]),
+                              listed):
+            raise AssertionError(f"{what}: bucket {e.bucket}'s index file "
+                                 f"differs from its rows' hashes")
+    return {"buckets": len(entries), "hashes": counts}
+
+
+def check_evolved(what: str, got, cols: dict, win: np.ndarray,
+                  old: np.ndarray) -> None:
+    """The evolved schema's rows against the oracle: v2 renamed v2r, v3
+    widened exactly, v4 null on the rows written before the evolution
+    (`old`: per row of `cols`)."""
+    import pyarrow.compute as pc
+    check_rows(what, got.drop_columns(["v4"]).rename_columns(
+        ["id", "v1", "v2", "v3"]), {k: cols[k] for k in
+                                    ("id", "v1", "v2", "v3")}, win, "id")
+    got = got.take(pc.sort_indices(got, sort_keys=[("id", "ascending")]))
+    v4 = got.column("v4").combine_chunks()
+    nulls = np.asarray(v4.is_null())
+    if got.column("v3").type != "int64" or \
+            not np.array_equal(nulls, old[win]) or \
+            not np.array_equal(v4.to_numpy(zero_copy_only=False)[~nulls],
+                               cols["v4"][win][~nulls]):
+        raise AssertionError(f"{what}: v3 or v4 differs from the oracle")
+
+
+def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
+    """dyn_dedup_20M: Paimon's default bucket mode (no `bucket` option),
+    deduplicate, write-only; 10 commits of uniform ids from one writer,
+    a full compaction and a scan, the hash index
+    held against the rows, a fresh table object's upserts of existing
+    ids routed to their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT
+    -> BIGINT, RENAME v2 -> v2r, 2 commits of upserts under the new
+    schema, a merge-on-read scan over runs of both schema ids, a full
+    compaction and a scan."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch.schema import SchemaChange
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, DoubleType
+
+    name = "dyn_dedup_20M"
+    path = os.path.join(work, name)
+    rows, keys = DYN_ROWS // scale, DYN_KEYS // scale
+    target, per = BM_TARGET // scale, DYN_ROWS // scale // DYN_COMMITS
+    opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
+    if target != BM_TARGET:
+        opts["dynamic-bucket.target-row-num"] = str(target)
+    out = {"rows": rows, "commits": DYN_COMMITS}
+    clock = Clock(out)
+    rng = np.random.default_rng(7)
+    batches = clock("data_s", lambda: [
+        value_table(rng.integers(0, keys, per), random_values(rng, per))
+        for _ in range(DYN_COMMITS)])
+    cols = clock("data_s", lambda: {
+        c: np.concatenate([b.column(c).to_numpy() for b in batches])
+        for c in ("id", "v1", "v2", "v3")})
+    win = clock("oracle_s", last_writer_oracle, cols["id"])
+    table = FileStoreTable.create(path, bigint_schema(opts), device=device)
+    dev = table.device
+
+    def write():
+        wb = table.new_stream_write_builder()
+        with wb.new_write() as w:
+            commit = wb.new_commit()
+            for k, b in enumerate(batches):
+                w.write_arrow(b)
+                commit.commit(w.prepare_commit(), commit_identifier=k)
+            out["assign_s"] = w._write.assign_seconds
+
+    t0 = time.perf_counter()
+    rec.run(name, "write", rows, dev, write)
+    del batches
+    if rec.run(name, "compact", rows, dev,
+               lambda: table.compact(full=True)) is None:
+        raise AssertionError(f"{name}: full compaction committed nothing")
+    clock("check_s", check_rows, f"{name} read after compaction",
+          rec.run(name, "read", len(win), dev, table.to_arrow), cols, win,
+          "id")
+    ids, buckets = clock("bucket_ids_s", bucket_ids, table)
+    out["index"] = clock("index_check_s", check_hash_index, name, table,
+                         ids, buckets, target)
+
+    # a fresh table object upserts existing ids: every one to its bucket
+    fresh = value_table(rng.choice(ids, DYN_FRESH // scale, replace=False),
+                        random_values(rng, DYN_FRESH // scale))
+    index_before = table.latest_snapshot().index_manifest
+    again = FileStoreTable.load(path, device=device)
+
+    def upsert():
+        wb = again.new_batch_write_builder()
+        with wb.new_write() as w:
+            w.write_arrow(fresh)
+            wb.new_commit().commit(w.prepare_commit())
+            out["fresh_assign_s"] = w._write.assign_seconds
+
+    rec.run(name, "fresh upsert", fresh.num_rows, dev, upsert)
+    ids2, buckets2 = clock("bucket_ids_s", bucket_ids, again)
+    if not (np.array_equal(ids, ids2) and np.array_equal(buckets, buckets2)
+            and again.latest_snapshot().index_manifest == index_before):
+        raise AssertionError(f"{name}: a fresh writer moved an existing "
+                             f"id to another bucket")
+    for c in cols:
+        cols[c] = np.concatenate([cols[c], fresh.column(c).to_numpy()])
+    out["before_evolution_s"] = time.perf_counter() - t0
+
+    # schema evolution (Paimon docs, "Schema Evolution")
+    t0 = time.perf_counter()
+    again.schema_manager.commit_changes(
+        SchemaChange.add_column("v4", DoubleType()),
+        SchemaChange.update_column_type("v3", BigIntType()),
+        SchemaChange.rename_column("v2", "v2r"))
+    evolved = FileStoreTable.load(path, device=device)
+    old = np.ones(len(cols["id"]), dtype=bool)
+    cols["v3"] = cols["v3"].astype(np.int64)
+    cols["v4"] = np.zeros(len(cols["id"]))
+    new = []
+    for _ in range(2):
+        n = DYN_EVOLVED // scale
+        vals = random_values(rng, n)
+        new.append(pa.table({
+            "id": pa.array(rng.integers(0, keys, n), pa.int64()),
+            "v1": pa.array(vals["v1"], pa.int64()),
+            "v2r": pa.array(vals["v2"], pa.float64()),
+            "v3": pa.array(rng.integers(1 << 40, 1 << 41, n), pa.int64()),
+            "v4": pa.array(rng.random(n), pa.float64())}))
+    for b in new:
+        for c, src in (("id", "id"), ("v1", "v1"), ("v2", "v2r"),
+                       ("v3", "v3"), ("v4", "v4")):
+            cols[c] = np.concatenate([cols[c], b.column(src).to_numpy()])
+        old = np.concatenate([old, np.zeros(b.num_rows, dtype=bool)])
+    # the last writers among the first winners and every later row
+    later = np.concatenate([win, np.arange(rows, len(old))])
+    win = later[clock("oracle_s", last_writer_oracle, cols["id"][later])]
+    n_new = sum(b.num_rows for b in new)
+
+    def write_evolved():
+        for b in new:
+            wb = evolved.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+
+    rec.run(name, "evolved write", n_new, dev, write_evolved)
+    schema_ids = {f.schema_id for s in evolved.new_scan().plan().splits
+                  for f in s.data_files}
+    if schema_ids != {0, 1}:
+        raise AssertionError(f"{name}: runs of schemas {schema_ids}")
+    total = len(cols["id"])
+    clock("check_s", check_evolved, f"{name} evolved merge-on-read scan",
+          rec.run(name, "evolved scan", total, dev, evolved.to_arrow),
+          cols, win, old)
+    if rec.run(name, "evolved compact", total, dev,
+               lambda: evolved.compact(full=True)) is None:
+        raise AssertionError(f"{name}: evolved compaction committed nothing")
+    clock("check_s", check_evolved, f"{name} evolved read after compaction",
+          rec.run(name, "evolved read", len(win), dev, evolved.to_arrow),
+          cols, win, old)
+    ids, buckets = clock("bucket_ids_s", bucket_ids, evolved)
+    out["evolved_index"] = clock("index_check_s", check_hash_index,
+                                 f"{name} evolved", evolved, ids, buckets,
+                                 target)
+    out["evolution_s"] = time.perf_counter() - t0
+    clock("cleanup_s", shutil.rmtree, path, True)
+    return out
+
+
+def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
+    """xpart_upsert_8M: cross-partition upsert (primary key id, partition
+    dt INT of 4 values, bucket unset): 8M keys in 4 commits from one
+    writer; then a fresh table object's writer (the global index
+    bootstraps from the table) upserts 1M ids a commit for 4 commits, a
+    quarter of them moving partition and 1% of those moving again later
+    in the same batch; each id held once, in the partition of its last
+    write, before and after a full compaction."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
+
+    name = "xpart_upsert_8M"
+    path = os.path.join(work, name)
+    keys, target = XPART_KEYS // scale, BM_TARGET // scale
+    opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
+    if target != BM_TARGET:
+        opts["dynamic-bucket.target-row-num"] = str(target)
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v1", BigIntType()).column("v2", DoubleType())
+              .column("v3", IntType()).column("dt", IntType(False))
+              .partition_keys("dt").primary_key("id").options(opts)
+              .build())
+    rng = np.random.default_rng(7)
+
+    def batch(ids, dt):
+        t = value_table(ids, random_values(rng, len(ids)))
+        return t.append_column("dt", pa.array(dt.astype(np.int32),
+                                              pa.int32()))
+
+    out = {"keys": keys}
+    clock = Clock(out)
+    t0 = time.perf_counter()
+    cur = rng.integers(0, XPART_PARTS, keys)        # partition of each id
+    first = [batch(ids, cur[ids])
+             for ids in np.array_split(rng.permutation(keys), 4)]
+    upserts, moved = [], 0
+    for _ in range(4):
+        ids = rng.choice(keys, XPART_UPSERTS // scale, replace=False)
+        dt = cur[ids].copy()
+        move = rng.random(len(ids)) < 0.25
+        dt[move] = (dt[move] + rng.integers(1, XPART_PARTS,
+                                            move.sum())) % XPART_PARTS
+        twice = np.flatnonzero(move)[:len(ids) // 100]
+        dt2 = (dt[twice] + rng.integers(1, XPART_PARTS, len(twice))) \
+            % XPART_PARTS
+        ids, dt = np.concatenate([ids, ids[twice]]), np.concatenate([dt, dt2])
+        moved += int(move.sum()) + len(twice)
+        cur[ids] = dt
+        upserts.append(batch(ids, dt))
+    allb = first + upserts
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in allb])
+            for c in ("id", "v1", "v2", "v3", "dt")}
+    out["data_s"] = time.perf_counter() - t0
+    win = clock("oracle_s", last_writer_oracle, cols["id"])
+    table = FileStoreTable.create(path, schema, device=device)
+    dev = table.device
+    out.update(upserts=sum(b.num_rows for b in upserts), moved_rows=moved)
+
+    def write(t, batches, what):
+        wb = t.new_stream_write_builder()
+        with wb.new_write() as w:
+            commit = wb.new_commit()
+            for k, b in enumerate(batches):
+                w.write_arrow(b)
+                commit.commit(w.prepare_commit(), commit_identifier=k)
+            out[f"{what}_bootstrap_s"] = w._write.bootstrap_seconds
+            out[f"{what}_assign_s"] = w._write.inner.assign_seconds
+
+    rec.run(name, "write", keys, dev, lambda: write(table, first, "write"))
+    fresh = FileStoreTable.load(path, device=device)
+    rec.run(name, "upsert", out["upserts"], dev,
+            lambda: write(fresh, upserts, "upsert"))
+    total = len(cols["id"])
+    clock("check_s", check_rows, f"{name} merge-on-read scan",
+          rec.run(name, "scan", total, dev, fresh.to_arrow), cols, win, "id")
+    if rec.run(name, "compact", total, dev,
+               lambda: fresh.compact(full=True)) is None:
+        raise AssertionError(f"{name}: full compaction committed nothing")
+    clock("check_s", check_rows, f"{name} read after compaction",
+          rec.run(name, "read", keys, dev, fresh.to_arrow), cols, win, "id")
+    clock("cleanup_s", shutil.rmtree, path, True)
+    return out
+
+
+def postpone(work: str, rec: Recorder, device, scale: int) -> dict:
+    """postpone_8M: bucket=-2, deduplicate, write-only; 8M rows in 4
+    commits staged un-hashed (a scan sees none of them, as the
+    reference's does), then rescale_postpone at the postpone defaults
+    (5M rows a bucket) and a scan held against the oracle, the rescaled
+    hash index against the rows."""
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "postpone_8M"
+    path = os.path.join(work, name)
+    rows, per_bucket = POSTPONE_ROWS // scale, POSTPONE_TARGET // scale
+    opts = {"bucket": "-2", "write-only": "true",
+            "parquet.enable.dictionary": "false"}
+    if per_bucket != POSTPONE_TARGET:
+        opts["postpone.target-row-num-per-bucket"] = str(per_bucket)
+    out = {"rows": rows}
+    clock = Clock(out)
+    rng = np.random.default_rng(7)
+    batches = clock("data_s", lambda: [
+        value_table(rng.integers(0, rows, rows // 4),
+                    random_values(rng, rows // 4)) for _ in range(4)])
+    cols = clock("data_s", lambda: {
+        c: np.concatenate([b.column(c).to_numpy() for b in batches])
+        for c in ("id", "v1", "v2", "v3")})
+    win = clock("oracle_s", last_writer_oracle, cols["id"])
+    table = FileStoreTable.create(path, bigint_schema(opts), device=device)
+    dev = table.device
+
+    def write():
+        wb = table.new_stream_write_builder()
+        with wb.new_write() as w:
+            commit = wb.new_commit()
+            for k, b in enumerate(batches):
+                w.write_arrow(b)
+                commit.commit(w.prepare_commit(), commit_identifier=k)
+
+    rec.run(name, "write", rows, dev, write)
+    staged = rec.run(name, "scan staged", rows, dev, table.to_arrow)
+    if staged.num_rows:
+        raise AssertionError(f"{name}: {staged.num_rows} staged rows read")
+    if rec.run(name, "rescale", rows, dev, table.rescale_postpone) is None:
+        raise AssertionError(f"{name}: the rescale committed nothing")
+    clock("check_s", check_rows, f"{name} read after rescale",
+          rec.run(name, "read", len(win), dev, table.to_arrow), cols, win,
+          "id")
+    ids, buckets = clock("bucket_ids_s", bucket_ids, table)
+    out["index"] = clock("index_check_s", check_hash_index, name, table, ids,
+                         buckets, per_bucket)
+    clock("cleanup_s", shutil.rmtree, path, True)
+    return out
+
+
+def bucket_modes(work: str, rec: Recorder, device="cuda",
+                 scale: int = 1) -> dict:
+    """The three bucket-mode tables on the card (`scale` divides every
+    row count and bucket target, for a rehearsal); their seconds by
+    table."""
+    out = {}
+    t_all = time.perf_counter()
+    for name, fn in (("dyn_dedup_20M", dyn_dedup),
+                     ("xpart_upsert_8M", xpart_upsert),
+                     ("postpone_8M", postpone)):
+        t0 = time.perf_counter()
+        out[name] = fn(work, rec, device, scale)
+        out[name]["s"] = time.perf_counter() - t0
+        out[name]["phases"] = {p["phase"]: {k: p[k] for k in (
+            "rows", "s", "rows_per_s", "launches_plain", "launches_ovc",
+            "peak_gib")} for p in rec.phases if p["table"] == name}
+        log(f"  {name}: {out[name]['s']:.1f} s {json.dumps(out[name])}")
+    out["s"] = time.perf_counter() - t_all
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 # -- the serving plane: point lookups and the one-replica query service ------
 
-SERVE_ROWS = 10_000_000
+SERVE_ROWS = 5_000_000           # cut from 10M in PR 8 (script time)
 SERVE_COMMITS = 4
 SERVE_BUCKETS = 4
 SERVE_BATCH = 8                  # keys of a point-get request
@@ -2055,7 +2491,7 @@ def thread_launches(capture, name: str) -> dict:
 
 def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
                 clients: int, seconds: float) -> dict:
-    """serve_dedup_10M: the reference serving benchmark's table at
+    """serve_dedup_5M: the reference serving benchmark's table at
     `rows`, served by one KvQueryServer on the card; see `serving`."""
     import torch
 
@@ -2068,7 +2504,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
     from paimon_tpu_torch import Schema
 
-    name = "serve_dedup_10M"
+    name = "serve_dedup_5M"
     path = os.path.join(work, name)
     dev = torch.device(device)
     lookups = global_registry().lookup_metrics()
@@ -2262,7 +2698,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
 
 def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
               clients: int, seconds: float) -> dict:
-    """serve_agg_10M: the same rows under aggregation (v sum), whose
+    """serve_agg_5M: the same rows under aggregation (v sum), whose
     every /lookup takes the merged fallback; see `serving`."""
     import torch
 
@@ -2271,7 +2707,7 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
 
-    name = "serve_agg_10M"
+    name = "serve_agg_5M"
     path = os.path.join(work, name)
     dev = torch.device(device)
     schema = (Schema.builder().column("id", BigIntType(False))
@@ -2369,11 +2805,11 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
 
 
 def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
-            device="cuda", clients: int = 64, seconds: float = 10.0,
-            agg_seconds: float = 5.0) -> dict:
+            device="cuda", clients: int = 64, seconds: float = 5.0,
+            agg_seconds: float = 3.0) -> dict:
     """The serving plane on the card.
 
-    serve_dedup_10M: benchmarks/serve_bench.py's table (id BIGINT NOT
+    serve_dedup_5M: benchmarks/serve_bench.py's table (id BIGINT NOT
     NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
     dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
     11) served by one KvQueryServer with a refresh interval of 1000 ms:
@@ -2385,7 +2821,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     upserts of live ids in batches of 10k (each read back through the
     delta tier before its commit and from the LSM after), a full
     compaction while 8 clients read, and one unbounded /scan.
-    serve_agg_10M: the same rows under aggregation (v sum): 4 cold
+    serve_agg_5M: the same rows under aggregation (v sum): 4 cold
     buckets built at once from 4 client threads, each a full
     merge-on-read on the card, a 2048-key warm-up, then `clients` client
     threads of point gets for `agg_seconds`.  Every answer is held
@@ -2399,10 +2835,10 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
                                seconds)
     launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
-                for p in rec.phases if p["table"] == "serve_dedup_10M"}
+                for p in rec.phases if p["table"] == "serve_dedup_5M"}
     for what in ("mixed 90/10", "serving writer", "compact"):
         if launches[what][0] == 0:
-            raise AssertionError(f"serve_dedup_10M {what}: no launch of the "
+            raise AssertionError(f"serve_dedup_5M {what}: no launch of the "
                                  f"winner-select ({launches})")
     out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
                            agg_seconds)
@@ -2411,7 +2847,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
                        out["agg"]["cold_thread_launches"].items()
                        if t.startswith("paimon-serve"))
     if ovc == 0 or from_workers == 0:
-        raise AssertionError(f"serve_agg_10M: the offset-value-code "
+        raise AssertionError(f"serve_agg_5M: the offset-value-code "
                              f"variant did not launch from the handler "
                              f"threads ({out['agg']['cold_thread_launches']})")
     out["launches"] = {f"{p['table']} {p['phase']}":
@@ -2721,10 +3157,10 @@ def measure_constants(dev) -> dict:
 
 
 def merge_routes(dedup_winner_frac: float, device: str = "cuda",
-                 shapes=(14, 20, 24)) -> dict:
+                 shapes=(14, 20, 22)) -> dict:
     """Every route of device_sorted_winners at the main path's merge
     shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at 2^14, 2^20
-    and 2^24 (the host general route up to 2^22): the same winner rows
+    and 2^22 (2^24 until PR 8): the same winner rows
     in key order on every route, and the full routes also the same perm
     and prev on the real rows; each route timed on the host clock (best
     of 3, one run at 2^24 on the host routes), the measured link rates
@@ -2813,7 +3249,7 @@ BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
-              mesh: dict, served: dict) -> tuple:
+              mesh: dict, served: dict, bucketed: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -2946,6 +3382,10 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                              lambda: mesh_compaction(work, rec)))
             # point lookups and the one-replica query service
             served.update(path("serving", lambda: serving(work, rec)))
+            # primary-key tables in Paimon's default (dynamic), postpone
+            # and cross-partition bucket modes, and schema evolution
+            bucketed.update(path("bucket_modes",
+                                 lambda: bucket_modes(work, rec)))
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -3031,9 +3471,10 @@ def main() -> int:
     decoded: dict = {}
     mesh: dict = {}
     served: dict = {}
+    bucketed: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
-                         served)
+                         served, bucketed)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -3063,6 +3504,7 @@ def main() -> int:
     print(json.dumps({"mesh_compaction": mesh}))
     print(json.dumps({"serving": served}))
     print(json.dumps({"merge_routes": routes}))
+    print(json.dumps({"bucket_modes": bucketed}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),
                                   k2.record(launches[1])]}))

@@ -78,6 +78,8 @@ def bucket_of(values: Sequence[Any], types: Sequence[DataType],
                                  num_buckets)[0])
 
 
+_HASH_SLICE_ROWS = 1 << 20
+
 _FIXED_SLOT_TYPES = (BooleanType, TinyIntType, SmallIntType, IntType,
                      BigIntType, FloatType, DoubleType, DateType, TimeType)
 
@@ -101,7 +103,14 @@ class KeyHasher:
         # batches take the scalar codec path, ingest batches the
         # vectorized one; both produce identical reference hashes
         if self._fixed_width and table.num_rows > 8:
-            return self._hash_vectorized(table)
+            # in slices: the byte matrix and its temporaries of a slice
+            # stay cache-sized however long the batch
+            step = _HASH_SLICE_ROWS
+            if table.num_rows <= step:
+                return self._hash_vectorized(table)
+            return np.concatenate([
+                self._hash_vectorized(table.slice(i, step))
+                for i in range(0, table.num_rows, step)])
         return self._hash_rows(table)
 
     def _hash_rows(self, table: pa.Table) -> np.ndarray:

@@ -1,7 +1,9 @@
 """FileStoreCommit: two-phase snapshot commit with optimistic retry.
 
-Counterpart of paimon_tpu/core/commit.py without row tracking, index
-manifests and request deadlines (not ported yet).
+Counterpart of paimon_tpu/core/commit.py without row tracking and
+request deadlines (not ported yet).  A commit's index entries (the
+dynamic-bucket hash index) fold into the previous snapshot's index
+manifest on every CAS attempt.
 
 reference: operation/FileStoreCommitImpl.java:139 (javadoc :122-132:
 conflict check -> CAS publish; tryCommit retry loop :756), conflict
@@ -19,7 +21,7 @@ from paimon_tpu_torch.core.write import CommitMessage
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import (
-    FileKind, ManifestEntry, ManifestFile,
+    FileKind, IndexManifestFile, ManifestEntry, ManifestFile,
     ManifestFileMeta, ManifestList, merge_manifest_entries,
 )
 from paimon_tpu_torch.options import CoreOptions
@@ -62,6 +64,7 @@ class FileStoreCommit:
             file_io, mdir, codec, self.partition_types, key_types=key_types,
             sidecar=bool(options.get(CoreOptions.MANIFEST_STATS_SIDECAR)))
         self.manifest_list = ManifestList(file_io, mdir, codec)
+        self.index_manifest_file = IndexManifestFile(file_io, mdir, codec)
         self.manifest_target_size = options.get(
             CoreOptions.MANIFEST_TARGET_FILE_SIZE)
         self.manifest_merge_min = options.get(
@@ -72,13 +75,15 @@ class FileStoreCommit:
     def commit(self, messages: Sequence[CommitMessage],
                commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
                kind: Optional[str] = None,
+               index_entries: Optional[list] = None,
                properties: Optional[Dict[str, str]] = None,
                force_create: bool = False,
                watermark: Optional[int] = None) -> Optional[int]:
         """Commit append + compact changes. Returns snapshot id (or None if
         nothing to commit). Append and compact deltas are committed as
         separate snapshots like the reference (APPEND then COMPACT), each
-        with its own changelog manifest."""
+        with its own changelog manifest; `index_entries` ride the first
+        of them."""
         append_entries: List[ManifestEntry] = []
         compact_entries: List[ManifestEntry] = []
         changelog_entries: List[ManifestEntry] = []
@@ -108,23 +113,25 @@ class FileStoreCommit:
             self.options.get(CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT) or
             self.options.get(
                 CoreOptions.SNAPSHOT_IGNORE_EMPTY_COMMIT) is False)
-        if append_entries or changelog_entries or \
+        if append_entries or changelog_entries or index_entries or \
                 (force_empty and not compact_entries):
             last_id = self._try_commit(
                 append_entries, changelog_entries, commit_identifier,
-                kind or CommitKind.APPEND, properties=properties,
-                watermark=watermark)
+                kind or CommitKind.APPEND, index_entries=index_entries,
+                properties=properties, watermark=watermark)
+            index_entries = None
         if compact_entries or compact_changelog_entries:
             last_id = self._try_commit(
                 compact_entries, compact_changelog_entries,
                 commit_identifier, CommitKind.COMPACT,
-                check_deleted_files=True, properties=properties,
-                watermark=watermark)
+                check_deleted_files=True, index_entries=index_entries,
+                properties=properties, watermark=watermark)
         return last_id
 
     def overwrite(self, messages: Sequence[CommitMessage],
                   partition_filter: Optional[dict] = None,
-                  commit_identifier: int = BATCH_COMMIT_IDENTIFIER
+                  commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
+                  index_entries: Optional[list] = None
                   ) -> Optional[int]:
         """INSERT OVERWRITE: delete current files (optionally restricted to
         a partition spec) and add new ones atomically
@@ -154,7 +161,8 @@ class FileStoreCommit:
             return entries + adds
 
         return self._try_commit([], [], commit_identifier,
-                                CommitKind.OVERWRITE, entries_fn=entries_fn)
+                                CommitKind.OVERWRITE, entries_fn=entries_fn,
+                                index_entries=index_entries)
 
     def filter_committed(self, commit_identifiers: Sequence[int]
                          ) -> List[int]:
@@ -187,6 +195,7 @@ class FileStoreCommit:
                     changelog_entries: List[ManifestEntry],
                     commit_identifier: int, kind: str,
                     check_deleted_files: bool = False,
+                    index_entries: Optional[list] = None,
                     properties: Optional[Dict[str, str]] = None,
                     entries_fn=None,
                     force_full_manifest_merge: bool = False,
@@ -260,6 +269,11 @@ class FileStoreCommit:
             if changelog_manifest is not None:
                 changelog_name, changelog_size = self.manifest_list.write(
                     [changelog_manifest])
+            # the full index set at this attempt's base: recombined on
+            # every attempt, so a lost race never publishes over another
+            # writer's index entries
+            index_manifest = self.index_manifest_file.combine(
+                prev_index, index_entries or [])
             # watermarks only advance (reference FileStoreCommitImpl:
             # max of provided and previous)
             wm_vals = [w for w in
@@ -284,7 +298,7 @@ class FileStoreCommit:
                 delta_manifest_list_size=delta_size,
                 changelog_manifest_list=changelog_name,
                 changelog_manifest_list_size=changelog_size,
-                index_manifest=prev_index,
+                index_manifest=index_manifest,
                 commit_user=self.commit_user,
                 commit_identifier=commit_identifier,
                 commit_kind=kind,
@@ -305,6 +319,9 @@ class FileStoreCommit:
             self.manifest_list.delete(delta_name)
             if changelog_name:
                 self.manifest_list.delete(changelog_name)
+            if index_manifest is not None and index_manifest != prev_index:
+                self.file_io.delete_quietly(
+                    self.index_manifest_file.path(index_manifest))
             for m in merged_manifests:
                 self.file_io.delete_quietly(
                     self.manifest_file.path(m.file_name))

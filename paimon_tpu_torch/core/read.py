@@ -119,26 +119,40 @@ def evolve_table(table: pa.Table, file_schema_id: int, schema: TableSchema,
         old = schema_manager.schema(file_schema_id)
         cache[file_schema_id] = old
     old_by_id = {f.id: f for f in old.fields}
+    new_by_name = {f.name: f for f in schema.fields}
     cols = {}
     n = table.num_rows
     if keep_sys_cols:
         for name in table.column_names:
-            if name.startswith(KEY_PREFIX) or name in (SEQ_COL, KIND_COL):
+            if name.startswith(KEY_PREFIX) and \
+                    name[len(KEY_PREFIX):] in new_by_name:
+                # a key column whose type changed is cast like its value
+                # column, so runs of both schemas merge on one key type
+                # (the reference keeps each file's own key type here,
+                # and its runs then fail to concatenate)
+                f = new_by_name[name[len(KEY_PREFIX):]]
+                cols[name] = _cast_evolved(table.column(name),
+                                           old_by_id.get(f.id), f)
+            elif name.startswith(KEY_PREFIX) or \
+                    name in (SEQ_COL, KIND_COL):
                 cols[name] = table.column(name)
     for f in schema.fields:
         old_f = old_by_id.get(f.id)
-        arrow_t = data_type_to_arrow(f.type)
         if old_f is None or old_f.name not in table.column_names:
-            cols[f.name] = pa.nulls(n, arrow_t)
+            cols[f.name] = pa.nulls(n, data_type_to_arrow(f.type))
         else:
-            col = table.column(old_f.name)
-            if col.type != arrow_t:
-                raise NotImplementedError(
-                    f"column {f.name!r} changed type across schemas; "
-                    f"type evolution is not ported yet (ROADMAP.md: the "
-                    f"remaining planes)")
-            cols[f.name] = col
+            cols[f.name] = _cast_evolved(table.column(old_f.name), old_f, f)
     return pa.table(cols)
+
+
+def _cast_evolved(col, old_f, f):
+    """`col` (written as `old_f`) at `f`'s type: the CastExecutor rule
+    matrix (Java narrowing/parse/temporal semantics), not the bare Arrow
+    cast (paimon-common casting/)."""
+    if old_f is None or col.type == data_type_to_arrow(f.type):
+        return col
+    from paimon_tpu_torch.data.casting import cast_array
+    return cast_array(col, old_f.type, f.type)
 
 
 def assemble_runs(files: Sequence[DataFileMeta]) -> List[List[DataFileMeta]]:

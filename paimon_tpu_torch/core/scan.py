@@ -5,7 +5,11 @@ Counterpart of paimon_tpu/core/scan.py without the delta-apply plan
 cache, the columnar stats sidecar, file indexes and deletion vectors
 (not ported yet): every plan walks the snapshot's manifest lists.
 Streaming reads plan one snapshot's delta (`plan_delta`) or changelog
-(`plan_changelog`) files into splits that keep every row kind.
+(`plan_changelog`) files into splits that keep every row kind.  The
+index manifest is read for the writers (`index_manifest_file`: the
+dynamic-bucket hash index); a snapshot whose index manifest holds
+deletion vectors is refused, never read without its mask.  Postpone
+staging (bucket -2) stays invisible unless the bucket filter names it.
 
 reference: operation/AbstractFileStoreScan.java (manifest pruning),
 table/source/SnapshotReaderImpl.java:87 (generateSplits:412),
@@ -20,9 +24,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import (
-    DataFileMeta, FileKind, ManifestEntry, ManifestFile, ManifestList,
-    merge_manifest_entries,
+    DataFileMeta, FileKind, IndexManifestFile, ManifestEntry, ManifestFile,
+    ManifestList, merge_manifest_entries,
 )
+from paimon_tpu_torch.manifest.index_manifest import DELETION_VECTORS_INDEX
 from paimon_tpu_torch.options import CoreOptions
 from paimon_tpu_torch.predicate import Predicate
 from paimon_tpu_torch.schema.table_schema import TableSchema
@@ -91,6 +96,8 @@ class FileStoreScan:
                                           self.partition_types,
                                           key_types=self.key_types)
         self.manifest_list = ManifestList(file_io, mdir, codec)
+        self.index_manifest_file = IndexManifestFile(file_io, mdir, codec)
+        self._dv_free: set = set()     # index manifests seen without DVs
         self._partition_filter: Optional[dict] = None
         self._bucket_filter: Optional[set] = None
         self._key_filter: Optional[Predicate] = None
@@ -147,6 +154,7 @@ class FileStoreScan:
 
     def _plan_added(self, snapshot: Snapshot, manifest_list: str,
                     streaming: bool) -> ScanPlan:
+        self._refuse_deletion_vectors(snapshot)
         metas = self.manifest_list.read(manifest_list)
         adds = [e for e in self._read_manifests(metas)
                 if e.kind == FileKind.ADD]
@@ -159,15 +167,26 @@ class FileStoreScan:
     def read_entries(self, snapshot: Snapshot) -> List[ManifestEntry]:
         """Live (merged, ADD-only) entry set at one snapshot, after
         manifest-level partition pruning."""
-        if snapshot.index_manifest:
-            raise NotImplementedError(
-                "snapshot carries an index manifest (deletion vectors or "
-                "dynamic-bucket index); not ported yet (ROADMAP.md: the "
-                "remaining planes)")
+        self._refuse_deletion_vectors(snapshot)
         metas = self.manifest_list.read_all(snapshot.base_manifest_list,
                                             snapshot.delta_manifest_list)
         entries = self._read_manifests(self._prune_manifests(metas))
         return merge_manifest_entries(entries)
+
+    def _refuse_deletion_vectors(self, snapshot: Snapshot) -> None:
+        """Deletion vectors mask rows of their data files; this package
+        cannot apply the mask yet, so it refuses the snapshot rather
+        than read deleted rows back."""
+        name = snapshot.index_manifest
+        if not name or name in self._dv_free:
+            return
+        if any(e.index_file.index_type == DELETION_VECTORS_INDEX
+               for e in self.index_manifest_file.read(name)):
+            raise NotImplementedError(
+                f"snapshot {snapshot.id} carries deletion vectors; their "
+                f"read mask is not ported to paimon_tpu_torch yet "
+                f"(ROADMAP.md: A.8.7)")
+        self._dv_free.add(name)
 
     # -- manifest IO ---------------------------------------------------------
 
@@ -236,6 +255,10 @@ class FileStoreScan:
         pruning for pk tables happens at bucket granularity in
         generate_splits (reference applies value filters per
         non-overlapping section for the same reason)."""
+        if e.bucket == -2 and (self._bucket_filter is None
+                               or -2 not in self._bucket_filter):
+            # postpone staging data is invisible until rescaled
+            return False
         if self._bucket_filter is not None and \
                 e.bucket not in self._bucket_filter:
             return False

@@ -1,10 +1,14 @@
 """Write path: buffered per-(partition,bucket) writers producing L0 files.
 
-Counterpart of paimon_tpu/core/write.py for fixed buckets (spilling,
-local merge and dynamic/postpone buckets are not ported yet); every
-flush merges (deduplicate, first-row) or sorts (partial-update,
-aggregation) on the writer's torch device, and under
+Counterpart of paimon_tpu/core/write.py for fixed, dynamic (bucket -1)
+and postpone (bucket -2) buckets (spilling and local merge are not
+ported yet); every flush merges (deduplicate, first-row) or sorts
+(partial-update, aggregation) on the writer's torch device, and under
 changelog-producer=input also writes its raw rows as a changelog file.
+Dynamic buckets group rows by partition first, then assign buckets from
+the partition's hash index (core/dynamic_bucket.py), whose replacement
+index entries ride the commit messages; postpone buckets stage rows
+un-hashed under bucket -2 until `rescale_postpone`.
 
 reference call stack (SURVEY §3.1): TableWriteImpl.write ->
 AbstractFileStoreWrite.write (operation/AbstractFileStoreWrite.java:186)
@@ -19,6 +23,7 @@ in one shot and written columnar.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field as dc_field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -45,8 +50,7 @@ __all__ = ["CommitMessage", "KeyValueFileStoreWrite", "build_kv_table"]
 
 @dataclass
 class CommitMessage:
-    """reference: table/sink/CommitMessageImpl.java (without index
-    entries, which are not ported yet)."""
+    """reference: table/sink/CommitMessageImpl.java."""
     partition: Tuple
     bucket: int
     total_buckets: int
@@ -55,11 +59,13 @@ class CommitMessage:
     compact_after: List[DataFileMeta] = dc_field(default_factory=list)
     changelog_files: List[DataFileMeta] = dc_field(default_factory=list)
     compact_changelog: List[DataFileMeta] = dc_field(default_factory=list)
+    # dynamic-bucket hash index updates (reference indexIncrement)
+    index_entries: List = dc_field(default_factory=list)
 
     def is_empty(self) -> bool:
         return not (self.new_files or self.compact_before
                     or self.compact_after or self.changelog_files
-                    or self.compact_changelog)
+                    or self.compact_changelog or self.index_entries)
 
 
 def group_by_partition_bucket(table: pa.Table, buckets: np.ndarray,
@@ -77,8 +83,7 @@ def group_by_partition_bucket(table: pa.Table, buckets: np.ndarray,
         uniq, inverse = np.unique(buckets, return_inverse=True)
         groups = [((), int(b)) for b in uniq]
     else:
-        stacked = np.stack(group_codes, axis=1)
-        uniq, inverse = np.unique(stacked, axis=0, return_inverse=True)
+        uniq, inverse = unique_rows(group_codes)
         groups = []
         for row in uniq:
             part = tuple(part_dicts[i][int(row[i + 1])].as_py()
@@ -88,6 +93,26 @@ def group_by_partition_bucket(table: pa.Table, buckets: np.ndarray,
     bounds = np.searchsorted(inverse[order], np.arange(len(groups) + 1))
     return [(groups[gi], order[bounds[gi]:bounds[gi + 1]])
             for gi in range(len(groups))]
+
+
+def unique_rows(columns: Sequence[np.ndarray]):
+    """np.unique(np.stack(columns, axis=1), axis=0, return_inverse=True)
+    for integer code columns, through one int64 key per row (mixed radix,
+    first column most significant), which sorts in the same order."""
+    lows = [int(c.min()) for c in columns]
+    spans = [int(c.max()) - lo + 1 for c, lo in zip(columns, lows)]
+    if np.prod(np.array(spans, dtype=np.float64)) >= 2.0 ** 62:
+        return np.unique(np.stack(columns, axis=1), axis=0,
+                         return_inverse=True)
+    key = np.zeros(len(columns[0]), dtype=np.int64)
+    for c, lo, span in zip(columns, lows, spans):
+        key = key * span + (c.astype(np.int64) - lo)
+    ukey, inverse = np.unique(key, return_inverse=True)
+    uniq = np.empty((len(ukey), len(columns)), dtype=np.int64)
+    for j in range(len(columns) - 1, -1, -1):
+        uniq[:, j] = ukey % spans[j] + lows[j]
+        ukey = ukey // spans[j]
+    return uniq, inverse.reshape(-1)
 
 
 def build_kv_table(raw: pa.Table, schema: TableSchema,
@@ -307,9 +332,30 @@ class KeyValueFileStoreWrite:
         rt = table_schema.logical_row_type()
         self.total_buckets = options.bucket
         bucket_keys = table_schema.bucket_keys()
-        self.bucket_assigner = FixedBucketAssigner(
-            bucket_keys, [rt.get_field(k).type for k in bucket_keys],
-            options.bucket)
+        # postpone mode (reference postpone/PostponeBucketFileStoreWrite):
+        # rows stage un-hashed under bucket-postpone; rescale_postpone
+        # redistributes them later
+        self._postpone = options.bucket == -2
+        self._dynamic = None
+        self.bucket_assigner = None
+        if options.bucket < 1 and not self._postpone:
+            # dynamic bucket mode (reference BucketMode.HASH_DYNAMIC)
+            from paimon_tpu_torch.core.bucket import KeyHasher
+            from paimon_tpu_torch.core.dynamic_bucket import (
+                DynamicBucketAssigner,
+            )
+            from paimon_tpu_torch.core.scan import FileStoreScan
+            self._key_hasher = KeyHasher(
+                bucket_keys, [rt.get_field(k).type for k in bucket_keys])
+            self._dynamic = DynamicBucketAssigner(
+                FileStoreScan(file_io, table_path, table_schema, options),
+                options.dynamic_bucket_target_row_num)
+            # host seconds in the assigner (hash, index load, assign)
+            self.assign_seconds = 0.0
+        elif not self._postpone:
+            self.bucket_assigner = FixedBucketAssigner(
+                bucket_keys, [rt.get_field(k).type for k in bucket_keys],
+                options.bucket)
         from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
         from paimon_tpu_torch.types import data_type_to_arrow
         self.key_encoder = NormalizedKeyEncoder(
@@ -366,6 +412,32 @@ class KeyValueFileStoreWrite:
 
     def _dispatch(self, table: pa.Table, row_kinds: np.ndarray):
         from paimon_tpu_torch.parallel.write_pipeline import lpt_order
+
+        if self._postpone:
+            buckets = np.full(table.num_rows, -2, dtype=np.int32)
+            for (part, bucket), idx in lpt_order(
+                    group_by_partition_bucket(
+                        table, buckets, self.partition_keys)):
+                self._writer(part, bucket).write(table.take(pa.array(idx)),
+                                                 row_kinds[idx])
+            return
+        if self._dynamic is not None:
+            # partition-first grouping: bucket assignment depends on the
+            # partition's hash index (stateful, so no lookahead here)
+            zeros = np.zeros(table.num_rows, dtype=np.int32)
+            for (part, _), idx in group_by_partition_bucket(
+                    table, zeros, self.partition_keys):
+                sub = table.take(pa.array(idx))
+                sub_kinds = row_kinds[idx]
+                t0 = time.perf_counter()
+                buckets = self._dynamic.assign(
+                    part, self._key_hasher.hashes(sub))
+                self.assign_seconds += time.perf_counter() - t0
+                for (_, bucket), idx2 in lpt_order(
+                        group_by_partition_bucket(sub, buckets, [])):
+                    self._writer(part, bucket).write(
+                        sub.take(pa.array(idx2)), sub_kinds[idx2])
+            return
 
         # the hash/group-by/take is a PURE function of the batch, so it
         # runs on a prep worker while the previous batch routes.
@@ -435,7 +507,7 @@ class KeyValueFileStoreWrite:
             w.flush()
         self.flush_pool().drain()
         out = []
-        auto_compact = not self.options.write_only
+        auto_compact = not self.options.write_only and not self._postpone
         existing_map = None
         if auto_compact and self._bucket_files_map is not None:
             # ONE manifest read for the whole commit, not one per bucket
@@ -446,6 +518,16 @@ class KeyValueFileStoreWrite:
                 if auto_compact:
                     self._maybe_compact(msg, existing_map or {})
                 out.append(msg)
+        if self._dynamic is not None:
+            t0 = time.perf_counter()
+            entries = self._dynamic.index_entries()
+            self.assign_seconds += time.perf_counter() - t0
+            if entries:
+                if out:
+                    out[0].index_entries.extend(entries)
+                else:
+                    out.append(CommitMessage((), 0, self.total_buckets,
+                                             index_entries=entries))
         return out
 
     def _maybe_compact(self, msg: CommitMessage, existing_map: Dict):

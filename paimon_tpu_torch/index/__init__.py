@@ -1,5 +1,6 @@
-"""Index codecs the merge engines need.
+"""Index codecs the merge engines need, and row-level DELETE.
 
 Counterpart of paimon_tpu/index/, reduced to the roaring-bitmap wire
-codec (roaring) and the column hash the sketches build on (bloom).
+codec (roaring), the column hash the sketches build on (bloom) and the
+primary-key DELETE (dv_maintainer).
 """

@@ -24,6 +24,10 @@ SortLookupStoreFactory.java:39) and evicts them by disk size
 * Concurrent builds of one SST run once; plan refreshes build aside
   and publish by reference swap; readers of files dropped by
   compaction are evicted with their shared byte-cache entries.
+* Dynamic-bucket tables (bucket -1 and rescaled postpone tables) find a
+  key's bucket in its partition's hash index at the plan's snapshot; a
+  key the index does not hold is a miss.  The reference hashes such a
+  key into bucket 0 of 1 and misses every key of the other buckets.
 """
 
 from __future__ import annotations
@@ -38,7 +42,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import pyarrow as pa
 
-from paimon_tpu_torch.core.bucket import FixedBucketAssigner
+from paimon_tpu_torch.core.bucket import FixedBucketAssigner, KeyHasher
+from paimon_tpu_torch.core.dynamic_bucket import (
+    as_int32, hash_index_entries, load_partition_index,
+)
 from paimon_tpu_torch.core.read import MergeFileSplitRead, assemble_runs
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
 from paimon_tpu_torch.lookup.sst import (
@@ -82,9 +89,15 @@ class LocalTableQuery:
         self._key_codec = BinaryRowCodec(
             [t.copy(False) for t in self.key_types])
         bucket_keys = table.schema.bucket_keys()
-        self.assigner = FixedBucketAssigner(
-            bucket_keys, [rt.get_field(k).type for k in bucket_keys],
-            max(1, table.options.bucket))
+        bucket_types = [rt.get_field(k).type for k in bucket_keys]
+        self.assigner = None
+        if table.options.bucket < 1:
+            # (snapshot id, partition key) -> PartitionIndex of the plan
+            self._hasher = KeyHasher(bucket_keys, bucket_types)
+            self._hash_indexes: Dict[Tuple, object] = {}
+        else:
+            self.assigner = FixedBucketAssigner(bucket_keys, bucket_types,
+                                                table.options.bucket)
         if max_memory_bytes is None:
             max_memory_bytes = table.options.get(
                 CoreOptions.LOOKUP_CACHE_MAX_MEMORY_SIZE)
@@ -475,9 +488,9 @@ class LocalTableQuery:
                               data_type_to_arrow(rt.get_field(k).type))
                   for k in self.pk}
         query = pa.table(arrays)
-        buckets = self.assigner.assign(query)
-        out: List[Optional[dict]] = [None] * len(keys)
         pkey = self._pkey(self._norm_partition(partition))
+        buckets = self._buckets(query, partition, pkey, snap)
+        out: List[Optional[dict]] = [None] * len(keys)
         in_delta = np.zeros(len(keys), dtype=bool)
         if view is not None and not view.empty and view.touches(
                 pkey, {int(b) for b in np.unique(buckets)}):
@@ -525,6 +538,32 @@ class LocalTableQuery:
                 self._lookup_merged(pkey, split, snap, enc, sel,
                                     keys, out)
         return out
+
+    def _buckets(self, query: pa.Table, partition: Tuple, pkey: str,
+                 snap) -> np.ndarray:
+        """Bucket of each query key: its hash's, or for dynamic buckets
+        its entry in the partition's hash index at snapshot `snap` (-1,
+        which no split has, where the index lacks it)."""
+        if self.assigner is not None:
+            return self.assigner.assign(query)
+        idx = self._hash_indexes.get((snap, pkey))
+        if idx is None:
+            scan = self.table.new_scan()
+            snapshot = None if snap is _UNLOADED or snap is None \
+                else self.table.snapshot_manager.snapshot(snap)
+            idx = load_partition_index(
+                scan, hash_index_entries(scan, snapshot),
+                self._norm_partition(partition), 0)
+            # the previous snapshots' indexes are garbage once a newer
+            # plan serves
+            self._hash_indexes = {k: v for k, v in
+                                  self._hash_indexes.items()
+                                  if k[0] == snap}
+            self._hash_indexes[(snap, pkey)] = idx
+        found, buckets = idx.lookup(np.asarray(
+            as_int32(self._hasher.hashes(query)), dtype=np.int64))
+        buckets[~found] = -1
+        return buckets
 
     def _confirm(self, row: dict, q: dict) -> bool:
         # lanes may be prefix-truncated for long string keys: confirm

@@ -1,7 +1,7 @@
 """Manifest metadata layer (avro object files).
 
 reference: paimon-core/.../manifest/ (ManifestEntry, ManifestFile,
-ManifestList, SimpleStats, FileEntry merge logic);
+ManifestList, IndexManifestFile, SimpleStats, FileEntry merge logic);
 spec docs/docs/concepts/spec/manifest.md.
 """
 
@@ -12,4 +12,7 @@ from paimon_tpu_torch.manifest.manifest_entry import (  # noqa: F401
 )
 from paimon_tpu_torch.manifest.manifest_file import (  # noqa: F401
     ManifestFile, ManifestFileMeta, ManifestList,
+)
+from paimon_tpu_torch.manifest.index_manifest import (  # noqa: F401
+    IndexFileMeta, IndexManifestEntry, IndexManifestFile,
 )

@@ -222,6 +222,53 @@ class CoreOptions:
     CONSUMER_ID = ConfigOption("consumer-id", str, None, "")
     DELETION_VECTORS_ENABLED = ConfigOption("deletion-vectors.enabled",
                                             _parse_bool, False, "")
+    # -- dynamic bucket (reference CoreOptions.java:1650-1700) ---------------
+    DYNAMIC_BUCKET_TARGET_ROW_NUM = ConfigOption(
+        "dynamic-bucket.target-row-num", int, 2_000_000, "")
+    # the next three size a Flink job's parallel assigners; one process
+    # runs one assigner, so they change no bucket (as in the reference)
+    DYNAMIC_BUCKET_INITIAL_BUCKETS = ConfigOption(
+        "dynamic-bucket.initial-buckets", int, None, "")
+    DYNAMIC_BUCKET_ASSIGNER_PARALLELISM = ConfigOption(
+        "dynamic-bucket.assigner-parallelism", int, None, "")
+    DYNAMIC_BUCKET_MAX_BUCKETS = ConfigOption(
+        "dynamic-bucket.max-buckets", int, -1,
+        "Upper bound on auto-created buckets (-1 = unbounded)")
+
+    # -- cross-partition upsert (reference CoreOptions.java:1930) ------------
+    CROSS_PARTITION_UPSERT_INDEX_TTL = ConfigOption(
+        "cross-partition-upsert.index-ttl", _parse_duration_ms, None,
+        "Drop global-index entries idle past this (bounds index size; "
+        "late rows for dropped keys create new partitions)")
+    # the bootstrap is one projected scan through the split pool here, so
+    # this sizes nothing and changes no row (as in the reference)
+    CROSS_PARTITION_UPSERT_BOOTSTRAP_PARALLELISM = ConfigOption(
+        "cross-partition-upsert.bootstrap-parallelism", int, 10,
+        "Parallel readers bootstrapping the cross-partition index")
+
+    # -- postpone bucket mode (reference postpone.* family) ------------------
+    POSTPONE_DEFAULT_BUCKET_NUM = ConfigOption(
+        "postpone.default-bucket-num", int, 4,
+        "Bucket count chosen when rescale_postpone runs without an "
+        "explicit target")
+    POSTPONE_TARGET_ROW_NUM_PER_BUCKET = ConfigOption(
+        "postpone.target-row-num-per-bucket", int, 5_000_000,
+        "Rows per bucket targeted when sizing the rescale of postponed "
+        "data")
+
+    # -- schema evolution toggles --------------------------------------------
+    ALTER_NULL_TO_NOT_NULL_DISABLED = ConfigOption(
+        "alter-column-null-to-not-null.disabled", _parse_bool, True,
+        "Refuse ALTER that tightens a nullable column to NOT NULL "
+        "(existing nulls would break readers)")
+    DISABLE_EXPLICIT_TYPE_CASTING = ConfigOption(
+        "disable-explicit-type-casting", _parse_bool, False,
+        "Refuse ALTER column-type changes that require a value cast "
+        "(only metadata-compatible widenings allowed)")
+    ADD_COLUMN_BEFORE_PARTITION = ConfigOption(
+        "add-column-before-partition", _parse_bool, False,
+        "New columns are inserted before the partition columns instead "
+        "of appended at the end")
     MERGE_STREAM_THRESHOLD_ROWS = ConfigOption(
         "tpu.merge.stream-threshold-rows", int, 8 << 20,
         "Above this many input rows a compaction merges in streamed key "
@@ -693,6 +740,10 @@ class CoreOptions:
     @property
     def bucket(self) -> int:
         return self.options.get(CoreOptions.BUCKET)
+
+    @property
+    def dynamic_bucket_target_row_num(self) -> int:
+        return self.options.get(CoreOptions.DYNAMIC_BUCKET_TARGET_ROW_NUM)
 
 
     @property

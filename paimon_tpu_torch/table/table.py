@@ -1,10 +1,12 @@
 """FileStoreTable and its read/write builders.
 
 Counterpart of paimon_tpu/table/table.py for this package's slice:
-primary-key tables with fixed buckets under the deduplicate, first-row,
+primary-key tables with fixed, dynamic (bucket -1) or postpone (bucket
+-2) buckets, cross-partition upsert, under the deduplicate, first-row,
 partial-update and aggregation engines, their changelog producers,
 streaming writes with commit identifiers, stream scans, mesh compaction
-(tpu.mesh.compact) and bucket rescale.  Every table
+(tpu.mesh.compact), bucket rescale, the postpone rescale and row-level
+DELETE (-D records).  Every table
 carries the torch device its merges run on (None means "cuda"; with no
 card, pass device="cpu").
 
@@ -55,15 +57,10 @@ def check_readable(schema: TableSchema, options: CoreOptions,
     """Raise NotImplementedError for a table whose reads this package
     cannot yet serve, naming the ROADMAP.md item that will port it."""
     if not schema.primary_keys:
-        _not_ported("append tables (no primary key)", "the remaining planes")
-    if options.bucket < 1:
-        _not_ported(f"bucket={options.bucket} (dynamic or postpone "
-                    f"buckets)", "the remaining planes")
-    if schema.cross_partition_update():
-        _not_ported("cross-partition upsert (primary key without the "
-                    "partition keys)", "the remaining planes")
-    if options.get(CoreOptions.DELETION_VECTORS_ENABLED):
-        _not_ported("deletion vectors", "the remaining planes")
+        _not_ported("append tables (no primary key)", "A.8.7")
+    # deletion-vectors.enabled is accepted: no writer of a primary-key
+    # table writes deletion vectors (the scan refuses a snapshot that
+    # carries them)
     if options.get(CoreOptions.ROW_TRACKING_ENABLED):
         _not_ported("row tracking", "the remaining planes")
     if branch != "main":
@@ -104,12 +101,19 @@ def check_writable(options: CoreOptions) -> None:
                 "local-merge-buffer-size folds input rows, which "
                 "would drop changelog-producer=input events")
         _not_ported("local-merge-buffer-size", "the remaining planes")
-    if options.file_index_spec:
-        _not_ported("file indexes", "the remaining planes")
+    # file indexes: their columns, the bloom fpp, the in-manifest size
+    _refuse_prefix(options, "file-index.")
     if options.get(CoreOptions.TAG_AUTOMATIC_CREATION) != "none":
         _not_ported("tag.automatic-creation", "the remaining planes")
     if options.get(CoreOptions.COMMIT_CALLBACKS):
         _not_ported("commit.callbacks", "the remaining planes")
+    # read by no writer of either package yet: a cap on dynamic buckets
+    # and an expiry of the cross-partition index
+    if options.get(CoreOptions.DYNAMIC_BUCKET_MAX_BUCKETS) != -1:
+        _not_ported(CoreOptions.DYNAMIC_BUCKET_MAX_BUCKETS.key, "A.8.3b")
+    if options.get(CoreOptions.CROSS_PARTITION_UPSERT_INDEX_TTL):
+        _not_ported(CoreOptions.CROSS_PARTITION_UPSERT_INDEX_TTL.key,
+                    "A.8.3b")
 
 
 class FileStoreTable:
@@ -260,6 +264,19 @@ class FileStoreTable:
         check_writable(self.options)
         return rescale_table_buckets(self, new_buckets, mesh=mesh)
 
+    def rescale_postpone(self) -> Optional[int]:
+        """Move bucket-postpone staging data into real buckets (reference
+        postpone/ rescale job; bucket=-2 tables)."""
+        from paimon_tpu_torch.compact.compact_action import rescale_postpone
+        check_writable(self.options)
+        return rescale_postpone(self)
+
+    def delete_where(self, predicate: Predicate) -> Optional[int]:
+        """Row-level DELETE: -D records on primary-key tables (reference
+        DeleteAction); deletion vectors of append tables are A.8.7."""
+        from paimon_tpu_torch.index.dv_maintainer import delete_where
+        return delete_where(self, predicate)
+
 
 class BatchWriteBuilder:
     def __init__(self, table: FileStoreTable):
@@ -272,8 +289,8 @@ class BatchWriteBuilder:
         self._overwrite = static_partition or {}
         return self
 
-    def new_write(self) -> "TableWrite":
-        return TableWrite(self.table, self.commit_user)
+    def new_write(self, apply_defaults: bool = True) -> "TableWrite":
+        return TableWrite(self.table, self.commit_user, apply_defaults)
 
     def new_commit(self) -> "TableCommit":
         return TableCommit(self.table, self.commit_user, self._overwrite)
@@ -312,9 +329,11 @@ class StreamWriteBuilder:
 
 
 class TableWrite:
-    def __init__(self, table: FileStoreTable, commit_user: str):
+    def __init__(self, table: FileStoreTable, commit_user: str,
+                 apply_defaults: bool = True):
         check_writable(table.options)
         self.table = table
+        self._apply_defaults = apply_defaults
         scan = table.new_scan()
 
         def restore(partition: Tuple, bucket: int) -> int:
@@ -334,6 +353,14 @@ class TableWrite:
             table.file_io, table.path, table.schema, table.options,
             restore_max_seq=restore, bucket_files_map=bucket_files_map,
             schema_manager=table.schema_manager, device=table.device)
+        if table.schema.cross_partition_update():
+            # pk does not cover the partition keys: route partition
+            # changes as -D old + +I new via the global index
+            # (reference crosspartition/GlobalIndexAssigner)
+            from paimon_tpu_torch.core.cross_partition import (
+                CrossPartitionUpsertWrite,
+            )
+            self._write = CrossPartitionUpsertWrite(self._write, table)
 
     def write_arrow(self, data: pa.Table,
                     row_kinds: Optional[np.ndarray] = None):
@@ -343,6 +370,8 @@ class TableWrite:
         """NULL incoming values become the column's configured default
         (fields.<col>.default-value — reference DefaultValueRow applied
         on the write path)."""
+        if not self._apply_defaults:
+            return data
         defaults = self.table.options.field_default_values()
         if not defaults:
             return data
@@ -362,7 +391,12 @@ class TableWrite:
     def set_delta_listener(self, listener):
         """Serving-plane hook (service/delta.py): `listener(partition,
         bucket, table, kinds, seqs)` fires for every buffered batch on
-        the writing thread, after sequence reservation."""
+        the writing thread, after sequence reservation.  The
+        cross-partition writer has no such hook (the serving writer
+        refuses those tables first)."""
+        if not isinstance(self._write, KeyValueFileStoreWrite):
+            raise ValueError(
+                "delta listener requires the primary-key write path")
         self._write.delta_listener = listener
 
     def write_dicts(self, rows: Sequence[dict],
@@ -415,6 +449,7 @@ class TableCommit:
         # (reference snapshot.ignore-empty-commit, default on for batch
         # writers; streaming keeps empty snapshots for exactly-once
         # progress tracking)
+        index_entries = [e for m in messages for e in m.index_entries]
         ignore_empty = self.table.options.get(
             CoreOptions.SNAPSHOT_IGNORE_EMPTY_COMMIT)
         if ignore_empty is None:
@@ -426,8 +461,10 @@ class TableCommit:
         if self._overwrite is not None:
             return self._commit.overwrite(
                 messages, partition_filter=self._overwrite or None,
-                commit_identifier=commit_identifier)
+                commit_identifier=commit_identifier,
+                index_entries=index_entries or None)
         return self._commit.commit(messages, commit_identifier,
+                                   index_entries=index_entries or None,
                                    properties=properties,
                                    # a streaming empty commit still
                                    # snapshots so the identifier is

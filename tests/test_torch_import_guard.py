@@ -83,7 +83,14 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.service.brownout",
                  "paimon_tpu_torch.service.async_server",
                  "paimon_tpu_torch.service.delta",
-                 "paimon_tpu_torch.service.query_service"):
+                 "paimon_tpu_torch.service.query_service",
+                 "paimon_tpu_torch.manifest.index_manifest",
+                 "paimon_tpu_torch.core.dynamic_bucket",
+                 "paimon_tpu_torch.core.cross_partition",
+                 "paimon_tpu_torch.compact.compact_action",
+                 "paimon_tpu_torch.index.dv_maintainer",
+                 "paimon_tpu_torch.data.casting",
+                 "paimon_tpu_torch.schema.schema_manager"):
         assert name in out["modules"]
 
 
@@ -132,3 +139,43 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def _keys_read_by(module_file):
+    """The keys of every CoreOptions constant a reference module names."""
+    import re
+
+    from paimon_tpu.options import CoreOptions as RefCoreOptions
+    with open(module_file) as f:
+        names = set(re.findall(r"(?:CoreOptions|_CO)\.([A-Z][A-Z0-9_]+)",
+                               f.read()))
+    return {getattr(RefCoreOptions, n).key for n in names
+            if hasattr(getattr(RefCoreOptions, n), "key")}
+
+
+@pytest.mark.parametrize("module", [
+    "core/dynamic_bucket.py", "core/cross_partition.py",
+    "compact/compact_action.py", "schema/schema_manager.py",
+    "data/casting.py"])
+def test_every_bucket_mode_and_schema_option_key_is_defined_or_refused(
+        tmp_path, module):
+    """Each CoreOptions key that the reference's bucket-mode, compaction,
+    schema and casting modules read is defined by the port (spelled as
+    the reference spells it), or a table that sets it refuses writes
+    with NotImplementedError naming its ROADMAP.md item."""
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.options import CoreOptions
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType
+
+    port_keys = {v.key for v in vars(CoreOptions).values()
+                 if hasattr(v, "key")}
+    for key in sorted(_keys_read_by(
+            os.path.join(REPO, "paimon_tpu", module)) - port_keys):
+        schema = (Schema.builder().column("id", BigIntType(False))
+                  .primary_key("id").options({"bucket": "1", key: "1"})
+                  .build())
+        table = FileStoreTable.create(str(tmp_path / key), schema,
+                                      device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            table.new_batch_write_builder().new_write()

@@ -232,13 +232,17 @@ def test_rescale_rejects_wrong_table_kinds(tmp_path, mesh):
                                    device="cpu")
     with pytest.raises(NotImplementedError):
         rescale_table_buckets(parted, 4, mesh)
-    # dynamic buckets (bucket=-1) do not open in this package at all
-    with pytest.raises(NotImplementedError):
-        FileStoreTable.create(
-            str(tmp_path / "dyn"),
-            Schema.builder().column("id", BigIntType(False))
-            .primary_key("id").options({"bucket": "-1"}).build(),
-            device="cpu")
+    # dynamic buckets (bucket=-1) have no bucket count to rescale: both
+    # packages refuse them
+    dyn = FileStoreTable.create(
+        str(tmp_path / "dyn"),
+        Schema.builder().column("id", BigIntType(False))
+        .primary_key("id").options({"bucket": "-1"}).build(),
+        device="cpu")
+    with pytest.raises(ValueError):
+        rescale_table_buckets(dyn, 4, mesh)
+    with pytest.raises(ValueError):
+        RefTable.load(dyn.path).rescale_buckets(4)
 
 
 # -- collectives in two processes ---------------------------------------------

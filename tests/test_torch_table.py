@@ -309,11 +309,42 @@ def test_compact_manifests_matches_reference(tmp_path):
 
 # -- out-of-slice features raise -------------------------------------------
 
+def _dv_index_entry_scan(tmp_path):
+    """A snapshot whose index manifest holds a DELETION_VECTORS entry
+    (as another writer would leave it) must not read without its mask."""
+    from paimon_tpu_torch.core.commit import FileStoreCommit
+    from paimon_tpu_torch.manifest import (
+        FileKind, IndexFileMeta, IndexManifestEntry,
+    )
+    table = new_table(tmp_path, pk_schema())
+    wb = table.new_batch_write_builder()
+    with wb.new_write() as w:
+        w.write_dicts([{"id": 1, "name": "a", "score": 1.0}])
+        wb.new_commit().commit(w.prepare_commit())
+    FileStoreCommit(table.file_io, table.path, table.schema,
+                    table.options).commit([], index_entries=[
+                        IndexManifestEntry(FileKind.ADD, b"", 0, IndexFileMeta(
+                            "DELETION_VECTORS", "index-dv-0", 0, 0,
+                            {"f": (0, 0, 0)}))])
+    table.to_arrow()
+
+
+def _append_dv_delete(tmp_path):
+    from paimon_tpu_torch.index import dv_maintainer
+    dv_maintainer._delete_append_dv(None, PP.equal("id", 1))
+
+
+# bucket -1 and deletion-vectors.enabled open since the dynamic buckets
+# were ported; their places hold the deletion-vector refusals
+_UNPORTED_ACTIONS = {"deletion-vector index entries": _dv_index_entry_scan,
+                     "append deletion-vector delete": _append_dv_delete}
+
+
 @pytest.mark.parametrize("options, item", [
     ({"row-tracking.enabled": "true"}, "the remaining planes"),
     ({"scan.tag-name": "v1"}, "the remaining planes"),
-    ({"bucket": "-1"}, "the remaining planes"),
-    ({"deletion-vectors.enabled": "true"}, "the remaining planes"),
+    ("deletion-vector index entries", "A.8.7"),
+    ("append deletion-vector delete", "A.8.7"),
     ({"scan.fallback-branch": "fb"}, "the remaining planes"),
     ({"scan.ignore-corrupt-files": "true"}, "the remaining planes"),
     ({"read.retry.max-attempts": "5"}, "the remaining planes"),
@@ -321,8 +352,11 @@ def test_compact_manifests_matches_reference(tmp_path):
     ({"request.timeout": "30 s"}, "the remaining planes")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
-        FileStoreTable.create(str(tmp_path / "t"), pk_schema(**options),
-                              device="cpu")
+        if isinstance(options, str):
+            _UNPORTED_ACTIONS[options](tmp_path)
+        else:
+            FileStoreTable.create(str(tmp_path / "t"), pk_schema(**options),
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("options, item", [
@@ -334,7 +368,9 @@ def test_unported_table_options_raise(tmp_path, options, item):
     ({"commit.callbacks": "pkg.mod:Cb"}, "the remaining planes"),
     ({"write.retry.max-attempts": "5"}, "the remaining planes"),
     ({"write.retry.backoff": "20 ms"}, "the remaining planes"),
-    ({"write.stage.dir": "/tmp/stage"}, "the remaining planes")])
+    ({"write.stage.dir": "/tmp/stage"}, "the remaining planes"),
+    ({"dynamic-bucket.max-buckets": "8"}, "A.8.3b"),
+    ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b")])
 def test_unported_write_options_raise(tmp_path, options, item):
     table = new_table(tmp_path, pk_schema(**options))
     with pytest.raises(NotImplementedError, match=item):
