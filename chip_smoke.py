@@ -4,7 +4,10 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--rows N] [--c5-keys N] [--c5-commits N]
-                          [--c5-rows-per-commit N]
+                          [--c5-rows-per-commit N] [--only maintenance]
+
+`--only maintenance` builds the kernels and drives that path alone (a
+probe: no kernel checks, no ok line).
 
 Phases, each of which raises on failure (no result line is printed
 then):
@@ -111,6 +114,27 @@ then):
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
      {"bucket_modes": ...} line;
+   - maintenance: maint_daily_12M, a daily-partitioned table as the
+     Paimon docs' Maintenance pages set one up (bench.py's columns plus
+     dt STRING yyyyMMdd as the partition, primary key (dt, id),
+     bucket=2, deduplicate, changelog-producer=input, inline
+     compaction; daily watermark auto-tags keeping 4, snapshots kept
+     10-20, decoupled changelog, partitions expiring after 3 days,
+     success-file and done-partition mark-done, a counting commit
+     callback): 48 streaming commits of 250K rows (6 days of 8 commits,
+     the watermark 3 hours a commit, ids uniform in [0, 1M) a day, 2%
+     -D, seed 7) with a consumer-id consumer polled each day; then each
+     kept tag read, incremental reads between two tags and from a tag
+     to the tip, expire_snapshots at the table's options (the files on
+     disk exactly those the snapshots, tags and changelog entries
+     reference; a fresh consumer from the earliest changelog), partition
+     expiry of the 3 oldest days and an end-input batch commit marking
+     its partitions done, a branch from the oldest tag with 1M upserts
+     to an expired day, a fallback-branch read, fast_forward and
+     rollback_to, compact_manifests, an orphan clean of planted files,
+     fsck (deep), a lost data file found, repaired and merged around,
+     and a final full compaction; every read held against a numpy
+     oracle.  It prints a {"maintenance": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -148,9 +172,9 @@ then):
 
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
-serving phase, the merge routes, the bucket modes, the
-phases, the kernels with their launches on the main path and their
-times (`device_ms` and `host_us` beside `ms`), then
+serving phase, the merge routes, the bucket modes, the maintenance
+phase, the phases, the kernels with their launches on the main path
+and their times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
 """
 
@@ -2238,6 +2262,581 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     return out
 
 
+# -- the maintenance plane: expiry, tags, branches, partitions, fsck ---------
+
+MAINT_DAYS = 6
+MAINT_COMMITS = 48               # 8 a day: the watermark 3 hours apart
+MAINT_DAILY = MAINT_COMMITS // MAINT_DAYS
+MAINT_PER_COMMIT = 250_000       # 12M rows in all
+MAINT_KEYS = 1_000_000           # ids uniform in [0, 1M) within a day
+MAINT_DELETE_SHARE = 0.02        # -D rows
+MAINT_BRANCH_UPSERTS = 1_000_000
+MAINT_END_INPUT = 100_000        # the end-input batch commit
+HOUR_MS = 3_600_000
+DAY_MS = 24 * HOUR_MS
+
+
+class MaintCommitCallback:
+    """The maintenance table's `commit.callbacks` class: counts calls."""
+    calls = 0
+
+    def __init__(self, param=None):
+        self.param = param
+
+    def call(self, table, snapshot_id, messages):
+        MaintCommitCallback.calls += 1
+
+
+class MaintState:
+    """The visible rows of the maintenance table by (day, id), held in
+    numpy at index day * keys + id: the oracle, and the fold of a
+    consumer's stream."""
+
+    def __init__(self, keys: int, days: int = MAINT_DAYS):
+        self.keys = keys
+        self.live = np.zeros(days * keys, dtype=bool)
+        self.cols = {"v1": np.zeros(days * keys, np.int64),
+                     "v2": np.zeros(days * keys, np.float64),
+                     "v3": np.zeros(days * keys, np.int32)}
+
+    def copy(self) -> "MaintState":
+        out = MaintState.__new__(MaintState)
+        out.keys = self.keys
+        out.live = self.live.copy()
+        out.cols = {c: v.copy() for c, v in self.cols.items()}
+        return out
+
+    def apply(self, idx: np.ndarray, kinds: np.ndarray, vals: dict) -> None:
+        """Rows in write order: a key's last row decides (+I/+U sets the
+        row, -U/-D removes it)."""
+        _, first_rev = np.unique(idx[::-1], return_index=True)
+        last = len(idx) - 1 - first_rev
+        u, k = idx[last], kinds[last]
+        keep = (k == 0) | (k == 2)
+        self.live[u[~keep]] = False
+        self.live[u[keep]] = True
+        for c in C5_VALUE_COLS:
+            self.cols[c][u[keep]] = vals[c][last][keep]
+
+    def only_days(self, days) -> "MaintState":
+        out = self.copy()
+        mask = np.zeros(len(self.live) // self.keys, dtype=bool)
+        mask[list(days)] = True
+        out.live &= np.repeat(mask, self.keys)
+        return out
+
+    def merged(self, other: "MaintState", days) -> "MaintState":
+        """This state with `days` taken from `other`."""
+        out = self.copy()
+        sel = np.zeros(len(self.live) // self.keys, dtype=bool)
+        sel[list(days)] = True
+        sel = np.repeat(sel, self.keys)
+        out.live[sel] = other.live[sel]
+        for c in C5_VALUE_COLS:
+            out.cols[c][sel] = other.cols[c][sel]
+        return out
+
+    def rows(self) -> int:
+        return int(self.live.sum())
+
+
+def maint_dates() -> list:
+    import datetime
+    d0 = datetime.date(2026, 7, 1)
+    return [d0 + datetime.timedelta(days=d) for d in range(MAINT_DAYS)]
+
+
+def maint_index(t, keys: int) -> np.ndarray:
+    """day * keys + id of each row of a read."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    days = pa.array([d.strftime("%Y%m%d") for d in maint_dates()])
+    day = pc.index_in(t.column("dt"), value_set=days)
+    if day.null_count:
+        raise AssertionError("a row of an unknown partition")
+    return day.to_numpy(zero_copy_only=False).astype(np.int64) * keys + \
+        t.column("id").to_numpy()
+
+
+def maint_check(what: str, got, want: MaintState) -> None:
+    """The rows read equal the oracle's, exactly."""
+    idx = maint_index(got, want.keys)
+    order = np.argsort(idx, kind="stable")
+    exp = np.flatnonzero(want.live)
+    if not np.array_equal(idx[order], exp):
+        raise AssertionError(f"{what}: {len(idx)} rows, oracle {len(exp)}, "
+                             f"or other keys")
+    for c in C5_VALUE_COLS:
+        if not np.array_equal(got.column(c).to_numpy()[order],
+                              want.cols[c][exp]):
+            raise AssertionError(f"{what}: column {c} differs from the "
+                                 f"oracle")
+
+
+def same_state(what: str, got: MaintState, want: MaintState) -> None:
+    if not np.array_equal(got.live, want.live) or not all(
+            np.array_equal(got.cols[c][want.live], want.cols[c][want.live])
+            for c in C5_VALUE_COLS):
+        raise AssertionError(f"{what} differs from the oracle")
+
+
+def stream_fold(t, keys: int, state: MaintState) -> int:
+    """Fold a stream read (with its sequence numbers) into `state` in
+    sequence order; returns its rows."""
+    from paimon_tpu_torch.core.read import ROW_KIND_COL
+    from paimon_tpu_torch.ops.merge import SEQ_COL
+    if not t.num_rows:
+        return 0
+    idx = maint_index(t, keys)
+    order = np.lexsort([t.column(SEQ_COL).to_numpy(), idx])
+    vals = {c: t.column(c).to_numpy()[order] for c in C5_VALUE_COLS}
+    state.apply(idx[order], t.column(ROW_KIND_COL).to_numpy()[order], vals)
+    return t.num_rows
+
+
+def drain_stream(scan, read, keys: int, state: MaintState,
+                 checkpoint: bool = True) -> int:
+    rows = 0
+    while True:
+        plan = scan.plan()
+        if plan is None:
+            return rows
+        rows += stream_fold(read.to_arrow(plan), keys, state)
+        if checkpoint:
+            scan.notify_checkpoint_complete(scan.checkpoint())
+
+
+def referenced_files(table, snapshots, changelogs) -> set:
+    """Names of the data and changelog files that the snapshots (and
+    tags) and the decoupled changelog entries reference: ADDs of a
+    snapshot's base and delta manifests not cancelled by a DELETE, and
+    every ADD of the changelog manifests (all an entry keeps)."""
+    from paimon_tpu_torch.manifest import FileKind
+    scan = table.new_scan()
+    cache: dict = {}
+
+    def entries(list_name):
+        if not list_name:
+            return []
+        out = []
+        for m in scan.manifest_list.read(list_name):
+            if m.file_name not in cache:
+                cache[m.file_name] = scan.manifest_file.read(m.file_name)
+            out.extend(cache[m.file_name])
+        return out
+
+    names = set()
+    for s in changelogs:
+        names.update(e.file.file_name
+                     for e in entries(s.changelog_manifest_list)
+                     if e.kind == FileKind.ADD)
+    for s in snapshots:
+        live = {}
+        for e in entries(s.base_manifest_list) + \
+                entries(s.delta_manifest_list):
+            key = (e.partition, e.bucket, e.file.file_name)
+            if e.kind == FileKind.ADD:
+                live[key] = True
+            else:
+                live.pop(key, None)
+        names.update(k[2] for k in live)
+        names.update(e.file.file_name
+                     for e in entries(s.changelog_manifest_list)
+                     if e.kind == FileKind.ADD)
+    return names
+
+
+def files_on_disk(table) -> set:
+    out = set()
+    for root, _, files in os.walk(table.path):
+        if os.path.basename(root).startswith("bucket-"):
+            out.update(f for f in files
+                       if f.startswith(("data-", "changelog-")))
+    return out
+
+
+def kv_rows(path: str) -> dict:
+    """id, sequence number, value kind and values of a data file."""
+    import pyarrow.parquet as pq
+    # the file alone: a dataset read would take the dt=... directory
+    # above it for a partition column
+    t = pq.ParquetFile(path).read(columns=[
+        "id", "_SEQUENCE_NUMBER", "_VALUE_KIND", *C5_VALUE_COLS])
+    return {c: t.column(c).to_numpy() for c in t.column_names}
+
+
+def maintenance(work: str, rec: Recorder, device="cuda",
+                scale: int = 1) -> dict:
+    """maint_daily_12M: a production daily-partitioned primary-key table
+    maintained as the Paimon docs' Maintenance pages set it up, every
+    read held against a numpy oracle (`scale` divides the row and key
+    counts, for a rehearsal).  Returns what the phase reports."""
+    import datetime
+
+    import pyarrow as pa
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.maintenance import (
+        ViolationKind, fix_violations, mark_done,
+    )
+    from paimon_tpu_torch.maintenance.partition_expire import (
+        partition_time_ms,
+    )
+    from paimon_tpu_torch.snapshot import ChangelogManager
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import (
+        BigIntType, DoubleType, IntType, VarCharType,
+    )
+
+    name = "maint_daily_12M"
+    path = os.path.join(work, name)
+    per, keys = MAINT_PER_COMMIT // scale, MAINT_KEYS // scale
+    dates = maint_dates()
+    dts = [d.strftime("%Y%m%d") for d in dates]
+    tag_names = [d.strftime("%Y-%m-%d") for d in dates]
+    wm0 = int(datetime.datetime(2026, 7, 1, tzinfo=datetime.timezone.utc)
+              .timestamp() * 1000)
+    opts = {"bucket": "2", "changelog-producer": "input",
+            "parquet.enable.dictionary": "false",
+            "tag.automatic-creation": "watermark",
+            "tag.creation-period": "daily", "tag.num-retained-max": "4",
+            "snapshot.num-retained.min": "10",
+            "snapshot.num-retained.max": "20",
+            "changelog.num-retained.max": "40",
+            "partition.expiration-time": "3 d",
+            "partition.timestamp-formatter": "yyyyMMdd",
+            "partition.mark-done-action": "success-file,done-partition",
+            "commit.callbacks": f"{__name__}:MaintCommitCallback"}
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v1", BigIntType()).column("v2", DoubleType())
+              .column("v3", IntType())
+              .column("dt", VarCharType(nullable=False))
+              .partition_keys("dt").primary_key("dt", "id")
+              .options(opts).build())
+    out = {"rows": per * MAINT_COMMITS, "commits": MAINT_COMMITS,
+           "steps_s": {}}
+    clock = Clock(out)
+    t_phase = time.perf_counter()
+
+    def step(what, fn, rows=None):
+        """A step of the phase: a recorded phase when it reads, writes
+        or merges `rows` rows, else timed on the host clock."""
+        t0 = time.perf_counter()
+        res = rec.run(name, what, rows, dev, fn) if rows is not None \
+            else fn()
+        out["steps_s"][what] = time.perf_counter() - t0
+        return res
+
+    rng = np.random.default_rng(7)
+
+    def batch(ids, dt, deletes=True):
+        n = len(ids)
+        vals = random_values(rng, n)
+        kinds = (np.where(rng.random(n) < MAINT_DELETE_SHARE, 3, 0)
+                 if deletes else np.zeros(n)).astype(np.int8)
+        t = pa.table({"id": pa.array(ids, pa.int64()),
+                      "v1": pa.array(vals["v1"], pa.int64()),
+                      "v2": pa.array(vals["v2"], pa.float64()),
+                      "v3": pa.array(vals["v3"], pa.int32()),
+                      "dt": pa.array([dt] * n, pa.string())})
+        return t, kinds, vals
+
+    batches = clock("data_s", lambda: [
+        batch(rng.integers(0, keys, per), dts[c // MAINT_DAILY])
+        for c in range(MAINT_COMMITS)])
+    table = FileStoreTable.create(path, schema, device=device)
+    dev = table.device
+    state = MaintState(keys)
+    tag_states = {}
+    MaintCommitCallback.calls = 0
+
+    # a streaming consumer with a consumer id, polled after each day
+    consumer = table.copy({"consumer-id": "maint-consumer",
+                           "table-read.sequence-number.enabled": "true"})
+    crb = consumer.new_read_builder()
+    cscan, cread = crb.new_stream_scan(), crb.new_read()
+    folded = MaintState(keys)
+    polled = 0
+
+    writer_builder = table.new_stream_write_builder() \
+        .with_commit_user("maint-writer")
+    writer, committer = writer_builder.new_write(), \
+        writer_builder.new_commit()
+    try:
+        for day in range(MAINT_DAYS):
+            def write_day():
+                for c in range(MAINT_DAILY * day, MAINT_DAILY * (day + 1)):
+                    t, kinds, _ = batches[c]
+                    writer.write_arrow(t, kinds)
+                    sid = committer.commit(writer.prepare_commit(),
+                                           commit_identifier=c,
+                                           watermark=wm0 + (c + 1) * 3
+                                           * HOUR_MS)
+                    if sid is None:
+                        raise AssertionError(f"{name}: commit {c} made no "
+                                             f"snapshot")
+            step(f"write day {day}", write_day, rows=MAINT_DAILY * per)
+            for c in range(MAINT_DAILY * day, MAINT_DAILY * (day + 1)):
+                t, kinds, vals = batches[c]
+                clock("oracle_s", state.apply, day * keys +
+                      t.column("id").to_numpy(), kinds, vals)
+            tag_states[tag_names[day]] = clock("oracle_s", state.copy)
+            polled += step(f"consumer poll day {day}",
+                           lambda: drain_stream(cscan, cread, keys, folded),
+                           rows=MAINT_DAILY * per)
+            clock("check_s", same_state, f"{name}: the consumer's folded "
+                  f"stream after day {day}", folded, state)
+    finally:
+        writer.close()
+    del batches
+    out["consumer_rows"] = polled
+    if MaintCommitCallback.calls != MAINT_COMMITS:
+        raise AssertionError(f"{name}: the commit callback ran "
+                             f"{MaintCommitCallback.calls} times, expected "
+                             f"{MAINT_COMMITS}")
+    out["callback_calls"] = MaintCommitCallback.calls
+    wm = table.latest_snapshot().watermark
+    if wm != wm0 + MAINT_COMMITS * 3 * HOUR_MS:
+        raise AssertionError(f"{name}: the snapshot watermark is {wm}")
+
+    # 1. auto-tags: one a day, the 4 newest kept, each read at its snapshot
+    tags = table.tag_manager.tags()
+    if sorted(tags) != tag_names[-4:]:
+        raise AssertionError(f"{name}: tags {sorted(tags)}, expected "
+                             f"{tag_names[-4:]}")
+    out["tags"] = {n: s.id for n, s in tags.items()}
+
+    def check_tags(when):
+        for tag in sorted(tags):
+            got = step(f"{when} tag {tag}", table.copy(
+                {"scan.tag-name": tag}).to_arrow,
+                rows=tag_states[tag].rows())
+            clock("check_s", maint_check, f"{name} {when} tag {tag}", got,
+                  tag_states[tag])
+
+    check_tags("scan")
+    final = state.copy()
+
+    # 2. incremental reads between two tags, and from a tag to the tip
+    between = f"{tag_names[2]},{tag_names[4]}"
+    got = step("incremental between tags", table.copy(
+        {"incremental-between": between}).to_arrow,
+        rows=tag_states[tag_names[4]].only_days((3, 4)).rows())
+    clock("check_s", maint_check, f"{name} incremental-between {between}",
+          got, tag_states[tag_names[4]].only_days((3, 4)))
+    tip = table.snapshot_manager.latest_snapshot_id()
+    to_snap = f"{tag_names[3]},{tip}"
+    got = step("incremental tag to snapshot", table.copy(
+        {"incremental-between-tag-to-snapshot": to_snap}).to_arrow,
+        rows=final.only_days((4, 5)).rows())
+    clock("check_s", maint_check,
+          f"{name} incremental-between-tag-to-snapshot {to_snap}", got,
+          final.only_days((4, 5)))
+
+    # 3. snapshot expiry at the table's options
+    sm = table.snapshot_manager
+    before_files = files_on_disk(table)
+    snapshots_before = sm.snapshot_count()
+    res = step("expire_snapshots", table.expire_snapshots)
+    cm = ChangelogManager(table.file_io, table.path)
+    changelogs = cm._ids()
+    if sm.snapshot_count() != 20 or \
+            len(res.expired_snapshots) != snapshots_before - 20:
+        raise AssertionError(f"{name}: {sm.snapshot_count()} snapshots "
+                             f"left of {snapshots_before}, "
+                             f"{len(res.expired_snapshots)} expired")
+    if changelogs != res.expired_snapshots:
+        raise AssertionError(f"{name}: decoupled changelog {changelogs} "
+                             f"for expired {res.expired_snapshots}")
+    pinned = clock("check_s", referenced_files, table,
+                   list(sm.snapshots()) + list(tags.values()),
+                   [cm.changelog(i) for i in changelogs])
+    after_files = files_on_disk(table)
+    if after_files != pinned:
+        raise AssertionError(
+            f"{name}: after expiry {len(after_files)} files on disk, the "
+            f"snapshots, tags and changelogs reference {len(pinned)} "
+            f"({len(after_files - pinned)} left over, "
+            f"{len(pinned - after_files)} missing)")
+    out["expired"] = {"snapshots": len(res.expired_snapshots),
+                      "changelogs_kept": len(changelogs),
+                      "data_files": res.deleted_data_files,
+                      "manifest_files": res.deleted_manifest_files,
+                      "files_on_disk_before": len(before_files),
+                      "files_on_disk_after": len(after_files)}
+    got = step("scan after expiry", table.to_arrow, rows=final.rows())
+    clock("check_s", maint_check, f"{name} scan after expiry", got, final)
+    check_tags("after expiry")
+    fresh = MaintState(keys)
+    fresh_table = table.copy({"scan.mode": "from-snapshot",
+                              "scan.snapshot-id": str(changelogs[0]),
+                              "table-read.sequence-number.enabled": "true"})
+    frb = fresh_table.new_read_builder()
+    out["fresh_consumer_rows"] = step(
+        "fresh consumer from the earliest changelog",
+        lambda: drain_stream(frb.new_stream_scan(), frb.new_read(), keys,
+                             fresh, checkpoint=False),
+        rows=per * MAINT_COMMITS)
+    clock("check_s", same_state, f"{name}: a fresh consumer's folded "
+          f"stream from changelog {changelogs[0]}", fresh, final)
+
+    # 4. partitions: expiry relative to the newest, then an end-input
+    #    batch commit marks its partitions done
+    now = partition_time_ms(table.options, {"dt": dts[-1]}) + DAY_MS
+    expired = step("expire_partitions",
+                   lambda: table.expire_partitions(now_ms=now))
+    if expired != [(d,) for d in dts[:3]]:
+        raise AssertionError(f"{name}: expired partitions {expired}")
+    state = final.only_days((3, 4, 5))
+    got = step("scan after partition expiry", table.to_arrow,
+               rows=state.rows())
+    clock("check_s", maint_check, f"{name} scan after partition expiry",
+          got, state)
+    ended = table.copy({"partition.end-input-to-done": "true"})
+    parts = []
+    for day in (4, 5):
+        t, kinds, vals = batch(rng.integers(0, keys, MAINT_END_INPUT
+                                            // scale), dts[day],
+                               deletes=False)
+        parts.append(t)
+        state.apply(day * keys + t.column("id").to_numpy(), kinds, vals)
+
+    def end_input():
+        wb = ended.new_batch_write_builder()
+        with wb.new_write() as w:
+            for t in parts:
+                w.write_arrow(t)
+            wb.new_commit().commit(w.prepare_commit())
+    step("end-input batch commit", end_input,
+         rows=sum(t.num_rows for t in parts))
+    done = mark_done.AddDonePartitionAction(table.file_io,
+                                            table.path).done_partitions()
+    marked = sorted(d for d in dts if os.path.exists(
+        os.path.join(table.path, f"dt={d}", mark_done.SUCCESS_FILE_NAME)))
+    if marked != dts[4:] or done != [f"dt={d}.done" for d in dts[4:]]:
+        raise AssertionError(f"{name}: marked done {marked}, done "
+                             f"partitions {done}")
+    got = step("scan after end input", table.to_arrow, rows=state.rows())
+    clock("check_s", maint_check, f"{name} scan after end input", got, state)
+
+    # 5. branches: from the oldest kept tag, 1M upserts to an expired day
+    base_tag = tag_names[2]
+    table.create_branch("backfill", base_tag)
+    branch = table.copy({"branch": "backfill"})
+    b_state = tag_states[base_tag].copy()
+    t, kinds, vals = batch(rng.integers(0, keys, MAINT_BRANCH_UPSERTS
+                                        // scale), dts[1], deletes=False)
+    b_state.apply(keys + t.column("id").to_numpy(), kinds, vals)
+
+    def branch_write():
+        wb = branch.new_batch_write_builder()
+        with wb.new_write() as w:
+            w.write_arrow(t)
+            wb.new_commit().commit(w.prepare_commit())
+    step("branch write", branch_write, rows=t.num_rows)
+    got = step("branch scan", branch.to_arrow, rows=b_state.rows())
+    clock("check_s", maint_check, f"{name} branch scan", got, b_state)
+    with_fb = state.merged(b_state, (0, 1, 2))
+    got = step("fallback scan", table.copy(
+        {"scan.fallback-branch": "backfill"}).to_arrow, rows=with_fb.rows())
+    clock("check_s", maint_check, f"{name} scan with fallback branch", got,
+          with_fb)
+    step("fast_forward", lambda: table.fast_forward("backfill"))
+    main = FileStoreTable.load(path, device=device)
+    got = step("scan after fast_forward", main.to_arrow,
+               rows=b_state.rows())
+    clock("check_s", maint_check, f"{name} scan after fast_forward", got,
+          b_state)
+    step("rollback_to", lambda: main.rollback_to(tags[base_tag].id))
+    state = tag_states[base_tag].copy()
+    got = step("scan after rollback_to", main.to_arrow, rows=state.rows())
+    clock("check_s", maint_check, f"{name} scan after rollback_to", got,
+          state)
+
+    # 6. clean-up and checks
+    if step("compact_manifests", main.compact_manifests) is None:
+        raise AssertionError(f"{name}: compact_manifests committed nothing")
+    old = time.time() - 2 * DAY_MS / 1000
+    planted = []
+    for rel in (f"dt={dts[0]}/bucket-0/data-orphan-0.parquet",
+                f"dt={dts[1]}/bucket-1/changelog-orphan-0.parquet",
+                "manifest/manifest-orphan-0"):
+        p = os.path.join(path, rel)
+        with open(p, "wb") as f:
+            f.write(b"orphan")
+        os.utime(p, (old, old))
+        planted.append(p)
+    live_before = files_on_disk(main) - {os.path.basename(p)
+                                         for p in planted}
+    removed = step("remove_orphan_files", main.remove_orphan_files)
+    if sorted(removed) != sorted(planted) or \
+            files_on_disk(main) != live_before:
+        raise AssertionError(f"{name}: orphan clean removed {removed}, "
+                             f"planted {planted}")
+    out["orphans_removed"] = len(removed)
+    report = step("fsck deep", lambda: main.fsck(deep=True))
+    if not report.ok:
+        raise AssertionError(f"{name}: fsck {report.to_dict()}")
+    out["fsck"] = {k: getattr(report, k) for k in (
+        "snapshots_checked", "manifests_checked", "data_files_checked",
+        "manifest_entries_decoded")}
+    # lose one data file of day 0, bucket 0: fsck finds it, the repair
+    # drops it, and the bucket reads as its remaining files merge
+    scan = main.new_scan()
+    split = [s for s in main.new_read_builder().new_scan().plan().splits
+             if s.partition == (dts[0],) and s.bucket == 0][0]
+    files = {f.file_name: scan.path_factory.data_file_path(
+        split.partition, 0, f.file_name) for f in split.data_files}
+    victim = max(split.data_files, key=lambda f: f.row_count).file_name
+    kept = [kv_rows(p) for n, p in files.items() if n != victim]
+    lost_ids = kv_rows(files[victim])["id"]
+    os.remove(files[victim])
+    report = step("fsck after a lost file", main.fsck)
+    lost = report.by_kind(ViolationKind.DANGLING_DATA_FILE)
+    if not lost or {v.obj for v in lost} != {victim}:
+        raise AssertionError(f"{name}: fsck {report.to_dict()}")
+    actions = step("fix_violations", lambda: fix_violations(main, report))
+    if "remove-unexisting-files" not in actions or \
+            not main.fsck(all_snapshots=False).ok:
+        raise AssertionError(f"{name}: repair {actions} left violations")
+    out["repair_actions"] = actions
+    # the oracle: the bucket's keys as its remaining files merge
+    in_bucket = np.unique(np.concatenate([lost_ids] + [k["id"]
+                                                      for k in kept]))
+    state.live[in_bucket] = False          # day 0: index == id
+    rest = {c: np.concatenate([k[c] for k in kept]) for c in kept[0]}
+    order = np.lexsort([rest["_SEQUENCE_NUMBER"], rest["id"]])
+    state.apply(rest["id"][order], rest["_VALUE_KIND"][order],
+                {c: rest[c][order] for c in C5_VALUE_COLS})
+    if step("compact", lambda: main.compact(full=True),
+            rows=state.rows()) is None:
+        raise AssertionError(f"{name}: the final full compaction "
+                             f"committed nothing")
+    got = step("read", main.to_arrow, rows=state.rows())
+    clock("check_s", maint_check, f"{name} read after the repair", got,
+          state)
+    out["final_rows"] = state.rows()
+
+    mine = [p for p in rec.phases if p["table"] == name]
+    writes = [p for p in mine if p["phase"].startswith("write day")]
+    reads = [p for p in mine if "scan" in p["phase"] or p["phase"] == "read"]
+    out["write_rows_per_s"] = sum(p["rows"] for p in writes) / sum(
+        p["s"] for p in writes)
+    out["read_rows_per_s"] = sum(p["rows"] for p in reads) / sum(
+        p["s"] for p in reads)
+    out["launches_plain"] = sum(p["launches_plain"] for p in mine)
+    out["launches_ovc"] = sum(p["launches_ovc"] for p in mine)
+    out["launch_shapes"] = sorted(
+        [list(k[1:4]) + [k[4], v] for k, v in rec.capture.calls.items()
+         if k[0] == name])
+    peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    out["s"] = time.perf_counter() - t_phase
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 # -- the serving plane: point lookups and the one-replica query service ------
 
 SERVE_ROWS = 5_000_000           # cut from 10M in PR 8 (script time)
@@ -3249,7 +3848,8 @@ BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
-              mesh: dict, served: dict, bucketed: dict) -> tuple:
+              mesh: dict, served: dict, bucketed: dict,
+              maintained: dict, only: str = None) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -3287,6 +3887,11 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         return path(name, run)
 
     try:
+        if only == "maintenance":
+            with capture, reducer:
+                maintained.update(path("maintenance",
+                                       lambda: maintenance(work, rec)))
+            return tuple(totals)
         t0 = time.perf_counter()
         batches = bigint_batches(rows)
         log(f"batches of {rows} rows made in {time.perf_counter() - t0:.1f} "
@@ -3386,6 +3991,10 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # and cross-partition bucket modes, and schema evolution
             bucketed.update(path("bucket_modes",
                                  lambda: bucket_modes(work, rec)))
+            # the maintenance plane on a daily-partitioned table:
+            # expiry, tags, branches, partitions, orphans, fsck, repair
+            maintained.update(path("maintenance",
+                                   lambda: maintenance(work, rec)))
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -3441,6 +4050,9 @@ def main() -> int:
                     help="streaming commits of config 5")
     ap.add_argument("--c5-rows-per-commit", type=int, default=C5_PER_COMMIT,
                     help="upserts in each config-5 commit")
+    ap.add_argument("--only", choices=["maintenance"],
+                    help="build the kernels and drive this path alone "
+                         "(a probe: no kernel checks and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3472,9 +4084,16 @@ def main() -> int:
     mesh: dict = {}
     served: dict = {}
     bucketed: dict = {}
+    maintained: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
-                         served, bucketed)
+                         served, bucketed, maintained, only=args.only)
+    if args.only:
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        print(json.dumps({args.only: maintained}))
+        print(json.dumps({"phases": phases}))
+        return 0
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -3505,6 +4124,7 @@ def main() -> int:
     print(json.dumps({"serving": served}))
     print(json.dumps({"merge_routes": routes}))
     print(json.dumps({"bucket_modes": bucketed}))
+    print(json.dumps({"maintenance": maintained}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),
                                   k2.record(launches[1])]}))

@@ -131,7 +131,9 @@ class FileStoreCommit:
     def overwrite(self, messages: Sequence[CommitMessage],
                   partition_filter: Optional[dict] = None,
                   commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
-                  index_entries: Optional[list] = None
+                  index_entries: Optional[list] = None,
+                  watermark: Optional[int] = None,
+                  properties: Optional[Dict[str, str]] = None
                   ) -> Optional[int]:
         """INSERT OVERWRITE: delete current files (optionally restricted to
         a partition spec) and add new ones atomically
@@ -162,7 +164,9 @@ class FileStoreCommit:
 
         return self._try_commit([], [], commit_identifier,
                                 CommitKind.OVERWRITE, entries_fn=entries_fn,
-                                index_entries=index_entries)
+                                index_entries=index_entries,
+                                properties=properties,
+                                watermark=watermark)
 
     def filter_committed(self, commit_identifiers: Sequence[int]
                          ) -> List[int]:

@@ -308,7 +308,7 @@ class KeyValueFileStoreWrite:
     def __init__(self, file_io: FileIO, table_path: str,
                  table_schema: TableSchema, options: CoreOptions,
                  restore_max_seq: Optional[Callable[[Tuple, int], int]]
-                 = None,
+                 = None, branch: str = "main",
                  bucket_files_map: Optional[Callable[[], Dict]] = None,
                  schema_manager=None, device=None):
         self.file_io = file_io
@@ -348,7 +348,8 @@ class KeyValueFileStoreWrite:
             self._key_hasher = KeyHasher(
                 bucket_keys, [rt.get_field(k).type for k in bucket_keys])
             self._dynamic = DynamicBucketAssigner(
-                FileStoreScan(file_io, table_path, table_schema, options),
+                FileStoreScan(file_io, table_path, table_schema, options,
+                              branch=branch),
                 options.dynamic_bucket_target_row_num)
             # host seconds in the assigner (hash, index load, assign)
             self.assign_seconds = 0.0

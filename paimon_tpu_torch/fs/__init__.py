@@ -9,5 +9,5 @@ fs/RenamingTwoPhaseOutputStream.java).
 """
 
 from paimon_tpu_torch.fs.fileio import (  # noqa: F401
-    FileIO, FileStatus, LocalFileIO, get_file_io,
+    FileIO, FileStatus, LocalFileIO, get_file_io, safe_join,
 )

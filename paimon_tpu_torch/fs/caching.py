@@ -347,6 +347,11 @@ class CachingFileIO(FileIO):
         self._evict(path)
         return self.inner.delete(path, recursive=recursive)
 
+    def rename(self, src, dst):
+        self._evict(src)
+        self._evict(dst)
+        return self.inner.rename(src, dst)
+
     # -- delegation ----------------------------------------------------------
 
     def exists(self, path):

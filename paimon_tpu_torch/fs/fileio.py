@@ -15,7 +15,8 @@ import uuid
 from dataclasses import dataclass
 from typing import List, Tuple
 
-__all__ = ["FileIO", "FileStatus", "LocalFileIO", "get_file_io"]
+__all__ = ["FileIO", "FileStatus", "LocalFileIO", "get_file_io",
+           "safe_join"]
 
 
 @dataclass
@@ -24,6 +25,16 @@ class FileStatus:
     size: int
     is_dir: bool
     mtime_ms: int = 0
+
+
+def safe_join(root: str, rel_path: str) -> str:
+    """Join a user-supplied relative path under `root`, rejecting any
+    traversal ('..', absolute paths) that would escape it."""
+    rel = rel_path.lstrip("/")
+    parts = [p for p in rel.split("/") if p not in ("", ".")]
+    if any(p == ".." for p in parts):
+        raise ValueError(f"Path escapes the root: {rel_path!r}")
+    return f"{root.rstrip('/')}/{'/'.join(parts)}"
 
 
 class FileIO:
@@ -59,6 +70,15 @@ class FileIO:
     def list_files(self, path: str) -> List[str]:
         return [s.path for s in self.list_status(path) if not s.is_dir]
 
+    def list_status_recursive(self, path: str) -> List["FileStatus"]:
+        out: List[FileStatus] = []
+        for st in self.list_status(path):
+            if st.is_dir:
+                out.extend(self.list_status_recursive(st.path))
+            else:
+                out.append(st)
+        return out
+
     def write_bytes(self, path: str, data: bytes, overwrite: bool = True):
         raise NotImplementedError
 
@@ -72,6 +92,11 @@ class FileIO:
         raise NotImplementedError
 
     def delete(self, path: str, recursive: bool = False) -> bool:
+        raise NotImplementedError
+
+    def rename(self, src: str, dst: str) -> bool:
+        """Move `src` to `dst`; False if `dst` exists or the move
+        failed."""
         raise NotImplementedError
 
     def delete_quietly(self, path: str):
@@ -175,6 +200,17 @@ class LocalFileIO(FileIO):
         else:
             os.remove(p)
         return True
+
+    def rename(self, src: str, dst: str) -> bool:
+        s, d = self._strip(src), self._strip(dst)
+        if os.path.exists(d):
+            return False
+        os.makedirs(os.path.dirname(d), exist_ok=True)
+        try:
+            os.rename(s, d)
+            return True
+        except OSError:
+            return False
 
 
 _local = LocalFileIO()

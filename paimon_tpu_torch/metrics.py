@@ -4,10 +4,13 @@ Counterpart of paimon_tpu/metrics.py, reduced to what the ported
 planes record: the compaction group's fault counters and window /
 fallback histograms, the scan group's device-decode fallbacks and
 byte-cache counters, and the serving plane's service, lookup,
-resilience and slo groups.  `snapshot_rows` is the one serialization
-behind `snapshot()` and the Prometheus text of obs/export.py.  The
-reference's other groups (commit, write, stream, multihost, plan,
-fleet, cache_disk) and CompactTimer are not ported yet.
+resilience and slo groups, and the maintenance plane's counters
+(maintenance, plan and fleet groups: fsck violations, manifest
+compactions, incremental fsck sweeps).  `snapshot_rows` is the one
+serialization behind `snapshot()` and the Prometheus text of
+obs/export.py.  The reference's other groups (commit, write, stream,
+multihost, cache_disk), the rest of the plan and fleet groups and
+CompactTimer are not ported yet.
 
 reference: paimon-core/.../metrics/ (MetricRegistry, Counter, Gauge,
 Histogram) with groups ScanMetrics / CompactionMetrics.
@@ -46,7 +49,10 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
            "RESILIENCE_BROWNOUT_SHEDS", "RESILIENCE_BROWNOUT_LEVEL",
            "SLO_AVAILABILITY_BURN_FAST", "SLO_AVAILABILITY_BURN_SLOW",
            "SLO_LATENCY_BURN_FAST", "SLO_LATENCY_BURN_SLOW",
-           "SLO_ALERT", "SLO_GOOD_EVENTS", "SLO_BAD_EVENTS"]
+           "SLO_ALERT", "SLO_GOOD_EVENTS", "SLO_BAD_EVENTS",
+           "FSCK_VIOLATIONS", "PLAN_MANIFEST_COMPACTIONS",
+           "FLEET_FSCK_INCREMENTAL_RUNS", "FLEET_FSCK_OBJECTS_CHECKED",
+           "FLEET_FSCK_WATERMARK_AGE_MS"]
 
 # fault-tolerance counters of the compaction group (producer:
 # parallel/mesh_engine.py):
@@ -56,6 +62,16 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
 COMPACTION_BUCKET_RETRIES = "bucket_retries"
 COMPACTION_BUCKET_FALLBACKS = "bucket_fallbacks"
 COMPACTION_BUCKET_FAILURES = "bucket_failures"
+# maintenance group: violations found by fsck (maintenance/fsck.py)
+FSCK_VIOLATIONS = "fsck_violations"
+# plan group: manifest full rewrites (maintenance/manifest_compact.py)
+PLAN_MANIFEST_COMPACTIONS = "manifest_compactions"
+# fleet group (maintenance/fsck.py): fsck sweeps asked to ride the
+# watermark, the objects (snapshots, manifests, data files) a sweep
+# verified, and the age of the last clean-sweep watermark
+FLEET_FSCK_INCREMENTAL_RUNS = "fsck_incremental_runs"
+FLEET_FSCK_OBJECTS_CHECKED = "fsck_objects_checked"
+FLEET_FSCK_WATERMARK_AGE_MS = "fsck_watermark_age_ms"
 # scan group: parquet files the device decode plane handed back to the
 # pyarrow host path
 SCAN_DEVICE_DECODE_FALLBACKS = "device_decode_fallbacks"
@@ -271,6 +287,17 @@ class MetricRegistry:
 
     def compaction_metrics(self, table: str = "") -> MetricGroup:
         return self.group("compaction", table)
+
+    def maintenance_metrics(self, table: str = "") -> MetricGroup:
+        """Expire / orphan-clean / fsck plane."""
+        return self.group("maintenance", table)
+
+    def plan_metrics(self, table: str = "") -> MetricGroup:
+        return self.group("plan", table)
+
+    def fleet_metrics(self, table: str = "") -> MetricGroup:
+        """Incremental fsck sweeps (maintenance/fsck.py)."""
+        return self.group("fleet", table)
 
     def service_metrics(self, table: str = "") -> MetricGroup:
         """Query-serving plane; `table` doubles as the tenant id of the

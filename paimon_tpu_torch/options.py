@@ -338,10 +338,6 @@ class CoreOptions:
         "<dir>/<process-tag>.jsonl at the same completion points")
     # read by the reference and refused by table/table.py until their
     # planes are ported (ROADMAP.md section A.8)
-    PARTITION_END_INPUT_TO_DONE = ConfigOption(
-        "partition.end-input-to-done", _parse_bool, False,
-        "Mark the partitions a batch write touched as done when its "
-        "commit lands")
     SCAN_IGNORE_CORRUPT_FILES = ConfigOption(
         "scan.ignore-corrupt-files", _parse_bool, False,
         "Skip unreadable data files during scans (warn) instead of "
@@ -599,12 +595,111 @@ class CoreOptions:
         "compaction.file-num-limit", int, None,
         "Force a compaction pick once a bucket holds this many files")
 
+    # -- maintenance: snapshot and changelog expiry, partition expiry
+    #    and mark-done, tags, callbacks (reference options.py:243-253,
+    #    :334-360, :1030-1064, :1269-1271, :1328-1356, :1459-1498) -------
+    SNAPSHOT_NUM_RETAINED_MIN = ConfigOption("snapshot.num-retained.min",
+                                             int, 10, "")
+    SNAPSHOT_NUM_RETAINED_MAX = ConfigOption("snapshot.num-retained.max",
+                                             int, 2147483647, "")
+    SNAPSHOT_TIME_RETAINED = ConfigOption("snapshot.time-retained",
+                                          _parse_duration_ms, 3600000, "")
+    SNAPSHOT_EXPIRE_LIMIT = ConfigOption("snapshot.expire.limit", int, 50, "")
+    SNAPSHOT_CLEAN_EMPTY_DIRECTORIES = ConfigOption(
+        "snapshot.clean-empty-directories", _parse_bool, False,
+        "Remove emptied partition/bucket directories after snapshot "
+        "expiration")
+    DELETE_FILE_THREAD_NUM = ConfigOption(
+        "delete-file.thread-num", int, None,
+        "Threads for deleting dead files during snapshot expiration "
+        "(None = serial)")
+    CHANGELOG_NUM_RETAINED_MIN = ConfigOption("changelog.num-retained.min",
+                                              int, None, "")
+    CHANGELOG_NUM_RETAINED_MAX = ConfigOption("changelog.num-retained.max",
+                                              int, None, "")
+    CHANGELOG_TIME_RETAINED = ConfigOption(
+        "changelog.time-retained", _parse_duration_ms, None,
+        "Age bound for decoupled changelogs (expire_changelogs)")
+    PARTITION_EXPIRATION_TIME = ConfigOption("partition.expiration-time",
+                                             _parse_duration_ms, None, "")
+    PARTITION_EXPIRATION_MAX_NUM = ConfigOption(
+        "partition.expiration-max-num", int, 100,
+        "Partitions expired per expire_partitions() call, oldest first")
+    PARTITION_TIMESTAMP_FORMATTER = ConfigOption(
+        "partition.timestamp-formatter", str, None, "")
+    PARTITION_TIMESTAMP_PATTERN = ConfigOption(
+        "partition.timestamp-pattern", str, None, "")
+    PARTITION_MARK_DONE_ACTION = ConfigOption(
+        "partition.mark-done-action", str, "success-file",
+        "csv of success-file|done-partition|mark-event|http-report|custom")
+    PARTITION_MARK_DONE_CUSTOM_CLASS = ConfigOption(
+        "partition.mark-done-action.custom.class", str, None,
+        "module:Class implementing PartitionMarkDoneAction")
+    PARTITION_MARK_DONE_HTTP_URL = ConfigOption(
+        "partition.mark-done-action.http.url", str, None, "")
+    PARTITION_MARK_DONE_HTTP_PARAMS = ConfigOption(
+        "partition.mark-done-action.http.params", str, None, "")
+    PARTITION_MARK_DONE_WHEN_END_INPUT = ConfigOption(
+        "partition.mark-done-when-end-input", _parse_bool, False, "")
+    PARTITION_IDLE_TIME_TO_DONE = ConfigOption(
+        "partition.idle-time-to-done", _parse_duration_ms, None, "")
+    PARTITION_TIME_INTERVAL = ConfigOption(
+        "partition.time-interval", _parse_duration_ms, None, "")
+    PARTITION_END_INPUT_TO_DONE = ConfigOption(
+        "partition.end-input-to-done", _parse_bool, False,
+        "Mark the partitions a batch write touched as done when its "
+        "commit lands")
+    MANIFEST_FULL_COMPACTION_THRESHOLD = ConfigOption(
+        "manifest.full-compaction.threshold", int, 50,
+        "Full-rewrite manifests once the chain holds this many small "
+        "(sub-half-target-size) manifests (None disables the trigger)")
+    INCREMENTAL_BETWEEN_TAG_TO_SNAPSHOT = ConfigOption(
+        "incremental-between-tag-to-snapshot", str, None,
+        "'tagName,snapshotId': batch-read the deltas from a tag's "
+        "snapshot (exclusive) to a snapshot id (inclusive)")
     TAG_AUTOMATIC_CREATION = ConfigOption("tag.automatic-creation", str,
                                           "none", "")
+    TAG_CREATION_PERIOD = ConfigOption(
+        "tag.creation-period", str, "daily",
+        "daily | hourly | two-hours: auto-tag period")
+    TAG_CREATION_DELAY = ConfigOption(
+        "tag.creation-delay", _parse_duration_ms, 0,
+        "Wait this long past the period end before tagging")
+    TAG_CREATION_PERIOD_DURATION = ConfigOption(
+        "tag.creation-period-duration", _parse_duration_ms, None,
+        "Custom period length (overrides tag.creation-period)")
+    TAG_PERIOD_FORMATTER = ConfigOption(
+        "tag.period-formatter", str, "with_dashes",
+        "with_dashes | without_dashes[_colons]: auto-tag name format")
+    TAG_NUM_RETAINED_MAX = ConfigOption(
+        "tag.num-retained-max", int, None,
+        "Oldest auto-tags beyond this count are deleted")
+    TAG_DEFAULT_TIME_RETAINED = ConfigOption(
+        "tag.default-time-retained", _parse_duration_ms, None,
+        "Auto/SQL tags expire after this age")
+    TAG_AUTOMATIC_COMPLETION = ConfigOption(
+        "tag.automatic-completion", _parse_bool, False,
+        "Backfill missed periodic tags, not just the newest period")
+    TAG_CREATE_SUCCESS_FILE = ConfigOption(
+        "tag.create-success-file", _parse_bool, False,
+        "Write a _SUCCESS marker next to each auto-tag")
+    TAG_TIME_EXPIRE_ENABLED = ConfigOption(
+        "tag.time-expire-enabled", _parse_bool, False,
+        "Sweep time-retained tags past expiry at auto-tag time")
     COMMIT_CALLBACKS = ConfigOption(
         "commit.callbacks", str, None,
         "Comma-separated import paths ('pkg.mod:Class') instantiated "
         "and invoked after every successful commit")
+    COMMIT_CALLBACK_PARAM = ConfigOption(
+        "commit.callback.#.param", str, None,
+        "Constructor parameter for the callback class named '#' "
+        "(template key: substitute the class path)")
+    TAG_CALLBACKS = ConfigOption(
+        "tag.callbacks", str, None,
+        "Comma-separated import paths invoked after tag creation")
+    TAG_CALLBACK_PARAM = ConfigOption(
+        "tag.callback.#.param", str, None,
+        "Constructor parameter for the tag callback named '#'")
     CHANGELOG_FILE_FORMAT = ConfigOption(
         "changelog-file.format", str, None,
         "Changelog files' format; defaults to file.format")

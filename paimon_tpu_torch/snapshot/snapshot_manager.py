@@ -31,6 +31,11 @@ __all__ = ["SnapshotManager"]
 SNAPSHOT_PREFIX = "snapshot-"
 EARLIEST = "EARLIEST"
 LATEST = "LATEST"
+# JSON list of snapshot ids FOLDED out of the middle of the chain by
+# expire_snapshots' heartbeat-folding pass (maintenance/expire.py):
+# readers treat these ids as legitimately absent (fsck excuses them
+# from snapshot-gap), and the list self-prunes below EARLIEST
+FOLDED = "FOLDED"
 
 
 class SnapshotManager:
@@ -149,6 +154,9 @@ class SnapshotManager:
             if self.snapshot_exists(i):
                 yield self.snapshot(i)
 
+    def snapshot_count(self) -> int:
+        return sum(1 for _ in self.snapshots())
+
     def earlier_or_equal_time_mills(self,
                                     time_millis: int) -> Optional[Snapshot]:
         """Latest snapshot with timeMillis <= given (reference
@@ -174,6 +182,37 @@ class SnapshotManager:
             else:
                 hi = probe - 1
         return best
+
+    # -- folded-heartbeat bookkeeping ----------------------------------------
+
+    def folded_ids(self) -> set:
+        """Ids deliberately removed from the middle of the chain by
+        the heartbeat-folding pass; missing/corrupt file = empty."""
+        path = f"{self.snapshot_dir}/{FOLDED}"
+        try:
+            if not self.file_io.exists(path):
+                return set()
+            import json
+            raw = json.loads(self.file_io.read_utf8(path))
+            return {int(i) for i in raw}
+        except (OSError, ValueError, TypeError):
+            return set()
+
+    def record_folded(self, ids) -> None:
+        """Durably record ids about to be folded — written BEFORE the
+        snapshot files are deleted, so a crash between the two leaves
+        ids that are folded-but-present (harmless: the excuse only
+        matters for ids that are actually missing).  Self-prunes
+        entries below the earliest retained snapshot, whose absence
+        needs no excuse."""
+        merged = self.folded_ids() | {int(i) for i in ids}
+        earliest = self.earliest_snapshot_id()
+        if earliest is not None:
+            merged = {i for i in merged if i >= earliest}
+        import json
+        self.file_io.write_utf8(f"{self.snapshot_dir}/{FOLDED}",
+                                json.dumps(sorted(merged)),
+                                overwrite=True)
 
     # -- writes --------------------------------------------------------------
 

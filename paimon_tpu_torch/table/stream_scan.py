@@ -1,9 +1,6 @@
 """Streaming scan: startup-mode matrix + follow-up scanners.
 
-Counterpart of paimon_tpu/table/stream_scan.py.  The reference's
-`scan.fallback-branch` union on the first `latest-full` plan is not
-here: branches are not ported, and `table.check_readable` refuses the
-option.
+Counterpart of paimon_tpu/table/stream_scan.py.
 
 reference: table/source/DataTableStreamScan.java:56 (tryFirstPlan
 :139-164, nextPlan), source/snapshot/*StartingScanner (13 impls),
@@ -98,11 +95,29 @@ class DataTableStreamScan:
         latest = sm.latest_snapshot_id()
 
         if mode in (StartupMode.LATEST_FULL, StartupMode.FULL):
-            if latest is None:
+            fallback = self.options.get(CoreOptions.SCAN_FALLBACK_BRANCH)
+            use_fallback = fallback and fallback != self.table.branch
+            if latest is None and not use_fallback:
                 return None
             self._first = False
-            self._next = latest + 1
-            return self._scan.plan(sm.snapshot(latest), streaming=True)
+            self._next = (latest or 0) + 1
+            plan = self._scan.plan(sm.snapshot(latest), streaming=True) \
+                if latest is not None else ScanPlan(None, [],
+                                                    streaming=True)
+            if use_fallback:
+                # the initial full result unions the partitions this
+                # branch lacks from the fallback branch (honouring this
+                # scan's filters); follow-ups stay delta-only on this
+                # branch (reference ChainTableFileStoreTable)
+                from paimon_tpu_torch.table.table import (
+                    with_fallback_partitions,
+                )
+                b = self.builder
+                plan = with_fallback_partitions(
+                    self.table, plan, fallback,
+                    partition_filter=b._partition_filter,
+                    predicate=b._predicate, buckets=b._buckets)
+            return plan
 
         if mode == StartupMode.LATEST:
             # only changes from now on (reference

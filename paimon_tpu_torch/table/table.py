@@ -5,8 +5,11 @@ primary-key tables with fixed, dynamic (bucket -1) or postpone (bucket
 -2) buckets, cross-partition upsert, under the deduplicate, first-row,
 partial-update and aggregation engines, their changelog producers,
 streaming writes with commit identifiers, stream scans, mesh compaction
-(tpu.mesh.compact), bucket rescale, the postpone rescale and row-level
-DELETE (-D records).  Every table
+(tpu.mesh.compact), bucket rescale, the postpone rescale, row-level
+DELETE (-D records), and the maintenance plane: snapshot and changelog
+expiry, tags and auto-tags, branches and fallback reads, incremental
+reads, partition expiry and mark-done, orphan clean, fsck and repair,
+manifest compaction, commit and tag callbacks.  Every table
 carries the torch device its merges run on (None means "cuda"; with no
 card, pass device="cpu").
 
@@ -18,6 +21,7 @@ TableWriteImpl.java:54, TableCommitImpl.java:78.
 from __future__ import annotations
 
 import uuid
+from dataclasses import replace as dc_replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +33,7 @@ from paimon_tpu_torch.core.scan import DataSplit, FileStoreScan, ScanPlan
 from paimon_tpu_torch.core.write import CommitMessage, KeyValueFileStoreWrite
 from paimon_tpu_torch.device import resolve_device
 from paimon_tpu_torch.fs import FileIO, get_file_io
+from paimon_tpu_torch.manifest import FileKind
 from paimon_tpu_torch.options import (
     ChangelogProducer, CoreOptions, Options,
 )
@@ -37,7 +42,8 @@ from paimon_tpu_torch.schema.schema import Schema
 from paimon_tpu_torch.schema.schema_manager import SchemaManager
 from paimon_tpu_torch.schema.table_schema import TableSchema
 from paimon_tpu_torch.snapshot import (
-    ConsumerManager, Snapshot, SnapshotManager,
+    BranchManager, CommitKind, ConsumerManager, Snapshot, SnapshotManager,
+    TagManager,
 )
 from paimon_tpu_torch.snapshot.snapshot import BATCH_COMMIT_IDENTIFIER
 
@@ -52,8 +58,7 @@ def _not_ported(feature: str, item: str):
         f"(ROADMAP.md: {item})")
 
 
-def check_readable(schema: TableSchema, options: CoreOptions,
-                   branch: str = "main") -> None:
+def check_readable(schema: TableSchema, options: CoreOptions) -> None:
     """Raise NotImplementedError for a table whose reads this package
     cannot yet serve, naming the ROADMAP.md item that will port it."""
     if not schema.primary_keys:
@@ -62,51 +67,42 @@ def check_readable(schema: TableSchema, options: CoreOptions,
     # table writes deletion vectors (the scan refuses a snapshot that
     # carries them)
     if options.get(CoreOptions.ROW_TRACKING_ENABLED):
-        _not_ported("row tracking", "the remaining planes")
-    if branch != "main":
-        _not_ported("branches", "the remaining planes")
-    for key in (CoreOptions.SCAN_TAG_NAME, CoreOptions.INCREMENTAL_BETWEEN,
-                CoreOptions.SCAN_FALLBACK_BRANCH,
-                CoreOptions.SCAN_IGNORE_CORRUPT_FILES,
-                CoreOptions.REQUEST_TIMEOUT):
-        if options.get(key):
-            _not_ported(key.key, "the remaining planes")
-    # the host-SSD cache tier and hedged store reads
-    for key in (CoreOptions.CACHE_DISK_DIR, CoreOptions.READ_HEDGE_ENABLED):
+        _not_ported("row tracking", "A.8.7")
+    if options.get(CoreOptions.SCAN_IGNORE_CORRUPT_FILES):
+        _not_ported(CoreOptions.SCAN_IGNORE_CORRUPT_FILES.key, "A.8.5")
+    # deadlines on the table's own reads, the host-SSD cache tier and
+    # hedged store reads
+    for key in (CoreOptions.REQUEST_TIMEOUT, CoreOptions.CACHE_DISK_DIR,
+                CoreOptions.READ_HEDGE_ENABLED):
         if options.get(key):
             _not_ported(key.key, "A.7b")
-    _refuse_prefix(options, "read.retry.")
+    _refuse_prefix(options, "read.retry.", "A.8.5")
 
 
-def _refuse_prefix(options: CoreOptions, prefix: str) -> None:
+def _refuse_prefix(options: CoreOptions, prefix: str, item: str) -> None:
     """Refuse every set key under `prefix`: the reference reads these
-    retry knobs, which this package does not define yet."""
+    knobs, which this package does not define yet."""
     for key in options.options.keys():
         if key.startswith(prefix):
-            _not_ported(key, "the remaining planes")
+            _not_ported(key, item)
 
 
 def check_writable(options: CoreOptions) -> None:
     """Raise NotImplementedError for write and compaction options this
     package does not yet honor (a table with them still reads)."""
     for key in (CoreOptions.WRITE_BUFFER_SPILLABLE,
-                CoreOptions.PARTITION_END_INPUT_TO_DONE,
                 CoreOptions.WRITE_STAGE_DIR):
         if options.get(key):
-            _not_ported(key.key, "the remaining planes")
-    _refuse_prefix(options, "write.retry.")
+            _not_ported(key.key, "A.8.5")
+    _refuse_prefix(options, "write.retry.", "A.8.5")
     if options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE):
         if options.changelog_producer == ChangelogProducer.INPUT:
             raise ValueError(
                 "local-merge-buffer-size folds input rows, which "
                 "would drop changelog-producer=input events")
-        _not_ported("local-merge-buffer-size", "the remaining planes")
+        _not_ported("local-merge-buffer-size", "A.8.5")
     # file indexes: their columns, the bloom fpp, the in-manifest size
-    _refuse_prefix(options, "file-index.")
-    if options.get(CoreOptions.TAG_AUTOMATIC_CREATION) != "none":
-        _not_ported("tag.automatic-creation", "the remaining planes")
-    if options.get(CoreOptions.COMMIT_CALLBACKS):
-        _not_ported("commit.callbacks", "the remaining planes")
+    _refuse_prefix(options, "file-index.", "A.8.6")
     # read by no writer of either package yet: a cap on dynamic buckets
     # and an expiry of the cross-partition index
     if options.get(CoreOptions.DYNAMIC_BUCKET_MAX_BUCKETS) != -1:
@@ -123,7 +119,7 @@ class FileStoreTable:
     def __init__(self, file_io: FileIO, path: str,
                  table_schema: TableSchema,
                  dynamic_options: Optional[Dict[str, str]] = None,
-                 device=None):
+                 device=None, branch: str = "main"):
         self.path = path.rstrip("/")
         opts = dict(table_schema.options)
         if dynamic_options:
@@ -131,8 +127,7 @@ class FileStoreTable:
         self.schema = table_schema.copy(opts) \
             if dynamic_options else table_schema
         self.options = CoreOptions(Options(opts))
-        self.branch = self.options.branch
-        check_readable(self.schema, self.options, self.branch)
+        check_readable(self.schema, self.options)
         self.device = resolve_device(device)
         if self.options.get(CoreOptions.READ_CACHE_RANGE):
             from paimon_tpu_torch.fs.caching import (
@@ -148,9 +143,12 @@ class FileStoreTable:
                     range_cache_bytes=range_bytes,
                     state=shared_cache_state(0, range_bytes))
         self.file_io = file_io
+        self.branch = branch if branch != "main" else self.options.branch
         self.snapshot_manager = SnapshotManager(file_io, self.path,
                                                 self.branch)
         self.schema_manager = SchemaManager(file_io, self.path, self.branch)
+        self.tag_manager = TagManager(file_io, self.path)
+        self.branch_manager = BranchManager(file_io, self.path)
         self.consumer_manager = ConsumerManager(file_io, self.path)
 
     # -- creation / loading --------------------------------------------------
@@ -173,15 +171,20 @@ class FileStoreTable:
              device=None) -> "FileStoreTable":
         dev = resolve_device(device)
         fio = file_io or get_file_io(path)
-        ts = SchemaManager(fio, path).latest()
+        branch = "main"
+        if dynamic_options and "branch" in dynamic_options:
+            branch = dynamic_options["branch"]
+        ts = SchemaManager(fio, path, branch).latest()
         if ts is None:
             raise FileNotFoundError(f"No table at {path}")
-        return FileStoreTable(fio, path, ts, dynamic_options, device=dev)
+        return FileStoreTable(fio, path, ts, dynamic_options, device=dev,
+                              branch=branch)
 
     def copy(self, dynamic_options: Dict[str, str]) -> "FileStoreTable":
         base = self.schema_manager.latest()
         return FileStoreTable(self.file_io, self.path, base,
-                              dynamic_options, device=self.device)
+                              dynamic_options, device=self.device,
+                              branch=self.branch)
 
     # -- metadata ------------------------------------------------------------
 
@@ -222,13 +225,7 @@ class FileStoreTable:
         return StreamWriteBuilder(self)
 
     def system_table(self, name: str):
-        _not_ported("system tables", "the remaining planes")
-
-    def create_tag(self, name: str, snapshot_id: Optional[int] = None):
-        _not_ported("tags", "the remaining planes")
-
-    def create_branch(self, name: str, tag_name: Optional[str] = None):
-        _not_ported("branches", "the remaining planes")
+        _not_ported("system tables", "A.8.9")
 
     # -- convenience ---------------------------------------------------------
 
@@ -276,6 +273,117 @@ class FileStoreTable:
         DeleteAction); deletion vectors of append tables are A.8.7."""
         from paimon_tpu_torch.index.dv_maintainer import delete_where
         return delete_where(self, predicate)
+
+    def compact_manifests(self, force: bool = True,
+                          commit_user: Optional[str] = None,
+                          properties: Optional[Dict[str, str]] = None
+                          ) -> Optional[int]:
+        """Manifest full-compaction: fold the accumulated delta
+        manifests into sorted, partition-clustered base manifests
+        (maintenance/manifest_compact.py).  `force=False` runs only
+        when the manifest.full-compaction.threshold trigger fires."""
+        from paimon_tpu_torch.maintenance.manifest_compact import (
+            compact_manifests,
+        )
+        return compact_manifests(self, force=force,
+                                 commit_user=commit_user,
+                                 properties=properties)
+
+    # -- maintenance ---------------------------------------------------------
+
+    def expire_snapshots(self, retain_max: Optional[int] = None,
+                         retain_min: Optional[int] = None,
+                         older_than_ms: Optional[int] = None,
+                         dry_run: bool = False,
+                         min_retained_snapshot_id: Optional[int] = None):
+        """reference operation/ExpireSnapshotsImpl.java."""
+        from paimon_tpu_torch.maintenance import expire_snapshots
+        return expire_snapshots(
+            self, retain_max=retain_max, retain_min=retain_min,
+            older_than_ms=older_than_ms, dry_run=dry_run,
+            min_retained_snapshot_id=min_retained_snapshot_id)
+
+    def remove_orphan_files(self, older_than_ms: Optional[int] = None,
+                            dry_run: bool = False,
+                            now_ms: Optional[int] = None,
+                            incremental: bool = False):
+        """reference operation/OrphanFilesClean.java; `incremental`
+        rides the last clean sweep's watermark (maintenance/orphan.py)."""
+        from paimon_tpu_torch.maintenance import remove_orphan_files
+        return remove_orphan_files(self, older_than_ms=older_than_ms,
+                                   dry_run=dry_run, now_ms=now_ms,
+                                   incremental=incremental)
+
+    def fsck(self, snapshot_id: Optional[int] = None,
+             all_snapshots: bool = True, deep: bool = False,
+             incremental: bool = False, stamp_watermark: bool = False):
+        """Verify the snapshot→manifest→file graph; returns an
+        FsckReport of typed violations (maintenance/fsck.py)."""
+        from paimon_tpu_torch.maintenance import fsck
+        return fsck(self, snapshot_id=snapshot_id,
+                    all_snapshots=all_snapshots, deep=deep,
+                    incremental=incremental,
+                    stamp_watermark=stamp_watermark)
+
+    def expire_partitions(self, expiration_ms: Optional[int] = None,
+                          now_ms: Optional[int] = None,
+                          dry_run: bool = False):
+        """reference operation/PartitionExpire.java."""
+        from paimon_tpu_torch.maintenance import expire_partitions
+        return expire_partitions(self, expiration_ms=expiration_ms,
+                                 now_ms=now_ms, dry_run=dry_run)
+
+    def mark_partitions_done(self, partitions):
+        """Run the configured partition.mark-done-action(s) (reference
+        flink/procedure/MarkPartitionDoneProcedure.java)."""
+        from paimon_tpu_torch.maintenance import mark_partitions_done
+        return mark_partitions_done(self, partitions)
+
+    def create_tag(self, name: str, snapshot_id: Optional[int] = None):
+        snap = (self.snapshot_manager.snapshot(snapshot_id)
+                if snapshot_id is not None
+                else self.snapshot_manager.latest_snapshot())
+        if snap is None:
+            raise ValueError("Table has no snapshot to tag")
+        self.tag_manager.create_tag(snap, name)
+        self.fire_tag_callbacks(name, snap.id)
+
+    def fire_tag_callbacks(self, name: str, snapshot_id: int):
+        """Invoke tag.callbacks (auto-tag creation calls it too)."""
+        if not hasattr(self, "_tag_callbacks_cache"):
+            from paimon_tpu_torch.utils.callbacks import load_callbacks
+            self._tag_callbacks_cache = load_callbacks(
+                self.options, "tag.callbacks", "tag.callback.#.param")
+        for cb in self._tag_callbacks_cache:
+            cb.call(self, name, snapshot_id)
+
+    def delete_tag(self, name: str):
+        self.tag_manager.delete_tag(name)
+
+    def create_branch(self, name: str, tag_name: Optional[str] = None):
+        snap = self.tag_manager.get_tag(tag_name) if tag_name else None
+        self.branch_manager.create_branch(name, from_snapshot=snap)
+
+    def delete_branch(self, name: str):
+        self.branch_manager.drop_branch(name)
+
+    def rename_branch(self, old: str, new: str):
+        self.branch_manager.rename_branch(old, new)
+
+    def fast_forward(self, branch_name: str):
+        self.branch_manager.fast_forward(branch_name)
+
+    def rollback_to(self, snapshot_id: int):
+        """Delete snapshots newer than `snapshot_id`
+        (reference table/RollbackHelper.java)."""
+        latest = self.snapshot_manager.latest_snapshot_id()
+        if latest is None or snapshot_id > latest:
+            raise ValueError(f"Cannot rollback to {snapshot_id}")
+        if not self.snapshot_manager.snapshot_exists(snapshot_id):
+            raise ValueError(f"Snapshot {snapshot_id} does not exist")
+        for i in range(latest, snapshot_id, -1):
+            self.snapshot_manager.delete_snapshot(i)
+        self.snapshot_manager.commit_latest_hint(snapshot_id)
 
 
 class BatchWriteBuilder:
@@ -351,7 +459,8 @@ class TableWrite:
 
         self._write = KeyValueFileStoreWrite(
             table.file_io, table.path, table.schema, table.options,
-            restore_max_seq=restore, bucket_files_map=bucket_files_map,
+            restore_max_seq=restore, branch=table.branch,
+            bucket_files_map=bucket_files_map,
             schema_manager=table.schema_manager, device=table.device)
         if table.schema.cross_partition_update():
             # pk does not cover the partition keys: route partition
@@ -434,6 +543,7 @@ class TableCommit:
             table.file_io, table.path, table.schema, table.options,
             commit_user=commit_user, branch=table.branch)
         self._overwrite = overwrite
+        self._callbacks = None        # loaded lazily, once
 
     def commit(self, messages: Sequence[CommitMessage],
                commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
@@ -443,8 +553,10 @@ class TableCommit:
         """Commit the messages as one snapshot; returns its id, or None
         for an ignored empty batch commit.  `watermark` (epoch millis)
         records event-time progress in the snapshot — it only ever
-        advances.  `properties` are stored on the snapshot itself
-        (ignored on the overwrite path)."""
+        advances — and drives watermark-mode auto-tags.  `properties`
+        are stored on the snapshot itself (ignored on the overwrite
+        path).  After a snapshot lands: auto-tags, `commit.callbacks`,
+        and `partition.end-input-to-done` for a batch commit."""
         # empty batch commits produce no snapshot unless forced
         # (reference snapshot.ignore-empty-commit, default on for batch
         # writers; streaming keeps empty snapshots for exactly-once
@@ -459,18 +571,49 @@ class TableCommit:
                     CoreOptions.COMMIT_FORCE_CREATE_SNAPSHOT):
             return None
         if self._overwrite is not None:
-            return self._commit.overwrite(
+            sid = self._commit.overwrite(
                 messages, partition_filter=self._overwrite or None,
                 commit_identifier=commit_identifier,
-                index_entries=index_entries or None)
-        return self._commit.commit(messages, commit_identifier,
-                                   index_entries=index_entries or None,
-                                   properties=properties,
-                                   # a streaming empty commit still
-                                   # snapshots so the identifier is
-                                   # durable for exactly-once replay dedup
-                                   force_create=not ignore_empty,
-                                   watermark=watermark)
+                index_entries=index_entries or None,
+                watermark=watermark)
+        else:
+            sid = self._commit.commit(
+                messages, commit_identifier,
+                index_entries=index_entries or None,
+                properties=properties,
+                # a streaming empty commit still snapshots so the
+                # identifier is durable for exactly-once replay dedup
+                force_create=not ignore_empty,
+                watermark=watermark)
+        if sid is None:
+            return None
+        if self.table.options.get(
+                CoreOptions.TAG_AUTOMATIC_CREATION) not in (None, "none"):
+            # reference TagAutoManager rides the commit callback
+            from paimon_tpu_torch.maintenance.tag_auto import (
+                maybe_create_tags,
+            )
+            maybe_create_tags(self.table)
+        # user commit callbacks run post-CAS (reference CommitCallback
+        # via commit.callbacks), loaded once per TableCommit
+        if self._callbacks is None:
+            from paimon_tpu_torch.utils.callbacks import load_callbacks
+            self._callbacks = load_callbacks(
+                self.table.options, "commit.callbacks",
+                "commit.callback.#.param")
+        for cb in self._callbacks:
+            cb.call(self.table, sid, messages)
+        if commit_identifier == BATCH_COMMIT_IDENTIFIER and \
+                self.table.schema.partition_keys and \
+                self.table.options.get(
+                    CoreOptions.PARTITION_END_INPUT_TO_DONE):
+            # a finished batch input marks its partitions done; raw
+            # partition tuples, so mark_partitions_done applies
+            # partition.default-name to null values
+            parts = {tuple(m.partition) for m in messages if m.partition}
+            if parts:
+                self.table.mark_partitions_done(sorted(parts))
+        return sid
 
     def filter_committed(self, identifiers: Sequence[int]) -> List[int]:
         return self._commit.filter_committed(identifiers)
@@ -527,6 +670,36 @@ class ReadBuilder:
         return rt
 
 
+def with_fallback_partitions(table, plan: ScanPlan,
+                             fallback_branch: str,
+                             partition_filter=None, predicate=None,
+                             buckets=None) -> ScanPlan:
+    """Partition-level branch fallback: partitions with no data in the
+    current branch read from `scan.fallback-branch` instead (reference
+    table/FallbackReadFileStoreTable.java — e.g. a streaming branch
+    backfilled by a batch branch).  Shared by batch scans and the
+    streaming initial full load."""
+    fb = FileStoreTable.load(
+        table.path, table.file_io,
+        dynamic_options={"branch": fallback_branch,
+                         "scan.fallback-branch": ""},
+        device=table.device)
+    rb = fb.new_read_builder()
+    if partition_filter:
+        rb = rb.with_partition_filter(partition_filter)
+    if predicate is not None:
+        rb = rb.with_filter(predicate)
+    if buckets:
+        rb = rb.with_buckets(buckets)
+    fb_plan = rb.new_scan().plan()
+    have = {tuple(s.partition) for s in plan.splits}
+    extra = [dc_replace(s, for_streaming=plan.streaming)
+             for s in fb_plan.splits
+             if tuple(s.partition) not in have]
+    return ScanPlan(plan.snapshot_id, list(plan.splits) + extra,
+                    streaming=plan.streaming)
+
+
 class TableScan:
     def __init__(self, builder: ReadBuilder):
         self.builder = builder
@@ -543,14 +716,26 @@ class TableScan:
             else:
                 self._scan.with_value_filter(builder._predicate)
 
-    def plan(self, snapshot_id: Optional[int] = None) -> ScanPlan:
+    def plan(self, snapshot_id: Optional[int] = None,
+             tag_name: Optional[str] = None) -> ScanPlan:
         table = self.builder.table
         snapshot = None
         opts = table.options
+        between = opts.get(CoreOptions.INCREMENTAL_BETWEEN)
+        if between is not None:
+            return self._plan_incremental(between)
+        tag_to_snap = opts.get(
+            CoreOptions.INCREMENTAL_BETWEEN_TAG_TO_SNAPSHOT)
+        if tag_to_snap is not None:
+            return self._plan_incremental_tag_diff(tag_to_snap)
+        if tag_name is None:
+            tag_name = opts.get(CoreOptions.SCAN_TAG_NAME)
         if snapshot_id is None:
             snapshot_id = opts.get(CoreOptions.SCAN_SNAPSHOT_ID)
         ts_millis = opts.get(CoreOptions.SCAN_TIMESTAMP_MILLIS)
-        if snapshot_id is not None:
+        if tag_name is not None:
+            snapshot = table.tag_manager.get_tag(tag_name)
+        elif snapshot_id is not None:
             snapshot = table.snapshot_manager.snapshot(snapshot_id)
         elif ts_millis is not None:
             snapshot = table.snapshot_manager.earlier_or_equal_time_mills(
@@ -558,6 +743,12 @@ class TableScan:
             if snapshot is None:
                 return ScanPlan(None, [])
         plan = self._scan.plan(snapshot)
+        fallback = opts.get(CoreOptions.SCAN_FALLBACK_BRANCH)
+        if fallback and fallback != table.branch:
+            b = self.builder
+            plan = with_fallback_partitions(
+                table, plan, fallback, partition_filter=b._partition_filter,
+                predicate=b._predicate, buckets=b._buckets)
         if opts.get(CoreOptions.SCAN_PLAN_SORT_PARTITION):
             # raw partition values (typed order, not lexicographic str);
             # None sorts first within its position
@@ -565,8 +756,75 @@ class TableScan:
                 plan.snapshot_id,
                 sorted(plan.splits,
                        key=lambda s: tuple((v is not None, v)
-                                           for v in s.partition)))
+                                           for v in s.partition)),
+                streaming=plan.streaming)
         return plan
+
+    def _plan_incremental(self, between: str) -> ScanPlan:
+        """Batch incremental read of the deltas in (start, end]
+        (reference IncrementalStartingScanner; option
+        incremental-between='start,end' — snapshot ids or tag names).
+        The range's delta entries are grouped per bucket, so a key
+        updated twice in the range merges to one row."""
+        table = self.builder.table
+
+        def resolve(token: str) -> int:
+            token = token.strip()
+            if token.lstrip("-").isdigit():
+                return int(token)
+            return table.tag_manager.get_tag(token).id
+
+        parts = between.split(",")
+        if len(parts) != 2:
+            raise ValueError("incremental-between must be 'start,end'")
+        start, end = resolve(parts[0]), resolve(parts[1])
+        if end < start:
+            raise ValueError(f"incremental-between end {end} < start "
+                             f"{start}")
+        sm = table.snapshot_manager
+        earliest = sm.earliest_snapshot_id()
+        latest = sm.latest_snapshot_id()
+        if latest is None or end > latest or \
+                (earliest is not None and start + 1 < earliest):
+            raise ValueError(
+                f"incremental-between ({start}, {end}] outside the "
+                f"available snapshot range [{earliest}, {latest}]")
+        entries = []
+        for sid in range(start + 1, end + 1):
+            snap = sm.snapshot(sid)
+            if snap.commit_kind != CommitKind.APPEND:
+                continue
+            metas = self._scan.manifest_list.read(
+                snap.delta_manifest_list)
+            entries.extend(e for e in self._scan._read_manifests(metas)
+                           if e.kind == FileKind.ADD)
+        return ScanPlan(end, self._scan.generate_splits(end, entries))
+
+    def _plan_incremental_tag_diff(self, spec: str) -> ScanPlan:
+        """'tagName,endSnapshotId': the data-file diff between the tag's
+        pinned snapshot and the end snapshot, which survives the expiry
+        of every snapshot between them (reference
+        IncrementalTagStartingScanner).  The first token is always a tag
+        name."""
+        table = self.builder.table
+        parts = spec.split(",")
+        if len(parts) != 2:
+            raise ValueError(
+                "incremental-between-tag-to-snapshot must be "
+                "'tagName,snapshotId'")
+        tag_snap = table.tag_manager.get_tag(parts[0].strip())
+        end = int(parts[1].strip())
+        if end < tag_snap.id:
+            raise ValueError(
+                f"end snapshot {end} predates tag "
+                f"{parts[0].strip()!r} (snapshot {tag_snap.id})")
+        end_snap = table.snapshot_manager.snapshot(end)
+        base = {(e.partition, e.bucket, e.file.file_name)
+                for e in self._scan.read_entries(tag_snap)}
+        entries = [e for e in self._scan.read_entries(end_snap)
+                   if (e.partition, e.bucket, e.file.file_name)
+                   not in base]
+        return ScanPlan(end, self._scan.generate_splits(end, entries))
 
 
 class TableRead:

@@ -341,15 +341,13 @@ _UNPORTED_ACTIONS = {"deletion-vector index entries": _dv_index_entry_scan,
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"row-tracking.enabled": "true"}, "the remaining planes"),
-    ({"scan.tag-name": "v1"}, "the remaining planes"),
+    ({"row-tracking.enabled": "true"}, "A.8.7"),
     ("deletion-vector index entries", "A.8.7"),
     ("append deletion-vector delete", "A.8.7"),
-    ({"scan.fallback-branch": "fb"}, "the remaining planes"),
-    ({"scan.ignore-corrupt-files": "true"}, "the remaining planes"),
-    ({"read.retry.max-attempts": "5"}, "the remaining planes"),
-    ({"read.retry.backoff": "20 ms"}, "the remaining planes"),
-    ({"request.timeout": "30 s"}, "the remaining planes")])
+    ({"scan.ignore-corrupt-files": "true"}, "A.8.5"),
+    ({"read.retry.max-attempts": "5"}, "A.8.5"),
+    ({"read.retry.backoff": "20 ms"}, "A.8.5"),
+    ({"request.timeout": "30 s"}, "A.7b")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
         if isinstance(options, str):
@@ -360,15 +358,12 @@ def test_unported_table_options_raise(tmp_path, options, item):
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"write-buffer-spillable": "true"}, "the remaining planes"),
-    ({"local-merge-buffer-size": "1mb"}, "the remaining planes"),
-    ({"file-index.bloom-filter.columns": "v1"}, "the remaining planes"),
-    ({"partition.end-input-to-done": "true"}, "the remaining planes"),
-    ({"tag.automatic-creation": "process-time"}, "the remaining planes"),
-    ({"commit.callbacks": "pkg.mod:Cb"}, "the remaining planes"),
-    ({"write.retry.max-attempts": "5"}, "the remaining planes"),
-    ({"write.retry.backoff": "20 ms"}, "the remaining planes"),
-    ({"write.stage.dir": "/tmp/stage"}, "the remaining planes"),
+    ({"write-buffer-spillable": "true"}, "A.8.5"),
+    ({"local-merge-buffer-size": "1mb"}, "A.8.5"),
+    ({"file-index.bloom-filter.columns": "v1"}, "A.8.6"),
+    ({"write.retry.max-attempts": "5"}, "A.8.5"),
+    ({"write.retry.backoff": "20 ms"}, "A.8.5"),
+    ({"write.stage.dir": "/tmp/stage"}, "A.8.5"),
     ({"dynamic-bucket.max-buckets": "8"}, "A.8.3b"),
     ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b")])
 def test_unported_write_options_raise(tmp_path, options, item):
@@ -380,13 +375,86 @@ def test_unported_write_options_raise(tmp_path, options, item):
 
 
 def test_append_table_and_other_planes_raise(tmp_path):
+    from paimon_tpu_torch.maintenance.clone import clone_table
+    from paimon_tpu_torch.maintenance.migrate import migrate_table
+    from paimon_tpu_torch.maintenance.repair import rewrite_file_index
     schema = (Schema.builder().column("id", BigIntType())
               .options({"bucket": "1"}).build())
     with pytest.raises(NotImplementedError, match="append tables"):
         FileStoreTable.create(str(tmp_path / "a"), schema, device="cpu")
     table = new_table(tmp_path)
-    for call in (lambda: table.system_table("snapshots"),
-                 lambda: table.create_tag("v1"),
-                 lambda: table.create_branch("b1")):
-        with pytest.raises(NotImplementedError):
+    for call, item in ((lambda: table.system_table("snapshots"), "A.8.9"),
+                       (lambda: clone_table(None, "db.a", "db.b"), "A.8.9"),
+                       (lambda: migrate_table(None, "/x", "db.t"), "A.8.9"),
+                       (lambda: rewrite_file_index(table), "A.8.6")):
+        with pytest.raises(NotImplementedError, match=item):
             call()
+
+
+# -- options the maintenance plane opened (they were refused) ---------------
+
+def _ref_pk_schema(**options):
+    from paimon_tpu.types import VarCharType as RefVarChar
+    return (RefSchema.builder()
+            .column("id", RefBigInt(False))
+            .column("name", RefVarChar.string_type())
+            .column("score", RefDouble())
+            .primary_key("id")
+            .options({"bucket": "2", **options})
+            .build())
+
+
+class _CountingCallback:
+    calls = []
+
+    def __init__(self, param=None):
+        pass
+
+    def call(self, table, snapshot_id, messages):
+        _CountingCallback.calls.append(snapshot_id)
+
+
+def _opened_scenario(table, key):
+    """What one opened option does on `table`: the rows it reads and
+    the files it leaves."""
+    rows = [{"id": i, "name": str(i), "score": float(i)} for i in range(6)]
+    _CountingCallback.calls = []
+    write_rows(table, rows[:3])
+    if key == "scan.tag-name":
+        table.create_tag("v1")
+    write_rows(table, rows[3:])
+    if key == "scan.fallback-branch":
+        table.create_branch("fb")
+        write_rows(table.copy({"branch": "fb"}), rows[:1])
+    out = [read_sorted(table)]
+    if key == "tag.automatic-creation":
+        wb = table.new_batch_write_builder()
+        with wb.new_write() as w:
+            w.write_dicts(rows[:1])
+            wb.new_commit().commit(w.prepare_commit(),
+                                   watermark=3 * 86_400_000)
+        out.append(sorted(table.tag_manager.tags()))
+    out.append(list(_CountingCallback.calls))
+    out.append(sorted(os.listdir(table.path)))
+    return out
+
+
+@pytest.mark.parametrize("key, value", [
+    ("scan.tag-name", "v1"), ("scan.fallback-branch", "fb"),
+    ("partition.end-input-to-done", "true"),
+    ("tag.automatic-creation", "watermark"),
+    ("commit.callbacks", f"{__name__}:_CountingCallback")])
+def test_opened_options_match_reference(tmp_path, key, value):
+    """The refused cases of the two tests above for the keys the
+    maintenance plane ported: a table that sets the key now behaves as
+    the reference's does (tests/test_torch_maintenance.py,
+    test_torch_tags_branches.py and test_torch_fsck.py hold each
+    feature in depth)."""
+    read_opts = {key: value} if key.startswith("scan.") else {}
+    write_opts = {} if read_opts else {key: value}
+    port = new_table(tmp_path, pk_schema(**write_opts))
+    ref = RefTable.create(str(tmp_path / "r"), _ref_pk_schema(**write_opts))
+    got = [_opened_scenario(t, key) for t in (port, ref)]
+    assert got[0] == got[1]
+    assert [r["id"] for r in read_sorted(port.copy(read_opts))] == \
+        [r["id"] for r in read_sorted(ref.copy(read_opts))]
