@@ -4,10 +4,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--rows N] [--c5-keys N] [--c5-commits N]
-                          [--c5-rows-per-commit N] [--only maintenance]
-
-`--only maintenance` builds the kernels and drives that path alone (a
-probe: no kernel checks, no ok line).
+                          [--c5-rows-per-commit N]
 
 Phases, each of which raises on failure (no result line is printed
 then):
@@ -3849,7 +3846,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
-              maintained: dict, only: str = None) -> tuple:
+              maintained: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -3887,11 +3884,6 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         return path(name, run)
 
     try:
-        if only == "maintenance":
-            with capture, reducer:
-                maintained.update(path("maintenance",
-                                       lambda: maintenance(work, rec)))
-            return tuple(totals)
         t0 = time.perf_counter()
         batches = bigint_batches(rows)
         log(f"batches of {rows} rows made in {time.perf_counter() - t0:.1f} "
@@ -4050,9 +4042,6 @@ def main() -> int:
                     help="streaming commits of config 5")
     ap.add_argument("--c5-rows-per-commit", type=int, default=C5_PER_COMMIT,
                     help="upserts in each config-5 commit")
-    ap.add_argument("--only", choices=["maintenance"],
-                    help="build the kernels and drive this path alone "
-                         "(a probe: no kernel checks and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -4087,13 +4076,7 @@ def main() -> int:
     maintained: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
-                         served, bucketed, maintained, only=args.only)
-    if args.only:
-        log(f"total {time.perf_counter() - t_start:.1f} s")
-        log(card_line())
-        print(json.dumps({args.only: maintained}))
-        print(json.dumps({"phases": phases}))
-        return 0
+                         served, bucketed, maintained)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")

@@ -132,8 +132,7 @@ class FileStoreCommit:
                   partition_filter: Optional[dict] = None,
                   commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
                   index_entries: Optional[list] = None,
-                  watermark: Optional[int] = None,
-                  properties: Optional[Dict[str, str]] = None
+                  watermark: Optional[int] = None
                   ) -> Optional[int]:
         """INSERT OVERWRITE: delete current files (optionally restricted to
         a partition spec) and add new ones atomically
@@ -165,7 +164,6 @@ class FileStoreCommit:
         return self._try_commit([], [], commit_identifier,
                                 CommitKind.OVERWRITE, entries_fn=entries_fn,
                                 index_entries=index_entries,
-                                properties=properties,
                                 watermark=watermark)
 
     def filter_committed(self, commit_identifiers: Sequence[int]

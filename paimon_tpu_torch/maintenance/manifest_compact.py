@@ -20,7 +20,7 @@ maintenance plane passes (ROADMAP.md A.8.9).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 __all__ = ["manifest_compaction_needed", "compact_manifests"]
 
@@ -51,10 +51,7 @@ def manifest_compaction_needed(table) -> bool:
                if m.file_size < small_bound) >= threshold
 
 
-def compact_manifests(table, force: bool = False,
-                      commit_user: Optional[str] = None,
-                      properties: Optional[Dict[str, str]] = None
-                      ) -> Optional[int]:
+def compact_manifests(table, force: bool = False) -> Optional[int]:
     """Run one manifest full-compaction when the threshold trigger
     fires (or unconditionally with `force=True`).  Returns the new
     snapshot id, or None when nothing was done."""
@@ -65,9 +62,8 @@ def compact_manifests(table, force: bool = False,
         PLAN_MANIFEST_COMPACTIONS, global_registry,
     )
     commit = FileStoreCommit(table.file_io, table.path, table.schema,
-                             table.options, commit_user=commit_user,
-                             branch=table.branch)
-    sid = commit.compact_manifests(properties=properties)
+                             table.options, branch=table.branch)
+    sid = commit.compact_manifests()
     if sid is not None:
         global_registry().plan_metrics().counter(
             PLAN_MANIFEST_COMPACTIONS).inc()

@@ -604,7 +604,10 @@ class CoreOptions:
                                              int, 2147483647, "")
     SNAPSHOT_TIME_RETAINED = ConfigOption("snapshot.time-retained",
                                           _parse_duration_ms, 3600000, "")
-    SNAPSHOT_EXPIRE_LIMIT = ConfigOption("snapshot.expire.limit", int, 50, "")
+    SNAPSHOT_EXPIRE_LIMIT = ConfigOption(
+        "snapshot.expire.limit", int, 50,
+        "Defined by the reference and read by no expiry; refused "
+        "(ROADMAP.md A.8.4b)")
     SNAPSHOT_CLEAN_EMPTY_DIRECTORIES = ConfigOption(
         "snapshot.clean-empty-directories", _parse_bool, False,
         "Remove emptied partition/bucket directories after snapshot "
@@ -619,7 +622,8 @@ class CoreOptions:
                                               int, None, "")
     CHANGELOG_TIME_RETAINED = ConfigOption(
         "changelog.time-retained", _parse_duration_ms, None,
-        "Age bound for decoupled changelogs (expire_changelogs)")
+        "Defined by the reference and read by no expiry, which bounds "
+        "decoupled changelogs by count only; refused (ROADMAP.md A.8.4b)")
     PARTITION_EXPIRATION_TIME = ConfigOption("partition.expiration-time",
                                              _parse_duration_ms, None, "")
     PARTITION_EXPIRATION_MAX_NUM = ConfigOption(

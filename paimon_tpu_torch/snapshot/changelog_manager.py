@@ -5,9 +5,10 @@ ChangelogManager.java + Changelog.java: changelog retention can outlive
 snapshot retention — when an expiring snapshot carries changelog, its
 metadata is preserved under `changelog/changelog-<id>` so the changelog
 files stay readable for stream consumers long after the snapshot (and
-its data files) are gone.  `changelog.num-retained.{min,max}` /
-`changelog.time-retained` bound the decoupled set; an expire pass
-deletes the oldest entries together with their changelog files.
+its data files) are gone.  `changelog.num-retained.{min,max}` bound
+the decoupled set; an expire pass deletes the oldest entries together
+with their changelog files.  `changelog.time-retained` is read by no
+expiry of either package, so the port refuses it (ROADMAP.md A.8.4b).
 
 A copy of paimon_tpu/snapshot/changelog_manager.py (no JAX in it).
 """

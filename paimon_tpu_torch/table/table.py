@@ -110,6 +110,17 @@ def check_writable(options: CoreOptions) -> None:
     if options.get(CoreOptions.CROSS_PARTITION_UPSERT_INDEX_TTL):
         _not_ported(CoreOptions.CROSS_PARTITION_UPSERT_INDEX_TTL.key,
                     "A.8.3b")
+    check_expirable(options)
+
+
+def check_expirable(options: CoreOptions) -> None:
+    """Refuse the expiry bounds that neither package's expiry reads: a
+    cap on snapshots expired per pass and an age bound on decoupled
+    changelogs."""
+    for key in (CoreOptions.SNAPSHOT_EXPIRE_LIMIT,
+                CoreOptions.CHANGELOG_TIME_RETAINED):
+        if options.options.contains(key.key):
+            _not_ported(key.key, "A.8.4b")
 
 
 class FileStoreTable:
@@ -274,10 +285,7 @@ class FileStoreTable:
         from paimon_tpu_torch.index.dv_maintainer import delete_where
         return delete_where(self, predicate)
 
-    def compact_manifests(self, force: bool = True,
-                          commit_user: Optional[str] = None,
-                          properties: Optional[Dict[str, str]] = None
-                          ) -> Optional[int]:
+    def compact_manifests(self, force: bool = True) -> Optional[int]:
         """Manifest full-compaction: fold the accumulated delta
         manifests into sorted, partition-clustered base manifests
         (maintenance/manifest_compact.py).  `force=False` runs only
@@ -285,9 +293,7 @@ class FileStoreTable:
         from paimon_tpu_torch.maintenance.manifest_compact import (
             compact_manifests,
         )
-        return compact_manifests(self, force=force,
-                                 commit_user=commit_user,
-                                 properties=properties)
+        return compact_manifests(self, force=force)
 
     # -- maintenance ---------------------------------------------------------
 
@@ -298,6 +304,7 @@ class FileStoreTable:
                          min_retained_snapshot_id: Optional[int] = None):
         """reference operation/ExpireSnapshotsImpl.java."""
         from paimon_tpu_torch.maintenance import expire_snapshots
+        check_expirable(self.options)
         return expire_snapshots(
             self, retain_max=retain_max, retain_min=retain_min,
             older_than_ms=older_than_ms, dry_run=dry_run,

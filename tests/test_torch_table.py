@@ -365,13 +365,25 @@ def test_unported_table_options_raise(tmp_path, options, item):
     ({"write.retry.backoff": "20 ms"}, "A.8.5"),
     ({"write.stage.dir": "/tmp/stage"}, "A.8.5"),
     ({"dynamic-bucket.max-buckets": "8"}, "A.8.3b"),
-    ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b")])
+    ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b"),
+    ({"snapshot.expire.limit": "10"}, "A.8.4b"),
+    ({"changelog.time-retained": "1 h"}, "A.8.4b")])
 def test_unported_write_options_raise(tmp_path, options, item):
     table = new_table(tmp_path, pk_schema(**options))
     with pytest.raises(NotImplementedError, match=item):
         table.new_batch_write_builder().new_write()
     with pytest.raises(NotImplementedError, match=item):
         table.compact(full=True)
+
+
+@pytest.mark.parametrize("key, value", [
+    ("snapshot.expire.limit", "10"), ("changelog.time-retained", "1 h")])
+def test_unread_expiry_bounds_raise_on_expire(tmp_path, key, value):
+    """The reference defines both bounds and its expiry reads neither:
+    the port refuses them rather than ignore them."""
+    table = new_table(tmp_path, pk_schema(**{key: value}))
+    with pytest.raises(NotImplementedError, match="A.8.4b"):
+        table.expire_snapshots()
 
 
 def test_append_table_and_other_planes_raise(tmp_path):
