@@ -92,8 +92,8 @@ then):
    - bucket_modes: primary-key tables as users create them without a
      `bucket` option, bench.py's rows (id BIGINT NOT NULL key, v1
      BIGINT, v2 DOUBLE, v3 INT), each read held against a numpy oracle:
-     dyn_dedup_20M (dynamic buckets at dynamic-bucket.target-row-num's
-     default of 2M: 10 commits of 2M uniform ids in [0, 16M) from one
+     dyn_dedup_10M (dynamic buckets at dynamic-bucket.target-row-num's
+     default of 2M: 10 commits of 1M uniform ids in [0, 8M) from one
      writer, a merge-on-read scan, a full compaction and a scan; the
      hash index against the rows: each id in one bucket, every bucket
      but the last at 2M hashes, the files' total the distinct 32-bit
@@ -101,9 +101,9 @@ then):
      in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
      RENAME v2 -> v2r and 2 commits of 2M upserts, a merge-on-read scan
      over runs of both schemas, a full compaction and a scan),
-     xpart_upsert_8M (cross-partition upsert, partition dt INT of 4
-     values: 8M keys in 4 commits, then a fresh table object's 4
-     commits of 1M upserts, a quarter moving partition and some twice
+     xpart_upsert_4M (cross-partition upsert, partition dt INT of 4
+     values: 4M keys in 4 commits, then a fresh table object's 4
+     commits of 500K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
      and postpone_8M (bucket=-2: 8M rows in 4 commits that a scan does
@@ -132,6 +132,39 @@ then):
      fsck (deep), a lost data file found, repaired and merged around,
      and a final full compaction; every read held against a numpy
      oracle.  It prints a {"maintenance": ...} line;
+   - write_read_planes: the read and write planes on bench.py's rows
+     (id BIGINT NOT NULL key, v1 BIGINT, v2 DOUBLE, v3 INT), every read
+     held against a numpy oracle: spill_bucket_24M (one bucket loaded
+     as the Paimon docs' Write Performance page sets up
+     write-buffer-spillable, write-only beside a dedicated compaction,
+     everything else at the defaults: 24
+     write_arrow calls of 1M ids uniform in [0, 12M) in one batch
+     commit, so 8 spills of 3M rows, each merged on the card, then
+     stream-merged into rolling L0 files at prepare-commit; the L0
+     files sorted and disjoint, the spill directory gone, a scan, a full
+     compaction and a read), spill_fold_coverage (4 MB spills, 4 file
+     handles and a 32 MB disk cap: runs fold and early flushes land in
+     L0; its files equal file for file to the same writes on the CPU),
+     local_merge_hot_8M (bucket=4, local-merge-buffer-size=64mb, 8
+     streaming commits of 1M rows, half on 1,000 hot ids: each commit's
+     L0 rows are its distinct ids), plan_daily_6M (bench.py's columns
+     plus dt STRING as the partition, key (dt, id), bucket=2, inline
+     compaction, the plan cache and stats sidecar at their defaults:
+     120 streaming commits of 50K rows over 12 days with a `latest`
+     stream consumer, the cached plan after every commit equal to a
+     cold plan of a fresh table object every 10th; then an INSERT
+     OVERWRITE of a day, a late correction of an id band, a one-day and
+     an id < 1000 plan served cached and walked cold by the sidecar
+     prune, and rollback_to, each followed by a plan equal to a cold
+     one) and faults_4M (bucket=4, 4 commits of 1M rows over a FileIO
+     that fails every 20th data-file write and read once, retried
+     under write.retry.* and read.retry.*, with write.stage.dir; the
+     prefetch byte budget at 1 MiB; a data file's head zeroed: a read
+     raises CorruptDataError, and skips it under
+     scan.ignore-corrupt-files).  Retries equal the faults injected,
+     the whole run retries nowhere else and no sidecar falls back; the
+     spill merges and the local merger's folds must launch the kernel.
+     It prints a {"write_read_planes": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -170,7 +203,7 @@ then):
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
-phase, the phases, the kernels with their launches on the main path
+phase, the read and write planes, the phases, the kernels with their launches on the main path
 and their times (`device_ms` and `host_us` beside `ms`), then
 {"ok": true, "device": {...}}.
 """
@@ -495,9 +528,13 @@ def report_device_times(stats_list) -> None:
     for (st, c), dev_ms in zip(cases, times):
         c["device_ms"] = dev_ms
         earlier = c["earlier_ms"]
+        share = c["bound_ms"] / c["device_ms"]
+        # faster than HBM allows: the inputs stayed in L2 between launches,
+        # where an HBM-rate bound says nothing about headroom
+        share_text = f"{share:.1%} of" if share <= 1 else \
+            "L2-resident, share n/a; HBM"
         log(f"{st.name} {c['label']} n={c['n']} L={c['lanes']}: exact; "
-            f"device {c['device_ms']:.4f} ms = "
-            f"{c['bound_ms'] / c['device_ms']:.1%} of bound "
+            f"device {c['device_ms']:.4f} ms = {share_text} bound "
             f"{c['bound_ms']:.4f} ms; host {c['host_us']:.2f} us/call; "
             f"back-to-back {c['ms']:.4f} ms (earlier design: "
             f"{'not timed' if earlier is None else f'{earlier:.4f} ms'}"
@@ -1848,13 +1885,15 @@ def mesh_compaction(work: str, rec: Recorder, rows: int = MESH_ROWS,
 # -- primary-key tables in the bucket modes users create by default --------
 
 BM_TARGET = 2_000_000            # dynamic-bucket.target-row-num's default
-DYN_ROWS = 20_000_000            # dyn_dedup_20M: 10 commits of 2M
-DYN_KEYS = 16_000_000            # ids uniform in [0, 16M)
+# dyn_dedup and xpart_upsert run at half the sizes they were first run at
+# (script time)
+DYN_ROWS = 10_000_000            # dyn_dedup_10M: 10 commits of 1M
+DYN_KEYS = 8_000_000             # ids uniform in [0, 8M)
 DYN_COMMITS = 10
 DYN_FRESH = 1_000_000            # upserts of existing ids, a fresh table
 DYN_EVOLVED = 2_000_000          # upserts a commit under the new schema
-XPART_KEYS = 8_000_000           # xpart_upsert_8M: 4 commits of 2M keys
-XPART_UPSERTS = 1_000_000        # then 4 commits of 1M upserts
+XPART_KEYS = 4_000_000           # xpart_upsert_4M: 4 commits of 1M keys
+XPART_UPSERTS = 500_000          # then 4 commits of 500K upserts
 XPART_PARTS = 4
 POSTPONE_ROWS = 8_000_000        # postpone_8M: 4 commits of 2M
 POSTPONE_TARGET = 5_000_000      # postpone.target-row-num-per-bucket
@@ -1957,7 +1996,7 @@ def check_evolved(what: str, got, cols: dict, win: np.ndarray,
 
 
 def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
-    """dyn_dedup_20M: Paimon's default bucket mode (no `bucket` option),
+    """dyn_dedup_10M: Paimon's default bucket mode (no `bucket` option),
     deduplicate, write-only; 10 commits of uniform ids from one writer,
     a full compaction and a scan, the hash index
     held against the rows, a fresh table object's upserts of existing
@@ -1971,7 +2010,7 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType
 
-    name = "dyn_dedup_20M"
+    name = "dyn_dedup_10M"
     path = os.path.join(work, name)
     rows, keys = DYN_ROWS // scale, DYN_KEYS // scale
     target, per = BM_TARGET // scale, DYN_ROWS // scale // DYN_COMMITS
@@ -2098,10 +2137,10 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
-    """xpart_upsert_8M: cross-partition upsert (primary key id, partition
-    dt INT of 4 values, bucket unset): 8M keys in 4 commits from one
+    """xpart_upsert_4M: cross-partition upsert (primary key id, partition
+    dt INT of 4 values, bucket unset): 4M keys in 4 commits from one
     writer; then a fresh table object's writer (the global index
-    bootstraps from the table) upserts 1M ids a commit for 4 commits, a
+    bootstraps from the table) upserts 500K ids a commit for 4 commits, a
     quarter of them moving partition and 1% of those moving again later
     in the same batch; each id held once, in the partition of its last
     write, before and after a full compaction."""
@@ -2111,7 +2150,7 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
 
-    name = "xpart_upsert_8M"
+    name = "xpart_upsert_4M"
     path = os.path.join(work, name)
     keys, target = XPART_KEYS // scale, BM_TARGET // scale
     opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
@@ -2243,8 +2282,8 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     table."""
     out = {}
     t_all = time.perf_counter()
-    for name, fn in (("dyn_dedup_20M", dyn_dedup),
-                     ("xpart_upsert_8M", xpart_upsert),
+    for name, fn in (("dyn_dedup_10M", dyn_dedup),
+                     ("xpart_upsert_4M", xpart_upsert),
                      ("postpone_8M", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
@@ -2337,17 +2376,17 @@ class MaintState:
         return int(self.live.sum())
 
 
-def maint_dates() -> list:
+def maint_dates(days: int = MAINT_DAYS) -> list:
     import datetime
     d0 = datetime.date(2026, 7, 1)
-    return [d0 + datetime.timedelta(days=d) for d in range(MAINT_DAYS)]
+    return [d0 + datetime.timedelta(days=d) for d in range(days)]
 
 
-def maint_index(t, keys: int) -> np.ndarray:
+def maint_index(t, keys: int, days: int = MAINT_DAYS) -> np.ndarray:
     """day * keys + id of each row of a read."""
     import pyarrow as pa
     import pyarrow.compute as pc
-    days = pa.array([d.strftime("%Y%m%d") for d in maint_dates()])
+    days = pa.array([d.strftime("%Y%m%d") for d in maint_dates(days)])
     day = pc.index_in(t.column("dt"), value_set=days)
     if day.null_count:
         raise AssertionError("a row of an unknown partition")
@@ -2357,7 +2396,7 @@ def maint_index(t, keys: int) -> np.ndarray:
 
 def maint_check(what: str, got, want: MaintState) -> None:
     """The rows read equal the oracle's, exactly."""
-    idx = maint_index(got, want.keys)
+    idx = maint_index(got, want.keys, len(want.live) // want.keys)
     order = np.argsort(idx, kind="stable")
     exp = np.flatnonzero(want.live)
     if not np.array_equal(idx[order], exp):
@@ -2384,7 +2423,7 @@ def stream_fold(t, keys: int, state: MaintState) -> int:
     from paimon_tpu_torch.ops.merge import SEQ_COL
     if not t.num_rows:
         return 0
-    idx = maint_index(t, keys)
+    idx = maint_index(t, keys, len(state.live) // keys)
     order = np.lexsort([t.column(SEQ_COL).to_numpy(), idx])
     vals = {c: t.column(c).to_numpy()[order] for c in C5_VALUE_COLS}
     state.apply(idx[order], t.column(ROW_KIND_COL).to_numpy()[order], vals)
@@ -2826,6 +2865,710 @@ def maintenance(work: str, rec: Recorder, device="cuda",
     out["launch_shapes"] = sorted(
         [list(k[1:4]) + [k[4], v] for k, v in rec.capture.calls.items()
          if k[0] == name])
+    peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    out["s"] = time.perf_counter() - t_phase
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
+# -- the read and write planes: spilling writes, local merge, the plan
+#    cache and the stats sidecar, retries, upload staging, corrupt files ---
+
+WRP_SPILL_CALLS = 24             # spill_bucket_24M: 24 write_arrow calls
+WRP_SPILL_PER_CALL = 1_000_000   # of 1M ids uniform in [0, 12M)
+WRP_SPILL_KEYS = 12_000_000
+WRP_SPILL_RUNS = 8               # 3 calls of 28 MB >= 64 MiB: 8 spills
+WRP_FOLD_PER_CALL = 100_000      # spill_fold_coverage: 24 calls of 100K
+WRP_LM_COMMITS = 8               # local_merge_hot_8M: 8 commits of 1M
+WRP_LM_PER_COMMIT = 1_000_000
+WRP_LM_HOT = 1_000               # half of each commit on 1,000 hot ids,
+WRP_LM_KEYS = 4_000_000          # the other half uniform in [0, 4M)
+WRP_PLAN_COMMITS = 120           # plan_daily_6M: 120 commits of 50K rows
+WRP_PLAN_PER_COMMIT = 50_000
+WRP_PLAN_DAYS = 12
+WRP_PLAN_KEYS = 200_000          # ids uniform in [0, 200K) a day
+WRP_PLAN_COLD_EVERY = 10         # a cold plan every 10th commit
+WRP_FAULT_COMMITS = 4            # faults_4M: 4 commits of 1M rows
+WRP_FAULT_PER_COMMIT = 1_000_000
+WRP_FAULT_KEYS = 2_000_000
+WRP_FAULT_ONE_IN = 20            # data-file writes and reads failing once
+MiB = 1 << 20
+
+
+class FaultyFileIO:
+    """faults_4M's store: the first attempt at every WRP_FAULT_ONE_IN-th
+    data-file write, and once armed every such read, raises
+    TransientStoreError (by a seeded count of calls; a retry of a file
+    that failed goes through, since staged uploads and read retries keep
+    its name), so every retry ladder ends and each fault is one retry."""
+
+    def __init__(self, inner, seed: int = 7):
+        self.inner = inner
+        self.offset = seed % WRP_FAULT_ONE_IN
+        self.reads_armed = False
+        self.faults = {"write": 0, "read": 0}
+        self._calls = {"write": 0, "read": 0}
+        self._failed: set = set()
+        self._lock = threading.Lock()
+
+    def _maybe_fail(self, op: str, path: str) -> None:
+        from paimon_tpu_torch.fs.object_store import TransientStoreError
+        name = path.rsplit("/", 1)[-1]
+        if not name.startswith("data-") or \
+                (op == "read" and not self.reads_armed):
+            return
+        with self._lock:
+            k = self._calls[op]
+            self._calls[op] += 1
+            if k % WRP_FAULT_ONE_IN != self.offset or \
+                    (op, name) in self._failed:
+                return
+            self._failed.add((op, name))
+            self.faults[op] += 1
+        raise TransientStoreError(f"503 on the first {op} of {name}")
+
+    def write_bytes(self, path, data, overwrite=True):
+        self._maybe_fail("write", path)
+        return self.inner.write_bytes(path, data, overwrite=overwrite)
+
+    def read_bytes(self, path):
+        self._maybe_fail("read", path)
+        return self.inner.read_bytes(path)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class SpillTimer:
+    """Counts the writer's spills (the calls that raise its
+    `_spills_scheduled`) and times its spill merges and folds and the
+    local merger's folds: calls, seconds and kernel launches of each (the
+    launch
+    counter's change across the call; no other merge runs beside these
+    in the tables that read them), and the spill directory's bytes as a
+    spill merge starts (its peak: runs only accumulate until then)."""
+
+    def __init__(self):
+        self.stats = {k: {"calls": 0, "s": 0.0, "launches": 0}
+                      for k in ("spill", "spill_merge", "fold",
+                                "local_merge")}
+        self.peak_spill_bytes = 0
+        self.spill_dirs: list = []
+
+    def _timed(self, key: str, fn):
+        from paimon_tpu_torch.ops import kernels
+
+        def wrapper(obj, *a, **kw):
+            if key == "spill_merge":
+                self.peak_spill_bytes = max(
+                    self.peak_spill_bytes,
+                    sum(os.path.getsize(p) for p in obj.spills))
+                self.spill_dirs.append(obj._spill_dir)
+            launches = kernels.EQ_NEXT_LAUNCHES
+            t0 = time.perf_counter()
+            try:
+                return fn(obj, *a, **kw)
+            finally:
+                st = self.stats[key]
+                st["calls"] += 1
+                st["s"] += time.perf_counter() - t0
+                st["launches"] += kernels.EQ_NEXT_LAUNCHES - launches
+        return wrapper
+
+    def __enter__(self):
+        from paimon_tpu_torch.core import write
+        self._write = write
+        self._orig = (write._BucketWriter._spill,
+                      write._BucketWriter._merge_spills,
+                      write._BucketWriter._fold_spills,
+                      write.LocalMerger.flush)
+        write._BucketWriter._spill = self._timed("spill", self._orig[0])
+        write._BucketWriter._merge_spills = self._timed(
+            "spill_merge", self._orig[1])
+        write._BucketWriter._fold_spills = self._timed("fold", self._orig[2])
+        write.LocalMerger.flush = self._timed("local_merge", self._orig[3])
+        return self
+
+    def __exit__(self, *exc):
+        w = self._write
+        (w._BucketWriter._spill, w._BucketWriter._merge_spills,
+         w._BucketWriter._fold_spills, w.LocalMerger.flush) = self._orig
+
+
+def plane_counters() -> dict:
+    """The read and write planes' process counters (metrics.py)."""
+    from paimon_tpu_torch import metrics as m
+    reg = m.global_registry()
+    return {"read_retries": reg.scan_metrics().counter(
+                m.SCAN_READ_RETRIES).count,
+            "write_retries": reg.write_metrics().counter(
+                m.WRITE_RETRIES).count,
+            "staged_uploads": reg.cache_disk_metrics().counter(
+                m.CACHE_DISK_STAGED_UPLOADS).count,
+            **{k: reg.plan_metrics().counter(k).count for k in (
+                m.PLAN_PLANS, m.PLAN_DELTA_APPLIES, m.PLAN_MANIFESTS_READ,
+                m.PLAN_MANIFESTS_PRUNED, m.PLAN_ENTRIES_DECODED,
+                m.PLAN_SIDECAR_FALLBACKS)}}
+
+
+def counter_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in plane_counters().items()}
+
+
+def new_file_keys(msgs) -> list:
+    """(bucket, rows, min id, max id) of each new L0 file of a commit."""
+    from paimon_tpu_torch.data.binary_row import BinaryRowCodec
+    from paimon_tpu_torch.types import BigIntType
+    codec = BinaryRowCodec([BigIntType(False)])
+    return [(m.bucket, f.row_count, codec.from_bytes(f.min_key)[0],
+             codec.from_bytes(f.max_key)[0])
+            for m in sorted(msgs, key=lambda m: m.bucket)
+            for f in m.new_files]
+
+
+def bench_rows(rng, ids: np.ndarray):
+    return value_table(ids, random_values(rng, len(ids)))
+
+
+def spill_bucket(work: str, rec: Recorder, timer: SpillTimer, dev,
+                 scale: int) -> dict:
+    """spill_bucket_24M: one bucket loaded in one batch commit with
+    write-buffer-spillable and write-only (the full compaction after it
+    is the table's compaction job, as the Paimon docs' dedicated
+    compaction sets it up), everything else at the defaults."""
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "spill_bucket_24M"
+    per, keys = WRP_SPILL_PER_CALL // scale, WRP_SPILL_KEYS // scale
+    rows = per * WRP_SPILL_CALLS
+    opts = {"bucket": "1", "write-buffer-spillable": "true",
+            "write-only": "true"}
+    if scale > 1:                       # a rehearsal: the same cadence
+        opts["sort-spill-buffer-size"] = str(64 * MiB // scale)
+        opts["target-file-size"] = str(128 * MiB // scale)
+    rng = np.random.default_rng(7)
+    batches = [bench_rows(rng, rng.integers(0, keys, per))
+               for _ in range(WRP_SPILL_CALLS)]
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    win = last_writer_oracle(cols["id"])
+    table = FileStoreTable.create(os.path.join(work, name),
+                                  bigint_schema(opts), device=dev)
+    out = {"rows": rows, "calls": WRP_SPILL_CALLS}
+    before = dict(timer.stats["spill_merge"])
+    spills0 = timer.stats["spill"]["calls"]
+    launches0 = rec.counts()[0]
+
+    def write():
+        wb = table.new_batch_write_builder()
+        with wb.new_write() as w:
+            for b in batches:
+                w.write_arrow(b)
+            msgs = w.prepare_commit()
+            wb.new_commit().commit(msgs)
+        return msgs
+
+    msgs = rec.run(name, "write (spills, merge at prepare-commit)", rows,
+                   dev, write)
+    spills = timer.stats["spill"]["calls"] - spills0
+    if spills != WRP_SPILL_RUNS:
+        raise AssertionError(f"{name}: {spills} spills, expected "
+                             f"{WRP_SPILL_RUNS}")
+    merge = {k: timer.stats["spill_merge"][k] - before[k] for k in before}
+    write_launches = rec.counts()[0] - launches0
+    files = new_file_keys(msgs)
+    if any(files[i][3] >= files[i + 1][2] for i in range(len(files) - 1)):
+        raise AssertionError(f"{name}: L0 files not sorted and disjoint: "
+                             f"{files}")
+    if sum(f[1] for f in files) != len(win):
+        raise AssertionError(f"{name}: L0 rows {sum(f[1] for f in files)}, "
+                             f"oracle {len(win)}")
+    if merge["calls"] != 1 or merge["launches"] == 0 or \
+            write_launches - merge["launches"] == 0:
+        raise AssertionError(f"{name}: the spill merges launched "
+                             f"{write_launches - merge['launches']} "
+                             f"(chunks) and {merge['launches']} (final "
+                             f"merge) kernels in {merge['calls']} merges")
+    if any(d is not None and os.path.exists(d) for d in timer.spill_dirs):
+        raise AssertionError(f"{name}: a spill directory outlived the "
+                             f"commit")
+
+    def check(what, got):
+        check_rows(f"{name} {what}", got, cols, win, "id")
+    check("merge-on-read scan", rec.run(name, "scan", len(win), dev,
+                                        table.to_arrow))
+    if rec.run(name, "compact", len(win), dev,
+               lambda: table.compact(full=True)) is None:
+        raise AssertionError(f"{name}: the full compaction committed "
+                             f"nothing")
+    check("read after compaction", rec.run(name, "read", len(win), dev,
+                                           table.to_arrow))
+    w = [p for p in rec.phases if p["table"] == name]
+    out.update({"spills": spills, "l0_files": len(files),
+                "distinct_ids": int(len(win)),
+                "write_rows_per_s": w[0]["rows_per_s"],
+                "write_s": w[0]["s"],
+                "spill_merge_s": merge["s"],
+                "spill_merge_launches": merge["launches"],
+                "spill_chunk_launches": write_launches - merge["launches"],
+                "peak_spill_dir_bytes": timer.peak_spill_bytes,
+                "scan_rows_per_s": w[1]["rows_per_s"],
+                "compact_rows_per_s": w[2]["rows_per_s"],
+                "read_rows_per_s": w[3]["rows_per_s"],
+                "peak_gib": max((p["peak_gib"] or 0) for p in w)})
+    shutil.rmtree(table.path, ignore_errors=True)
+    return out
+
+
+def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
+               scale: int) -> dict:
+    """spill_fold_coverage: 4 MB spills, 4 file handles and a 32 MB disk
+    cap, so runs fold and the cap forces early flushes; its L0 files
+    held file for file against the same writes run by the port on the
+    CPU (serial flushes, so the disk cap sees the same bytes on both)."""
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "spill_fold_coverage"
+    per = WRP_FOLD_PER_CALL // scale
+    opts = {"bucket": "1", "write-buffer-spillable": "true",
+            "sort-spill-buffer-size": str(4 * MiB // scale),
+            "local-sort.max-num-file-handles": "4",
+            "write-buffer-spill.max-disk-size": str(32 * MiB // scale),
+            "write.flush.parallelism": "1"}
+    rng = np.random.default_rng(8)
+    batches = [bench_rows(rng, rng.integers(0, WRP_SPILL_KEYS // scale, per))
+               for _ in range(WRP_SPILL_CALLS)]
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    win = last_writer_oracle(cols["id"])
+    runs = {}
+    for where in dict.fromkeys((dev.type, "cpu")):
+        table = FileStoreTable.create(os.path.join(work, f"{name}_{where}"),
+                                      bigint_schema(opts), device=where)
+        folds = timer.stats["fold"]["calls"]
+
+        def write():
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                for b in batches:
+                    w.write_arrow(b)
+                msgs = w.prepare_commit()
+                wb.new_commit().commit(msgs)
+            return msgs
+        msgs = rec.run(name, f"write on {where}", per * WRP_SPILL_CALLS,
+                       table.device, write)
+        got = table.to_arrow()
+        check_rows(f"{name} read on {where}", got, cols, win, "id")
+        runs[where] = (new_file_keys(msgs),
+                       timer.stats["fold"]["calls"] - folds)
+        shutil.rmtree(table.path, ignore_errors=True)
+    files, folds = runs[dev.type]
+    if runs[dev.type] != runs["cpu"]:
+        raise AssertionError(f"{name}: L0 files on {dev.type} "
+                             f"{runs[dev.type]} != cpu {runs['cpu']}")
+    disjoint = all(files[i][3] < files[i + 1][2]
+                   for i in range(len(files) - 1))
+    if folds == 0 or disjoint:
+        raise AssertionError(f"{name}: {folds} folds, {len(files)} L0 "
+                             f"files all disjoint: no early flush")
+    return {"l0_files": len(files), "folds": folds,
+            "l0_rows": [f[1] for f in files]}
+
+
+def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
+                    scale: int) -> dict:
+    """local_merge_hot_8M: skewed streaming upserts folded before bucket
+    routing (the Paimon docs' Local Merging, at its suggested 64 MB)."""
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "local_merge_hot_8M"
+    per, keys = WRP_LM_PER_COMMIT // scale, WRP_LM_KEYS // scale
+    opts = {"bucket": "4", "local-merge-buffer-size": "64mb"}
+    table = FileStoreTable.create(os.path.join(work, name),
+                                  bigint_schema(opts), device=dev)
+    rng = np.random.default_rng(9)
+    all_ids, all_vals, per_commit = [], [], []
+    builder = table.new_stream_write_builder()
+    writer, committer = builder.new_write(), builder.new_commit()
+    before = dict(timer.stats["local_merge"])
+    try:
+        for c in range(WRP_LM_COMMITS):
+            ids = np.concatenate([rng.integers(0, WRP_LM_HOT, per // 2),
+                                  rng.integers(0, keys, per - per // 2)])
+            rng.shuffle(ids)
+            batch = bench_rows(rng, ids)
+            all_ids.append(ids)
+            all_vals.append(batch)
+
+            def commit(c=c, batch=batch):
+                writer.write_arrow(batch)
+                msgs = writer.prepare_commit()
+                committer.commit(msgs, commit_identifier=c)
+                return sum(f.row_count for m in msgs for f in m.new_files)
+            l0 = rec.run(name, f"write commit {c}", per, dev, commit)
+            distinct = len(np.unique(ids))
+            if l0 != distinct:
+                raise AssertionError(f"{name}: commit {c} wrote {l0} L0 "
+                                     f"rows, {distinct} distinct ids")
+            per_commit.append(int(l0))
+    finally:
+        writer.close()
+    folds = {k: timer.stats["local_merge"][k] - before[k] for k in before}
+    if folds["calls"] != WRP_LM_COMMITS or folds["launches"] == 0:
+        raise AssertionError(f"{name}: {folds}")
+    cols = {"id": np.concatenate(all_ids),
+            **{c: np.concatenate([b.column(c).to_numpy() for b in all_vals])
+               for c in ("v1", "v2", "v3")}}
+    win = last_writer_oracle(cols["id"])
+    check_rows(f"{name} read", rec.run(name, "read", len(win), dev,
+                                       table.to_arrow), cols, win, "id")
+    w = [p for p in rec.phases if p["table"] == name and
+         p["phase"].startswith("write")]
+    shutil.rmtree(table.path, ignore_errors=True)
+    return {"rows": per * WRP_LM_COMMITS, "l0_rows_per_commit": per_commit,
+            "folds": folds["calls"], "fold_s": folds["s"],
+            "fold_launches": folds["launches"],
+            "write_rows_per_s": sum(p["rows"] for p in w)
+            / sum(p["s"] for p in w)}
+
+
+def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """plan_daily_6M: the delta-apply plan cache and the stats sidecar at
+    the defaults on a daily-partitioned table with inline compaction."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import (
+        BigIntType, DoubleType, IntType, VarCharType,
+    )
+
+    name = "plan_daily_6M"
+    per, keys = WRP_PLAN_PER_COMMIT // scale, WRP_PLAN_KEYS // scale
+    days = WRP_PLAN_DAYS
+    daily = WRP_PLAN_COMMITS // days
+    dts = [d.strftime("%Y%m%d") for d in maint_dates(days)]
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v1", BigIntType()).column("v2", DoubleType())
+              .column("v3", IntType())
+              .column("dt", VarCharType(nullable=False))
+              .partition_keys("dt").primary_key("dt", "id")
+              .options({"bucket": "2"}).build())
+    table = FileStoreTable.create(os.path.join(work, name), schema,
+                                  device=dev)
+    rng = np.random.default_rng(10)
+    state = MaintState(keys, days)
+    out = {"rows": per * WRP_PLAN_COMMITS, "commits": WRP_PLAN_COMMITS}
+    cached_s, cold_s, consumer_rows = [], [], 0
+    folded = None
+    consumer = table.copy({"scan.mode": "latest",
+                           "table-read.sequence-number.enabled": "true"})
+    builder = table.new_stream_write_builder()
+    writer, committer = builder.new_write(), builder.new_commit()
+    counters = plane_counters()
+    rollback_to = rollback_state = None
+
+    def canon(plan):
+        return [(s.partition, s.bucket, tuple(sorted(
+            f.file_name for f in s.data_files))) for s in plan.splits]
+
+    def cold_plan(t=None):
+        return (t or table).copy({"scan.plan.cache": "false"}) \
+            .new_scan().plan()
+
+    t_write = 0.0
+    launches0 = rec.counts()
+    # the loop below is recorded as one phase after it: name it for the
+    # launch capture's shapes now
+    rec.capture.where = f"{name} write"
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        for c in range(WRP_PLAN_COMMITS):
+            day = c // daily
+            ids = rng.integers(0, keys, per)
+            vals = random_values(rng, per)
+            batch = value_table(ids, vals).append_column(
+                "dt", pa.array([dts[day]] * per, pa.string()))
+            t0 = time.perf_counter()
+            writer.write_arrow(batch)
+            committer.commit(writer.prepare_commit(), commit_identifier=c)
+            t_write += time.perf_counter() - t0
+            state.apply(day * keys + ids, np.zeros(per, np.int8), vals)
+            if folded is None:
+                # the consumer starts at the latest snapshot: it sees
+                # every commit after the first
+                folded = state.copy()
+                cscan = consumer.new_read_builder().new_stream_scan()
+                cread = consumer.new_read_builder().new_read()
+                cscan.plan()
+            else:
+                consumer_rows += drain_stream(cscan, cread, keys, folded,
+                                              checkpoint=False)
+            t0 = time.perf_counter()
+            cached = table.new_scan().plan()
+            cached_s.append(time.perf_counter() - t0)
+            if (c + 1) % WRP_PLAN_COLD_EVERY == 0:
+                t0 = time.perf_counter()
+                cold = cold_plan(FileStoreTable.load(table.path,
+                                                     device=dev))
+                cold_s.append(time.perf_counter() - t0)
+                if canon(cached) != canon(cold):
+                    raise AssertionError(f"{name}: commit {c}: the cached "
+                                         f"plan differs from a cold plan")
+                same_state(f"{name}: the consumer's stream after commit "
+                           f"{c}", folded, state)
+            if c == WRP_PLAN_COMMITS - 2 * daily:
+                rollback_to = table.latest_snapshot().id
+                rollback_state = state.copy()
+    finally:
+        writer.close()
+    launched = tuple(a - b for a, b in zip(rec.counts(), launches0))
+    # the launches of the loop: the writes' and the consumer's merges
+    rec.add(name, "write, 120 commits with inline compaction",
+            per * WRP_PLAN_COMMITS, dev, t_write, launched)
+    got = rec.run(name, "read", state.rows(), dev, table.to_arrow)
+    maint_check(f"{name} read", got, state)
+
+    # the cached and the cold plan at the tip, as a pair
+    t0 = time.perf_counter()
+    tip = table.new_scan().plan()
+    tip_cached = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tip_cold = cold_plan()
+    tip_cold_s = time.perf_counter() - t0
+    if canon(tip) != canon(tip_cold):
+        raise AssertionError(f"{name}: the tip's cached plan differs")
+
+    def follows(what):
+        """The plan after `what` equals a cold walk; the read equals the
+        oracle."""
+        if canon(table.new_scan().plan()) != canon(cold_plan()):
+            raise AssertionError(f"{name}: the plan after {what} differs "
+                                 f"from a cold plan")
+        maint_check(f"{name} read after {what}", rec.run(
+            name, f"read after {what}", state.rows(), dev,
+            table.to_arrow), state)
+
+    # an INSERT OVERWRITE of day 0 (invalidates the cached state)
+    ids = rng.integers(0, keys, per)
+    vals = random_values(rng, per)
+    wb = table.new_batch_write_builder().with_overwrite({"dt": dts[0]})
+    with wb.new_write() as w:
+        w.write_arrow(value_table(ids, vals).append_column(
+            "dt", pa.array([dts[0]] * per, pa.string())))
+        wb.new_commit().commit(w.prepare_commit())
+    state.live[:keys] = False
+    state.apply(ids, np.zeros(per, np.int8), vals)
+    follows("the overwrite of a day")
+
+    # a late correction of the last day's top id band: a commit whose
+    # manifest holds only ids >= 95% of the range, which the key-range
+    # plan below prunes (every other manifest spans the whole range)
+    ids = rng.integers(keys - keys // 20, keys, per // 5)
+    vals = random_values(rng, len(ids))
+    wb = table.new_batch_write_builder()
+    with wb.new_write() as w:
+        w.write_arrow(value_table(ids, vals).append_column(
+            "dt", pa.array([dts[-1]] * len(ids), pa.string())))
+        wb.new_commit().commit(w.prepare_commit())
+    state.apply((days - 1) * keys + ids, np.zeros(len(ids), np.int8), vals)
+    follows("a late correction of an id band")
+
+    # filtered plans, one day and a key range: each served from the
+    # cached state, and walked cold by a fresh table object (a planner
+    # in another process), whose sidecar prune skips whole manifests
+    def filtered(what, want, **kw):
+        moved = {}
+        for how, t in (("cached", table), ("cold", FileStoreTable.load(
+                table.path, dynamic_options={"scan.plan.cache": "false"},
+                device=dev))):
+            rb = t.new_read_builder()
+            if "partition" in kw:
+                rb = rb.with_partition_filter(kw["partition"])
+            if "predicate" in kw:
+                rb = rb.with_filter(kw["predicate"])
+            before = plane_counters()
+            got = rec.run(name, f"{how} scan of {what}", want.rows(), dev,
+                          lambda: rb.new_read().to_arrow(
+                              rb.new_scan().plan()))
+            moved[how] = counter_delta(before)
+            maint_check(f"{name} {how} scan of {what}", got, want)
+        if moved["cold"]["sidecar_fallbacks"] or \
+                moved["cached"]["sidecar_fallbacks"]:
+            raise AssertionError(f"{name} {what}: sidecar fallbacks "
+                                 f"{moved}")
+        return moved
+
+    day_plan = filtered("one day", state.only_days([5]),
+                        partition={"dt": dts[5]})
+    low = state.copy()
+    low.live &= np.tile(np.arange(keys) < 1000, days)
+    key_plan = filtered("id < 1000", low,
+                        predicate=P.less_than("id", 1000))
+    if day_plan["cold"]["manifests_pruned"] == 0 or \
+            key_plan["cold"]["manifests_pruned"] == 0:
+        raise AssertionError(f"{name}: a cold filtered plan pruned no "
+                             f"manifest: {day_plan}, {key_plan}")
+
+    # rollback_to an earlier snapshot (recreates ids the cache has seen)
+    table.rollback_to(rollback_to)
+    state = rollback_state
+    follows(f"rollback_to {rollback_to}")
+    plans = counter_delta(counters)
+    w = [p for p in rec.phases if p["table"] == name]
+    out.update({"write_rows_per_s": w[0]["rows_per_s"],
+                "consumer_rows": consumer_rows,
+                "cached_plan_s": {"mean": float(np.mean(cached_s)),
+                                  "max": max(cached_s)},
+                "cold_plan_s": {"mean": float(np.mean(cold_s)),
+                                "max": max(cold_s)},
+                "tip_plan_s": {"cached": tip_cached, "cold": tip_cold_s},
+                "one_day_plan": day_plan, "key_range_plan": key_plan,
+                "counters": plans, "live_rows": state.rows()})
+    shutil.rmtree(table.path, ignore_errors=True)
+    return out
+
+
+def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """faults_4M: retries, upload staging, the prefetch byte budget and
+    the corrupt-file skip on a 4-bucket table over FaultyFileIO."""
+    import warnings
+
+    from paimon_tpu_torch.format.format import CorruptDataError
+    from paimon_tpu_torch.parallel.scan_pipeline import iter_split_tables
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "faults_4M"
+    per, keys = WRP_FAULT_PER_COMMIT // scale, WRP_FAULT_KEYS // scale
+    stage = tempfile.mkdtemp(prefix="paimon-stage-")
+    path = os.path.join(work, name)
+    opts = {"bucket": "4", "write.retry.max-attempts": "3",
+            "read.retry.max-attempts": "3", "write.stage.dir": stage}
+    FileStoreTable.create(path, bigint_schema(opts), device=dev)
+    from paimon_tpu_torch.fs import get_file_io
+    store = FaultyFileIO(get_file_io(path))
+    table = FileStoreTable.load(path, file_io=store, device=dev)
+    rng = np.random.default_rng(12)
+    batches = [bench_rows(rng, rng.integers(0, keys, per))
+               for _ in range(WRP_FAULT_COMMITS)]
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    win = last_writer_oracle(cols["id"])
+    before = plane_counters()
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    rec.run(name, "write (staged uploads, write retries)",
+            per * WRP_FAULT_COMMITS, dev, write)
+    if os.listdir(stage):
+        raise AssertionError(f"{name}: the stage directory kept "
+                             f"{os.listdir(stage)}")
+    store.reads_armed = True
+    check_rows(f"{name} scan", rec.run(name, "scan (read retries)",
+                                       len(win), dev, table.to_arrow),
+               cols, win, "id")
+    moved = counter_delta(before)
+    if moved["write_retries"] != store.faults["write"] or \
+            moved["read_retries"] != store.faults["read"] or \
+            0 in store.faults.values() or moved["staged_uploads"] == 0:
+        raise AssertionError(f"{name}: {moved} for faults {store.faults}")
+
+    # the prefetch byte budget: one split in flight at 1 MiB
+    budget = table.copy({"read.prefetch.max-bytes": str(MiB // scale)})
+    rb = budget.new_read_builder()
+    splits = rb.new_scan().plan().splits
+    stats = {}
+    n = sum(t.num_rows for _, _, t in iter_split_tables(
+        rb.new_read()._read, splits, budget.options, stats=stats))
+    largest = max(sum(f.file_size for f in s.data_files) for s in splits)
+    if n != len(win) or stats["peak_inflight_bytes"] > largest or \
+            stats["max_inflight_splits"] != 1:
+        raise AssertionError(f"{name}: budget {stats}, largest split "
+                             f"{largest} bytes, {n} rows")
+
+    # the corrupt-file skip: zero the head of bucket 0's oldest file
+    bdir = os.path.join(path, "bucket-0")
+    data = [os.path.join(bdir, f) for f in os.listdir(bdir)
+            if f.startswith("data-")]
+    victim = min(data, key=os.path.getmtime)
+    kept = [kv_rows(os.path.join(path, b, f))
+            for b in sorted(os.listdir(path)) if b.startswith("bucket-")
+            for f in os.listdir(os.path.join(path, b))
+            if f.startswith("data-") and os.path.join(path, b, f) != victim]
+    rest = {c: np.concatenate([k[c] for k in kept]) for c in kept[0]}
+    order = np.lexsort([rest["_SEQUENCE_NUMBER"], rest["id"]])
+    last = order[np.flatnonzero(np.r_[rest["id"][order][1:]
+                                      != rest["id"][order][:-1], True])]
+    with open(victim, "r+b") as f:
+        f.write(b"\0" * 64)
+    try:
+        table.to_arrow()
+        raise AssertionError(f"{name}: a read of a corrupt file passed")
+    except CorruptDataError:
+        pass
+    lenient = table.copy({"scan.ignore-corrupt-files": "true"})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = rec.run(name, "scan skipping a corrupt file", len(last), dev,
+                      lenient.to_arrow)
+    check_rows(f"{name} scan without the corrupt file", got,
+               {c: rest[c] for c in ("id", "v1", "v2", "v3")},
+               last, "id")
+    if not any("corrupt" in str(w.message) for w in caught):
+        raise AssertionError(f"{name}: the skip did not warn")
+    moved = counter_delta(before)
+    if moved["write_retries"] + moved["read_retries"] != \
+            sum(store.faults.values()):
+        raise AssertionError(f"{name}: {moved} for faults {store.faults}")
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(stage, ignore_errors=True)
+    w = [p for p in rec.phases if p["table"] == name]
+    return {"rows": per * WRP_FAULT_COMMITS, "faults": dict(store.faults),
+            "write_retries": moved["write_retries"],
+            "read_retries": moved["read_retries"],
+            "staged_uploads": moved["staged_uploads"],
+            "budget": {"peak_inflight_bytes": stats["peak_inflight_bytes"],
+                       "max_inflight_splits": stats["max_inflight_splits"],
+                       "largest_split_bytes": largest},
+            "corrupt_skip_rows": int(len(last)),
+            "write_rows_per_s": w[0]["rows_per_s"],
+            "scan_rows_per_s": w[1]["rows_per_s"]}
+
+
+def write_read_planes(work: str, rec: Recorder, device="cuda",
+                      scale: int = 1) -> dict:
+    """The read and write planes on the card (`scale` divides the row
+    counts and byte options, for a rehearsal).  Returns what the phase
+    reports."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    out = {}
+    with SpillTimer() as timer:
+        out["spill_bucket_24M"] = spill_bucket(work, rec, timer, dev, scale)
+        out["spill_fold_coverage"] = spill_fold(work, rec, timer, dev,
+                                                scale)
+        out["local_merge_hot_8M"] = local_merge_hot(work, rec, timer, dev,
+                                                    scale)
+    out["plan_daily_6M"] = plan_daily(work, rec, dev, scale)
+    out["faults_4M"] = faults(work, rec, dev, scale)
+    names = set(out)
+    mine = [p for p in rec.phases if p["table"] in names]
+    out["launches_plain"] = sum(p["launches_plain"] for p in mine)
+    out["launches_ovc"] = sum(p["launches_ovc"] for p in mine)
+    out["launch_shapes"] = sorted(
+        [[k[0]] + list(k[1:4]) + [k[4], v]
+         for k, v in rec.capture.calls.items() if k[0] in names])
     peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
     out["peak_gib"] = max(peaks) if peaks else None
     out["s"] = time.perf_counter() - t_phase
@@ -3846,7 +4589,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
-              maintained: dict) -> tuple:
+              maintained: dict, planes: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -3860,6 +4603,9 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
     totals = [0, 0]
     work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
     rec = Recorder(counts, phases, capture, reducer)
+    # retries and sidecar fallbacks of the whole run: only faults_4M's
+    # injected faults may retry
+    planes0 = plane_counters()
 
     def path(name, fn):
         """One path of the main path on the card: the launch counts set
@@ -3987,6 +4733,17 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # expiry, tags, branches, partitions, orphans, fsck, repair
             maintained.update(path("maintenance",
                                    lambda: maintenance(work, rec)))
+            # spilling writes, local merge, the plan cache and the stats
+            # sidecar, retries, upload staging and the corrupt skip
+            planes.update(path("write_read_planes",
+                               lambda: write_read_planes(work, rec)))
+        moved = counter_delta(planes0)
+        injected = sum(planes["faults_4M"]["faults"].values())
+        if moved["read_retries"] + moved["write_retries"] != injected or \
+                moved["sidecar_fallbacks"]:
+            raise AssertionError(f"the run retried or fell back beyond "
+                                 f"faults_4M's {injected} faults: {moved}")
+        log(f"read and write planes over the run: {moved}")
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
                         card[what], cpu[what], approx=("fsum",), rtol=1e-12)
@@ -4074,9 +4831,10 @@ def main() -> int:
     served: dict = {}
     bucketed: dict = {}
     maintained: dict = {}
+    planes: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
-                         served, bucketed, maintained)
+                         served, bucketed, maintained, planes)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -4108,6 +4866,7 @@ def main() -> int:
     print(json.dumps({"merge_routes": routes}))
     print(json.dumps({"bucket_modes": bucketed}))
     print(json.dumps({"maintenance": maintained}))
+    print(json.dumps({"write_read_planes": planes}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),
                                   k2.record(launches[1])]}))

@@ -60,10 +60,13 @@ class FileStoreCommit:
         mdir = self.path_factory.manifest_dir
         key_types = [rt.get_field(k).type
                      for k in table_schema.trimmed_primary_keys()]
+        sidecar = bool(options.get(CoreOptions.MANIFEST_STATS_SIDECAR))
         self.manifest_file = ManifestFile(
             file_io, mdir, codec, self.partition_types, key_types=key_types,
-            sidecar=bool(options.get(CoreOptions.MANIFEST_STATS_SIDECAR)))
-        self.manifest_list = ManifestList(file_io, mdir, codec)
+            sidecar=sidecar)
+        self.manifest_list = ManifestList(
+            file_io, mdir, codec, partition_types=self.partition_types,
+            key_types=key_types, sidecar=sidecar)
         self.index_manifest_file = IndexManifestFile(file_io, mdir, codec)
         self.manifest_target_size = options.get(
             CoreOptions.MANIFEST_TARGET_FILE_SIZE)

@@ -274,16 +274,28 @@ class MergeFileSplitRead:
         return names
 
     def _read_file(self, split: DataSplit, meta: DataFileMeta,
-                   read_cols: List[str]) -> pa.Table:
-        table = read_kv_file(self.file_io, self.path_factory,
-                             split.partition, split.bucket, meta,
-                             options=self.options, device=self.device)
+                   read_cols: List[str]) -> Optional[pa.Table]:
+        """One data file under the read-path fault policy: transient
+        store faults retry (read.retry.*); None when the file is
+        unreadable and scan.ignore-corrupt-files skips it."""
+        from paimon_tpu_torch.parallel.scan_pipeline import (
+            read_or_skip_corrupt,
+        )
+        table = read_or_skip_corrupt(
+            lambda: read_kv_file(self.file_io, self.path_factory,
+                                 split.partition, split.bucket, meta,
+                                 options=self.options, device=self.device),
+            self.options, f"data file {meta.file_name}")
+        if table is None:
+            return None
         return self._evolve(table, meta.schema_id).select(read_cols)
 
     def _read_raw(self, split: DataSplit, read_cols: List[str],
                   value_cols: List[str]) -> pa.Table:
-        tables = [self._read_file(split, f, read_cols)
-                  for f in sorted(split.data_files, key=lambda f: f.min_key)]
+        tables = [t for t in (self._read_file(split, f, read_cols)
+                              for f in sorted(split.data_files,
+                                              key=lambda f: f.min_key))
+                  if t is not None]
         if not tables:
             return self._empty_table(split.for_streaming)
         merged = pa.concat_tables(tables, promote_options="none")
@@ -316,8 +328,10 @@ class MergeFileSplitRead:
         runs_meta = assemble_runs(split.data_files)
         runs = []
         for run_files in runs_meta:
-            tables = [self._read_file(split, f, read_cols)
-                      for f in run_files]
+            tables = [t for t in (self._read_file(split, f, read_cols)
+                                  for f in run_files) if t is not None]
+            if not tables:
+                continue                  # whole run corrupt and skipped
             runs.append(pa.concat_tables(tables, promote_options="none")
                         if len(tables) > 1 else tables[0])
         if not runs:

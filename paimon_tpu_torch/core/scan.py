@@ -1,15 +1,32 @@
 """Scan planning: snapshot -> manifests -> pruned ManifestEntries ->
 DataSplits.
 
-Counterpart of paimon_tpu/core/scan.py without the delta-apply plan
-cache, the columnar stats sidecar, file indexes and deletion vectors
-(not ported yet): every plan walks the snapshot's manifest lists.
-Streaming reads plan one snapshot's delta (`plan_delta`) or changelog
-(`plan_changelog`) files into splits that keep every row kind.  The
-index manifest is read for the writers (`index_manifest_file`: the
-dynamic-bucket hash index); a snapshot whose index manifest holds
-deletion vectors is refused, never read without its mask.  Postpone
+Counterpart of paimon_tpu/core/scan.py without file indexes and
+deletion vectors (ROADMAP.md A.8.6, A.8.7): a snapshot whose index
+manifest holds deletion vectors is refused, never read without its
+mask.  Streaming reads plan one snapshot's delta (`plan_delta`) or
+changelog (`plan_changelog`) files into splits that keep every row
+kind.  The index manifest is read for the writers
+(`index_manifest_file`: the dynamic-bucket hash index).  Postpone
 staging (bucket -2) stays invisible unless the bucket filter names it.
+
+The incremental metadata plane:
+
+* **Delta-apply plan reuse**: `plan()` consults the process-shared plan
+  cache (core/plan_cache.py).  With a cached live-entry state at
+  snapshot N, a plan for N+k reads only the delta manifest lists of
+  snapshots N+1..N+k and folds their ADD/DELETE entries into the cached
+  groups; OVERWRITE commits, expired snapshots, unknown DELETEs and
+  recreated snapshot ids invalidate back to the cold walk.  Generated
+  splits are reused per filter signature, regenerating only the
+  (partition, bucket) groups the deltas touched.
+* **Vectorised manifest pruning**: `_prune_manifests` evaluates the
+  partition, bucket and key-range predicates against whole manifest
+  lists at once through the columnar stats sidecar
+  (manifest/stats_sidecar.py), so pruned manifests are never fetched
+  and none of their entries are decoded.  A list without a readable
+  sidecar degrades to the per-meta Python check, counted as the plan
+  group's `sidecar_fallbacks`.
 
 reference: operation/AbstractFileStoreScan.java (manifest pruning),
 table/source/SnapshotReaderImpl.java:87 (generateSplits:412),
@@ -18,7 +35,8 @@ MergeTreeSplitGenerator.java:38, DataSplit.java:62.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, replace as dc_replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
@@ -31,7 +49,7 @@ from paimon_tpu_torch.manifest.index_manifest import DELETION_VECTORS_INDEX
 from paimon_tpu_torch.options import CoreOptions
 from paimon_tpu_torch.predicate import Predicate
 from paimon_tpu_torch.schema.table_schema import TableSchema
-from paimon_tpu_torch.snapshot import Snapshot, SnapshotManager
+from paimon_tpu_torch.snapshot import CommitKind, Snapshot, SnapshotManager
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
 __all__ = ["DataSplit", "ScanPlan", "FileStoreScan"]
@@ -92,12 +110,29 @@ class FileStoreScan:
         codec = {"zstd": "zstandard", "none": "null"}.get(compression,
                                                           compression)
         mdir = self.path_factory.manifest_dir
+        sidecar = bool(options.get(CoreOptions.MANIFEST_STATS_SIDECAR))
         self.manifest_file = ManifestFile(file_io, mdir, codec,
                                           self.partition_types,
-                                          key_types=self.key_types)
-        self.manifest_list = ManifestList(file_io, mdir, codec)
+                                          key_types=self.key_types,
+                                          sidecar=sidecar)
+        self.manifest_list = ManifestList(
+            file_io, mdir, codec, partition_types=self.partition_types,
+            key_types=self.key_types, sidecar=sidecar)
         self.index_manifest_file = IndexManifestFile(file_io, mdir, codec)
         self._dv_free: set = set()     # index manifests seen without DVs
+        # the plan metric group, allocated up front so every series
+        # renders (manifest_compactions' producer is
+        # maintenance/manifest_compact.py)
+        from paimon_tpu_torch import metrics as m
+        pm = m.global_registry().plan_metrics()
+        self._m_plans = pm.counter(m.PLAN_PLANS)
+        self._m_plan_ms = pm.histogram(m.PLAN_MS)
+        self._m_delta_applies = pm.counter(m.PLAN_DELTA_APPLIES)
+        self._m_manifests_read = pm.counter(m.PLAN_MANIFESTS_READ)
+        self._m_manifests_pruned = pm.counter(m.PLAN_MANIFESTS_PRUNED)
+        self._m_entries_decoded = pm.counter(m.PLAN_ENTRIES_DECODED)
+        self._m_sidecar_fallbacks = pm.counter(m.PLAN_SIDECAR_FALLBACKS)
+        pm.counter(m.PLAN_MANIFEST_COMPACTIONS)
         self._partition_filter: Optional[dict] = None
         self._bucket_filter: Optional[set] = None
         self._key_filter: Optional[Predicate] = None
@@ -125,15 +160,94 @@ class FileStoreScan:
 
     def plan(self, snapshot: Optional[Snapshot] = None,
              streaming: bool = False) -> ScanPlan:
+        t0 = time.perf_counter()
         if snapshot is None:
             snapshot = self.snapshot_manager.latest_snapshot()
         if snapshot is None:
             return ScanPlan(None, [], streaming=streaming)
-        return ScanPlan(snapshot.id,
-                        self.generate_splits(snapshot.id,
-                                             self.read_entries(snapshot),
-                                             for_streaming=streaming),
+        self._refuse_deletion_vectors(snapshot)
+        plan = ScanPlan(snapshot.id, self._plan_splits(snapshot, streaming),
                         streaming=streaming)
+        self._m_plans.inc()
+        self._m_plan_ms.update((time.perf_counter() - t0) * 1000)
+        return plan
+
+    def _plan_splits(self, snapshot: Snapshot,
+                     streaming: bool) -> List[DataSplit]:
+        """The split set of one snapshot, through the plan cache when a
+        state can be served or advanced, else the pruned cold walk."""
+        cache, served = self._cached_state(snapshot)
+        if served is not None:
+            state, touched, base_id = served
+            return self._splits_from_state(cache, state, snapshot,
+                                           streaming, touched=touched,
+                                           split_base_id=base_id)
+        if cache is not None and self._cold_state_allowed(cache, snapshot):
+            # unfiltered cold walk: the full live-entry set is exactly
+            # the cache state; build it once, then generate from it
+            state, live = self._cold_state(snapshot)
+            if state is not None:
+                cache.put_state(state, None)
+                return self._splits_from_state(
+                    cache, state, snapshot, streaming,
+                    touched=None, split_base_id=None)
+            # over scan.plan.cache.max-entries: generate from the walk
+            # already decoded, and remember the verdict so later plans
+            # of this tip go straight to the pruned walk
+            cache.mark_over_bound(snapshot.id)
+            return self.generate_splits(snapshot.id, live,
+                                        for_streaming=streaming)
+        # filtered (or cache-disabled, or over-bound) cold walk: the
+        # vectorised manifest prune keeps whole manifests unfetched
+        return self.generate_splits(
+            snapshot.id, self.read_entries(snapshot, _use_cache=False),
+            for_streaming=streaming)
+
+    def _cached_state(self, snapshot: Snapshot):
+        """(cache, served) for one snapshot: `cache` is the table's
+        TablePlanCache, or None when disabled or when `snapshot` is a
+        genuine time travel behind the cached tip; `served` is
+        (state, touched groups, split base snapshot id) when the cached
+        state serves `snapshot` as is or delta-applied, else None (a
+        dead state has been dropped)."""
+        cache = self._plan_cache()
+        if cache is None:
+            return None, None
+        state = cache.state()
+        if state is None:
+            return cache, None
+        if state.snapshot_id == snapshot.id:
+            if state.matches_tip(snapshot):
+                return cache, (state, frozenset(), snapshot.id)
+            # recreated snapshot id (rollback_to / fast_forward): the
+            # cached state describes different content
+            cache.drop_state(state)
+        elif state.snapshot_id < snapshot.id:
+            adv = self._advance_state(state, snapshot)
+            if adv is not None:
+                new_state, touched = adv
+                cache.put_state(new_state, state)
+                self._m_delta_applies.inc()
+                return cache, (new_state, touched, state.snapshot_id)
+            cache.drop_state(state)
+        elif self._state_anchor_alive(state):
+            # genuine time travel to an older snapshot: serve it from a
+            # cold walk without disturbing the cached tip
+            return None, None
+        else:
+            # rolled-back tip: the anchor snapshot is gone, so drop the
+            # dead state and rebuild at this snapshot
+            cache.drop_state(state)
+        return cache, None
+
+    def _cold_state_allowed(self, cache, snapshot: Snapshot) -> bool:
+        """An unfiltered plan may build the cache state by a full walk;
+        a filtered one (prunable key bounds included) takes the pruned
+        walk, where the sidecar can skip whole manifests."""
+        return (self._partition_filter is None
+                and self._bucket_filter is None
+                and self._key_prune_bounds() is None
+                and not cache.over_bound(snapshot.id))
 
     def plan_delta(self, snapshot: Snapshot,
                    streaming: bool = False) -> ScanPlan:
@@ -164,14 +278,199 @@ class FileStoreScan:
                                              for_streaming=streaming),
                         streaming=streaming)
 
-    def read_entries(self, snapshot: Snapshot) -> List[ManifestEntry]:
-        """Live (merged, ADD-only) entry set at one snapshot, after
-        manifest-level partition pruning."""
+    def read_entries(self, snapshot: Snapshot,
+                     _use_cache: bool = True) -> List[ManifestEntry]:
+        """Live (merged, ADD-only) entry set at one snapshot, served
+        from (and feeding) the plan cache when it can.  It may be a
+        superset of a filtered scan's visible entries: manifest pruning
+        is conservative, and callers apply their own per-entry
+        filters."""
         self._refuse_deletion_vectors(snapshot)
+        if _use_cache:
+            cache, served = self._cached_state(snapshot)
+            if served is not None:
+                return [e for d in served[0].groups.values()
+                        for e in d.values()]
+            if cache is not None and \
+                    self._cold_state_allowed(cache, snapshot):
+                state, live = self._cold_state(snapshot)
+                if state is not None:
+                    cache.put_state(state, None)
+                else:
+                    cache.mark_over_bound(snapshot.id)
+                return live
         metas = self.manifest_list.read_all(snapshot.base_manifest_list,
                                             snapshot.delta_manifest_list)
-        entries = self._read_manifests(self._prune_manifests(metas))
-        return merge_manifest_entries(entries)
+        metas = self._prune_manifests(metas, snapshot)
+        entries = merge_manifest_entries(self._read_manifests(metas))
+        return [e for e in entries if e.kind == FileKind.ADD]
+
+    # -- delta-apply plan cache ----------------------------------------------
+
+    def _plan_cache(self):
+        """The process-shared TablePlanCache, or None when disabled."""
+        if not self.options.get(CoreOptions.SCAN_PLAN_CACHE):
+            return None
+        from paimon_tpu_torch.core.plan_cache import shared_plan_cache
+        return shared_plan_cache(self.table_path, self.branch)
+
+    def _state_anchor_alive(self, state) -> bool:
+        """True when the cached state's anchor snapshot still exists
+        with the same content: genuine time travel (the cached tip
+        stays) rather than a rolled-back tip (the state is dead)."""
+        try:
+            anchor = self.snapshot_manager.snapshot(state.snapshot_id)
+        except (OSError, ValueError):
+            return False
+        return anchor is not None and state.matches_tip(anchor)
+
+    @staticmethod
+    def _fold_entry(groups, copied, touched, e) -> bool:
+        """Apply one delta entry to the copy-on-write group map.  False
+        for a DELETE whose file is not live (the delta was computed
+        against a state this cache does not hold: invalidate)."""
+        g = (e.partition, e.bucket)
+        d = groups.get(g)
+        if g not in copied:
+            d = dict(d) if d is not None else {}
+            groups[g] = d
+            copied.add(g)
+        touched.add(g)
+        ident = e.identifier()
+        if e.kind == FileKind.ADD:
+            d[ident] = e
+            return True
+        if ident in d:
+            del d[ident]
+            return True
+        return False
+
+    def _cold_state(self, snapshot: Snapshot):
+        """Full unpruned walk building the cacheable live-entry state
+        (no scan filters: the state serves any filter, applied per
+        entry at split generation).  Returns (state, live entries);
+        state is None over scan.plan.cache.max-entries, but the live
+        set is always returned so the caller never walks twice."""
+        from paimon_tpu_torch.core.plan_cache import PlanState
+        metas = self.manifest_list.read_all(snapshot.base_manifest_list,
+                                            snapshot.delta_manifest_list)
+        groups: Dict[Tuple[bytes, int], Dict[tuple, ManifestEntry]] = {}
+        copied: set = set()
+        for e in self._read_manifests(metas):
+            self._fold_entry(groups, copied, set(), e)
+        groups = {g: d for g, d in groups.items() if d}
+        count = sum(len(d) for d in groups.values())
+        live = [e for d in groups.values() for e in d.values()]
+        if count > self.options.get(CoreOptions.SCAN_PLAN_CACHE_MAX_ENTRIES):
+            return None, live
+        return PlanState(snapshot.id, snapshot.base_manifest_list,
+                         snapshot.delta_manifest_list,
+                         snapshot.index_manifest, groups, count), live
+
+    def _advance_state(self, state, snapshot: Snapshot):
+        """Advance a cached state to `snapshot` by folding only the
+        delta manifest lists of the snapshots in between.  Returns
+        (new_state, frozenset(touched group keys)), or None to
+        invalidate: an OVERWRITE commit, an expired or recreated
+        snapshot along the walk, a DELETE of a file not held, or
+        outgrowing the entry bound."""
+        from paimon_tpu_torch.core.plan_cache import PlanState
+        try:
+            prev = self.snapshot_manager.snapshot(state.snapshot_id)
+        except (OSError, ValueError):
+            return None
+        if prev is None or not state.matches_tip(prev):
+            # the anchor id was recreated with different content: the
+            # chain above it is not this state's
+            return None
+        groups = dict(state.groups)          # copy-on-write outer map
+        copied: set = set()
+        touched: set = set()
+        for sid in range(state.snapshot_id + 1, snapshot.id + 1):
+            if sid == snapshot.id:
+                snap = snapshot
+            else:
+                try:
+                    snap = self.snapshot_manager.snapshot(sid)
+                except (OSError, ValueError):
+                    return None
+                if snap is None:
+                    return None
+            if snap.commit_kind == CommitKind.OVERWRITE:
+                return None
+            try:
+                entries = self._read_manifests(
+                    self.manifest_list.read(snap.delta_manifest_list))
+            except (OSError, ValueError):
+                # a list or manifest expired or repaired under the walk
+                return None
+            for e in entries:
+                if not self._fold_entry(groups, copied, touched, e):
+                    return None
+        for g in list(touched):
+            if not groups.get(g):
+                groups.pop(g, None)
+        count = sum(len(d) for d in groups.values())
+        if count > self.options.get(CoreOptions.SCAN_PLAN_CACHE_MAX_ENTRIES):
+            return None
+        return (PlanState(snapshot.id, snapshot.base_manifest_list,
+                          snapshot.delta_manifest_list,
+                          snapshot.index_manifest, groups, count),
+                frozenset(touched))
+
+    def _split_signature(self, streaming: bool):
+        """Hashable identity of the filters split generation depends
+        on, or None when key or value predicates (not comparable across
+        scan objects) make split states unreusable."""
+        if self._key_filter is not None or self._value_filter is not None:
+            return None
+        pf = None
+        if self._partition_filter:
+            pf = frozenset((k, str(v))
+                           for k, v in self._partition_filter.items())
+        bf = frozenset(self._bucket_filter) \
+            if self._bucket_filter is not None else None
+        return streaming, pf, bf
+
+    def _splits_from_state(self, cache, state, snapshot: Snapshot,
+                           streaming: bool, touched, split_base_id):
+        """This scan's splits from a cached live-entry state, with no
+        manifest IO.  With a reusable filter signature and a split state
+        generated at `split_base_id`, only `touched` groups re-run split
+        generation (None: all)."""
+        from paimon_tpu_torch.core.plan_cache import SplitState
+        sig = self._split_signature(streaming)
+        base = None
+        if sig is not None and touched is not None:
+            st = cache.split_state(sig)
+            if st is not None and \
+                    st.index_manifest == snapshot.index_manifest:
+                if st.snapshot_id == snapshot.id:
+                    base, regen = st.group_splits, frozenset()
+                elif split_base_id is not None and \
+                        st.snapshot_id == split_base_id:
+                    base, regen = st.group_splits, touched
+        group_splits: Dict[Tuple[bytes, int], tuple] = {}
+        for g in state.groups:
+            if base is not None and g not in regen and g in base:
+                old = base[g]
+                if old and old[0].snapshot_id != snapshot.id:
+                    old = tuple(dc_replace(s, snapshot_id=snapshot.id)
+                                for s in old)
+                group_splits[g] = old
+                continue
+            visible = [e for e in state.groups[g].values()
+                       if self._entry_visible(e)]
+            group_splits[g] = tuple(self._group_splits(
+                snapshot.id, g, visible, for_delta=False,
+                for_streaming=streaming))
+        if sig is not None:
+            cache.put_split_state(sig, SplitState(
+                snapshot.id, snapshot.index_manifest, group_splits))
+        out: List[DataSplit] = []
+        for g in sorted(group_splits):
+            out.extend(group_splits[g])
+        return out
 
     def _refuse_deletion_vectors(self, snapshot: Snapshot) -> None:
         """Deletion vectors mask rows of their data files; this package
@@ -204,29 +503,87 @@ class FileStoreScan:
                     metas))
             finally:
                 pool.shutdown(wait=True)
-            return [e for chunk in per for e in chunk]
-        entries = []
-        for m in metas:
-            entries.extend(self.manifest_file.read(m.file_name))
+            entries = [e for chunk in per for e in chunk]
+        else:
+            entries = []
+            for m in metas:
+                entries.extend(self.manifest_file.read(m.file_name))
+        self._m_manifests_read.inc(len(metas))
+        self._m_entries_decoded.inc(len(entries))
         return entries
 
-    def _prune_manifests(self, metas):
-        """Skip whole manifests whose partition stats exclude the
-        partition filter (reference AbstractFileStoreScan
-        manifest-level pruning)."""
-        if not self._partition_filter or not self.partition_types:
-            return metas
-        return [m for m in metas if self._manifest_may_match(m)]
+    def _key_prune_bounds(self):
+        """(lo, hi) bounds the key filter puts on the first trimmed
+        primary key (the sidecar's k_min/k_max columns), or None."""
+        if self._key_filter is None or not self.schema.primary_keys:
+            return None
+        from paimon_tpu_torch.predicate import conjunctive_bounds
+        names = self.schema.trimmed_primary_keys()
+        if not names:
+            return None
+        b = conjunctive_bounds(self._key_filter, names[0])
+        if b is None or (b[0] is None and b[1] is None):
+            return None
+        return b
 
-    def _manifest_may_match(self, m) -> bool:
-        """The partition filter against one manifest's decoded
-        partition stats (min <= value <= max)."""
+    def _prune_manifests(self, metas, snapshot: Optional[Snapshot] = None):
+        """Skip whole manifests before any fetch (reference
+        AbstractFileStoreScan manifest-level pruning).  With a stats
+        sidecar beside the snapshot's manifest lists the partition,
+        bucket and key-range predicates evaluate vectorised over each
+        whole list; metas no sidecar covers fall back to the per-meta
+        Python partition check (counted in sidecar_fallbacks)."""
+        key_bounds = self._key_prune_bounds()
+        if (not self._partition_filter or not self.partition_types) \
+                and self._bucket_filter is None and key_bounds is None:
+            return metas
+        sidecar_on = snapshot is not None and \
+            self.options.get(CoreOptions.MANIFEST_STATS_SIDECAR)
+        masks: Dict[str, bool] = {}
+        if sidecar_on:
+            from paimon_tpu_torch.manifest.stats_sidecar import (
+                prune_keep_mask,
+            )
+            for list_name in (snapshot.base_manifest_list,
+                              snapshot.delta_manifest_list):
+                if not list_name:
+                    continue
+                stats = self.manifest_list.read_sidecar(list_name)
+                if stats is None:
+                    continue
+                keep = prune_keep_mask(
+                    stats, self.schema.partition_keys,
+                    self._partition_filter, self._bucket_filter,
+                    key_bounds)
+                masks.update(zip(stats["file_name"].to_pylist(),
+                                 keep.tolist()))
+        out = []
+        pruned = fallbacks = 0
+        for m in metas:
+            k = masks.get(m.file_name)
+            if k is None:
+                fallbacks += 1
+                k = self._python_prune_keep(m)
+            if k:
+                out.append(m)
+            else:
+                pruned += 1
+        self._m_manifests_pruned.inc(pruned)
+        if sidecar_on:
+            self._m_sidecar_fallbacks.inc(fallbacks)
+        return out
+
+    def _python_prune_keep(self, m) -> bool:
+        """The per-meta check for manifests without sidecar stats:
+        partition equality against the decoded partition stats."""
+        if not self._partition_filter or not self.partition_types:
+            return True
         stats = m.partition_stats
         if not stats.null_counts and stats.min_values == b"":
             return True
         try:
             mins, maxs = stats.decode(self.partition_types)
-        except Exception:
+        except Exception:                   # noqa: BLE001 — advisory
             return True
         for i, k in enumerate(self.schema.partition_keys):
             if k in self._partition_filter:

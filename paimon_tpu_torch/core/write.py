@@ -1,14 +1,20 @@
 """Write path: buffered per-(partition,bucket) writers producing L0 files.
 
 Counterpart of paimon_tpu/core/write.py for fixed, dynamic (bucket -1)
-and postpone (bucket -2) buckets (spilling and local merge are not
-ported yet); every flush merges (deduplicate, first-row) or sorts
-(partial-update, aggregation) on the writer's torch device, and under
-changelog-producer=input also writes its raw rows as a changelog file.
-Dynamic buckets group rows by partition first, then assign buckets from
-the partition's hash index (core/dynamic_bucket.py), whose replacement
-index entries ride the commit messages; postpone buckets stage rows
-un-hashed under bucket -2 until `rescale_postpone`.
+and postpone (bucket -2) buckets.  Every flush merges (deduplicate,
+first-row) or sorts (partial-update, aggregation) on the writer's torch
+device, and under changelog-producer=input also writes its raw rows as
+a changelog file.  Dynamic buckets group rows by partition first, then
+assign buckets from the partition's hash index (core/dynamic_bucket.py),
+whose replacement index entries ride the commit messages; postpone
+buckets stage rows un-hashed under bucket -2 until `rescale_postpone`.
+
+With `write-buffer-spillable`, a bucket's full buffer becomes a local
+key-sorted run (zstd Arrow IPC) instead of an L0 file; runs past
+`local-sort.max-num-file-handles` fold into one, and prepare-commit
+stream-merges them (ops/merge_stream.py) into rolling L0 files.  With
+`local-merge-buffer-size`, a LocalMerger folds hot keys before bucket
+routing.  Both merge on the device through ops/merge.py.
 
 reference call stack (SURVEY §3.1): TableWriteImpl.write ->
 AbstractFileStoreWrite.write (operation/AbstractFileStoreWrite.java:186)
@@ -23,6 +29,7 @@ in one shot and written columnar.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field as dc_field
@@ -99,6 +106,9 @@ def unique_rows(columns: Sequence[np.ndarray]):
     """np.unique(np.stack(columns, axis=1), axis=0, return_inverse=True)
     for integer code columns, through one int64 key per row (mixed radix,
     first column most significant), which sorts in the same order."""
+    if len(columns[0]) == 0:
+        return np.unique(np.stack(columns, axis=1), axis=0,
+                         return_inverse=True)
     lows = [int(c.min()) for c in columns]
     spans = [int(c.max()) - lo + 1 for c, lo in zip(columns, lows)]
     if np.prod(np.array(spans, dtype=np.float64)) >= 2.0 ** 62:
@@ -137,13 +147,14 @@ def build_kv_table(raw: pa.Table, schema: TableSchema,
 class _BucketWriter:
     """One (partition, bucket)'s buffered state.
 
-    Concurrency contract (parallel/write_pipeline.py): `write` and the
-    flush *scheduling* run on the caller thread — sequence ranges are
-    reserved at write() time, single-threaded, so pipelined flushes can
-    never duplicate or reorder them.  The merge/encode/write bodies run
-    as FlushPool tasks; tasks for this bucket execute strictly in
-    submission order (per-key actor), so `new_files` and
-    `changelog_files` are only ever touched by one task at a time."""
+    Concurrency contract (parallel/write_pipeline.py): `write`, `_spill`
+    and the flush *scheduling* run on the caller thread — sequence
+    ranges are reserved at write() time, single-threaded, so pipelined
+    flushes can never duplicate or reorder them.  The merge/encode/write
+    bodies run as FlushPool tasks; tasks for this bucket execute
+    strictly in submission order (per-key actor), so `new_files`,
+    `changelog_files` and `spills` are only ever touched by one task at
+    a time."""
 
     def __init__(self, parent: "KeyValueFileStoreWrite", partition: Tuple,
                  bucket: int):
@@ -157,10 +168,24 @@ class _BucketWriter:
         self.next_seq: Optional[int] = None   # lazily restored
         self.new_files: List[DataFileMeta] = []
         self.changelog_files: List[DataFileMeta] = []
+        self.spills: List[str] = []           # key-sorted local runs
+        self._spill_dir: Optional[str] = None
+        self._spill_bytes = 0                 # on-disk spill footprint
+        self._spills_scheduled = 0            # caller side (see _spill)
+        # monotonic spill-name counter: names derived from len(spills)
+        # could repeat after a fold shrinks the list
+        self._spill_seq = 0
+        # scheduled-not-yet-written spill payload bytes: the disk cap
+        # must see queued spills too
+        self._spill_sched_bytes = 0
 
     @property
     def _key(self) -> Tuple:
         return (self.partition, self.bucket)
+
+    def pending_bytes(self) -> int:
+        """Flush-cost estimate for LPT scheduling (buffered + spilled)."""
+        return self.buffered_bytes + self._spill_bytes
 
     def write(self, table: pa.Table, kinds: np.ndarray):
         self.buffers.append(table)
@@ -177,7 +202,23 @@ class _BucketWriter:
             self.parent.delta_listener(self.partition, self.bucket,
                                        table, kinds, seqs)
         self.buffered_bytes += table.nbytes
-        if self.buffered_bytes >= self.parent.options.write_buffer_size:
+        opts = self.parent.options
+        if self.parent.spillable:
+            # sorted runs spill at sort-spill-buffer-size cadence,
+            # bounded overall by write-buffer-size; both count the raw
+            # Arrow bytes buffered (table.nbytes)
+            threshold = min(opts.write_buffer_size,
+                            opts.get(CoreOptions.SORT_SPILL_BUFFER_SIZE))
+            if self.buffered_bytes >= threshold:
+                if self._spill_bytes + self._spill_sched_bytes >= \
+                        opts.get(
+                            CoreOptions.WRITE_BUFFER_SPILL_MAX_DISK_SIZE):
+                    # the disk budget is spent: flush to L0 instead of
+                    # spilling further (reference MaxDiskSize cap)
+                    self.flush()
+                else:
+                    self._spill()
+        elif self.buffered_bytes >= opts.write_buffer_size:
             self.flush()
 
     def _restore_seq(self) -> int:
@@ -212,30 +253,42 @@ class _BucketWriter:
         self.buffered_bytes = 0
         return raw, kinds, seq
 
-    def _sorted_chunk(self, snap) -> pa.Table:
+    def _sorted_chunk(self, snap) -> Tuple[Optional[pa.Table],
+                                           List[DataFileMeta]]:
         """Lay out one flush payload as a key-sorted KV chunk on the
-        device (worker side; nothing on `self` is mutated).  Deduplicate
-        and first-row merge it; the deferred engines (partial-update,
-        aggregation) only sort it, keeping every version for the read
-        or compaction merge to fold."""
+        device, and under changelog-producer=input write its raw rows
+        (arrival order) as a changelog file.  Deduplicate and first-row
+        merge the chunk; the deferred engines (partial-update,
+        aggregation) only sort it, keeping every version for the read or
+        compaction merge to fold.  Worker side and retry-safe: nothing
+        on `self` is mutated; returns (sorted_kv, changelog metas) for
+        the caller to publish once the whole task succeeded."""
+        if snap is None:
+            return None, []
         raw, kinds, seq = snap
         schema = self.parent.schema
         kv = build_kv_table(raw, schema, seq, kinds)
-        key_cols = [KEY_PREFIX + k for k in schema.trimmed_primary_keys()]
+        key_cols = self.parent.key_cols
         opts = self.parent.options
         engine = opts.merge_engine
         if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
             order = sort_table(kv, key_cols,
                                key_encoder=self.parent.key_encoder,
                                device=self.parent.device)
-            return kv.take(pa.array(order))
-        res = merge_runs([kv], key_cols, merge_engine=engine,
-                         drop_deletes=False,
-                         key_encoder=self.parent.key_encoder,
-                         seq_fields=opts.sequence_field or None,
-                         seq_desc=opts.sequence_field_descending,
-                         device=self.parent.device)
-        return res.take()
+            sorted_kv = kv.take(pa.array(order))
+        else:
+            sorted_kv = merge_runs(
+                [kv], key_cols, merge_engine=engine, drop_deletes=False,
+                key_encoder=self.parent.key_encoder,
+                seq_fields=opts.sequence_field or None,
+                seq_desc=opts.sequence_field_descending,
+                device=self.parent.device).take()
+        changelog: List[DataFileMeta] = []
+        if self.parent.changelog_input:
+            changelog = self.parent.write_changelog(
+                self.partition, self.bucket,
+                build_kv_table(raw, schema, seq, kinds))
+        return sorted_kv, changelog
 
     def flush(self):
         """Snapshot the buffer (caller thread) and hand the merge and
@@ -245,21 +298,239 @@ class _BucketWriter:
             return
 
         def task(snap=snap):
+            sorted_kv, changelog = self._sorted_chunk(snap)
             metas = self.parent.kv_writer.write(
-                self.partition, self.bucket, self._sorted_chunk(snap),
-                level=0)
-            changelog: List[DataFileMeta] = []
-            if self.parent.changelog_input:
-                # changelog-producer=input: raw rows in arrival order
-                raw, kinds, seq = snap
-                changelog = self.parent.write_changelog(
-                    self.partition, self.bucket,
-                    build_kv_table(raw, self.parent.schema, seq, kinds))
-            # publish only after the writes succeeded
+                self.partition, self.bucket, sorted_kv, level=0)
+            # publish only after the writes succeeded: a retried attempt
+            # rewrites under fresh names, never double-counts
             self.new_files.extend(metas)
             self.changelog_files.extend(changelog)
 
         self.parent.flush_pool().submit(self._key, snap[0].nbytes, task)
+
+    # -- spillable buffer (reference SortBufferWriteBuffer:59 spill via
+    # MergeSorter/BinaryExternalSortBuffer: full buffers become local
+    # sorted runs, merged into L0 once at prepare-commit) ----------------
+
+    def _spill_codec(self):
+        """IPC compression per spill-compression (+ zstd-level)."""
+        opts = self.parent.options
+        codec = opts.get(CoreOptions.SPILL_COMPRESSION)
+        if codec in (None, "none"):
+            return None
+        if codec == "zstd":
+            return pa.Codec("zstd", compression_level=opts.get(
+                CoreOptions.SPILL_COMPRESSION_ZSTD_LEVEL))
+        return pa.Codec(codec)
+
+    def _new_spill_path(self, stem: str) -> str:
+        import tempfile
+        if self._spill_dir is None:
+            self._spill_dir = tempfile.mkdtemp(prefix="paimon-spill-")
+        path = os.path.join(self._spill_dir,
+                            f"{stem}-{self._spill_seq}.arrow")
+        self._spill_seq += 1
+        return path
+
+    def _write_spill_file(self, sorted_kv: pa.Table) -> str:
+        path = self._new_spill_path("spill")
+        opts = pa.ipc.IpcWriteOptions(compression=self._spill_codec())
+        # byte-capped batches (~24 MB): the k-way merge buffers at least
+        # one batch per run, so batches as large as a whole buffer would
+        # recreate the memory cliff spilling exists to avoid
+        per_row = max(1, sorted_kv.nbytes // max(1, sorted_kv.num_rows))
+        chunk_rows = max(1024, (24 << 20) // per_row)
+        with pa.OSFile(path, "wb") as f, \
+                pa.ipc.new_file(f, sorted_kv.schema, options=opts) as wr:
+            wr.write_table(sorted_kv, max_chunksize=chunk_rows)
+        self._spill_bytes += os.path.getsize(path)
+        return path
+
+    def _spill(self):
+        """Snapshot (caller thread), then a pooled merge and IPC write.
+        The spill write and the fold are separate tasks (separate retry
+        domains): a transient fold failure must not re-run a spill write
+        that already published, which would duplicate the run and its
+        changelog."""
+        snap = self._snapshot()
+        if snap is None:
+            return
+        self._spills_scheduled += 1
+        payload = snap[0].nbytes
+        self._spill_sched_bytes += payload
+
+        def spill_task(snap=snap):
+            sorted_kv, changelog = self._sorted_chunk(snap)
+            path = self._write_spill_file(sorted_kv)
+            # publish last: a retried attempt rewrote under fresh names
+            self.spills.append(path)
+            self.changelog_files.extend(changelog)
+            self._spill_sched_bytes -= payload
+
+        def fold_task():
+            max_handles = self.parent.options.get(
+                CoreOptions.LOCAL_SORT_MAX_NUM_FILE_HANDLES)
+            if len(self.spills) > max_handles:
+                self._fold_spills(max_handles)
+
+        pool = self.parent.flush_pool()
+        pool.submit(self._key, payload, spill_task)
+        pool.submit(self._key, 1, fold_task)
+
+    def _fold_spills(self, max_handles: int):
+        """Merge the oldest `max_handles` runs into one, so at most that
+        many are open at once (reference BinaryExternalSortBuffer's
+        external-merge fan-in bound)."""
+        from paimon_tpu_torch.ops.merge_stream import merge_runs_streamed
+        fold, rest = self.spills[:max_handles], self.spills[max_handles:]
+        out_path: List[str] = []
+        writer_box: List = [None, None]       # (OSFile, IPC writer)
+
+        def emit(window: pa.Table):
+            if window.num_rows == 0:
+                return
+            if writer_box[0] is None:
+                path = self._new_spill_path("spill-fold")
+                out_path.append(path)
+                writer_box[0] = pa.OSFile(path, "wb")
+                writer_box[1] = pa.ipc.new_file(
+                    writer_box[0], window.schema,
+                    options=pa.ipc.IpcWriteOptions(
+                        compression=self._spill_codec()))
+            writer_box[1].write_table(window)
+
+        merge_runs_streamed([self._ipc_iter(p) for p in fold],
+                            self.parent.key_cols, self.parent.key_encoder,
+                            emit, self._window_merge_fn())
+        if writer_box[1] is not None:
+            writer_box[1].close()
+            writer_box[0].close()
+        # publish the new run list before unlinking the inputs: a
+        # retried fold must re-read a consistent `spills`, never paths
+        # it already deleted; a failed unlink leaves a stray file for
+        # _drop_spills' rmtree
+        fold_sizes = sum(os.path.getsize(p) for p in fold)
+        self.spills = out_path + rest
+        self._spill_bytes -= fold_sizes
+        if out_path:
+            self._spill_bytes += os.path.getsize(out_path[0])
+        for p in fold:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    @staticmethod
+    def _ipc_iter(path):
+        def gen():
+            with pa.OSFile(path, "rb") as f:
+                rd = pa.ipc.open_file(f)
+                for i in range(rd.num_record_batches):
+                    yield pa.Table.from_batches([rd.get_batch(i)])
+        return gen()
+
+    def _window_merge_fn(self):
+        """Window merger shared by the fold and the final L0 merge:
+        deduplicate and first-row keep winners (a device merge), the
+        deferred engines keep every row in (key, seq) order."""
+        parent = self.parent
+        opts = parent.options
+        engine = opts.merge_engine
+
+        def merge_window(tables: List[pa.Table]) -> pa.Table:
+            if engine in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
+                return merge_runs(
+                    tables, parent.key_cols, merge_engine=engine,
+                    drop_deletes=False, key_encoder=parent.key_encoder,
+                    seq_fields=opts.sequence_field or None,
+                    seq_desc=opts.sequence_field_descending,
+                    device=parent.device).take()
+            kv = pa.concat_tables(tables, promote_options="none")
+            order = sort_table(kv, parent.key_cols,
+                               key_encoder=parent.key_encoder,
+                               device=parent.device)
+            return kv.take(pa.array(order))
+        return merge_window
+
+    def _merge_spills(self, snap):
+        """Streamed k-way merge of the spilled runs (and the live
+        buffer's tail `snap`) into rolling L0 files, by the bounded-memory
+        machinery of the compaction rewrite (ops/merge_stream.py).
+        Worker side and retry-safe: output metas publish at the end and
+        the spills drop only on success, so a retried attempt still has
+        its inputs (a failed attempt's L0 files are orphans)."""
+        from paimon_tpu_torch.ops.merge_stream import merge_runs_streamed
+        tail, changelog = self._sorted_chunk(snap)
+        iters = [self._ipc_iter(p) for p in self.spills]
+        if tail is not None:
+            iters.append(iter([tail]))
+        out_metas: List[DataFileMeta] = []
+        acc: List[pa.Table] = []
+        acc_bytes = 0
+        target = self.parent.kv_writer.target_file_size
+
+        def write_acc():
+            nonlocal acc, acc_bytes
+            if not acc:
+                return
+            merged = pa.concat_tables(acc, promote_options="none")
+            out_metas.extend(self.parent.kv_writer.write(
+                self.partition, self.bucket, merged, level=0))
+            acc, acc_bytes = [], 0
+
+        def emit(window: pa.Table):
+            nonlocal acc_bytes
+            if window.num_rows == 0:
+                return
+            if acc and acc_bytes + window.nbytes > target:
+                # write before overshooting, so the rolling writer does
+                # not split every accumulation into full + sliver
+                write_acc()
+            acc.append(window)
+            acc_bytes += window.nbytes
+            if acc_bytes >= target:
+                write_acc()
+
+        merge_runs_streamed(iters, self.parent.key_cols,
+                            self.parent.key_encoder, emit,
+                            self._window_merge_fn())
+        write_acc()
+        self.new_files.extend(out_metas)
+        self.changelog_files.extend(changelog)
+        self._drop_spills()
+
+    def _drop_spills(self):
+        import shutil
+        self.spills = []
+        self._spill_bytes = 0
+        if self._spill_dir is not None:
+            shutil.rmtree(self._spill_dir, ignore_errors=True)
+            self._spill_dir = None
+
+    def schedule_final_flush(self):
+        """Queue the end-of-batch drain of this bucket: the tail buffer
+        is snapshotted now (caller thread), but the spill-or-flush
+        decision runs inside the task, after this bucket's earlier spill
+        tasks (the per-key actor runs them first)."""
+        snap = self._snapshot()
+        if snap is None and self._spills_scheduled == 0:
+            # nothing buffered and no spill since the last drain
+            return
+        self._spills_scheduled = 0
+
+        def task(snap=snap):
+            if self.spills:
+                self._merge_spills(snap)
+                return
+            sorted_kv, changelog = self._sorted_chunk(snap)
+            if sorted_kv is not None:
+                self.new_files.extend(self.parent.kv_writer.write(
+                    self.partition, self.bucket, sorted_kv, level=0))
+                self.changelog_files.extend(changelog)
+
+        est = (snap[0].nbytes if snap is not None else 0) + \
+            self._spill_bytes
+        self.parent.flush_pool().submit(self._key, est, task)
 
     def take_commit_message(self) -> Optional[CommitMessage]:
         """Assemble this bucket's message AFTER the pool drained (the
@@ -300,6 +571,55 @@ def extract_row_kinds(table: pa.Table,
     return table, np.asarray(row_kinds, dtype=np.int8)
 
 
+class LocalMerger:
+    """Pre-routing hot-key fold (reference mergetree/localmerge/
+    HashMapLocalMerger.java): rows buffer before bucket routing; once
+    the buffer reaches `local-merge-buffer-size`, duplicate keys collapse
+    to their winning version in one device merge, so a hot key reaches
+    the bucket writers once a fold instead of once an update.  Row
+    kinds ride along: a DELETE that wins still propagates as a DELETE."""
+
+    def __init__(self, store: "KeyValueFileStoreWrite", buffer_bytes: int):
+        self.store = store
+        self.buffer_bytes = buffer_bytes
+        self._tables: List[pa.Table] = []
+        self._kinds: List[np.ndarray] = []
+        self._nbytes = 0
+
+    def add(self, table: pa.Table, kinds: np.ndarray):
+        self._tables.append(table)
+        self._kinds.append(kinds)
+        self._nbytes += table.nbytes
+        if self._nbytes >= self.buffer_bytes:
+            self.flush()
+
+    def flush(self):
+        if not self._tables:
+            return
+        raw = pa.concat_tables(self._tables, promote_options="none")
+        kinds = np.concatenate(self._kinds)
+        self._tables, self._kinds = [], []
+        self._nbytes = 0
+        if raw.num_rows == 0:
+            return
+        store = self.store
+        schema = store.schema
+        kv = build_kv_table(raw, schema,
+                            np.arange(raw.num_rows, dtype=np.int64), kinds)
+        # the merge runs before partition routing, so the fold key
+        # includes the partition columns: trimmed keys alone would
+        # collapse distinct rows of different partitions
+        key_cols = list(schema.partition_keys) + store.key_cols
+        res = merge_runs(
+            [kv], key_cols, merge_engine=store.options.merge_engine,
+            drop_deletes=False,
+            seq_fields=store.options.sequence_field or None,
+            seq_desc=store.options.sequence_field_descending,
+            device=store.device)
+        idx = res.indices
+        store._dispatch(raw.take(pa.array(idx)), kinds[idx])
+
+
 class KeyValueFileStoreWrite:
     """Routes rows to per-(partition,bucket) writers.
 
@@ -311,6 +631,10 @@ class KeyValueFileStoreWrite:
                  = None, branch: str = "main",
                  bucket_files_map: Optional[Callable[[], Dict]] = None,
                  schema_manager=None, device=None):
+        from paimon_tpu_torch.parallel.write_pipeline import (
+            maybe_wrap_staging,
+        )
+        file_io, self._stager = maybe_wrap_staging(file_io, options)
         self.file_io = file_io
         self.table_path = table_path
         self.schema = table_schema
@@ -364,6 +688,8 @@ class KeyValueFileStoreWrite:
              for k in table_schema.trimmed_primary_keys()],
             nullable=[rt.get_field(k).type.nullable
                       for k in table_schema.trimmed_primary_keys()])
+        self.key_cols = [KEY_PREFIX + k
+                         for k in table_schema.trimmed_primary_keys()]
         self._writers: Dict[Tuple, _BucketWriter] = {}
         # serving-plane hook (TableWrite.set_delta_listener): called with
         # (partition, bucket, table, kinds, seqs) for every buffered
@@ -378,6 +704,21 @@ class KeyValueFileStoreWrite:
         self._restore_max_seq = restore_max_seq
         self.changelog_input = (
             options.changelog_producer == ChangelogProducer.INPUT)
+        self.spillable = options.get(CoreOptions.WRITE_BUFFER_SPILLABLE)
+        self._local_merger: Optional[LocalMerger] = None
+        lm_size = options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE)
+        if lm_size:
+            if options.merge_engine not in (MergeEngine.DEDUPLICATE,
+                                            MergeEngine.FIRST_ROW):
+                raise ValueError(
+                    "local-merge-buffer-size supports deduplicate / "
+                    "first-row merge engines (reference "
+                    "HashMapLocalMerger applies whole-row merges)")
+            if self.changelog_input:
+                raise ValueError(
+                    "local-merge-buffer-size folds input rows, which "
+                    "would drop changelog-producer=input events")
+            self._local_merger = LocalMerger(self, lm_size)
 
     def flush_pool(self):
         """The shared bucket-flush executor (parallel/write_pipeline.py);
@@ -409,12 +750,16 @@ class KeyValueFileStoreWrite:
         """Write a batch of rows (full table schema). Optional `row_kinds`
         int8[N] (RowKind codes); a `_ROW_KIND` column is also honored."""
         table, row_kinds = extract_row_kinds(table, row_kinds)
+        if self._local_merger is not None and not self._postpone:
+            self._local_merger.add(table, row_kinds)
+            return
         self._dispatch(table, row_kinds)
 
     def _dispatch(self, table: pa.Table, row_kinds: np.ndarray):
         from paimon_tpu_torch.parallel.write_pipeline import lpt_order
 
         if self._postpone:
+            self._drain_prep()
             buckets = np.full(table.num_rows, -2, dtype=np.int32)
             for (part, bucket), idx in lpt_order(
                     group_by_partition_bucket(
@@ -425,6 +770,7 @@ class KeyValueFileStoreWrite:
         if self._dynamic is not None:
             # partition-first grouping: bucket assignment depends on the
             # partition's hash index (stateful, so no lookahead here)
+            self._drain_prep()
             zeros = np.zeros(table.num_rows, dtype=np.int32)
             for (part, _), idx in group_by_partition_bucket(
                     table, zeros, self.partition_keys):
@@ -497,15 +843,17 @@ class KeyValueFileStoreWrite:
         return self._writers[key]
 
     def prepare_commit(self) -> List[CommitMessage]:
-        """The pipeline barrier: flush every bucket (largest buffer
-        first), wait for the pool, then assemble messages on the caller
-        thread.  The first worker error re-raises here with the
-        remaining queued flushes cancelled — a failed prepare commits
-        nothing."""
+        """The pipeline barrier: schedule every bucket's final drain
+        (largest pending bytes first), wait for the pool, then assemble
+        messages on the caller thread.  The first worker error re-raises
+        here with the remaining queued flushes cancelled — a failed
+        prepare commits nothing."""
+        if self._local_merger is not None:
+            self._local_merger.flush()
         self._drain_prep()
         for w in sorted(self._writers.values(),
-                        key=lambda w: -w.buffered_bytes):
-            w.flush()
+                        key=lambda w: -w.pending_bytes()):
+            w.schedule_final_flush()
         self.flush_pool().drain()
         out = []
         auto_compact = not self.options.write_only and not self._postpone
@@ -529,6 +877,12 @@ class KeyValueFileStoreWrite:
                 else:
                     out.append(CommitMessage((), 0, self.total_buckets,
                                              index_entries=entries))
+        if self._stager is not None:
+            # the durability barrier comes last: every file a message
+            # names must be acked by the store before the caller may
+            # commit (an upload failure raises here and poisons the
+            # stager: commit nothing, close the writer)
+            self._stager.drain()
         return out
 
     def _maybe_compact(self, msg: CommitMessage, existing_map: Dict):
@@ -559,6 +913,14 @@ class KeyValueFileStoreWrite:
             self._prep_pool = None
         self._prep.clear()
         if self._flush_pool is not None:
+            # join the workers first, so no task mutates spill state
+            # while it is cleaned
             self._flush_pool.shutdown(wait=True)
             self._flush_pool = None
+        if self._stager is not None:
+            # after the flush pool, so no worker stages once the upload
+            # pool is shut; abandoned staged files go with the stage dir
+            self._stager.close()
+        for w in self._writers.values():
+            w._drop_spills()          # an aborted write leaks no spill
         self._writers.clear()

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Set, Tuple
 
 from paimon_tpu_torch.manifest import FileKind
+from paimon_tpu_torch.manifest.stats_sidecar import sidecar_name
 from paimon_tpu_torch.options import CoreOptions
 from paimon_tpu_torch.snapshot import Snapshot
 
@@ -45,14 +46,6 @@ class ExpireResult:
         return not self.expired_snapshots and not self.folded_snapshots
 
 
-def _sidecar_name(list_name: str) -> str:
-    """Columnar stats sidecar next to a manifest list (may not exist;
-    referenced-set membership just keeps a live list's sidecar from
-    being reclaimed, and delete paths are quiet)."""
-    from paimon_tpu_torch.manifest.manifest_file import _SIDECAR_PREFIX
-    return _SIDECAR_PREFIX + list_name
-
-
 def _snapshot_refs(table, snapshot: Snapshot
                    ) -> Tuple[Set[Tuple], Set[str]]:
     """(data file refs {(partition_bytes, bucket, file_name, external_path)},
@@ -73,7 +66,7 @@ def _snapshot_refs(table, snapshot: Snapshot
         entries = []
         manifests.add(list_name)
         # the columnar stats sidecar lives and dies with its list
-        manifests.add(_sidecar_name(list_name))
+        manifests.add(sidecar_name(list_name))
         try:
             metas = scan.manifest_list.read(list_name)
         except FileNotFoundError:
@@ -121,7 +114,7 @@ def _walk_manifest_list(scan, list_name: str, data: Set[Tuple],
     semantics and keeps its own walk)."""
     entries = []
     manifests.add(list_name)
-    manifests.add(_sidecar_name(list_name))
+    manifests.add(sidecar_name(list_name))
     try:
         metas = scan.manifest_list.read(list_name)
     except FileNotFoundError:
@@ -300,7 +293,7 @@ def _fold_heartbeats(table, dry_run: bool = False) -> List[int]:
                 f"{scan.path_factory.manifest_dir}/{list_name}")
             table.file_io.delete_quietly(
                 f"{scan.path_factory.manifest_dir}/"
-                f"{_sidecar_name(list_name)}")
+                f"{sidecar_name(list_name)}")
         sm.delete_snapshot(s.id)
     return sorted(s.id for s in candidates)
 

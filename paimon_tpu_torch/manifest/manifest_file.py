@@ -22,8 +22,6 @@ __all__ = ["ManifestFile", "ManifestFileMeta", "ManifestList"]
 META_VERSION = 2
 
 
-_SIDECAR_PREFIX = "stats-"
-
 @dataclass
 class ManifestFileMeta:
     file_name: str
@@ -224,15 +222,23 @@ class ManifestFile:
 
 
 class ManifestList:
-    """Reads/writes manifest-list-<uuid>-<n> files (without the
-    reference's columnar stats sidecar: planning here reads every
-    list's manifests)."""
+    """Reads/writes manifest-list-<uuid>-<n> files.
+
+    With `sidecar=True` every written list also gets a `stats-<name>`
+    columnar sidecar (manifest/stats_sidecar.py) that scan planning
+    prunes against, vectorised, before fetching any manifest file."""
 
     def __init__(self, file_io: FileIO, manifest_dir: str,
-                 compression: str = "zstandard"):
+                 compression: str = "zstandard",
+                 partition_types: Optional[list] = None,
+                 key_types: Optional[list] = None,
+                 sidecar: bool = False):
         self.file_io = file_io
         self.manifest_dir = manifest_dir.rstrip("/")
         self.compression = compression
+        self.partition_types = partition_types or []
+        self.key_types = key_types or []
+        self.sidecar = sidecar
         self._suffix = 0
 
     def new_file_name(self) -> str:
@@ -249,12 +255,44 @@ class ManifestList:
             MANIFEST_FILE_META_AVRO_SCHEMA, [m.to_avro() for m in metas],
             codec=self.compression)
         self.file_io.write_bytes(self.path(name), data, overwrite=False)
+        if self.sidecar and metas:
+            from paimon_tpu_torch.manifest.stats_sidecar import (
+                build_sidecar, sidecar_path,
+            )
+            from paimon_tpu_torch.utils.deadline import DeadlineExceededError
+            try:
+                blob = build_sidecar(metas, self.partition_types,
+                                     self.key_types)
+                if blob is not None:
+                    self.file_io.write_bytes(
+                        sidecar_path(self.path(name)), blob,
+                        overwrite=False)
+            except (DeadlineExceededError, KeyboardInterrupt,
+                    SystemExit):
+                # a genuine abort: the caller treats this write as
+                # failed, so the list it already wrote is unrecorded and
+                # must go with it
+                self.file_io.delete_quietly(self.path(name))
+                raise
+            except Exception:               # noqa: BLE001 — advisory
+                # readers fall back to the Python prune without a
+                # sidecar, so a failed build or write never fails a
+                # commit whose required files all landed; sweep a torn
+                # blob and go on without one
+                self.file_io.delete_quietly(
+                    sidecar_path(self.path(name)))
         return name, len(data)
 
     def read(self, name: str) -> List[ManifestFileMeta]:
         _, records = avro_fmt.read_container(
             self.file_io.read_bytes(self.path(name)))
         return [ManifestFileMeta.from_avro(r) for r in records]
+
+    def read_sidecar(self, name: str):
+        """The columnar stats sidecar of one list (an Arrow table), or
+        None when absent or undecodable."""
+        from paimon_tpu_torch.manifest.stats_sidecar import read_sidecar
+        return read_sidecar(self.file_io, self.path(name))
 
     def read_all(self, base_name: str,
                  delta_name: Optional[str]) -> List[ManifestFileMeta]:
@@ -264,9 +302,6 @@ class ManifestList:
         return out
 
     def delete(self, name: str):
+        from paimon_tpu_torch.manifest.stats_sidecar import sidecar_path
         self.file_io.delete_quietly(self.path(name))
-        # the reference package may have written a stats sidecar beside
-        # the list (paimon_tpu/manifest/stats_sidecar.py); this package
-        # neither writes nor reads one
-        self.file_io.delete_quietly(
-            f"{self.manifest_dir}/{_SIDECAR_PREFIX}{name}")
+        self.file_io.delete_quietly(sidecar_path(self.path(name)))

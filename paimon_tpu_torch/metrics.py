@@ -4,13 +4,17 @@ Counterpart of paimon_tpu/metrics.py, reduced to what the ported
 planes record: the compaction group's fault counters and window /
 fallback histograms, the scan group's device-decode fallbacks and
 byte-cache counters, and the serving plane's service, lookup,
-resilience and slo groups, and the maintenance plane's counters
-(maintenance, plan and fleet groups: fsck violations, manifest
-compactions, incremental fsck sweeps).  `snapshot_rows` is the one
+resilience and slo groups, the maintenance plane's counters
+(maintenance and fleet groups: fsck violations, incremental fsck
+sweeps), the read and write planes' retries, prefetch budget and flush
+counters (scan and write groups), the upload stager's counters
+(cache_disk group) and the incremental metadata plane (plan group:
+plans, delta applies, manifests read and pruned, entries decoded,
+sidecar fallbacks, manifest compactions).  `snapshot_rows` is the one
 serialization behind `snapshot()` and the Prometheus text of
-obs/export.py.  The reference's other groups (commit, write, stream,
-multihost, cache_disk), the rest of the plan and fleet groups and
-CompactTimer are not ported yet.
+obs/export.py.  The reference's commit, stream and multihost groups,
+the rest of the fleet and cache_disk groups and CompactTimer are not
+ported yet.
 
 reference: paimon-core/.../metrics/ (MetricRegistry, Counter, Gauge,
 Histogram) with groups ScanMetrics / CompactionMetrics.
@@ -52,7 +56,16 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
            "SLO_ALERT", "SLO_GOOD_EVENTS", "SLO_BAD_EVENTS",
            "FSCK_VIOLATIONS", "PLAN_MANIFEST_COMPACTIONS",
            "FLEET_FSCK_INCREMENTAL_RUNS", "FLEET_FSCK_OBJECTS_CHECKED",
-           "FLEET_FSCK_WATERMARK_AGE_MS"]
+           "FLEET_FSCK_WATERMARK_AGE_MS",
+           "SCAN_PIPELINE_SPLITS", "SCAN_PIPELINE_BYTES",
+           "SCAN_READ_RETRIES", "SCAN_SPLIT_MS",
+           "WRITE_FLUSHES", "WRITE_FLUSHED_BYTES", "WRITE_FLUSH_WAIT_MS",
+           "WRITE_INFLIGHT_BYTES", "WRITE_RETRIES", "WRITE_SORT_MS",
+           "WRITE_FLUSH_TASK_MS", "CACHE_DISK_STAGED_UPLOADS",
+           "CACHE_DISK_STAGE_MS", "PLAN_PLANS", "PLAN_MS",
+           "PLAN_DELTA_APPLIES", "PLAN_MANIFESTS_READ",
+           "PLAN_MANIFESTS_PRUNED", "PLAN_ENTRIES_DECODED",
+           "PLAN_SIDECAR_FALLBACKS"]
 
 # fault-tolerance counters of the compaction group (producer:
 # parallel/mesh_engine.py):
@@ -64,8 +77,20 @@ COMPACTION_BUCKET_FALLBACKS = "bucket_fallbacks"
 COMPACTION_BUCKET_FAILURES = "bucket_failures"
 # maintenance group: violations found by fsck (maintenance/fsck.py)
 FSCK_VIOLATIONS = "fsck_violations"
-# plan group: manifest full rewrites (maintenance/manifest_compact.py)
-PLAN_MANIFEST_COMPACTIONS = "manifest_compactions"
+# plan group (core/scan.py's delta-apply plan cache and vectorised
+# manifest pruning; manifest_compactions from
+# maintenance/manifest_compact.py).  entries_decoded is the proof meter:
+# it must not move for pruned manifests.  sidecar_fallbacks (ours)
+# counts manifests a sidecar-enabled scan pruned by the per-meta Python
+# check because their list's sidecar was missing or undecodable.
+PLAN_PLANS = "plans"                          # scan plans produced
+PLAN_MS = "plan_ms"                           # one whole plan() call
+PLAN_DELTA_APPLIES = "plan_delta_applies"     # cache-advanced plans
+PLAN_MANIFESTS_READ = "manifests_read"        # manifest files fetched
+PLAN_MANIFESTS_PRUNED = "manifests_pruned"    # skipped before fetch
+PLAN_ENTRIES_DECODED = "entries_decoded"      # manifest entries decoded
+PLAN_SIDECAR_FALLBACKS = "sidecar_fallbacks"  # Python-pruned manifests
+PLAN_MANIFEST_COMPACTIONS = "manifest_compactions"  # full rewrites
 # fleet group (maintenance/fsck.py): fsck sweeps asked to ride the
 # watermark, the objects (snapshots, manifests, data files) a sweep
 # verified, and the age of the last clean-sweep watermark
@@ -83,7 +108,24 @@ SCAN_FOOTER_CACHE_MISSES = "footer_cache_misses"
 SCAN_RANGE_CACHE_HITS = "range_cache_hits"
 SCAN_RANGE_CACHE_MISSES = "range_cache_misses"
 SCAN_RANGE_CACHE_HIT_BYTES = "range_cache_hit_bytes"
+# scan group: the pipelined scan (parallel/scan_pipeline.py)
+SCAN_PIPELINE_SPLITS = "pipeline_splits"          # splits prefetched
+SCAN_PIPELINE_BYTES = "pipeline_bytes"            # est. bytes admitted
+SCAN_READ_RETRIES = "read_retries"                # transient IO retries
+# write group: the pipelined write (parallel/write_pipeline.py)
+WRITE_FLUSHES = "flushes"                   # flush tasks admitted
+WRITE_FLUSHED_BYTES = "flushed_bytes"       # est. buffered bytes flushed
+WRITE_FLUSH_WAIT_MS = "flush_wait_ms"       # producer ms blocked on the
+                                            # in-flight byte budget
+WRITE_INFLIGHT_BYTES = "inflight_bytes"     # gauge: bytes in flight now
+WRITE_RETRIES = "write_retries"             # transient flush retries
+# cache_disk group: the write path's staged uploads (UploadStager)
+CACHE_DISK_STAGED_UPLOADS = "staged_uploads"  # uploads acked from stage
+CACHE_DISK_STAGE_MS = "stage_ms"              # one encode->staged write
 # latency histograms (ms) fed by obs/trace.py spans that name them
+SCAN_SPLIT_MS = "split_ms"                  # scan: whole read_split
+WRITE_SORT_MS = "sort_ms"                   # write: buffer sort/dedup
+WRITE_FLUSH_TASK_MS = "flush_task_ms"       # write: whole flush task
 COMPACTION_WINDOW_MS = "window_ms"          # one mesh window merge
 COMPACTION_FALLBACK_MS = "fallback_ms"      # one single-chip rescue
 
@@ -287,6 +329,15 @@ class MetricRegistry:
 
     def compaction_metrics(self, table: str = "") -> MetricGroup:
         return self.group("compaction", table)
+
+    def write_metrics(self, table: str = "") -> MetricGroup:
+        """Pipelined write plane (parallel/write_pipeline.py)."""
+        return self.group("write", table)
+
+    def cache_disk_metrics(self, table: str = "") -> MetricGroup:
+        """The write path's staged uploads (the reference's host-SSD
+        read tier of this group waits for ROADMAP.md A.7b)."""
+        return self.group("cache_disk", table)
 
     def maintenance_metrics(self, table: str = "") -> MetricGroup:
         """Expire / orphan-clean / fsck plane."""

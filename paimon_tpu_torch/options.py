@@ -336,16 +336,19 @@ class CoreOptions:
         "trace.export.dir", str, None,
         "Spool directory: each process appends its spans to its own "
         "<dir>/<process-tag>.jsonl at the same completion points")
-    # read by the reference and refused by table/table.py until their
-    # planes are ported (ROADMAP.md section A.8)
     SCAN_IGNORE_CORRUPT_FILES = ConfigOption(
         "scan.ignore-corrupt-files", _parse_bool, False,
         "Skip unreadable data files during scans (warn) instead of "
         "failing the query")
     WRITE_STAGE_DIR = ConfigOption(
         "write.stage.dir", str, None,
-        "Encode flushed files to a staged local file here and upload "
-        "them asynchronously")
+        "When set, flush workers encode data and changelog files to a "
+        "staged local file here and hand the store upload to an async "
+        "upload pool; upload retries re-read the staged bytes, and "
+        "prepare_commit() still waits for every upload's ack.  None = "
+        "the inline upload path")
+    # read by the reference and refused by table/table.py until its
+    # plane is ported (ROADMAP.md A.7b)
     REQUEST_TIMEOUT = ConfigOption(
         "request.timeout", _parse_duration_ms, None,
         "End-to-end deadline for table entry points")
@@ -515,8 +518,11 @@ class CoreOptions:
         "for (reference fileindex/rangebitmap/RangeBitmap.java)")
     ROW_TRACKING_ENABLED = ConfigOption("row-tracking.enabled", _parse_bool,
                                         False, "")
-    LOCAL_MERGE_BUFFER_SIZE = ConfigOption("local-merge-buffer-size",
-                                           parse_memory_size, None, "")
+    LOCAL_MERGE_BUFFER_SIZE = ConfigOption(
+        "local-merge-buffer-size", parse_memory_size, None,
+        "Buffer rows before bucket routing and fold duplicate keys to "
+        "their winner once this many bytes are buffered (deduplicate "
+        "and first-row only)")
     MANIFEST_COMPRESSION = ConfigOption("manifest.compression", str, "zstd", "")
 
     COMMIT_MAX_RETRIES = ConfigOption(
@@ -544,6 +550,20 @@ class CoreOptions:
         "read.prefetch.splits", int, 2,
         "Extra splits submitted beyond the worker pool width so the "
         "next split's files download while the current one merges")
+    READ_PREFETCH_MAX_BYTES = ConfigOption(
+        "read.prefetch.max-bytes", parse_memory_size, 1 << 30,
+        "Hard budget on the estimated bytes (sum of data-file sizes) "
+        "of splits in flight at once; at least one split is always "
+        "admitted so a budget below one split's size cannot stall")
+    READ_RETRY_MAX_ATTEMPTS = ConfigOption(
+        "read.retry.max-attempts", int, 3,
+        "Attempts per data-file read on a transient store fault (503 "
+        "storms, IO errors — parallel/fault.py taxonomy) before the "
+        "scan raises; non-transient errors never retry")
+    READ_RETRY_BACKOFF = ConfigOption(
+        "read.retry.backoff", _parse_duration_ms, 10,
+        "Base wait between data-file read retries; actual waits use "
+        "capped decorrelated jitter (utils/backoff.py)")
     READ_CACHE_FOOTER = ConfigOption(
         "read.cache.footer", _parse_bool, True,
         "Cache parsed parquet footers of immutable data files in a "
@@ -578,6 +598,40 @@ class CoreOptions:
         "flight at once; producers block at write() until the pool "
         "drains below it, and at least one flush is always admitted so "
         "a budget below one buffer's size cannot deadlock")
+    WRITE_RETRY_MAX_ATTEMPTS = ConfigOption(
+        "write.retry.max-attempts", int, 3,
+        "Attempts per bucket flush on a transient store fault (503 "
+        "storms, IO errors — parallel/fault.py taxonomy) before the "
+        "write raises; non-transient errors never retry, and an "
+        "exhausted flush always raises — never silently dropped")
+    WRITE_RETRY_BACKOFF = ConfigOption(
+        "write.retry.backoff", _parse_duration_ms, 10,
+        "Base wait between bucket-flush retries; actual waits use "
+        "capped decorrelated jitter (utils/backoff.py)")
+    WRITE_STAGE_PARALLELISM = ConfigOption(
+        "write.stage.parallelism", int, None,
+        "Worker threads uploading staged files (write.stage.dir) "
+        "concurrently; None = min(8, cpu count)")
+
+    # -- spill (reference CoreOptions.java:860-930) --------------------------
+    SPILL_COMPRESSION = ConfigOption(
+        "spill-compression", str, "zstd",
+        "Codec for spilled sorted runs (zstd | lz4 | none)")
+    SPILL_COMPRESSION_ZSTD_LEVEL = ConfigOption(
+        "spill-compression.zstd-level", int, 1,
+        "zstd level for spill files (speed matters more than ratio)")
+    SORT_SPILL_BUFFER_SIZE = ConfigOption(
+        "sort-spill-buffer-size", parse_memory_size, 64 << 20,
+        "In-memory rows buffered before a sorted run spills")
+    WRITE_BUFFER_SPILL_MAX_DISK_SIZE = ConfigOption(
+        "write-buffer-spill.max-disk-size", parse_memory_size,
+        9223372036854775807,
+        "Disk budget for spilled write-buffer runs; reaching it forces "
+        "an early flush to L0 instead of more spill")
+    LOCAL_SORT_MAX_NUM_FILE_HANDLES = ConfigOption(
+        "local-sort.max-num-file-handles", int, 128,
+        "Max spilled runs merged at once; more runs first fold into "
+        "one (the reference's external-merge fan-in bound)")
 
 
     SCAN_PLAN_SORT_PARTITION = ConfigOption(
@@ -738,6 +792,14 @@ class CoreOptions:
         "manifest.stats.sidecar", _parse_bool, True,
         "Write a columnar partition/bucket/key-range stats sidecar "
         "next to every manifest list (vectorized manifest pruning)")
+    SCAN_PLAN_CACHE = ConfigOption(
+        "scan.plan.cache", _parse_bool, True,
+        "Reuse cached plans across snapshots by applying only the new "
+        "snapshots' delta manifests (invalidated by overwrites)")
+    SCAN_PLAN_CACHE_MAX_ENTRIES = ConfigOption(
+        "scan.plan.cache.max-entries", int, 4_000_000,
+        "Largest live-entry count the delta-apply plan cache will hold "
+        "for one table; bigger tables fall back to cold walks")
 
 
     DATA_FILE_PREFIX = ConfigOption(

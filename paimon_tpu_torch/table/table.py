@@ -34,9 +34,7 @@ from paimon_tpu_torch.core.write import CommitMessage, KeyValueFileStoreWrite
 from paimon_tpu_torch.device import resolve_device
 from paimon_tpu_torch.fs import FileIO, get_file_io
 from paimon_tpu_torch.manifest import FileKind
-from paimon_tpu_torch.options import (
-    ChangelogProducer, CoreOptions, Options,
-)
+from paimon_tpu_torch.options import CoreOptions, Options
 from paimon_tpu_torch.predicate import Predicate
 from paimon_tpu_torch.schema.schema import Schema
 from paimon_tpu_torch.schema.schema_manager import SchemaManager
@@ -68,15 +66,12 @@ def check_readable(schema: TableSchema, options: CoreOptions) -> None:
     # carries them)
     if options.get(CoreOptions.ROW_TRACKING_ENABLED):
         _not_ported("row tracking", "A.8.7")
-    if options.get(CoreOptions.SCAN_IGNORE_CORRUPT_FILES):
-        _not_ported(CoreOptions.SCAN_IGNORE_CORRUPT_FILES.key, "A.8.5")
     # deadlines on the table's own reads, the host-SSD cache tier and
     # hedged store reads
     for key in (CoreOptions.REQUEST_TIMEOUT, CoreOptions.CACHE_DISK_DIR,
                 CoreOptions.READ_HEDGE_ENABLED):
         if options.get(key):
             _not_ported(key.key, "A.7b")
-    _refuse_prefix(options, "read.retry.", "A.8.5")
 
 
 def _refuse_prefix(options: CoreOptions, prefix: str, item: str) -> None:
@@ -90,17 +85,6 @@ def _refuse_prefix(options: CoreOptions, prefix: str, item: str) -> None:
 def check_writable(options: CoreOptions) -> None:
     """Raise NotImplementedError for write and compaction options this
     package does not yet honor (a table with them still reads)."""
-    for key in (CoreOptions.WRITE_BUFFER_SPILLABLE,
-                CoreOptions.WRITE_STAGE_DIR):
-        if options.get(key):
-            _not_ported(key.key, "A.8.5")
-    _refuse_prefix(options, "write.retry.", "A.8.5")
-    if options.get(CoreOptions.LOCAL_MERGE_BUFFER_SIZE):
-        if options.changelog_producer == ChangelogProducer.INPUT:
-            raise ValueError(
-                "local-merge-buffer-size folds input rows, which "
-                "would drop changelog-producer=input events")
-        _not_ported("local-merge-buffer-size", "A.8.5")
     # file indexes: their columns, the bloom fpp, the in-manifest size
     _refuse_prefix(options, "file-index.", "A.8.6")
     # read by no writer of either package yet: a cap on dynamic buckets

@@ -1,10 +1,16 @@
-"""Capped decorrelated-jitter backoff for the commit's CAS retry loop.
+"""Capped decorrelated-jitter backoff, shared by every retry loop.
 
-Counterpart of paimon_tpu/utils/backoff.py without request deadlines
-(not ported yet): the n-th wait is drawn uniformly from
-[base, 3 * previous_wait], clamped to a cap, with an optional
-max-elapsed-time budget after which the caller must give up.
-`wait_for` is the one sleep of the mesh compaction's retry deadlines.
+Counterpart of paimon_tpu/utils/backoff.py: the n-th wait is drawn
+uniformly from [base, 3 * previous_wait], clamped to a cap, with an
+optional max-elapsed-time budget after which the caller must give up.
+Users: the commit's CAS retry, the mesh compaction's retry ladder, and
+the read and write retry ladders (parallel/scan_pipeline.py,
+parallel/write_pipeline.py).
+
+Every wait is deadline-aware (utils/deadline.py): when the calling
+request carries a deadline, `pause()` never sleeps past its remaining
+budget and raises DeadlineExceededError once it is spent; `wait_for()`
+is the same contract for one-shot waits.
 """
 
 from __future__ import annotations
@@ -19,10 +25,14 @@ __all__ = ["Backoff", "wait_for"]
 def wait_for(seconds: float, *,
              sleep: Callable[[float], None] = time.sleep,
              what: str = "wait") -> None:
-    """One library sleep.  The reference caps it to the current request
-    deadline and raises once that is spent; this package has no request
-    deadlines yet (request.timeout is refused), so it sleeps `seconds`.
-    `what` names the wait as the reference's message does."""
+    """One deadline-aware sleep: caps the wait to the current deadline's
+    remaining budget and raises DeadlineExceededError when that budget
+    is already spent.  `what` names the wait in the error."""
+    from paimon_tpu_torch.utils.deadline import current_deadline
+    dl = current_deadline()
+    if dl is not None:
+        dl.check(what)
+        seconds = min(seconds, dl.remaining_s())
     if seconds > 0:
         sleep(seconds)
 
@@ -81,11 +91,18 @@ class Backoff:
 
     def pause(self) -> bool:
         """Sleep for the next wait.  False (no sleep) when the
-        max-elapsed budget is already spent — time to give up."""
+        max-elapsed budget is already spent — time to give up.  When the
+        calling request carries a deadline, the wait is capped to its
+        remaining budget and a spent deadline raises
+        DeadlineExceededError."""
         if self._started is None:
             self._started = self._clock()
         if self.budget_exhausted():
             return False
+        from paimon_tpu_torch.utils.deadline import current_deadline
+        dl = current_deadline()
+        if dl is not None:
+            dl.check("retry backoff")
         wait = self.next_ms()
         if wait > 0:
             if self.max_elapsed_ms is not None:
@@ -93,6 +110,8 @@ class Backoff:
                 wait = min(wait,
                            max(0.0, self.max_elapsed_ms
                                - self.elapsed_ms()))
+            if dl is not None:
+                wait = min(wait, dl.remaining_ms())
             if wait > 0:
                 self._sleep(wait / 1000.0)
         return True

@@ -198,9 +198,8 @@ def test_every_bucket_mode_and_schema_option_key_is_defined_or_refused(
 
 # Keys the reference reads that the port neither defines nor refuses:
 # each is read only by a reference module that is not ported, or only on
-# a path that another, refused key opens (spilling needs
-# write-buffer-spillable, hedging read.hedge.enabled, staging
-# write.stage.dir).  Each names the ROADMAP.md item that ports it.
+# a path that another, refused key opens (hedging needs
+# read.hedge.enabled).  Each names the ROADMAP.md item that ports it.
 _NOT_YET_READ = {
     # core/append.py (append tables), the deletion-vector read mask and
     # the append split binning of core/scan.py
@@ -210,17 +209,6 @@ _NOT_YET_READ = {
     "deletion-vectors.merge-on-read": "A.8.7",
     "source.split.open-file-cost": "A.8.7",
     "source.split.target-size": "A.8.7",
-    # core/write.py spilling, parallel/write_pipeline.py staging, the
-    # scan pipeline's prefetch byte budget and core/scan.py's plan cache
-    "local-sort.max-num-file-handles": "A.8.5",
-    "sort-spill-buffer-size": "A.8.5",
-    "spill-compression": "A.8.5",
-    "spill-compression.zstd-level": "A.8.5",
-    "write-buffer-spill.max-disk-size": "A.8.5",
-    "write.stage.parallelism": "A.8.5",
-    "read.prefetch.max-bytes": "A.8.5",
-    "scan.plan.cache": "A.8.5",
-    "scan.plan.cache.max-entries": "A.8.5",
     # fs/resilience.py hedging and breakers, service/stream_daemon.py
     "read.hedge.max-ratio": "A.7b",
     "read.hedge.min-delay": "A.7b",
@@ -313,3 +301,41 @@ def test_every_option_key_the_reference_reads_is_defined_or_refused(
     # yet defined by the port
     assert sorted(k for k in _NOT_YET_READ
                   if k in port_keys or k not in reads) == []
+
+
+# the keys _NOT_YET_READ listed until the read and write planes
+# (ROADMAP.md A.8.5) were ported: spilling, staging, the prefetch byte
+# budget and the plan cache
+_A85_KEYS = ["local-sort.max-num-file-handles", "sort-spill-buffer-size",
+             "spill-compression", "spill-compression.zstd-level",
+             "write-buffer-spill.max-disk-size", "write.stage.parallelism",
+             "read.prefetch.max-bytes", "scan.plan.cache",
+             "scan.plan.cache.max-entries"]
+
+
+@pytest.mark.parametrize("key", _A85_KEYS)
+def test_ported_read_write_plane_keys_match_reference(key):
+    """Each key the port now reads is defined with the reference's
+    spelling, parser and default, and a module of the port reads it."""
+    from paimon_tpu.options import CoreOptions as RefCoreOptions
+    from paimon_tpu_torch.options import CoreOptions
+
+    def by_key(cls):
+        return {v.key: (n, v) for n, v in vars(cls).items()
+                if hasattr(v, "key")}
+
+    name, opt = by_key(CoreOptions)[key]
+    ref_name, ref = by_key(RefCoreOptions)[key]
+    assert name == ref_name
+    assert opt.default == ref.default
+    assert opt.typ.__name__ == ref.typ.__name__
+    pkg = os.path.join(REPO, "paimon_tpu_torch")
+    readers = []
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            path = os.path.join(d, f)
+            if f.endswith(".py") and f != "options.py":
+                with open(path) as fh:
+                    if f"CoreOptions.{name}" in fh.read():
+                        readers.append(f)
+    assert readers, key

@@ -912,9 +912,13 @@ def test_remove_unexisting_manifests(tmp_path):
         for i in range(4):
             commit(t, [{"id": i, "v": float(i)}])
         delete_second_manifest(t)
+        # both packages' plan caches hold the live set from before the
+        # deletion: drop them so the read walks the broken chain
         if pkg is REF:
             from paimon_tpu.core.plan_cache import reset_plan_caches
-            reset_plan_caches()
+        else:
+            from paimon_tpu_torch.core.plan_cache import reset_plan_caches
+        reset_plan_caches()
         with pytest.raises(Exception):
             t.to_arrow()
         sid = maint(pkg, "repair").remove_unexisting_manifests(t)

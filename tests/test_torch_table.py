@@ -344,9 +344,6 @@ _UNPORTED_ACTIONS = {"deletion-vector index entries": _dv_index_entry_scan,
     ({"row-tracking.enabled": "true"}, "A.8.7"),
     ("deletion-vector index entries", "A.8.7"),
     ("append deletion-vector delete", "A.8.7"),
-    ({"scan.ignore-corrupt-files": "true"}, "A.8.5"),
-    ({"read.retry.max-attempts": "5"}, "A.8.5"),
-    ({"read.retry.backoff": "20 ms"}, "A.8.5"),
     ({"request.timeout": "30 s"}, "A.7b")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -358,12 +355,7 @@ def test_unported_table_options_raise(tmp_path, options, item):
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"write-buffer-spillable": "true"}, "A.8.5"),
-    ({"local-merge-buffer-size": "1mb"}, "A.8.5"),
     ({"file-index.bloom-filter.columns": "v1"}, "A.8.6"),
-    ({"write.retry.max-attempts": "5"}, "A.8.5"),
-    ({"write.retry.backoff": "20 ms"}, "A.8.5"),
-    ({"write.stage.dir": "/tmp/stage"}, "A.8.5"),
     ({"dynamic-bucket.max-buckets": "8"}, "A.8.3b"),
     ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b"),
     ({"snapshot.expire.limit": "10"}, "A.8.4b"),
@@ -470,3 +462,54 @@ def test_opened_options_match_reference(tmp_path, key, value):
     assert got[0] == got[1]
     assert [r["id"] for r in read_sorted(port.copy(read_opts))] == \
         [r["id"] for r in read_sorted(ref.copy(read_opts))]
+
+
+# -- options the read and write planes opened (they were refused) -----------
+
+def _a85_scenario(table, key):
+    """What one opened read or write option does on `table`: the rows it
+    reads and the data files it leaves per bucket (row counts)."""
+    rows = [{"id": i, "name": str(i), "score": float(i)} for i in range(40)]
+    for lo in (0, 10, 20):
+        write_rows(table, rows[lo:lo + 20])
+    if key == "scan.ignore-corrupt-files":
+        # zero the head of the oldest data file of bucket 0 (C.3's input)
+        bdir = os.path.join(table.path, "bucket-0")
+        oldest = min((os.path.join(bdir, f) for f in os.listdir(bdir)),
+                     key=os.path.getmtime)
+        with open(oldest, "r+b") as f:
+            f.write(b"\0" * 64)
+    out = [read_sorted(table)]
+    for b in sorted(d for d in os.listdir(table.path)
+                    if d.startswith("bucket-")):
+        out.append((b, len(os.listdir(os.path.join(table.path, b)))))
+    return out
+
+
+@pytest.mark.parametrize("key, value", [
+    ("scan.ignore-corrupt-files", "true"),
+    ("read.retry.max-attempts", "5"),
+    ("read.retry.backoff", "20 ms"),
+    ("write-buffer-spillable", "true"),
+    ("local-merge-buffer-size", "1mb"),
+    ("write.retry.max-attempts", "5"),
+    ("write.retry.backoff", "20 ms"),
+    ("write.stage.dir", "stage")])
+def test_opened_read_write_options_match_reference(tmp_path, key, value):
+    """The refused cases of the two tests above for the keys the read and
+    write planes ported: a table that sets the key behaves as the
+    reference's does (tests/test_torch_spill.py,
+    test_torch_local_merge.py and test_torch_read_write_faults.py hold
+    each feature in depth)."""
+    if key == "write.stage.dir":
+        value = str(tmp_path / value)
+    port = new_table(tmp_path, pk_schema(**{key: value}))
+    ref = RefTable.create(str(tmp_path / "r"), _ref_pk_schema(**{key: value}))
+    got = [_a85_scenario(t, key) for t in (port, ref)]
+    assert got[0] == got[1]
+    if key == "scan.ignore-corrupt-files":
+        assert len(got[0][0]) < 40          # the corrupt file's rows went
+    else:
+        assert len(got[0][0]) == 40
+    if key == "write.stage.dir":
+        assert os.listdir(value) == []      # each writer's stage is gone
