@@ -76,13 +76,13 @@ then):
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
    - serving: point lookups and the one-replica query service on the
-     card (`serving` says what it drives): serve_dedup_5M, the
-     reference serving benchmark's table at 5M rows (cold and warm
+     card (`serving` says what it drives): serve_dedup_2.5M, the
+     reference serving benchmark's table at 2.5M rows (cold and warm
      /lookup, 64 keep-alive clients of 90% point gets and 10%
      scan(limit=100), the engine's native and numpy probes, a serving
      writer's read-your-writes through the delta tier, a full
      compaction under 8 readers, an unbounded /scan), and
-     serve_agg_5M, the same rows under aggregation, whose every
+     serve_agg_2.5M, the same rows under aggregation, whose every
      lookup merges a bucket on the card (4 cold buckets built at once
      from the server's handler threads).  Every answer is held against
      a numpy oracle; no native probe may fall back; the flush, the
@@ -92,18 +92,18 @@ then):
    - bucket_modes: primary-key tables as users create them without a
      `bucket` option, bench.py's rows (id BIGINT NOT NULL key, v1
      BIGINT, v2 DOUBLE, v3 INT), each read held against a numpy oracle:
-     dyn_dedup_10M (dynamic buckets at dynamic-bucket.target-row-num's
-     default of 2M: 10 commits of 1M uniform ids in [0, 8M) from one
+     dyn_dedup_5M (dynamic buckets at dynamic-bucket.target-row-num's
+     default of 2M: 10 commits of 500K uniform ids in [0, 4M) from one
      writer, a merge-on-read scan, a full compaction and a scan; the
      hash index against the rows: each id in one bucket, every bucket
      but the last at 2M hashes, the files' total the distinct 32-bit
-     hashes; a fresh table object's 1M upserts of existing ids landing
+     hashes; a fresh table object's 500K upserts of existing ids landing
      in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
-     RENAME v2 -> v2r and 2 commits of 2M upserts, a merge-on-read scan
+     RENAME v2 -> v2r and 2 commits of 1M upserts, a merge-on-read scan
      over runs of both schemas, a full compaction and a scan),
-     xpart_upsert_4M (cross-partition upsert, partition dt INT of 4
-     values: 4M keys in 4 commits, then a fresh table object's 4
-     commits of 500K upserts, a quarter moving partition and some twice
+     xpart_upsert_2M (cross-partition upsert, partition dt INT of 4
+     values: 2M keys in 4 commits, then a fresh table object's 4
+     commits of 250K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
      and postpone_8M (bucket=-2: 8M rows in 4 commits that a scan does
@@ -147,10 +147,10 @@ then):
      L0; its files equal file for file to the same writes on the CPU),
      local_merge_hot_8M (bucket=4, local-merge-buffer-size=64mb, 8
      streaming commits of 1M rows, half on 1,000 hot ids: each commit's
-     L0 rows are its distinct ids), plan_daily_6M (bench.py's columns
+     L0 rows are its distinct ids), plan_daily_3M (bench.py's columns
      plus dt STRING as the partition, key (dt, id), bucket=2, inline
      compaction, the plan cache and stats sidecar at their defaults:
-     120 streaming commits of 50K rows over 12 days with a `latest`
+     60 streaming commits of 50K rows over 12 days with a `latest`
      stream consumer, the cached plan after every commit equal to a
      cold plan of a fresh table object every 10th; then an INSERT
      OVERWRITE of a day, a late correction of an id band, a one-day and
@@ -165,10 +165,32 @@ then):
      the whole run retries nowhere else and no sidecar falls back; the
      spill merges and the local merger's folds must launch the kernel.
      It prints a {"write_read_planes": ...} line;
+   - file_indexes: per-file indexes on primary-key tables as the Paimon
+     docs' "Data File Index" pages set them up (bloom filter on id,
+     bitmap and bit-sliced indexes on v3, a range bitmap on v1,
+     file-index.in-manifest-threshold at its 500-byte default, so every
+     blob is a `.index` sidecar), on bench.py's rows, every read held
+     against a numpy oracle: fi_point_16M (bucket=4, write-only, 8
+     commits of 2M ids uniform in [0, 8M) from seed 7, so 8 overlapping
+     runs a bucket that key stats cannot prune; 100 point queries, 50
+     written ids and 50 never written, each planned and read, with the
+     files each plans; 10 plans of never-written ids timed with the
+     sidecars read by ranges and read whole; `v3 = 100` planning
+     nothing, `v3 = 42`, `v3 < 3` and `v1 > 2^39` read exactly; a full
+     compaction whose outputs each carry a sidecar; the 100 queries
+     again) and fi_rewrite_coverage
+     (2M rows written without indexes, then rewrite_file_index with a
+     bloom filter on id, and with force=True after the spec grew by the
+     other indexes and a bloom filter on a string column; a write of
+     indexed files whose data-file or sidecar write fails once and
+     retries).  The write, the point queries and the compaction of
+     fi_point_16M must launch the kernel.  It prints a
+     {"file_indexes": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
-   (ops/merge.PATH_COUNTS), peak device memory and the seconds spent in
+   (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
-   two synchronisations); a write, scan or compaction of a 100M-row
+   two synchronisations) and the milliseconds each stage histogram of
+   metrics.py gained; a write, scan or compaction of a 100M-row
    table that took host merge routes only fails the run;
 5. each kernel held against its plain PyTorch version on the card
    (exact equality) at every shape the main path gave it, on the inputs
@@ -203,9 +225,13 @@ then):
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
-phase, the read and write planes, the phases, the kernels with their launches on the main path
-and their times (`device_ms` and `host_us` beside `ms`), then
-{"ok": true, "device": {...}}.
+phase, the read and write planes, the file indexes, the stage split
+(the summed milliseconds of the io.read, decode, encode, io.upload,
+scan.merge, write.sort, commit and compaction histograms in the write,
+scan and compaction of dedup_bigint, agg_sum_max_orc and
+fi_point_16M, with the card), the phases, the kernels with their
+launches on the main path and their times (`device_ms` and `host_us`
+beside `ms`), then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -823,9 +849,21 @@ def check_segment_reductions(device: str = "cuda") -> None:
             f"segments: {device} against cpu: {', '.join(bits)}")
 
 
+def dense_ids(ids: np.ndarray) -> bool:
+    """Integer ids in [0, 2n + 2^20): gathered by id without a sort."""
+    return np.issubdtype(ids.dtype, np.integer) and len(ids) > 0 and \
+        ids.min() >= 0 and ids.max() < 2 * len(ids) + (1 << 20)
+
+
 def last_writer_oracle(ids: np.ndarray, order=None) -> np.ndarray:
     """Global row index of the last write of each id, in id order
-    (`order`: a stable argsort of `ids`, when already at hand)."""
+    (`order`: a stable argsort of `ids`, when already at hand).  Dense
+    ids take each id's largest row number, scattered by id, in place
+    of the sort."""
+    if order is None and dense_ids(ids):
+        last = np.full(int(ids.max()) + 1, -1, dtype=np.int64)
+        np.maximum.at(last, ids, np.arange(len(ids)))
+        return last[last >= 0]
     if order is None:
         order = np.argsort(ids, kind="stable")
     s = ids[order]
@@ -854,11 +892,26 @@ def check_rows(what: str, got, cols: dict, win: np.ndarray,
                                  f"oracle")
 
 
-def agg_oracle(cols: dict, order: np.ndarray) -> dict:
+def agg_oracle(cols: dict) -> dict:
     """Config 4's aggregation by numpy alone: per id (in id order) the
-    sum of v1, the max of v2 and the max of v3, by reduceat over the
-    id-sorted rows."""
-    ids = cols["id"][order]
+    sum of v1, the max of v2 and the max of v3, scattered by id for
+    dense ids, else by reduceat over the id-sorted rows."""
+    ids = cols["id"]
+    if dense_ids(ids):
+        k = int(ids.max()) + 1
+        seen = np.zeros(k, dtype=bool)
+        seen[ids] = True
+        out = {"id": np.flatnonzero(seen)}
+        for c, ufunc, start in (("v1", np.add, 0),
+                                ("v2", np.maximum, -np.inf),
+                                ("v3", np.maximum,
+                                 np.iinfo(cols["v3"].dtype).min)):
+            acc = np.full(k, start, dtype=cols[c].dtype)
+            ufunc.at(acc, ids, cols[c])
+            out[c] = acc[seen]
+        return out
+    order = np.argsort(ids, kind="stable")
+    ids = ids[order]
     starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
     return {"id": ids[starts],
             "v1": np.add.reduceat(cols["v1"][order], starts),
@@ -923,6 +976,36 @@ class ReduceTimer:
         self._agg.Segments.__init__ = self._init
 
 
+# the stage histograms of metrics.py that the spans of the format, read,
+# write, commit and compaction planes feed: summed milliseconds, over
+# every thread that ran the stage
+STAGE_HISTOGRAMS = {"io.read": ("io", "read_ms"),
+                    "decode": ("io", "decode_ms"),
+                    "encode": ("io", "encode_ms"),
+                    "io.upload": ("io", "upload_ms"),
+                    "scan.merge": ("scan", "merge_ms"),
+                    "write.sort": ("write", "sort_ms"),
+                    "commit": ("commit", "duration_ms"),
+                    "compaction": ("compaction", "duration_ms")}
+
+
+def stage_sums() -> dict:
+    """Cumulative milliseconds of each stage histogram so far."""
+    from paimon_tpu_torch.metrics import global_registry
+    reg = global_registry()
+    return {k: reg.group(g).histogram(m).total_sum
+            for k, (g, m) in STAGE_HISTOGRAMS.items()}
+
+
+def stage_split(phases: list, tables) -> dict:
+    """{table: {phase: {"s": host seconds, stage: summed ms}}} for the
+    write, scan and compaction of each table."""
+    return {t: {p["phase"]: {"s": p["s"], **p.get("stages_ms", {})}
+                for p in phases if p["table"] == t
+                and p["phase"] in ("write", "scan", "compact")}
+            for t in tables}
+
+
 class Recorder:
     """Runs the phases of the main path: each timed on the host clock
     between two synchronisations of the card, with its kernel launches,
@@ -946,6 +1029,7 @@ class Recorder:
         from paimon_tpu_torch.ops import merge
         capture.where = f"{name} {what}"
         before = self.counts()
+        stages = stage_sums()
         routes = dict(merge.PATH_COUNTS)
         copied = capture.seconds
         reduced, reduce_calls = reducer.seconds, reducer.calls
@@ -963,7 +1047,9 @@ class Recorder:
         self.add(name, what, rows, device, dt, launches,
                  reducer.seconds - reduced, reducer.calls - reduce_calls,
                  routes={k: v - routes[k]
-                         for k, v in merge.PATH_COUNTS.items()})
+                         for k, v in merge.PATH_COUNTS.items()},
+                 stages_ms={k: v - stages[k]
+                            for k, v in stage_sums().items()})
         return out
 
     def add(self, name: str, what: str, rows: int, device, seconds: float,
@@ -1885,15 +1971,15 @@ def mesh_compaction(work: str, rec: Recorder, rows: int = MESH_ROWS,
 # -- primary-key tables in the bucket modes users create by default --------
 
 BM_TARGET = 2_000_000            # dynamic-bucket.target-row-num's default
-# dyn_dedup and xpart_upsert run at half the sizes they were first run at
-# (script time)
-DYN_ROWS = 10_000_000            # dyn_dedup_10M: 10 commits of 1M
-DYN_KEYS = 8_000_000             # ids uniform in [0, 8M)
+# dyn_dedup and xpart_upsert run at a quarter of the sizes they were first
+# run at (halved twice, for the script's time)
+DYN_ROWS = 5_000_000             # dyn_dedup_5M: 10 commits of 500K
+DYN_KEYS = 4_000_000             # ids uniform in [0, 4M)
 DYN_COMMITS = 10
-DYN_FRESH = 1_000_000            # upserts of existing ids, a fresh table
-DYN_EVOLVED = 2_000_000          # upserts a commit under the new schema
-XPART_KEYS = 4_000_000           # xpart_upsert_4M: 4 commits of 1M keys
-XPART_UPSERTS = 500_000          # then 4 commits of 500K upserts
+DYN_FRESH = 500_000              # upserts of existing ids, a fresh table
+DYN_EVOLVED = 1_000_000          # upserts a commit under the new schema
+XPART_KEYS = 2_000_000           # xpart_upsert_2M: 4 commits of 500K keys
+XPART_UPSERTS = 250_000          # then 4 commits of 250K upserts
 XPART_PARTS = 4
 POSTPONE_ROWS = 8_000_000        # postpone_8M: 4 commits of 2M
 POSTPONE_TARGET = 5_000_000      # postpone.target-row-num-per-bucket
@@ -1996,7 +2082,7 @@ def check_evolved(what: str, got, cols: dict, win: np.ndarray,
 
 
 def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
-    """dyn_dedup_10M: Paimon's default bucket mode (no `bucket` option),
+    """dyn_dedup_5M: Paimon's default bucket mode (no `bucket` option),
     deduplicate, write-only; 10 commits of uniform ids from one writer,
     a full compaction and a scan, the hash index
     held against the rows, a fresh table object's upserts of existing
@@ -2010,7 +2096,7 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType
 
-    name = "dyn_dedup_10M"
+    name = "dyn_dedup_5M"
     path = os.path.join(work, name)
     rows, keys = DYN_ROWS // scale, DYN_KEYS // scale
     target, per = BM_TARGET // scale, DYN_ROWS // scale // DYN_COMMITS
@@ -2137,10 +2223,10 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
-    """xpart_upsert_4M: cross-partition upsert (primary key id, partition
-    dt INT of 4 values, bucket unset): 4M keys in 4 commits from one
+    """xpart_upsert_2M: cross-partition upsert (primary key id, partition
+    dt INT of 4 values, bucket unset): 2M keys in 4 commits from one
     writer; then a fresh table object's writer (the global index
-    bootstraps from the table) upserts 500K ids a commit for 4 commits, a
+    bootstraps from the table) upserts 250K ids a commit for 4 commits, a
     quarter of them moving partition and 1% of those moving again later
     in the same batch; each id held once, in the partition of its last
     write, before and after a full compaction."""
@@ -2150,7 +2236,7 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
 
-    name = "xpart_upsert_4M"
+    name = "xpart_upsert_2M"
     path = os.path.join(work, name)
     keys, target = XPART_KEYS // scale, BM_TARGET // scale
     opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
@@ -2282,8 +2368,8 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     table."""
     out = {}
     t_all = time.perf_counter()
-    for name, fn in (("dyn_dedup_10M", dyn_dedup),
-                     ("xpart_upsert_4M", xpart_upsert),
+    for name, fn in (("dyn_dedup_5M", dyn_dedup),
+                     ("xpart_upsert_2M", xpart_upsert),
                      ("postpone_8M", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
@@ -2885,7 +2971,8 @@ WRP_LM_COMMITS = 8               # local_merge_hot_8M: 8 commits of 1M
 WRP_LM_PER_COMMIT = 1_000_000
 WRP_LM_HOT = 1_000               # half of each commit on 1,000 hot ids,
 WRP_LM_KEYS = 4_000_000          # the other half uniform in [0, 4M)
-WRP_PLAN_COMMITS = 120           # plan_daily_6M: 120 commits of 50K rows
+WRP_PLAN_COMMITS = 60            # plan_daily_3M: 60 commits of 50K rows
+                                 # (120 until the file-index phase came)
 WRP_PLAN_PER_COMMIT = 50_000
 WRP_PLAN_DAYS = 12
 WRP_PLAN_KEYS = 200_000          # ids uniform in [0, 200K) a day
@@ -3235,7 +3322,7 @@ def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 
 def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """plan_daily_6M: the delta-apply plan cache and the stats sidecar at
+    """plan_daily_3M: the delta-apply plan cache and the stats sidecar at
     the defaults on a daily-partitioned table with inline compaction."""
     import pyarrow as pa
 
@@ -3246,7 +3333,7 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "plan_daily_6M"
+    name = "plan_daily_3M"
     per, keys = WRP_PLAN_PER_COMMIT // scale, WRP_PLAN_KEYS // scale
     days = WRP_PLAN_DAYS
     daily = WRP_PLAN_COMMITS // days
@@ -3329,7 +3416,8 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
         writer.close()
     launched = tuple(a - b for a, b in zip(rec.counts(), launches0))
     # the launches of the loop: the writes' and the consumer's merges
-    rec.add(name, "write, 120 commits with inline compaction",
+    rec.add(name, f"write, {WRP_PLAN_COMMITS} commits with inline "
+            f"compaction",
             per * WRP_PLAN_COMMITS, dev, t_write, launched)
     got = rec.run(name, "read", state.rows(), dev, table.to_arrow)
     maint_check(f"{name} read", got, state)
@@ -3560,7 +3648,7 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
                                                 scale)
         out["local_merge_hot_8M"] = local_merge_hot(work, rec, timer, dev,
                                                     scale)
-    out["plan_daily_6M"] = plan_daily(work, rec, dev, scale)
+    out["plan_daily_3M"] = plan_daily(work, rec, dev, scale)
     out["faults_4M"] = faults(work, rec, dev, scale)
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
@@ -3577,9 +3665,418 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
     return out
 
 
+# -- per-file indexes on primary-key tables -----------------------------------
+
+FI_COMMITS = 8                   # fi_point_16M: 8 commits of 2M rows,
+FI_PER_COMMIT = 2_000_000        # ids uniform in [0, 8M), 4 buckets
+FI_KEYS = 8_000_000
+FI_QUERIES = 50                  # present ids, and as many absent ones
+FI_READ_PLANS = 10               # absent-id plans timed per sidecar reader
+FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 500K
+FI_RW_PER_COMMIT = 500_000       # ids uniform in [0, 1M)
+FI_RW_KEYS = 1_000_000
+FI_RW_QUERIES = 5
+# the Paimon docs' "Data File Index" options, file-index.in-manifest-
+# threshold at its 500-byte default
+FI_OPTIONS = {"file-index.bloom-filter.columns": "id",
+              "file-index.bitmap.columns": "v3",
+              "file-index.bsi.columns": "v3",
+              "file-index.range-bitmap.columns": "v1"}
+
+
+class IndexTimer:
+    """Calls and seconds of the writers' index builds
+    (index/file_index.py build_indexes_blob), summed over the flush and
+    compaction threads that run them."""
+
+    def __init__(self):
+        self.calls = 0
+        self.s = 0.0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from paimon_tpu_torch.index import file_index
+        self._module = file_index
+        orig = self._orig = file_index.build_indexes_blob
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                with self._lock:
+                    self.calls += 1
+                    self.s += time.perf_counter() - t0
+        file_index.build_indexes_blob = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._module.build_indexes_blob = self._orig
+
+    def take(self) -> dict:
+        with self._lock:
+            out = {"calls": self.calls, "s": self.s}
+            self.calls, self.s = 0, 0.0
+        return out
+
+
+def live_entries(table) -> list:
+    snap = table.snapshot_manager.latest_snapshot()
+    return table.new_scan().read_entries(snap)
+
+
+def bucket_files(table) -> list:
+    """Data files per bucket, in bucket order."""
+    counts: dict = {}
+    for e in live_entries(table):
+        counts[e.bucket] = counts.get(e.bucket, 0) + 1
+    return [counts[b] for b in sorted(counts)]
+
+
+def check_sidecars(what: str, table, paths) -> int:
+    """Every live file carries its `.index` sidecar (the blobs exceed
+    the 500-byte in-manifest threshold), and each is on disk."""
+    n = 0
+    for e in live_entries(table):
+        f = e.file
+        if f.embedded_index is not None or \
+                f.extra_files != [f.file_name + ".index"] or \
+                not os.path.exists(os.path.join(
+                    paths, f"bucket-{e.bucket}", f.extra_files[0])):
+            raise AssertionError(f"{what}: {f.file_name} has no sidecar "
+                                 f"({f.extra_files})")
+        n += 1
+    return n
+
+
+class PointOracle:
+    """The last write of every id, for `id = x` queries."""
+
+    def __init__(self, cols: dict):
+        self.cols = cols
+        self.win = last_writer_oracle(cols["id"])
+        self.ids = cols["id"][self.win]
+
+    def want(self, x: int):
+        i = int(np.searchsorted(self.ids, x))
+        if i < len(self.ids) and self.ids[i] == x:
+            return self.win[i:i + 1]
+        return self.win[:0]
+
+    def draw(self, rng, keys: int, n: int):
+        """`n` ids written and `n` ids in [0, keys) never written."""
+        present = rng.choice(self.ids, n, replace=False)
+        seen = np.zeros(keys, dtype=bool)
+        seen[self.ids] = True
+        absent = rng.choice(np.flatnonzero(~seen), n, replace=False)
+        return present, absent
+
+
+def point_queries(what: str, table, oracle: PointOracle, ids) -> dict:
+    """Plan and read `id = x` for each id (a fresh scan each, as a user's
+    read builder makes one), every answer held against the oracle;
+    returns the files planned and the milliseconds of each query and of
+    its plan."""
+    from paimon_tpu_torch import predicate as P
+    files, ms, plan_ms = [], [], []
+    for x in ids:
+        t0 = time.perf_counter()
+        rb = table.new_read_builder().with_filter(P.equal("id", int(x)))
+        plan = rb.new_scan().plan()
+        t1 = time.perf_counter()
+        got = rb.new_read().to_arrow(plan)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        plan_ms.append((t1 - t0) * 1e3)
+        files.append(sum(len(s.data_files) for s in plan.splits))
+        check_rows(f"{what}: id = {x}", got, oracle.cols, oracle.want(x),
+                   "id")
+    return {"files_mean": float(np.mean(files)),
+            "files_max": int(max(files)),
+            "ms_p50": pct(ms, 50), "ms_p99": pct(ms, 99),
+            "plan_ms_p50": pct(plan_ms, 50), "plan_ms_p99": pct(plan_ms, 99)}
+
+
+def point_rounds(what: str, table, oracle, present, absent, rec, dev,
+                 name: str) -> dict:
+    out = {"bucket_files": bucket_files(table)}
+
+    def run():
+        out["present"] = point_queries(what, table, oracle, present)
+        out["absent"] = point_queries(what, table, oracle, absent)
+    rec.run(name, what, len(present) + len(absent), dev, run)
+    return out
+
+
+def sidecar_reads(table, ids) -> dict:
+    """Plans of `id = x` with each sidecar read by ranges (the scan's
+    reader: headers, then the entries of the predicate's columns) and
+    read whole (as the reference reads it), alternating; milliseconds a
+    plan and the files planned, which must agree."""
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.index import file_index
+
+    ranged = file_index.read_indexes_file
+
+    def whole(file_io, path, columns):
+        return file_index.read_indexes_blob(file_io.read_bytes(path))
+    ms = {"ranged": [], "whole": []}
+    for x in ids:
+        files = set()
+        for label, reader in (("ranged", ranged), ("whole", whole)):
+            file_index.read_indexes_file = reader
+            try:
+                t0 = time.perf_counter()
+                plan = table.new_read_builder().with_filter(
+                    P.equal("id", int(x))).new_scan().plan()
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                file_index.read_indexes_file = ranged
+            files.add(sum(len(s.data_files) for s in plan.splits))
+        if len(files) != 1:
+            raise AssertionError(f"id = {x}: the readers planned {files}")
+    return {k: {"plans": len(v), "ms_p50": pct(v, 50),
+                "ms_mean": float(np.mean(v))} for k, v in ms.items()}
+
+
+def fi_point(work: str, rec: Recorder, timer: IndexTimer, dev,
+             scale: int) -> dict:
+    """fi_point_16M: the file indexes of the Paimon docs' "Data File
+    Index" pages on bench.py's rows, written, queried by key and by
+    value, compacted and queried again."""
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "fi_point_16M"
+    per, keys = FI_PER_COMMIT // scale, FI_KEYS // scale
+    path = os.path.join(work, name)
+    table = FileStoreTable.create(path, bigint_schema({
+        "bucket": "4", "write-only": "true",
+        "parquet.enable.dictionary": "false", **FI_OPTIONS}), device=dev)
+    rng = np.random.default_rng(7)
+    batches = [bench_rows(rng, rng.integers(0, keys, per))
+               for _ in range(FI_COMMITS)]
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    oracle = PointOracle(cols)
+    present, absent = oracle.draw(np.random.default_rng(7), keys,
+                                  FI_QUERIES)
+    out = {"rows": per * FI_COMMITS, "keys": len(oracle.win)}
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    timer.take()
+    rec.run(name, "write", out["rows"], dev, write)
+    out["write_rows_per_s"] = rec.phases[-1]["rows_per_s"]
+    out["write_index_build"] = timer.take()
+    out["sidecars"] = check_sidecars(name, table, path)
+    out["before"] = point_rounds("point queries", table, oracle, present,
+                                 absent, rec, dev, name)
+    held = out["before"]["bucket_files"]
+    if out["before"]["present"]["files_mean"] >= min(held) or \
+            out["before"]["absent"]["files_mean"] > 1:
+        raise AssertionError(f"{name}: the indexes skipped too little: "
+                             f"{out['before']}")
+    out["sidecar_reads"] = sidecar_reads(table, absent[:FI_READ_PLANS])
+
+    # value predicates: the stats drop v3 = 100 whole; the others read
+    # every bucket (a value match may hide a newer version of its key)
+    win, v1, v3 = oracle.win, cols["v1"], cols["v3"]
+    if table.new_read_builder().with_filter(P.equal("v3", 100)) \
+            .new_scan().plan().splits:
+        raise AssertionError(f"{name}: v3 = 100 planned splits")
+    out["value_rows"] = {}
+    for label, pred, sel in (
+            ("v3 = 42", P.equal("v3", 42), win[v3[win] == 42]),
+            ("v3 < 3", P.less_than("v3", 3), win[v3[win] < 3]),
+            ("v1 > 2^39", P.greater_than("v1", 1 << 39),
+             win[v1[win] > 1 << 39])):
+        got = rec.run(name, f"scan {label}", len(sel), dev,
+                      lambda pred=pred: table.to_arrow(predicate=pred))
+        check_rows(f"{name} {label}", got, cols, sel, "id")
+        out["value_rows"][label] = int(len(sel))
+
+    timer.take()
+    if rec.run(name, "compact", out["rows"], dev,
+               lambda: table.compact(full=True)) is None:
+        raise AssertionError(f"{name}: full compaction committed nothing")
+    out["compact_index_build"] = timer.take()
+    out["compacted_sidecars"] = check_sidecars(f"{name} after compaction",
+                                               table, path)
+    out["after"] = point_rounds("point queries after compaction", table,
+                                oracle, present, absent, rec, dev, name)
+    if out["after"]["absent"]["files_mean"] > 1:
+        raise AssertionError(f"{name}: {out['after']}")
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def fi_rewrite(work: str, rec: Recorder, timer: IndexTimer, dev,
+               scale: int) -> dict:
+    """fi_rewrite_coverage: indexes retrofitted by rewrite_file_index on
+    a table written without them, a forced rebuild after a change of the
+    spec (adding a bloom filter on a string column), and a retried write
+    of indexed files."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.fs import get_file_io
+    from paimon_tpu_torch.maintenance.repair import rewrite_file_index
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import (
+        BigIntType, DoubleType, IntType, VarCharType,
+    )
+
+    name = "fi_rewrite_coverage"
+    per, keys = FI_RW_PER_COMMIT // scale, FI_RW_KEYS // scale
+    path = os.path.join(work, name)
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v1", BigIntType()).column("v2", DoubleType())
+              .column("v3", IntType()).column("name", VarCharType())
+              .primary_key("id").options({"bucket": "4",
+                                          "write-only": "true"}).build())
+    table = FileStoreTable.create(path, schema, device=dev)
+    rng = np.random.default_rng(8)
+
+    def batch():
+        b = bench_rows(rng, rng.integers(0, keys, per))
+        return b.append_column("name", pc.cast(
+            pc.divide(b.column("id"), 7), pa.string()))
+    batches = [batch() for _ in range(FI_RW_COMMITS + 1)]
+
+    def write(t, bs):
+        for b in bs:
+            wb = t.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+
+    def oracle_of(bs):
+        cols = {c: np.concatenate([b.column(c).to_numpy() for b in bs])
+                for c in ("id", "v1", "v2", "v3")}
+        cols["name"] = pa.concat_arrays([b.column("name").combine_chunks()
+                                         for b in bs])
+        return PointOracle(cols)
+
+    rows = per * FI_RW_COMMITS
+    rec.run(name, "write", rows, dev,
+            lambda: write(table, batches[:FI_RW_COMMITS]))
+    oracle = oracle_of(batches[:FI_RW_COMMITS])
+    present, absent = oracle.draw(np.random.default_rng(8), keys,
+                                  FI_RW_QUERIES)
+    out = {"rows": rows}
+    out["unindexed"] = point_rounds("point queries without indexes", table,
+                                    oracle, present, absent, rec, dev, name)
+    files = sum(bucket_files(table))
+    timer.take()
+    bloom = table.copy({"file-index.bloom-filter.columns": "id"})
+    out["rewritten"] = rec.run(name, "rewrite_file_index", rows, dev,
+                               lambda: rewrite_file_index(bloom))
+    wider = table.copy({**FI_OPTIONS,
+                        "file-index.bloom-filter.columns": "id,name"})
+    out["rewritten_forced"] = rec.run(
+        name, "rewrite_file_index(force=True), a bloom on a string column",
+        rows, dev, lambda: rewrite_file_index(wider, force=True))
+    out["rewrite_index_build"] = timer.take()
+    if out["rewritten"] != files or out["rewritten_forced"] != files or \
+            rewrite_file_index(wider) != 0:
+        raise AssertionError(f"{name}: rewrote {out['rewritten']} and "
+                             f"{out['rewritten_forced']} of {files} files")
+    check_sidecars(name, wider, path)
+    out["indexed"] = point_rounds("point queries after rewrite_file_index",
+                                  wider, oracle, present, absent, rec, dev,
+                                  name)
+    if out["indexed"]["absent"]["files_mean"] > 1 or \
+            out["unindexed"]["absent"]["files_mean"] < \
+            min(out["unindexed"]["bucket_files"]):
+        raise AssertionError(f"{name}: {out['unindexed']} -> "
+                             f"{out['indexed']}")
+    # the string bloom: an absent name plans nothing, a present one
+    # reads its exact rows
+    names = oracle.cols["name"].take(pa.array(oracle.win))
+    x = names[len(names) // 2].as_py()
+    if wider.new_read_builder().with_filter(P.equal("name", "absent")) \
+            .new_scan().plan().splits:
+        raise AssertionError(f"{name}: an absent name planned splits")
+    check_rows(f"{name} name = {x}", wider.to_arrow(
+        predicate=P.equal("name", x)), oracle.cols,
+        oracle.win[pc.equal(names, x).to_numpy(zero_copy_only=False)], "id")
+
+    # a retried write of indexed files: a data file or sidecar write
+    # fails once (faults_4M's store)
+    store = FaultyFileIO(get_file_io(path))
+    faulty = FileStoreTable.load(path, file_io=store, device=dev,
+                                 dynamic_options={
+                                     **FI_OPTIONS,
+                                     "write.retry.max-attempts": "3"})
+    before = plane_counters()
+    rec.run(name, "write of indexed files, retried", per, dev,
+            lambda: write(faulty, batches[FI_RW_COMMITS:]))
+    moved = counter_delta(before)
+    if moved["write_retries"] != store.faults["write"] or \
+            store.faults["write"] == 0:
+        raise AssertionError(f"{name}: {moved} for {store.faults}")
+    oracle = oracle_of(batches)
+    check_sidecars(f"{name} after the retried write",
+                   FileStoreTable.load(path, device=dev), path)
+    out["retried"] = point_rounds(
+        "point queries after the retried write",
+        FileStoreTable.load(path, device=dev, dynamic_options=FI_OPTIONS),
+        oracle, present, absent, rec, dev, name)
+    out["faults"] = dict(store.faults)
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def file_indexes(work: str, rec: Recorder, device="cuda",
+                 scale: int = 1) -> dict:
+    """Per-file indexes on primary-key tables on the card (`scale`
+    divides the row counts, for a rehearsal).  Returns what the phase
+    reports."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    out = {}
+    with IndexTimer() as timer:
+        out["fi_point_16M"] = fi_point(work, rec, timer, dev, scale)
+        out["fi_rewrite_coverage"] = fi_rewrite(work, rec, timer, dev,
+                                                scale)
+    names = set(out)
+    mine = [p for p in rec.phases if p["table"] in names]
+    for p in mine:
+        # after the compaction each bucket is one sorted run: its reads
+        # need no merge
+        if p["phase"] in ("write", "point queries", "compact") and \
+                p["table"] == "fi_point_16M" and p["launches_plain"] == 0 \
+                and dev.type == "cuda":
+            raise AssertionError(f"fi_point_16M {p['phase']}: no launch "
+                                 f"of the winner-select")
+    out["launches_plain"] = sum(p["launches_plain"] for p in mine)
+    out["launches_ovc"] = sum(p["launches_ovc"] for p in mine)
+    out["launch_shapes"] = sorted(
+        [[k[0]] + list(k[1:4]) + [k[4], v]
+         for k, v in rec.capture.calls.items() if k[0] in names])
+    out["steps"] = {f"{p['table']} {p['phase']}":
+                    {"s": p["s"], "rows_per_s": p["rows_per_s"],
+                     "launches": p["launches_plain"]} for p in mine}
+    peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    out["s"] = time.perf_counter() - t_phase
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 # -- the serving plane: point lookups and the one-replica query service ------
 
-SERVE_ROWS = 5_000_000           # cut from 10M in PR 8 (script time)
+SERVE_ROWS = 2_500_000           # cut from 10M, then from 5M (script
+                                 # time)
 SERVE_COMMITS = 4
 SERVE_BUCKETS = 4
 SERVE_BATCH = 8                  # keys of a point-get request
@@ -3830,7 +4327,7 @@ def thread_launches(capture, name: str) -> dict:
 
 def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
                 clients: int, seconds: float) -> dict:
-    """serve_dedup_5M: the reference serving benchmark's table at
+    """serve_dedup_2.5M: the reference serving benchmark's table at
     `rows`, served by one KvQueryServer on the card; see `serving`."""
     import torch
 
@@ -3843,7 +4340,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
     from paimon_tpu_torch import Schema
 
-    name = "serve_dedup_5M"
+    name = "serve_dedup_2.5M"
     path = os.path.join(work, name)
     dev = torch.device(device)
     lookups = global_registry().lookup_metrics()
@@ -4037,7 +4534,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
 
 def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
               clients: int, seconds: float) -> dict:
-    """serve_agg_5M: the same rows under aggregation (v sum), whose
+    """serve_agg_2.5M: the same rows under aggregation (v sum), whose
     every /lookup takes the merged fallback; see `serving`."""
     import torch
 
@@ -4046,7 +4543,7 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
 
-    name = "serve_agg_5M"
+    name = "serve_agg_2.5M"
     path = os.path.join(work, name)
     dev = torch.device(device)
     schema = (Schema.builder().column("id", BigIntType(False))
@@ -4144,11 +4641,11 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
 
 
 def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
-            device="cuda", clients: int = 64, seconds: float = 5.0,
-            agg_seconds: float = 3.0) -> dict:
+            device="cuda", clients: int = 64, seconds: float = 2.0,
+            agg_seconds: float = 1.0) -> dict:
     """The serving plane on the card.
 
-    serve_dedup_5M: benchmarks/serve_bench.py's table (id BIGINT NOT
+    serve_dedup_2.5M: benchmarks/serve_bench.py's table (id BIGINT NOT
     NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
     dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
     11) served by one KvQueryServer with a refresh interval of 1000 ms:
@@ -4160,7 +4657,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     upserts of live ids in batches of 10k (each read back through the
     delta tier before its commit and from the LSM after), a full
     compaction while 8 clients read, and one unbounded /scan.
-    serve_agg_5M: the same rows under aggregation (v sum): 4 cold
+    serve_agg_2.5M: the same rows under aggregation (v sum): 4 cold
     buckets built at once from 4 client threads, each a full
     merge-on-read on the card, a 2048-key warm-up, then `clients` client
     threads of point gets for `agg_seconds`.  Every answer is held
@@ -4174,10 +4671,10 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
                                seconds)
     launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
-                for p in rec.phases if p["table"] == "serve_dedup_5M"}
+                for p in rec.phases if p["table"] == "serve_dedup_2.5M"}
     for what in ("mixed 90/10", "serving writer", "compact"):
         if launches[what][0] == 0:
-            raise AssertionError(f"serve_dedup_5M {what}: no launch of the "
+            raise AssertionError(f"serve_dedup_2.5M {what}: no launch of the "
                                  f"winner-select ({launches})")
     out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
                            agg_seconds)
@@ -4186,7 +4683,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
                        out["agg"]["cold_thread_launches"].items()
                        if t.startswith("paimon-serve"))
     if ovc == 0 or from_workers == 0:
-        raise AssertionError(f"serve_agg_5M: the offset-value-code "
+        raise AssertionError(f"serve_agg_2.5M: the offset-value-code "
                              f"variant did not launch from the handler "
                              f"threads ({out['agg']['cold_thread_launches']})")
     out["launches"] = {f"{p['table']} {p['phase']}":
@@ -4589,7 +5086,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
-              maintained: dict, planes: dict) -> tuple:
+              maintained: dict, planes: dict, indexed: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -4637,10 +5134,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
                 for c in ("id", "v1", "v2", "v3")}
         t0 = time.perf_counter()
-        order = np.argsort(cols["id"], kind="stable")
-        win = last_writer_oracle(cols["id"], order)
-        agg_want = agg_oracle(cols, order)
-        del order
+        win = last_writer_oracle(cols["id"])
+        agg_want = agg_oracle(cols)
         log(f"numpy oracles of {rows} rows: {time.perf_counter() - t0:.1f} s")
         base = {"bucket": "1", "write-only": "true",
                 "parquet.enable.dictionary": "false"}
@@ -4737,12 +5232,18 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # sidecar, retries, upload staging and the corrupt skip
             planes.update(path("write_read_planes",
                                lambda: write_read_planes(work, rec)))
+            # per-file indexes: written, skipped by the scan, compacted
+            # and retrofitted by rewrite_file_index
+            indexed.update(path("file_indexes",
+                                lambda: file_indexes(work, rec)))
         moved = counter_delta(planes0)
-        injected = sum(planes["faults_4M"]["faults"].values())
+        injected = sum(planes["faults_4M"]["faults"].values()) + \
+            sum(indexed["fi_rewrite_coverage"]["faults"].values())
         if moved["read_retries"] + moved["write_retries"] != injected or \
                 moved["sidecar_fallbacks"]:
             raise AssertionError(f"the run retried or fell back beyond "
-                                 f"faults_4M's {injected} faults: {moved}")
+                                 f"the {injected} faults faults_4M and "
+                                 f"fi_rewrite_coverage injected: {moved}")
         log(f"read and write planes over the run: {moved}")
         for what in ("scan", "read"):
             same_tables(f"partial_update_coverage {what}: card vs cpu",
@@ -4832,9 +5333,10 @@ def main() -> int:
     bucketed: dict = {}
     maintained: dict = {}
     planes: dict = {}
+    indexed: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
-                         served, bucketed, maintained, planes)
+                         served, bucketed, maintained, planes, indexed)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -4867,6 +5369,11 @@ def main() -> int:
     print(json.dumps({"bucket_modes": bucketed}))
     print(json.dumps({"maintenance": maintained}))
     print(json.dumps({"write_read_planes": planes}))
+    print(json.dumps({"file_indexes": indexed}))
+    print(json.dumps({"stages": {
+        "card": card_line(),
+        **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",
+                               "fi_point_16M"))}}))
     print(json.dumps({"phases": phases}))
     print(json.dumps({"kernels": [k1.record(launches[0]),
                                   k2.record(launches[1])]}))

@@ -17,6 +17,7 @@ files. Drop-delete applies when the output is the highest non-empty level.
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
@@ -34,6 +35,9 @@ from paimon_tpu_torch.core.kv_file import (
 from paimon_tpu_torch.core.read import assemble_runs
 from paimon_tpu_torch.fs import FileIO
 from paimon_tpu_torch.manifest import DataFileMeta, FileSource
+from paimon_tpu_torch.metrics import (
+    SCAN_DEVICE_DECODE_FALLBACKS, CompactTimer, global_registry,
+)
 from paimon_tpu_torch.options import ChangelogProducer, CoreOptions, MergeEngine
 from paimon_tpu_torch.ops.agg import merge_runs_agg
 from paimon_tpu_torch.ops.diff import keyed_changelog_diff
@@ -101,6 +105,11 @@ def _prefetch(it, depth: int = 2):
         cancelled.set()
 
 
+# compactions of every bucket share one busy window: managers live for
+# one task, and the gauge stays bound to the first timer it was given
+_BUSY_TIMER = CompactTimer()
+
+
 class MergeTreeCompactManager:
     def __init__(self, file_io: FileIO, table_path: str,
                  schema: TableSchema, options: CoreOptions,
@@ -137,6 +146,10 @@ class MergeTreeCompactManager:
             file_format=options.file_format,
             compression=options.file_compression,
             target_file_size=options.target_file_size,
+            index_spec=options.file_index_spec,
+            bloom_fpp=options.get(CoreOptions.FILE_INDEX_BLOOM_FPP),
+            index_in_manifest_threshold=options.get(
+                CoreOptions.FILE_INDEX_IN_MANIFEST_THRESHOLD),
             format_per_level=options.file_format_per_level,
             format_options=options.format_options,
             **options.kv_writer_kwargs())
@@ -169,7 +182,24 @@ class MergeTreeCompactManager:
         return self.do_compact(unit)
 
     def do_compact(self, unit: CompactUnit) -> CompactResult:
-        """reference MergeTreeCompactTask.doCompact:83."""
+        """reference MergeTreeCompactTask.doCompact:83, timed into the
+        compaction metric group."""
+        group = global_registry().compaction_metrics()
+        group.gauge("busy_ratio_1m", _BUSY_TIMER.busy_ratio)
+        _BUSY_TIMER.start()
+        t0 = time.perf_counter()
+        try:
+            result = self._do_compact(unit)
+        finally:
+            _BUSY_TIMER.stop()
+            group.histogram("duration_ms").update(
+                (time.perf_counter() - t0) * 1000)
+            group.counter("tasks").inc()
+        group.counter("input_files").inc(len(unit.files))
+        group.counter("output_files").inc(len(result.after))
+        return result
+
+    def _do_compact(self, unit: CompactUnit) -> CompactResult:
         files = unit.files
         producer = self.options.changelog_producer
         # upgrade fast path: single file, no rewrite needed. Both
@@ -259,6 +289,8 @@ class MergeTreeCompactManager:
                     device=self.device)
                 if batches is not None:
                     return batches
+                global_registry().scan_metrics().counter(
+                    SCAN_DEVICE_DECODE_FALLBACKS).inc()
             # scoped_batches holds the footer-cache gate only while
             # advancing the reader, never across this generator's yields
             return scoped_batches(fmt.create_reader().read_batches(

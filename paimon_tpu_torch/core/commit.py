@@ -3,7 +3,9 @@
 Counterpart of paimon_tpu/core/commit.py without row tracking and
 request deadlines (not ported yet).  A commit's index entries (the
 dynamic-bucket hash index) fold into the previous snapshot's index
-manifest on every CAS attempt.
+manifest on every CAS attempt.  Each commit records the reference's
+commit metric group (commits, retries, duration_ms) and spans
+(commit.backoff, commit.manifest_encode, commit.cas).
 
 reference: operation/FileStoreCommitImpl.java:139 (javadoc :122-132:
 conflict check -> CAS publish; tryCommit retry loop :756), conflict
@@ -206,8 +208,15 @@ class FileStoreCommit:
                     force_full_manifest_merge: bool = False,
                     skip_missing_manifests: bool = False,
                     watermark: Optional[int] = None) -> int:
+        from paimon_tpu_torch.metrics import (
+            COMMIT_CAS_MS, COMMIT_MANIFEST_ENCODE_MS, global_registry,
+        )
+        from paimon_tpu_torch.obs.trace import span, sync_from_options
         from paimon_tpu_torch.utils.backoff import Backoff
 
+        sync_from_options(self.options)
+        metrics = global_registry().commit_metrics()
+        t0 = _time.perf_counter()
         attempts = 0
         max_retries = self.options.get(CoreOptions.COMMIT_MAX_RETRIES)
         # decorrelated jitter between the retry-wait bounds, bounded in
@@ -218,6 +227,15 @@ class FileStoreCommit:
         new_manifest: Optional[ManifestFileMeta] = None
         changelog_manifest: Optional[ManifestFileMeta] = None
         entries_orig = list(entries)
+
+        def write_manifest(manifest_entries, which):
+            with span("commit.manifest_encode", cat="commit",
+                      group="commit", metric=COMMIT_MANIFEST_ENCODE_MS,
+                      which=which, attempt=attempts,
+                      entries=len(manifest_entries)):
+                return self.manifest_file.write(
+                    manifest_entries, schema_id=self.schema.id)
+
         while True:
             if attempts > max_retries or \
                     (attempts > 0 and backoff.budget_exhausted()):
@@ -233,7 +251,9 @@ class FileStoreCommit:
                     f"times (commit.max-retries={max_retries}, "
                     f"commit.timeout); giving up")
             if attempts > 0:
-                backoff.pause()
+                with span("commit.backoff", cat="commit",
+                          attempt=attempts, table=self.table_path):
+                    backoff.pause()
             attempts += 1
             latest = self.snapshot_manager.latest_snapshot()
             if entries_fn is not None:
@@ -246,11 +266,10 @@ class FileStoreCommit:
             if check_deleted_files and latest is not None:
                 self._assert_files_exist(latest, entries)
             if new_manifest is None and entries:
-                new_manifest = self.manifest_file.write(
-                    entries, schema_id=self.schema.id)
+                new_manifest = write_manifest(entries, "delta")
             if changelog_manifest is None and changelog_entries:
-                changelog_manifest = self.manifest_file.write(
-                    changelog_entries, schema_id=self.schema.id)
+                changelog_manifest = write_manifest(changelog_entries,
+                                                    "changelog")
 
             if latest is None:
                 base_metas: List[ManifestFileMeta] = []
@@ -315,7 +334,17 @@ class FileStoreCommit:
                 next_row_id=latest.next_row_id if latest else None,
                 watermark=max(wm_vals) if wm_vals else None,
             )
-            if self.snapshot_manager.try_commit(snapshot):
+            with span("commit.cas", cat="commit", group="commit",
+                      metric=COMMIT_CAS_MS, attempt=attempts,
+                      snapshot=new_id, table=self.table_path) as cas:
+                won = self.snapshot_manager.try_commit(snapshot)
+                cas.set(won=won)
+            if won:
+                metrics.counter("commits").inc()
+                if attempts > 1:
+                    metrics.counter("retries").inc(attempts - 1)
+                metrics.histogram("duration_ms").update(
+                    (_time.perf_counter() - t0) * 1000)
                 return new_id
             # lost the race: clean up everything written for this
             # attempt and retry against the new latest (the delta

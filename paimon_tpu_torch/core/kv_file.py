@@ -1,9 +1,11 @@
 """KeyValue data-file writer/reader.
 
-Counterpart of paimon_tpu/core/kv_file.py without file indexes and
-blob columns (not ported yet); changelog files are written by
-`write_changelog_file`, and parquet reads take the device decode plane
-(format/rawpage.py) under read.device-decode.
+Counterpart of paimon_tpu/core/kv_file.py without blob columns (not
+ported yet).  A data file's column indexes (file-index.*: bloom,
+bitmap, bit-sliced, range-bitmap) are built from the written chunk and
+embedded in its meta or written as its `.index` sidecar; changelog
+files are written by `write_changelog_file`, and parquet reads take the
+device decode plane (format/rawpage.py) under read.device-decode.
 
 reference: paimon-core/.../io/KeyValueDataFileWriter.java (flattens
 KeyValue to `_KEY_<k...>, _SEQUENCE_NUMBER, _VALUE_KIND, value...`),
@@ -41,6 +43,9 @@ class KeyValueFileWriter:
                  table_schema: TableSchema, file_format: str = "parquet",
                  compression: str = "zstd",
                  target_file_size: int = 128 << 20,
+                 index_spec: Optional[Dict[str, List[str]]] = None,
+                 bloom_fpp: float = 0.01,
+                 index_in_manifest_threshold: int = 500,
                  format_per_level: Optional[Dict[int, str]] = None,
                  format_options: Optional[Dict[str, str]] = None,
                  compression_per_level: Optional[Dict[int, str]] = None,
@@ -56,6 +61,9 @@ class KeyValueFileWriter:
         self.compression = compression
         self.compression_per_level = compression_per_level or {}
         self.target_file_size = target_file_size
+        self.index_spec = index_spec or {}
+        self.bloom_fpp = bloom_fpp
+        self.index_in_manifest_threshold = index_in_manifest_threshold
         self.target_file_row_num = target_file_row_num
         self.stats_mode_per_level = stats_mode_per_level or {}
         self.stats_keep_first_n = stats_keep_first_n
@@ -134,6 +142,16 @@ class KeyValueFileWriter:
                            .cast(pa.int8()))
         delete_rows = int(((kinds == 1) | (kinds == 3)).sum())
 
+        embedded_index, extra_files = None, []
+        if self.index_spec:
+            from paimon_tpu_torch.index.bloom import place_file_index
+            from paimon_tpu_torch.index.file_index import build_indexes_blob
+            blob = build_indexes_blob(chunk, self.index_spec,
+                                      self.bloom_fpp)
+            embedded_index, extra_files = place_file_index(
+                self.file_io, self.path_factory, partition, bucket, name,
+                blob, self.index_in_manifest_threshold)
+
         return DataFileMeta(
             file_name=name,
             file_size=size,
@@ -148,6 +166,8 @@ class KeyValueFileWriter:
             level=level,
             delete_row_count=delete_rows,
             file_source=file_source,
+            embedded_index=embedded_index,
+            extra_files=extra_files,
             external_path=external,
         )
 

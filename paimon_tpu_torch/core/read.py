@@ -338,18 +338,25 @@ class MergeFileSplitRead:
             return self._empty_table(split.for_streaming)
         engine = self.options.merge_engine
         seq_fields = self.options.sequence_field or None
-        if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
-            out = merge_runs_agg(runs, self.key_cols, self.schema,
-                                 self.options,
-                                 key_encoder=self.key_encoder,
-                                 seq_fields=seq_fields,
-                                 device=self.device).select(value_cols)
-        else:
-            out = merge_runs(runs, self.key_cols, merge_engine=engine,
-                             key_encoder=self.key_encoder,
-                             seq_fields=seq_fields,
-                             seq_desc=self.options.sequence_field_descending,
-                             device=self.device).take(value_cols)
+        from paimon_tpu_torch.metrics import SCAN_MERGE_MS
+        from paimon_tpu_torch.obs.trace import span
+        with span("scan.merge", cat="scan", group="scan",
+                  metric=SCAN_MERGE_MS, engine=engine,
+                  partition=split.partition, bucket=split.bucket,
+                  runs=len(runs), rows=sum(r.num_rows for r in runs)):
+            if engine not in (MergeEngine.DEDUPLICATE,
+                              MergeEngine.FIRST_ROW):
+                out = merge_runs_agg(runs, self.key_cols, self.schema,
+                                     self.options,
+                                     key_encoder=self.key_encoder,
+                                     seq_fields=seq_fields,
+                                     device=self.device).select(value_cols)
+            else:
+                out = merge_runs(
+                    runs, self.key_cols, merge_engine=engine,
+                    key_encoder=self.key_encoder, seq_fields=seq_fields,
+                    seq_desc=self.options.sequence_field_descending,
+                    device=self.device).take(value_cols)
         return self._as_inserts(out, split.for_streaming)
 
     # -- schema evolution ----------------------------------------------------

@@ -1,14 +1,18 @@
 """Scan planning: snapshot -> manifests -> pruned ManifestEntries ->
 DataSplits.
 
-Counterpart of paimon_tpu/core/scan.py without file indexes and
-deletion vectors (ROADMAP.md A.8.6, A.8.7): a snapshot whose index
-manifest holds deletion vectors is refused, never read without its
-mask.  Streaming reads plan one snapshot's delta (`plan_delta`) or
-changelog (`plan_changelog`) files into splits that keep every row
-kind.  The index manifest is read for the writers
-(`index_manifest_file`: the dynamic-bucket hash index).  Postpone
-staging (bucket -2) stays invisible unless the bucket filter names it.
+Counterpart of paimon_tpu/core/scan.py without deletion vectors
+(ROADMAP.md A.8.7): a snapshot whose index manifest holds deletion
+vectors is refused, never read without its mask.  Per-file column
+indexes (index/file_index.py) skip files: a key predicate drops a file
+whose indexes prove no row can match; a value predicate drops a bucket
+only when no file of it can match, since a file without a match may
+hold the newest version of a key whose older version matches.
+Streaming reads plan one snapshot's delta (`plan_delta`) or changelog
+(`plan_changelog`) files into splits that keep every row kind.  The
+index manifest is read for the writers (`index_manifest_file`: the
+dynamic-bucket hash index).  Postpone staging (bucket -2) stays
+invisible unless the bucket filter names it.
 
 The incremental metadata plane:
 
@@ -122,7 +126,8 @@ class FileStoreScan:
         self._dv_free: set = set()     # index manifests seen without DVs
         # the plan metric group, allocated up front so every series
         # renders (manifest_compactions' producer is
-        # maintenance/manifest_compact.py)
+        # maintenance/manifest_compact.py); the port's own
+        # sidecar_fallbacks counter is allocated at its first count
         from paimon_tpu_torch import metrics as m
         pm = m.global_registry().plan_metrics()
         self._m_plans = pm.counter(m.PLAN_PLANS)
@@ -131,12 +136,16 @@ class FileStoreScan:
         self._m_manifests_read = pm.counter(m.PLAN_MANIFESTS_READ)
         self._m_manifests_pruned = pm.counter(m.PLAN_MANIFESTS_PRUNED)
         self._m_entries_decoded = pm.counter(m.PLAN_ENTRIES_DECODED)
-        self._m_sidecar_fallbacks = pm.counter(m.PLAN_SIDECAR_FALLBACKS)
         pm.counter(m.PLAN_MANIFEST_COMPACTIONS)
         self._partition_filter: Optional[dict] = None
         self._bucket_filter: Optional[set] = None
         self._key_filter: Optional[Predicate] = None
         self._value_filter: Optional[Predicate] = None
+        # per data file: its indexes, keyed by the meta's identity (a
+        # rewrite_file_index commit replaces a meta under the same file
+        # name), for this scan object's lifetime
+        self._file_index_cache: Dict[tuple, object] = {}
+        self._arrow_types: Optional[Dict[str, object]] = None
 
     # -- fluent filters ------------------------------------------------------
 
@@ -168,8 +177,24 @@ class FileStoreScan:
         self._refuse_deletion_vectors(snapshot)
         plan = ScanPlan(snapshot.id, self._plan_splits(snapshot, streaming),
                         streaming=streaming)
+        from paimon_tpu_torch.metrics import global_registry
+        from paimon_tpu_torch.obs.trace import (
+            STAGE_PLAN_LINK, span, tracing_enabled,
+        )
+        if tracing_enabled():
+            ctx = (snapshot.properties or {}).get("trace.context")
+            if ctx:
+                # the snapshot's committer stamped its trace context:
+                # link this plan to it
+                with span(STAGE_PLAN_LINK, cat="scan", link=ctx,
+                          snapshot=snapshot.id):
+                    pass
+        dt_ms = (time.perf_counter() - t0) * 1000
         self._m_plans.inc()
-        self._m_plan_ms.update((time.perf_counter() - t0) * 1000)
+        self._m_plan_ms.update(dt_ms)
+        g = global_registry().scan_metrics()
+        g.histogram("plan_ms").update(dt_ms)
+        g.counter("plans").inc()
         return plan
 
     def _plan_splits(self, snapshot: Snapshot,
@@ -569,8 +594,12 @@ class FileStoreScan:
             else:
                 pruned += 1
         self._m_manifests_pruned.inc(pruned)
-        if sidecar_on:
-            self._m_sidecar_fallbacks.inc(fallbacks)
+        if sidecar_on and fallbacks:
+            # the port's own counter, allocated at its first fallback so
+            # a table's metric set stays the reference's until then
+            from paimon_tpu_torch import metrics as m
+            m.global_registry().plan_metrics().counter(
+                m.PLAN_SIDECAR_FALLBACKS).inc(fallbacks)
         return out
 
     def _python_prune_keep(self, m) -> bool:
@@ -604,6 +633,64 @@ class FileStoreScan:
                 return False
         return True
 
+    def _arrow_type_map(self) -> Dict[str, object]:
+        if self._arrow_types is None:
+            from paimon_tpu_torch.types import data_type_to_arrow
+            out = {}
+            for f in self.schema.fields:
+                try:
+                    out[f.name] = data_type_to_arrow(f.type)
+                except (ValueError, NotImplementedError):
+                    pass
+            self._arrow_types = out
+        return self._arrow_types
+
+    def _file_indexes(self, e: ManifestEntry, pred):
+        """A file's column indexes: its embedded blob, else the `.index`
+        sidecar named in extra_files, whose entries are read for the
+        columns `pred` names when a predicate first names them (a
+        missing sidecar reads as no index)."""
+        from paimon_tpu_torch.index.file_index import (
+            read_indexes_blob, read_indexes_file,
+        )
+        f = e.file
+        key = (e.partition, e.bucket, f.file_name, f.embedded_index,
+               tuple(f.extra_files))
+        cached = self._file_index_cache.get(key)
+        if cached is None:
+            fi, sidecar = read_indexes_blob(f.embedded_index), None
+            if not fi:
+                sidecar = next((x for x in f.extra_files
+                                if x.endswith(".index")), None)
+                if sidecar is not None:
+                    sidecar = self.path_factory.data_file_path(
+                        self._partition_codec.from_bytes(e.partition),
+                        e.bucket, sidecar)
+            cached = self._file_index_cache[key] = (fi, sidecar, set())
+        fi, sidecar, asked = cached
+        if sidecar is not None:
+            new = {c for c in pred.fields()
+                   if c not in asked and not fi.has(c)}
+            if new:
+                try:
+                    fi.merge(read_indexes_file(self.file_io, sidecar, new))
+                except FileNotFoundError:
+                    pass
+                asked |= new
+        return fi
+
+    def _bloom_rejects(self, e: ManifestEntry, pred) -> bool:
+        """True when the file's indexes (bloom equality misses, bitmap,
+        BSI and range-bitmap emptiness) prove no row matches `pred`
+        (reference io/FileIndexEvaluator + FileIndexPredicate)."""
+        if pred is None:
+            return False
+        fi = self._file_indexes(e, pred)
+        if not fi:
+            return False
+        from paimon_tpu_torch.index.file_index import evaluate_skip
+        return evaluate_skip(fi, pred, self._arrow_type_map())
+
     def _entry_visible(self, e: ManifestEntry) -> bool:
         """Per-file visibility. NOTE: value-predicate pruning for
         primary-key tables is NOT applied here — a file without matching
@@ -620,6 +707,8 @@ class FileStoreScan:
                 e.bucket not in self._bucket_filter:
             return False
         if not self._partition_matches(e.partition):
+            return False
+        if self._bloom_rejects(e, self._key_filter):
             return False
         if self._key_filter is not None and self.schema.primary_keys:
             key_types = [t.copy(False) for t in (
@@ -657,7 +746,9 @@ class FileStoreScan:
         every file must be read so newer versions participate)."""
         if self._value_filter is None or not self.schema.primary_keys:
             return True
-        return any(self._value_stats_match(e) for e in group)
+        return any(self._value_stats_match(e)
+                   and not self._bloom_rejects(e, self._value_filter)
+                   for e in group)
 
     def generate_splits(self, snapshot_id: int,
                         entries: List[ManifestEntry],

@@ -267,22 +267,29 @@ class _BucketWriter:
             return None, []
         raw, kinds, seq = snap
         schema = self.parent.schema
-        kv = build_kv_table(raw, schema, seq, kinds)
         key_cols = self.parent.key_cols
         opts = self.parent.options
         engine = opts.merge_engine
-        if engine not in (MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
-            order = sort_table(kv, key_cols,
-                               key_encoder=self.parent.key_encoder,
-                               device=self.parent.device)
-            sorted_kv = kv.take(pa.array(order))
-        else:
-            sorted_kv = merge_runs(
-                [kv], key_cols, merge_engine=engine, drop_deletes=False,
-                key_encoder=self.parent.key_encoder,
-                seq_fields=opts.sequence_field or None,
-                seq_desc=opts.sequence_field_descending,
-                device=self.parent.device).take()
+        from paimon_tpu_torch.metrics import WRITE_SORT_MS
+        from paimon_tpu_torch.obs.trace import span
+        with span("write.sort", cat="write", group="write",
+                  metric=WRITE_SORT_MS, partition=self.partition,
+                  bucket=self.bucket, rows=raw.num_rows):
+            kv = build_kv_table(raw, schema, seq, kinds)
+            if engine not in (MergeEngine.DEDUPLICATE,
+                              MergeEngine.FIRST_ROW):
+                order = sort_table(kv, key_cols,
+                                   key_encoder=self.parent.key_encoder,
+                                   device=self.parent.device)
+                sorted_kv = kv.take(pa.array(order))
+            else:
+                sorted_kv = merge_runs(
+                    [kv], key_cols, merge_engine=engine,
+                    drop_deletes=False,
+                    key_encoder=self.parent.key_encoder,
+                    seq_fields=opts.sequence_field or None,
+                    seq_desc=opts.sequence_field_descending,
+                    device=self.parent.device).take()
         changelog: List[DataFileMeta] = []
         if self.parent.changelog_input:
             changelog = self.parent.write_changelog(
@@ -650,6 +657,10 @@ class KeyValueFileStoreWrite:
             file_format=options.file_format,
             compression=options.file_compression,
             target_file_size=options.target_file_size,
+            index_spec=options.file_index_spec,
+            bloom_fpp=options.get(CoreOptions.FILE_INDEX_BLOOM_FPP),
+            index_in_manifest_threshold=options.get(
+                CoreOptions.FILE_INDEX_IN_MANIFEST_THRESHOLD),
             format_per_level=options.file_format_per_level,
             format_options=options.format_options,
             **options.kv_writer_kwargs())

@@ -1,8 +1,9 @@
 """FileFormat SPI: reader/writer factories over Arrow tables.
 
 Counterpart of paimon_tpu/format/format.py, reduced to parquet and ORC
-data files (Arrow C++ decode and encode); the other data-file formats
-are not ported yet.  reference boundary: paimon-common/.../format/
+data files (Arrow C++ decode and encode), with the reference's io spans
+(io.read, decode, encode, io.upload) around parquet's fetch, decode,
+encode and upload; the other data-file formats are not ported yet.  reference boundary: paimon-common/.../format/
 FileFormat.java:43 + SimpleStatsExtractor.
 """
 
@@ -82,7 +83,12 @@ class _ParquetReader(FormatReader):
         """ParquetFile over the file's bytes, reusing a previously
         parsed footer from the process footer cache (fs/caching.py)."""
         from paimon_tpu_torch.fs.caching import global_footer_cache
-        data = file_io.read_bytes(path)  # store faults propagate
+        from paimon_tpu_torch.metrics import IO_READ_MS
+        from paimon_tpu_torch.obs.trace import span
+        with span("io.read", cat="io", group="io", metric=IO_READ_MS,
+                  path=path) as sp:
+            data = file_io.read_bytes(path)  # store faults propagate
+            sp.set(bytes=len(data))
         cache = global_footer_cache()
         md = cache.get(path)
         with _decode_errors(path):
@@ -92,8 +98,12 @@ class _ParquetReader(FormatReader):
         return pf
 
     def read(self, file_io, path, projection=None, batch_size=1 << 20):
+        from paimon_tpu_torch.metrics import IO_DECODE_MS
+        from paimon_tpu_torch.obs.trace import span
         pf = self._open(file_io, path)
-        with _decode_errors(path):
+        with _decode_errors(path), \
+                span("decode", cat="io", group="io",
+                     metric=IO_DECODE_MS, path=path):
             return pf.read(columns=projection)
 
     def read_batches(self, file_io, path, projection=None,
@@ -137,18 +147,24 @@ class _ParquetWriter(FormatWriter):
             "parquet.enable.dictionary", "true").lower() != "false"
 
     def write(self, file_io, path, table):
+        from paimon_tpu_torch.metrics import IO_ENCODE_MS, IO_UPLOAD_MS
+        from paimon_tpu_torch.obs.trace import span
         buf = io.BytesIO()
         rg = self.row_group_rows
         if self.block_bytes and table.num_rows:
             per_row = max(1, table.nbytes // table.num_rows)
             rg = max(1024, self.block_bytes // per_row)
-        pq.write_table(table, buf, compression=self.compression,
-                       compression_level=self.level,
-                       row_group_size=rg,
-                       use_dictionary=self.use_dictionary,
-                       write_statistics=True)
+        with span("encode", cat="io", group="io", metric=IO_ENCODE_MS,
+                  path=path, rows=table.num_rows):
+            pq.write_table(table, buf, compression=self.compression,
+                           compression_level=self.level,
+                           row_group_size=rg,
+                           use_dictionary=self.use_dictionary,
+                           write_statistics=True)
         data = buf.getvalue()
-        file_io.write_bytes(path, data, overwrite=False)
+        with span("io.upload", cat="io", group="io",
+                  metric=IO_UPLOAD_MS, path=path, bytes=len(data)):
+            file_io.write_bytes(path, data, overwrite=False)
         return len(data)
 
 
@@ -218,7 +234,7 @@ def get_format(identifier: str) -> FileFormatFactory:
     if ident in _NOT_PORTED:
         raise NotImplementedError(
             f"file format {identifier!r} is not ported yet (ROADMAP.md: "
-            f"the remaining planes); parquet is")
+            f"A.8.8); parquet and orc are")
     if ident not in _FORMATS:
         raise ValueError(f"Unknown file format {identifier!r}; "
                          f"available: {sorted(_FORMATS)}")

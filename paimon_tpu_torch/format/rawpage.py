@@ -62,6 +62,12 @@ def _count(key: str) -> None:
         DECODE_COUNTS[key] += 1
 
 
+def _count_scan(metric: str) -> None:
+    """The scan metric group's device-decode counters (metrics.py)."""
+    from paimon_tpu_torch.metrics import global_registry
+    global_registry().scan_metrics().counter(metric).inc()
+
+
 # parquet-format enums (format/src/main/thrift/parquet.thrift)
 _ENC_PLAIN = 0
 _ENC_PLAIN_DICT = 2
@@ -697,7 +703,9 @@ def maybe_read_device(file_io: FileIO, path: str,
         return read_parquet_device(file_io, path, projection, options,
                                    device=device)
     except _FALLBACK_ERRORS:
+        from paimon_tpu_torch.metrics import SCAN_DEVICE_DECODE_FALLBACKS
         _count("fallbacks")
+        _count_scan(SCAN_DEVICE_DECODE_FALLBACKS)
         return None
 
 
@@ -788,7 +796,11 @@ def iter_batches_device(file_io: FileIO, path: str, batch_rows: int,
 
 
 def _iter_batches_device(file_io, path, batch_rows, options, md, dev):
+    from paimon_tpu_torch.metrics import (
+        SCAN_DEVICE_DECODE_FALLBACKS, SCAN_DEVICE_DECODE_FILES,
+    )
     _count("files")
+    _count_scan(SCAN_DEVICE_DECODE_FILES)
     for rg in range(md.num_row_groups):
         try:
             t = read_parquet_device(file_io, path, options=options,
@@ -799,6 +811,7 @@ def _iter_batches_device(file_io, path, batch_rows, options, md, dev):
             # through pyarrow; earlier groups already yielded the same
             # rows, so the stream stays seamless
             _count("fallbacks")
+            _count_scan(SCAN_DEVICE_DECODE_FALLBACKS)
             data = file_io.read_bytes(path)
             pf = pq.ParquetFile(io.BytesIO(data), metadata=md)
             for rb in pf.iter_batches(

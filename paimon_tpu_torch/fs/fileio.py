@@ -221,5 +221,5 @@ def get_file_io(path: str) -> FileIO:
     if "://" in path and not path.startswith("file://"):
         raise NotImplementedError(
             f"file system scheme {path.split('://', 1)[0]!r} is not ported "
-            f"yet (ROADMAP.md: the remaining planes); local paths are")
+            f"yet (ROADMAP.md: A.7b); local paths are")
     return _local

@@ -30,7 +30,8 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["serialize_roaring32", "deserialize_roaring32"]
+__all__ = ["serialize_roaring32", "serialize_roaring32_cumulative",
+           "deserialize_roaring32"]
 
 SERIAL_COOKIE_NO_RUNCONTAINER = 12346
 SERIAL_COOKIE = 12347
@@ -40,44 +41,99 @@ ARRAY_MAX = 4096
 
 def serialize_roaring32(positions: np.ndarray) -> bytes:
     """Serialize sorted unique uint32 positions (no run containers —
-    always valid for any conforming reader)."""
-    pos = np.unique(np.asarray(positions, dtype=np.uint64))
-    if len(pos) and pos[-1] > 0xFFFFFFFF:
-        raise ValueError(
-            f"position {int(pos[-1])} exceeds the 32-bit roaring range "
-            f"(reference BitmapDeletionVector rejects it too)")
-    pos = pos.astype(np.uint32)
+    always valid for any conforming reader).  The reference's bytes:
+    sorted unique input skips the sort, containers split where the high
+    16 bits change, and keys and cardinalities, offsets and bitmap
+    containers are packed whole (packbits over a container's 65536
+    bits) rather than entry by entry."""
+    pos = np.asarray(positions)
+    if pos.dtype != np.uint32 or \
+            (len(pos) > 1 and not bool(np.all(pos[1:] > pos[:-1]))):
+        pos = np.unique(pos.astype(np.uint64))
+        if len(pos) and pos[-1] > 0xFFFFFFFF:
+            raise ValueError(
+                f"position {int(pos[-1])} exceeds the 32-bit roaring range "
+                f"(reference BitmapDeletionVector rejects it too)")
+        pos = pos.astype(np.uint32)
     keys = (pos >> np.uint32(16)).astype(np.uint16)
     lows = (pos & np.uint32(0xFFFF)).astype(np.uint16)
-    uk, starts = np.unique(keys, return_index=True)
-    n = len(uk)
-    bounds = np.append(starts, len(pos))
+    starts = np.flatnonzero(np.diff(keys, prepend=np.int32(-1))) \
+        if len(keys) else np.zeros(0, np.int64)
+    n = len(starts)
+    bounds = np.append(starts, len(pos)).astype(np.int64)
+    cards = np.diff(bounds)
 
     header = struct.pack("<II", SERIAL_COOKIE_NO_RUNCONTAINER, n)
-    keycards = b"".join(
-        struct.pack("<HH", int(uk[i]),
-                    int(bounds[i + 1] - bounds[i] - 1))
-        for i in range(n))
+    keycards = np.stack([keys[starts].astype(np.int64), cards - 1],
+                        axis=1).astype("<u2").tobytes()
     containers: List[bytes] = []
     for i in range(n):
         vals = lows[bounds[i]:bounds[i + 1]]
         if len(vals) <= ARRAY_MAX:
             containers.append(vals.astype("<u2").tobytes())
         else:
-            words = np.zeros(1024, dtype=np.uint64)
-            v = vals.astype(np.uint32)
-            np.bitwise_or.at(words, v >> np.uint32(6),
-                             np.uint64(1) << (v & np.uint32(63)).astype(
-                                 np.uint64))
-            containers.append(words.astype("<u8").tobytes())
+            bits = np.zeros(1 << 16, dtype=bool)
+            bits[vals] = True
+            containers.append(np.packbits(bits, bitorder="little")
+                              .tobytes())
+    sizes = np.array([len(c) for c in containers], dtype=np.int64)
     offset0 = len(header) + len(keycards) + 4 * n
-    offsets = []
-    off = offset0
-    for c in containers:
-        offsets.append(off)
-        off += len(c)
-    offsets_b = b"".join(struct.pack("<I", o) for o in offsets)
-    return header + keycards + offsets_b + b"".join(containers)
+    offsets = offset0 + np.concatenate([[0], np.cumsum(sizes)[:-1]]) \
+        if n else np.zeros(0, np.int64)
+    return header + keycards + offsets.astype("<u4").tobytes() + \
+        b"".join(containers)
+
+
+def serialize_roaring32_cumulative(positions: np.ndarray,
+                                   labels: np.ndarray,
+                                   n_labels: int) -> List[bytes]:
+    """[serialize_roaring32(positions[labels <= i]) for i < n_labels],
+    built container by container from the labels instead of from the
+    cumulative lists: per 65536-row container one label array, whose
+    `<= i` masks give each list's array or bitmap container.
+    `positions`: sorted unique uint32; `labels`: ints in [0, n_labels),
+    n_labels < 255."""
+    pos = np.asarray(positions, dtype=np.uint32)
+    labels = np.asarray(labels).astype(np.uint8)
+    keys = pos >> np.uint32(16)
+    starts = np.flatnonzero(np.diff(keys, prepend=np.int64(-1)))
+    bounds = np.append(starts, len(pos))
+    ranks = np.arange(n_labels, dtype=np.uint8)[:, None]
+    # per list: (key, cardinality, container bytes) of each container
+    parts: List[list] = [[] for _ in range(n_labels)]
+    for c in range(len(starts)):
+        a, b = bounds[c], bounds[c + 1]
+        lab = labels[a:b]
+        full = np.full(1 << 16, 255, dtype=np.uint8)
+        full[pos[a:b] & np.uint32(0xFFFF)] = lab
+        cards = np.cumsum(np.bincount(lab, minlength=n_labels))
+        dense = np.flatnonzero(cards > ARRAY_MAX)
+        bitmaps = np.packbits(full[None, :] <= ranks[dense], axis=1,
+                              bitorder="little") if len(dense) else None
+        key = int(keys[a])
+        for i in range(n_labels):
+            card = int(cards[i])
+            if card == 0:
+                continue
+            if card <= ARRAY_MAX:
+                body = np.flatnonzero(full <= i).astype("<u2").tobytes()
+            else:
+                body = bitmaps[i - dense[0]].tobytes()
+            parts[i].append((key, card, body))
+    out = []
+    for cont in parts:
+        n = len(cont)
+        header = struct.pack("<II", SERIAL_COOKIE_NO_RUNCONTAINER, n)
+        keycards = np.array([(k, card - 1) for k, card, _ in cont],
+                            dtype="<u2").tobytes() if n else b""
+        sizes = np.array([len(body) for _, _, body in cont],
+                         dtype=np.int64)
+        offset0 = len(header) + len(keycards) + 4 * n
+        offsets = offset0 + np.concatenate([[0], np.cumsum(sizes)[:-1]]) \
+            if n else np.zeros(0, np.int64)
+        out.append(header + keycards + offsets.astype("<u4").tobytes()
+                   + b"".join(body for _, _, body in cont))
+    return out
 
 
 def deserialize_roaring32(data: bytes) -> np.ndarray:

@@ -6,8 +6,9 @@ every scan then fails. The repair commits DELETE entries for the
 missing files so the table becomes readable again (data in those files
 is gone either way).
 
-Counterpart of paimon_tpu/maintenance/repair.py; `rewrite_file_index`
-waits for the file indexes (ROADMAP.md A.8.6).
+Counterpart of paimon_tpu/maintenance/repair.py, with
+`rewrite_file_index`, which retrofits per-file column indexes onto a
+table's existing data files.
 """
 
 from __future__ import annotations
@@ -107,12 +108,85 @@ def remove_unexisting_files(table, dry_run: bool = False) -> List[str]:
 
 
 def rewrite_file_index(table, force: bool = False) -> int:
-    """Build per-file indexes for the table's file-index.* options
-    (reference flink/procedure/RewriteFileIndexProcedure).  File indexes
-    are not ported: raises NotImplementedError."""
-    raise NotImplementedError(
-        "rewrite_file_index is not ported to paimon_tpu_torch yet "
-        "(ROADMAP.md: A.8.6)")
+    """Build per-file indexes (bloom, bitmap, bsi, range-bitmap per the
+    table's current file-index.* options) and commit the updated metas
+    (reference flink/procedure/RewriteFileIndexProcedure).  By default
+    only files without any index are processed; `force=True` rebuilds
+    every file, which a change of the file-index.* spec needs.  Returns
+    the number of files whose index was (re)written."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paimon_tpu_torch.core.commit import FileStoreCommit
+    from paimon_tpu_torch.core.kv_file import read_kv_file
+    from paimon_tpu_torch.core.write import CommitMessage
+    from paimon_tpu_torch.index.bloom import place_file_index
+    from paimon_tpu_torch.index.file_index import build_indexes_blob
+    from paimon_tpu_torch.options import CoreOptions
+
+    spec = table.options.file_index_spec
+    if not spec:
+        raise ValueError("no file-index.*.columns configured")
+    snapshot = table.snapshot_manager.latest_snapshot()
+    if snapshot is None:
+        return 0
+    scan = table.new_scan()
+    threshold = table.options.get(
+        CoreOptions.FILE_INDEX_IN_MANIFEST_THRESHOLD)
+    fpp = table.options.get(CoreOptions.FILE_INDEX_BLOOM_FPP)
+    todo = []
+    for e in scan.read_entries(snapshot):
+        if e.bucket == -2:
+            continue
+        f = e.file
+        if not force and (f.embedded_index is not None or
+                          any(x.endswith(".index")
+                              for x in f.extra_files)):
+            continue                      # already indexed
+        todo.append(e)
+
+    def build_one(e):
+        f = e.file
+        partition = scan._partition_codec.from_bytes(e.partition)
+        data = read_kv_file(table.file_io, scan.path_factory, partition,
+                            e.bucket, f, options=table.options,
+                            device=table.device)
+        blob = build_indexes_blob(data, spec, fpp)
+        if blob is None:
+            return None
+        # a crashed or forced earlier run may have left this sidecar:
+        # the rewrite owns the name, so placement never finds it taken
+        table.file_io.delete_quietly(scan.path_factory.data_file_path(
+            partition, e.bucket, f.file_name + ".index"))
+        embedded, extras = place_file_index(
+            table.file_io, scan.path_factory, partition, e.bucket,
+            f.file_name, blob, threshold)
+        return dataclasses.replace(
+            f, embedded_index=embedded,
+            extra_files=[x for x in f.extra_files
+                         if not x.endswith(".index")] + extras)
+
+    workers = max(1, table.options.get(
+        CoreOptions.DELETE_FILE_THREAD_NUM) or 4)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        new_metas = list(pool.map(build_one, todo))
+
+    msgs = {}
+    rewritten = 0
+    for e, new_meta in zip(todo, new_metas):
+        if new_meta is None:
+            continue
+        partition = scan._partition_codec.from_bytes(e.partition)
+        m = msgs.setdefault((e.partition, e.bucket), CommitMessage(
+            partition, e.bucket, e.total_buckets))
+        m.compact_before.append(e.file)
+        m.compact_after.append(new_meta)
+        rewritten += 1
+    if msgs:
+        FileStoreCommit(table.file_io, table.path, table.schema,
+                        table.options, branch=table.branch).commit(
+            list(msgs.values()))
+    return rewritten
 
 
 def compact_manifests(table):

@@ -10,25 +10,30 @@ sweeps), the read and write planes' retries, prefetch budget and flush
 counters (scan and write groups), the upload stager's counters
 (cache_disk group) and the incremental metadata plane (plan group:
 plans, delta applies, manifests read and pruned, entries decoded,
-sidecar fallbacks, manifest compactions).  `snapshot_rows` is the one
+sidecar fallbacks, manifest compactions), the stage histograms of the
+ported planes (io: read, decode, encode, upload; scan: merge and the
+plan's ms; write: sort; commit: CAS and manifest encode, with the commit
+group's counters), and the compaction group's task counters with the
+busy window of `CompactTimer`.  `snapshot_rows` is the one
 serialization behind `snapshot()` and the Prometheus text of
-obs/export.py.  The reference's commit, stream and multihost groups,
-the rest of the fleet and cache_disk groups and CompactTimer are not
-ported yet.
+obs/export.py.  The reference's stream and multihost groups and the
+rest of the fleet and cache_disk groups are not ported yet.
 
 reference: paimon-core/.../metrics/ (MetricRegistry, Counter, Gauge,
-Histogram) with groups ScanMetrics / CompactionMetrics.
+Histogram) with groups CommitMetrics / ScanMetrics / CompactionMetrics,
+and compact/CompactTimer.java.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 from collections import deque
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
-           "MetricRegistry", "global_registry",
+           "MetricRegistry", "global_registry", "CompactTimer",
            "COMPACTION_BUCKET_RETRIES", "COMPACTION_BUCKET_FALLBACKS",
            "COMPACTION_BUCKET_FAILURES", "SCAN_DEVICE_DECODE_FALLBACKS",
            "SCAN_FILE_CACHE_HITS", "SCAN_FILE_CACHE_MISSES",
@@ -65,7 +70,10 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
            "CACHE_DISK_STAGE_MS", "PLAN_PLANS", "PLAN_MS",
            "PLAN_DELTA_APPLIES", "PLAN_MANIFESTS_READ",
            "PLAN_MANIFESTS_PRUNED", "PLAN_ENTRIES_DECODED",
-           "PLAN_SIDECAR_FALLBACKS"]
+           "PLAN_SIDECAR_FALLBACKS", "SCAN_MERGE_MS", "IO_READ_MS",
+           "IO_DECODE_MS", "IO_ENCODE_MS", "IO_UPLOAD_MS",
+           "COMMIT_CAS_MS", "COMMIT_MANIFEST_ENCODE_MS",
+           "SCAN_DEVICE_DECODE_FILES"]
 
 # fault-tolerance counters of the compaction group (producer:
 # parallel/mesh_engine.py):
@@ -97,8 +105,9 @@ PLAN_MANIFEST_COMPACTIONS = "manifest_compactions"  # full rewrites
 FLEET_FSCK_INCREMENTAL_RUNS = "fsck_incremental_runs"
 FLEET_FSCK_OBJECTS_CHECKED = "fsck_objects_checked"
 FLEET_FSCK_WATERMARK_AGE_MS = "fsck_watermark_age_ms"
-# scan group: parquet files the device decode plane handed back to the
-# pyarrow host path
+# scan group: parquet files the device decode plane streamed, and those
+# it handed back to the pyarrow host path
+SCAN_DEVICE_DECODE_FILES = "device_decode_files"
 SCAN_DEVICE_DECODE_FALLBACKS = "device_decode_fallbacks"
 # scan group: the byte and footer caches of fs/caching.py
 SCAN_FILE_CACHE_HITS = "file_cache_hits"
@@ -124,10 +133,17 @@ CACHE_DISK_STAGED_UPLOADS = "staged_uploads"  # uploads acked from stage
 CACHE_DISK_STAGE_MS = "stage_ms"              # one encode->staged write
 # latency histograms (ms) fed by obs/trace.py spans that name them
 SCAN_SPLIT_MS = "split_ms"                  # scan: whole read_split
+SCAN_MERGE_MS = "merge_ms"                  # scan: one split's merge
 WRITE_SORT_MS = "sort_ms"                   # write: buffer sort/dedup
 WRITE_FLUSH_TASK_MS = "flush_task_ms"       # write: whole flush task
+IO_READ_MS = "read_ms"                      # io: store -> bytes
+IO_DECODE_MS = "decode_ms"                  # io: bytes -> Arrow
+IO_ENCODE_MS = "encode_ms"                  # io: Arrow -> bytes
+IO_UPLOAD_MS = "upload_ms"                  # io: bytes -> store
 COMPACTION_WINDOW_MS = "window_ms"          # one mesh window merge
 COMPACTION_FALLBACK_MS = "fallback_ms"      # one single-chip rescue
+COMMIT_CAS_MS = "cas_ms"                    # commit: one CAS publish
+COMMIT_MANIFEST_ENCODE_MS = "manifest_encode_ms"
 
 # service group (service/admission.py, async_server.py, delta.py,
 # query_service.py); per-tenant in-flight bytes are one gauge per
@@ -201,11 +217,18 @@ class Counter:
 
 
 class Gauge:
-    def __init__(self):
-        self.value = 0.0
+    """A set value, or the value of `fn` read at each snapshot."""
+
+    def __init__(self, fn: Optional[Callable[[], float]] = None):
+        self._fn = fn
+        self._v = 0.0
 
     def set(self, v: float):
-        self.value = v
+        self._v = v
+
+    @property
+    def value(self) -> float:
+        return self._fn() if self._fn is not None else self._v
 
 
 class Histogram:
@@ -304,8 +327,9 @@ class MetricGroup:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter, Counter)
 
-    def gauge(self, name: str) -> Gauge:
-        return self._get(name, Gauge, Gauge)
+    def gauge(self, name: str,
+              fn: Optional[Callable[[], float]] = None) -> Gauge:
+        return self._get(name, Gauge, lambda: Gauge(fn))
 
     def histogram(self, name: str, window: int = 100) -> Histogram:
         return self._get(name, Histogram, lambda: Histogram(window))
@@ -329,6 +353,9 @@ class MetricRegistry:
 
     def compaction_metrics(self, table: str = "") -> MetricGroup:
         return self.group("compaction", table)
+
+    def commit_metrics(self, table: str = "") -> MetricGroup:
+        return self.group("commit", table)
 
     def write_metrics(self, table: str = "") -> MetricGroup:
         """Pipelined write plane (parallel/write_pipeline.py)."""
@@ -417,3 +444,55 @@ _GLOBAL = MetricRegistry()
 
 def global_registry() -> MetricRegistry:
     return _GLOBAL
+
+
+class CompactTimer:
+    """Sliding-window busy time: how many milliseconds of the last
+    `window_ms` were spent compacting (reference
+    compact/CompactTimer.java).  Overlapping tasks share one interval
+    (a depth count under a lock)."""
+
+    def __init__(self, window_ms: int = 60_000, clock=None):
+        self.window_ms = window_ms
+        self._clock = clock or (lambda: int(time.time() * 1000))
+        self._intervals: list = []      # [start, end or None]
+        self._depth = 0
+        self._lock = threading.Lock()
+
+    def start(self, now: Optional[int] = None):
+        now = self._clock() if now is None else now
+        with self._lock:
+            self._trim(now)
+            if self._depth == 0:
+                self._intervals.append([now, None])
+            self._depth += 1
+
+    def stop(self, now: Optional[int] = None):
+        now = self._clock() if now is None else now
+        with self._lock:
+            if self._depth > 0:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._intervals[-1][1] = now
+
+    def _trim(self, now: int):
+        horizon = now - self.window_ms
+        self._intervals = [iv for iv in self._intervals
+                           if iv[1] is None or iv[1] > horizon]
+
+    def busy_millis(self, now: Optional[int] = None) -> int:
+        """Compaction-busy milliseconds within the trailing window."""
+        now = self._clock() if now is None else now
+        horizon = now - self.window_ms
+        with self._lock:
+            self._trim(now)
+            total = 0
+            for start, end in self._intervals:
+                e = now if end is None else min(end, now)
+                s = max(start, horizon)
+                if e > s:
+                    total += e - s
+            return total
+
+    def busy_ratio(self, now: Optional[int] = None) -> float:
+        return self.busy_millis(now) / self.window_ms

@@ -36,8 +36,8 @@ __all__ = ["Span", "TraceCollector", "span", "enable_tracing",
            "metrics_enabled", "collector", "take_spans",
            "sync_from_options", "maybe_export", "export_chrome_trace",
            "set_replica_id", "inject_headers", "server_span",
-           "STAGE_SERVE_REQUEST",
-           "STAGE_CLIENT_REQUEST", "HDR_TRACE_ID", "HDR_PARENT_SPAN"]
+           "STAGE_SERVE_REQUEST", "STAGE_CLIENT_REQUEST",
+           "STAGE_PLAN_LINK", "HDR_TRACE_ID", "HDR_PARENT_SPAN"]
 
 DEFAULT_BUFFER_SPANS = 8192
 
@@ -45,6 +45,9 @@ DEFAULT_BUFFER_SPANS = 8192
 # request's context from client to server
 STAGE_SERVE_REQUEST = "serve.request"
 STAGE_CLIENT_REQUEST = "client.request"
+# a scan plan of a snapshot whose commit carried a trace context
+# (`trace.context` in its properties): the link back to the committer
+STAGE_PLAN_LINK = "plan.link"
 HDR_TRACE_ID = "X-Trace-Id"
 HDR_PARENT_SPAN = "X-Parent-Span"
 

@@ -504,6 +504,10 @@ class CoreOptions:
     FILE_INDEX_BLOOM_COLUMNS = ConfigOption(
         "file-index.bloom-filter.columns", str, None,
         "Columns to build per-file bloom filters for")
+    FILE_INDEX_BLOOM_FPP = ConfigOption(
+        "file-index.bloom-filter.fpp", float, 0.01, "")
+    FILE_INDEX_IN_MANIFEST_THRESHOLD = ConfigOption(
+        "file-index.in-manifest-threshold", parse_memory_size, 500, "")
     FILE_INDEX_BITMAP_COLUMNS = ConfigOption(
         "file-index.bitmap.columns", str, None,
         "Columns to build per-file value->row-position bitmap indexes "
@@ -516,6 +520,10 @@ class CoreOptions:
         "file-index.range-bitmap.columns", str, None,
         "Numeric columns to build per-file range-encoded bin bitmaps "
         "for (reference fileindex/rangebitmap/RangeBitmap.java)")
+    FILE_INDEX_READ_ENABLED = ConfigOption(
+        "file-index.read.enabled", _parse_bool, True,
+        "Defined by the reference and read by no scan; refused "
+        "(ROADMAP.md A.8.6b)")
     ROW_TRACKING_ENABLED = ConfigOption("row-tracking.enabled", _parse_bool,
                                         False, "")
     LOCAL_MERGE_BUFFER_SIZE = ConfigOption(
@@ -1080,7 +1088,6 @@ class CoreOptions:
     def size_ratio(self) -> int:
         return self.options.get(CoreOptions.COMPACTION_SIZE_RATIO)
 
-
     @property
     def file_index_spec(self):
         """index-type name -> column list, for every configured
@@ -1098,7 +1105,6 @@ class CoreOptions:
             if cols:
                 spec[name] = cols
         return spec
-
 
     @property
     def branch(self) -> str:

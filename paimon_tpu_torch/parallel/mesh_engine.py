@@ -87,7 +87,7 @@ def _single_process(mesh) -> None:
     if mesh.world > 1:
         raise NotImplementedError(
             "table compaction over a multi-process mesh is not ported to "
-            "paimon_tpu_torch yet (ROADMAP.md: the remaining planes)")
+            "paimon_tpu_torch yet (ROADMAP.md: A.8.9)")
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +153,8 @@ class _EngineContext:
             table.file_io, self.path_factory, table.schema,
             file_format=opts.file_format, compression=opts.file_compression,
             target_file_size=opts.target_file_size,
+            index_spec=opts.file_index_spec,
+            bloom_fpp=opts.get(CoreOptions.FILE_INDEX_BLOOM_FPP),
             format_per_level=opts.file_format_per_level,
             format_options=opts.format_options, **opts.kv_writer_kwargs())
         self.max_level = opts.max_level

@@ -9,7 +9,9 @@ streaming writes with commit identifiers, stream scans, mesh compaction
 DELETE (-D records), and the maintenance plane: snapshot and changelog
 expiry, tags and auto-tags, branches and fallback reads, incremental
 reads, partition expiry and mark-done, orphan clean, fsck and repair,
-manifest compaction, commit and tag callbacks.  Every table
+manifest compaction, commit and tag callbacks, and per-file indexes
+(file-index.*: written with every data file, skipped by the scan,
+retrofitted by maintenance/repair.py rewrite_file_index).  Every table
 carries the torch device its merges run on (None means "cuda"; with no
 card, pass device="cpu").
 
@@ -74,19 +76,12 @@ def check_readable(schema: TableSchema, options: CoreOptions) -> None:
             _not_ported(key.key, "A.7b")
 
 
-def _refuse_prefix(options: CoreOptions, prefix: str, item: str) -> None:
-    """Refuse every set key under `prefix`: the reference reads these
-    knobs, which this package does not define yet."""
-    for key in options.options.keys():
-        if key.startswith(prefix):
-            _not_ported(key, item)
-
-
 def check_writable(options: CoreOptions) -> None:
     """Raise NotImplementedError for write and compaction options this
     package does not yet honor (a table with them still reads)."""
-    # file indexes: their columns, the bloom fpp, the in-manifest size
-    _refuse_prefix(options, "file-index.", "A.8.6")
+    # read by no scan of either package
+    if options.options.contains(CoreOptions.FILE_INDEX_READ_ENABLED.key):
+        _not_ported(CoreOptions.FILE_INDEX_READ_ENABLED.key, "A.8.6b")
     # read by no writer of either package yet: a cap on dynamic buckets
     # and an expiry of the cross-partition index
     if options.get(CoreOptions.DYNAMIC_BUCKET_MAX_BUCKETS) != -1:

@@ -721,8 +721,7 @@ def data_type_to_arrow(t: DataType) -> pa.DataType:
         return pa.string()
     if isinstance(t, VariantType):
         raise NotImplementedError(
-            "VARIANT columns are not ported yet (ROADMAP.md: the "
-            "remaining planes)")
+            "VARIANT columns are not ported yet (ROADMAP.md: A.8.8)")
     if isinstance(t, (BinaryType, VarBinaryType, BlobType)):
         return pa.binary()
     if isinstance(t, DecimalType):

@@ -890,11 +890,24 @@ def test_manifest_compaction_threshold_trigger(tmp_path):
 
 
 def test_rewrite_file_index_waits_for_file_indexes(tmp_path):
-    from paimon_tpu_torch.maintenance.repair import rewrite_file_index
-    t = make(PORT, str(tmp_path))
-    commit(t, [{"id": 1, "v": 1.0}])
-    with pytest.raises(NotImplementedError, match="A.8.6"):
-        rewrite_file_index(t)
+    """rewrite_file_index refuses a table without file-index options,
+    then indexes its one unindexed file once they are set, in both
+    packages."""
+    def scenario(pkg, root):
+        repair = maint(pkg, "repair")
+        t = make(pkg, root)
+        commit(t, [{"id": 1, "v": 1.0}])
+        with pytest.raises(ValueError, match="file-index"):
+            repair.rewrite_file_index(t)
+        indexed = t.copy({"file-index.bloom-filter.columns": "id"})
+        n = repair.rewrite_file_index(indexed), \
+            repair.rewrite_file_index(indexed)
+        snap = indexed.snapshot_manager.latest_snapshot()
+        blobs = [e.file.embedded_index
+                 for e in indexed.new_scan().read_entries(snap)]
+        return n, snap.commit_kind, blobs, rows(indexed)
+    n, kind, blobs, _ = both(scenario, tmp_path)
+    assert n == (1, 0) and kind == "COMPACT" and blobs[0]
 
 
 def delete_second_manifest(t):

@@ -31,6 +31,15 @@ COLS = [("id", "BigIntType", False), ("v1", "BigIntType", True),
         ("v2", "DoubleType", True), ("v3", "IntType", True)]
 
 
+@pytest.fixture(autouse=True)
+def _own_tempdir(tmp_path_factory, monkeypatch):
+    """Spill directories go to a temporary directory of the test's own:
+    tests in other processes that count those under the shared one
+    (tests/test_wired_options.py) never see them."""
+    monkeypatch.setattr(tempfile, "tempdir",
+                        str(tmp_path_factory.mktemp("spills")))
+
+
 def batches(seed=7, n=12, rows=400, keys=3000):
     """bench.py's rows at a small size: uniform ids in [0, keys)."""
     rng = np.random.default_rng(seed)
@@ -167,14 +176,11 @@ def _spill_dirs():
 
 
 @pytest.mark.parametrize("par", ["1", "4"])
-def test_spill_dirs_cleaned_on_abort_and_commit(tmp_path, par,
-                                                monkeypatch):
+def test_spill_dirs_cleaned_on_abort_and_commit(tmp_path, par):
     """close() without prepare_commit joins the pool and removes every
     spill directory; a committed write leaves none either."""
-    # a temporary directory of this test's own: other processes' spills
-    # stay out of the count
-    os.makedirs(tmp_path / "tmp")
-    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    # spills go to this test's own temporary directory (_own_tempdir):
+    # other processes' spills stay out of the count
     opts = {"bucket": "1", "write-only": "true",
             "write-buffer-size": "10kb", "write-buffer-spillable": "true",
             "write.flush.parallelism": par}

@@ -355,7 +355,7 @@ def test_unported_table_options_raise(tmp_path, options, item):
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"file-index.bloom-filter.columns": "v1"}, "A.8.6"),
+    ({"file-index.read.enabled": "false"}, "A.8.6b"),
     ({"dynamic-bucket.max-buckets": "8"}, "A.8.3b"),
     ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b"),
     ({"snapshot.expire.limit": "10"}, "A.8.4b"),
@@ -379,9 +379,9 @@ def test_unread_expiry_bounds_raise_on_expire(tmp_path, key, value):
 
 
 def test_append_table_and_other_planes_raise(tmp_path):
+    from paimon_tpu_torch.format import get_format
     from paimon_tpu_torch.maintenance.clone import clone_table
     from paimon_tpu_torch.maintenance.migrate import migrate_table
-    from paimon_tpu_torch.maintenance.repair import rewrite_file_index
     schema = (Schema.builder().column("id", BigIntType())
               .options({"bucket": "1"}).build())
     with pytest.raises(NotImplementedError, match="append tables"):
@@ -390,9 +390,45 @@ def test_append_table_and_other_planes_raise(tmp_path):
     for call, item in ((lambda: table.system_table("snapshots"), "A.8.9"),
                        (lambda: clone_table(None, "db.a", "db.b"), "A.8.9"),
                        (lambda: migrate_table(None, "/x", "db.t"), "A.8.9"),
-                       (lambda: rewrite_file_index(table), "A.8.6")):
+                       (lambda: get_format("avro"), "A.8.8")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+
+
+def _multi_process_mesh():
+    from types import SimpleNamespace
+
+    from paimon_tpu_torch.parallel.mesh_engine import _single_process
+    _single_process(SimpleNamespace(world=2))
+
+
+def _variant_column():
+    from paimon_tpu_torch.types import VariantType, data_type_to_arrow
+    data_type_to_arrow(VariantType())
+
+
+def _object_store_path():
+    from paimon_tpu_torch.fs import get_file_io
+    get_file_io("s3://bucket/t")
+
+
+def _unported_format():
+    from paimon_tpu_torch.format import get_format
+    get_format("csv")
+
+
+@pytest.mark.parametrize("call, item", [
+    (_unported_format, "A.8.8"), (_variant_column, "A.8.8"),
+    (_multi_process_mesh, "A.8.9"), (_object_store_path, "A.7b")])
+def test_refusals_name_their_items(call, item):
+    """Each refusal names its ROADMAP.md item, and that item exists."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "ROADMAP.md")) as f:
+        roadmap = f.read()
+    with pytest.raises(NotImplementedError) as e:
+        call()
+    assert f"(ROADMAP.md: {item})" in str(e.value)
+    assert f"**{item} " in roadmap
 
 
 # -- options the maintenance plane opened (they were refused) ---------------
