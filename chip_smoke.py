@@ -58,15 +58,15 @@ then):
    - changelog_producers_coverage: input, lookup and full-compaction at
      256K keys x 5 commits with deletes, each held file for file
      against the same table run by the port on the CPU;
-   - device_decode_coverage: 4M rows of INT32, INT64, FLOAT, DOUBLE and
+   - device_decode_coverage: 1M rows of INT32, INT64, FLOAT, DOUBLE and
      DATE columns (dictionary pages, 1 value in 8 null, several row
      groups and pages a chunk) read on the card equal to pyarrow, a
      string-keyed table that falls back once and reads the same, and
-     fused_decode_merge at 2^24 on the card equal to its CPU run;
+     fused_decode_merge at 2^22 on the card equal to its CPU run;
    - mesh_compaction: parallel/dryrun.run_engines' tables (id BIGINT
      NOT NULL key, v DOUBLE, 8 buckets, write-only; deduplicate and
-     aggregation with v sum; commits of 2.5M ids uniform in [0, 5M)
-     from seed 6 until >= 5M rows enter the compaction) compacted by
+     aggregation with v sum; commits of 1.25M ids uniform in [0, 2.5M)
+     from seed 6 until >= 2.5M rows enter the compaction) compacted by
      compact_table_mesh on 8 lanes of the card, one batched merge a
      window step; each held against a numpy oracle (exact; sums within
      rtol 1e-12), with no retry, fallback or cleanup error and the
@@ -106,19 +106,19 @@ then):
      commits of 250K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
-     and postpone_8M (bucket=-2: 8M rows in 4 commits that a scan does
+     and postpone_4M (bucket=-2: 4M rows in 4 commits that a scan does
      not see, then rescale_postpone at the postpone defaults and a
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
      {"bucket_modes": ...} line;
-   - maintenance: maint_daily_12M, a daily-partitioned table as the
+   - maintenance: maint_daily_3M, a daily-partitioned table as the
      Paimon docs' Maintenance pages set one up (bench.py's columns plus
      dt STRING yyyyMMdd as the partition, primary key (dt, id),
      bucket=2, deduplicate, changelog-producer=input, inline
      compaction; daily watermark auto-tags keeping 4, snapshots kept
      10-20, decoupled changelog, partitions expiring after 3 days,
      success-file and done-partition mark-done, a counting commit
-     callback): 48 streaming commits of 250K rows (6 days of 8 commits,
+     callback): 48 streaming commits of 62.5K rows (6 days of 8 commits,
      the watermark 3 hours a commit, ids uniform in [0, 1M) a day, 2%
      -D, seed 7) with a consumer-id consumer polled each day; then each
      kept tag read, incremental reads between two tags and from a tag
@@ -126,7 +126,7 @@ then):
      disk exactly those the snapshots, tags and changelog entries
      reference; a fresh consumer from the earliest changelog), partition
      expiry of the 3 oldest days and an end-input batch commit marking
-     its partitions done, a branch from the oldest tag with 1M upserts
+     its partitions done, a branch from the oldest tag with 250K upserts
      to an expired day, a fallback-branch read, fast_forward and
      rollback_to, compact_manifests, an orphan clean of planted files,
      fsck (deep), a lost data file found, repaired and merged around,
@@ -142,11 +142,11 @@ then):
      commit, so 8 spills of 3M rows, each merged on the card, then
      stream-merged into rolling L0 files at prepare-commit; the L0
      files sorted and disjoint, the spill directory gone, a scan, a full
-     compaction and a read), spill_fold_coverage (4 MB spills, 4 file
-     handles and a 32 MB disk cap: runs fold and early flushes land in
+     compaction and a read), spill_fold_coverage (2 MB spills, 4 file
+     handles and a 16 MB disk cap: runs fold and early flushes land in
      L0; its files equal file for file to the same writes on the CPU),
-     local_merge_hot_8M (bucket=4, local-merge-buffer-size=64mb, 8
-     streaming commits of 1M rows, half on 1,000 hot ids: each commit's
+     local_merge_hot_4M (bucket=4, local-merge-buffer-size=64mb, 8
+     streaming commits of 500K rows, half on 1,000 hot ids: each commit's
      L0 rows are its distinct ids), plan_daily_3M (bench.py's columns
      plus dt STRING as the partition, key (dt, id), bucket=2, inline
      compaction, the plan cache and stats sidecar at their defaults:
@@ -156,7 +156,7 @@ then):
      OVERWRITE of a day, a late correction of an id band, a one-day and
      an id < 1000 plan served cached and walked cold by the sidecar
      prune, and rollback_to, each followed by a plan equal to a cold
-     one) and faults_4M (bucket=4, 4 commits of 1M rows over a FileIO
+     one) and faults_2M (bucket=4, 4 commits of 500K rows over a FileIO
      that fails every 20th data-file write and read once, retried
      under write.retry.* and read.retry.*, with write.stage.dir; the
      prefetch byte budget at 1 MiB; a data file's head zeroed: a read
@@ -179,13 +179,38 @@ then):
      nothing, `v3 = 42`, `v3 < 3` and `v1 > 2^39` read exactly; a full
      compaction whose outputs each carry a sidecar; the 100 queries
      again) and fi_rewrite_coverage
-     (2M rows written without indexes, then rewrite_file_index with a
+     (1M rows written without indexes, then rewrite_file_index with a
      bloom filter on id, and with force=True after the spec grew by the
      other indexes and a bloom filter on a string column; a write of
      indexed files whose data-file or sidecar write fails once and
      retries).  The write, the point queries and the compaction of
      fi_point_16M must launch the kernel.  It prints a
      {"file_indexes": ...} line;
+   - append_tables: append tables as the Paimon docs' "Append Table",
+     "Append Queue", "Deletion Vectors" and "Row Tracking" pages and the
+     sort-compact action set them up, on bench.py's rows (seed 7),
+     every read held against a numpy oracle: ap_log_16M (bucket=-1,
+     deletion vectors on: 8 commits of 2^21 rows, a scan equal to the
+     batches in commit order, a `v3 = 42` scan, two delete_where calls
+     on 1% of the ids each, the lowest and the highest, each leaving the
+     bucket's several splits one deletion-vector file, and a scan,
+     compact(full=True) leaving no deletion vector
+     and a scan, sort_compact(["id", "v3"], "zorder") launching the
+     winner-select once a column at 2^24 for the curve's ranks, and an
+     id band that plans fewer files than before the sort),
+     ap_sort_coverage (2^20 rows with a STRING sharing 16-byte prefixes,
+     a nullable INT and a DOUBLE with -0.0 and NaN: z-order on 3
+     columns, so bit 63 is set, Hilbert on 1 and on 4, order on 2, each
+     permutation on the card equal to its plain numpy version),
+     ap_tracked_8M (row-tracking.enabled, 8 commits of 2^20 rows: two
+     update_columns of v1 and a delete_by_row_ids on 1% of the row ids,
+     the global index on id built with one launch and 10,000 lookups
+     held against numpy, a compaction that keeps the row ids, reads
+     with row ids) and ap_queue_coverage (bucket=4 by id with a bloom
+     filter on id: 8 commits of 2^18 rows, each commit's streaming delta
+     read, a compaction.min.file-num compaction, point predicates the
+     file index skips).  Peak device memory stays under 4 GiB.  It
+     prints an {"append_tables": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -225,7 +250,8 @@ then):
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
-phase, the read and write planes, the file indexes, the stage split
+phase, the read and write planes, the file indexes, the append tables,
+the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -1790,7 +1816,7 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
                           ignore_errors=True)
 
 
-MESH_ROWS = 5_000_000            # cut from 10M in PR 8 (script time)
+MESH_ROWS = 2_500_000            # cut from 10M, then 5M (script time)
 MESH_LANES = 8
 
 
@@ -1981,7 +2007,8 @@ DYN_EVOLVED = 1_000_000          # upserts a commit under the new schema
 XPART_KEYS = 2_000_000           # xpart_upsert_2M: 4 commits of 500K keys
 XPART_UPSERTS = 250_000          # then 4 commits of 250K upserts
 XPART_PARTS = 4
-POSTPONE_ROWS = 8_000_000        # postpone_8M: 4 commits of 2M
+POSTPONE_ROWS = 4_000_000        # postpone_4M: 4 commits of 1M (8M
+                                 # until the append phase came)
 POSTPONE_TARGET = 5_000_000      # postpone.target-row-num-per-bucket
 
 
@@ -2310,14 +2337,14 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def postpone(work: str, rec: Recorder, device, scale: int) -> dict:
-    """postpone_8M: bucket=-2, deduplicate, write-only; 8M rows in 4
+    """postpone_4M: bucket=-2, deduplicate, write-only; 4M rows in 4
     commits staged un-hashed (a scan sees none of them, as the
     reference's does), then rescale_postpone at the postpone defaults
     (5M rows a bucket) and a scan held against the oracle, the rescaled
     hash index against the rows."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "postpone_8M"
+    name = "postpone_4M"
     path = os.path.join(work, name)
     rows, per_bucket = POSTPONE_ROWS // scale, POSTPONE_TARGET // scale
     opts = {"bucket": "-2", "write-only": "true",
@@ -2370,7 +2397,7 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     t_all = time.perf_counter()
     for name, fn in (("dyn_dedup_5M", dyn_dedup),
                      ("xpart_upsert_2M", xpart_upsert),
-                     ("postpone_8M", postpone)):
+                     ("postpone_4M", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
         out[name]["s"] = time.perf_counter() - t0
@@ -2389,10 +2416,11 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
 MAINT_DAYS = 6
 MAINT_COMMITS = 48               # 8 a day: the watermark 3 hours apart
 MAINT_DAILY = MAINT_COMMITS // MAINT_DAYS
-MAINT_PER_COMMIT = 250_000       # 12M rows in all
+MAINT_PER_COMMIT = 62_500        # 3M rows in all (12M until the append
+                                 # phase came, then 6M: the script's time)
 MAINT_KEYS = 1_000_000           # ids uniform in [0, 1M) within a day
 MAINT_DELETE_SHARE = 0.02        # -D rows
-MAINT_BRANCH_UPSERTS = 1_000_000
+MAINT_BRANCH_UPSERTS = 250_000
 MAINT_END_INPUT = 100_000        # the end-input batch commit
 HOUR_MS = 3_600_000
 DAY_MS = 24 * HOUR_MS
@@ -2589,7 +2617,7 @@ def kv_rows(path: str) -> dict:
 
 def maintenance(work: str, rec: Recorder, device="cuda",
                 scale: int = 1) -> dict:
-    """maint_daily_12M: a production daily-partitioned primary-key table
+    """maint_daily_3M: a production daily-partitioned primary-key table
     maintained as the Paimon docs' Maintenance pages set it up, every
     read held against a numpy oracle (`scale` divides the row and key
     counts, for a rehearsal).  Returns what the phase reports."""
@@ -2610,7 +2638,7 @@ def maintenance(work: str, rec: Recorder, device="cuda",
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "maint_daily_12M"
+    name = "maint_daily_3M"
     path = os.path.join(work, name)
     per, keys = MAINT_PER_COMMIT // scale, MAINT_KEYS // scale
     dates = maint_dates()
@@ -2841,7 +2869,7 @@ def maintenance(work: str, rec: Recorder, device="cuda",
     got = step("scan after end input", table.to_arrow, rows=state.rows())
     clock("check_s", maint_check, f"{name} scan after end input", got, state)
 
-    # 5. branches: from the oldest kept tag, 1M upserts to an expired day
+    # 5. branches: from the oldest kept tag, upserts to an expired day
     base_tag = tag_names[2]
     table.create_branch("backfill", base_tag)
     branch = table.copy({"branch": "backfill"})
@@ -2966,26 +2994,29 @@ WRP_SPILL_CALLS = 24             # spill_bucket_24M: 24 write_arrow calls
 WRP_SPILL_PER_CALL = 1_000_000   # of 1M ids uniform in [0, 12M)
 WRP_SPILL_KEYS = 12_000_000
 WRP_SPILL_RUNS = 8               # 3 calls of 28 MB >= 64 MiB: 8 spills
-WRP_FOLD_PER_CALL = 100_000      # spill_fold_coverage: 24 calls of 100K
-WRP_LM_COMMITS = 8               # local_merge_hot_8M: 8 commits of 1M
-WRP_LM_PER_COMMIT = 1_000_000
+WRP_FOLD_PER_CALL = 50_000       # spill_fold_coverage: 24 calls of 50K
+WRP_FOLD_KEYS = 6_000_000        # ids uniform in [0, 6M), 2 MB spills,
+WRP_FOLD_SPILL_MB = 2            # a 16 MB disk cap (100K, 12M, 4 MB and
+WRP_FOLD_DISK_MB = 16            # 32 MB until the append phase came)
+WRP_LM_COMMITS = 8               # local_merge_hot_4M: 8 commits of 500K
+WRP_LM_PER_COMMIT = 500_000      # (8M rows until the append phase came)
 WRP_LM_HOT = 1_000               # half of each commit on 1,000 hot ids,
-WRP_LM_KEYS = 4_000_000          # the other half uniform in [0, 4M)
+WRP_LM_KEYS = 2_000_000          # the other half uniform in [0, 2M)
 WRP_PLAN_COMMITS = 60            # plan_daily_3M: 60 commits of 50K rows
                                  # (120 until the file-index phase came)
 WRP_PLAN_PER_COMMIT = 50_000
 WRP_PLAN_DAYS = 12
 WRP_PLAN_KEYS = 200_000          # ids uniform in [0, 200K) a day
 WRP_PLAN_COLD_EVERY = 10         # a cold plan every 10th commit
-WRP_FAULT_COMMITS = 4            # faults_4M: 4 commits of 1M rows
-WRP_FAULT_PER_COMMIT = 1_000_000
-WRP_FAULT_KEYS = 2_000_000
+WRP_FAULT_COMMITS = 4            # faults_2M: 4 commits of 500K rows
+WRP_FAULT_PER_COMMIT = 500_000   # (4M rows until the append phase came)
+WRP_FAULT_KEYS = 1_000_000
 WRP_FAULT_ONE_IN = 20            # data-file writes and reads failing once
 MiB = 1 << 20
 
 
 class FaultyFileIO:
-    """faults_4M's store: the first attempt at every WRP_FAULT_ONE_IN-th
+    """faults_2M's store: the first attempt at every WRP_FAULT_ONE_IN-th
     data-file write, and once armed every such read, raises
     TransientStoreError (by a seeded count of calls; a retry of a file
     that failed goes through, since staged uploads and read retries keep
@@ -3211,7 +3242,7 @@ def spill_bucket(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
                scale: int) -> dict:
-    """spill_fold_coverage: 4 MB spills, 4 file handles and a 32 MB disk
+    """spill_fold_coverage: 2 MB spills, 4 file handles and a 16 MB disk
     cap, so runs fold and the cap forces early flushes; its L0 files
     held file for file against the same writes run by the port on the
     CPU (serial flushes, so the disk cap sees the same bytes on both)."""
@@ -3220,12 +3251,13 @@ def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
     name = "spill_fold_coverage"
     per = WRP_FOLD_PER_CALL // scale
     opts = {"bucket": "1", "write-buffer-spillable": "true",
-            "sort-spill-buffer-size": str(4 * MiB // scale),
+            "sort-spill-buffer-size": str(WRP_FOLD_SPILL_MB * MiB // scale),
             "local-sort.max-num-file-handles": "4",
-            "write-buffer-spill.max-disk-size": str(32 * MiB // scale),
+            "write-buffer-spill.max-disk-size": str(WRP_FOLD_DISK_MB * MiB
+                                                    // scale),
             "write.flush.parallelism": "1"}
     rng = np.random.default_rng(8)
-    batches = [bench_rows(rng, rng.integers(0, WRP_SPILL_KEYS // scale, per))
+    batches = [bench_rows(rng, rng.integers(0, WRP_FOLD_KEYS // scale, per))
                for _ in range(WRP_SPILL_CALLS)]
     cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
             for c in ("id", "v1", "v2", "v3")}
@@ -3266,11 +3298,11 @@ def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
                     scale: int) -> dict:
-    """local_merge_hot_8M: skewed streaming upserts folded before bucket
+    """local_merge_hot_4M: skewed streaming upserts folded before bucket
     routing (the Paimon docs' Local Merging, at its suggested 64 MB)."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "local_merge_hot_8M"
+    name = "local_merge_hot_4M"
     per, keys = WRP_LM_PER_COMMIT // scale, WRP_LM_KEYS // scale
     opts = {"bucket": "4", "local-merge-buffer-size": "64mb"}
     table = FileStoreTable.create(os.path.join(work, name),
@@ -3523,7 +3555,7 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
 
 
 def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """faults_4M: retries, upload staging, the prefetch byte budget and
+    """faults_2M: retries, upload staging, the prefetch byte budget and
     the corrupt-file skip on a 4-bucket table over FaultyFileIO."""
     import warnings
 
@@ -3531,7 +3563,7 @@ def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
     from paimon_tpu_torch.parallel.scan_pipeline import iter_split_tables
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "faults_4M"
+    name = "faults_2M"
     per, keys = WRP_FAULT_PER_COMMIT // scale, WRP_FAULT_KEYS // scale
     stage = tempfile.mkdtemp(prefix="paimon-stage-")
     path = os.path.join(work, name)
@@ -3646,10 +3678,10 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
         out["spill_bucket_24M"] = spill_bucket(work, rec, timer, dev, scale)
         out["spill_fold_coverage"] = spill_fold(work, rec, timer, dev,
                                                 scale)
-        out["local_merge_hot_8M"] = local_merge_hot(work, rec, timer, dev,
+        out["local_merge_hot_4M"] = local_merge_hot(work, rec, timer, dev,
                                                     scale)
     out["plan_daily_3M"] = plan_daily(work, rec, dev, scale)
-    out["faults_4M"] = faults(work, rec, dev, scale)
+    out["faults_2M"] = faults(work, rec, dev, scale)
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
     out["launches_plain"] = sum(p["launches_plain"] for p in mine)
@@ -3672,9 +3704,9 @@ FI_PER_COMMIT = 2_000_000        # ids uniform in [0, 8M), 4 buckets
 FI_KEYS = 8_000_000
 FI_QUERIES = 50                  # present ids, and as many absent ones
 FI_READ_PLANS = 10               # absent-id plans timed per sidecar reader
-FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 500K
-FI_RW_PER_COMMIT = 500_000       # ids uniform in [0, 1M)
-FI_RW_KEYS = 1_000_000
+FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 250K
+FI_RW_PER_COMMIT = 250_000       # ids uniform in [0, 500K) (twice that
+FI_RW_KEYS = 500_000             # until the append phase came)
 FI_RW_QUERIES = 5
 # the Paimon docs' "Data File Index" options, file-index.in-manifest-
 # threshold at its 500-byte default
@@ -4008,7 +4040,7 @@ def fi_rewrite(work: str, rec: Recorder, timer: IndexTimer, dev,
         oracle.win[pc.equal(names, x).to_numpy(zero_copy_only=False)], "id")
 
     # a retried write of indexed files: a data file or sidecar write
-    # fails once (faults_4M's store)
+    # fails once (faults_2M's store)
     store = FaultyFileIO(get_file_io(path))
     faulty = FileStoreTable.load(path, file_io=store, device=dev,
                                  dynamic_options={
@@ -4067,6 +4099,522 @@ def file_indexes(work: str, rec: Recorder, device="cuda",
                      "launches": p["launches_plain"]} for p in mine}
     peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
     out["peak_gib"] = max(peaks) if peaks else None
+    out["s"] = time.perf_counter() - t_phase
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
+# -- append tables: logs, queues, deletion vectors, sort-compact, row ids -----
+
+AP_LOG_COMMITS = 8               # ap_log_16M: 8 commits of 2^21 rows,
+AP_LOG_PER_COMMIT = 1 << 21      # ids uniform in [0, 2^23)
+AP_DELETE_SHARE = 100            # delete_where on the lowest 1/100 of
+                                 # the ids, then on the highest
+AP_BAND = 1 << 16                # the id band planned before and after
+AP_SORT_ROWS = 1 << 20           # ap_sort_coverage
+AP_SORT_CASES = (("zorder", ("s", "n", "d")), ("hilbert", ("d",)),
+                 ("hilbert", ("id", "s", "n", "d")), ("order", ("n", "s")))
+AP_TRACKED_COMMITS = 8           # ap_tracked_8M: 8 commits of 2^20 rows
+AP_TRACKED_PER_COMMIT = 1 << 20
+AP_TRACKED_SHARE = 100           # 1 row id in 100 updated (twice), deleted
+AP_LOOKUPS = 10_000              # global-index lookups, half present
+AP_QUEUE_COMMITS = 8             # ap_queue_coverage: bucket=4 by id,
+AP_QUEUE_PER_COMMIT = 1 << 18    # 8 commits of 2^18 rows
+AP_QUEUE_QUERIES = 25            # present ids, and as many absent ones
+
+
+def append_schema(options):
+    """bench.py's columns without a primary key."""
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
+    return (Schema.builder().column("id", BigIntType(False))
+            .column("v1", BigIntType()).column("v2", DoubleType())
+            .column("v3", IntType()).options(options).build())
+
+
+def same_rows_in_order(what: str, got, cols: dict, sel=None) -> None:
+    """`got` holds the oracle's rows (`sel` of them, a mask or indices)
+    in the oracle's order."""
+    n = len(cols["id"]) if sel is None else \
+        int(sel.sum()) if sel.dtype == bool else len(sel)
+    if got.num_rows != n:
+        raise AssertionError(f"{what}: {got.num_rows} rows, oracle {n}")
+    for c, full in cols.items():
+        want = full if sel is None else full[sel]
+        if not np.array_equal(got.column(c).to_numpy(), want):
+            raise AssertionError(f"{what}: column {c} differs from the "
+                                 f"oracle")
+
+
+def row_hashes(cols: dict) -> np.ndarray:
+    """uint64 per row of bench.py's columns (a multiplicative mix of the
+    four), for multiset checks of permuted reads."""
+    with np.errstate(over="ignore"):
+        h = cols["id"].astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+        for c, k in (("v1", 0xBF58476D1CE4E5B9), ("v2", 0x94D049BB133111EB),
+                     ("v3", 0xD6E8FEB86659FD93)):
+            v = cols[c].view(np.uint64) if cols[c].dtype == np.float64 \
+                else cols[c].astype(np.uint64)
+            h = (h ^ (h >> np.uint64(31))) * np.uint64(k) + v
+    return h
+
+
+def same_rows_any_order(what: str, got, want: np.ndarray) -> None:
+    """`got` holds the oracle's rows whose `row_hashes` are `want`, in
+    any order: the same count, and the same sums of the row hashes and
+    of their squares (wrapping 64-bit sums, so the check stays linear at
+    16M rows)."""
+    def sums(h):
+        with np.errstate(over="ignore"):
+            return int(h.sum(dtype=np.uint64)), \
+                int((h * h).sum(dtype=np.uint64))
+    have = row_hashes({c: got.column(c).to_numpy()
+                       for c in ("id", "v1", "v2", "v3")})
+    if len(have) != len(want) or sums(have) != sums(want):
+        raise AssertionError(f"{what}: the rows differ from the oracle's")
+
+
+def dv_entries(table) -> int:
+    """Deletion-vector entries in the latest snapshot's index manifest."""
+    snap = table.latest_snapshot()
+    if not snap.index_manifest:
+        return 0
+    return sum(e.index_file.index_type == "DELETION_VECTORS" for e in
+               table.new_scan().index_manifest_file.read(
+                   snap.index_manifest))
+
+
+def planned_files(table, pred) -> int:
+    return sum(len(s.data_files) for s in table.new_read_builder()
+               .with_filter(pred).new_scan().plan().splits)
+
+
+class SortTimer:
+    """Splits sort-compact into its bucket reads and its permutation
+    (the host lane encode, then ranks, curve and sort on the card and the
+    permutation's copy back); the rest of the step is the write and the
+    commit."""
+
+    def __init__(self):
+        self.read_s = self.perm_s = self.encode_s = 0.0
+
+    def _timed(self, field, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                setattr(self, field, getattr(self, field)
+                        + time.perf_counter() - t0)
+        return timed
+
+    def __enter__(self):
+        from paimon_tpu_torch.compact import compact_action
+        from paimon_tpu_torch.ops import zorder
+        fields = {"_read_bucket": "read_s", "_column_lanes": "encode_s"}
+        self._saved = [(compact_action, "_read_bucket"),
+                       (zorder, "_column_lanes"),
+                       (zorder, "z_order_permutation"),
+                       (zorder, "hilbert_permutation"),
+                       (zorder, "order_permutation")]
+        self._saved = [(m, n, getattr(m, n)) for m, n in self._saved]
+        for m, n, fn in self._saved:
+            setattr(m, n, self._timed(fields.get(n, "perm_s"), fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+
+
+def ap_log(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """ap_log_16M: a bucket-unaware log table with deletion vectors
+    (the Paimon docs' "Append Table" and "Deletion Vectors" pages),
+    written, scanned, deleted from, compacted and sort-compacted by
+    z-order (the sort-compact action's `--order_strategy zorder`)."""
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "ap_log_16M"
+    path = os.path.join(work, name)
+    rows = AP_LOG_PER_COMMIT * AP_LOG_COMMITS // scale
+    batches = bigint_batches(rows, runs=AP_LOG_COMMITS)
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    table = FileStoreTable.create(path, append_schema({
+        "bucket": "-1", "deletion-vectors.enabled": "true",
+        "parquet.enable.dictionary": "false",
+        # the default 128 MB (4 files after the compaction), kept with
+        # a rehearsal's scale
+        "target-file-size": f"{128 // scale} mb"}), device=dev)
+    out = {"rows": rows, "commits": AP_LOG_COMMITS}
+
+    def step(what, fn, n):
+        res = rec.run(name, what, n, dev, fn)
+        out[f"{what} rows_per_s"] = rec.phases[-1]["rows_per_s"]
+        out[f"{what} s"] = rec.phases[-1]["s"]
+        return res
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    step("write", write, rows)
+    same_rows_in_order(f"{name} scan", step("scan", table.to_arrow, rows),
+                       cols)
+    sel = cols["v3"] == 42
+    got = step("scan v3 = 42", lambda: table.to_arrow(
+        predicate=P.equal("v3", 42)), int(sel.sum()))
+    same_rows_in_order(f"{name} v3 = 42", got, cols, sel)
+
+    # two deletes, ids at the bottom and at the top of their range: the
+    # bucket bins into several splits, and each delete must leave it one
+    # deletion-vector file that holds every split's vectors
+    band = rows // 2 // AP_DELETE_SHARE
+    keep = (cols["id"] >= band) & (cols["id"] < rows // 2 - band)
+    for what, pred in (("delete_where", P.less_than("id", band)),
+                       ("delete_where top", P.greater_or_equal(
+                           "id", rows // 2 - band))):
+        if step(what, lambda: table.delete_where(pred), rows) is None:
+            raise AssertionError(f"{name}: {what} committed nothing")
+        out[f"{what} dv_entries"] = dv_entries(table)
+        if out[f"{what} dv_entries"] != 1:
+            raise AssertionError(
+                f"{name}: {what} left {out[f'{what} dv_entries']} "
+                f"deletion-vector files for the one bucket")
+    out["splits"] = len(table.new_read_builder().new_scan().plan().splits)
+    out["deleted"] = int((~keep).sum())
+    same_rows_in_order(f"{name} scan after the delete",
+                       step("scan deleted", table.to_arrow, rows), cols,
+                       keep)
+    live = int(keep.sum())
+    if step("compact", lambda: table.compact(full=True), live) is None:
+        raise AssertionError(f"{name}: full compaction committed nothing")
+    if dv_entries(table):
+        raise AssertionError(f"{name}: deletion vectors left after the "
+                             f"full compaction")
+    same_rows_in_order(f"{name} scan after compaction",
+                       step("scan compacted", table.to_arrow, live), cols,
+                       keep)
+
+    lo = rows // 4
+    band_pred = P.and_(P.greater_or_equal("id", lo),
+                       P.less_than("id", lo + AP_BAND // scale))
+    in_band = keep & (cols["id"] >= lo) & (cols["id"] < lo + AP_BAND // scale)
+    out["band_files_before"] = planned_files(table, band_pred)
+    with SortTimer() as timer:
+        if step("sort_compact", lambda: table.sort_compact(
+                ["id", "v3"], "zorder"), live) is None:
+            raise AssertionError(f"{name}: sort-compact committed nothing")
+    sort_s = rec.phases[-1]["s"]
+    out["sort_compact_split_s"] = {
+        "read": timer.read_s, "ranks_curve_sort": timer.perm_s,
+        "of_which_host_lane_encode": timer.encode_s,
+        "write_commit": sort_s - timer.read_s - timer.perm_s}
+    out["sort_compact_launches"] = rec.phases[-1]["launches_plain"]
+    if dev.type == "cuda" and out["sort_compact_launches"] != 2:
+        raise AssertionError(f"{name}: sort-compact launched the "
+                             f"winner-select {out['sort_compact_launches']}"
+                             f" times, not once a column (2)")
+    # the oracle's rows hashed once for both checks
+    hashes = row_hashes(cols)
+    same_rows_any_order(f"{name} scan after sort-compact",
+                        step("scan sorted", table.to_arrow, live),
+                        hashes[keep])
+    out["band_files_after"] = planned_files(table, band_pred)
+    got = step("scan id band", lambda: table.to_arrow(predicate=band_pred),
+               int(in_band.sum()))
+    same_rows_any_order(f"{name} id band", got, hashes[in_band])
+    out["files_after"] = planned_files(table, P.greater_or_equal("id", 0))
+    if not out["band_files_after"] < out["band_files_before"]:
+        raise AssertionError(f"{name}: the id band plans "
+                             f"{out['band_files_after']} files after the "
+                             f"sort, {out['band_files_before']} before")
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def sort_coverage_table(n: int):
+    """bench.py's rows (seed 7) and three more columns: a STRING whose
+    values share 16-byte prefixes, a nullable INT, a DOUBLE holding -0.0
+    and NaN."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    t = bigint_batches(2 * n, runs=2)[0]
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, 5000, n)
+    d = rng.normal(size=n)
+    d[rng.random(n) < 0.05] = -0.0
+    d[rng.random(n) < 0.05] = 0.0
+    d[rng.random(n) < 0.05] = np.nan
+    short = pc.cast(pa.array(k), pa.string())
+    long = pc.binary_join_element_wise("order-key-prefix", short, "")
+    return t.append_column("s", pc.if_else(pa.array(k % 4 == 0), short,
+                                           long)) \
+        .append_column("n", pa.array(rng.integers(-50, 50, n).astype(
+            np.int32), pa.int32(), mask=rng.random(n) < 0.125)) \
+        .append_column("d", pa.array(d, pa.float64()))
+
+
+def ap_sort(rec: Recorder, dev, scale: int) -> dict:
+    """ap_sort_coverage: every curve of sort-compact on the card (z-order
+    on 3 columns, so bit 63 is set; Hilbert on 1 and on 4; order on 2)
+    over strings that share their 16-byte prefix, nulls, NaN and -0.0,
+    each permutation equal to its plain numpy version."""
+    from paimon_tpu_torch.ops import zorder
+
+    name = "ap_sort_coverage"
+    n = AP_SORT_ROWS // scale
+    t = sort_coverage_table(n)
+    # the plain ranks are per column: rank each column once for all cases
+    plain_ranks = zorder._normalized_u32_plain
+    ranked = {}
+
+    def ranks_once(table, columns):
+        for c in columns:
+            if c not in ranked:
+                ranked[c] = plain_ranks(table, [c])[:, 0]
+        return np.stack([ranked[c] for c in columns], axis=1)
+
+    fns = {"zorder": (zorder.z_order_permutation,
+                      zorder.z_order_permutation_plain),
+           "hilbert": (zorder.hilbert_permutation,
+                       zorder.hilbert_permutation_plain),
+           "order": (zorder.order_permutation,
+                     zorder.order_permutation_plain)}
+    out = {"rows": n, "cases": {}}
+    zorder._normalized_u32_plain = ranks_once
+    try:
+        for strategy, columns in AP_SORT_CASES:
+            card_fn, plain_fn = fns[strategy]
+            what = f"{strategy} {','.join(columns)}"
+            got = rec.run(name, what, n, dev,
+                          lambda: card_fn(t, list(columns), device=dev))
+            t0 = time.perf_counter()
+            want = plain_fn(t, list(columns))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name} {what}: the permutation "
+                                     f"differs from its plain version")
+            out["cases"][what] = {
+                "s": rec.phases[-1]["s"], "plain_s":
+                time.perf_counter() - t0,
+                "launches": rec.phases[-1]["launches_plain"]}
+        z = zorder.z_index_plain(t, ["s", "n", "d"])
+    finally:
+        zorder._normalized_u32_plain = plain_ranks
+    out["z_bit63_rows"] = int((z >= np.uint64(1 << 63)).sum())
+    if not out["z_bit63_rows"]:
+        raise AssertionError(f"{name}: no z-order key with bit 63 set")
+    return out
+
+
+def ap_tracked(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """ap_tracked_8M: a row-tracked table (the Paimon docs' "Row
+    Tracking" page): column updates and deletes by row id, the global
+    index on id and its lookups, a compaction that keeps the row ids."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "ap_tracked_8M"
+    path = os.path.join(work, name)
+    rows = AP_TRACKED_PER_COMMIT * AP_TRACKED_COMMITS // scale
+    batches = bigint_batches(rows, runs=AP_TRACKED_COMMITS)
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    alive = np.ones(rows, dtype=bool)
+    table = FileStoreTable.create(path, append_schema({
+        "bucket": "-1", "row-tracking.enabled": "true",
+        "parquet.enable.dictionary": "false"}), device=dev)
+    rng = np.random.default_rng(7)
+    out = {"rows": rows}
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    rec.run(name, "write", rows, dev, write)
+    if table.latest_snapshot().next_row_id != rows:
+        raise AssertionError(f"{name}: next row id "
+                             f"{table.latest_snapshot().next_row_id}")
+    k = rows // AP_TRACKED_SHARE
+    for i in (1, 2):
+        rids = np.sort(rng.choice(rows, k, replace=False))
+        vals = rng.integers(0, 1 << 40, k)
+        rec.run(name, f"update_columns {i}", k, dev,
+                lambda: table.update_columns(
+                    rids, pa.table({"v1": pa.array(vals, pa.int64())})))
+        cols["v1"][rids] = vals
+    rids = rng.choice(rows, k, replace=False)
+    rec.run(name, "delete_by_row_ids", k, dev,
+            lambda: table.delete_by_row_ids(rids))
+    alive[rids] = False
+    out["splits"] = len(table.new_read_builder().new_scan().plan().splits)
+
+    def one_dv_file(what):
+        if dv_entries(table) != 1:
+            raise AssertionError(f"{name} {what}: {dv_entries(table)} "
+                                 f"deletion-vector files for the one "
+                                 f"bucket")
+    one_dv_file("delete_by_row_ids")
+
+    def check_tracked(what, got):
+        if not np.array_equal(got.column("_ROW_ID").to_numpy(),
+                              np.flatnonzero(alive)):
+            raise AssertionError(f"{name} {what}: row ids differ")
+        same_rows_in_order(f"{name} {what}", got, cols, alive)
+    live = int(alive.sum())
+    check_tracked("read with row ids", rec.run(
+        name, "read with row ids", live, dev,
+        lambda: table.to_arrow(with_row_ids=True)))
+
+    gi = rec.run(name, "global_index id", live, dev,
+                 lambda: table.global_index("id"))
+    out["global_index_launches"] = rec.phases[-1]["launches_plain"]
+    if dev.type == "cuda" and out["global_index_launches"] != 1:
+        raise AssertionError(f"{name}: the global index build launched "
+                             f"the winner-select "
+                             f"{out['global_index_launches']} times, not 1")
+    live_ids, live_rids = cols["id"][alive], np.flatnonzero(alive)
+    order = np.argsort(live_ids, kind="stable")
+    keys, key_rids = live_ids[order], live_rids[order]
+    q = np.concatenate([rng.choice(live_ids, AP_LOOKUPS // 2),
+                        rng.integers(0, rows, AP_LOOKUPS // 2)])
+    t0 = time.perf_counter()
+    got = gi.lookup(q)
+    out["lookup_ms"] = (time.perf_counter() - t0) * 1000
+    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    want = np.where(keys[pos] == q, key_rids[pos], -1)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{name}: global-index lookups differ from "
+                             f"numpy")
+    out["lookups_present"] = int((want >= 0).sum())
+
+    if rec.run(name, "compact", live, dev, table.compact) is None:
+        raise AssertionError(f"{name}: the compaction committed nothing")
+    files = [f for s in table.new_read_builder().new_scan().plan().splits
+             for f in s.data_files]
+    if any(f.write_cols is not None for f in files):
+        raise AssertionError(f"{name}: overlays left after compaction")
+    out["files_after"] = len(files)
+    one_dv_file("compact")
+    check_tracked("read with row ids after compaction", rec.run(
+        name, "read with row ids compacted", live, dev,
+        lambda: table.to_arrow(with_row_ids=True)))
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def ap_queue(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """ap_queue_coverage: a fixed-bucket append queue (the Paimon docs'
+    "Append Queue" page: bucket=4, bucket-key=id) with a bloom filter on
+    id; each commit's streaming delta read, then a
+    compaction.min.file-num compaction, then point predicates that the
+    file index skips."""
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "ap_queue_coverage"
+    path = os.path.join(work, name)
+    per = AP_QUEUE_PER_COMMIT // scale
+    rng = np.random.default_rng(7)
+    keys = per * AP_QUEUE_COMMITS
+    batches = [bench_rows(rng, rng.integers(0, keys, per))
+               for _ in range(AP_QUEUE_COMMITS)]
+    table = FileStoreTable.create(path, append_schema({
+        "bucket": "4", "bucket-key": "id", "compaction.min.file-num": "6",
+        "file-index.bloom-filter.columns": "id",
+        "parquet.enable.dictionary": "false"}), device=dev)
+    out = {"rows": keys}
+    scan = read = None
+
+    def commit_and_poll():
+        nonlocal scan, read
+        polled = []
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+            if scan is None:
+                rb = table.new_read_builder()
+                scan, read = rb.new_stream_scan(), rb.new_read()
+            polled.append(read.to_arrow(scan.plan()))
+        return polled
+    polled = rec.run(name, "write and poll", keys, dev, commit_and_poll)
+    for i, (b, got) in enumerate(zip(batches, polled)):
+        same_rows_any_order(f"{name} delta {i}", got, row_hashes(
+            {c: b.column(c).to_numpy() for c in ("id", "v1", "v2", "v3")}))
+    if rec.run(name, "compact", keys, dev, table.compact) is None:
+        raise AssertionError(f"{name}: compaction.min.file-num picked "
+                             f"nothing")
+    per_bucket = {}
+    for s in table.new_read_builder().new_scan().plan().splits:
+        per_bucket[s.bucket] = per_bucket.get(s.bucket, 0) + \
+            len(s.data_files)
+    if sorted(per_bucket.values()) != [1] * 4:
+        raise AssertionError(f"{name}: files per bucket {per_bucket}")
+    p = scan.plan()
+    if p is not None and read.to_arrow(p).num_rows:
+        raise AssertionError(f"{name}: the compaction reached the stream")
+    ids = np.concatenate([b.column("id").to_numpy() for b in batches])
+    written = np.unique(ids)
+    never = np.setdiff1d(np.arange(keys), written)
+    present = rng.choice(written, AP_QUEUE_QUERIES, replace=False)
+    absent = rng.choice(never, AP_QUEUE_QUERIES, replace=False)
+
+    def query(values):
+        files = []
+        for v in values:
+            pred = P.equal("id", int(v))
+            files.append(planned_files(table, pred))
+            n = table.to_arrow(predicate=pred).num_rows
+            if n != int((ids == v).sum()):
+                raise AssertionError(f"{name}: id {v} read {n} rows")
+        return float(np.mean(files))
+    out["present_files_mean"] = rec.run(name, "point queries", 2 *
+                                        AP_QUEUE_QUERIES, dev,
+                                        lambda: query(present))
+    out["absent_files_mean"] = query(absent)
+    if out["present_files_mean"] >= 4 or out["absent_files_mean"] >= 1:
+        raise AssertionError(f"{name}: the file index skipped too little: "
+                             f"{out}")
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def append_tables(work: str, rec: Recorder, device="cuda",
+                  scale: int = 1) -> dict:
+    """Append tables on the card (`scale` divides the row counts, for a
+    rehearsal).  Returns what the phase reports."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    out = {"ap_log_16M": ap_log(work, rec, dev, scale),
+           "ap_sort_coverage": ap_sort(rec, dev, scale),
+           "ap_tracked_8M": ap_tracked(work, rec, dev, scale),
+           "ap_queue_coverage": ap_queue(work, rec, dev, scale)}
+    names = set(out)
+    mine = [p for p in rec.phases if p["table"] in names]
+    out["launches_plain"] = sum(p["launches_plain"] for p in mine)
+    out["launches_ovc"] = sum(p["launches_ovc"] for p in mine)
+    out["launch_shapes"] = sorted(
+        [[k[0]] + list(k[1:4]) + [k[4], v]
+         for k, v in rec.capture.calls.items() if k[0] in names])
+    out["steps"] = {f"{p['table']} {p['phase']}":
+                    {"s": p["s"], "rows_per_s": p["rows_per_s"],
+                     "launches": p["launches_plain"]} for p in mine}
+    peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    if out["peak_gib"] is not None and out["peak_gib"] >= 4:
+        raise AssertionError(f"append_tables: peak device memory "
+                             f"{out['peak_gib']:.2f} GiB")
     out["s"] = time.perf_counter() - t_phase
     if device != "cpu":
         out["card"] = card_line()
@@ -4793,13 +5341,14 @@ def device_decode_dedup(path: str, rows: int, rec: Recorder, cols: dict,
     return out
 
 
-def device_decode_coverage(work: str, rows: int = 1 << 22,
+def device_decode_coverage(work: str, rows: int = 1 << 20,
                            seed: int = 29, device: str = "cuda") -> dict:
-    """read_parquet_device on the card against pyarrow on ~4M rows of
+    """read_parquet_device on the card against pyarrow on ~1M rows of
     INT32, INT64, FLOAT, DOUBLE and DATE columns (dictionary pages on,
     1 value in 8 null, 4 row groups a file, several pages a chunk), a
     string-keyed table that must fall back (counted) and read the same,
-    and fused_decode_merge at 2^24 on the card against its CPU run."""
+    and fused_decode_merge at 2^22 on the card against its CPU run (cut
+    from 4M rows and 2^24 for the script's time)."""
     import pyarrow as pa
     import pyarrow.parquet as pq
     import torch
@@ -4865,7 +5414,7 @@ def device_decode_coverage(work: str, rows: int = 1 << 22,
                              f"same ({rawpage.DECODE_COUNTS})")
     t.file_io.delete(t.path, recursive=True)
 
-    n = 1 << 24
+    n = 1 << 22
     keys = rng.integers(-1 << 40, 1 << 40, n // 2).repeat(2)
     rng.shuffle(keys)
     seq = rng.permutation(n).astype(np.int64)
@@ -4876,14 +5425,14 @@ def device_decode_coverage(work: str, rows: int = 1 << 22,
     cpu = fused_decode_merge(*host)
     for what, a, b in zip(("perm", "winner", "packed"), card, cpu):
         if not torch.equal(a.cpu(), b):
-            raise AssertionError(f"fused_decode_merge at 2^24: {what} "
+            raise AssertionError(f"fused_decode_merge at 2^22: {what} "
                                  f"card != cpu")
     out["decode_counts"] = dict(rawpage.DECODE_COUNTS)
     log(f"  device_decode_coverage: {files} files of {per} rows (INT32, "
         f"INT64, FLOAT, DOUBLE, DATE; dictionary on, 1 in 8 null) equal to "
         f"pyarrow, no fallback (card {out['decode_s']:.2f} s, pyarrow "
         f"{out['pyarrow_s']:.2f} s); the string-keyed table fell back once "
-        f"and read the same; fused_decode_merge at 2^24: card == cpu")
+        f"and read the same; fused_decode_merge at 2^22: card == cpu")
     return out
 
 
@@ -5080,13 +5629,16 @@ def merge_routes(dedup_winner_frac: float, device: str = "cuda",
 
 # the 100M-row tables: none of their merge phases may take host routes only
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
+APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_8M",
+                 "ap_queue_coverage")
 
 
 def main_path(rows: int, phases: list, capture: LaunchCapture,
               reducer: ReduceTimer, timer: ChangelogTimer,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
-              maintained: dict, planes: dict, indexed: dict) -> tuple:
+              maintained: dict, planes: dict, indexed: dict,
+              appended: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -5100,7 +5652,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
     totals = [0, 0]
     work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
     rec = Recorder(counts, phases, capture, reducer)
-    # retries and sidecar fallbacks of the whole run: only faults_4M's
+    # retries and sidecar fallbacks of the whole run: only faults_2M's
     # injected faults may retry
     planes0 = plane_counters()
 
@@ -5236,13 +5788,18 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # and retrofitted by rewrite_file_index
             indexed.update(path("file_indexes",
                                 lambda: file_indexes(work, rec)))
+            # append tables: deletion vectors, append compaction,
+            # sort-compact's curve keys ranked on the card, row tracking
+            # and the global index
+            appended.update(path("append_tables",
+                                 lambda: append_tables(work, rec)))
         moved = counter_delta(planes0)
-        injected = sum(planes["faults_4M"]["faults"].values()) + \
+        injected = sum(planes["faults_2M"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
         if moved["read_retries"] + moved["write_retries"] != injected or \
                 moved["sidecar_fallbacks"]:
             raise AssertionError(f"the run retried or fell back beyond "
-                                 f"the {injected} faults faults_4M and "
+                                 f"the {injected} faults faults_2M and "
                                  f"fi_rewrite_coverage injected: {moved}")
         log(f"read and write planes over the run: {moved}")
         for what in ("scan", "read"):
@@ -5261,8 +5818,11 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             f"inputs copied aside in {capture.seconds:.2f} s (not in phase "
             f"times)")
         for p in phases:
+            # append tables merge nothing: their launches (the curve
+            # ranks, the global index) are checked in their phase
             if p["device"] == "cuda" and p["phase"] in ("write", "scan",
                                                          "compact") and \
+                    p["table"] not in APPEND_TABLES and \
                     p["launches_plain"] + p["launches_ovc"] == 0:
                 raise AssertionError(f"{p['table']} {p['phase']}: no kernel "
                                      f"launch")
@@ -5334,9 +5894,11 @@ def main() -> int:
     maintained: dict = {}
     planes: dict = {}
     indexed: dict = {}
+    appended: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
-                         served, bucketed, maintained, planes, indexed)
+                         served, bucketed, maintained, planes, indexed,
+                         appended)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -5370,6 +5932,7 @@ def main() -> int:
     print(json.dumps({"maintenance": maintained}))
     print(json.dumps({"write_read_planes": planes}))
     print(json.dumps({"file_indexes": indexed}))
+    print(json.dumps({"append_tables": appended}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

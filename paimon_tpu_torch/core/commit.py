@@ -1,9 +1,13 @@
 """FileStoreCommit: two-phase snapshot commit with optimistic retry.
 
-Counterpart of paimon_tpu/core/commit.py without row tracking and
-request deadlines (not ported yet).  A commit's index entries (the
-dynamic-bucket hash index) fold into the previous snapshot's index
-manifest on every CAS attempt.  Each commit records the reference's
+Counterpart of paimon_tpu/core/commit.py without request deadlines (not
+ported yet).  A commit's index entries (the dynamic-bucket hash index,
+deletion vectors) fold into the previous snapshot's index manifest on
+every CAS attempt.  Append tables with row-tracking.enabled get dense
+row ids at commit, re-assigned on every CAS attempt from the latest
+snapshot's next row id; a caller that planned against a snapshot
+(`expected_latest_id`) gets CommitConflictError when another commit
+landed first, and replans.  Each commit records the reference's
 commit metric group (commits, retries, duration_ms) and spans
 (commit.backoff, commit.manifest_encode, commit.cas).
 
@@ -74,6 +78,11 @@ class FileStoreCommit:
             CoreOptions.MANIFEST_TARGET_FILE_SIZE)
         self.manifest_merge_min = options.get(
             CoreOptions.MANIFEST_MERGE_MIN_COUNT)
+        # append tables with row-tracking.enabled get dense row ids at
+        # commit (reference FileStoreCommitImpl.assignRowTracking:1046)
+        self.row_tracking = (
+            options.get(CoreOptions.ROW_TRACKING_ENABLED)
+            and not table_schema.primary_keys)
 
     # -- public API ----------------------------------------------------------
 
@@ -83,12 +92,15 @@ class FileStoreCommit:
                index_entries: Optional[list] = None,
                properties: Optional[Dict[str, str]] = None,
                force_create: bool = False,
-               watermark: Optional[int] = None) -> Optional[int]:
+               watermark: Optional[int] = None,
+               expected_latest_id: Optional[int] = ...) -> Optional[int]:
         """Commit append + compact changes. Returns snapshot id (or None if
         nothing to commit). Append and compact deltas are committed as
         separate snapshots like the reference (APPEND then COMPACT), each
         with its own changelog manifest; `index_entries` ride the first
-        of them."""
+        of them.  With `expected_latest_id` the first of them raises
+        CommitConflictError unless the latest snapshot is still that
+        one."""
         append_entries: List[ManifestEntry] = []
         compact_entries: List[ManifestEntry] = []
         changelog_entries: List[ManifestEntry] = []
@@ -123,7 +135,8 @@ class FileStoreCommit:
             last_id = self._try_commit(
                 append_entries, changelog_entries, commit_identifier,
                 kind or CommitKind.APPEND, index_entries=index_entries,
-                properties=properties, watermark=watermark)
+                properties=properties, watermark=watermark,
+                expected_latest_id=expected_latest_id)
             index_entries = None
         if compact_entries or compact_changelog_entries:
             last_id = self._try_commit(
@@ -207,7 +220,8 @@ class FileStoreCommit:
                     entries_fn=None,
                     force_full_manifest_merge: bool = False,
                     skip_missing_manifests: bool = False,
-                    watermark: Optional[int] = None) -> int:
+                    watermark: Optional[int] = None,
+                    expected_latest_id: Optional[int] = ...) -> int:
         from paimon_tpu_torch.metrics import (
             COMMIT_CAS_MS, COMMIT_MANIFEST_ENCODE_MS, global_registry,
         )
@@ -256,6 +270,14 @@ class FileStoreCommit:
                     backoff.pause()
             attempts += 1
             latest = self.snapshot_manager.latest_snapshot()
+            if expected_latest_id is not ... and \
+                    (latest.id if latest else None) != expected_latest_id:
+                # the caller's plan is stale (deletion vectors or
+                # overlays built against an older snapshot): surface a
+                # conflict so it replans instead of losing a change
+                raise CommitConflictError(
+                    f"Snapshot advanced past {expected_latest_id} before "
+                    f"commit; replan required")
             if entries_fn is not None:
                 # delete/add set depends on the latest snapshot (e.g.
                 # overwrite): recompute per attempt
@@ -263,6 +285,25 @@ class FileStoreCommit:
                 new_manifest = None
             else:
                 entries = entries_orig
+            next_row_id = latest.next_row_id if latest else None
+            ids_assigned = False
+            if self.row_tracking and any(
+                    e.kind == FileKind.ADD and e.file.first_row_id is None
+                    for e in entries):
+                # the row-id start depends on the latest snapshot, so the
+                # assignment re-runs from the unassigned entries (and the
+                # manifest is rewritten) on every CAS attempt
+                from paimon_tpu_torch.core.row_tracking import (
+                    assign_row_ids,
+                )
+                start = next_row_id
+                if start is None:
+                    # tracking enabled on an existing table: old files
+                    # keep no ids; new ids start past every row
+                    start = latest.total_record_count if latest else 0
+                entries, next_row_id = assign_row_ids(entries, start)
+                new_manifest = None
+                ids_assigned = True
             if check_deleted_files and latest is not None:
                 self._assert_files_exist(latest, entries)
             if new_manifest is None and entries:
@@ -331,7 +372,7 @@ class FileStoreCommit:
                 delta_record_count=delta_rows,
                 changelog_record_count=changelog_rows or None,
                 properties=properties,
-                next_row_id=latest.next_row_id if latest else None,
+                next_row_id=next_row_id,
                 watermark=max(wm_vals) if wm_vals else None,
             )
             with span("commit.cas", cat="commit", group="commit",
@@ -359,7 +400,10 @@ class FileStoreCommit:
             for m in merged_manifests:
                 self.file_io.delete_quietly(
                     self.manifest_file.path(m.file_name))
-            if entries_fn is not None and new_manifest is not None:
+            if (entries_fn is not None or ids_assigned) and \
+                    new_manifest is not None:
+                # the entry set was rebuilt for this attempt (dynamic
+                # entries or row ids): its manifest is stale too
                 self.file_io.delete_quietly(
                     self.manifest_file.path(new_manifest.file_name))
                 new_manifest = None

@@ -1,15 +1,14 @@
 """Process-shared delta-apply plan cache (the incremental metadata
 plane's state holder).
 
-Counterpart of paimon_tpu/core/plan_cache.py without its
-deletion-vector memo (deletion vectors wait for ROADMAP.md A.8.7; the
-scan refuses a snapshot that carries them).  The merged live-entry set
+Counterpart of paimon_tpu/core/plan_cache.py.  The merged live-entry set
 of snapshot N is kept in memory, grouped by (partition, bucket), and a
 plan for snapshot N+k advances it by reading only the delta manifest
 lists of snapshots N+1..N+k, so a steady-state streaming re-plan
 touches O(delta) metadata (Fast Updates on Read-Optimized Databases,
 arxiv 1109.6885).  A second level caches the generated splits per
-filter signature, so untouched groups do not re-run split generation.
+filter signature, so untouched groups do not re-run split generation,
+and the deletion-vector index of the tip is memoised per index manifest.
 
 Correctness contract (core/scan.py's advance logic):
 
@@ -88,6 +87,10 @@ class TablePlanCache:
         self.lock = threading.Lock()
         self._state: Optional[PlanState] = None
         self._splits: "OrderedDict[tuple, SplitState]" = OrderedDict()
+        # the memoised unfiltered deletion-vector index, keyed by index
+        # manifest name (a None name is {} without any IO)
+        self._dv_key: Optional[str] = None
+        self._dv_index: Optional[dict] = None
         # tip snapshot known to exceed scan.plan.cache.max-entries:
         # planners skip the cold-state attempt (whose full walk they
         # would discard) and go straight to the pruned fallback
@@ -117,6 +120,8 @@ class TablePlanCache:
             if expect is None or self._state is expect:
                 self._state = None
                 self._splits.clear()
+                self._dv_key = None
+                self._dv_index = None
 
     def over_bound(self, snapshot_id: int) -> bool:
         with self.lock:
@@ -141,6 +146,20 @@ class TablePlanCache:
             self._splits.move_to_end(sig)
             while len(self._splits) > _MAX_SPLIT_SIGS:
                 self._splits.popitem(last=False)
+
+    # -- deletion-vector memo ------------------------------------------------
+
+    def dv_memo(self, key: Optional[str]):
+        """(hit, dv_index) for the given index-manifest name."""
+        with self.lock:
+            if self._dv_key == key and self._dv_index is not None:
+                return True, self._dv_index
+            return False, None
+
+    def put_dv_memo(self, key: Optional[str], dv_index: dict) -> None:
+        with self.lock:
+            self._dv_key = key
+            self._dv_index = dv_index
 
 
 _LOCK = threading.Lock()

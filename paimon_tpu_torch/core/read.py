@@ -288,7 +288,13 @@ class MergeFileSplitRead:
             self.options, f"data file {meta.file_name}")
         if table is None:
             return None
-        return self._evolve(table, meta.schema_id).select(read_cols)
+        table = self._evolve(table, meta.schema_id)
+        if split.deletion_vectors and \
+                meta.file_name in split.deletion_vectors and \
+                self.options.get(CoreOptions.DELETION_VECTORS_MERGE_ON_READ):
+            dv = split.deletion_vectors[meta.file_name]
+            table = table.filter(pa.array(dv.keep_mask(table.num_rows)))
+        return table.select(read_cols)
 
     def _read_raw(self, split: DataSplit, read_cols: List[str],
                   value_cols: List[str]) -> pa.Table:

@@ -1,17 +1,21 @@
 """Scan planning: snapshot -> manifests -> pruned ManifestEntries ->
 DataSplits.
 
-Counterpart of paimon_tpu/core/scan.py without deletion vectors
-(ROADMAP.md A.8.7): a snapshot whose index manifest holds deletion
-vectors is refused, never read without its mask.  Per-file column
-indexes (index/file_index.py) skip files: a key predicate drops a file
-whose indexes prove no row can match; a value predicate drops a bucket
-only when no file of it can match, since a file without a match may
-hold the newest version of a key whose older version matches.
+Counterpart of paimon_tpu/core/scan.py.  A split carries the deletion
+vectors of its bucket (index/deletion_vector.py), loaded from the
+snapshot's index manifest.  Per-file column indexes
+(index/file_index.py) skip files: a key predicate drops a file whose
+indexes prove no row can match; on a primary-key table a value
+predicate drops a bucket only when no file of it can match, since a
+file without a match may hold the newest version of a key whose older
+version matches, while an append table drops single files by their
+value stats and indexes.  An append bucket bins into splits of about
+`source.split.target-size`, each file costing at least
+`source.split.open-file-cost`.
 Streaming reads plan one snapshot's delta (`plan_delta`) or changelog
 (`plan_changelog`) files into splits that keep every row kind.  The
-index manifest is read for the writers (`index_manifest_file`: the
-dynamic-bucket hash index).  Postpone staging (bucket -2) stays
+index manifest (`index_manifest_file`) holds the dynamic-bucket hash
+index and the deletion vectors.  Postpone staging (bucket -2) stays
 invisible unless the bucket filter names it.
 
 The incremental metadata plane:
@@ -41,7 +45,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace as dc_replace
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
 from paimon_tpu_torch.fs import FileIO
@@ -73,6 +77,7 @@ class DataSplit:
     # delta/changelog split: true row kinds preserved (-U/-D survive);
     # full-phase streaming splits emit merged state as all +I instead
     is_delta: bool = False
+    deletion_vectors: Optional[Dict[str, Any]] = None   # file -> DV
 
     @property
     def row_count(self) -> int:
@@ -123,7 +128,6 @@ class FileStoreScan:
             file_io, mdir, codec, partition_types=self.partition_types,
             key_types=self.key_types, sidecar=sidecar)
         self.index_manifest_file = IndexManifestFile(file_io, mdir, codec)
-        self._dv_free: set = set()     # index manifests seen without DVs
         # the plan metric group, allocated up front so every series
         # renders (manifest_compactions' producer is
         # maintenance/manifest_compact.py); the port's own
@@ -174,7 +178,6 @@ class FileStoreScan:
             snapshot = self.snapshot_manager.latest_snapshot()
         if snapshot is None:
             return ScanPlan(None, [], streaming=streaming)
-        self._refuse_deletion_vectors(snapshot)
         plan = ScanPlan(snapshot.id, self._plan_splits(snapshot, streaming),
                         streaming=streaming)
         from paimon_tpu_torch.metrics import global_registry
@@ -220,12 +223,12 @@ class FileStoreScan:
             # already decoded, and remember the verdict so later plans
             # of this tip go straight to the pruned walk
             cache.mark_over_bound(snapshot.id)
-            return self.generate_splits(snapshot.id, live,
+            return self.generate_splits(snapshot, live,
                                         for_streaming=streaming)
         # filtered (or cache-disabled, or over-bound) cold walk: the
         # vectorised manifest prune keeps whole manifests unfetched
         return self.generate_splits(
-            snapshot.id, self.read_entries(snapshot, _use_cache=False),
+            snapshot, self.read_entries(snapshot, _use_cache=False),
             for_streaming=streaming)
 
     def _cached_state(self, snapshot: Snapshot):
@@ -293,12 +296,11 @@ class FileStoreScan:
 
     def _plan_added(self, snapshot: Snapshot, manifest_list: str,
                     streaming: bool) -> ScanPlan:
-        self._refuse_deletion_vectors(snapshot)
         metas = self.manifest_list.read(manifest_list)
         adds = [e for e in self._read_manifests(metas)
                 if e.kind == FileKind.ADD]
         return ScanPlan(snapshot.id,
-                        self.generate_splits(snapshot.id, adds,
+                        self.generate_splits(snapshot, adds,
                                              for_delta=True,
                                              for_streaming=streaming),
                         streaming=streaming)
@@ -310,7 +312,6 @@ class FileStoreScan:
         superset of a filtered scan's visible entries: manifest pruning
         is conservative, and callers apply their own per-entry
         filters."""
-        self._refuse_deletion_vectors(snapshot)
         if _use_cache:
             cache, served = self._cached_state(snapshot)
             if served is not None:
@@ -455,7 +456,24 @@ class FileStoreScan:
                            for k, v in self._partition_filter.items())
         bf = frozenset(self._bucket_filter) \
             if self._bucket_filter is not None else None
-        return streaming, pf, bf
+        # the binning options matter too: the cache is shared per
+        # (table, branch) across table objects whose dynamic options may
+        # differ (table.copy)
+        return (streaming, pf, bf,
+                self.options.get(CoreOptions.SOURCE_SPLIT_TARGET_SIZE),
+                self.options.get(CoreOptions.SOURCE_SPLIT_OPEN_FILE_COST))
+
+    def _dv_from_state(self, cache, snapshot: Snapshot):
+        """The unfiltered deletion-vector index, memoised per index
+        manifest name (splits look up their own (partition, bucket), so
+        extra groups are inert)."""
+        key = snapshot.index_manifest
+        hit, dv = cache.dv_memo(key)
+        if hit:
+            return dv
+        dv = self._load_deletion_vectors(snapshot, unfiltered=True)
+        cache.put_dv_memo(key, dv)
+        return dv
 
     def _splits_from_state(self, cache, state, snapshot: Snapshot,
                            streaming: bool, touched, split_base_id):
@@ -476,6 +494,7 @@ class FileStoreScan:
                         st.snapshot_id == split_base_id:
                     base, regen = st.group_splits, touched
         group_splits: Dict[Tuple[bytes, int], tuple] = {}
+        dv_index = self._dv_from_state(cache, snapshot)
         for g in state.groups:
             if base is not None and g not in regen and g in base:
                 old = base[g]
@@ -487,7 +506,7 @@ class FileStoreScan:
             visible = [e for e in state.groups[g].values()
                        if self._entry_visible(e)]
             group_splits[g] = tuple(self._group_splits(
-                snapshot.id, g, visible, for_delta=False,
+                snapshot.id, g, visible, dv_index, for_delta=False,
                 for_streaming=streaming))
         if sig is not None:
             cache.put_split_state(sig, SplitState(
@@ -496,21 +515,6 @@ class FileStoreScan:
         for g in sorted(group_splits):
             out.extend(group_splits[g])
         return out
-
-    def _refuse_deletion_vectors(self, snapshot: Snapshot) -> None:
-        """Deletion vectors mask rows of their data files; this package
-        cannot apply the mask yet, so it refuses the snapshot rather
-        than read deleted rows back."""
-        name = snapshot.index_manifest
-        if not name or name in self._dv_free:
-            return
-        if any(e.index_file.index_type == DELETION_VECTORS_INDEX
-               for e in self.index_manifest_file.read(name)):
-            raise NotImplementedError(
-                f"snapshot {snapshot.id} carries deletion vectors; their "
-                f"read mask is not ported to paimon_tpu_torch yet "
-                f"(ROADMAP.md: A.8.7)")
-        self._dv_free.add(name)
 
     # -- manifest IO ---------------------------------------------------------
 
@@ -725,6 +729,19 @@ class FileStoreScan:
                              or [0] * len(names))),
                     e.file.row_count):
                 return False
+        if self._value_filter is not None and not self.schema.primary_keys:
+            if self.options.get(CoreOptions.ROW_TRACKING_ENABLED):
+                # row-tracked append files form row-range groups whose
+                # columns merge across files (overlays): a per-file stats
+                # prune could drop the anchor while its overlay survives,
+                # so tracked tables prune only at read time
+                return True
+            # an append file holds no other version of its rows: it may
+            # drop on its own value stats and indexes
+            if not self._value_stats_match(e):
+                return False
+            if self._bloom_rejects(e, self._value_filter):
+                return False
         return True
 
     def _value_stats_match(self, e: ManifestEntry) -> bool:
@@ -750,48 +767,113 @@ class FileStoreScan:
                    and not self._bloom_rejects(e, self._value_filter)
                    for e in group)
 
-    def generate_splits(self, snapshot_id: int,
+    def generate_splits(self, snapshot: Snapshot,
                         entries: List[ManifestEntry],
                         for_delta: bool = False,
-                        for_streaming: bool = False) -> List[DataSplit]:
+                        for_streaming: bool = False
+                        ) -> List[DataSplit]:
         groups: Dict[Tuple, List[ManifestEntry]] = {}
         for e in entries:
             if not self._entry_visible(e):
                 continue
             groups.setdefault((e.partition, e.bucket), []).append(e)
+        # deletion vectors always load once written (DELETE FROM); no IO
+        # without an index manifest, pruned by the partition and bucket
+        # filters
+        dv_index = self._load_deletion_vectors(snapshot)
         splits = []
         for key, group in sorted(
                 groups.items(), key=lambda kv: (kv[0][0], kv[0][1])):
-            splits.extend(self._group_splits(snapshot_id, key, group,
-                                             for_delta, for_streaming))
+            splits.extend(self._group_splits(snapshot.id, key, group,
+                                             dv_index, for_delta,
+                                             for_streaming))
         return splits
 
     def _group_splits(self, snapshot_id: int, key: Tuple[bytes, int],
-                      group: List[ManifestEntry], for_delta: bool,
-                      for_streaming: bool) -> List[DataSplit]:
-        """The split of ONE (partition, bucket) group of visible entries:
-        pk buckets stay whole for the merge; a delta or changelog split
-        reads its files raw."""
+                      group: List[ManifestEntry], dv_index,
+                      for_delta: bool, for_streaming: bool
+                      ) -> List[DataSplit]:
+        """The splits of ONE (partition, bucket) group of visible entries
+        (the unit the split-level plan cache regenerates): pk buckets
+        stay whole for the merge; append buckets bin by size."""
         if not group or not self._bucket_value_match(group):
             return []
         pbytes, bucket = key
         files = [g.file for g in group]
         max_level = max(f.level for f in files)
-        # raw-convertible only when a single non-L0 run fully covers
-        # the bucket
-        raw = for_delta or (
+        # append tables never merge; pk buckets are raw-convertible only
+        # when a single non-L0 run without deletion vectors covers them
+        raw = (not self.schema.primary_keys) or for_delta or (
             all(f.level == max_level and max_level > 0 for f in files)
-            and all((f.delete_row_count or 0) == 0 for f in files))
+            and all((f.delete_row_count or 0) == 0 for f in files)
+            and (pbytes, bucket) not in dv_index)
+        # an append bucket bins into size-bounded splits for parallel
+        # readers (reference source.split.target-size / open-file-cost);
+        # pk buckets stay whole for the merge.  A row-tracked range group
+        # (an anchor file and its column overlays) bins whole, at its
+        # first file's place: the reference bins file by file, and a
+        # split that holds an overlay without its anchor reads the
+        # overlay's rows a second time, with nulls in the columns it did
+        # not write (ROADMAP.md C)
+        file_bins = [files]
+        if not self.schema.primary_keys and len(files) > 1:
+            from paimon_tpu_torch.core.row_tracking import group_row_ranges
+            target = self.options.get(CoreOptions.SOURCE_SPLIT_TARGET_SIZE)
+            open_cost = self.options.get(
+                CoreOptions.SOURCE_SPLIT_OPEN_FILE_COST)
+            place = {id(f): i for i, f in enumerate(files)}
+            units = sorted(group_row_ranges(files),
+                           key=lambda g: min(place[id(f)] for f in g))
+            file_bins = []
+            cur, cur_size = [], 0
+            for unit in units:
+                sz = sum(max(f.file_size, open_cost) for f in unit)
+                if cur and cur_size + sz > target:
+                    file_bins.append(cur)
+                    cur, cur_size = [], 0
+                cur.extend(unit)
+                cur_size += sz
+            if cur:
+                file_bins.append(cur)
+        partition = self._partition_codec.from_bytes(pbytes)
         return [DataSplit(
             snapshot_id=snapshot_id,
-            partition=self._partition_codec.from_bytes(pbytes),
+            partition=partition,
             bucket=bucket,
             total_buckets=group[0].total_buckets,
-            data_files=files,
+            data_files=bin_files,
             raw_convertible=raw,
             for_streaming=for_streaming,
             is_delta=for_delta,
-        )]
+            deletion_vectors=dv_index.get((pbytes, bucket)),
+        ) for bin_files in file_bins]
+
+    def _load_deletion_vectors(self, snapshot: Snapshot,
+                               unfiltered: bool = False):
+        """{(partition bytes, bucket): {data file: DeletionVector}} of
+        one snapshot; `unfiltered` ignores the scan's partition and
+        bucket filters (the plan cache's memo serves any scan)."""
+        if not snapshot.index_manifest:
+            return {}
+        from paimon_tpu_torch.index.deletion_vector import (
+            read_deletion_vectors,
+        )
+        out: Dict[Tuple, Dict[str, Any]] = {}
+        for e in self.index_manifest_file.read(snapshot.index_manifest):
+            if e.index_file.index_type != DELETION_VECTORS_INDEX:
+                continue
+            if not unfiltered:
+                if self._bucket_filter is not None and \
+                        e.bucket not in self._bucket_filter:
+                    continue
+                if not self._partition_matches(e.partition):
+                    continue
+            dvs = read_deletion_vectors(
+                self.file_io,
+                self.path_factory.index_file_path(e.index_file.file_name),
+                e.index_file.dv_ranges or {})
+            out.setdefault((e.partition, e.bucket), {}).update(dvs)
+        return out
 
     # -- helpers for writers -------------------------------------------------
 

@@ -222,6 +222,27 @@ class CoreOptions:
     CONSUMER_ID = ConfigOption("consumer-id", str, None, "")
     DELETION_VECTORS_ENABLED = ConfigOption("deletion-vectors.enabled",
                                             _parse_bool, False, "")
+    DELETION_VECTORS_MERGE_ON_READ = ConfigOption(
+        "deletion-vectors.merge-on-read", _parse_bool, True,
+        "Apply deletion vectors during reads (false: raw rows visible, "
+        "for debugging/audit scans)")
+    # -- append tables (reference CoreOptions.java) --------------------------
+    COMPACTION_MIN_FILE_NUM = ConfigOption("compaction.min.file-num", int,
+                                           5, "")
+    COMPACTION_DELETE_RATIO_THRESHOLD = ConfigOption(
+        "compaction.delete-ratio-threshold", float, 0.2,
+        "Append tables: force-compact a data file once deletion "
+        "vectors mark more than this share of its rows deleted")
+    COMPACTION_SMALL_FILE_RATIO = ConfigOption(
+        "compaction.small-file-ratio", float, 0.7,
+        "Files below target-file-size * this ratio are picked for "
+        "compaction rewriting (avoids re-compacting outputs that "
+        "compressed slightly under target)")
+    SOURCE_SPLIT_TARGET_SIZE = ConfigOption(
+        "source.split.target-size", parse_memory_size, 128 << 20,
+        "Append-table buckets bin into splits of about this size")
+    SOURCE_SPLIT_OPEN_FILE_COST = ConfigOption(
+        "source.split.open-file-cost", parse_memory_size, 4 << 20, "")
     # -- dynamic bucket (reference CoreOptions.java:1650-1700) ---------------
     DYNAMIC_BUCKET_TARGET_ROW_NUM = ConfigOption(
         "dynamic-bucket.target-row-num", int, 2_000_000, "")

@@ -117,17 +117,22 @@ def read_file_retrying(fn: Callable[[], object],
 
 
 def read_or_skip_corrupt(fn: Callable[[], object],
-                         options: Optional[CoreOptions], label: str):
+                         options: Optional[CoreOptions], label: str, *,
+                         retry: bool = True):
     """THE read-path fault policy, shared by every split reader so the
     taxonomy can't drift between call sites:
 
-    * transient store faults retry under read.retry.*, then re-raise
-      — never eligible for the corrupt-file skip;
+    * transient store faults retry under read.retry.* (skipped with
+      retry=False when an inner layer already retries: the append
+      read's row-range groups), then re-raise — never eligible for the
+      corrupt-file skip;
     * everything else (undecodable bytes, missing planned files) warns
       and returns None under scan.ignore-corrupt-files, else raises.
     """
     try:
-        return read_file_retrying(fn, options, what=label)
+        if retry:
+            return read_file_retrying(fn, options, what=label)
+        return fn()
     except Exception as e:      # noqa: BLE001 — reclassified below
         from paimon_tpu_torch.utils.deadline import DeadlineExceededError
         if isinstance(e, DeadlineExceededError):

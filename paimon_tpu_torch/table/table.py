@@ -3,10 +3,15 @@
 Counterpart of paimon_tpu/table/table.py for this package's slice:
 primary-key tables with fixed, dynamic (bucket -1) or postpone (bucket
 -2) buckets, cross-partition upsert, under the deduplicate, first-row,
-partial-update and aggregation engines, their changelog producers,
+partial-update and aggregation engines, their changelog producers;
+append tables, bucket-unaware (bucket -1) or with fixed buckets by
+`bucket-key`, with deletion vectors, append compaction, sort-compact,
+row tracking (column updates and deletes by row id) and the sorted
+global index;
 streaming writes with commit identifiers, stream scans, mesh compaction
 (tpu.mesh.compact), bucket rescale, the postpone rescale, row-level
-DELETE (-D records), and the maintenance plane: snapshot and changelog
+DELETE (-D records on primary-key tables, deletion vectors on append
+tables), and the maintenance plane: snapshot and changelog
 expiry, tags and auto-tags, branches and fallback reads, incremental
 reads, partition expiry and mark-done, orphan clean, fsck and repair,
 manifest compaction, commit and tag callbacks, and per-file indexes
@@ -61,13 +66,6 @@ def _not_ported(feature: str, item: str):
 def check_readable(schema: TableSchema, options: CoreOptions) -> None:
     """Raise NotImplementedError for a table whose reads this package
     cannot yet serve, naming the ROADMAP.md item that will port it."""
-    if not schema.primary_keys:
-        _not_ported("append tables (no primary key)", "A.8.7")
-    # deletion-vectors.enabled is accepted: no writer of a primary-key
-    # table writes deletion vectors (the scan refuses a snapshot that
-    # carries them)
-    if options.get(CoreOptions.ROW_TRACKING_ENABLED):
-        _not_ported("row tracking", "A.8.7")
     # deadlines on the table's own reads, the host-SSD cache tier and
     # hedged store reads
     for key in (CoreOptions.REQUEST_TIMEOUT, CoreOptions.CACHE_DISK_DIR,
@@ -103,8 +101,8 @@ def check_expirable(options: CoreOptions) -> None:
 
 
 class FileStoreTable:
-    """A primary-key table backed by the file store at `path`, merging
-    on `device`."""
+    """A primary-key or append table backed by the file store at `path`,
+    merging and sorting on `device`."""
 
     def __init__(self, file_io: FileIO, path: str,
                  table_schema: TableSchema,
@@ -221,12 +219,15 @@ class FileStoreTable:
 
     def to_arrow(self, projection: Optional[List[str]] = None,
                  predicate: Optional[Predicate] = None,
+                 with_row_ids: bool = False,
                  limit: Optional[int] = None) -> pa.Table:
         rb = self.new_read_builder()
         if projection:
             rb = rb.with_projection(projection)
         if predicate is not None:
             rb = rb.with_filter(predicate)
+        if with_row_ids:
+            rb = rb.with_row_ids()
         if limit is not None:
             rb = rb.with_limit(limit)
         return rb.new_read().to_arrow(rb.new_scan().plan().splits)
@@ -258,11 +259,45 @@ class FileStoreTable:
         check_writable(self.options)
         return rescale_postpone(self)
 
+    def sort_compact(self, order_by: List[str],
+                     strategy: str = "zorder") -> Optional[int]:
+        """Cluster an append table by z-order, Hilbert or lexicographic
+        order (reference sort-compact action, sort/zorder/ZIndexer.java),
+        the curve keys ranked and sorted on the table's device."""
+        from paimon_tpu_torch.compact.compact_action import sort_compact
+        check_writable(self.options)
+        return sort_compact(self, order_by, strategy)
+
     def delete_where(self, predicate: Predicate) -> Optional[int]:
-        """Row-level DELETE: -D records on primary-key tables (reference
-        DeleteAction); deletion vectors of append tables are A.8.7."""
+        """Row-level DELETE: deletion vectors on append tables, -D
+        records on primary-key tables (reference DeleteAction /
+        BucketedDvMaintainer)."""
         from paimon_tpu_torch.index.dv_maintainer import delete_where
         return delete_where(self, predicate)
+
+    # -- row tracking / data evolution ---------------------------------------
+
+    def update_columns(self, row_ids, updates) -> Optional[int]:
+        """Column-level UPDATE by row id on a row-tracked append table:
+        only the touched columns of the touched row ranges are rewritten
+        as overlay files (reference append/dataevolution/,
+        operation/DataEvolutionSplitRead.java)."""
+        from paimon_tpu_torch.core.row_tracking import update_columns
+        return update_columns(self, row_ids, updates)
+
+    def delete_by_row_ids(self, row_ids) -> Optional[int]:
+        """DELETE by row id: range arithmetic into deletion vectors, no
+        data reads (reference row-id keyed append deletion vectors)."""
+        from paimon_tpu_torch.core.row_tracking import delete_by_row_ids
+        return delete_by_row_ids(self, row_ids)
+
+    def global_index(self, column: str, rebuild: bool = False):
+        """Sorted key -> row-id global index over a row-tracked append
+        table (reference paimon-common/.../globalindex/sorted/), its
+        key sort on the table's device."""
+        from paimon_tpu_torch.index.global_index import SortedGlobalIndex
+        return SortedGlobalIndex.load_or_build(self, column,
+                                               rebuild=rebuild)
 
     def compact_manifests(self, force: bool = True) -> Optional[int]:
         """Manifest full-compaction: fold the accumulated delta
@@ -443,6 +478,14 @@ class TableWrite:
                 out.setdefault((part, e.bucket), []).append(e.file)
             return out
 
+        if not table.primary_keys:
+            from paimon_tpu_torch.core.append import (
+                AppendOnlyFileStoreWrite,
+            )
+            self._write = AppendOnlyFileStoreWrite(
+                table.file_io, table.path, table.schema, table.options,
+                restore_max_seq=restore)
+            return
         self._write = KeyValueFileStoreWrite(
             table.file_io, table.path, table.schema, table.options,
             restore_max_seq=restore, branch=table.branch,
@@ -618,6 +661,7 @@ class ReadBuilder:
         self._partition_filter: Optional[dict] = None
         self._buckets: Optional[List[int]] = None
         self._limit: Optional[int] = None
+        self._with_row_ids = False
 
     def with_projection(self, columns: List[str]) -> "ReadBuilder":
         self._projection = list(columns)
@@ -637,6 +681,11 @@ class ReadBuilder:
 
     def with_limit(self, limit: int) -> "ReadBuilder":
         self._limit = limit
+        return self
+
+    def with_row_ids(self, flag: bool = True) -> "ReadBuilder":
+        """Materialise `_ROW_ID` on append-table reads (row tracking)."""
+        self._with_row_ids = flag
         return self
 
     def new_scan(self) -> "TableScan":
@@ -776,6 +825,7 @@ class TableScan:
                 f"incremental-between ({start}, {end}] outside the "
                 f"available snapshot range [{earliest}, {latest}]")
         entries = []
+        snap = None
         for sid in range(start + 1, end + 1):
             snap = sm.snapshot(sid)
             if snap.commit_kind != CommitKind.APPEND:
@@ -784,7 +834,11 @@ class TableScan:
                 snap.delta_manifest_list)
             entries.extend(e for e in self._scan._read_manifests(metas)
                            if e.kind == FileKind.ADD)
-        return ScanPlan(end, self._scan.generate_splits(end, entries))
+        if snap is None:
+            # an empty range, whose end may have expired
+            return ScanPlan(end, [])
+        # the end snapshot's deletion vectors mask the range's files
+        return ScanPlan(end, self._scan.generate_splits(snap, entries))
 
     def _plan_incremental_tag_diff(self, spec: str) -> ScanPlan:
         """'tagName,endSnapshotId': the data-file diff between the tag's
@@ -810,16 +864,23 @@ class TableScan:
         entries = [e for e in self._scan.read_entries(end_snap)
                    if (e.partition, e.bucket, e.file.file_name)
                    not in base]
-        return ScanPlan(end, self._scan.generate_splits(end, entries))
+        return ScanPlan(end, self._scan.generate_splits(end_snap, entries))
 
 
 class TableRead:
     def __init__(self, builder: ReadBuilder):
         self.builder = builder
         table = builder.table
-        self._read = MergeFileSplitRead(
-            table.file_io, table.path, table.schema, table.options,
-            schema_manager=table.schema_manager, device=table.device)
+        if table.primary_keys:
+            self._read = MergeFileSplitRead(
+                table.file_io, table.path, table.schema, table.options,
+                schema_manager=table.schema_manager, device=table.device)
+        else:
+            from paimon_tpu_torch.core.append import AppendSplitRead
+            self._read = AppendSplitRead(
+                table.file_io, table.path, table.schema, table.options,
+                schema_manager=table.schema_manager, device=table.device)
+            self._read.with_row_ids(builder._with_row_ids)
         if builder._projection:
             self._read.with_projection(builder._projection)
         if builder._predicate is not None:
@@ -856,10 +917,13 @@ class TableRead:
     def _finalize(self, t: pa.Table) -> pa.Table:
         if self.builder._projection:
             from paimon_tpu_torch.core.read import ROW_KIND_COL
+            from paimon_tpu_torch.core.row_tracking import ROW_ID_COL
             cols = [c for c in self.builder._projection
                     if c in t.column_names]
             if ROW_KIND_COL in t.column_names:
                 cols.append(ROW_KIND_COL)
+            if ROW_ID_COL in t.column_names and self.builder._with_row_ids:
+                cols.append(ROW_ID_COL)
             t = t.select(cols)
         if self.builder._limit is not None:
             t = t.slice(0, self.builder._limit)

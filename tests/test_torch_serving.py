@@ -10,8 +10,8 @@ exactly.  Both packages run on the CPU (the port with device="cpu");
 every server binds 127.0.0.1:0 and is stopped in `finally`, and every
 client socket has a timeout.
 
-The reference's test_non_pk_table_serves_scan_but_rejects_lookup has
-no counterpart: the port refuses append tables (ROADMAP.md A.8.7).
+An append table serves /scan and refuses /lookup in both packages, as
+the reference's test_non_pk_table_serves_scan_but_rejects_lookup has it.
 """
 
 import importlib
@@ -872,3 +872,34 @@ def test_every_serving_option_key_is_defined_or_refused():
             if keys - port_keys:
                 missing[f"{pkg}/{fname}"] = sorted(keys - port_keys)
     assert missing == {}
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_non_pk_table_serves_scan_but_rejects_lookup(tmp_path, pkg):
+    """reference tests/test_query_serving.py's case of the same name."""
+    from paimon_tpu.schema import Schema as RefSchema
+    from paimon_tpu.types import BigIntType as RefBigInt
+    from paimon_tpu.types import VarCharType as RefVarChar
+    if pkg == "port":
+        sch, big, vc, kw = Schema, BigIntType, VarCharType, {"device": "cpu"}
+        table_cls, server_cls, client_cls = \
+            FileStoreTable, KvQueryServer, KvQueryClient
+    else:
+        sch, big, vc, kw = RefSchema, RefBigInt, RefVarChar, {}
+        table_cls, server_cls, client_cls = RefTable, RefServer, RefClient
+    schema = (sch.builder().column("id", big(False))
+              .column("name", vc.string_type())
+              .options({"bucket": "-1"}).build())
+    t = table_cls.create(str(tmp_path / "t"), schema, **kw)
+    wb = t.new_batch_write_builder()
+    with wb.new_write() as w:
+        w.write_dicts([{"id": i, "name": "x"} for i in range(10)])
+        wb.new_commit().commit(w.prepare_commit())
+    server = server_cls(t).start()
+    try:
+        with client_cls(address=server.address) as c:
+            assert len(c.scan(limit=5)) == 5
+            with pytest.raises(RuntimeError, match="primary-key"):
+                c.lookup_row({"id": 1})
+    finally:
+        server.stop()

@@ -309,41 +309,31 @@ def test_compact_manifests_matches_reference(tmp_path):
 
 # -- out-of-slice features raise -------------------------------------------
 
-def _dv_index_entry_scan(tmp_path):
-    """A snapshot whose index manifest holds a DELETION_VECTORS entry
-    (as another writer would leave it) must not read without its mask."""
-    from paimon_tpu_torch.core.commit import FileStoreCommit
-    from paimon_tpu_torch.manifest import (
-        FileKind, IndexFileMeta, IndexManifestEntry,
-    )
-    table = new_table(tmp_path, pk_schema())
-    wb = table.new_batch_write_builder()
-    with wb.new_write() as w:
-        w.write_dicts([{"id": 1, "name": "a", "score": 1.0}])
-        wb.new_commit().commit(w.prepare_commit())
-    FileStoreCommit(table.file_io, table.path, table.schema,
-                    table.options).commit([], index_entries=[
-                        IndexManifestEntry(FileKind.ADD, b"", 0, IndexFileMeta(
-                            "DELETION_VECTORS", "index-dv-0", 0, 0,
-                            {"f": (0, 0, 0)}))])
-    table.to_arrow()
+def _system_table(tmp_path):
+    new_table(tmp_path, pk_schema()).system_table("snapshots")
 
 
-def _append_dv_delete(tmp_path):
-    from paimon_tpu_torch.index import dv_maintainer
-    dv_maintainer._delete_append_dv(None, PP.equal("id", 1))
+def _append_blob_write(tmp_path):
+    """An append table with a blob column: its writer would externalise
+    the blobs into .blob files, which are not ported."""
+    from paimon_tpu_torch.types import BlobType
+    schema = (Schema.builder().column("id", BigIntType())
+              .column("b", BlobType()).build())
+    FileStoreTable.create(str(tmp_path / "b"), schema, device="cpu") \
+        .new_batch_write_builder().new_write()
 
 
-# bucket -1 and deletion-vectors.enabled open since the dynamic buckets
-# were ported; their places hold the deletion-vector refusals
-_UNPORTED_ACTIONS = {"deletion-vector index entries": _dv_index_entry_scan,
-                     "append deletion-vector delete": _append_dv_delete}
+# bucket -1 and deletion-vectors.enabled opened with the dynamic
+# buckets, row tracking and deletion vectors with append tables; their
+# places hold other unported planes
+_UNPORTED_ACTIONS = {"system tables": _system_table,
+                     "append blob column": _append_blob_write}
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"row-tracking.enabled": "true"}, "A.8.7"),
-    ("deletion-vector index entries", "A.8.7"),
-    ("append deletion-vector delete", "A.8.7"),
+    ({"cache.disk.dir": "cache"}, "A.7b"),
+    ("system tables", "A.8.9"),
+    ("append blob column", "A.8.8"),
     ({"request.timeout": "30 s"}, "A.7b")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -382,10 +372,8 @@ def test_append_table_and_other_planes_raise(tmp_path):
     from paimon_tpu_torch.format import get_format
     from paimon_tpu_torch.maintenance.clone import clone_table
     from paimon_tpu_torch.maintenance.migrate import migrate_table
-    schema = (Schema.builder().column("id", BigIntType())
-              .options({"bucket": "1"}).build())
-    with pytest.raises(NotImplementedError, match="append tables"):
-        FileStoreTable.create(str(tmp_path / "a"), schema, device="cpu")
+    with pytest.raises(NotImplementedError, match="blob columns"):
+        _append_blob_write(tmp_path)
     table = new_table(tmp_path)
     for call, item in ((lambda: table.system_table("snapshots"), "A.8.9"),
                        (lambda: clone_table(None, "db.a", "db.b"), "A.8.9"),
