@@ -81,7 +81,7 @@ then):
      /lookup, 64 keep-alive clients of 90% point gets and 10%
      scan(limit=100), the engine's native and numpy probes, a serving
      writer's read-your-writes through the delta tier, a full
-     compaction under 8 readers, an unbounded /scan), and
+     compaction under 8 readers, a /scan of 50K rows), and
      serve_agg_2.5M, the same rows under aggregation, whose every
      lookup merges a bucket on the card (4 cold buckets built at once
      from the server's handler threads).  Every answer is held against
@@ -101,9 +101,9 @@ then):
      in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
      RENAME v2 -> v2r and 2 commits of 1M upserts, a merge-on-read scan
      over runs of both schemas, a full compaction and a scan),
-     xpart_upsert_2M (cross-partition upsert, partition dt INT of 4
-     values: 2M keys in 4 commits, then a fresh table object's 4
-     commits of 250K upserts, a quarter moving partition and some twice
+     xpart_upsert_1M (cross-partition upsert, partition dt INT of 4
+     values: 1M keys in 4 commits, then a fresh table object's 4
+     commits of 125K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
      and postpone_4M (bucket=-2: 4M rows in 4 commits that a scan does
@@ -111,14 +111,14 @@ then):
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
      {"bucket_modes": ...} line;
-   - maintenance: maint_daily_3M, a daily-partitioned table as the
+   - maintenance: maint_daily_1.5M, a daily-partitioned table as the
      Paimon docs' Maintenance pages set one up (bench.py's columns plus
      dt STRING yyyyMMdd as the partition, primary key (dt, id),
      bucket=2, deduplicate, changelog-producer=input, inline
      compaction; daily watermark auto-tags keeping 4, snapshots kept
      10-20, decoupled changelog, partitions expiring after 3 days,
      success-file and done-partition mark-done, a counting commit
-     callback): 48 streaming commits of 62.5K rows (6 days of 8 commits,
+     callback): 48 streaming commits of 31.25K rows (6 days of 8 commits,
      the watermark 3 hours a commit, ids uniform in [0, 1M) a day, 2%
      -D, seed 7) with a consumer-id consumer polled each day; then each
      kept tag read, incremental reads between two tags and from a tag
@@ -126,7 +126,7 @@ then):
      disk exactly those the snapshots, tags and changelog entries
      reference; a fresh consumer from the earliest changelog), partition
      expiry of the 3 oldest days and an end-input batch commit marking
-     its partitions done, a branch from the oldest tag with 250K upserts
+     its partitions done, a branch from the oldest tag with 125K upserts
      to an expired day, a fallback-branch read, fast_forward and
      rollback_to, compact_manifests, an orphan clean of planted files,
      fsck (deep), a lost data file found, repaired and merged around,
@@ -147,10 +147,10 @@ then):
      L0; its files equal file for file to the same writes on the CPU),
      local_merge_hot_4M (bucket=4, local-merge-buffer-size=64mb, 8
      streaming commits of 500K rows, half on 1,000 hot ids: each commit's
-     L0 rows are its distinct ids), plan_daily_3M (bench.py's columns
+     L0 rows are its distinct ids), plan_daily_1.2M (bench.py's columns
      plus dt STRING as the partition, key (dt, id), bucket=2, inline
      compaction, the plan cache and stats sidecar at their defaults:
-     60 streaming commits of 50K rows over 12 days with a `latest`
+     24 streaming commits of 50K rows over 12 days with a `latest`
      stream consumer, the cached plan after every commit equal to a
      cold plan of a fresh table object every 10th; then an INSERT
      OVERWRITE of a day, a late correction of an id band, a one-day and
@@ -172,12 +172,12 @@ then):
      blob is a `.index` sidecar), on bench.py's rows, every read held
      against a numpy oracle: fi_point_16M (bucket=4, write-only, 8
      commits of 2M ids uniform in [0, 8M) from seed 7, so 8 overlapping
-     runs a bucket that key stats cannot prune; 100 point queries, 50
-     written ids and 50 never written, each planned and read, with the
+     runs a bucket that key stats cannot prune; 10 point queries, 5
+     written ids and 5 never written, each planned and read, with the
      files each plans; 10 plans of never-written ids timed with the
      sidecars read by ranges and read whole; `v3 = 100` planning
      nothing, `v3 = 42`, `v3 < 3` and `v1 > 2^39` read exactly; a full
-     compaction whose outputs each carry a sidecar; the 100 queries
+     compaction whose outputs each carry a sidecar; the 10 queries
      again) and fi_rewrite_coverage
      (1M rows written without indexes, then rewrite_file_index with a
      bloom filter on id, and with force=True after the spec grew by the
@@ -198,11 +198,11 @@ then):
      and a scan, sort_compact(["id", "v3"], "zorder") launching the
      winner-select once a column at 2^24 for the curve's ranks, and an
      id band that plans fewer files than before the sort),
-     ap_sort_coverage (2^20 rows with a STRING sharing 16-byte prefixes,
+     ap_sort_coverage (2^17 rows with a STRING sharing 16-byte prefixes,
      a nullable INT and a DOUBLE with -0.0 and NaN: z-order on 3
      columns, so bit 63 is set, Hilbert on 1 and on 4, order on 2, each
      permutation on the card equal to its plain numpy version),
-     ap_tracked_8M (row-tracking.enabled, 8 commits of 2^20 rows: two
+     ap_tracked_4M (row-tracking.enabled, 8 commits of 2^19 rows: two
      update_columns of v1 and a delete_by_row_ids on 1% of the row ids,
      the global index on id built with one launch and 10,000 lookups
      held against numpy, a compaction that keeps the row ids, reads
@@ -211,6 +211,28 @@ then):
      read, a compaction.min.file-num compaction, point predicates the
      file index skips).  Peak device memory stays under 4 GiB.  It
      prints an {"append_tables": ...} line;
+   - formats_types: data-file formats and column types as the Paimon
+     docs' "Blob", "Data Distribution" and file-format pages set them
+     up (seed 7), every read held against a numpy oracle:
+     blob_media_2G (bench.py's columns plus `meta VARIANT` and `image
+     BLOB`, bucket=2, write-only: 8 commits of 4,096 rows, ids uniform
+     in [0, 16,384), images of random bytes uniform in 8-120 KiB, about
+     2 GiB in `.blob` sidecars; a merge-on-read scan with every image
+     equal to its last writer's by hash, a projection without the image
+     that reads no sidecar byte, variant_get(meta, '$.w') of every row,
+     a delete_where of 1% of the ids, a full compaction whose sidecars
+     hold exactly the winners' bytes, expire_snapshots and the orphan
+     clean leaving no sidecar without its data file, $files against the
+     files on disk and $audit_log, all +I), formats_coverage (one table
+     per file.format avro, csv, json and mosaic, and a parquet table
+     with file.format.per.level=0:avro, each 4 commits of 2^14 rows with
+     ids in [0, 2^15): write, scan, full compaction and read, and the
+     avro row codec's own rates) and surfaces_coverage (every system
+     table on blob_media_2G and on the avro table, ANALYZE and
+     $statistics against the oracle, $row_tracking's ranges contiguous
+     on a row-tracked table, FormatTables over csv, json and parquet
+     directories partitioned by dt, an ObjectTable over the media
+     table's directory).  It prints a {"formats_types": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -218,12 +240,14 @@ then):
    metrics.py gained; a write, scan or compaction of a 100M-row
    table that took host merge routes only fails the run;
 5. each kernel held against its plain PyTorch version on the card
-   (exact equality) at every shape the main path gave it, on the inputs
-   it gave there, and at further sizes of synthetic keys (among them 10
-   clustered coded runs, where the codes decide almost every pair).  At
-   each such shape it reports the kernel's device time per launch (the
-   profiler's kernel durations), the wrapper's host time per call (host
-   clock over 1000 calls), the time of back-to-back calls between two
+   (exact equality) once at every shape (variant, lanes, rows, batched
+   lanes) the main path gave it, on the inputs the first table to give
+   it that shape gave there, and at further sizes of synthetic keys
+   (among them 10 clustered coded runs, where the codes decide almost
+   every pair).  At each such shape it reports the kernel's device time
+   per launch (the profiler's kernel durations over 10 launches), the
+   wrapper's host time per call (host clock over 300 calls, 50 above
+   2^20 rows), the time of back-to-back calls between two
    CUDA events and the plain version's, beside the
    least time the bytes these inputs need take at the card's memory
    rate and the earlier design's time for the same shape; and the
@@ -233,7 +257,7 @@ then):
    (n from 1 to 2^21 + 4 around every boundary of the rows a thread,
    a warp and a block take, L in 1, 2, 5, 8), and with inputs that are
    not 16-byte aligned; then the lane stride (B lanes of N rows in one
-   launch: B in 1, 3, 8, N in 1024, 2^20, L in 1, 2, 5, random lanes
+   launch: B in 1, 8, N in 1024, 2^18, L in 1, 2, 5, random lanes
    and full lanes of one key whose perms and codes run on across every
    boundary), exact and equal to B separate 1-D calls;
 7. the changelog diff's key ranks on the card held exactly against
@@ -242,7 +266,7 @@ then):
    and without run codes, device packed, bitmask, host native fast,
    host numpy fast, host general up to 2^22, host OVC) at the main
    path's merge shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at
-   2^14, 2^20 and 2^22, held equal under each route's contract and
+   2^14 and 2^20, held equal under each route's contract and
    timed; the link rates at 8 MiB (the cost model's) and 256 MiB; the
    cost model's rates measured on this machine; the model's pick at
    each shape at a winner fraction of 1.0 and at dedup_bigint's.
@@ -251,7 +275,7 @@ The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
 phase, the read and write planes, the file indexes, the append tables,
-the stage split
+the formats and types, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -330,16 +354,24 @@ def device_ms(fns, iters: int = 20) -> list:
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.elapsed_us())
-                   for e in prof.events()
-                   if KERNEL_NAME in e.name
-                   and e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def session(activities):
+        with profile(activities=activities) as prof:
+            for fn in fns:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        return sorted((e.time_range.start, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if KERNEL_NAME in e.name
+                      and e.device_type == torch.autograd.DeviceType.CUDA)
+    # the card's activity alone (host op events cost seconds to gather);
+    # with the host's too where that records no kernel
+    spans = session([ProfilerActivity.CUDA])
+    if len(spans) != iters * len(fns):
+        log(f"profiler: {len(spans)} kernel spans with the card's activity "
+            f"alone; again with the host's")
+        spans = session([ProfilerActivity.CPU, ProfilerActivity.CUDA])
     if len(spans) != iters * len(fns):
         raise AssertionError(f"profiler recorded {len(spans)} launches of "
                              f"{KERNEL_NAME}, expected {iters * len(fns)}")
@@ -523,9 +555,10 @@ def check_case(stats: KernelStats, label: str, args, num_key_lanes,
         return kernels.eq_next_mask(lanes, inv, off, perm, num_key_lanes,
                                     seg_len)
 
-    iters = 50 if n >= 1 << 26 else 200
+    iters = 25 if n >= 1 << 26 else 100
     ms = cuda_ms(kernel, iters)
-    h_us = host_us(kernel)
+    # above 2^20 rows the device, not the host, sets the call rate
+    h_us = host_us(kernel, 300 if n <= 1 << 20 else 50)
     plain_ms = cuda_ms(lambda: kernels.eq_next_mask_plain(
         lanes, inv, off, perm, num_key_lanes, seg_len), max(5, iters // 10))
     nbytes, lane_share = needed_bytes(lanes, off, perm, seg_len)
@@ -576,7 +609,7 @@ def report_device_times(stats_list) -> None:
     import torch
 
     cases = [(st, c) for st in stats_list for c in st.cases]
-    times = device_ms([c.pop("call") for _, c in cases])
+    times = device_ms([c.pop("call") for _, c in cases], iters=10)
     for (st, c), dev_ms in zip(cases, times):
         c["device_ms"] = dev_ms
         earlier = c["earlier_ms"]
@@ -597,9 +630,11 @@ def report_device_times(stats_list) -> None:
 
 def sorted_int_keys(rng, n: int):
     """Sorted 2-lane keys with ~2 rows per key and a padded tail, as a
-    merge of one fixed-width key hands them over."""
+    merge of one fixed-width key hands them over (sorted on the card)."""
     import torch
-    keys = np.sort(rng.integers(0, n // 2, n, dtype=np.uint64))
+    keys = torch.sort(torch.from_numpy(rng.integers(
+        0, n // 2, n, dtype=np.uint64).view(np.int64)).cuda()).values \
+        .cpu().numpy().view(np.uint64)
     lanes = torch.from_numpy(np.stack([
         (keys >> np.uint64(32)).astype(np.uint32),
         (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)])
@@ -633,8 +668,12 @@ def coded_runs(rng, n: int, runs: int = 10, clustered: bool = False):
     starts = np.arange(0, per * runs + 1, per, dtype=np.int64)
     off = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
     off[:per * runs] = run_ovc_offsets(mat[:per * runs], starts)
+    # valid rows by key, ties in row order, then the padded tail (the
+    # stable sort on the card)
+    order = np.concatenate([torch.sort(torch.from_numpy(
+        keys[:per * runs].view(np.int64)).cuda(), stable=True).indices
+        .cpu().numpy(), np.arange(per * runs, n)])
     valid = np.arange(n) < per * runs
-    order = np.lexsort((np.arange(n), keys, ~valid))
     return (torch.from_numpy(np.ascontiguousarray(mat[order].T)
                              .view(np.int32)).cuda(),
             torch.from_numpy((~valid[order]).astype(np.int32)).cuda(),
@@ -644,29 +683,45 @@ def coded_runs(rng, n: int, runs: int = 10, clustered: bool = False):
 
 def check_kernels(captured: LaunchCapture, k1: KernelStats,
                   k2: KernelStats) -> None:
-    """Every shape the main path gave each kernel, on the inputs it gave
-    at that shape first; then further sizes of synthetic keys."""
+    """Every shape (variant, lanes, n, batched lanes) the main path gave
+    each kernel, once, on the inputs the first table to launch it at
+    that shape gave (tables sorted by name), with the launches of every
+    table at the shape; then further sizes of synthetic keys."""
+    t0 = time.perf_counter()
+    shapes: dict = {}
     for key in sorted(captured.cases,
                       key=lambda k: (k[1], k[0], k[3], k[2], k[4], k[5])):
-        case = captured.cases.pop(key)
+        shapes.setdefault((key[1], key[2], key[3], key[5]), []).append(key)
+    for keys in shapes.values():
+        cases = [captured.cases.pop(k) for k in keys]
+        case = cases[0]
+        launches = sum(captured.calls[k] for k in keys)
+        also = sorted({k[0] for k in keys[1:]} - {keys[0][0]})
         args = tuple(None if t is None else t.cuda() for t in case["args"])
-        check_case(k2 if key[1] == "ovc" else k1,
-                   f"main path ({case['where']}, {captured.calls[key]} "
-                   f"launches at this shape)", args,
+        check_case(k2 if keys[0][1] == "ovc" else k1,
+                   f"main path ({case['where']}, {launches} launches at "
+                   f"this shape" + (f", also by {', '.join(also)}"
+                                    if also else "") + ")", args,
                    case["num_key_lanes"], main_path=True,
-                   earlier_key=key[1:4], seg_len=case["seg_len"],
-                   launches=captured.calls[key])
+                   earlier_key=keys[0][1:4], seg_len=case["seg_len"],
+                   launches=launches)
+        del cases
+    t1 = time.perf_counter()
     host_breakdown(np.random.default_rng(17))
     rng = np.random.default_rng(11)
-    for n in (1 << 26, (1 << 20) + 37):
+    for n in (1 << 24, (1 << 20) + 37):
         check_case(k1, "sorted int keys", sorted_int_keys(rng, n), 2,
                    main_path=False, earlier_key=("plain", 2, n, "synthetic"))
-    check_case(k2, "10 coded runs of int keys", coded_runs(rng, 1 << 24), 2,
-               main_path=False, earlier_key=("ovc", 2, 1 << 24, "synthetic"))
+    check_case(k2, "10 coded runs of int keys", coded_runs(rng, 1 << 22), 2,
+               main_path=False, earlier_key=("ovc", 2, 1 << 22, "synthetic"))
     check_case(k2, "10 clustered coded runs of int keys",
-               coded_runs(rng, 1 << 24, clustered=True), 2,
+               coded_runs(rng, 1 << 22, clustered=True), 2,
                main_path=False)
+    t2 = time.perf_counter()
     report_device_times([k1, k2])
+    log(f"kernel checks: {len(shapes)} main-path shapes {t1 - t0:.1f} s, "
+        f"host breakdown and synthetic keys {t2 - t1:.1f} s, profiled "
+        f"device times {time.perf_counter() - t2:.1f} s")
 
 
 EDGE_SIZES = (1, 2, 3, 4, 5, 8, 31, 32, 33, 124, 127, 128, 129, 132, 252,
@@ -674,6 +729,16 @@ EDGE_SIZES = (1, 2, 3, 4, 5, 8, 31, 32, 33, 124, 127, 128, 129, 132, 252,
               2048, 2052, (1 << 20) + 3, (1 << 20) + 4, (1 << 20) + 37,
               (1 << 21) + 4)
 EDGE_LANES = (1, 2, 5, 8)
+
+
+def lane_order_key(lanes: np.ndarray) -> np.ndarray:
+    """int64 key of rows of lane values in {0, 1, 2} whose order is the
+    rows' lexicographic order (lane 0 first): a stable argsort of it
+    orders as np.lexsort of the lanes does."""
+    key = np.zeros(len(lanes), dtype=np.int64)
+    for lane in range(lanes.shape[1]):
+        key = key * 3 + lanes[:, lane]
+    return key
 
 
 def edge_inputs(rng, n: int, num_lanes: int):
@@ -689,11 +754,13 @@ def edge_inputs(rng, n: int, num_lanes: int):
                               replace=False)) if real > 1 else []
     starts = np.concatenate([[0], cuts, [real]]).astype(np.int64)
     for a, b in zip(starts[:-1], starts[1:]):
-        lanes[a:b] = lanes[a:b][np.lexsort(lanes[a:b].T[::-1])]
+        lanes[a:b] = lanes[a:b][np.argsort(lane_order_key(lanes[a:b]),
+                                           kind="stable")]
     invalid = (np.arange(n) >= real).astype(np.uint32)
     off = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
     off[:real] = run_ovc_offsets(lanes[:real], starts)
-    order = np.lexsort((np.arange(n),) + tuple(lanes.T[::-1]) + (invalid,))
+    order = np.argsort(invalid.astype(np.int64) * 3 ** num_lanes
+                       + lane_order_key(lanes), kind="stable")
     return (np.ascontiguousarray(lanes[order].T).view(np.int32),
             invalid[order].view(np.int32), off[order].view(np.int32),
             order.astype(np.int32))
@@ -730,8 +797,8 @@ def check_edges() -> int:
     return cases
 
 
-SEG_BATCHES = (1, 3, 8)
-SEG_ROWS = (1024, 1 << 20)
+SEG_BATCHES = (1, 8)             # (1, 3, 8) until the formats phase came
+SEG_ROWS = (1024, 1 << 18)       # (1024, 2^20) until the formats phase came
 SEG_LANES = (1, 2, 5)
 
 
@@ -897,6 +964,24 @@ def last_writer_oracle(ids: np.ndarray, order=None) -> np.ndarray:
     return order[last]
 
 
+def dense_positions(what: str, got_ids: np.ndarray,
+                    want_ids: np.ndarray) -> np.ndarray:
+    """For increasing dense integer ids `want_ids` and as many ids read
+    back: each read row's position in `want_ids`, found by a scatter by
+    id in place of a sort; raises unless the read ids are exactly
+    `want_ids` in some order."""
+    pos = np.full(int(want_ids[-1]) + 1 if len(want_ids) else 0, -1,
+                  dtype=np.int64)
+    pos[want_ids] = np.arange(len(want_ids))
+    if len(got_ids) and (got_ids.min() < 0 or got_ids.max() >= len(pos)):
+        raise AssertionError(f"{what}: an id outside the oracle's")
+    at = pos[got_ids]
+    if (at < 0).any() or len(at) and \
+            np.bincount(at, minlength=len(want_ids)).max() != 1:
+        raise AssertionError(f"{what}: the ids differ from the oracle's")
+    return at
+
+
 def check_rows(what: str, got, cols: dict, win: np.ndarray,
                key: str) -> None:
     import pyarrow as pa
@@ -904,6 +989,25 @@ def check_rows(what: str, got, cols: dict, win: np.ndarray,
     if got.num_rows != len(win):
         raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
                              f"{len(win)}")
+    full_key = cols[key]
+    rows = np.flatnonzero(win) if win.dtype == bool else win
+    if not isinstance(full_key, pa.Array) and dense_ids(full_key) and \
+            (np.diff(full_key[rows]) > 0).all():
+        # dense integer keys in key order: each read row's oracle row by
+        # a scatter by id
+        at = rows[dense_positions(what, got.column(key).combine_chunks()
+                                  .to_numpy(), full_key[rows])]
+        for name, full in cols.items():
+            col = got.column(name).combine_chunks()
+            if isinstance(full, pa.Array):
+                same = col.equals(full.take(pa.array(at)))
+            else:
+                same = np.array_equal(col.to_numpy(zero_copy_only=False),
+                                      full[at])
+            if not same:
+                raise AssertionError(f"{what}: column {name} differs from "
+                                     f"the oracle")
+        return
     got = got.take(pc.sort_indices(got, sort_keys=[(key, "ascending")]))
     for name, full in cols.items():
         col = got.column(name).combine_chunks()
@@ -951,6 +1055,16 @@ def check_agg(what: str, got, want: dict) -> None:
     if got.num_rows != len(want["id"]):
         raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
                              f"{len(want['id'])}")
+    if dense_ids(want["id"]) and (np.diff(want["id"]) > 0).all():
+        at = dense_positions(what, got.column("id").combine_chunks()
+                             .to_numpy(), want["id"])
+        for name, col in want.items():
+            have = got.column(name).combine_chunks()
+            if have.null_count or not np.array_equal(have.to_numpy(),
+                                                     col[at]):
+                raise AssertionError(f"{what}: column {name} differs from "
+                                     f"the oracle")
+        return
     got = got.take(pc.sort_indices(got, sort_keys=[("id", "ascending")]))
     for name, col in want.items():
         have = got.column(name).combine_chunks()
@@ -1427,11 +1541,14 @@ class DenseState:
 
     def fold(self, rows: dict) -> None:
         """Apply changelog rows in their order: an id's last row decides
-        (+I/+U sets the row, -U/-D removes it)."""
+        (+I/+U sets the row, -U/-D removes it); the last row of each id
+        is found by a scatter of row numbers by id."""
         ids = rows["id"]
-        _, first_rev = np.unique(ids[::-1], return_index=True)
-        last = len(ids) - 1 - first_rev
-        u, kinds = ids[last], rows["kind"][last]
+        at = np.full(len(self.live), -1, dtype=np.int64)
+        np.maximum.at(at, ids, np.arange(len(ids)))
+        u = np.flatnonzero(at >= 0)
+        last = at[u]
+        kinds = rows["kind"][last]
         keep = (kinds == 0) | (kinds == 2)
         self.live[u[~keep]] = False
         self.live[u[keep]] = True
@@ -1454,14 +1571,30 @@ def arrow_rows(t) -> dict:
     return out
 
 
+def canonical_order(rows: dict) -> np.ndarray:
+    """The rows' order by (id, kind, v1, v2, v3): one argsort of a
+    combined (id, kind) key (kinds are 0-3), the values ordering only
+    the rows that tie on it."""
+    key = rows["id"].astype(np.int64) * 4 + rows["kind"]
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    tie = np.flatnonzero(k[1:] == k[:-1])
+    if len(tie):
+        at = np.unique(np.concatenate([tie, tie + 1]))
+        sub = order[at]
+        order[at] = sub[np.lexsort([rows[c][sub] for c in
+                                    reversed(C5_VALUE_COLS)] + [key[sub]])]
+    return order
+
+
 def same_multiset(what: str, got: dict, want: dict) -> None:
-    """Equal rows (kind, id, values) counted with multiplicity."""
+    """Equal rows (kind, id, values) counted with multiplicity: equal
+    columns in one canonical order of each side."""
     cols = ("kind", "id") + C5_VALUE_COLS
     if len(got["id"]) != len(want["id"]):
         raise AssertionError(f"{what}: {len(got['id'])} changelog rows, "
                              f"oracle {len(want['id'])}")
-    og = np.lexsort([got[c] for c in reversed(cols)])
-    ow = np.lexsort([want[c] for c in reversed(cols)])
+    og, ow = canonical_order(got), canonical_order(want)
     for c in cols:
         if not np.array_equal(got[c][og], want[c][ow]):
             raise AssertionError(f"{what}: column {c} differs from the "
@@ -1586,8 +1719,9 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
             rows = arrow_rows(got)
             stats["changelog_snapshots"] += 1
             newer = (rows["kind"] == 0) | (rows["kind"] == 2)
-            covered = np.unique((rows["seq"][newer] - seq0) // per_commit
-                                + 1)
+            commit_of = (rows["seq"][newer] - seq0) // per_commit + 1
+            covered = commit_of if (commit_of < 1).any() else \
+                np.flatnonzero(np.bincount(commit_of))
             what = f"{name} snapshot {plan.snapshot_id}"
             if covered.min() < 1 or covered.max() > at or \
                     any(int(c) in delivered for c in covered):
@@ -2004,8 +2138,9 @@ DYN_KEYS = 4_000_000             # ids uniform in [0, 4M)
 DYN_COMMITS = 10
 DYN_FRESH = 500_000              # upserts of existing ids, a fresh table
 DYN_EVOLVED = 1_000_000          # upserts a commit under the new schema
-XPART_KEYS = 2_000_000           # xpart_upsert_2M: 4 commits of 500K keys
-XPART_UPSERTS = 250_000          # then 4 commits of 250K upserts
+XPART_KEYS = 1_000_000           # xpart_upsert_1M: 4 commits of 250K keys
+XPART_UPSERTS = 125_000          # then 4 commits of 125K upserts (2M and
+#                                  250K until the formats phase came)
 XPART_PARTS = 4
 POSTPONE_ROWS = 4_000_000        # postpone_4M: 4 commits of 1M (8M
                                  # until the append phase came)
@@ -2250,7 +2385,7 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
-    """xpart_upsert_2M: cross-partition upsert (primary key id, partition
+    """xpart_upsert_1M: cross-partition upsert (primary key id, partition
     dt INT of 4 values, bucket unset): 2M keys in 4 commits from one
     writer; then a fresh table object's writer (the global index
     bootstraps from the table) upserts 250K ids a commit for 4 commits, a
@@ -2263,7 +2398,7 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
 
-    name = "xpart_upsert_2M"
+    name = "xpart_upsert_1M"
     path = os.path.join(work, name)
     keys, target = XPART_KEYS // scale, BM_TARGET // scale
     opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
@@ -2396,7 +2531,7 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     out = {}
     t_all = time.perf_counter()
     for name, fn in (("dyn_dedup_5M", dyn_dedup),
-                     ("xpart_upsert_2M", xpart_upsert),
+                     ("xpart_upsert_1M", xpart_upsert),
                      ("postpone_4M", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
@@ -2416,11 +2551,12 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
 MAINT_DAYS = 6
 MAINT_COMMITS = 48               # 8 a day: the watermark 3 hours apart
 MAINT_DAILY = MAINT_COMMITS // MAINT_DAYS
-MAINT_PER_COMMIT = 62_500        # 3M rows in all (12M until the append
+MAINT_PER_COMMIT = 31_250        # 1.5M rows in all (3M until the formats
+#                                  phase came, 12M until the append
                                  # phase came, then 6M: the script's time)
 MAINT_KEYS = 1_000_000           # ids uniform in [0, 1M) within a day
 MAINT_DELETE_SHARE = 0.02        # -D rows
-MAINT_BRANCH_UPSERTS = 250_000
+MAINT_BRANCH_UPSERTS = 125_000   # 250K until the formats phase came
 MAINT_END_INPUT = 100_000        # the end-input batch commit
 HOUR_MS = 3_600_000
 DAY_MS = 24 * HOUR_MS
@@ -2617,7 +2753,7 @@ def kv_rows(path: str) -> dict:
 
 def maintenance(work: str, rec: Recorder, device="cuda",
                 scale: int = 1) -> dict:
-    """maint_daily_3M: a production daily-partitioned primary-key table
+    """maint_daily_1.5M: a production daily-partitioned primary-key table
     maintained as the Paimon docs' Maintenance pages set it up, every
     read held against a numpy oracle (`scale` divides the row and key
     counts, for a rehearsal).  Returns what the phase reports."""
@@ -2638,7 +2774,7 @@ def maintenance(work: str, rec: Recorder, device="cuda",
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "maint_daily_3M"
+    name = "maint_daily_1.5M"
     path = os.path.join(work, name)
     per, keys = MAINT_PER_COMMIT // scale, MAINT_KEYS // scale
     dates = maint_dates()
@@ -3002,7 +3138,7 @@ WRP_LM_COMMITS = 8               # local_merge_hot_4M: 8 commits of 500K
 WRP_LM_PER_COMMIT = 500_000      # (8M rows until the append phase came)
 WRP_LM_HOT = 1_000               # half of each commit on 1,000 hot ids,
 WRP_LM_KEYS = 2_000_000          # the other half uniform in [0, 2M)
-WRP_PLAN_COMMITS = 60            # plan_daily_3M: 60 commits of 50K rows
+WRP_PLAN_COMMITS = 24            # plan_daily_1.2M: 24 commits of 50K rows
                                  # (120 until the file-index phase came)
 WRP_PLAN_PER_COMMIT = 50_000
 WRP_PLAN_DAYS = 12
@@ -3354,7 +3490,7 @@ def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 
 def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """plan_daily_3M: the delta-apply plan cache and the stats sidecar at
+    """plan_daily_1.2M: the delta-apply plan cache and the stats sidecar at
     the defaults on a daily-partitioned table with inline compaction."""
     import pyarrow as pa
 
@@ -3365,7 +3501,7 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "plan_daily_3M"
+    name = "plan_daily_1.2M"
     per, keys = WRP_PLAN_PER_COMMIT // scale, WRP_PLAN_KEYS // scale
     days = WRP_PLAN_DAYS
     daily = WRP_PLAN_COMMITS // days
@@ -3680,7 +3816,7 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
                                                 scale)
         out["local_merge_hot_4M"] = local_merge_hot(work, rec, timer, dev,
                                                     scale)
-    out["plan_daily_3M"] = plan_daily(work, rec, dev, scale)
+    out["plan_daily_1.2M"] = plan_daily(work, rec, dev, scale)
     out["faults_2M"] = faults(work, rec, dev, scale)
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
@@ -3702,7 +3838,8 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
 FI_COMMITS = 8                   # fi_point_16M: 8 commits of 2M rows,
 FI_PER_COMMIT = 2_000_000        # ids uniform in [0, 8M), 4 buckets
 FI_KEYS = 8_000_000
-FI_QUERIES = 50                  # present ids, and as many absent ones
+FI_QUERIES = 5                   # present ids, and as many absent ones
+#                                  (50 until the formats phase came)
 FI_READ_PLANS = 10               # absent-id plans timed per sidecar reader
 FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 250K
 FI_RW_PER_COMMIT = 250_000       # ids uniform in [0, 500K) (twice that
@@ -4112,11 +4249,12 @@ AP_LOG_PER_COMMIT = 1 << 21      # ids uniform in [0, 2^23)
 AP_DELETE_SHARE = 100            # delete_where on the lowest 1/100 of
                                  # the ids, then on the highest
 AP_BAND = 1 << 16                # the id band planned before and after
-AP_SORT_ROWS = 1 << 20           # ap_sort_coverage
+AP_SORT_ROWS = 1 << 17           # ap_sort_coverage (2^20 until the
+#                                  formats phase came)
 AP_SORT_CASES = (("zorder", ("s", "n", "d")), ("hilbert", ("d",)),
                  ("hilbert", ("id", "s", "n", "d")), ("order", ("n", "s")))
-AP_TRACKED_COMMITS = 8           # ap_tracked_8M: 8 commits of 2^20 rows
-AP_TRACKED_PER_COMMIT = 1 << 20
+AP_TRACKED_COMMITS = 8           # ap_tracked_4M: 8 commits of 2^19 rows
+AP_TRACKED_PER_COMMIT = 1 << 19  # (2^20 until the formats phase came)
 AP_TRACKED_SHARE = 100           # 1 row id in 100 updated (twice), deleted
 AP_LOOKUPS = 10_000              # global-index lookups, half present
 AP_QUEUE_COMMITS = 8             # ap_queue_coverage: bucket=4 by id,
@@ -4412,14 +4550,14 @@ def ap_sort(rec: Recorder, dev, scale: int) -> dict:
 
 
 def ap_tracked(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """ap_tracked_8M: a row-tracked table (the Paimon docs' "Row
+    """ap_tracked_4M: a row-tracked table (the Paimon docs' "Row
     Tracking" page): column updates and deletes by row id, the global
     index on id and its lookups, a compaction that keeps the row ids."""
     import pyarrow as pa
 
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "ap_tracked_8M"
+    name = "ap_tracked_4M"
     path = os.path.join(work, name)
     rows = AP_TRACKED_PER_COMMIT * AP_TRACKED_COMMITS // scale
     batches = bigint_batches(rows, runs=AP_TRACKED_COMMITS)
@@ -4598,7 +4736,7 @@ def append_tables(work: str, rec: Recorder, device="cuda",
     t_phase = time.perf_counter()
     out = {"ap_log_16M": ap_log(work, rec, dev, scale),
            "ap_sort_coverage": ap_sort(rec, dev, scale),
-           "ap_tracked_8M": ap_tracked(work, rec, dev, scale),
+           "ap_tracked_4M": ap_tracked(work, rec, dev, scale),
            "ap_queue_coverage": ap_queue(work, rec, dev, scale)}
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
@@ -4621,6 +4759,602 @@ def append_tables(work: str, rec: Recorder, device="cuda",
     return out
 
 
+# -- data formats and types: blob sidecars, VARIANT, avro/csv/json/mosaic ---
+
+FT_MEDIA_COMMITS = 8             # blob_media_2G: 8 commits of 4,096 rows,
+FT_MEDIA_PER_COMMIT = 4096       # ids uniform in [0, 16,384), bucket=2:
+FT_MEDIA_KEYS = 16_384           # ~2 GiB of image bytes, ~1 GiB a bucket
+FT_IMAGE_BYTES = (8 << 10, 120 << 10)   # uniform, a 64 KiB mean
+FT_COV_COMMITS = 4               # formats_coverage: 4 commits of 2^14
+FT_COV_PER_COMMIT = 1 << 14      # rows, ids uniform in [0, 2^15), bucket=1
+FT_COV_KEYS = 1 << 15
+FT_FORMATS = ("avro", "csv", "json", "mosaic")
+FT_FORMAT_TABLE_ROWS = 1 << 16   # a FormatTable's rows, in 4 dt partitions
+FT_TRACKED_ROWS = 1 << 14        # the row-tracked table of $row_tracking
+FT_DAYS = ("2024-06-01", "2024-06-02", "2024-06-03", "2024-06-04")
+
+
+class CountingFileIO:
+    """Counts the bytes read from `.blob` sidecars through the table's
+    FileIO (every other call delegates)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.blob_bytes = 0
+        self._lock = threading.Lock()
+
+    def _count(self, path, n):
+        if path.endswith(".blob"):
+            with self._lock:
+                self.blob_bytes += n
+
+    def read_bytes(self, path):
+        data = self.inner.read_bytes(path)
+        self._count(path, len(data))
+        return data
+
+    def read_range(self, path, offset, length):
+        data = self.inner.read_range(path, offset, length)
+        self._count(path, len(data))
+        return data
+
+    def read_ranges(self, path, ranges):
+        out = self.inner.read_ranges(path, ranges)
+        self._count(path, sum(len(b) for b in out))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def row_hashes_of(b, lens: np.ndarray, dev):
+    """One 64-bit hash a row of the bytes `b` (a uint8 tensor on `dev`)
+    cut into rows of `lens` bytes: the wrapping sum over a row's bytes
+    of (byte + 1) times a mixed weight of the byte's position in the
+    row (an empty row hashes to 0)."""
+    import torch
+    n = int(lens.sum())
+    if not n:
+        return np.zeros(len(lens), dtype=np.uint64)
+    lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    row = torch.repeat_interleave(torch.arange(len(lens), device=dev),
+                                  lens_t)
+    starts = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lens)[:-1]]).astype(np.int64)).to(dev)
+    pos = torch.arange(n, device=dev) - torch.repeat_interleave(starts,
+                                                                lens_t)
+    w = pos * -7046029254386353131              # 0x9E3779B97F4A7C15
+    w ^= w >> 29
+    w *= -4658895280553007687                   # 0xBF58476D1CE4E5B9
+    w ^= w >> 32
+    h = torch.zeros(len(lens), dtype=torch.int64, device=dev)
+    h.index_add_(0, row, (b.to(torch.int64) + 1) * w)
+    return h.cpu().numpy().view(np.uint64)
+
+
+def blob_hashes(col, dev) -> np.ndarray:
+    """`row_hashes_of` each row of a binary column (a null row as an
+    empty one), from the Arrow buffers in chunks moved to `dev`."""
+    import warnings
+
+    import pyarrow as pa
+    import torch
+    arr = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    wide = pa.types.is_large_binary(arr.type)
+    offs = np.frombuffer(arr.buffers()[1], dtype=np.int64 if wide
+                         else np.int32)[arr.offset:arr.offset + len(arr) + 1]
+    offs = offs.astype(np.int64)
+    lens = np.diff(offs)
+    if arr.null_count:
+        lens[np.asarray(arr.is_null())] = 0
+    data = arr.buffers()[2]
+    out = np.zeros(len(arr), dtype=np.uint64)
+    chunk = (128 << 20) if dev.type == "cuda" else (16 << 20)
+    lo = 0
+    while lo < len(arr):
+        hi = max(lo + 1, min(len(arr), int(np.searchsorted(
+            offs, offs[lo] + chunk, side="right")) - 1))
+        n = int(offs[hi] - offs[lo])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # a read-only buffer
+            b = torch.from_numpy(np.frombuffer(
+                data, dtype=np.uint8, count=n, offset=int(offs[lo]))
+                if n else np.zeros(0, np.uint8)).to(dev)
+        if arr.null_count:
+            # a null row's bytes, if any, are left out of the chunk
+            keep = torch.from_numpy(np.repeat(
+                lens[lo:hi] > 0, np.diff(offs[lo:hi + 1]))).to(dev)
+            b = b[keep]
+        out[lo:hi] = row_hashes_of(b, lens[lo:hi], dev)
+        lo = hi
+    return out
+
+
+def media_schema(options):
+    """bench.py's columns plus `meta VARIANT` and `image BLOB`."""
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import (
+        BigIntType, BlobType, DoubleType, IntType, VariantType,
+    )
+    return (Schema.builder().column("id", BigIntType(False))
+            .column("v1", BigIntType()).column("v2", DoubleType())
+            .column("v3", IntType()).column("meta", VariantType())
+            .column("image", BlobType()).primary_key("id")
+            .options(options).build())
+
+
+def media_batches(scale: int, dev):
+    """blob_media_2G's commits from seed 7: bench.py's values, a small
+    JSON object (w, h, 0-3 tags) per row as a VARIANT, drawn from a
+    seeded pool of 1,024 objects, and an image of random bytes (the
+    card's generator, seeded) of a length uniform in FT_IMAGE_BYTES.
+    Returns the batches and the oracle's columns (the image as its hash
+    and length)."""
+    import pyarrow as pa
+    import torch
+
+    from paimon_tpu_torch.data.variant import column_from_objects
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pool_w = rng.integers(64, 4096, 1024)
+    pool_h = rng.integers(64, 4096, 1024)
+    pool = column_from_objects([
+        {"w": int(w), "h": int(h),
+         "tags": [f"t{int(t)}" for t in rng.integers(0, 1000,
+                                                     rng.integers(0, 4))]}
+        for w, h in zip(pool_w, pool_h)])
+    per = FT_MEDIA_PER_COMMIT // scale
+    batches = []
+    cols = {c: [] for c in ("id", "v1", "v2", "v3", "w", "hash", "len")}
+    for _ in range(FT_MEDIA_COMMITS):
+        ids = rng.integers(0, FT_MEDIA_KEYS // scale, per)
+        v1 = rng.integers(0, 1 << 40, per)
+        v2 = rng.random(per)
+        v3 = rng.integers(0, 100, per).astype(np.int32)
+        pick = rng.integers(0, len(pool_w), per)
+        lens = rng.integers(FT_IMAGE_BYTES[0], FT_IMAGE_BYTES[1] + 1, per)
+        offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        payload = torch.randint(0, 256, (int(offs[-1]),), generator=gen,
+                                dtype=torch.uint8, device=dev)
+        cols["hash"].append(row_hashes_of(payload, lens, dev))
+        image = pa.Array.from_buffers(
+            pa.binary(), per, [None, pa.py_buffer(offs),
+                               pa.py_buffer(payload.cpu().numpy())])
+        batches.append(pa.table({
+            "id": pa.array(ids, pa.int64()), "v1": pa.array(v1, pa.int64()),
+            "v2": pa.array(v2, pa.float64()), "v3": pa.array(v3, pa.int32()),
+            "meta": pool.take(pa.array(pick)), "image": image}))
+        for c, v in (("id", ids), ("v1", v1), ("v2", v2), ("v3", v3),
+                     ("w", pool_w[pick]), ("len", lens)):
+            cols[c].append(v)
+    return batches, {c: np.concatenate(v) for c, v in cols.items()}
+
+
+def check_media(what: str, got, cols: dict, win: np.ndarray, dev,
+                images: bool = True) -> None:
+    """`got` holds the winners `win` of the oracle: ids, values and
+    (with `images`) each image equal to its last writer's by hash."""
+    import pyarrow.compute as pc
+    if got.num_rows != len(win):
+        raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
+                             f"{len(win)}")
+    got = got.take(pc.sort_indices(got, sort_keys=[("id", "ascending")]))
+    for c in ("id", "v1", "v2", "v3"):
+        if not np.array_equal(got.column(c).to_numpy(), cols[c][win]):
+            raise AssertionError(f"{what}: column {c} differs from the "
+                                 f"oracle")
+    if images and not np.array_equal(blob_hashes(got.column("image"), dev),
+                                     cols["hash"][win]):
+        raise AssertionError(f"{what}: an image differs from its last "
+                             f"writer's")
+
+
+def sidecar_paths(table) -> dict:
+    """{data file path: its `.blob` sidecar's path} of the live files."""
+    scan = table.new_scan()
+    out = {}
+    for e in scan.read_entries(table.latest_snapshot()):
+        data = scan.path_factory.data_file_path((), e.bucket,
+                                                e.file.file_name)
+        blobs = [x for x in e.file.extra_files if x.endswith(".blob")]
+        if len(blobs) != 1:
+            raise AssertionError(f"{e.file.file_name}: sidecars {blobs}")
+        out[data] = os.path.join(os.path.dirname(data), blobs[0])
+    return out
+
+
+def files_under(root: str, suffix: str = "") -> dict:
+    """{path: size} of every file under `root` ending in `suffix`."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if n.endswith(suffix):
+                p = os.path.join(d, n)
+                out[p] = os.path.getsize(p)
+    return out
+
+
+def blob_media(work: str, rec: Recorder, dev, scale: int) -> tuple:
+    """blob_media_2G, the slice's full-size path (the Paimon docs'
+    "Blob" and "Data Distribution" pages: 200 MB-1 GB a bucket): a
+    primary-key table with a VARIANT and a BLOB column, written, scanned
+    with each image checked by hash, projected without the images,
+    queried by variant path, deleted from, fully compacted, expired and
+    cleaned of orphans, then $files and $audit_log.  Returns the report,
+    the table, the oracle's columns and its live rows."""
+    from paimon_tpu_torch import predicate as P
+    from paimon_tpu_torch.data.variant import column_to_variants, variant_get
+    from paimon_tpu_torch.fs import LocalFileIO
+    from paimon_tpu_torch.table import FileStoreTable
+
+    name = "blob_media_2G"
+    path = os.path.join(work, name)
+    t0 = time.perf_counter()
+    batches, cols = media_batches(scale, dev)
+    rows = len(cols["id"])
+    out = {"rows": rows, "commits": FT_MEDIA_COMMITS,
+           "image_bytes": int(cols["len"].sum()),
+           "data_s": time.perf_counter() - t0}
+    win = last_writer_oracle(cols["id"])
+    table = FileStoreTable.create(path, media_schema({
+        "bucket": "2", "write-only": "true",
+        "parquet.enable.dictionary": "false"}), device=dev)
+
+    def step(what, fn, n, blob_bytes=None):
+        res = rec.run(name, what, n, dev, fn)
+        s = rec.phases[-1]["s"]
+        out[f"{what} s"] = s
+        out[f"{what} rows_per_s"] = n / s
+        if blob_bytes is not None:
+            out[f"{what} blob_bytes_per_s"] = blob_bytes / s
+        return res
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    step("write", write, rows, out["image_bytes"])
+    del batches
+    live_bytes = int(cols["len"][win].sum())
+    out["sidecars_after_write"] = len(sidecar_paths(table))
+    got = step("scan", table.to_arrow, rows, live_bytes)
+    check_media(f"{name} merge-on-read scan", got, cols, win, dev)
+    del got
+
+    counting = CountingFileIO(LocalFileIO())
+    projected = FileStoreTable.load(path, file_io=counting, device=dev)
+    got = step("scan without image", lambda: projected.to_arrow(
+        projection=["id", "v1", "v2", "v3", "meta"]), rows)
+    check_media(f"{name} projection without image", got, cols, win, dev,
+                images=False)
+    out["projection_blob_bytes_read"] = counting.blob_bytes
+    if counting.blob_bytes:
+        raise AssertionError(f"{name}: the projection without image read "
+                             f"{counting.blob_bytes} bytes of sidecars")
+    t0 = time.perf_counter()
+    got = got.sort_by("id")
+    ws = [variant_get(v, "$.w") for v in column_to_variants(
+        got.column("meta"))]
+    out["variant_get s"] = time.perf_counter() - t0
+    if not np.array_equal(np.array(ws, dtype=np.int64), cols["w"][win]):
+        raise AssertionError(f"{name}: variant_get(meta, '$.w') differs "
+                             f"from the oracle")
+    del got
+
+    cut = FT_MEDIA_KEYS // scale // 100
+    if step("delete_where", lambda: table.delete_where(
+            P.less_than("id", cut)), rows) is None:
+        raise AssertionError(f"{name}: delete_where committed nothing")
+    win = win[cols["id"][win] >= cut]
+    live_bytes = int(cols["len"][win].sum())
+    out["deleted_ids"] = int(len(last_writer_oracle(cols["id"])) - len(win))
+    if step("compact", lambda: table.compact(full=True), rows,
+            out["image_bytes"]) is None:
+        raise AssertionError(f"{name}: full compaction committed nothing")
+    sidecars = sidecar_paths(table)
+    out["sidecar_bytes_after_compaction"] = sum(
+        os.path.getsize(p) for p in sidecars.values())
+    if out["sidecar_bytes_after_compaction"] != live_bytes:
+        raise AssertionError(f"{name}: the compacted sidecars hold "
+                             f"{out['sidecar_bytes_after_compaction']} "
+                             f"bytes, the winners' images {live_bytes}")
+    got = step("scan compacted", table.to_arrow, len(win), live_bytes)
+    check_media(f"{name} scan after compaction", got, cols, win, dev)
+    del got
+
+    before = files_under(path, ".blob")
+    t0 = time.perf_counter()
+    expired = table.expire_snapshots(retain_max=1, retain_min=1)
+    orphans = table.remove_orphan_files(
+        older_than_ms=int(time.time() * 1000) + 60_000)
+    out["expire_orphan s"] = time.perf_counter() - t0
+    out["expired_snapshots"] = len(expired.expired_snapshots)
+    after = files_under(path, ".blob")
+    out["blob_files"] = {"before_expiry": len(before),
+                         "after": len(after)}
+    if set(after) != set(sidecars.values()) or \
+            any(not os.path.exists(d) for d in sidecars):
+        raise AssertionError(f"{name}: after expiry and the orphan clean "
+                             f"{len(after)} sidecars on disk, "
+                             f"{len(sidecars)} live ({orphans})")
+
+    files = step("$files", lambda: table.system_table("files"),
+                 len(sidecars))
+    disk = files_under(path, "")
+    if sorted(files.column("file_path").to_pylist()) != sorted(sidecars) \
+            or any(disk[p] != s for p, s in zip(
+                files.column("file_path").to_pylist(),
+                files.column("file_size_in_bytes").to_pylist())):
+        raise AssertionError(f"{name}: $files differs from the files on "
+                             f"disk")
+    audit = step("$audit_log", lambda: table.system_table("audit_log"),
+                 len(win))
+    if set(audit.column("rowkind").to_pylist()) != {"+I"}:
+        raise AssertionError(f"{name}: $audit_log kinds "
+                             f"{set(audit.column('rowkind').to_pylist())}")
+    check_media(f"{name} $audit_log", audit, cols, win, dev)
+    out["live_rows"] = len(win)
+    return out, table, cols, win
+
+
+def formats_coverage(work: str, rec: Recorder, dev, scale: int) -> tuple:
+    """One table per data-file format (avro, csv, json, mosaic) and a
+    parquet table whose level-0 runs are avro, on bench.py's rows: the
+    write, a merge-on-read scan, a full compaction and a scan, each read
+    held against the oracle; then the avro codec's own rates."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch.format import get_format
+    from paimon_tpu_torch.fs import LocalFileIO
+    from paimon_tpu_torch.table import FileStoreTable
+
+    rows = FT_COV_PER_COMMIT * FT_COV_COMMITS // scale
+    rng = np.random.default_rng(7)
+    per = rows // FT_COV_COMMITS
+    batches = [pa.table({
+        "id": pa.array(rng.integers(0, FT_COV_KEYS // scale, per),
+                       pa.int64()),
+        "v1": pa.array(rng.integers(0, 1 << 40, per), pa.int64()),
+        "v2": pa.array(rng.random(per), pa.float64()),
+        "v3": pa.array(rng.integers(0, 100, per).astype(np.int32),
+                       pa.int32())}) for _ in range(FT_COV_COMMITS)]
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    win = last_writer_oracle(cols["id"])
+    out = {"rows": rows}
+    tables = {}
+    for fmt in FT_FORMATS + ("parquet_level0_avro",):
+        opts = {"bucket": "1", "file.format": fmt} if fmt in FT_FORMATS \
+            else {"bucket": "1", "file.format.per.level": "0:avro"}
+        name = f"ft_{fmt}"
+        path = os.path.join(work, name)
+        reads = drive_table(path, bigint_schema(opts), batches,
+                            lambda what, got: check_rows(what, got, cols,
+                                                         win, "id"),
+                            rec, device=dev)
+        mine = [p for p in rec.phases if p["table"] == name]
+        out[name] = {p["phase"]: {"s": p["s"], "rows_per_s": p["rows_per_s"],
+                                  "launches": p["launches_plain"]}
+                     for p in mine}
+        exts = {f.file_name.rsplit(".", 1)[-1]
+                for s in FileStoreTable.load(path, device=dev)
+                .new_read_builder().new_scan().plan().splits
+                for f in s.data_files}
+        want = {"parquet"} if fmt == "parquet_level0_avro" else {fmt}
+        if exts != want:
+            raise AssertionError(f"{name}: data files {exts} after the "
+                                 f"compaction, not {want}")
+        tables[fmt] = FileStoreTable.load(path, device=dev)
+        del reads
+    # the avro row codec alone on one commit's rows (pure Python; the
+    # reference's codec, byte for byte)
+    fio = LocalFileIO()
+    avro = get_format("avro")
+    apath = os.path.join(work, "codec.avro")
+    t0 = time.perf_counter()
+    avro.create_writer("zstd").write(fio, apath, batches[0])
+    t1 = time.perf_counter()
+    back = avro.create_reader().read(fio, apath)
+    t2 = time.perf_counter()
+    if back.num_rows != per or not np.array_equal(
+            back.column("id").to_numpy(), batches[0].column("id")
+            .to_numpy()):
+        raise AssertionError("the avro codec's round trip differs")
+    out["avro_codec"] = {"rows": per, "write_rows_per_s": per / (t1 - t0),
+                         "read_rows_per_s": per / (t2 - t1),
+                         "bytes": os.path.getsize(apath)}
+    log(f"  avro codec on {per} rows: write {per / (t1 - t0):,.0f} rows/s, "
+        f"read {per / (t2 - t1):,.0f} rows/s")
+    return out, tables, cols, win
+
+
+def check_system_tables(what: str, table, rows: int, checks: dict,
+                        skip=()) -> dict:
+    """Every system table (but `skip`, read before) read once, each
+    dropped after its check: the row counts the table's own metadata
+    gives where it gives one, and `checks[name](table)` where given.
+    Returns {name: {"rows": rows, "s": seconds to read}}."""
+    from paimon_tpu_torch.table.system import SYSTEM_TABLES
+
+    n_files = len(table.new_scan().read_entries(table.latest_snapshot()))
+    want = {"snapshots": len(list(table.snapshot_manager.snapshots())),
+            "files": n_files, "file_key_ranges": n_files,
+            "audit_log": rows, "read_optimized": rows, "binlog": rows,
+            "options": len(table.schema.options)}
+    got = {}
+    for name in sorted(set(SYSTEM_TABLES) - set(skip)):
+        t0 = time.perf_counter()
+        t = table.system_table(name)
+        got[name] = {"rows": t.num_rows, "s": time.perf_counter() - t0}
+        if name in want and t.num_rows != want[name]:
+            raise AssertionError(f"{what}: ${name} has {t.num_rows} rows, "
+                                 f"expected {want[name]}")
+        if name in checks:
+            checks[name](t)
+        del t
+    return got
+
+
+def surfaces_coverage(work: str, dev, media, formats, scale: int) -> dict:
+    """The table surfaces over the new formats: every system table on
+    blob_media_2G and on the avro table ($read_optimized after the full
+    compaction equal to the oracle, $snapshots one row a snapshot),
+    ANALYZE and $statistics against the oracle, $row_tracking on a
+    row-tracked table, FormatTables over csv, json and parquet
+    directories with dt= partitions and an ObjectTable over the media
+    table's directory."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.table.format_table import FormatTable
+    from paimon_tpu_torch.table.object_table import ObjectTable
+
+    out = {}
+    m_table, m_cols, m_win = media
+    f_tables, f_cols, f_win = formats
+    avro = f_tables["avro"]
+
+    def snapshots_of(table):
+        def check(t):
+            if t.column("snapshot_id").to_pylist() != \
+                    [s.id for s in table.snapshot_manager.snapshots()]:
+                raise AssertionError("$snapshots differs from the "
+                                     "snapshots")
+        return check
+    t0 = time.perf_counter()
+    out["blob_media_2G"] = check_system_tables(
+        "blob_media_2G", m_table, len(m_win), {
+            "snapshots": snapshots_of(m_table),
+            "read_optimized": lambda t: check_media(
+                "blob_media_2G $read_optimized", t, m_cols, m_win, dev)},
+        skip=("files", "audit_log"))
+    out["blob_media_2G s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ft_avro"] = check_system_tables("ft_avro", avro, len(f_win), {
+        "snapshots": snapshots_of(avro),
+        "read_optimized": lambda t: check_rows(
+            "ft_avro $read_optimized", t, f_cols, f_win, "id"),
+        "audit_log": lambda t: check_rows(
+            "ft_avro $audit_log", t.drop_columns(["rowkind"]), f_cols,
+            f_win, "id")})
+    out["ft_avro s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for what, table, cols, win in (("blob_media_2G", m_table, m_cols, m_win),
+                                   ("ft_avro", avro, f_cols, f_win)):
+        t1 = time.perf_counter()
+        if table.analyze() is None:
+            raise AssertionError(f"{what}: ANALYZE committed nothing")
+        out[f"analyze {what} s"] = time.perf_counter() - t1
+        st = table.system_table("statistics").to_pylist()[0]
+        stats = table.statistics()
+        if st["merged_record_count"] != len(win) or \
+                stats["colStats"]["id"]["distinctCount"] != len(win):
+            raise AssertionError(f"{what}: $statistics {st} against "
+                                 f"{len(win)} rows")
+    out["analyze s"] = time.perf_counter() - t0
+
+    # $row_tracking: contiguous row-id ranges over a row-tracked table
+    t0 = time.perf_counter()
+    tracked = FileStoreTable.create(
+        os.path.join(work, "ft_tracked"), append_schema({
+            "bucket": "-1", "row-tracking.enabled": "true"}), device=dev)
+    n = FT_TRACKED_ROWS // scale
+    for b in bigint_batches(n, runs=4):
+        wb = tracked.new_batch_write_builder()
+        with wb.new_write() as w:
+            w.write_arrow(b)
+            wb.new_commit().commit(w.prepare_commit())
+    rt = tracked.system_table("row_tracking").sort_by("first_row_id")
+    firsts = rt.column("first_row_id").to_pylist()
+    nexts = rt.column("next_row_id_after").to_pylist()
+    if firsts[0] != 0 or firsts[1:] != nexts[:-1] or nexts[-1] != n:
+        raise AssertionError(f"$row_tracking ranges not contiguous: "
+                             f"{list(zip(firsts, nexts))}")
+    out["row_tracking_files"] = rt.num_rows
+    out["row_tracking s"] = time.perf_counter() - t0
+
+    # FormatTables: a plain directory a format, partitioned by dt
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    n = FT_FORMAT_TABLE_ROWS // scale
+    data = pa.table({
+        "id": pa.array(rng.integers(0, 1 << 40, n), pa.int64()),
+        "v1": pa.array(rng.integers(0, 1 << 40, n), pa.int64()),
+        "v2": pa.array(rng.random(n), pa.float64()),
+        "v3": pa.array(rng.integers(0, 100, n).astype(np.int32),
+                       pa.int32())})
+    days = np.array(FT_DAYS)[rng.integers(0, len(FT_DAYS), n)]
+    order = [("dt", "ascending"), ("id", "ascending")]
+    want = data.append_column("dt", pa.array(days, pa.string())) \
+        .sort_by(order)
+    for fmt in ("csv", "json", "parquet"):
+        ft = FormatTable(os.path.join(work, f"format_{fmt}"), fmt)
+        for day in FT_DAYS:
+            ft.write(data.filter(pa.array(days == day)),
+                     partition={"dt": day})
+        got = ft.to_arrow().select(want.column_names).cast(want.schema) \
+            .sort_by(order)
+        if not got.equals(want):
+            raise AssertionError(f"FormatTable {fmt}: rows differ")
+        one = ft.to_arrow({"dt": FT_DAYS[1]})
+        if one.num_rows != int((days == FT_DAYS[1]).sum()):
+            raise AssertionError(f"FormatTable {fmt}: partition read "
+                                 f"{one.num_rows} rows")
+    out["format_tables s"] = time.perf_counter() - t0
+
+    # an ObjectTable over the media table's directory
+    t0 = time.perf_counter()
+    listing = ObjectTable(m_table.path).to_arrow()
+    prefix = len(m_table.path) + 1
+    if dict(zip(listing.column("path").to_pylist(),
+                listing.column("length").to_pylist())) != \
+            {p[prefix:]: s for p, s in files_under(m_table.path).items()}:
+        raise AssertionError("ObjectTable: the listing differs from the "
+                             "files on disk")
+    out["object_table_files"] = listing.num_rows
+    out["object_table s"] = time.perf_counter() - t0
+    return out
+
+
+def formats_types(work: str, rec: Recorder, device="cuda",
+                  scale: int = 1) -> dict:
+    """Data formats and types on the card (`scale` divides the row
+    counts, for a rehearsal).  Returns what the phase reports."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    media, m_table, m_cols, m_win = blob_media(work, rec, dev, scale)
+    media["s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    cov, f_tables, f_cols, f_win = formats_coverage(work, rec, dev, scale)
+    cov["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = {"blob_media_2G": media, "formats_coverage": cov,
+           "surfaces_coverage": surfaces_coverage(
+               work, dev, (m_table, m_cols, m_win),
+               (f_tables, f_cols, f_win), scale)}
+    out["surfaces_coverage"]["s"] = time.perf_counter() - t0
+    names = {"blob_media_2G"} | {f"ft_{f}" for f in
+                                 FT_FORMATS + ("parquet_level0_avro",)}
+    mine = [p for p in rec.phases if p["table"] in names]
+    out["launches_plain"] = sum(p["launches_plain"] for p in mine)
+    out["launches_ovc"] = sum(p["launches_ovc"] for p in mine)
+    out["launch_shapes"] = sorted(
+        [[k[0]] + list(k[1:4]) + [k[4], v]
+         for k, v in rec.capture.calls.items() if k[0] in names])
+    peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    shutil.rmtree(m_table.path, ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 # -- the serving plane: point lookups and the one-replica query service ------
 
 SERVE_ROWS = 2_500_000           # cut from 10M, then from 5M (script
@@ -4628,7 +5362,9 @@ SERVE_ROWS = 2_500_000           # cut from 10M, then from 5M (script
 SERVE_COMMITS = 4
 SERVE_BUCKETS = 4
 SERVE_BATCH = 8                  # keys of a point-get request
-SERVE_WRITER_ROWS = 100_000
+SERVE_WRITER_ROWS = 50_000       # 100K until the formats phase came
+SERVE_SCAN_LIMIT = 50_000        # the /scan after the compaction (every
+#                                  live row until the formats phase came)
 SERVE_WRITER_BATCH = 10_000
 
 
@@ -5059,11 +5795,15 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
         out["compaction"] = {"reads": len(answers),
                              "s": rec.phases[-1]["s"],
                              "launches": rec.phases[-1]["launches_plain"]}
+        limit = min(SERVE_SCAN_LIMIT, out["live"])
         with KvQueryClient(address=server.address) as c:
-            full = rec.run(name, "unbounded scan", out["live"], dev,
-                           lambda: c.scan(limit=rows))
-        oracle.check_scan(f"{name} unbounded scan", full, complete=True)
-        out["unbounded_scan_s"] = rec.phases[-1]["s"]
+            part = rec.run(name, "bounded scan", limit, dev,
+                           lambda: c.scan(limit=limit))
+        oracle.check_scan(f"{name} bounded scan", part)
+        if len(part) != limit:
+            raise AssertionError(f"{name} bounded scan: {len(part)} rows, "
+                                 f"limit {limit}")
+        out["bounded_scan_s"] = rec.phases[-1]["s"]
         stats = server.stats()
     finally:
         server.stop()
@@ -5189,8 +5929,8 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
 
 
 def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
-            device="cuda", clients: int = 64, seconds: float = 2.0,
-            agg_seconds: float = 1.0) -> dict:
+            device="cuda", clients: int = 64, seconds: float = 1.0,
+            agg_seconds: float = 0.5) -> dict:
     """The serving plane on the card.
 
     serve_dedup_2.5M: benchmarks/serve_bench.py's table (id BIGINT NOT
@@ -5201,10 +5941,11 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     every file's SST, 300 warm batches of 8 and 100 single gets on one
     keep-alive client, `clients` client threads for `seconds` (90% gets
     of 8 keys, 10% scan(limit=100)), the engine's warm probe native
-    against numpy over the same readers, a serving writer's 100k
+    against numpy over the same readers, a serving writer's 50k
     upserts of live ids in batches of 10k (each read back through the
     delta tier before its commit and from the LSM after), a full
-    compaction while 8 clients read, and one unbounded /scan.
+    compaction while 8 clients read, and one /scan of SERVE_SCAN_LIMIT
+    rows.
     serve_agg_2.5M: the same rows under aggregation (v sum): 4 cold
     buckets built at once from 4 client threads, each a full
     merge-on-read on the card, a 2048-key warm-up, then `clients` client
@@ -5542,10 +6283,11 @@ def measure_constants(dev) -> dict:
 
 
 def merge_routes(dedup_winner_frac: float, device: str = "cuda",
-                 shapes=(14, 20, 22)) -> dict:
+                 shapes=(14, 20)) -> dict:
     """Every route of device_sorted_winners at the main path's merge
-    shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at 2^14, 2^20
-    and 2^22 (2^24 until PR 8): the same winner rows
+    shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at 2^14 and
+    2^20 (2^22 too until the formats phase came, 2^24 until an earlier
+    cut): the same winner rows
     in key order on every route, and the full routes also the same perm
     and prev on the real rows; each route timed on the host clock (best
     of 3, one run at 2^24 on the host routes), the measured link rates
@@ -5629,7 +6371,7 @@ def merge_routes(dedup_winner_frac: float, device: str = "cuda",
 
 # the 100M-row tables: none of their merge phases may take host routes only
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
-APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_8M",
+APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_4M",
                  "ap_queue_coverage")
 
 
@@ -5638,7 +6380,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
               maintained: dict, planes: dict, indexed: dict,
-              appended: dict) -> tuple:
+              appended: dict, formatted: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -5793,6 +6535,11 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # and the global index
             appended.update(path("append_tables",
                                  lambda: append_tables(work, rec)))
+            # data formats and types: blob sidecars and VARIANT columns
+            # at 2 GiB, avro, csv, json and mosaic data files, and the
+            # table surfaces over them
+            formatted.update(path("formats_types",
+                                  lambda: formats_types(work, rec)))
         moved = counter_delta(planes0)
         injected = sum(planes["faults_2M"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
@@ -5895,10 +6642,11 @@ def main() -> int:
     planes: dict = {}
     indexed: dict = {}
     appended: dict = {}
+    formatted: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
-                         appended)
+                         appended, formatted)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -5933,6 +6681,7 @@ def main() -> int:
     print(json.dumps({"write_read_planes": planes}))
     print(json.dumps({"file_indexes": indexed}))
     print(json.dumps({"append_tables": appended}))
+    print(json.dumps({"formats_types": formatted}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

@@ -59,7 +59,9 @@ def _read_bucket(table, path_factory, partition, bucket, files,
     tables = []
     for f in sorted(files, key=lambda x: x.min_sequence_number):
         t = read_kv_file(table.file_io, path_factory, partition, bucket,
-                         f, options=table.options, device=table.device)
+                         f, schema=table.schema,
+                         schema_manager=table.schema_manager,
+                         options=table.options, device=table.device)
         if dvs and f.file_name in dvs:
             t = t.filter(pa.array(dvs[f.file_name].keep_mask(t.num_rows)))
         tables.append(evolve_table(t, f.schema_id, table.schema,
@@ -200,8 +202,9 @@ def _rescale_with_writer(table, scan, writer, entries):
         tables = []
         for e in es:
             t = read_kv_file(table.file_io, scan.path_factory, partition,
-                             -2, e.file, options=table.options,
-                             device=table.device)
+                             -2, e.file, schema=table.schema,
+                             schema_manager=table.schema_manager,
+                             options=table.options, device=table.device)
             tables.append(evolve_table(t, e.file.schema_id, table.schema,
                                        table.schema_manager, cache,
                                        keep_sys_cols=True))

@@ -274,8 +274,20 @@ class MergeTreeCompactManager:
         runs_meta = assemble_runs(files)
 
         device_decode = self.options.get(CoreOptions.READ_DEVICE_DECODE)
+        from paimon_tpu_torch.format.blob import blob_column_names
+        has_blobs = bool(blob_column_names(self.schema))
 
         def batches_of(f):
+            if has_blobs:
+                # blob descriptors must resolve against the whole
+                # sidecar: read this file unstreamed (bounded by
+                # target-file-size), still windowed downstream
+                return [read_kv_file(self.file_io, self.path_factory,
+                                     self.partition, self.bucket, f,
+                                     schema=self.schema,
+                                     schema_manager=self.schema_manager,
+                                     options=self.options,
+                                     device=self.device)]
             ext = f.file_name.rsplit(".", 1)[-1]
             fmt = get_format(ext)
             path = f.external_path or self.path_factory.data_file_path(
@@ -465,8 +477,9 @@ class MergeTreeCompactManager:
         if cached is not None:
             return cached
         raw = read_kv_file(self.file_io, self.path_factory, self.partition,
-                           self.bucket, f, options=self.options,
-                           device=self.device)
+                           self.bucket, f, schema=self.schema,
+                           schema_manager=self.schema_manager,
+                           options=self.options, device=self.device)
         t = evolve_table(raw, f.schema_id, self.schema,
                          self.schema_manager, self._schema_cache,
                          keep_sys_cols=True)

@@ -6,8 +6,8 @@ narrows a file's rows by those indexes (`index/file_index.row_selection`)
 and by its deletion vector, and reads row-tracked files by row range
 (core/row_tracking.py).  Append paths run on the host, as the
 reference's do; the device only decodes pages under
-read.device-decode.  Blob columns are not ported yet (ROADMAP.md
-A.8.8): the writer refuses them.
+read.device-decode.  Blob columns go to `.blob` sidecars as in the
+primary-key writer (format/blob.py).
 
 reference: paimon-core/.../append/AppendOnlyWriter.java (rolling plain
 files, inserts only), BucketedAppendCompactManager.java (contiguous
@@ -109,6 +109,14 @@ class AppendFileWriter:
         name = self.path_factory.new_data_file_name(fmt.extension)
         path, external = self.path_factory.new_data_file_location(
             partition, bucket, name)
+        from paimon_tpu_torch.format.blob import blob_column_names
+        blob_cols = blob_column_names(self.schema)
+        blob_extras: List[str] = []
+        if blob_cols:
+            from paimon_tpu_torch.format.blob import externalize_blobs
+            chunk, blob_extras = externalize_blobs(
+                self.file_io, self.path_factory, partition, bucket, name,
+                chunk, blob_cols)
         size = fmt.create_writer(self.compression,
                                  self.format_options).write(
             self.file_io, path, chunk)
@@ -139,7 +147,7 @@ class AppendFileWriter:
             level=0,
             file_source=file_source,
             embedded_index=embedded_index,
-            extra_files=extra_files,
+            extra_files=extra_files + blob_extras,
             external_path=external,
         )
 
@@ -216,11 +224,6 @@ class AppendOnlyFileStoreWrite:
                  = None):
         from paimon_tpu_torch.parallel.write_pipeline import maybe_wrap_staging
         file_io, self._stager = maybe_wrap_staging(file_io, options)
-        from paimon_tpu_torch.format.blob import blob_column_names
-        if blob_column_names(table_schema):
-            raise NotImplementedError(
-                "blob columns are not ported to paimon_tpu_torch yet "
-                "(ROADMAP.md: A.8.8)")
         self.file_io = file_io
         self.schema = table_schema
         self.options = options
@@ -352,22 +355,26 @@ class AppendSplitRead:
                 return data_type_to_arrow(f.type)
         raise KeyError(column)
 
-    def read_file(self, split: DataSplit, meta) -> pa.Table:
+    def read_file(self, split: DataSplit, meta,
+                  wanted=None) -> pa.Table:
         """One file, schema-evolved, unfiltered (evolution groups need
-        whole ranges so row positions stay aligned); every column is
-        read, as in the reference.  Transient store
+        whole ranges so row positions stay aligned); blob columns
+        outside `wanted` are dropped unread.  Transient store
         faults retry under read.retry.* (parallel/scan_pipeline.py)."""
         from paimon_tpu_torch.parallel.scan_pipeline import read_file_retrying
-        t = read_file_retrying(lambda: self._read_kv(split, meta),
+        t = read_file_retrying(lambda: self._read_kv(split, meta, wanted),
                                self.options, what=meta.file_name)
         return self._evolve(t, meta.schema_id)
 
-    def _read_kv(self, split: DataSplit, meta) -> pa.Table:
-        """One data file's columns as stored (every column: the
-        reference reads whole files too)."""
+    def _read_kv(self, split: DataSplit, meta, wanted=None) -> pa.Table:
+        """One data file's columns as stored, its blob columns resolved
+        from the sidecar (those outside `wanted` dropped unread)."""
         from paimon_tpu_torch.core.kv_file import read_kv_file
         return read_kv_file(self.file_io, self.path_factory,
                             split.partition, split.bucket, meta,
+                            schema=self.schema,
+                            schema_manager=self.schema_manager,
+                            wanted=set(wanted) if wanted else None,
                             options=self.options, device=self.device)
 
     def _value_columns(self) -> List[str]:
@@ -447,7 +454,9 @@ class AppendSplitRead:
 
                 def load(group=group, anchor=anchor):
                     if len(group) == 1 and anchor.first_row_id is None:
-                        t = self.read_file(split, anchor)
+                        t = self.read_file(
+                            split, anchor,
+                            wanted=self._value_columns())
                         t = self._fill_partition_columns(
                             t, set(t.column_names), split.partition) \
                             .select(self._value_columns())
@@ -480,7 +489,8 @@ class AppendSplitRead:
             for meta in sorted(split.data_files,
                                key=lambda f: f.min_sequence_number):
                 t = read_or_skip_corrupt(
-                    lambda meta=meta: self._read_kv(split, meta),
+                    lambda meta=meta: self._read_kv(
+                        split, meta, self._value_columns()),
                     self.options, f"data file {meta.file_name}")
                 if t is None:
                     continue

@@ -221,7 +221,8 @@ class FileStoreCommit:
                     force_full_manifest_merge: bool = False,
                     skip_missing_manifests: bool = False,
                     watermark: Optional[int] = None,
-                    expected_latest_id: Optional[int] = ...) -> int:
+                    expected_latest_id: Optional[int] = ...,
+                    statistics: Optional[str] = None) -> int:
         from paimon_tpu_torch.metrics import (
             COMMIT_CAS_MS, COMMIT_MANIFEST_ENCODE_MS, global_registry,
         )
@@ -372,6 +373,7 @@ class FileStoreCommit:
                 delta_record_count=delta_rows,
                 changelog_record_count=changelog_rows or None,
                 properties=properties,
+                statistics=statistics,
                 next_row_id=next_row_id,
                 watermark=max(wm_vals) if wm_vals else None,
             )

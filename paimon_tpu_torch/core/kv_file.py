@@ -1,8 +1,10 @@
 """KeyValue data-file writer/reader.
 
-Counterpart of paimon_tpu/core/kv_file.py without blob columns (not
-ported yet).  A data file's column indexes (file-index.*: bloom,
-bitmap, bit-sliced, range-bitmap) are built from the written chunk and
+Counterpart of paimon_tpu/core/kv_file.py.  Blob columns go to the
+data file's `.blob` sidecar, descriptor structs in their place
+(format/blob.py), and a read given the table's schema resolves them.
+A data file's column indexes (file-index.*: bloom, bitmap, bit-sliced,
+range-bitmap) are built from the written chunk and
 embedded in its meta or written as its `.index` sidecar; changelog
 files are written by `write_changelog_file`, and parquet reads take the
 device decode plane (format/rawpage.py) under read.device-decode.
@@ -104,6 +106,14 @@ class KeyValueFileWriter:
         name = self.path_factory.new_data_file_name(fmt.extension)
         path, external = self.path_factory.new_data_file_location(
             partition, bucket, name)
+        from paimon_tpu_torch.format.blob import blob_column_names
+        blob_cols = blob_column_names(self.schema)
+        blob_extras: List[str] = []
+        if blob_cols:
+            from paimon_tpu_torch.format.blob import externalize_blobs
+            chunk, blob_extras = externalize_blobs(
+                self.file_io, self.path_factory, partition, bucket, name,
+                chunk, blob_cols)
         size = fmt.create_writer(compression,
                                  self.format_options).write(
             self.file_io, path, chunk)
@@ -167,7 +177,7 @@ class KeyValueFileWriter:
             delete_row_count=delete_rows,
             file_source=file_source,
             embedded_index=embedded_index,
-            extra_files=extra_files,
+            extra_files=extra_files + blob_extras,
             external_path=external,
         )
 
@@ -224,23 +234,34 @@ def read_kv_file(file_io: FileIO, path_factory: FileStorePathFactory,
                  partition: Tuple, bucket: int, meta: DataFileMeta,
                  file_format: Optional[str] = None,
                  projection: Optional[List[str]] = None,
+                 schema=None, schema_manager=None, wanted=None,
                  options=None, device=None) -> pa.Table:
-    """Read one KV data file into Arrow.  `options` (the table's) gates
-    the footer cache (read.cache.footer) and, for parquet, the device
-    decode plane (read.device-decode) on `device`."""
+    """Read one KV data file into Arrow.  Given `schema`, blob descriptor
+    columns resolve against their `.blob` sidecar here, and blob columns
+    outside `wanted` are dropped unread (format/blob.py
+    maybe_resolve_blobs).  `options` (the table's) gates the footer
+    cache (read.cache.footer) and, for parquet, the device decode plane
+    (read.device-decode) on `device`."""
     ext = meta.file_name.rsplit(".", 1)[-1]
     fmt = get_format(file_format or ext)
     path = path_factory.data_file_path(partition, bucket, meta.file_name)
     if meta.external_path:
         path = meta.external_path
+    table = None
     if fmt.identifier == "parquet" and options is not None \
             and options.get(CoreOptions.READ_DEVICE_DECODE):
         from paimon_tpu_torch.format.rawpage import maybe_read_device
         table = maybe_read_device(file_io, path, projection, options,
                                   device=device)
-        if table is not None:
-            return table
-    from paimon_tpu_torch.fs.caching import footer_cache_scope
-    with footer_cache_scope(options):
-        return fmt.create_reader().read(file_io, path,
-                                        projection=projection)
+    if table is None:
+        from paimon_tpu_torch.fs.caching import footer_cache_scope
+        with footer_cache_scope(options):
+            table = fmt.create_reader().read(file_io, path,
+                                             projection=projection)
+    if schema is not None:
+        from paimon_tpu_torch.format.blob import maybe_resolve_blobs
+        table = maybe_resolve_blobs(file_io, path_factory, partition,
+                                    bucket, meta, table, schema,
+                                    schema_manager=schema_manager,
+                                    wanted=wanted)
+    return table

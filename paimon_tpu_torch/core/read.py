@@ -284,6 +284,9 @@ class MergeFileSplitRead:
         table = read_or_skip_corrupt(
             lambda: read_kv_file(self.file_io, self.path_factory,
                                  split.partition, split.bucket, meta,
+                                 schema=self.schema,
+                                 schema_manager=self.schema_manager,
+                                 wanted=set(read_cols),
                                  options=self.options, device=self.device),
             self.options, f"data file {meta.file_name}")
         if table is None:

@@ -118,6 +118,7 @@ def read_evolution_group(read, split, group: Sequence[DataFileMeta],
 
     # plan column -> source file first, so every file is read once
     sources: Dict[str, DataFileMeta] = {}
+    per_file: Dict[str, List[str]] = {}
     metas: Dict[str, DataFileMeta] = {}
     for c in wanted:
         if c == ROW_ID_COL:
@@ -127,9 +128,11 @@ def read_evolution_group(read, split, group: Sequence[DataFileMeta],
             src = anchor
         sources[c] = src
         metas[src.file_name] = src
+        per_file.setdefault(src.file_name, []).append(c)
 
     cache: Dict[str, pa.Table] = {
-        fname: read.read_file(split, meta) for fname, meta in metas.items()}
+        fname: read.read_file(split, metas[fname], wanted=cols)
+        for fname, cols in per_file.items()}
 
     cols, names = [], []
     for c in wanted:

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace as dc_replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
 from paimon_tpu_torch.fs import FileIO
@@ -145,6 +145,7 @@ class FileStoreScan:
         self._bucket_filter: Optional[set] = None
         self._key_filter: Optional[Predicate] = None
         self._value_filter: Optional[Predicate] = None
+        self._level_filter: Optional[Callable[[int], bool]] = None
         # per data file: its indexes, keyed by the meta's identity (a
         # rewrite_file_index commit replaces a meta under the same file
         # name), for this scan object's lifetime
@@ -167,6 +168,10 @@ class FileStoreScan:
 
     def with_value_filter(self, predicate: Predicate) -> "FileStoreScan":
         self._value_filter = predicate
+        return self
+
+    def with_level_filter(self, fn) -> "FileStoreScan":
+        self._level_filter = fn
         return self
 
     # -- planning ------------------------------------------------------------
@@ -446,9 +451,11 @@ class FileStoreScan:
 
     def _split_signature(self, streaming: bool):
         """Hashable identity of the filters split generation depends
-        on, or None when key or value predicates (not comparable across
-        scan objects) make split states unreusable."""
-        if self._key_filter is not None or self._value_filter is not None:
+        on, or None when key, value or level predicates (not comparable
+        across scan objects) make split states unreusable."""
+        if self._key_filter is not None or \
+                self._value_filter is not None or \
+                self._level_filter is not None:
             return None
         pf = None
         if self._partition_filter:
@@ -709,6 +716,9 @@ class FileStoreScan:
             return False
         if self._bucket_filter is not None and \
                 e.bucket not in self._bucket_filter:
+            return False
+        if self._level_filter is not None and \
+                not self._level_filter(e.file.level):
             return False
         if not self._partition_matches(e.partition):
             return False

@@ -1,9 +1,11 @@
 """FileFormat SPI: reader/writer factories over Arrow tables.
 
-Counterpart of paimon_tpu/format/format.py, reduced to parquet and ORC
-data files (Arrow C++ decode and encode), with the reference's io spans
-(io.read, decode, encode, io.upload) around parquet's fetch, decode,
-encode and upload; the other data-file formats are not ported yet.  reference boundary: paimon-common/.../format/
+Counterpart of paimon_tpu/format/format.py: parquet and ORC data files
+(Arrow C++ decode and encode), with the reference's io spans (io.read,
+decode, encode, io.upload) around parquet's fetch, decode, encode and
+upload; avro rows through the pure-Python codec (format/avro.py), csv
+and json through pyarrow, and mosaic (format/mosaic.py), each writing
+the reference's bytes.  reference boundary: paimon-common/.../format/
 FileFormat.java:43 + SimpleStatsExtractor.
 """
 
@@ -218,23 +220,138 @@ class _OrcWriter(FormatWriter):
         return len(data)
 
 
+class _AvroRowReader(FormatReader):
+    def read(self, file_io, path, projection=None, batch_size=1 << 20):
+        from paimon_tpu_torch.format import avro as avro_fmt
+        _, records = avro_fmt.read_container(file_io.read_bytes(path))
+        table = pa.Table.from_pylist(records)
+        if projection:
+            table = table.select(projection)
+        return table
+
+
+class _AvroRowWriter(FormatWriter):
+    def __init__(self, compression: str = "zstd",
+                 format_options: Optional[Dict[str, str]] = None):
+        compression, _ = split_compression(compression)
+        self.codec = {"zstd": "zstandard", "none": "null",
+                      "gzip": "deflate"}.get(compression, compression)
+
+    def write(self, file_io, path, table):
+        from paimon_tpu_torch.format import avro as avro_fmt
+        schema = _arrow_to_avro_schema(table.schema)
+        data = avro_fmt.write_container(schema, table.to_pylist(),
+                                        codec=self.codec)
+        file_io.write_bytes(path, data, overwrite=False)
+        return len(data)
+
+
+def _arrow_to_avro_schema(schema: pa.Schema) -> dict:
+    def conv(t: pa.DataType):
+        if pa.types.is_boolean(t):
+            return "boolean"
+        if pa.types.is_integer(t):
+            return "long" if t.bit_width > 32 else "int"
+        if pa.types.is_float32(t):
+            return "float"
+        if pa.types.is_floating(t):
+            return "double"
+        if pa.types.is_string(t) or pa.types.is_large_string(t):
+            return "string"
+        if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+            return "bytes"
+        if pa.types.is_timestamp(t):
+            return {"type": "long", "logicalType": "timestamp-millis"}
+        if pa.types.is_date(t):
+            return {"type": "int", "logicalType": "date"}
+        if pa.types.is_list(t):
+            return {"type": "array", "items": conv(t.value_type)}
+        raise ValueError(f"No avro mapping for {t}")
+
+    return {"type": "record", "name": "Row", "fields": [
+        {"name": f.name,
+         "type": ["null", conv(f.type)] if f.nullable else conv(f.type),
+         **({"default": None} if f.nullable else {})}
+        for f in schema]}
+
+
+class _CsvReader(FormatReader):
+    def read(self, file_io, path, projection=None, batch_size=1 << 20):
+        from pyarrow import csv as pa_csv
+        data = file_io.read_bytes(path)
+        table = pa_csv.read_csv(io.BytesIO(data))
+        if projection:
+            table = table.select(projection)
+        return table
+
+
+class _CsvWriter(FormatWriter):
+    def __init__(self, compression: str = "none",
+                 format_options: Optional[Dict[str, str]] = None):
+        pass
+
+    def write(self, file_io, path, table):
+        from pyarrow import csv as pa_csv
+        buf = io.BytesIO()
+        pa_csv.write_csv(table, buf)
+        data = buf.getvalue()
+        file_io.write_bytes(path, data, overwrite=False)
+        return len(data)
+
+
+class _JsonReader(FormatReader):
+    def read(self, file_io, path, projection=None, batch_size=1 << 20):
+        from pyarrow import json as pa_json
+        data = file_io.read_bytes(path)
+        table = pa_json.read_json(io.BytesIO(data))
+        if projection:
+            table = table.select(projection)
+        return table
+
+
+class _JsonWriter(FormatWriter):
+    def __init__(self, compression: str = "none",
+                 format_options: Optional[Dict[str, str]] = None):
+        pass
+
+    def write(self, file_io, path, table):
+        import json as _json
+        for f in table.schema:
+            if pa.types.is_binary(f.type) or pa.types.is_large_binary(
+                    f.type):
+                raise ValueError(
+                    f"json format cannot round-trip binary column "
+                    f"{f.name!r}; use parquet/orc/avro")
+
+        def default(v):
+            # temporals serialize as ISO strings; arrow casts them back
+            # on read via the schema-aware evolve path
+            return v.isoformat() if hasattr(v, "isoformat") else str(v)
+
+        lines = [_json.dumps(r, default=default)
+                 for r in table.to_pylist()]
+        data = ("\n".join(lines) + "\n").encode("utf-8")
+        file_io.write_bytes(path, data, overwrite=False)
+        return len(data)
+
+
 _FORMATS: Dict[str, FileFormatFactory] = {
     "parquet": FileFormatFactory("parquet", _ParquetReader(),
                                  _ParquetWriter),
     "orc": FileFormatFactory("orc", _OrcReader(), _OrcWriter),
+    "avro": FileFormatFactory("avro", _AvroRowReader(), _AvroRowWriter),
+    "csv": FileFormatFactory("csv", _CsvReader(), _CsvWriter),
+    "json": FileFormatFactory("json", _JsonReader(), _JsonWriter),
 }
-
-# formats the reference reads and writes that this package does not yet
-_NOT_PORTED = ("avro", "csv", "json", "mosaic")
 
 
 def get_format(identifier: str) -> FileFormatFactory:
     """reference FileFormat.fromIdentifier (FileFormat.java:76)."""
     ident = identifier.lower()
-    if ident in _NOT_PORTED:
-        raise NotImplementedError(
-            f"file format {identifier!r} is not ported yet (ROADMAP.md: "
-            f"A.8.8); parquet and orc are")
+    if ident == "mosaic" and ident not in _FORMATS:
+        # registered lazily to keep module import order simple
+        from paimon_tpu_torch.format.mosaic import MOSAIC_FACTORY
+        _FORMATS["mosaic"] = MOSAIC_FACTORY
     if ident not in _FORMATS:
         raise ValueError(f"Unknown file format {identifier!r}; "
                          f"available: {sorted(_FORMATS)}")

@@ -354,6 +354,9 @@ class CachingFileIO(FileIO):
 
     # -- delegation ----------------------------------------------------------
 
+    def mkdirs(self, path):
+        return self.inner.mkdirs(path)
+
     def exists(self, path):
         return self.inner.exists(path)
 

@@ -91,6 +91,9 @@ class FileIO:
         FileIO.tryToWriteAtomic); `data` must be writer-unique."""
         raise NotImplementedError
 
+    def mkdirs(self, path: str) -> bool:
+        raise NotImplementedError
+
     def delete(self, path: str, recursive: bool = False) -> bool:
         raise NotImplementedError
 
@@ -187,6 +190,10 @@ class LocalFileIO(FileIO):
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
+
+    def mkdirs(self, path: str) -> bool:
+        os.makedirs(self._strip(path), exist_ok=True)
+        return True
 
     def delete(self, path: str, recursive: bool = False) -> bool:
         p = self._strip(path)

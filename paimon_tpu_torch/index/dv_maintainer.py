@@ -162,6 +162,8 @@ def _delete_append_dv_once(table, predicate) -> Optional[int]:
         for meta in split.data_files:
             t = read_kv_file(table.file_io, scan.path_factory,
                              split.partition, split.bucket, meta,
+                             schema=table.schema,
+                             schema_manager=table.schema_manager,
                              options=table.options, device=table.device)
             t = evolve_table(t, meta.schema_id, table.schema,
                              table.schema_manager, schema_cache)
@@ -205,7 +207,7 @@ def _delete_tracked_groups(table, split, predicate, bucket_dvs) -> bool:
         anchor = anchor_of(group)
         current = read_evolution_group(read, split, group, fields) \
             if anchor.first_row_id is not None or len(group) > 1 \
-            else read.read_file(split, anchor)
+            else read.read_file(split, anchor, wanted=fields)
         mask = _eval_predicate(predicate, current)
         existing = bucket_dvs.get(anchor.file_name)
         if existing is not None:

@@ -149,8 +149,9 @@ def rewrite_file_index(table, force: bool = False) -> int:
         f = e.file
         partition = scan._partition_codec.from_bytes(e.partition)
         data = read_kv_file(table.file_io, scan.path_factory, partition,
-                            e.bucket, f, options=table.options,
-                            device=table.device)
+                            e.bucket, f, schema=table.schema,
+                            schema_manager=table.schema_manager,
+                            options=table.options, device=table.device)
         blob = build_indexes_blob(data, spec, fpp)
         if blob is None:
             return None

@@ -545,6 +545,40 @@ class CoreOptions:
         "file-index.read.enabled", _parse_bool, True,
         "Defined by the reference and read by no scan; refused "
         "(ROADMAP.md A.8.6b)")
+    # -- blobs and variant shredding: defined by the reference
+    # (options.py:1389-1437) and read by no writer or reader of either
+    # package; refused (ROADMAP.md A.8.8b) ----------------------------------
+    BLOB_FIELD = ConfigOption(
+        "blob-field", str, None,
+        "Column stored as .blob sidecar files (auto-detected from the "
+        "BLOB type when unset)")
+    BLOB_TARGET_FILE_SIZE = ConfigOption(
+        "blob.target-file-size", parse_memory_size, None,
+        "Roll blob sidecar files at this size (default: "
+        "target-file-size)")
+    BLOB_AS_DESCRIPTOR = ConfigOption(
+        "blob-as-descriptor", _parse_bool, False,
+        "Reads return blob descriptors (uri, offset, length) instead "
+        "of materialized bytes")
+    VARIANT_SHREDDING_SCHEMA = ConfigOption(
+        "variant.shreddingSchema", str, None,
+        "Explicit shredding paths per variant column, "
+        "'col:$.a,$.b;col2:$.x'")
+    VARIANT_INFER_SHREDDING_SCHEMA = ConfigOption(
+        "variant.inferShreddingSchema", _parse_bool, False,
+        "Infer shredded columns from a buffered row sample")
+    VARIANT_SHREDDING_MAX_INFER_BUFFER_ROW = ConfigOption(
+        "variant.shredding.maxInferBufferRow", int, 1000,
+        "Rows sampled for shredding-schema inference")
+    VARIANT_SHREDDING_MAX_SCHEMA_DEPTH = ConfigOption(
+        "variant.shredding.maxSchemaDepth", int, 5,
+        "Max nesting depth of inferred shredded paths")
+    VARIANT_SHREDDING_MAX_SCHEMA_WIDTH = ConfigOption(
+        "variant.shredding.maxSchemaWidth", int, 50,
+        "Max inferred shredded paths per variant column")
+    VARIANT_SHREDDING_MIN_FIELD_CARDINALITY_RATIO = ConfigOption(
+        "variant.shredding.minFieldCardinalityRatio", float, 0.5,
+        "A path must appear in at least this share of sampled rows")
     ROW_TRACKING_ENABLED = ConfigOption("row-tracking.enabled", _parse_bool,
                                         False, "")
     LOCAL_MERGE_BUFFER_SIZE = ConfigOption(

@@ -297,8 +297,12 @@ class _BucketJob:
 
         for f in run_files:
             if ctx.has_blobs:
+                # blob descriptors resolve against the whole sidecar:
+                # the file is read unstreamed
                 yield item(read_kv_file(ctx.table.file_io, ctx.path_factory,
                                         split.partition, split.bucket, f,
+                                        schema=ctx.schema,
+                                        schema_manager=ctx.schema_manager,
                                         options=options,
                                         device=ctx.device), f)
                 continue

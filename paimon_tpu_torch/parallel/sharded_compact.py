@@ -118,6 +118,8 @@ def compact_table_sharded(table, mesh=None) -> ShardedCompactStats:
         runs = [evolve_table(
                     read_kv_file(table.file_io, ctx.path_factory,
                                  s.partition, s.bucket, f,
+                                 schema=table.schema,
+                                 schema_manager=table.schema_manager,
                                  options=table.options, device=table.device),
                     f.schema_id, ctx.schema, ctx.schema_manager,
                     ctx.schema_cache, keep_sys_cols=True)

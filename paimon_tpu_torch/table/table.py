@@ -14,9 +14,12 @@ DELETE (-D records on primary-key tables, deletion vectors on append
 tables), and the maintenance plane: snapshot and changelog
 expiry, tags and auto-tags, branches and fallback reads, incremental
 reads, partition expiry and mark-done, orphan clean, fsck and repair,
-manifest compaction, commit and tag callbacks, and per-file indexes
+manifest compaction, commit and tag callbacks, per-file indexes
 (file-index.*: written with every data file, skipped by the scan,
-retrofitted by maintenance/repair.py rewrite_file_index).  Every table
+retrofitted by maintenance/repair.py rewrite_file_index); data files in
+parquet, orc, avro, csv, json or mosaic, BLOB columns in `.blob`
+sidecars and VARIANT columns; the system tables, ANALYZE and its
+statistics.  Every table
 carries the torch device its merges run on (None means "cuda"; with no
 card, pass device="cpu").
 
@@ -87,6 +90,18 @@ def check_writable(options: CoreOptions) -> None:
     if options.get(CoreOptions.CROSS_PARTITION_UPSERT_INDEX_TTL):
         _not_ported(CoreOptions.CROSS_PARTITION_UPSERT_INDEX_TTL.key,
                     "A.8.3b")
+    # read by no writer of either package yet: blob sidecar layout and
+    # variant shredding
+    for key in (CoreOptions.BLOB_FIELD, CoreOptions.BLOB_TARGET_FILE_SIZE,
+                CoreOptions.BLOB_AS_DESCRIPTOR,
+                CoreOptions.VARIANT_SHREDDING_SCHEMA,
+                CoreOptions.VARIANT_INFER_SHREDDING_SCHEMA,
+                CoreOptions.VARIANT_SHREDDING_MAX_INFER_BUFFER_ROW,
+                CoreOptions.VARIANT_SHREDDING_MAX_SCHEMA_DEPTH,
+                CoreOptions.VARIANT_SHREDDING_MAX_SCHEMA_WIDTH,
+                CoreOptions.VARIANT_SHREDDING_MIN_FIELD_CARDINALITY_RATIO):
+        if options.options.contains(key.key):
+            _not_ported(key.key, "A.8.8b")
     check_expirable(options)
 
 
@@ -212,8 +227,21 @@ class FileStoreTable:
     def new_stream_write_builder(self) -> "StreamWriteBuilder":
         return StreamWriteBuilder(self)
 
-    def system_table(self, name: str):
-        _not_ported("system tables", "A.8.9")
+    def system_table(self, name: str) -> pa.Table:
+        """`<table>$<name>` as an Arrow table (reference
+        SystemTableLoader)."""
+        from paimon_tpu_torch.table.system import load_system_table
+        return load_system_table(self, name)
+
+    def analyze(self, columns: Optional[List[str]] = None) -> Optional[int]:
+        """ANALYZE TABLE: compute and persist table and column statistics
+        (reference stats/StatsFileHandler)."""
+        from paimon_tpu_torch.stats import analyze_table
+        return analyze_table(self, columns)
+
+    def statistics(self) -> Optional[Dict]:
+        from paimon_tpu_torch.stats import read_statistics
+        return read_statistics(self)
 
     # -- convenience ---------------------------------------------------------
 

@@ -720,8 +720,9 @@ def data_type_to_arrow(t: DataType) -> pa.DataType:
     if isinstance(t, (CharType, VarCharType)):
         return pa.string()
     if isinstance(t, VariantType):
-        raise NotImplementedError(
-            "VARIANT columns are not ported yet (ROADMAP.md: A.8.8)")
+        # single source of truth for the on-disk variant shape
+        from paimon_tpu_torch.data.variant import variant_arrow_type
+        return variant_arrow_type()
     if isinstance(t, (BinaryType, VarBinaryType, BlobType)):
         return pa.binary()
     if isinstance(t, DecimalType):

@@ -105,7 +105,14 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.maintenance.mark_done",
                  "paimon_tpu_torch.maintenance.tag_auto",
                  "paimon_tpu_torch.maintenance.clone",
-                 "paimon_tpu_torch.maintenance.migrate"):
+                 "paimon_tpu_torch.maintenance.migrate",
+                 "paimon_tpu_torch.format.blob",
+                 "paimon_tpu_torch.format.mosaic",
+                 "paimon_tpu_torch.data.variant",
+                 "paimon_tpu_torch.stats",
+                 "paimon_tpu_torch.table.system",
+                 "paimon_tpu_torch.table.format_table",
+                 "paimon_tpu_torch.table.object_table"):
         assert name in out["modules"]
 
 

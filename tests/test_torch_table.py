@@ -7,9 +7,12 @@ each reads what the other wrote.  Every value compared is a table row,
 so equality is exact (no tolerance).
 """
 
+import functools
 import json
 import os
+import pathlib
 import shutil
+import tempfile
 
 import numpy as np
 import pyarrow as pa
@@ -309,31 +312,34 @@ def test_compact_manifests_matches_reference(tmp_path):
 
 # -- out-of-slice features raise -------------------------------------------
 
-def _system_table(tmp_path):
-    new_table(tmp_path, pk_schema()).system_table("snapshots")
+def _clone(tmp_path):
+    from paimon_tpu_torch.maintenance.clone import clone_table
+    clone_table(None, "db.a", "db.b")
 
 
-def _append_blob_write(tmp_path):
-    """An append table with a blob column: its writer would externalise
-    the blobs into .blob files, which are not ported."""
+def _append_blob_field_write(tmp_path, **options):
+    """An append table with a blob column and blob or variant options
+    that no writer of either package reads (A.8.8b)."""
     from paimon_tpu_torch.types import BlobType
     schema = (Schema.builder().column("id", BigIntType())
-              .column("b", BlobType()).build())
+              .column("b", BlobType()).options(options).build())
     FileStoreTable.create(str(tmp_path / "b"), schema, device="cpu") \
         .new_batch_write_builder().new_write()
 
 
 # bucket -1 and deletion-vectors.enabled opened with the dynamic
-# buckets, row tracking and deletion vectors with append tables; their
-# places hold other unported planes
-_UNPORTED_ACTIONS = {"system tables": _system_table,
-                     "append blob column": _append_blob_write}
+# buckets, row tracking and deletion vectors with append tables, system
+# tables and blob columns with the formats and types; their places hold
+# other unported planes
+_UNPORTED_ACTIONS = {"clone": _clone,
+                     "append blob-field": functools.partial(
+                         _append_blob_field_write, **{"blob-field": "b"})}
 
 
 @pytest.mark.parametrize("options, item", [
     ({"cache.disk.dir": "cache"}, "A.7b"),
-    ("system tables", "A.8.9"),
-    ("append blob column", "A.8.8"),
+    ("clone", "A.8.9"),
+    ("append blob-field", "A.8.8b"),
     ({"request.timeout": "30 s"}, "A.7b")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -349,7 +355,16 @@ def test_unported_table_options_raise(tmp_path, options, item):
     ({"dynamic-bucket.max-buckets": "8"}, "A.8.3b"),
     ({"cross-partition-upsert.index-ttl": "1 h"}, "A.8.3b"),
     ({"snapshot.expire.limit": "10"}, "A.8.4b"),
-    ({"changelog.time-retained": "1 h"}, "A.8.4b")])
+    ({"changelog.time-retained": "1 h"}, "A.8.4b"),
+    ({"blob-field": "name"}, "A.8.8b"),
+    ({"blob.target-file-size": "1 gb"}, "A.8.8b"),
+    ({"blob-as-descriptor": "true"}, "A.8.8b"),
+    ({"variant.shreddingSchema": "v:$.a"}, "A.8.8b"),
+    ({"variant.inferShreddingSchema": "true"}, "A.8.8b"),
+    ({"variant.shredding.maxInferBufferRow": "10"}, "A.8.8b"),
+    ({"variant.shredding.maxSchemaDepth": "2"}, "A.8.8b"),
+    ({"variant.shredding.maxSchemaWidth": "2"}, "A.8.8b"),
+    ({"variant.shredding.minFieldCardinalityRatio": "0.1"}, "A.8.8b")])
 def test_unported_write_options_raise(tmp_path, options, item):
     table = new_table(tmp_path, pk_schema(**options))
     with pytest.raises(NotImplementedError, match=item):
@@ -369,16 +384,12 @@ def test_unread_expiry_bounds_raise_on_expire(tmp_path, key, value):
 
 
 def test_append_table_and_other_planes_raise(tmp_path):
-    from paimon_tpu_torch.format import get_format
     from paimon_tpu_torch.maintenance.clone import clone_table
     from paimon_tpu_torch.maintenance.migrate import migrate_table
-    with pytest.raises(NotImplementedError, match="blob columns"):
-        _append_blob_write(tmp_path)
-    table = new_table(tmp_path)
-    for call, item in ((lambda: table.system_table("snapshots"), "A.8.9"),
-                       (lambda: clone_table(None, "db.a", "db.b"), "A.8.9"),
-                       (lambda: migrate_table(None, "/x", "db.t"), "A.8.9"),
-                       (lambda: get_format("avro"), "A.8.8")):
+    with pytest.raises(NotImplementedError, match="A.8.8b"):
+        _append_blob_field_write(tmp_path, **{"blob-as-descriptor": "true"})
+    for call, item in ((lambda: clone_table(None, "db.a", "db.b"), "A.8.9"),
+                       (lambda: migrate_table(None, "/x", "db.t"), "A.8.9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 
@@ -390,9 +401,13 @@ def _multi_process_mesh():
     _single_process(SimpleNamespace(world=2))
 
 
-def _variant_column():
-    from paimon_tpu_torch.types import VariantType, data_type_to_arrow
-    data_type_to_arrow(VariantType())
+def _variant_shredding():
+    with tempfile.TemporaryDirectory() as d:
+        table = FileStoreTable.create(
+            os.path.join(d, "t"),
+            pk_schema(**{"variant.inferShreddingSchema": "true"}),
+            device="cpu")
+        table.new_batch_write_builder().new_write()
 
 
 def _object_store_path():
@@ -400,13 +415,14 @@ def _object_store_path():
     get_file_io("s3://bucket/t")
 
 
-def _unported_format():
-    from paimon_tpu_torch.format import get_format
-    get_format("csv")
+def _blob_descriptor_reads():
+    with tempfile.TemporaryDirectory() as d:
+        _append_blob_field_write(pathlib.Path(d),
+                                 **{"blob-as-descriptor": "true"})
 
 
 @pytest.mark.parametrize("call, item", [
-    (_unported_format, "A.8.8"), (_variant_column, "A.8.8"),
+    (_blob_descriptor_reads, "A.8.8b"), (_variant_shredding, "A.8.8b"),
     (_multi_process_mesh, "A.8.9"), (_object_store_path, "A.7b")])
 def test_refusals_name_their_items(call, item):
     """Each refusal names its ROADMAP.md item, and that item exists."""
