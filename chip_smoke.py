@@ -76,13 +76,13 @@ then):
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
    - serving: point lookups and the one-replica query service on the
-     card (`serving` says what it drives): serve_dedup_2.5M, the
-     reference serving benchmark's table at 2.5M rows (cold and warm
+     card (`serving` says what it drives): serve_dedup_1.25M, the
+     reference serving benchmark's table at 1.25M rows (cold and warm
      /lookup, 64 keep-alive clients of 90% point gets and 10%
      scan(limit=100), the engine's native and numpy probes, a serving
      writer's read-your-writes through the delta tier, a full
      compaction under 8 readers, a /scan of 50K rows), and
-     serve_agg_2.5M, the same rows under aggregation, whose every
+     serve_agg_1.25M, the same rows under aggregation, whose every
      lookup merges a bucket on the card (4 cold buckets built at once
      from the server's handler threads).  Every answer is held against
      a numpy oracle; no native probe may fall back; the flush, the
@@ -97,16 +97,16 @@ then):
      writer, a merge-on-read scan, a full compaction and a scan; the
      hash index against the rows: each id in one bucket, every bucket
      but the last at 2M hashes, the files' total the distinct 32-bit
-     hashes; a fresh table object's 500K upserts of existing ids landing
+     hashes; a fresh table object's 250K upserts of existing ids landing
      in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
-     RENAME v2 -> v2r and 2 commits of 1M upserts, a merge-on-read scan
-     over runs of both schemas, a full compaction and a scan),
-     xpart_upsert_1M (cross-partition upsert, partition dt INT of 4
-     values: 1M keys in 4 commits, then a fresh table object's 4
-     commits of 125K upserts, a quarter moving partition and some twice
+     RENAME v2 -> v2r and 2 commits of 500K upserts, a merge-on-read
+     scan over runs of both schemas, a full compaction and a scan),
+     xpart_upsert_500K (cross-partition upsert, partition dt INT of 4
+     values: 500K keys in 4 commits, then a fresh table object's 4
+     commits of 62.5K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
-     and postpone_4M (bucket=-2: 4M rows in 4 commits that a scan does
+     and postpone_2M (bucket=-2: 2M rows in 4 commits that a scan does
      not see, then rescale_postpone at the postpone defaults and a
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
@@ -145,8 +145,8 @@ then):
      compaction and a read), spill_fold_coverage (2 MB spills, 4 file
      handles and a 16 MB disk cap: runs fold and early flushes land in
      L0; its files equal file for file to the same writes on the CPU),
-     local_merge_hot_4M (bucket=4, local-merge-buffer-size=64mb, 8
-     streaming commits of 500K rows, half on 1,000 hot ids: each commit's
+     local_merge_hot_2M (bucket=4, local-merge-buffer-size=64mb, 8
+     streaming commits of 250K rows, half on 1,000 hot ids: each commit's
      L0 rows are its distinct ids), plan_daily_1.2M (bench.py's columns
      plus dt STRING as the partition, key (dt, id), bucket=2, inline
      compaction, the plan cache and stats sidecar at their defaults:
@@ -156,7 +156,7 @@ then):
      OVERWRITE of a day, a late correction of an id band, a one-day and
      an id < 1000 plan served cached and walked cold by the sidecar
      prune, and rollback_to, each followed by a plan equal to a cold
-     one) and faults_2M (bucket=4, 4 commits of 500K rows over a FileIO
+     one) and faults_1M (bucket=4, 4 commits of 250K rows over a FileIO
      that fails every 20th data-file write and read once, retried
      under write.retry.* and read.retry.*, with write.stage.dir; the
      prefetch byte budget at 1 MiB; a data file's head zeroed: a read
@@ -179,7 +179,7 @@ then):
      nothing, `v3 = 42`, `v3 < 3` and `v1 > 2^39` read exactly; a full
      compaction whose outputs each carry a sidecar; the 10 queries
      again) and fi_rewrite_coverage
-     (1M rows written without indexes, then rewrite_file_index with a
+     (500K rows written without indexes, then rewrite_file_index with a
      bloom filter on id, and with force=True after the spec grew by the
      other indexes and a bloom filter on a string column; a write of
      indexed files whose data-file or sidecar write fails once and
@@ -207,7 +207,7 @@ then):
      the global index on id built with one launch and 10,000 lookups
      held against numpy, a compaction that keeps the row ids, reads
      with row ids) and ap_queue_coverage (bucket=4 by id with a bloom
-     filter on id: 8 commits of 2^18 rows, each commit's streaming delta
+     filter on id: 4 commits of 2^18 rows, each commit's streaming delta
      read, a compaction.min.file-num compaction, point predicates the
      file index skips).  Peak device memory stays under 4 GiB.  It
      prints an {"append_tables": ...} line;
@@ -233,6 +233,30 @@ then):
      on a row-tracked table, FormatTables over csv, json and parquet
      directories partitioned by dt, an ObjectTable over the media
      table's directory).  It prints a {"formats_types": ...} line;
+   - catalog_sql: the catalog and SQL as the Paimon docs' "SQL DDL",
+     "SQL Write", "SQL Query", "Procedures" and "Data Distribution"
+     pages use them, everything through create_catalog(device="cuda")
+     and SQLContext (seed 7), every answer held against a numpy oracle:
+     sql_orders_16M (CREATE DATABASE and TABLEs: shop.orders with
+     bench.py's columns, v1 in [0, 2^32), bucket=2, write-only, and the
+     100-row dimension table shop.regions filled by SQL; 8 INSERT ...
+     SELECT of a registered Arrow table of 2M rows, ids uniform in
+     [0, 8M), about 220 MB of raw rows a bucket; count(*), a range of
+     65,536 ids, a GROUP BY v3 and a star join with shop.regions;
+     UPDATE of v3 = 42, DELETE of id < 80,000 and a MERGE INTO from 1M
+     distinct ids uniform in [0, 16M), each followed by a read of every
+     row; sys.create_tag, sys.compact, time travel to the tag,
+     $snapshots, sys.expire_snapshots, sys.clone into backup.orders and
+     sys.all_tables) and sql_coverage (sys.migrate_table of a hive-style
+     parquet directory of 2^18 rows in 4 dt= partitions; an aggregation
+     table made by DDL, 4 inserts of 2^18 rows read and compacted, so
+     the offset-value-code variant launches; INSERT OVERWRITE, a view, a
+     SQL function and a window query; the JDBC (sqlite) and the REST
+     catalog on loopback, each creating, filling with 2^16 rows and
+     reading back a table; a user without INSERT refused; `python -m
+     paimon_tpu_torch --warehouse W sql` and `table read` as processes
+     on the card).  K1 must launch in sql_orders_16M and K2 in
+     sql_coverage.  It prints a {"catalog_sql": ...} line;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -275,7 +299,7 @@ The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
 phase, the read and write planes, the file indexes, the append tables,
-the formats and types, the stage split
+the formats and types, the catalog and SQL, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -356,15 +380,29 @@ def device_ms(fns, iters: int = 20) -> list:
     torch.cuda.synchronize()
 
     def session(activities):
+        t = [time.perf_counter()]
         with profile(activities=activities) as prof:
+            t.append(time.perf_counter())
             for fn in fns:
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
-        return sorted((e.time_range.start, e.time_range.elapsed_us())
-                      for e in prof.events()
-                      if KERNEL_NAME in e.name
-                      and e.device_type == torch.autograd.DeviceType.CUDA)
+            t.append(time.perf_counter())
+        t.append(time.perf_counter())
+        events = prof.events()
+        t.append(time.perf_counter())
+        spans = sorted((e.time_range.start, e.time_range.elapsed_us())
+                       for e in events
+                       if KERNEL_NAME in e.name
+                       and e.device_type == torch.autograd.DeviceType.CUDA)
+        t.append(time.perf_counter())
+        # where a session's seconds go: the profiler's start, the calls,
+        # its stop (the trace's collection), the events' parse, the scan
+        log(f"profiler session: start {t[1] - t[0]:.2f} s, "
+            f"{len(fns)} x {iters} calls {t[2] - t[1]:.2f} s, stop "
+            f"{t[3] - t[2]:.2f} s, events() {t[4] - t[3]:.2f} s "
+            f"({len(events)} events), kernel spans {t[5] - t[4]:.2f} s")
+        return spans
     # the card's activity alone (host op events cost seconds to gather);
     # with the host's too where that records no kernel
     spans = session([ProfilerActivity.CUDA])
@@ -2136,14 +2174,17 @@ BM_TARGET = 2_000_000            # dynamic-bucket.target-row-num's default
 DYN_ROWS = 5_000_000             # dyn_dedup_5M: 10 commits of 500K
 DYN_KEYS = 4_000_000             # ids uniform in [0, 4M)
 DYN_COMMITS = 10
-DYN_FRESH = 500_000              # upserts of existing ids, a fresh table
-DYN_EVOLVED = 1_000_000          # upserts a commit under the new schema
-XPART_KEYS = 1_000_000           # xpart_upsert_1M: 4 commits of 250K keys
-XPART_UPSERTS = 125_000          # then 4 commits of 125K upserts (2M and
-#                                  250K until the formats phase came)
+DYN_FRESH = 250_000              # upserts of existing ids, a fresh table
+DYN_EVOLVED = 500_000            # upserts a commit under the new schema
+#                                  (500K and 1M until the SQL phase came)
+XPART_KEYS = 500_000             # xpart_upsert_500K: 4 commits of 125K
+XPART_UPSERTS = 62_500           # keys, then 4 commits of 62.5K upserts
+#                                  (2M and 250K until the formats phase
+#                                  came, 1M and 125K until the SQL phase)
 XPART_PARTS = 4
-POSTPONE_ROWS = 4_000_000        # postpone_4M: 4 commits of 1M (8M
-                                 # until the append phase came)
+POSTPONE_ROWS = 2_000_000        # postpone_2M: 4 commits of 500K (8M
+                                 # until the append phase came, 4M until
+                                 # the SQL phase)
 POSTPONE_TARGET = 5_000_000      # postpone.target-row-num-per-bucket
 
 
@@ -2385,10 +2426,10 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
-    """xpart_upsert_1M: cross-partition upsert (primary key id, partition
-    dt INT of 4 values, bucket unset): 2M keys in 4 commits from one
-    writer; then a fresh table object's writer (the global index
-    bootstraps from the table) upserts 250K ids a commit for 4 commits, a
+    """xpart_upsert_500K: cross-partition upsert (primary key id,
+    partition dt INT of 4 values, bucket unset): 500K keys in 4 commits
+    from one writer; then a fresh table object's writer (the global index
+    bootstraps from the table) upserts 62.5K ids a commit for 4 commits, a
     quarter of them moving partition and 1% of those moving again later
     in the same batch; each id held once, in the partition of its last
     write, before and after a full compaction."""
@@ -2398,7 +2439,7 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
 
-    name = "xpart_upsert_1M"
+    name = "xpart_upsert_500K"
     path = os.path.join(work, name)
     keys, target = XPART_KEYS // scale, BM_TARGET // scale
     opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
@@ -2472,14 +2513,14 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def postpone(work: str, rec: Recorder, device, scale: int) -> dict:
-    """postpone_4M: bucket=-2, deduplicate, write-only; 4M rows in 4
+    """postpone_2M: bucket=-2, deduplicate, write-only; 2M rows in 4
     commits staged un-hashed (a scan sees none of them, as the
     reference's does), then rescale_postpone at the postpone defaults
     (5M rows a bucket) and a scan held against the oracle, the rescaled
     hash index against the rows."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "postpone_4M"
+    name = "postpone_2M"
     path = os.path.join(work, name)
     rows, per_bucket = POSTPONE_ROWS // scale, POSTPONE_TARGET // scale
     opts = {"bucket": "-2", "write-only": "true",
@@ -2531,8 +2572,8 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     out = {}
     t_all = time.perf_counter()
     for name, fn in (("dyn_dedup_5M", dyn_dedup),
-                     ("xpart_upsert_1M", xpart_upsert),
-                     ("postpone_4M", postpone)):
+                     ("xpart_upsert_500K", xpart_upsert),
+                     ("postpone_2M", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
         out[name]["s"] = time.perf_counter() - t0
@@ -3134,25 +3175,26 @@ WRP_FOLD_PER_CALL = 50_000       # spill_fold_coverage: 24 calls of 50K
 WRP_FOLD_KEYS = 6_000_000        # ids uniform in [0, 6M), 2 MB spills,
 WRP_FOLD_SPILL_MB = 2            # a 16 MB disk cap (100K, 12M, 4 MB and
 WRP_FOLD_DISK_MB = 16            # 32 MB until the append phase came)
-WRP_LM_COMMITS = 8               # local_merge_hot_4M: 8 commits of 500K
-WRP_LM_PER_COMMIT = 500_000      # (8M rows until the append phase came)
+WRP_LM_COMMITS = 8               # local_merge_hot_2M: 8 commits of 250K
+WRP_LM_PER_COMMIT = 250_000      # (8M rows until the append phase came,
+#                                  4M until the SQL phase)
 WRP_LM_HOT = 1_000               # half of each commit on 1,000 hot ids,
-WRP_LM_KEYS = 2_000_000          # the other half uniform in [0, 2M)
+WRP_LM_KEYS = 1_000_000          # the other half uniform in [0, 1M)
 WRP_PLAN_COMMITS = 24            # plan_daily_1.2M: 24 commits of 50K rows
                                  # (120 until the file-index phase came)
 WRP_PLAN_PER_COMMIT = 50_000
 WRP_PLAN_DAYS = 12
 WRP_PLAN_KEYS = 200_000          # ids uniform in [0, 200K) a day
 WRP_PLAN_COLD_EVERY = 10         # a cold plan every 10th commit
-WRP_FAULT_COMMITS = 4            # faults_2M: 4 commits of 500K rows
-WRP_FAULT_PER_COMMIT = 500_000   # (4M rows until the append phase came)
-WRP_FAULT_KEYS = 1_000_000
+WRP_FAULT_COMMITS = 4            # faults_1M: 4 commits of 250K rows
+WRP_FAULT_PER_COMMIT = 250_000   # (4M rows until the append phase came,
+WRP_FAULT_KEYS = 500_000         # 2M until the SQL phase)
 WRP_FAULT_ONE_IN = 20            # data-file writes and reads failing once
 MiB = 1 << 20
 
 
 class FaultyFileIO:
-    """faults_2M's store: the first attempt at every WRP_FAULT_ONE_IN-th
+    """faults_1M's store: the first attempt at every WRP_FAULT_ONE_IN-th
     data-file write, and once armed every such read, raises
     TransientStoreError (by a seeded count of calls; a retry of a file
     that failed goes through, since staged uploads and read retries keep
@@ -3434,11 +3476,11 @@ def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
                     scale: int) -> dict:
-    """local_merge_hot_4M: skewed streaming upserts folded before bucket
+    """local_merge_hot_2M: skewed streaming upserts folded before bucket
     routing (the Paimon docs' Local Merging, at its suggested 64 MB)."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "local_merge_hot_4M"
+    name = "local_merge_hot_2M"
     per, keys = WRP_LM_PER_COMMIT // scale, WRP_LM_KEYS // scale
     opts = {"bucket": "4", "local-merge-buffer-size": "64mb"}
     table = FileStoreTable.create(os.path.join(work, name),
@@ -3691,7 +3733,7 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
 
 
 def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """faults_2M: retries, upload staging, the prefetch byte budget and
+    """faults_1M: retries, upload staging, the prefetch byte budget and
     the corrupt-file skip on a 4-bucket table over FaultyFileIO."""
     import warnings
 
@@ -3699,7 +3741,7 @@ def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
     from paimon_tpu_torch.parallel.scan_pipeline import iter_split_tables
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "faults_2M"
+    name = "faults_1M"
     per, keys = WRP_FAULT_PER_COMMIT // scale, WRP_FAULT_KEYS // scale
     stage = tempfile.mkdtemp(prefix="paimon-stage-")
     path = os.path.join(work, name)
@@ -3814,10 +3856,10 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
         out["spill_bucket_24M"] = spill_bucket(work, rec, timer, dev, scale)
         out["spill_fold_coverage"] = spill_fold(work, rec, timer, dev,
                                                 scale)
-        out["local_merge_hot_4M"] = local_merge_hot(work, rec, timer, dev,
+        out["local_merge_hot_2M"] = local_merge_hot(work, rec, timer, dev,
                                                     scale)
     out["plan_daily_1.2M"] = plan_daily(work, rec, dev, scale)
-    out["faults_2M"] = faults(work, rec, dev, scale)
+    out["faults_1M"] = faults(work, rec, dev, scale)
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
     out["launches_plain"] = sum(p["launches_plain"] for p in mine)
@@ -3841,9 +3883,10 @@ FI_KEYS = 8_000_000
 FI_QUERIES = 5                   # present ids, and as many absent ones
 #                                  (50 until the formats phase came)
 FI_READ_PLANS = 10               # absent-id plans timed per sidecar reader
-FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 250K
-FI_RW_PER_COMMIT = 250_000       # ids uniform in [0, 500K) (twice that
-FI_RW_KEYS = 500_000             # until the append phase came)
+FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 125K
+FI_RW_PER_COMMIT = 125_000       # ids uniform in [0, 250K) (4x that until
+FI_RW_KEYS = 250_000             # the append phase came, 2x until the SQL
+#                                  phase)
 FI_RW_QUERIES = 5
 # the Paimon docs' "Data File Index" options, file-index.in-manifest-
 # threshold at its 500-byte default
@@ -4177,7 +4220,7 @@ def fi_rewrite(work: str, rec: Recorder, timer: IndexTimer, dev,
         oracle.win[pc.equal(names, x).to_numpy(zero_copy_only=False)], "id")
 
     # a retried write of indexed files: a data file or sidecar write
-    # fails once (faults_2M's store)
+    # fails once (faults_1M's store)
     store = FaultyFileIO(get_file_io(path))
     faulty = FileStoreTable.load(path, file_io=store, device=dev,
                                  dynamic_options={
@@ -4257,8 +4300,9 @@ AP_TRACKED_COMMITS = 8           # ap_tracked_4M: 8 commits of 2^19 rows
 AP_TRACKED_PER_COMMIT = 1 << 19  # (2^20 until the formats phase came)
 AP_TRACKED_SHARE = 100           # 1 row id in 100 updated (twice), deleted
 AP_LOOKUPS = 10_000              # global-index lookups, half present
-AP_QUEUE_COMMITS = 8             # ap_queue_coverage: bucket=4 by id,
-AP_QUEUE_PER_COMMIT = 1 << 18    # 8 commits of 2^18 rows
+AP_QUEUE_COMMITS = 4             # ap_queue_coverage: bucket=4 by id,
+AP_QUEUE_PER_COMMIT = 1 << 18    # 4 commits of 2^18 rows (8 until the
+#                                  SQL phase came)
 AP_QUEUE_QUERIES = 25            # present ids, and as many absent ones
 
 
@@ -4665,7 +4709,7 @@ def ap_queue(work: str, rec: Recorder, dev, scale: int) -> dict:
     batches = [bench_rows(rng, rng.integers(0, keys, per))
                for _ in range(AP_QUEUE_COMMITS)]
     table = FileStoreTable.create(path, append_schema({
-        "bucket": "4", "bucket-key": "id", "compaction.min.file-num": "6",
+        "bucket": "4", "bucket-key": "id", "compaction.min.file-num": "3",
         "file-index.bloom-filter.columns": "id",
         "parquet.enable.dictionary": "false"}), device=dev)
     out = {"rows": keys}
@@ -5355,9 +5399,588 @@ def formats_types(work: str, rec: Recorder, device="cuda",
     return out
 
 
+# -- the catalog and SQL: catalogs, the SQL front end, procedures, the CLI ---
+
+SQL_INSERTS = 8                  # sql_orders_16M: 8 INSERTs of 2M rows,
+SQL_PER_INSERT = 2_000_000       # ids uniform in [0, 8M): about 220 MB of
+SQL_KEYS = 8_000_000             # raw rows a bucket, 2 buckets
+SQL_V1_RANGE = 1 << 32           # v1 in [0, 2^32): the sums of 16M rows
+#                                  stay inside BIGINT
+SQL_RANGE = 65_536               # the range query's ids
+SQL_MERGE_ROWS = 1_000_000       # MERGE source: distinct ids uniform in
+SQL_MERGE_KEYS = 16_000_000      # [0, 16M), so ~43% match a live row
+SQL_REGIONS = 100                # shop.regions: one row a v3 value
+SQL_RETAIN = 3                   # sys.expire_snapshots' retain_max; the
+SQL_RETAIN_MIN = 10              # snapshot.num-retained.min default keeps
+#                                  the newest 10
+SQL_COV_ROWS = 1 << 18           # sql_coverage's migrated directory, and
+#                                  each of its aggregation table's inserts
+SQL_COV_CAT_ROWS = 1 << 16       # each JDBC and REST catalog's table
+
+
+class SqlOracle:
+    """sql_orders_16M by numpy alone, dense over the id range: per id
+    whether it is live and its v1, v2, v3."""
+
+    def __init__(self, capacity: int):
+        self.live = np.zeros(capacity, bool)
+        self.v1 = np.zeros(capacity, np.int64)
+        self.v2 = np.zeros(capacity, np.float64)
+        self.v3 = np.zeros(capacity, np.int32)
+
+    def upsert(self, ids, v1, v2, v3=None) -> None:
+        """One statement's upserts: the last row of an id wins (v3 kept
+        where not given)."""
+        at = np.full(len(self.live), -1, np.int64)
+        np.maximum.at(at, ids, np.arange(len(ids)))
+        u = np.flatnonzero(at >= 0)
+        last = at[u]
+        self.live[u] = True
+        self.v1[u] = v1[last]
+        self.v2[u] = v2[last]
+        if v3 is not None:
+            self.v3[u] = v3[last]
+
+    def ids(self) -> np.ndarray:
+        return np.flatnonzero(self.live)
+
+    def count_sum(self) -> list:
+        return [{"n": int(self.live.sum()),
+                 "s": int(self.v1[self.live].sum())}]
+
+    def by_v3(self) -> list:
+        live = self.live
+        v3, v1, v2 = self.v3[live], self.v1[live], self.v2[live]
+        n = np.bincount(v3, minlength=SQL_REGIONS)
+        s = np.zeros(SQL_REGIONS, np.int64)
+        np.add.at(s, v3, v1)
+        m = np.full(SQL_REGIONS, -np.inf)
+        np.maximum.at(m, v3, v2)
+        return [{"v3": int(k), "n": int(n[k]), "s": int(s[k]),
+                 "m": float(m[k])} for k in np.flatnonzero(n)]
+
+    def check(self, what: str, got, lo: int = 0, hi=None) -> None:
+        """`got` (id, v1, v2, v3) is exactly the live rows with ids in
+        [lo, hi), in any order."""
+        hi = len(self.live) if hi is None else hi
+        ids = got.column("id").combine_chunks().to_numpy()
+        want = int(self.live[lo:hi].sum())
+        if len(ids) != want:
+            raise AssertionError(f"{what}: {len(ids)} rows, oracle {want}")
+        if len(ids) and (ids.min() < lo or ids.max() >= hi or
+                         not self.live[ids].all()):
+            raise AssertionError(f"{what}: an id the oracle does not hold")
+        seen = np.zeros(hi - lo, bool)
+        seen[ids - lo] = True
+        if int(seen.sum()) != len(ids):
+            raise AssertionError(f"{what}: an id read twice")
+        for c in ("v1", "v2", "v3"):
+            col = got.column(c).combine_chunks()
+            if col.null_count or not np.array_equal(
+                    col.to_numpy(), getattr(self, c)[ids]):
+                raise AssertionError(f"{what}: column {c} differs from "
+                                     f"the oracle")
+
+
+def sql_batch(rng, n: int, id_range: int, unique: bool = False):
+    """bench.py's columns for SQL: ids uniform in [0, id_range) (distinct
+    with `unique`), v1 uniform in [0, 2^32), v2 in [0, 1), v3 in
+    [0, 100)."""
+    import pyarrow as pa
+    ids = rng.choice(id_range, n, replace=False) if unique \
+        else rng.integers(0, id_range, n)
+    return pa.table({
+        "id": pa.array(ids, pa.int64()),
+        "v1": pa.array(rng.integers(0, SQL_V1_RANGE, n), pa.int64()),
+        "v2": pa.array(rng.random(n), pa.float64()),
+        "v3": pa.array(rng.integers(0, SQL_REGIONS, n).astype(np.int32))})
+
+
+def sql_regions():
+    """shop.regions' rows: v3 0..99, a name of ten, a weight."""
+    import pyarrow as pa
+    rng = np.random.default_rng(7)
+    return pa.table({
+        "v3": pa.array(np.arange(SQL_REGIONS, dtype=np.int32)),
+        "name": pa.array([f"region-{k % 10}" for k in range(SQL_REGIONS)]),
+        "weight": pa.array(rng.random(SQL_REGIONS))})
+
+
+def columns_of(batch) -> tuple:
+    return tuple(batch.column(c).to_numpy() for c in ("id", "v1", "v2",
+                                                       "v3"))
+
+
+def same_result(what: str, got, want: list) -> None:
+    """A query's rows equal the oracle's, in order (floats exactly)."""
+    rows = got.to_pylist()
+    if rows != want:
+        raise AssertionError(f"{what}: {rows[:3]} ... ({len(rows)} rows), "
+                             f"oracle {want[:3]} ... ({len(want)} rows)")
+
+
+class CliRun:
+    """`python -m paimon_tpu_torch --warehouse W -f json ...`, started in
+    the background from the checkout's root: on the card (no --device)
+    unless `dev` is the CPU (a rehearsal).  A thread of its own waits
+    for it, so its wall time is known whenever it is read."""
+
+    def __init__(self, warehouse: str, dev, *argv):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        device = ["--device", "cpu"] if dev.type == "cpu" else []
+        self.argv = argv
+        self.t0 = time.perf_counter()
+        self.s = None
+        self.out = self.err = ""
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paimon_tpu_torch", "--warehouse",
+             warehouse, *device, "-f", "json", *argv], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self):
+        self.out, self.err = self.proc.communicate()
+        self.s = time.perf_counter() - self.t0
+
+    def rows(self, timeout: float = 300.0) -> list:
+        """The JSON rows it printed; raises unless it exited 0."""
+        self.thread.join(timeout)
+        self.stop()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the CLI's {self.argv[0]}: exit "
+                                 f"{self.proc.returncode}: "
+                                 f"{self.err.strip()[-500:]}")
+        return [json.loads(line) for line in self.out.splitlines()
+                if line.strip()]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.thread.join()
+
+
+def sql_orders(work: str, rec: Recorder, dev, scale: int) -> tuple:
+    """sql_orders_16M through create_catalog and SQLContext: returns what
+    it reports, its catalog, its oracle and the CLI runs started on its
+    final rows."""
+
+    from paimon_tpu_torch import create_catalog
+    from paimon_tpu_torch.sql import SQLContext
+
+    name = f"sql_orders_{16 // scale}M" if scale <= 16 else "sql_orders"
+    per, keys = SQL_PER_INSERT // scale, SQL_KEYS // scale
+    merge_rows, merge_keys = SQL_MERGE_ROWS // scale, SQL_MERGE_KEYS // scale
+    wh = os.path.join(work, "sql_wh")
+    rng = np.random.default_rng(7)
+    out: dict = {"rows": SQL_INSERTS * per}
+    steps: dict = {}
+
+    def step(what, rows, fn):
+        t0 = time.perf_counter()
+        res = rec.run(name, what, rows, dev, fn)
+        steps[what] = time.perf_counter() - t0
+        return res
+
+    catalog = create_catalog({"warehouse": wh}, device=dev)
+    ctx = SQLContext(catalog)
+    oracle = SqlOracle(merge_keys)
+
+    def ddl():
+        ctx.sql("CREATE DATABASE shop")
+        ctx.sql("CREATE TABLE shop.orders (id BIGINT NOT NULL, v1 BIGINT, "
+                "v2 DOUBLE, v3 INT, PRIMARY KEY (id) NOT ENFORCED) WITH ("
+                "'bucket' = '2', 'write-only' = 'true')")
+        ctx.sql("CREATE TABLE shop.regions (v3 INT NOT NULL, name STRING, "
+                "weight DOUBLE, PRIMARY KEY (v3) NOT ENFORCED) WITH ("
+                "'bucket' = '1')")
+        ctx.register("regions_src", sql_regions())
+        ctx.sql("INSERT INTO shop.regions SELECT * FROM regions_src")
+    step("create database and tables", SQL_REGIONS, ddl)
+
+    t0 = time.perf_counter()
+    batches = [sql_batch(rng, per, keys) for _ in range(SQL_INSERTS)]
+    log(f"  {name}: {SQL_INSERTS} batches of {per} rows made in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def insert():
+        for b in batches:
+            ctx.register("staged", b)
+            ctx.sql("INSERT INTO shop.orders SELECT * FROM staged")
+    step(f"insert x{SQL_INSERTS}", SQL_INSERTS * per, insert)
+    t0 = time.perf_counter()
+    oracle.upsert(*(np.concatenate(c) for c in
+                    zip(*(columns_of(b) for b in batches))))
+    ctx.register("staged", batches[0].slice(0, 0))
+    del batches
+    log(f"  {name}: oracle of the inserts in "
+        f"{time.perf_counter() - t0:.2f} s")
+    live = int(oracle.live.sum())
+
+    q = "SELECT count(*) AS n FROM shop.orders"
+    same_result(f"{name} count(*)", step("count(*)", live,
+                                         lambda: ctx.sql(q)),
+                [{"n": live}])
+    lo = keys // 2
+    got = step("range select", SQL_RANGE, lambda: ctx.sql(
+        f"SELECT * FROM shop.orders WHERE id BETWEEN {lo} AND "
+        f"{lo + SQL_RANGE - 1}"))
+    oracle.check(f"{name} range select", got, lo, lo + SQL_RANGE)
+    got = step("group by v3", live, lambda: ctx.sql(
+        "SELECT v3, count(*) AS n, sum(v1) AS s, max(v2) AS m FROM "
+        "shop.orders GROUP BY v3 ORDER BY v3"))
+    same_result(f"{name} group by v3", got, oracle.by_v3())
+    got = step("star join", live, lambda: ctx.sql(
+        "SELECT r.name, count(*) AS n, sum(o.v1) AS s FROM shop.orders o "
+        "JOIN shop.regions r ON o.v3 = r.v3 GROUP BY r.name"))
+    want: dict = {}
+    for row in oracle.by_v3():
+        acc = want.setdefault(f"region-{row['v3'] % 10}",
+                              {"n": 0, "s": 0})
+        acc["n"] += row["n"]
+        acc["s"] += row["s"]
+    same_result(f"{name} star join",
+                got.sort_by("name"),
+                [{"name": k, **v} for k, v in sorted(want.items())])
+
+    def read_check(what):
+        got = step(f"read after {what}", int(oracle.live.sum()),
+                   lambda: ctx.sql("SELECT * FROM shop.orders"))
+        oracle.check(f"{name} read after {what}", got)
+
+    hit = oracle.live & (oracle.v3 == 42)
+    out["updated"] = int(hit.sum())
+    res = step("update v3 = 42", out["updated"], lambda: ctx.sql(
+        "UPDATE shop.orders SET v1 = v1 + 1 WHERE v3 = 42"))
+    same_result(f"{name} update", res, [{"result": f"{out['updated']} rows "
+                                                   f"updated"}])
+    oracle.v1[hit] += 1
+    read_check("update")
+
+    cut = 80_000 // scale
+    out["deleted"] = int(oracle.live[:cut].sum())
+    res = step("delete id < cut", out["deleted"], lambda: ctx.sql(
+        f"DELETE FROM shop.orders WHERE id < {cut}"))
+    same_result(f"{name} delete", res, [{"result": f"{out['deleted']} rows "
+                                                   f"deleted"}])
+    oracle.live[:cut] = False
+    read_check("delete")
+
+    src = sql_batch(rng, merge_rows, merge_keys, unique=True)
+    ids, v1, v2, v3 = columns_of(src)
+    matched = oracle.live[ids]
+    out["merge_matched"] = int(matched.sum())
+    ctx.register("merge_src", src)
+    res = step("merge into", merge_rows, lambda: ctx.sql(
+        "MERGE INTO shop.orders t USING merge_src s ON t.id = s.id "
+        "WHEN MATCHED THEN UPDATE SET v1 = s.v1, v2 = s.v2 "
+        "WHEN NOT MATCHED THEN INSERT VALUES (s.id, s.v1, s.v2, s.v3)"))
+    same_result(f"{name} merge", res, [{"result": f"{merge_rows} rows "
+                                                  f"merged"}])
+    oracle.upsert(ids[matched], v1[matched], v2[matched])
+    oracle.upsert(ids[~matched], v1[~matched], v2[~matched], v3[~matched])
+    ctx.register("merge_src", src.slice(0, 0))
+    del src, ids, v1, v2, v3
+    # the rows are final: the CLI's processes start here and answer while
+    # the steps below (which keep every row as it is) and sql_coverage
+    # run; their snapshot may be this one or a later one
+    before = oracle.count_sum()
+    q = "SELECT count(*) AS n, sum(v1) AS s FROM {}"
+    cli = (CliRun(wh, dev, "sql", q.format("shop.orders")),
+           CliRun(wh, dev, "table", "read", "shop.regions"), before)
+    read_check("merge")
+
+    step("create_tag", 0, lambda: ctx.sql(
+        "CALL sys.create_tag('shop.orders', 'pre_compact')"))
+    res = step("compact", before[0]["n"], lambda: ctx.sql(
+        "CALL sys.compact('shop.orders', true)"))
+    if not res.column("result")[0].as_py().startswith("snapshot "):
+        raise AssertionError(f"{name} compact: {res.to_pylist()}")
+    got = step("time travel to the tag", before[0]["n"], lambda: ctx.sql(
+        "SELECT count(*) AS n, sum(v1) AS s FROM shop.orders VERSION AS OF "
+        "'pre_compact'"))
+    same_result(f"{name} time travel", got, before)
+    latest = catalog.get_table("shop.orders").latest_snapshot().id
+    snaps = step("$snapshots", 0, lambda: ctx.sql(
+        "SELECT snapshot_id, commit_kind FROM shop.orders$snapshots"))
+    if sorted(snaps.column("snapshot_id").to_pylist()) != \
+            list(range(1, latest + 1)):
+        raise AssertionError(f"{name} $snapshots: "
+                             f"{snaps.column('snapshot_id').to_pylist()}, "
+                             f"latest {latest}")
+    out["snapshots"] = latest
+    res = step("expire_snapshots", 0, lambda: ctx.sql(
+        f"CALL sys.expire_snapshots('shop.orders', {SQL_RETAIN})"))
+    kept = max(SQL_RETAIN, SQL_RETAIN_MIN)
+    left = ctx.sql("SELECT snapshot_id FROM shop.orders$snapshots")
+    if sorted(left.column("snapshot_id").to_pylist()) != \
+            list(range(max(latest - kept, 0) + 1, latest + 1)):
+        raise AssertionError(f"{name} expire_snapshots: {res.to_pylist()}, "
+                             f"left {left.to_pylist()}")
+    out["expired"] = max(latest - kept, 0)
+
+    ctx.sql("CREATE DATABASE backup")
+    step("clone", before[0]["n"], lambda: ctx.sql(
+        "CALL sys.clone('shop.orders', 'backup.orders')"))
+    got = step("count and sum of the clone", before[0]["n"],
+               lambda: ctx.sql(q.format("backup.orders")))
+    same_result(f"{name} clone", got, before)
+    got = step("sys.all_tables", 0, lambda: ctx.sql(
+        "SELECT database_name, table_name, record_count FROM sys.all_tables "
+        "ORDER BY database_name, table_name"))
+    same_result(f"{name} sys.all_tables", got, [
+        {"database_name": "backup", "table_name": "orders",
+         "record_count": before[0]["n"]},
+        {"database_name": "shop", "table_name": "orders",
+         "record_count": before[0]["n"]},
+        {"database_name": "shop", "table_name": "regions",
+         "record_count": SQL_REGIONS}])
+    out["steps_s"] = steps
+    return out, catalog, oracle, cli
+
+
+def sql_coverage(work: str, rec: Recorder, dev, scale: int, catalog,
+                 cli) -> dict:
+    """sql_coverage: migrate, an aggregation table made by DDL, INSERT
+    OVERWRITE, a view, a SQL function and a window query, the JDBC and
+    REST catalogs, a privileged user, and the CLI's answers."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from paimon_tpu_torch import create_catalog
+    from paimon_tpu_torch.catalog.privilege import (
+        Privilege, PrivilegedCatalog, PrivilegeError, PrivilegeManager,
+    )
+    from paimon_tpu_torch.catalog.rest import RESTCatalogServer
+    from paimon_tpu_torch.sql import SQLContext
+
+    name = "sql_coverage"
+    rows = max(SQL_COV_ROWS // scale, 1024)
+    cat_rows = max(SQL_COV_CAT_ROWS // scale, 1024)
+    rng = np.random.default_rng(7)
+    ctx = SQLContext(catalog)
+    out: dict = {}
+    steps: dict = {}
+
+    def step(what, n, fn):
+        t0 = time.perf_counter()
+        res = rec.run(name, what, n, dev, fn)
+        steps[what] = time.perf_counter() - t0
+        return res
+
+    ctx.sql("CREATE DATABASE cov")
+    # a hive-style parquet directory, 4 dt= partitions, migrated in place
+    hive = os.path.join(work, "hive_orders")
+    parts = []
+    for k in range(4):
+        d = os.path.join(hive, f"dt=2026-01-0{k + 1}")
+        os.makedirs(d)
+        b = sql_batch(rng, rows // 4, rows, unique=True)
+        b = b.set_column(0, "id", pa.array(
+            np.arange(k * rows // 4, (k + 1) * rows // 4), pa.int64()))
+        pq.write_table(b, os.path.join(d, "part-0.parquet"))
+        parts.append(b.append_column("dt", pa.array(
+            [f"2026-01-0{k + 1}"] * b.num_rows)))
+    step("migrate_table", rows, lambda: ctx.sql(
+        f"CALL sys.migrate_table('{hive}', 'cov.migrated')"))
+    got = ctx.sql("SELECT * FROM cov.migrated ORDER BY id")
+    want = pa.concat_tables(parts)
+    if sorted(got.column_names) != sorted(want.column_names) or not all(
+            got.column(c).combine_chunks().equals(
+                want.column(c).combine_chunks()) for c in want.column_names):
+        raise AssertionError(f"{name}: the migrated table differs from its "
+                             f"files")
+
+    # an aggregation table created by DDL: 4 inserts, read, compact, read
+    ctx.sql("CREATE TABLE cov.agg (id BIGINT NOT NULL, v1 BIGINT, v2 DOUBLE, "
+            "v3 INT, PRIMARY KEY (id) NOT ENFORCED) WITH ('bucket' = '1', "
+            "'write-only' = 'true', 'merge-engine' = 'aggregation', "
+            "'fields.v1.aggregate-function' = 'sum', "
+            "'fields.v2.aggregate-function' = 'max', "
+            "'fields.v3.aggregate-function' = 'max')")
+    batches = [sql_batch(rng, rows, rows) for _ in range(4)]
+
+    def agg_insert():
+        for b in batches:
+            ctx.register("staged", b)
+            ctx.sql("INSERT INTO cov.agg SELECT * FROM staged")
+    step("aggregation insert x4", 4 * rows, agg_insert)
+    agg_want = agg_oracle({c: np.concatenate([b.column(c).to_numpy()
+                                              for b in batches])
+                           for c in ("id", "v1", "v2", "v3")})
+    got = step("aggregation read", 4 * rows,
+               lambda: ctx.sql("SELECT * FROM cov.agg"))
+    check_agg(f"{name} aggregation read", got, agg_want)
+    step("aggregation compact", 4 * rows, lambda: ctx.sql(
+        "CALL sys.compact('cov.agg', true)"))
+    check_agg(f"{name} aggregation read after compaction",
+              ctx.sql("SELECT * FROM cov.agg"), agg_want)
+
+    # INSERT OVERWRITE, a view, a SQL function, a window
+    cov = SQLContext(catalog, database="cov")
+    kept = sql_batch(rng, 2048, 8192, unique=True)
+
+    def small():
+        cov.sql("CREATE TABLE small (id BIGINT NOT NULL, v1 BIGINT, "
+                "v2 DOUBLE, v3 INT, PRIMARY KEY (id) NOT ENFORCED) WITH ("
+                "'bucket' = '2')")
+        cov.register("staged", sql_batch(rng, 4096, 8192))
+        cov.sql("INSERT INTO small SELECT * FROM staged")
+        cov.register("staged", kept)
+        cov.sql("INSERT OVERWRITE small SELECT * FROM staged")
+        cov.sql("CREATE VIEW low AS SELECT id, v1, v2, v3 FROM small "
+                "WHERE v3 < 50")
+        cov.sql("CREATE FUNCTION scaled (x DOUBLE, n INT) RETURNS DOUBLE "
+                "AS 'x * n'")
+        return (cov.sql("SELECT id, scaled(v2, v3) AS w FROM low "
+                        "ORDER BY id"),
+                cov.sql("SELECT id, v3, row_number() OVER (PARTITION BY v3 "
+                        "ORDER BY id) AS rn FROM small ORDER BY v3, id"))
+    via_view, window = step("overwrite, view, function, window",
+                            kept.num_rows, small)
+    k_ids, _, k_v2, k_v3 = columns_of(kept)
+    low = np.flatnonzero(k_v3 < 50)
+    low = low[np.argsort(k_ids[low])]
+    same_result(f"{name} view and function", via_view,
+                [{"id": int(i), "w": float(w)} for i, w in
+                 zip(k_ids[low], k_v2[low] * k_v3[low])])
+    order = np.lexsort((k_ids, k_v3))
+    v3s = k_v3[order]
+    starts = np.flatnonzero(np.r_[True, v3s[1:] != v3s[:-1]])
+    rank = np.arange(len(order)) - np.repeat(
+        starts, np.diff(np.r_[starts, len(order)])) + 1
+    same_result(f"{name} window", window,
+                [{"id": int(i), "v3": int(v), "rn": int(r)}
+                 for i, v, r in zip(k_ids[order], v3s, rank)])
+
+    # the JDBC (sqlite) and REST catalogs on loopback
+    def jdbc():
+        cat = create_catalog({"metastore": "jdbc",
+                              "uri": os.path.join(work, "catalog.db"),
+                              "warehouse": os.path.join(work, "jdbc_wh")},
+                             device=dev)
+        try:
+            return catalog_round_trip("jdbc", cat, rng, cat_rows)
+        finally:
+            cat.close()
+    step("jdbc catalog", cat_rows, jdbc)
+
+    def rest():
+        backing = create_catalog({"warehouse": os.path.join(work,
+                                                            "rest_wh")},
+                                 device=dev)
+        server = RESTCatalogServer(backing, token="chip-smoke").start()
+        try:
+            client = create_catalog({"metastore": "rest", "uri": server.uri,
+                                     "token": "chip-smoke"}, device=dev)
+            return catalog_round_trip("rest", client, rng, cat_rows)
+        finally:
+            server.stop()
+    step("rest catalog", cat_rows, rest)
+
+    # a user granted SELECT only: reads, and is refused an INSERT
+    pm = PrivilegeManager(catalog.file_io, catalog.warehouse)
+    pm.init("root-pw")
+    pm.create_user("reader", "reader-pw")
+    pm.grant("reader", Privilege.SELECT, "cov.small")
+    reader = SQLContext(PrivilegedCatalog(catalog, "reader", "reader-pw"))
+    if reader.sql("SELECT count(*) AS n FROM cov.small").to_pylist() != \
+            [{"n": kept.num_rows}]:
+        raise AssertionError(f"{name}: the privileged read differs")
+    try:
+        reader.sql("INSERT INTO cov.small VALUES (1, 1, 1.0, 1)")
+    except PrivilegeError:
+        out["insert_refused"] = True
+    else:
+        raise AssertionError(f"{name}: a user without INSERT inserted")
+
+    # the CLI processes started on sql_orders' final rows
+    cli_count, cli_read, before = cli
+    t0 = time.perf_counter()
+    got = cli_count.rows()
+    if got != before:
+        raise AssertionError(f"the CLI's sql: {got}, oracle {before}")
+    got = cli_read.rows()
+    if sorted(got, key=lambda r: r["v3"]) != sql_regions().to_pylist():
+        raise AssertionError("the CLI's table read differs from "
+                             "shop.regions")
+    steps["cli wait"] = time.perf_counter() - t0
+    out["cli"] = {"sql_s": cli_count.s, "table_read_s": cli_read.s,
+                  "equal": True}
+    out["steps_s"] = steps
+    return out
+
+
+def catalog_round_trip(kind: str, catalog, rng, rows: int) -> int:
+    """A table created, filled and read back through SQL on `catalog`."""
+    from paimon_tpu_torch.sql import SQLContext
+    ctx = SQLContext(catalog)
+    ctx.sql("CREATE DATABASE db")
+    ctx.sql("CREATE TABLE db.t (id BIGINT NOT NULL, v1 BIGINT, v2 DOUBLE, "
+            "v3 INT, PRIMARY KEY (id) NOT ENFORCED) WITH ('bucket' = '2')")
+    b = sql_batch(rng, rows, 4 * rows, unique=True)
+    ctx.register("staged", b)
+    ctx.sql("INSERT INTO db.t SELECT * FROM staged")
+    got = ctx.sql("SELECT * FROM db.t ORDER BY id")
+    want = b.sort_by("id")
+    if got.column_names != want.column_names or not all(
+            got.column(c).combine_chunks().equals(
+                want.column(c).combine_chunks()) for c in want.column_names):
+        raise AssertionError(f"the {kind} catalog's table differs")
+    if catalog.get_table("db.t").device != catalog.device:
+        raise AssertionError(f"the {kind} catalog's table is off its device")
+    return rows
+
+
+def catalog_sql(work: str, rec: Recorder, device="cuda",
+                scale: int = 1) -> dict:
+    """The catalog and SQL on the card (`scale` divides the row counts,
+    for a rehearsal): sql_orders_16M, then sql_coverage.  Returns what
+    the phase reports."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    orders, catalog, oracle, cli = sql_orders(work, rec, dev, scale)
+    orders["s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    try:
+        cov = sql_coverage(work, rec, dev, scale, catalog, cli)
+    finally:
+        for run in cli[:2]:
+            run.stop()
+    cov["s"] = time.perf_counter() - t0
+    name = next(p["table"] for p in rec.phases
+                if p["table"].startswith("sql_orders"))
+    out = {name: orders, "sql_coverage": cov}
+    for table in (name, "sql_coverage"):
+        mine = [p for p in rec.phases if p["table"] == table]
+        out[table]["launches_plain"] = sum(p["launches_plain"] for p in mine)
+        out[table]["launches_ovc"] = sum(p["launches_ovc"] for p in mine)
+    if device != "cpu" and (out[name]["launches_plain"] == 0 or
+                            out["sql_coverage"]["launches_ovc"] == 0):
+        raise AssertionError(f"catalog_sql: K1 in {name} "
+                             f"{out[name]['launches_plain']} times, K2 in "
+                             f"sql_coverage "
+                             f"{out['sql_coverage']['launches_ovc']} times")
+    out["launch_shapes"] = sorted(
+        [[k[0]] + list(k[1:4]) + [k[4], v]
+         for k, v in rec.capture.calls.items()
+         if k[0] in (name, "sql_coverage")])
+    mine = [p for p in rec.phases if p["table"] in (name, "sql_coverage")]
+    peaks = [p["peak_gib"] for p in mine if p["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    shutil.rmtree(os.path.join(work, "sql_wh"), ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 # -- the serving plane: point lookups and the one-replica query service ------
 
-SERVE_ROWS = 2_500_000           # cut from 10M, then from 5M (script
+SERVE_ROWS = 1_250_000           # cut from 10M, then 5M, then 2.5M (script
                                  # time)
 SERVE_COMMITS = 4
 SERVE_BUCKETS = 4
@@ -5611,7 +6234,7 @@ def thread_launches(capture, name: str) -> dict:
 
 def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
                 clients: int, seconds: float) -> dict:
-    """serve_dedup_2.5M: the reference serving benchmark's table at
+    """serve_dedup_1.25M: the reference serving benchmark's table at
     `rows`, served by one KvQueryServer on the card; see `serving`."""
     import torch
 
@@ -5624,7 +6247,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
     from paimon_tpu_torch import Schema
 
-    name = "serve_dedup_2.5M"
+    name = "serve_dedup_1.25M"
     path = os.path.join(work, name)
     dev = torch.device(device)
     lookups = global_registry().lookup_metrics()
@@ -5822,7 +6445,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
 
 def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
               clients: int, seconds: float) -> dict:
-    """serve_agg_2.5M: the same rows under aggregation (v sum), whose
+    """serve_agg_1.25M: the same rows under aggregation (v sum), whose
     every /lookup takes the merged fallback; see `serving`."""
     import torch
 
@@ -5831,7 +6454,7 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
 
-    name = "serve_agg_2.5M"
+    name = "serve_agg_1.25M"
     path = os.path.join(work, name)
     dev = torch.device(device)
     schema = (Schema.builder().column("id", BigIntType(False))
@@ -5933,7 +6556,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
             agg_seconds: float = 0.5) -> dict:
     """The serving plane on the card.
 
-    serve_dedup_2.5M: benchmarks/serve_bench.py's table (id BIGINT NOT
+    serve_dedup_1.25M: benchmarks/serve_bench.py's table (id BIGINT NOT
     NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
     dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
     11) served by one KvQueryServer with a refresh interval of 1000 ms:
@@ -5946,7 +6569,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     delta tier before its commit and from the LSM after), a full
     compaction while 8 clients read, and one /scan of SERVE_SCAN_LIMIT
     rows.
-    serve_agg_2.5M: the same rows under aggregation (v sum): 4 cold
+    serve_agg_1.25M: the same rows under aggregation (v sum): 4 cold
     buckets built at once from 4 client threads, each a full
     merge-on-read on the card, a 2048-key warm-up, then `clients` client
     threads of point gets for `agg_seconds`.  Every answer is held
@@ -5960,10 +6583,10 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
                                seconds)
     launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
-                for p in rec.phases if p["table"] == "serve_dedup_2.5M"}
+                for p in rec.phases if p["table"] == "serve_dedup_1.25M"}
     for what in ("mixed 90/10", "serving writer", "compact"):
         if launches[what][0] == 0:
-            raise AssertionError(f"serve_dedup_2.5M {what}: no launch of the "
+            raise AssertionError(f"serve_dedup_1.25M {what}: no launch of the "
                                  f"winner-select ({launches})")
     out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
                            agg_seconds)
@@ -5972,7 +6595,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
                        out["agg"]["cold_thread_launches"].items()
                        if t.startswith("paimon-serve"))
     if ovc == 0 or from_workers == 0:
-        raise AssertionError(f"serve_agg_2.5M: the offset-value-code "
+        raise AssertionError(f"serve_agg_1.25M: the offset-value-code "
                              f"variant did not launch from the handler "
                              f"threads ({out['agg']['cold_thread_launches']})")
     out["launches"] = {f"{p['table']} {p['phase']}":
@@ -6380,7 +7003,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
               maintained: dict, planes: dict, indexed: dict,
-              appended: dict, formatted: dict) -> tuple:
+              appended: dict, formatted: dict, sqled: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -6394,7 +7017,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
     totals = [0, 0]
     work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
     rec = Recorder(counts, phases, capture, reducer)
-    # retries and sidecar fallbacks of the whole run: only faults_2M's
+    # retries and sidecar fallbacks of the whole run: only faults_1M's
     # injected faults may retry
     planes0 = plane_counters()
 
@@ -6540,13 +7163,19 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # table surfaces over them
             formatted.update(path("formats_types",
                                   lambda: formats_types(work, rec)))
+            # the catalog and SQL: DDL, DML, MERGE INTO, time travel and
+            # the procedures through create_catalog and SQLContext, the
+            # JDBC and REST catalogs, privileges, views and functions,
+            # and the CLI on the card
+            sqled.update(path("catalog_sql",
+                              lambda: catalog_sql(work, rec)))
         moved = counter_delta(planes0)
-        injected = sum(planes["faults_2M"]["faults"].values()) + \
+        injected = sum(planes["faults_1M"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
         if moved["read_retries"] + moved["write_retries"] != injected or \
                 moved["sidecar_fallbacks"]:
             raise AssertionError(f"the run retried or fell back beyond "
-                                 f"the {injected} faults faults_2M and "
+                                 f"the {injected} faults faults_1M and "
                                  f"fi_rewrite_coverage injected: {moved}")
         log(f"read and write planes over the run: {moved}")
         for what in ("scan", "read"):
@@ -6643,10 +7272,11 @@ def main() -> int:
     indexed: dict = {}
     appended: dict = {}
     formatted: dict = {}
+    sqled: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
-                         appended, formatted)
+                         appended, formatted, sqled)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -6682,6 +7312,7 @@ def main() -> int:
     print(json.dumps({"file_indexes": indexed}))
     print(json.dumps({"append_tables": appended}))
     print(json.dumps({"formats_types": formatted}))
+    print(json.dumps({"catalog_sql": sqled}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

@@ -19,3 +19,11 @@ from paimon_tpu_torch.types import (  # noqa: F401
 )
 from paimon_tpu_torch.options import Options, ConfigOption, CoreOptions  # noqa: F401
 from paimon_tpu_torch.schema.schema import Schema  # noqa: F401
+
+
+def create_catalog(options=None, device=None, **kwargs):
+    """Create a catalog from options (analog of CatalogFactory.createCatalog,
+    reference paimon-core catalog/CatalogFactory.java); its tables run on
+    `device` (None means "cuda")."""
+    from paimon_tpu_torch.catalog import create_catalog as _create
+    return _create(options, device=device, **kwargs)

@@ -222,6 +222,13 @@ class MergeFileSplitRead:
             # table-read.sequence-number.enabled)
             value_cols = value_cols + [SEQ_COL]
         read_cols = self.key_cols + [SEQ_COL, KIND_COL] + value_cols
+        if self._projection and self.options.merge_engine not in (
+                MergeEngine.DEDUPLICATE, MergeEngine.FIRST_ROW):
+            # the partial-update and aggregation merges fold every value
+            # column (sequence groups order their members by another
+            # column): read them all, output the projection (the
+            # reference reads the projection alone and raises KeyError)
+            read_cols += [f.name for f in self.schema.fields]
         read_cols = list(dict.fromkeys(read_cols))
         if split.raw_convertible:
             out = self._read_raw(split, read_cols, value_cols)

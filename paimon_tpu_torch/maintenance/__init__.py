@@ -2,9 +2,8 @@
 
 Counterpart of paimon_tpu/maintenance/ for primary-key tables: snapshot
 and decoupled changelog expiry, orphan clean, fsck and its repairs,
-manifest compaction, partition expiry, mark-done and auto-tags.  Clone
-and migrate take a catalog and a format table, which are not ported
-(ROADMAP.md A.8.9).
+manifest compaction, partition expiry, mark-done and auto-tags; clone
+and migrate (clone.py, migrate.py) take a catalog.
 
 reference: operation/SnapshotDeletion.java, ExpireSnapshotsImpl,
 operation/OrphanFilesClean.java, operation/PartitionExpire.java.

@@ -231,6 +231,12 @@ def span(name: str, *, cat: str = "", group: Optional[str] = None,
 
 # -- cross-process context of the serving plane ------------------------------
 
+def process_tag() -> str:
+    """Stable identity of this process inside a fleet trace:
+    ``<host>-<pid>-<salt>``."""
+    return _PROC
+
+
 def set_replica_id(replica_id: Optional[str]) -> None:
     """Name the serving replica in this process's spool header."""
     global _replica_id

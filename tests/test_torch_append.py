@@ -13,9 +13,12 @@ indexes), streaming deltas and the compaction picker's choices
 value compared is a table row or a file count, so equality is exact.
 """
 
+import ast
+import contextlib
 import functools
 import inspect
 import os
+import re
 import types
 
 import numpy as np
@@ -56,49 +59,138 @@ def _cpu_table(table_cls):
     return CpuTable
 
 
+def _cpu_catalog(catalog_cls):
+    """`catalog_cls` whose tables default to the CPU."""
+    class CpuCatalog(catalog_cls):
+        def __init__(self, *args, device=None, **kwargs):
+            super().__init__(*args, device=device or "cpu", **kwargs)
+    CpuCatalog.__name__ = catalog_cls.__name__
+    return CpuCatalog
+
+
+def cpu_entry_points(monkeypatch):
+    """Point the port's catalog entry points and its table package's
+    FileStoreTable at the CPU for one test, wherever a reference case
+    imports them from (module level or inside the test)."""
+    import paimon_tpu_torch
+    import paimon_tpu_torch.catalog as cat_pkg
+    import paimon_tpu_torch.table as table_pkg
+    from paimon_tpu_torch.catalog import catalog, jdbc, rest
+    for mod, name in ((catalog, "FileSystemCatalog"), (jdbc, "JdbcCatalog"),
+                      (rest, "RESTCatalogClient")):
+        cpu = _cpu_catalog(getattr(mod, name))
+        monkeypatch.setattr(mod, name, cpu)
+        if hasattr(cat_pkg, name):
+            monkeypatch.setattr(cat_pkg, name, cpu)
+    # catalog.create_catalog builds the patched classes; with device=None
+    # they open on the CPU
+    monkeypatch.setattr(table_pkg, "FileStoreTable",
+                        _cpu_table(table_pkg.FileStoreTable))
+    for mod in (paimon_tpu_torch, cat_pkg):
+        monkeypatch.setattr(mod, "create_catalog", catalog.create_catalog)
+
+
+def _cpu_main(main):
+    """The port's CLI `main` with `--device cpu` in front of argv."""
+    @functools.wraps(main)
+    def run(argv=None):
+        return main(["--device", "cpu", *(argv or [])])
+    return run
+
+
 def reference_module(name: str, port: bool):
     """A reference test module, run as written or against the port (its
-    FileStoreTable on the CPU)."""
+    FileStoreTable on the CPU, and its CLI's `main` with --device cpu).
+    A port case that opens a catalog runs under `cpu_entry_points`."""
     path = os.path.join(HERE, f"{name}.py")
     with open(path) as f:
         src = f.read()
     if port:
         src = src.replace("paimon_tpu.", "paimon_tpu_torch.") \
             .replace("from paimon_tpu import", "from paimon_tpu_torch import")
+        src = re.sub(r"(?m)^(\s*)import paimon_tpu$",
+                     r"\1import paimon_tpu_torch", src)
     mod = types.ModuleType(f"{name}_{'port' if port else 'reference'}")
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
     if port and "FileStoreTable" in mod.__dict__:
         mod.FileStoreTable = _cpu_table(mod.FileStoreTable)
+    if port and getattr(mod.__dict__.get("main"), "__module__", "") \
+            == "paimon_tpu_torch.cli":
+        mod.main = _cpu_main(mod.main)
     return mod
 
 
-def reference_cases(name: str, skip=()):
+def reference_cases(name: str, skip=(), classes: bool = False):
+    """(file, case) pairs of a reference test file: its top-level test
+    functions and, with `classes`, the test methods of its Test* classes
+    as "Class.method"."""
     with open(os.path.join(HERE, f"{name}.py")) as f:
-        return [(name, line[4:line.index("(")]) for line in f
-                if line.startswith("def test_")
-                and line[4:line.index("(")] not in skip]
+        tree = ast.parse(f.read())
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and \
+                node.name.startswith("test_"):
+            out.append(node.name)
+        elif classes and isinstance(node, ast.ClassDef) and \
+                node.name.startswith("Test"):
+            out.extend(f"{node.name}.{m.name}" for m in node.body
+                       if isinstance(m, ast.FunctionDef)
+                       and m.name.startswith("test_"))
+    return [(name, c) for c in out if c not in skip]
 
 
-def run_reference_case(case, pkg, tmp_path, monkeypatch):
+def _fixture_function(obj):
+    """The function under a module's @pytest.fixture, or None."""
+    if hasattr(obj, "_get_wrapped_function"):
+        return obj._get_wrapped_function()
+    wrapped = getattr(obj, "__pytest_wrapped__", None)
+    return getattr(wrapped, "obj", None)
+
+
+def run_reference_case(case, pkg, tmp_path, monkeypatch, request=None):
     """Run one reference case on `pkg` ("port" or "reference"); the
-    port's curve functions run on the CPU."""
+    port's curve functions and entry points run on the CPU.  Fixtures
+    come from the case's own module (generator fixtures are torn down
+    after it), then tmp_path / tmp_warehouse, then pytest's own through
+    `request` (capsys)."""
     if pkg == "port":
         from paimon_tpu_torch.ops import zorder
         for fn in ("z_index", "hilbert_index"):
             monkeypatch.setattr(zorder, fn, functools.partial(
                 getattr(zorder, fn), device="cpu"))
+        cpu_entry_points(monkeypatch)
     mod = reference_module(case[0], pkg == "port")
-    fn = getattr(mod, case[1])
-    kwargs = {}
-    for p in inspect.signature(fn).parameters:
-        if p == "tmp_path":
-            kwargs[p] = tmp_path
-        elif p == "tmp_warehouse":
-            kwargs[p] = str(tmp_path / "warehouse")
-        else:
-            raise AssertionError(f"unknown fixture {p}")
-    fn(**kwargs)
+    owner, _, name = case[1].rpartition(".")
+    fn = getattr(getattr(mod, owner)(), name) if owner else \
+        getattr(mod, name)
+    with contextlib.ExitStack() as teardown:
+        values = {}
+
+        def value(p):
+            if p in values:
+                return values[p]
+            fixture = _fixture_function(mod.__dict__.get(p))
+            if fixture is not None:
+                v = fixture(**{q: value(q) for q in
+                               inspect.signature(fixture).parameters})
+                if inspect.isgenerator(v):
+                    gen, v = v, next(v)
+                    teardown.callback(next, gen, None)
+            elif p == "tmp_path":
+                v = tmp_path
+            elif p == "tmp_warehouse":
+                v = str(tmp_path / "warehouse")
+            elif p == "monkeypatch":
+                v = monkeypatch
+            elif request is not None:
+                v = request.getfixturevalue(p)
+            else:
+                raise AssertionError(f"unknown fixture {p}")
+            values[p] = v
+            return v
+
+        fn(**{p: value(p) for p in inspect.signature(fn).parameters})
 
 
 CASES = reference_cases("test_append_table")

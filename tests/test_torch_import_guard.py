@@ -112,7 +112,21 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.stats",
                  "paimon_tpu_torch.table.system",
                  "paimon_tpu_torch.table.format_table",
-                 "paimon_tpu_torch.table.object_table"):
+                 "paimon_tpu_torch.table.object_table",
+                 "paimon_tpu_torch.catalog",
+                 "paimon_tpu_torch.catalog.catalog",
+                 "paimon_tpu_torch.catalog.system",
+                 "paimon_tpu_torch.catalog.view",
+                 "paimon_tpu_torch.catalog.function",
+                 "paimon_tpu_torch.catalog.privilege",
+                 "paimon_tpu_torch.catalog.auth",
+                 "paimon_tpu_torch.catalog.jdbc",
+                 "paimon_tpu_torch.catalog.rest",
+                 "paimon_tpu_torch.sql",
+                 "paimon_tpu_torch.sql.parser",
+                 "paimon_tpu_torch.sql.executor",
+                 "paimon_tpu_torch.cli",
+                 "paimon_tpu_torch.__main__"):
         assert name in out["modules"]
 
 

@@ -312,9 +312,19 @@ def test_compact_manifests_matches_reference(tmp_path):
 
 # -- out-of-slice features raise -------------------------------------------
 
-def _clone(tmp_path):
-    from paimon_tpu_torch.maintenance.clone import clone_table
-    clone_table(None, "db.a", "db.b")
+def _search_procedure(tmp_path, call="CALL sys.vector_search('docs', "
+                      "'emb', '1.0,0.05', 1)"):
+    """A search procedure through SQL on the CPU (index/fulltext.py and
+    vector/ are not ported: A.8.9)."""
+    from paimon_tpu_torch import create_catalog
+    from paimon_tpu_torch.sql import SQLContext
+    cat = create_catalog({"warehouse": str(tmp_path / "wh")}, device="cpu")
+    cat.create_database("default", ignore_if_exists=True)
+    ctx = SQLContext(cat)
+    ctx.sql("CREATE TABLE IF NOT EXISTS docs (id BIGINT NOT NULL, "
+            "title STRING, emb ARRAY<FLOAT>, PRIMARY KEY (id)) "
+            "WITH ('bucket' = '1')")
+    ctx.sql(call)
 
 
 def _append_blob_field_write(tmp_path, **options):
@@ -331,14 +341,14 @@ def _append_blob_field_write(tmp_path, **options):
 # buckets, row tracking and deletion vectors with append tables, system
 # tables and blob columns with the formats and types; their places hold
 # other unported planes
-_UNPORTED_ACTIONS = {"clone": _clone,
+_UNPORTED_ACTIONS = {"vector search": _search_procedure,
                      "append blob-field": functools.partial(
                          _append_blob_field_write, **{"blob-field": "b"})}
 
 
 @pytest.mark.parametrize("options, item", [
     ({"cache.disk.dir": "cache"}, "A.7b"),
-    ("clone", "A.8.9"),
+    ("vector search", "A.8.9"),
     ("append blob-field", "A.8.8b"),
     ({"request.timeout": "30 s"}, "A.7b")])
 def test_unported_table_options_raise(tmp_path, options, item):
@@ -384,14 +394,12 @@ def test_unread_expiry_bounds_raise_on_expire(tmp_path, key, value):
 
 
 def test_append_table_and_other_planes_raise(tmp_path):
-    from paimon_tpu_torch.maintenance.clone import clone_table
-    from paimon_tpu_torch.maintenance.migrate import migrate_table
     with pytest.raises(NotImplementedError, match="A.8.8b"):
         _append_blob_field_write(tmp_path, **{"blob-as-descriptor": "true"})
-    for call, item in ((lambda: clone_table(None, "db.a", "db.b"), "A.8.9"),
-                       (lambda: migrate_table(None, "/x", "db.t"), "A.8.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    for call in ("CALL sys.full_text_search('docs', 'title', 'tpu', 2)",
+                 "CALL sys.create_vector_index('docs', 'emb')"):
+        with pytest.raises(NotImplementedError, match="A.8.9"):
+            _search_procedure(tmp_path, call)
 
 
 def _multi_process_mesh():
@@ -421,9 +429,40 @@ def _blob_descriptor_reads():
                                  **{"blob-as-descriptor": "true"})
 
 
+def _sql_procedure(call):
+    def run():
+        with tempfile.TemporaryDirectory() as d:
+            _search_procedure(pathlib.Path(d), call)
+    return run
+
+
+def _cli_command(*argv):
+    """One of the CLI's sub-command handlers, called as main() would."""
+    def run():
+        from paimon_tpu_torch import cli
+        with tempfile.TemporaryDirectory() as d:
+            args = cli.build_parser().parse_args(
+                ["--device", "cpu", "-w", os.path.join(d, "wh"), *argv])
+            args.func(args)
+    return run
+
+
 @pytest.mark.parametrize("call, item", [
     (_blob_descriptor_reads, "A.8.8b"), (_variant_shredding, "A.8.8b"),
-    (_multi_process_mesh, "A.8.9"), (_object_store_path, "A.7b")])
+    (_multi_process_mesh, "A.8.9"), (_object_store_path, "A.7b"),
+    (_sql_procedure("CALL sys.full_text_search('docs', 'title', 'tpu')"),
+     "A.8.9"),
+    (_sql_procedure("CALL sys.vector_search('docs', 'emb', '1.0,0.0')"),
+     "A.8.9"),
+    (_sql_procedure("CALL sys.hybrid_search('docs', 'emb', '1.0,0.0', "
+                    "'title', 'tpu')"), "A.8.9"),
+    (_sql_procedure("CALL sys.create_vector_index('docs', 'emb')"),
+     "A.8.9"),
+    (_cli_command("table", "stream", "d1.t", "--source", "events.jsonl"),
+     "A.7b"),
+    (_cli_command("fleet", "status", "d1.t"), "A.8.9"),
+    (_cli_command("fleet", "trace", "--merge", "spool"), "A.8.9"),
+    (_cli_command("lint"), "A.8.9")])
 def test_refusals_name_their_items(call, item):
     """Each refusal names its ROADMAP.md item, and that item exists."""
     with open(os.path.join(os.path.dirname(os.path.dirname(
