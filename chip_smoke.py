@@ -41,7 +41,7 @@ then):
      longer than the 16-byte key prefix, so full-order merges of
      truncated keys run the code variant too (a coverage check: its
      rates are not metrics);
-   - partial_update_coverage: config 3's shape cut to 256K keys x 5
+   - partial_update_coverage: config 3's shape cut to 32K keys x 5
      commits of 64 columns (a sequence group of 8, a DOUBLE sum, an INT
      count, 1 row in 100 a DELETE), held against the same table run by
      the port on the CPU (exact; the float sum within rtol 1e-12), its
@@ -56,17 +56,17 @@ then):
      reports sustained upsert rows/s, changelog latency, the stream
      read's rows/s and where the producer's time goes (ChangelogTimer);
    - changelog_producers_coverage: input, lookup and full-compaction at
-     256K keys x 5 commits with deletes, each held file for file
+     32K keys x 5 commits with deletes, each held file for file
      against the same table run by the port on the CPU;
-   - device_decode_coverage: 1M rows of INT32, INT64, FLOAT, DOUBLE and
+   - device_decode_coverage: 512K rows of INT32, INT64, FLOAT, DOUBLE and
      DATE columns (dictionary pages, 1 value in 8 null, several row
      groups and pages a chunk) read on the card equal to pyarrow, a
      string-keyed table that falls back once and reads the same, and
      fused_decode_merge at 2^22 on the card equal to its CPU run;
    - mesh_compaction: parallel/dryrun.run_engines' tables (id BIGINT
      NOT NULL key, v DOUBLE, 8 buckets, write-only; deduplicate and
-     aggregation with v sum; commits of 1.25M ids uniform in [0, 2.5M)
-     from seed 6 until >= 2.5M rows enter the compaction) compacted by
+     aggregation with v sum; commits of 625K ids uniform in [0, 1.25M)
+     from seed 6 until >= 1.25M rows enter the compaction) compacted by
      compact_table_mesh on 8 lanes of the card, one batched merge a
      window step; each held against a numpy oracle (exact; sums within
      rtol 1e-12), with no retry, fallback or cleanup error and the
@@ -76,13 +76,13 @@ then):
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
    - serving: point lookups and the one-replica query service on the
-     card (`serving` says what it drives): serve_dedup_1.25M, the
-     reference serving benchmark's table at 1.25M rows (cold and warm
+     card (`serving` says what it drives): serve_dedup_625K, the
+     reference serving benchmark's table at 625K rows (cold and warm
      /lookup, 64 keep-alive clients of 90% point gets and 10%
      scan(limit=100), the engine's native and numpy probes, a serving
      writer's read-your-writes through the delta tier, a full
      compaction under 8 readers, a /scan of 50K rows), and
-     serve_agg_1.25M, the same rows under aggregation, whose every
+     serve_agg_625K, the same rows under aggregation, whose every
      lookup merges a bucket on the card (4 cold buckets built at once
      from the server's handler threads).  Every answer is held against
      a numpy oracle; no native probe may fall back; the flush, the
@@ -92,8 +92,8 @@ then):
    - bucket_modes: primary-key tables as users create them without a
      `bucket` option, bench.py's rows (id BIGINT NOT NULL key, v1
      BIGINT, v2 DOUBLE, v3 INT), each read held against a numpy oracle:
-     dyn_dedup_5M (dynamic buckets at dynamic-bucket.target-row-num's
-     default of 2M: 10 commits of 500K uniform ids in [0, 4M) from one
+     dyn_dedup_3.5M (dynamic buckets at dynamic-bucket.target-row-num's
+     default of 2M: 7 commits of 500K uniform ids in [0, 4M) from one
      writer, a merge-on-read scan, a full compaction and a scan; the
      hash index against the rows: each id in one bucket, every bucket
      but the last at 2M hashes, the files' total the distinct 32-bit
@@ -101,32 +101,32 @@ then):
      in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
      RENAME v2 -> v2r and 2 commits of 500K upserts, a merge-on-read
      scan over runs of both schemas, a full compaction and a scan),
-     xpart_upsert_500K (cross-partition upsert, partition dt INT of 4
-     values: 500K keys in 4 commits, then a fresh table object's 4
-     commits of 62.5K upserts, a quarter moving partition and some twice
+     xpart_upsert_250K (cross-partition upsert, partition dt INT of 4
+     values: 250K keys in 4 commits, then a fresh table object's 4
+     commits of 31.25K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
-     and postpone_2M (bucket=-2: 2M rows in 4 commits that a scan does
+     and postpone_1M (bucket=-2: 1M rows in 4 commits that a scan does
      not see, then rescale_postpone at the postpone defaults and a
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
      {"bucket_modes": ...} line;
-   - maintenance: maint_daily_1.5M, a daily-partitioned table as the
+   - maintenance: maint_daily_750K, a daily-partitioned table as the
      Paimon docs' Maintenance pages set one up (bench.py's columns plus
      dt STRING yyyyMMdd as the partition, primary key (dt, id),
      bucket=2, deduplicate, changelog-producer=input, inline
      compaction; daily watermark auto-tags keeping 4, snapshots kept
      10-20, decoupled changelog, partitions expiring after 3 days,
      success-file and done-partition mark-done, a counting commit
-     callback): 48 streaming commits of 31.25K rows (6 days of 8 commits,
-     the watermark 3 hours a commit, ids uniform in [0, 1M) a day, 2%
+     callback): 24 streaming commits of 31.25K rows (6 days of 4 commits,
+     the watermark 6 hours a commit, ids uniform in [0, 1M) a day, 2%
      -D, seed 7) with a consumer-id consumer polled each day; then each
      kept tag read, incremental reads between two tags and from a tag
      to the tip, expire_snapshots at the table's options (the files on
      disk exactly those the snapshots, tags and changelog entries
      reference; a fresh consumer from the earliest changelog), partition
      expiry of the 3 oldest days and an end-input batch commit marking
-     its partitions done, a branch from the oldest tag with 125K upserts
+     its partitions done, a branch from the oldest tag with 62.5K upserts
      to an expired day, a fallback-branch read, fast_forward and
      rollback_to, compact_manifests, an orphan clean of planted files,
      fsck (deep), a lost data file found, repaired and merged around,
@@ -179,7 +179,7 @@ then):
      nothing, `v3 = 42`, `v3 < 3` and `v1 > 2^39` read exactly; a full
      compaction whose outputs each carry a sidecar; the 10 queries
      again) and fi_rewrite_coverage
-     (500K rows written without indexes, then rewrite_file_index with a
+     (250K rows written without indexes, then rewrite_file_index with a
      bloom filter on id, and with force=True after the spec grew by the
      other indexes and a bloom filter on a string column; a write of
      indexed files whose data-file or sidecar write fails once and
@@ -202,7 +202,7 @@ then):
      a nullable INT and a DOUBLE with -0.0 and NaN: z-order on 3
      columns, so bit 63 is set, Hilbert on 1 and on 4, order on 2, each
      permutation on the card equal to its plain numpy version),
-     ap_tracked_4M (row-tracking.enabled, 8 commits of 2^19 rows: two
+     ap_tracked_2M (row-tracking.enabled, 4 commits of 2^19 rows: two
      update_columns of v1 and a delete_by_row_ids on 1% of the row ids,
      the global index on id built with one launch and 10,000 lookups
      held against numpy, a compaction that keeps the row ids, reads
@@ -225,7 +225,7 @@ then):
      clean leaving no sidecar without its data file, $files against the
      files on disk and $audit_log, all +I), formats_coverage (one table
      per file.format avro, csv, json and mosaic, and a parquet table
-     with file.format.per.level=0:avro, each 4 commits of 2^14 rows with
+     with file.format.per.level=0:avro, each 2 commits of 2^14 rows with
      ids in [0, 2^15): write, scan, full compaction and read, and the
      avro row codec's own rates) and surfaces_coverage (every system
      table on blob_media_2G and on the avro table, ANALYZE and
@@ -248,8 +248,8 @@ then):
      row; sys.create_tag, sys.compact, time travel to the tag,
      $snapshots, sys.expire_snapshots, sys.clone into backup.orders and
      sys.all_tables) and sql_coverage (sys.migrate_table of a hive-style
-     parquet directory of 2^18 rows in 4 dt= partitions; an aggregation
-     table made by DDL, 4 inserts of 2^18 rows read and compacted, so
+     parquet directory of 2^17 rows in 4 dt= partitions; an aggregation
+     table made by DDL, 4 inserts of 2^17 rows read and compacted, so
      the offset-value-code variant launches; INSERT OVERWRITE, a view, a
      SQL function and a window query; the JDBC (sqlite) and the REST
      catalog on loopback, each creating, filling with 2^16 rows and
@@ -257,6 +257,37 @@ then):
      paimon_tpu_torch --warehouse W sql` and `table read` as processes
      on the card).  K1 must launch in sql_orders_16M and K2 in
      sql_coverage.  It prints a {"catalog_sql": ...} line;
+   - stream_cdc: CDC ingest and the streaming daemon as the Paimon
+     docs' "Kafka CDC", "MySQL CDC" and "Changelog Producer" pages set
+     them up, everything on the card, every answer held against a
+     numpy oracle from seed 7: stream_orders_2M (a Debezium `orders`
+     table, order_id BIGINT NOT NULL key, customer_id, status of 5
+     values, amount, quantity INT, updated_at; bucket=4,
+     changelog-producer=input, the stream.* options at their defaults;
+     2M events in a JSONL file: a snapshot of 1M `r` events, then 1M
+     changes, 60% `u` with before and after images, 30% `c` of new ids
+     and 10% `d` over live ids; made by a process of their own ahead of
+     the cell, and appended in chunks of 62,500 lines whenever the
+     daemon's backlog falls under a chunk, so FileCdcSource tails a
+     growing file; one StreamDaemon with its ingest, compaction and
+     serve loops, a consumer thread materialising poll_changelog by id,
+     and a query service in a process of its own answering a second
+     consumer's /changelog polls; the daemon killed once the committed
+     offset passes 1M and a new daemon recovering from the checkpoint;
+     the table, both consumers' states, the committed offsets and
+     identifiers (strictly rising, the last 1,999,999) and fsck checked)
+     and stream_coverage (CdcDatabaseSync over a catalog on the card:
+     3 tables of 2^14 events, an INT widened to BIGINT and an unseen
+     column midway, a foreign database filtered out; canal, maxwell,
+     ogg, dms and aliyun tables equal to the Debezium table of the same
+     changes; a `date_format` computed partition; an aggregation table
+     fed by a daemon, K2 in its compactions; the soak harness's short
+     schedule of 3 kills and 3 storms; a loop forced to die leaving a
+     flight dump; `python -m paimon_tpu_torch table stream` as a process
+     tailing a file and stopped with SIGTERM, drained and equal to the
+     oracle; `fleet trace --merge` over its spool and this process's).
+     It prints a {"stream_cdc": ...} line and a {"stream": ...} line of
+     the recorded figures;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -299,7 +330,8 @@ The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
 phase, the read and write planes, the file indexes, the append tables,
-the formats and types, the catalog and SQL, the stage split
+the formats and types, the catalog and SQL, the streaming phase and
+its figures, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -1309,7 +1341,7 @@ def bigint_batches(rows: int, runs: int = 10, seed: int = 7):
                        pa.int32())}) for _ in range(runs)]
 
 
-def string_key_batches(rows: int = 1 << 18, runs: int = 10, seed: int = 7):
+def string_key_batches(rows: int = 1 << 17, runs: int = 10, seed: int = 7):
     """Kernel coverage: string keys, 1 in 64 ids longer than the 16-byte
     key prefix, so merges take the full-order path with run codes."""
     import pyarrow as pa
@@ -1331,8 +1363,9 @@ PU_PLAIN = [f"c{i}" for i in range(52)]
 PU_TYPES = ("BIGINT", "DOUBLE", "INT", "STRING")
 
 
-COVERAGE_KEYS = 1 << 16          # keys of the partial-update and
+COVERAGE_KEYS = 1 << 15          # keys of the partial-update and
                                  # changelog-producer coverage tables
+                                 # (2^16 until the stream phase came)
 
 
 def partial_update_table(keys: int = COVERAGE_KEYS, commits: int = 5,
@@ -1988,7 +2021,8 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
                           ignore_errors=True)
 
 
-MESH_ROWS = 2_500_000            # cut from 10M, then 5M (script time)
+MESH_ROWS = 1_250_000            # cut from 10M, then 5M, 2.5M (script
+                                 # time)
 MESH_LANES = 8
 
 
@@ -2169,22 +2203,25 @@ def mesh_compaction(work: str, rec: Recorder, rows: int = MESH_ROWS,
 # -- primary-key tables in the bucket modes users create by default --------
 
 BM_TARGET = 2_000_000            # dynamic-bucket.target-row-num's default
-# dyn_dedup and xpart_upsert run at a quarter of the sizes they were first
-# run at (halved twice, for the script's time)
-DYN_ROWS = 5_000_000             # dyn_dedup_5M: 10 commits of 500K
-DYN_KEYS = 4_000_000             # ids uniform in [0, 4M)
-DYN_COMMITS = 10
+# dyn_dedup runs at a sixth of the size it was first run at (for the
+# script's time; below 2M distinct ids it would fill one bucket only),
+# xpart_upsert at an eighth
+DYN_ROWS = 3_500_000             # dyn_dedup_3.5M: 7 commits of 500K (10
+DYN_KEYS = 4_000_000             # until the stream phase came), ids
+DYN_COMMITS = 7                  # uniform in [0, 4M): 2.33M distinct
 DYN_FRESH = 250_000              # upserts of existing ids, a fresh table
 DYN_EVOLVED = 500_000            # upserts a commit under the new schema
 #                                  (500K and 1M until the SQL phase came)
-XPART_KEYS = 500_000             # xpart_upsert_500K: 4 commits of 125K
-XPART_UPSERTS = 62_500           # keys, then 4 commits of 62.5K upserts
+XPART_KEYS = 250_000             # xpart_upsert_250K: 4 commits of 62.5K
+XPART_UPSERTS = 31_250           # keys, then 4 commits of 31.25K upserts
 #                                  (2M and 250K until the formats phase
-#                                  came, 1M and 125K until the SQL phase)
+#                                  came, 1M and 125K until the SQL phase,
+#                                  500K and 62.5K until the stream phase)
 XPART_PARTS = 4
-POSTPONE_ROWS = 2_000_000        # postpone_2M: 4 commits of 500K (8M
+POSTPONE_ROWS = 1_000_000        # postpone_1M: 4 commits of 250K (8M
                                  # until the append phase came, 4M until
-                                 # the SQL phase)
+                                 # the SQL phase, 2M until the stream
+                                 # phase)
 POSTPONE_TARGET = 5_000_000      # postpone.target-row-num-per-bucket
 
 
@@ -2285,7 +2322,7 @@ def check_evolved(what: str, got, cols: dict, win: np.ndarray,
 
 
 def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
-    """dyn_dedup_5M: Paimon's default bucket mode (no `bucket` option),
+    """dyn_dedup_3.5M: Paimon's default bucket mode (no `bucket` option),
     deduplicate, write-only; 10 commits of uniform ids from one writer,
     a full compaction and a scan, the hash index
     held against the rows, a fresh table object's upserts of existing
@@ -2299,7 +2336,7 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType
 
-    name = "dyn_dedup_5M"
+    name = "dyn_dedup_3.5M"
     path = os.path.join(work, name)
     rows, keys = DYN_ROWS // scale, DYN_KEYS // scale
     target, per = BM_TARGET // scale, DYN_ROWS // scale // DYN_COMMITS
@@ -2426,7 +2463,7 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
-    """xpart_upsert_500K: cross-partition upsert (primary key id,
+    """xpart_upsert_250K: cross-partition upsert (primary key id,
     partition dt INT of 4 values, bucket unset): 500K keys in 4 commits
     from one writer; then a fresh table object's writer (the global index
     bootstraps from the table) upserts 62.5K ids a commit for 4 commits, a
@@ -2439,7 +2476,7 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
 
-    name = "xpart_upsert_500K"
+    name = "xpart_upsert_250K"
     path = os.path.join(work, name)
     keys, target = XPART_KEYS // scale, BM_TARGET // scale
     opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
@@ -2513,14 +2550,14 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def postpone(work: str, rec: Recorder, device, scale: int) -> dict:
-    """postpone_2M: bucket=-2, deduplicate, write-only; 2M rows in 4
+    """postpone_1M: bucket=-2, deduplicate, write-only; 2M rows in 4
     commits staged un-hashed (a scan sees none of them, as the
     reference's does), then rescale_postpone at the postpone defaults
     (5M rows a bucket) and a scan held against the oracle, the rescaled
     hash index against the rows."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "postpone_2M"
+    name = "postpone_1M"
     path = os.path.join(work, name)
     rows, per_bucket = POSTPONE_ROWS // scale, POSTPONE_TARGET // scale
     opts = {"bucket": "-2", "write-only": "true",
@@ -2571,9 +2608,9 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     table."""
     out = {}
     t_all = time.perf_counter()
-    for name, fn in (("dyn_dedup_5M", dyn_dedup),
-                     ("xpart_upsert_500K", xpart_upsert),
-                     ("postpone_2M", postpone)):
+    for name, fn in (("dyn_dedup_3.5M", dyn_dedup),
+                     ("xpart_upsert_250K", xpart_upsert),
+                     ("postpone_1M", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
         out[name]["s"] = time.perf_counter() - t0
@@ -2590,14 +2627,18 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
 # -- the maintenance plane: expiry, tags, branches, partitions, fsck ---------
 
 MAINT_DAYS = 6
-MAINT_COMMITS = 48               # 8 a day: the watermark 3 hours apart
+MAINT_COMMITS = 24               # 4 a day: the watermark 6 hours apart
+#                                  (48, 8 a day, until the stream phase)
 MAINT_DAILY = MAINT_COMMITS // MAINT_DAYS
-MAINT_PER_COMMIT = 31_250        # 1.5M rows in all (3M until the formats
+MAINT_HOURS = 24 // MAINT_DAILY
+MAINT_PER_COMMIT = 31_250        # 750K rows in all (3M until the formats
 #                                  phase came, 12M until the append
-                                 # phase came, then 6M: the script's time)
+                                 # phase came, then 6M, 1.5M until the
+                                 # stream phase: the script's time)
 MAINT_KEYS = 1_000_000           # ids uniform in [0, 1M) within a day
 MAINT_DELETE_SHARE = 0.02        # -D rows
-MAINT_BRANCH_UPSERTS = 125_000   # 250K until the formats phase came
+MAINT_BRANCH_UPSERTS = 62_500    # 250K until the formats phase came,
+                                 # 125K until the stream phase
 MAINT_END_INPUT = 100_000        # the end-input batch commit
 HOUR_MS = 3_600_000
 DAY_MS = 24 * HOUR_MS
@@ -2794,7 +2835,7 @@ def kv_rows(path: str) -> dict:
 
 def maintenance(work: str, rec: Recorder, device="cuda",
                 scale: int = 1) -> dict:
-    """maint_daily_1.5M: a production daily-partitioned primary-key table
+    """maint_daily_750K: a production daily-partitioned primary-key table
     maintained as the Paimon docs' Maintenance pages set it up, every
     read held against a numpy oracle (`scale` divides the row and key
     counts, for a rehearsal).  Returns what the phase reports."""
@@ -2815,7 +2856,7 @@ def maintenance(work: str, rec: Recorder, device="cuda",
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "maint_daily_1.5M"
+    name = "maint_daily_750K"
     path = os.path.join(work, name)
     per, keys = MAINT_PER_COMMIT // scale, MAINT_KEYS // scale
     dates = maint_dates()
@@ -2897,8 +2938,8 @@ def maintenance(work: str, rec: Recorder, device="cuda",
                     writer.write_arrow(t, kinds)
                     sid = committer.commit(writer.prepare_commit(),
                                            commit_identifier=c,
-                                           watermark=wm0 + (c + 1) * 3
-                                           * HOUR_MS)
+                                           watermark=wm0 + (c + 1)
+                                           * MAINT_HOURS * HOUR_MS)
                     if sid is None:
                         raise AssertionError(f"{name}: commit {c} made no "
                                              f"snapshot")
@@ -2923,7 +2964,7 @@ def maintenance(work: str, rec: Recorder, device="cuda",
                              f"{MAINT_COMMITS}")
     out["callback_calls"] = MaintCommitCallback.calls
     wm = table.latest_snapshot().watermark
-    if wm != wm0 + MAINT_COMMITS * 3 * HOUR_MS:
+    if wm != wm0 + MAINT_COMMITS * MAINT_HOURS * HOUR_MS:
         raise AssertionError(f"{name}: the snapshot watermark is {wm}")
 
     # 1. auto-tags: one a day, the 4 newest kept, each read at its snapshot
@@ -3883,10 +3924,10 @@ FI_KEYS = 8_000_000
 FI_QUERIES = 5                   # present ids, and as many absent ones
 #                                  (50 until the formats phase came)
 FI_READ_PLANS = 10               # absent-id plans timed per sidecar reader
-FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 125K
-FI_RW_PER_COMMIT = 125_000       # ids uniform in [0, 250K) (4x that until
-FI_RW_KEYS = 250_000             # the append phase came, 2x until the SQL
-#                                  phase)
+FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 62.5K
+FI_RW_PER_COMMIT = 62_500        # ids uniform in [0, 125K) (8x that until
+FI_RW_KEYS = 125_000             # the append phase came, 4x until the SQL
+#                                  phase, 2x until the stream phase)
 FI_RW_QUERIES = 5
 # the Paimon docs' "Data File Index" options, file-index.in-manifest-
 # threshold at its 500-byte default
@@ -4296,8 +4337,9 @@ AP_SORT_ROWS = 1 << 17           # ap_sort_coverage (2^20 until the
 #                                  formats phase came)
 AP_SORT_CASES = (("zorder", ("s", "n", "d")), ("hilbert", ("d",)),
                  ("hilbert", ("id", "s", "n", "d")), ("order", ("n", "s")))
-AP_TRACKED_COMMITS = 8           # ap_tracked_4M: 8 commits of 2^19 rows
-AP_TRACKED_PER_COMMIT = 1 << 19  # (2^20 until the formats phase came)
+AP_TRACKED_COMMITS = 4           # ap_tracked_2M: 4 commits of 2^19 rows
+AP_TRACKED_PER_COMMIT = 1 << 19  # (2^20 until the formats phase came, 8
+#                                  commits until the stream phase)
 AP_TRACKED_SHARE = 100           # 1 row id in 100 updated (twice), deleted
 AP_LOOKUPS = 10_000              # global-index lookups, half present
 AP_QUEUE_COMMITS = 4             # ap_queue_coverage: bucket=4 by id,
@@ -4594,14 +4636,14 @@ def ap_sort(rec: Recorder, dev, scale: int) -> dict:
 
 
 def ap_tracked(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """ap_tracked_4M: a row-tracked table (the Paimon docs' "Row
+    """ap_tracked_2M: a row-tracked table (the Paimon docs' "Row
     Tracking" page): column updates and deletes by row id, the global
     index on id and its lookups, a compaction that keeps the row ids."""
     import pyarrow as pa
 
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "ap_tracked_4M"
+    name = "ap_tracked_2M"
     path = os.path.join(work, name)
     rows = AP_TRACKED_PER_COMMIT * AP_TRACKED_COMMITS // scale
     batches = bigint_batches(rows, runs=AP_TRACKED_COMMITS)
@@ -4780,7 +4822,7 @@ def append_tables(work: str, rec: Recorder, device="cuda",
     t_phase = time.perf_counter()
     out = {"ap_log_16M": ap_log(work, rec, dev, scale),
            "ap_sort_coverage": ap_sort(rec, dev, scale),
-           "ap_tracked_4M": ap_tracked(work, rec, dev, scale),
+           "ap_tracked_2M": ap_tracked(work, rec, dev, scale),
            "ap_queue_coverage": ap_queue(work, rec, dev, scale)}
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
@@ -4809,11 +4851,12 @@ FT_MEDIA_COMMITS = 8             # blob_media_2G: 8 commits of 4,096 rows,
 FT_MEDIA_PER_COMMIT = 4096       # ids uniform in [0, 16,384), bucket=2:
 FT_MEDIA_KEYS = 16_384           # ~2 GiB of image bytes, ~1 GiB a bucket
 FT_IMAGE_BYTES = (8 << 10, 120 << 10)   # uniform, a 64 KiB mean
-FT_COV_COMMITS = 4               # formats_coverage: 4 commits of 2^14
+FT_COV_COMMITS = 2               # formats_coverage: 2 commits of 2^14
 FT_COV_PER_COMMIT = 1 << 14      # rows, ids uniform in [0, 2^15), bucket=1
 FT_COV_KEYS = 1 << 15
 FT_FORMATS = ("avro", "csv", "json", "mosaic")
-FT_FORMAT_TABLE_ROWS = 1 << 16   # a FormatTable's rows, in 4 dt partitions
+FT_FORMAT_TABLE_ROWS = 1 << 15   # a FormatTable's rows, in 4 dt partitions
+#                                  (2^16 until the stream phase came)
 FT_TRACKED_ROWS = 1 << 14        # the row-tracked table of $row_tracking
 FT_DAYS = ("2024-06-01", "2024-06-02", "2024-06-03", "2024-06-04")
 
@@ -5413,8 +5456,9 @@ SQL_REGIONS = 100                # shop.regions: one row a v3 value
 SQL_RETAIN = 3                   # sys.expire_snapshots' retain_max; the
 SQL_RETAIN_MIN = 10              # snapshot.num-retained.min default keeps
 #                                  the newest 10
-SQL_COV_ROWS = 1 << 18           # sql_coverage's migrated directory, and
+SQL_COV_ROWS = 1 << 17           # sql_coverage's migrated directory, and
 #                                  each of its aggregation table's inserts
+#                                  (2^18 until the stream phase came)
 SQL_COV_CAT_ROWS = 1 << 16       # each JDBC and REST catalog's table
 
 
@@ -5980,8 +6024,8 @@ def catalog_sql(work: str, rec: Recorder, device="cuda",
 
 # -- the serving plane: point lookups and the one-replica query service ------
 
-SERVE_ROWS = 1_250_000           # cut from 10M, then 5M, then 2.5M (script
-                                 # time)
+SERVE_ROWS = 625_000             # cut from 10M, then 5M, 2.5M, 1.25M
+                                 # (script time)
 SERVE_COMMITS = 4
 SERVE_BUCKETS = 4
 SERVE_BATCH = 8                  # keys of a point-get request
@@ -6234,7 +6278,7 @@ def thread_launches(capture, name: str) -> dict:
 
 def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
                 clients: int, seconds: float) -> dict:
-    """serve_dedup_1.25M: the reference serving benchmark's table at
+    """serve_dedup_625K: the reference serving benchmark's table at
     `rows`, served by one KvQueryServer on the card; see `serving`."""
     import torch
 
@@ -6247,7 +6291,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
     from paimon_tpu_torch import Schema
 
-    name = "serve_dedup_1.25M"
+    name = "serve_dedup_625K"
     path = os.path.join(work, name)
     dev = torch.device(device)
     lookups = global_registry().lookup_metrics()
@@ -6445,7 +6489,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
 
 def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
               clients: int, seconds: float) -> dict:
-    """serve_agg_1.25M: the same rows under aggregation (v sum), whose
+    """serve_agg_625K: the same rows under aggregation (v sum), whose
     every /lookup takes the merged fallback; see `serving`."""
     import torch
 
@@ -6454,7 +6498,7 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
 
-    name = "serve_agg_1.25M"
+    name = "serve_agg_625K"
     path = os.path.join(work, name)
     dev = torch.device(device)
     schema = (Schema.builder().column("id", BigIntType(False))
@@ -6552,11 +6596,11 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
 
 
 def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
-            device="cuda", clients: int = 64, seconds: float = 1.0,
-            agg_seconds: float = 0.5) -> dict:
+            device="cuda", clients: int = 64, seconds: float = 0.5,
+            agg_seconds: float = 0.25) -> dict:
     """The serving plane on the card.
 
-    serve_dedup_1.25M: benchmarks/serve_bench.py's table (id BIGINT NOT
+    serve_dedup_625K: benchmarks/serve_bench.py's table (id BIGINT NOT
     NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
     dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
     11) served by one KvQueryServer with a refresh interval of 1000 ms:
@@ -6569,7 +6613,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     delta tier before its commit and from the LSM after), a full
     compaction while 8 clients read, and one /scan of SERVE_SCAN_LIMIT
     rows.
-    serve_agg_1.25M: the same rows under aggregation (v sum): 4 cold
+    serve_agg_625K: the same rows under aggregation (v sum): 4 cold
     buckets built at once from 4 client threads, each a full
     merge-on-read on the card, a 2048-key warm-up, then `clients` client
     threads of point gets for `agg_seconds`.  Every answer is held
@@ -6583,10 +6627,10 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
                                seconds)
     launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
-                for p in rec.phases if p["table"] == "serve_dedup_1.25M"}
+                for p in rec.phases if p["table"] == "serve_dedup_625K"}
     for what in ("mixed 90/10", "serving writer", "compact"):
         if launches[what][0] == 0:
-            raise AssertionError(f"serve_dedup_1.25M {what}: no launch of the "
+            raise AssertionError(f"serve_dedup_625K {what}: no launch of the "
                                  f"winner-select ({launches})")
     out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
                            agg_seconds)
@@ -6595,7 +6639,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
                        out["agg"]["cold_thread_launches"].items()
                        if t.startswith("paimon-serve"))
     if ovc == 0 or from_workers == 0:
-        raise AssertionError(f"serve_agg_1.25M: the offset-value-code "
+        raise AssertionError(f"serve_agg_625K: the offset-value-code "
                              f"variant did not launch from the handler "
                              f"threads ({out['agg']['cold_thread_launches']})")
     out["launches"] = {f"{p['table']} {p['phase']}":
@@ -6705,7 +6749,7 @@ def device_decode_dedup(path: str, rows: int, rec: Recorder, cols: dict,
     return out
 
 
-def device_decode_coverage(work: str, rows: int = 1 << 20,
+def device_decode_coverage(work: str, rows: int = 1 << 19,
                            seed: int = 29, device: str = "cuda") -> dict:
     """read_parquet_device on the card against pyarrow on ~1M rows of
     INT32, INT64, FLOAT, DOUBLE and DATE columns (dictionary pages on,
@@ -6993,8 +7037,1372 @@ def merge_routes(dedup_winner_frac: float, device: str = "cuda",
 
 
 # the 100M-row tables: none of their merge phases may take host routes only
+# -- CDC ingest and the streaming daemon -------------------------------------
+
+STREAM_EVENTS = 2_000_000        # stream_orders_2M: a snapshot of 1M `r`
+STREAM_SNAPSHOT = 1_000_000      # events, then 1M changes over live ids
+STREAM_SHARES = (0.6, 0.3, 0.1)  # u (before and after), c of new ids, d
+STREAM_CHUNK = 62_500            # lines appended while the backlog is under
+STREAM_KILL_AFTER = 1_000_000    # the kill, once the committed offset passes
+STREAM_STATUSES = ("CREATED", "PAID", "SHIPPED", "DELIVERED", "CANCELLED")
+STREAM_TS0 = 1_717_200_000_000   # updated_at of the first event (epoch ms)
+STREAM_DB_EVENTS = 1 << 14       # database sync: each of 3 tables
+STREAM_FORMAT_EVENTS = 1 << 12   # canal, maxwell, ogg, dms, aliyun each
+STREAM_CLI_EVENTS = 1 << 14      # the `table stream` process's file
+STREAM_AGG_EVENTS = 1 << 16      # the aggregation table fed by CDC
+STREAM_FORMATS = ("canal", "maxwell", "ogg", "dms", "aliyun")
+STREAM_COLS = ("customer_id", "status", "amount", "quantity", "updated_at")
+
+
+def order_schema(options, extra=()):
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import (
+        BigIntType, DoubleType, IntType, VarCharType,
+    )
+    b = (Schema.builder().column("order_id", BigIntType(False))
+         .column("customer_id", BigIntType())
+         .column("status", VarCharType.string_type())
+         .column("amount", DoubleType()).column("quantity", IntType())
+         .column("updated_at", BigIntType()))
+    for name, typ in extra:
+        b = b.column(name, typ)
+    return b.primary_key("order_id").options(options).build()
+
+
+def _order_images(prefix: str, ver, key, cust, status, amount, qty,
+                  ts) -> list:
+    """`prefix` + each row image's JSON (an empty string where `ver` is
+    -1)."""
+    return [prefix + f'{{"order_id":{k},"customer_id":{c},"status":'
+            f'"{STREAM_STATUSES[s]}","amount":{a!r},"quantity":{q},'
+            f'"updated_at":{t}}}' if v >= 0 else ""
+            for v, k, c, s, a, q, t in zip(ver, *(x.tolist() for x in (
+                key, cust, status, amount, qty, ts)))]
+
+
+def _render_orders(op, before: tuple, after: tuple) -> bytes:
+    """The JSONL bytes of a run of Debezium events: `op` 3 r, 0 u, 1 c,
+    2 d; `before` and `after` (version, order_id, customer_id, status
+    code, amount, quantity, updated_at) arrays, version -1 where the
+    event has no such image."""
+    b = _order_images('"before":', before[0].tolist(), *before[1:])
+    a = _order_images('"after":', after[0].tolist(), *after[1:])
+    head = ('{"op":"u",', '{"op":"c","before":null,', '{"op":"d",',
+            '{"op":"r","before":null,')
+    tail = ('}', '}', ',"after":null}', '}')
+    out = []
+    for o, bb, aa in zip(op.tolist(), b, a):
+        out.append(head[o] + bb + ("," if o == 0 else "") + aa + tail[o])
+    return ("\n".join(out) + "\n").encode()
+
+
+class OrderStream:
+    """The orders table's change stream from `seed`: a snapshot of
+    `snapshot` `r` events (ids 0..snapshot-1), then `events - snapshot`
+    changes, 60% `u` with before and after images, 30% `c` of new ids
+    and 10% `d`, each `u` and `d` on an id drawn uniformly from the live
+    ones.  Each event's images are row versions: `before` and `after`
+    hold each event's (-1: none), `final` each id's last (-1:
+    deleted)."""
+
+    def __init__(self, events: int, snapshot: int, seed: int = 7):
+        rng = np.random.default_rng(seed)
+        changes = events - snapshot
+        ops = rng.choice(3, size=changes, p=STREAM_SHARES)   # u, c, d
+        picks = rng.random(changes).tolist()
+        n_ver = snapshot + int((ops != 2).sum())
+        self.cust = rng.integers(0, 1 << 24, n_ver)
+        self.status = rng.integers(0, len(STREAM_STATUSES), n_ver)
+        self.amount = np.round(rng.random(n_ver) * 1000.0, 2)
+        self.quantity = rng.integers(1, 100, n_ver)
+        ver_key = list(range(snapshot)) + [0] * (n_ver - snapshot)
+        ver_event = list(range(snapshot)) + [0] * (n_ver - snapshot)
+        cur = list(range(snapshot)) + [-1] * int((ops == 1).sum())
+        live = list(range(snapshot))
+        pos = list(range(snapshot)) + [-1] * int((ops == 1).sum())
+        before = [-1] * changes
+        after = [-1] * changes
+        next_id, next_ver = snapshot, snapshot
+        for i, (op, u) in enumerate(zip(ops.tolist(), picks)):
+            if op == 1:                              # c: a new id
+                k = next_id
+                next_id += 1
+                pos[k] = len(live)
+                live.append(k)
+            else:
+                k = live[int(u * len(live))]
+                before[i] = cur[k]
+            if op == 2:                              # d
+                j = pos[k]
+                last = live.pop()
+                if last != k:
+                    live[j] = last
+                    pos[last] = j
+                cur[k] = -1
+                continue
+            ver_key[next_ver] = k
+            ver_event[next_ver] = snapshot + i
+            after[i] = next_ver
+            cur[k] = next_ver
+            next_ver += 1
+        self.key = np.asarray(ver_key, dtype=np.int64)
+        self.ts = STREAM_TS0 + np.asarray(ver_event, dtype=np.int64)
+        self.op = np.concatenate([np.full(snapshot, 3, np.int8),
+                                  ops.astype(np.int8)])
+        self.before = np.concatenate([np.full(snapshot, -1, np.int64),
+                                      np.asarray(before, np.int64)])
+        self.after = np.concatenate([np.arange(snapshot, dtype=np.int64),
+                                     np.asarray(after, np.int64)])
+        self.events = events
+        self.change_rows = events + int((ops == 0).sum())
+        self.final = np.asarray(cur, dtype=np.int64)
+        self.ids = np.flatnonzero(self.final >= 0)
+
+    def _images(self, ver: np.ndarray) -> tuple:
+        v = np.maximum(ver, 0)
+        return (ver, self.key[v], self.cust[v], self.status[v],
+                self.amount[v], self.quantity[v], self.ts[v])
+
+    def columns(self) -> dict:
+        """The oracle: each live id's last values, ids ascending."""
+        v = self.final[self.ids]
+        return {"order_id": self.ids.astype(np.int64),
+                "customer_id": self.cust[v], "status": self.status[v],
+                "amount": self.amount[v], "quantity": self.quantity[v],
+                "updated_at": self.ts[v]}
+
+
+_GENERATING: dict = {}            # generate_orders' stream, for its workers
+
+
+def _render_span(span) -> None:
+    stream, out = _GENERATING["stream"], _GENERATING["out"]
+    k, lo, hi = span
+    with open(os.path.join(out, f"chunk-{k}"), "wb") as f:
+        f.write(_render_orders(stream.op[lo:hi],
+                               stream._images(stream.before[lo:hi]),
+                               stream._images(stream.after[lo:hi])))
+
+
+def generate_orders(out: str, events: str, snapshot: str,
+                    chunk: str) -> None:
+    """OrderStream's events as JSONL chunks of `chunk` lines
+    (`out`/chunk-K) and its oracle (`out`/oracle.npz, `out`/meta.json);
+    run as a process of its own (OrderEvents)."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    events, snapshot, chunk = int(events), int(snapshot), int(chunk)
+    stream = OrderStream(events, snapshot)
+    spans = [(k, lo, min(lo + chunk, events))
+             for k, lo in enumerate(range(0, events, chunk))]
+
+    # this process has no thread and no CUDA context: fork's workers
+    # inherit the stream's arrays
+    _GENERATING.update(stream=stream, out=out)
+    with multiprocessing.get_context("fork").Pool(4) as pool:
+        pool.map(_render_span, spans)
+    sizes = [hi - lo for _, lo, hi in spans]
+    np.savez(os.path.join(out, "oracle.npz"), **stream.columns())
+    with open(os.path.join(out, "meta.json"), "w") as f:
+        json.dump({"chunks": sizes, "change_rows": stream.change_rows,
+                   "live_ids": int(len(stream.ids)),
+                   "ids": int(len(stream.final)),
+                   "s": time.perf_counter() - t0}, f)
+
+
+class OrderEvents:
+    """generate_orders in a process of this script, started ahead of
+    the cell so its seconds overlap other work."""
+
+    def __init__(self, work: str, events: int, snapshot: int, chunk: int):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.out = os.path.join(work, "order-events")
+        os.makedirs(self.out)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.generate_orders(*sys.argv[1:])", self.out,
+             str(events), str(snapshot), str(chunk)], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root))
+
+    def wait(self) -> tuple:
+        """(meta, oracle columns, [(lines, chunk path)])."""
+        if self.proc.wait() != 0:
+            raise AssertionError(f"generating the events: exit "
+                                 f"{self.proc.returncode}")
+        with open(os.path.join(self.out, "meta.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(self.out, "oracle.npz")) as z:
+            want = {k: z[k] for k in z.files}
+        return meta, want, [(n, os.path.join(self.out, f"chunk-{k}"))
+                            for k, n in enumerate(meta["chunks"])]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class Materialized:
+    """A changelog consumer's state: +I and +U set an id's values, -D
+    drops it, -U changes nothing; a batch applies at once, each id's
+    last row deciding (an id's rows keep their order in a changelog)."""
+
+    def __init__(self, ids: int):
+        self.present = np.zeros(ids, dtype=bool)
+        self.cols = {c: np.zeros(ids, dtype=np.float64 if c == "amount"
+                                 else np.int64) for c in STREAM_COLS}
+        self.rows = 0
+        self._code = {s: i for i, s in enumerate(STREAM_STATUSES)}
+
+    def apply(self, rows: list) -> None:
+        from operator import itemgetter
+
+        from paimon_tpu_torch.core.read import ROW_KIND_COL
+        kind = np.array(list(map(itemgetter(ROW_KIND_COL), rows)), np.int8)
+        keep = np.flatnonzero(kind != 1)
+        self.rows += len(rows)
+        if not len(keep):
+            return
+        ids = np.array(list(map(itemgetter("order_id"), rows)),
+                       np.int64)[keep]
+        # each id's last row in the batch
+        rev = ids[::-1]
+        _, first = np.unique(rev, return_index=True)
+        sel = keep[len(keep) - 1 - first]
+        ids = ids[len(keep) - 1 - first]
+        delete = kind[sel] == 3
+        self.present[ids] = ~delete
+        up, up_sel = ids[~delete], sel[~delete]
+        chosen = list(map(rows.__getitem__, up_sel.tolist()))
+        for c in STREAM_COLS:
+            vals = list(map(itemgetter(c), chosen))
+            if c == "status":
+                vals = list(map(self._code.__getitem__, vals))
+            self.cols[c][up] = np.asarray(vals, dtype=self.cols[c].dtype)
+
+    def check(self, what: str, want: dict) -> None:
+        got = np.flatnonzero(self.present)
+        if not np.array_equal(got, want["order_id"]):
+            raise AssertionError(f"{what}: {len(got)} live ids, "
+                                 f"{len(want['order_id'])} expected")
+        for c in STREAM_COLS:
+            if not np.array_equal(self.cols[c][got], want[c]):
+                raise AssertionError(f"{what}: column {c} differs")
+
+
+def check_orders(what: str, got, want: dict) -> None:
+    """The table read against the oracle, row for row by id."""
+    ids = got.column("order_id").to_numpy()
+    order = np.argsort(ids, kind="stable")
+    if not np.array_equal(ids[order], want["order_id"]):
+        raise AssertionError(f"{what}: {len(ids)} rows, "
+                             f"{len(want['order_id'])} expected")
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    for c in STREAM_COLS:
+        col = got.column(c)
+        if c == "status":
+            vals = pc.index_in(col, value_set=pa.array(
+                STREAM_STATUSES)).to_numpy(zero_copy_only=False)
+        else:
+            vals = col.to_numpy()
+        if not np.array_equal(vals[order], want[c]):
+            raise AssertionError(f"{what}: column {c} differs")
+
+
+# a second consumer in a process of its own: the query service on the
+# same table (on the card) answering its /changelog polls; it writes its
+# materialised state when the parent's "done" file exists and a poll
+# comes back caught up
+STREAM_REMOTE_CONSUMER = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import chip_smoke as cs
+from paimon_tpu_torch.service.query_service import (
+    KvQueryClient, KvQueryServer)
+from paimon_tpu_torch.table import FileStoreTable
+path, out, device, ids = sys.argv[1], sys.argv[2], sys.argv[3], \
+    int(sys.argv[4])
+t0 = time.perf_counter()
+table = FileStoreTable.load(path, device=device)
+server = KvQueryServer(table).start()
+client = KvQueryClient(address=server.address)
+state = cs.Materialized(ids)
+ready = time.perf_counter() - t0
+polls = 0
+try:
+    while True:
+        done = os.path.exists(out + ".done")
+        got = client.changelog(consumer="orders-remote", max_rows=131072)
+        polls += 1
+        if got["rows"]:
+            state.apply(got["rows"])
+        elif got["caught_up"]:
+            if done:
+                break
+            time.sleep(0.05)
+    np.savez(out, present=state.present,
+             **{c: state.cols[c] for c in cs.STREAM_COLS})
+    with open(out + ".tmp", "w") as f:
+        json.dump({"ready_s": ready, "polls": polls, "rows": state.rows,
+                   "s": time.perf_counter() - t0}, f)
+    os.replace(out + ".tmp", out + ".json")
+finally:
+    server.stop()
+"""
+
+
+class RemoteConsumer:
+    """STREAM_REMOTE_CONSUMER as a process, from the checkout's root."""
+
+    def __init__(self, path: str, out: str, dev, ids: int):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.out = out
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", STREAM_REMOTE_CONSUMER, path, out,
+             dev.type, str(ids)], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def ended(self) -> None:
+        """Tell it the stream ended: it stops at its next caught-up
+        poll."""
+        with open(self.out + ".done", "w"):
+            pass
+
+    def finish(self, ids: int, want: dict, timeout: float = 120.0) -> dict:
+        """Wait for its state (after `ended`; its exit is `stop`'s) and
+        hold it against `want`; returns what it reports."""
+        deadline = time.perf_counter() + timeout
+        while not os.path.exists(self.out + ".json"):
+            if self.proc.poll() is not None or \
+                    time.perf_counter() > deadline:
+                self.stop()
+                raise AssertionError(f"the /changelog consumer: exit "
+                                     f"{self.proc.returncode}: "
+                                     f"{self.proc.stderr.read()[-800:]}")
+            time.sleep(0.02)
+        state = Materialized(ids)
+        with np.load(self.out + ".npz") as z:
+            state.present = z["present"]
+            state.cols = {c: z[c] for c in STREAM_COLS}
+        state.check("the /changelog consumer", want)
+        with open(self.out + ".json") as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.communicate()
+
+
+def stream_orders(work: str, rec: Recorder, dev, scale: int,
+                  gen: OrderEvents) -> dict:
+    """stream_orders_2M: 2M Debezium events tailed from a growing JSONL
+    file by one StreamDaemon (ingest, compaction and serve loops), a
+    kill after the committed offset passes 1M and a new daemon that
+    recovers from the checkpoint; the table, an in-process consumer of
+    poll_changelog and a /changelog consumer in a process of its own
+    held against the oracle."""
+    import torch
+
+    from paimon_tpu_torch.cdc.source import FileCdcSource
+    from paimon_tpu_torch.metrics import (
+        STREAM_CHECKPOINT_MS, STREAM_CHECKPOINTS, STREAM_COMPACTIONS,
+        STREAM_COMPACTIONS_PAUSED, STREAM_FRESHNESS_MS,
+        STREAM_LOOP_RESTARTS, global_registry,
+    )
+    from paimon_tpu_torch.ops import kernels
+    from paimon_tpu_torch.service.stream_daemon import (
+        PROP_OFFSET, StreamDaemon,
+    )
+    from paimon_tpu_torch.table import FileStoreTable
+
+    events, snapshot = STREAM_EVENTS // scale, STREAM_SNAPSHOT // scale
+    kill_after, chunk = STREAM_KILL_AFTER // scale, STREAM_CHUNK // scale
+    name = f"stream_orders_{events / 1e6:g}M"
+    t0 = time.perf_counter()
+    meta, want, chunks = gen.wait()
+    ids = meta["ids"]
+    out = {"events": events, "change_rows": meta["change_rows"],
+           "live_ids": meta["live_ids"], "generate_s": meta["s"],
+           "generate_wait_s": time.perf_counter() - t0}
+    log(f"  {name}: {events} events ({meta['change_rows']} change rows, "
+        f"{meta['live_ids']} live ids) made in {meta['s']:.2f} s in a "
+        f"process of their own ({out['generate_wait_s']:.2f} s waited)")
+    path = os.path.join(work, name)
+    # the stream.* options at their defaults; stream.compaction.interval
+    # 2 s is its default, stated
+    table = FileStoreTable.create(path, order_schema({
+        "bucket": "4", "changelog-producer": "input",
+        "stream.compaction.interval": "2s"}), device=dev)
+    events_path = path + ".jsonl"
+    open(events_path, "wb").close()
+    remote = RemoteConsumer(path, os.path.join(work, name + "-remote"),
+                            dev, ids)
+    try:
+        g = global_registry().stream_metrics()
+        base = {k: g.counter(k).count for k in (
+            STREAM_CHECKPOINTS, STREAM_COMPACTIONS, STREAM_COMPACTIONS_PAUSED,
+            STREAM_LOOP_RESTARTS)}
+        holder = {"daemon": None}
+        stop = threading.Event()
+        marks = {}
+        local = Materialized(ids)
+        errors = []
+
+        def produce():
+            appended = 0
+            try:
+                with open(events_path, "ab") as f:
+                    for n, chunk_path in chunks:
+                        with open(chunk_path, "rb") as c:
+                            data = c.read()
+                        while not stop.is_set():
+                            d = holder["daemon"]
+                            pending = d.status()["offset_pending"] if d else -1
+                            if appended - (pending + 1) < chunk:
+                                break
+                            time.sleep(0.02)
+                        if stop.is_set():
+                            return
+                        f.write(data)
+                        f.flush()
+                        marks.setdefault("first_append", time.perf_counter())
+                        appended += n
+                marks["last_append"] = time.perf_counter()
+            except Exception as e:                # noqa: BLE001 — reported
+                errors.append(e)
+
+        def consume():
+            # the killed daemon's buffered tail first: the main thread hands
+            # over the new daemon only after kill() has joined the old loops
+            d = holder["daemon"]
+            try:
+                while True:
+                    handed_over = holder["daemon"] is not d
+                    rows = d.poll_changelog(max_rows=65536, timeout=0.2)
+                    if rows:
+                        local.apply(rows)
+                    elif handed_over:
+                        d = holder["daemon"]
+                    elif stop.is_set() and not d._serve_alive():
+                        return
+            except Exception as e:                # noqa: BLE001 — reported
+                errors.append(e)
+
+        rec.capture.where = f"{name} stream"
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        launches0 = rec.counts()
+        d1 = StreamDaemon(table, FileCdcSource(events_path))
+        holder["daemon"] = d1
+        producer = threading.Thread(target=produce, name="stream-producer")
+        consumer = threading.Thread(target=consume, name="stream-consumer")
+        d1.start()
+        producer.start()
+        consumer.start()
+        rss = [rss_gib()]
+
+        def wait(daemon, offset: int, what: str, timeout: float = 300.0):
+            """Until `daemon` has committed past `offset - 1`; samples this
+            process's resident set every 0.1 s meanwhile."""
+            deadline = time.perf_counter() + timeout
+            sampled = 0.0
+            while daemon.status()["offset_committed"] < offset:
+                if time.perf_counter() - sampled >= 0.1:
+                    rss.append(rss_gib())
+                    sampled = time.perf_counter()
+                st = daemon.status()
+                if errors or any(lp["failed"] for lp in st["loops"].values()) \
+                        or time.perf_counter() > deadline:
+                    raise AssertionError(f"{name}, {what}: {errors or st}")
+                time.sleep(0.005)
+
+        try:
+            wait(d1, kill_after, "before the kill")
+            t_kill = time.perf_counter()
+            killed = d1.kill()
+            off_kill = killed["offset_committed"]
+            if off_kill >= events - 1:
+                raise AssertionError(f"{name}: every event was committed "
+                                     f"before the kill")
+            d2 = StreamDaemon(FileStoreTable.load(path, device=dev),
+                              FileCdcSource(events_path))
+            holder["daemon"] = d2
+            d2.start()
+            wait(d2, off_kill + 1, "the recovery")
+            out["recover_s"] = time.perf_counter() - t_kill
+            out["kill_offset"] = off_kill
+            wait(d2, events - 1, "after the recovery")
+            t_end = time.perf_counter()
+            status = d2.stop()
+            # the drain: a final checkpoint, the serve loop's catch-up
+            # and any compaction under way
+            out["drain_s"] = time.perf_counter() - t_end
+            remote.ended()
+            stop.set()
+            consumer.join(60)
+            producer.join(10)
+            if errors:
+                raise errors[0]
+        except BaseException:
+            stop.set()
+            for d in {id(x): x for x in (holder["daemon"], d1)}.values():
+                d.kill()
+            raise
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(rec.counts(), launches0))
+        window = t_end - marks["first_append"]
+        out.update({
+            "events_per_s": events / window,
+            "change_rows_per_s": meta["change_rows"] / window, "s": window,
+            "appends_done_s": marks["last_append"] - marks["first_append"],
+            "launches_plain": launched[0], "launches_ovc": launched[1]})
+        rec.add(name, "stream", events, dev, window, launched)
+        for lp, st in (("first", killed), ("second", status)):
+            for loop, s in st["loops"].items():
+                if s["failed"]:
+                    raise AssertionError(f"{name}: the {lp} daemon's {loop} "
+                                         f"loop ended for good: {s}")
+        fresh = g.histogram(STREAM_FRESHNESS_MS)
+        ckpt = g.histogram(STREAM_CHECKPOINT_MS)
+        vals = fresh.window_values()
+        out.update({
+            "freshness_ms": {"p50": fresh.percentile(50),
+                             "p95": fresh.percentile(95),
+                             "max": max(vals) if vals else None,
+                             "samples": fresh.total_count},
+            "checkpoint_ms": {"p50": ckpt.percentile(50),
+                              "p95": ckpt.percentile(95),
+                              "samples": ckpt.total_count},
+            **{k: g.counter(k).count - base[k] for k in base},
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None),
+            "rss_gib": {"before": rss[0], "peak": max(rss)}})
+        # the checks
+        t0 = time.perf_counter()
+        checks = {}
+        local.check(f"{name} poll_changelog consumer", want)
+        final = FileStoreTable.load(path, device=dev)
+        got = rec.run(name, "read", meta["live_ids"], dev, final.to_arrow)
+        check_orders(f"{name} table", got, want)
+        checks["local_and_table_s"] = time.perf_counter() - t0
+        offs, idents = [], []
+        for snap in final.snapshot_manager.snapshots():
+            if snap.commit_user == "stream-daemon" and \
+                    PROP_OFFSET in (snap.properties or {}):
+                offs.append(int(snap.properties[PROP_OFFSET]))
+                idents.append(snap.commit_identifier)
+        if offs != sorted(set(offs)) or offs[-1] != events - 1 or \
+                off_kill not in offs:
+            raise AssertionError(f"{name}: committed offsets {offs}")
+        if idents != sorted(set(idents)):
+            raise AssertionError(f"{name}: commit identifiers {idents}")
+        t1 = time.perf_counter()
+        report = final.fsck()
+        if not report.ok:
+            raise AssertionError(f"{name}: fsck: "
+                                 f"{[v.to_dict() for v in report.violations]}")
+        checks["fsck_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["remote"] = remote.finish(ids, want)
+        checks["remote_s"] = time.perf_counter() - t1
+        out.update({"checkpoint_offsets": len(offs),
+                    "consumer_rows": local.rows, "checks": checks,
+                    "check_s": time.perf_counter() - t0})
+        out["k1_by_shape"] = sorted(
+            [[k[1], k[2], k[3], k[4], v]
+             for k, v in rec.capture.calls.items() if k[0] == name])
+        out["k1_by_thread"] = sorted(
+            [[k[1], k[2], v] for k, v in rec.capture.threads.items()
+             if k[0] == name])
+        log(f"  {name}: {out['events_per_s']:,.0f} events/s, "
+            f"{out['change_rows_per_s']:,.0f} change rows/s over "
+            f"{window:.2f} s; recovered in {out['recover_s']:.2f} s; "
+            f"freshness {out['freshness_ms']}; checkpoints "
+            f"{out[STREAM_CHECKPOINTS]}, compactions "
+            f"{out[STREAM_COMPACTIONS]} (paused "
+            f"{out[STREAM_COMPACTIONS_PAUSED]}), restarts "
+            f"{out[STREAM_LOOP_RESTARTS]}; K1 {out['k1_by_shape']}")
+    finally:
+        remote.stop()
+    os.remove(events_path)
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+# -- stream_coverage: database sync, formats, computed columns, an
+#    aggregation table, crash recovery, flight dumps, the CLI, the merge
+
+STREAM_NAMES = ("ada", "bo", "cy", "di", "ed", "flo", "gus", "hal")
+
+
+def cdc_changes(seed: int, n: int, keys: int = 4096, wide_from=None,
+                ts0=None) -> list:
+    """n changes (op, before, after) of rows {id, name, amount, qty}:
+    inserts of unseen ids, updates of live ones and 15% deletes.  From
+    change `wide_from` on rows carry an unseen `city` column and `qty`
+    values past INT; with `ts0` an `order_time` (epoch ms) column."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, keys, n).tolist()
+    name = rng.integers(0, len(STREAM_NAMES), n).tolist()
+    amount = np.round(rng.random(n) * 1000.0, 2).tolist()
+    qty = rng.integers(1, 100, n).tolist()
+    city = rng.integers(0, len(STREAM_NAMES), n).tolist()
+    dele = (rng.random(n) < 0.15).tolist()
+    live = {}
+    out = []
+    for i in range(n):
+        k = key[i]
+        row = {"id": k, "name": STREAM_NAMES[name[i]], "amount": amount[i],
+               "qty": qty[i]}
+        if ts0 is not None:                 # 8 days, a second apart
+            row["order_time"] = ts0 + (k % 8) * 86_400_000 + k * 1000
+        if wide_from is not None and i >= wide_from:
+            row["city"] = STREAM_NAMES[city[i]].upper()
+            row["qty"] = qty[i] << 33
+        if k in live and dele[i]:
+            out.append(("d", live.pop(k), None))
+        elif k in live:
+            out.append(("u", live[k], row))
+            live[k] = row
+        else:
+            out.append(("c", None, row))
+            live[k] = row
+    return out
+
+
+def cdc_render(fmt: str, op: str, before, after, meta=None) -> list:
+    """One change as `fmt`'s envelopes (aliyun sends an update as two
+    events); `meta` adds the source database and table."""
+    meta = meta or {}
+    row = after if op != "d" else before
+    if fmt == "debezium":
+        ev = {"op": op, "before": before, "after": after}
+        if meta:
+            ev["source"] = {"db": meta["database"], "table": meta["table"]}
+            return [{"payload": ev}]
+        return [ev]
+    changed = {} if op != "u" else \
+        {c: v for c, v in before.items() if after.get(c) != v}
+    if fmt == "canal":
+        ev = {"type": {"c": "INSERT", "u": "UPDATE", "d": "DELETE"}[op],
+              "data": [row], **meta}
+        if op == "u":
+            ev["old"] = [changed]
+        return [ev]
+    if fmt == "maxwell":
+        ev = {"type": {"c": "insert", "u": "update", "d": "delete"}[op],
+              "data": row, **meta}
+        if op == "u":
+            ev["old"] = changed
+        return [ev]
+    if fmt == "ogg":
+        ev = {"op_type": {"c": "I", "u": "U", "d": "D"}[op]}
+        if before is not None:
+            ev["before"] = before
+        if after is not None:
+            ev["after"] = after
+        return [ev]
+    if fmt == "dms":
+        data = dict(row)
+        data.update({f"BI_{c}": v for c, v in changed.items()})
+        return [{"data": data, "metadata": {
+            "record-type": "data",
+            "operation": {"c": "insert", "u": "update",
+                          "d": "delete"}[op]}}]
+    if fmt == "aliyun":
+        if op == "c":
+            return [{"op": "INSERT", "payload": {"after": {
+                "dataColumn": after}}}]
+        if op == "d":
+            return [{"op": "DELETE", "payload": {"before": {
+                "dataColumn": before}}}]
+        return [{"op": "UPDATE_BEFORE",
+                 "payload": {"before": {"dataColumn": before}}},
+                {"op": "UPDATE_AFTER",
+                 "payload": {"after": {"dataColumn": after}}}]
+    raise ValueError(fmt)
+
+
+def cdc_oracle(changes: list, columns: list) -> list:
+    """The rows the changes leave, by id, with `columns` (absent = null)."""
+    live = {}
+    for op, before, after in changes:
+        if op == "d":
+            live.pop(before["id"], None)
+        else:
+            live[after["id"]] = after
+    return [{c: live[k].get(c) for c in columns} for k in sorted(live)]
+
+
+def same_rows(what: str, table, want: list) -> None:
+    got = sorted(table.to_arrow().to_pylist(), key=lambda r: r["id"])
+    if got != want:
+        raise AssertionError(f"{what}: {len(got)} rows, {len(want)} "
+                             f"expected, or their values differ")
+
+
+def cdc_schema(qty_int: bool = False, extra=(), partition=None):
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import (
+        BigIntType, DoubleType, IntType, VarCharType,
+    )
+    b = (Schema.builder().column("id", BigIntType(False))
+         .column("name", VarCharType.string_type())
+         .column("amount", DoubleType())
+         .column("qty", IntType() if qty_int else BigIntType()))
+    for name, typ in extra:
+        b = b.column(name, typ)
+    if partition:
+        b = b.partition_keys(partition).primary_key("id", partition)
+    else:
+        b = b.primary_key("id")
+    return b.options({"bucket": "2"}).build()
+
+
+def sink_events(table, fmt: str, events: list, commits: int = 2,
+                computed=None):
+    from paimon_tpu_torch.cdc import CdcSinkWriter
+    sink = CdcSinkWriter(table, format=fmt, computed_columns=computed)
+    step = -(-len(events) // commits)
+    for c in range(commits):
+        sink.write_events(events[c * step:(c + 1) * step])
+        sink.commit(c + 1)
+    sink.close()
+    return sink.table
+
+
+def cov_database_sync(work: str, dev, n: int) -> dict:
+    """CdcDatabaseSync over a filesystem catalog on the card: 3 tables of
+    one database, `orders` created beforehand with `qty INT` (widened to
+    BIGINT) and an unseen `city` column midway; a foreign database's
+    table is filtered out."""
+    from paimon_tpu_torch.catalog import create_catalog
+    from paimon_tpu_torch.cdc import CdcDatabaseSync
+
+    catalog = create_catalog({"warehouse": os.path.join(work, "cdc_wh")},
+                             device=dev)
+    catalog.create_database("appdb")
+    catalog.create_table("appdb.orders", cdc_schema(qty_int=True))
+    streams, oracle = [], {}
+    for t, name in enumerate(("users", "orders", "items")):
+        changes = cdc_changes(31 + t, n, wide_from=n // 2
+                              if name == "orders" else None)
+        oracle[name] = cdc_oracle(changes, ["id", "name", "amount", "qty"]
+                                  + (["city"] if name == "orders" else []))
+        streams.append([ev for op, b, a in changes for ev in cdc_render(
+            "debezium", op, b, a, {"database": "appdb", "table": name})])
+    streams.append([ev for op, b, a in cdc_changes(39, n // 8)
+                    for ev in cdc_render("debezium", op, b, a, {
+                        "database": "otherdb", "table": "users"})])
+    events = [s[i] for i in range(max(map(len, streams)))
+              for s in streams if i < len(s)]
+    sync = CdcDatabaseSync(catalog, "appdb", format="debezium",
+                           primary_keys={"users": ["id"], "items": ["id"]},
+                           table_options={"bucket": "2"})
+    step = -(-len(events) // 4)
+    for c in range(4):
+        sync.write_events(events[c * step:(c + 1) * step])
+        sync.commit(c + 1)
+    tables = sync.tables()
+    sync.close()
+    if tables != ["items", "orders", "users"] or \
+            "otherdb" in catalog.list_databases():
+        raise AssertionError(f"database sync: tables {tables}, databases "
+                             f"{catalog.list_databases()}")
+    for name in tables:
+        same_rows(f"database sync {name}",
+                  catalog.get_table(f"appdb.{name}"), oracle[name])
+    types = {f.name: f.type.root
+             for f in catalog.get_table("appdb.orders").schema.fields}
+    if types.get("qty") != "BIGINT" or types.get("city") != "VARCHAR":
+        raise AssertionError(f"database sync: orders evolved to {types}")
+    return {"events": len(events), "tables": len(tables)}
+
+
+def cov_formats(work: str, dev, n: int) -> dict:
+    """Each format's table equals the Debezium table of the same changes
+    (and the oracle)."""
+    from paimon_tpu_torch.table import FileStoreTable
+    changes = cdc_changes(41, n)
+    want = cdc_oracle(changes, ["id", "name", "amount", "qty"])
+    rows = {}
+    for fmt in ("debezium",) + STREAM_FORMATS:
+        table = FileStoreTable.create(os.path.join(work, f"cdc_{fmt}"),
+                                      cdc_schema(), device=dev)
+        events = [ev for op, b, a in changes
+                  for ev in cdc_render(fmt, op, b, a)]
+        t = sink_events(table, fmt, events)
+        same_rows(f"format {fmt}", t, want)
+        rows[fmt] = len(events)
+    return {"events": rows}
+
+
+def cov_computed(work: str, dev, n: int) -> dict:
+    """`dt=date_format(order_time, yyyy-MM-dd)` as the partition key."""
+    import datetime
+
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, VarCharType
+    changes = [c for c in cdc_changes(43, n, keys=n, ts0=STREAM_TS0)
+               if c[0] == "c"]
+    table = FileStoreTable.create(
+        os.path.join(work, "cdc_computed"),
+        cdc_schema(extra=(("order_time", BigIntType()),
+                          ("dt", VarCharType.string_type())),
+                   partition="dt"), device=dev)
+    events = [ev for op, b, a in changes
+              for ev in cdc_render("debezium", op, b, a)]
+    t = sink_events(table, "debezium", events,
+                    computed=["dt=date_format(order_time, yyyy-MM-dd)"])
+    want = cdc_oracle(changes, ["id", "name", "amount", "qty",
+                                "order_time"])
+    for r in want:
+        r["dt"] = datetime.datetime.fromtimestamp(
+            r["order_time"] / 1000, tz=datetime.timezone.utc) \
+            .strftime("%Y-%m-%d")
+    same_rows("computed dt", t, want)
+    return {"events": len(events), "partitions": len({r["dt"]
+                                                      for r in want})}
+
+
+def cov_aggregation(work: str, dev, n: int) -> dict:
+    """An aggregation table (amount sum, qty max) fed by a StreamDaemon,
+    compacted by its compaction loop: the offset-value-code variant on
+    the stream path."""
+    from paimon_tpu_torch.cdc.source import MemoryCdcSource
+    from paimon_tpu_torch.metrics import STREAM_COMPACTIONS, global_registry
+    from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+    from paimon_tpu_torch.table import FileStoreTable
+
+    keys = 4096
+    rng = np.random.default_rng(47)
+    ids = rng.integers(0, keys, n)
+    amount = np.round(rng.random(n) * 100.0, 2)
+    qty = rng.integers(1, 1 << 20, n)
+    events = [{"op": "c", "after": {"id": i, "amount": a, "qty": q}}
+              for i, a, q in zip(ids.tolist(), amount.tolist(),
+                                 qty.tolist())]
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.types import BigIntType, DoubleType
+    table = FileStoreTable.create(
+        os.path.join(work, "cdc_agg"),
+        Schema.builder().column("id", BigIntType(False))
+        .column("amount", DoubleType()).column("qty", BigIntType())
+        .primary_key("id").options({
+            "bucket": "2", "merge-engine": "aggregation",
+            "fields.amount.aggregate-function": "sum",
+            "fields.qty.aggregate-function": "max",
+            "stream.checkpoint.interval": "100",
+            "stream.compaction.interval": "200",
+            "stream.ingest.poll-interval": "10",
+            "num-sorted-run.compaction-trigger": "3"}).build(),
+        device=dev)
+    g = global_registry().stream_metrics()
+    c0 = g.counter(STREAM_COMPACTIONS).count
+    src = MemoryCdcSource()
+    d = StreamDaemon(table, src, serve=False).start()
+    try:
+        for lo in range(0, n, n // 8):
+            src.append(*events[lo:lo + n // 8])
+            t0 = time.monotonic()
+            while d.status()["offset_committed"] < lo + n // 8 - 1:
+                if time.monotonic() - t0 > 60:
+                    raise AssertionError(f"aggregation: {d.status()}")
+                time.sleep(0.005)
+        t0 = time.monotonic()
+        while g.counter(STREAM_COMPACTIONS).count == c0:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("aggregation: no compaction")
+            time.sleep(0.01)
+    finally:
+        status = d.stop()
+    if any(lp["failed"] for lp in status["loops"].values()):
+        raise AssertionError(f"aggregation: {status}")
+    got = FileStoreTable.load(table.path, device=dev).to_arrow()
+    gid = got.column("id").to_numpy()
+    order = np.argsort(gid)
+    sums = np.zeros(keys)
+    np.add.at(sums, ids, amount)
+    maxs = np.zeros(keys, dtype=np.int64)
+    np.maximum.at(maxs, ids, qty)
+    live = np.unique(ids)
+    if not np.array_equal(gid[order], live) or \
+            not np.allclose(got.column("amount").to_numpy()[order],
+                            sums[live], rtol=1e-12, atol=0.0) or \
+            not np.array_equal(got.column("qty").to_numpy()[order],
+                               maxs[live]):
+        raise AssertionError("aggregation: rows differ from numpy")
+    return {"events": n, "compactions": g.counter(STREAM_COMPACTIONS).count
+            - c0}
+
+
+class StormFileIO:
+    """tests/failing_fileio.py's FailingFileIO for this script (which
+    imports nothing of the JAX package): once armed, every mutating op
+    past `fail_after` raises, `fail_times` of them (None: until
+    disarmed), two-phase closes and commits included."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self._left = None           # ops that still succeed; None: off
+        self._times = None
+        self.failed = 0
+        self._lock = threading.Lock()
+
+    def arm(self, fail_after: int, fail_times=None) -> None:
+        with self._lock:
+            self._left, self._times = fail_after, fail_times
+
+    def disarm(self) -> None:
+        with self._lock:
+            self._left = self._times = None
+
+    def _tick(self, op: str, path: str) -> None:
+        from paimon_tpu_torch.fs.object_store import TransientStoreError
+        with self._lock:
+            if self._left is None:
+                return
+            if self._left > 0:
+                self._left -= 1
+                return
+            self.failed += 1
+            if self._times is not None:
+                self._times -= 1
+                if self._times <= 0:
+                    self._left = self._times = None
+        raise TransientStoreError(f"injected 503 at {op} {path}")
+
+    def write_bytes(self, path, data, overwrite=True):
+        self._tick("write_bytes", path)
+        return self.inner.write_bytes(path, data, overwrite=overwrite)
+
+    def try_to_write_atomic(self, path, data):
+        self._tick("try_to_write_atomic", path)
+        return self.inner.try_to_write_atomic(path, data)
+
+    def delete(self, path, recursive=False):
+        self._tick("delete", path)
+        return self.inner.delete(path, recursive=recursive)
+
+    def delete_quietly(self, path):
+        self._tick("delete_quietly", path)
+        return self.inner.delete_quietly(path)
+
+    def rename(self, src, dst):
+        self._tick("rename", src)
+        return self.inner.rename(src, dst)
+
+    def copy(self, src, dst, overwrite=True):
+        self._tick("copy", dst)
+        return self.inner.copy(src, dst, overwrite=overwrite)
+
+    def new_two_phase_stream(self, path):
+        outer, stream = self, self.inner.new_two_phase_stream(path)
+
+        class Stream:
+            def write(self, data):
+                stream.write(data)
+
+            def close_for_commit(self):
+                outer._tick("two_phase.close", path)
+                committer = stream.close_for_commit()
+
+                class Committer:
+                    def commit(self):
+                        outer._tick("two_phase.commit", path)
+                        committer.commit()
+
+                    def discard(self):
+                        outer._tick("two_phase.discard", path)
+                        committer.discard()
+                return Committer()
+
+            def __getattr__(self, name):
+                return getattr(stream, name)
+        return Stream()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def cov_soak(work: str, dev, seconds: float, seed: int = 7,
+             kills: int = 3, storms: int = 3) -> dict:
+    """The soak harness's short schedule (tests/test_torch_stream_daemon.py
+    `run_soak`) on the card: ingest, compaction and serving of a small
+    table while 3 transient 503 storms and 3 kill/restart cycles
+    mid-checkpoint hit the store; no event lost or duplicated in the
+    table or the changelog across incarnations, offsets and identifiers
+    rising strictly, fsck clean."""
+    import random
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.cdc.source import MemoryCdcSource
+    from paimon_tpu_torch.core.read import ROW_KIND_COL
+    from paimon_tpu_torch.service.stream_daemon import (
+        PROP_OFFSET, StreamDaemon,
+    )
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType
+
+    rng = random.Random(seed)
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v", BigIntType()).primary_key("id").options({
+                  "bucket": "2", "stream.checkpoint.interval": "80",
+                  "stream.compaction.interval": "200",
+                  "num-sorted-run.compaction-trigger": "3",
+                  "stream.serve.poll-interval": "20",
+                  "stream.ingest.poll-interval": "10",
+                  "stream.restart.backoff": "20",
+                  "stream.restart.backoff.cap": "150",
+                  "write.retry.backoff": "5",
+                  "snapshot.num-retained.min": "100000",
+                  "snapshot.num-retained.max": "100000"}).build())
+    base = FileStoreTable.create(os.path.join(work, "cdc_soak"), schema,
+                                 device=dev)
+    fio = StormFileIO(base.file_io)
+    table = FileStoreTable(fio, base.path, base.schema_manager.latest(),
+                           device=dev)
+    source = MemoryCdcSource()
+    expected, materialized = {}, {}
+    n = 0
+
+    def drain(daemon, timeout=0.0):
+        while True:
+            rows = daemon.poll_changelog(timeout=timeout)
+            if not rows:
+                return
+            for r in rows:
+                if r[ROW_KIND_COL] in (0, 2):
+                    materialized[r["id"]] = r["v"]
+                elif r[ROW_KIND_COL] == 3:
+                    materialized.pop(r["id"], None)
+
+    t_start = time.monotonic()
+    emit_until = t_start + seconds * 0.8
+    kill_at = [t_start + seconds * (0.15 + 0.7 * (i + 1) / (kills + 1))
+               for i in range(kills)]
+    storm_at = [t_start + seconds * (0.1 + 0.7 * (i + 0.5) / (storms + 1))
+                for i in range(storms)]
+    done_k = done_s = 0
+    daemon = StreamDaemon(table, source).start()
+    incarnations = 1
+    last = 0.0
+    try:
+        while time.monotonic() < t_start + seconds:
+            now = time.monotonic()
+            if now < emit_until and now - last >= 0.004:
+                evs = []
+                for _ in range(4):
+                    key = n % 29
+                    if expected.get(key) is not None and \
+                            rng.random() < 0.08:
+                        evs.append({"op": "d", "before": {"id": key,
+                                                          "v": n}})
+                        expected.pop(key)
+                    else:
+                        evs.append({"op": "c", "after": {"id": key,
+                                                         "v": n}})
+                        expected[key] = n
+                    n += 1
+                source.append(*evs)
+                last = now
+            drain(daemon)
+            if done_s < storms and now >= storm_at[done_s]:
+                fio.arm(rng.randrange(0, 4), fail_times=5)
+                done_s += 1
+            if done_k < kills and now >= kill_at[done_k]:
+                fio.arm(0)
+                time.sleep(0.05)
+                daemon.kill()
+                fio.disarm()
+                drain(daemon, 0.05)
+                daemon = StreamDaemon(table, source).start()
+                incarnations += 1
+                done_k += 1
+            time.sleep(0.002)
+        fio.disarm()
+        last_offset = source.latest_offset()
+        deadline = time.monotonic() + 60
+        while daemon.status()["offset_committed"] < last_offset:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"soak: never converged: "
+                                     f"{daemon.status()}")
+            drain(daemon)
+            time.sleep(0.02)
+        status = daemon.stop()
+        drain(daemon, 0.05)
+    finally:
+        fio.disarm()
+        daemon.kill()
+    final = FileStoreTable.load(base.path, device=dev)
+    if status["offset_committed"] != last_offset or \
+            {r["id"]: r["v"] for r in final.to_arrow().to_pylist()} \
+            != expected or materialized != expected:
+        raise AssertionError("soak: lost or duplicated events")
+    offs, idents = [], []
+    for snap in final.snapshot_manager.snapshots():
+        if snap.commit_user == "stream-daemon" and \
+                PROP_OFFSET in (snap.properties or {}):
+            offs.append(int(snap.properties[PROP_OFFSET]))
+            idents.append(snap.commit_identifier)
+    if offs != sorted(set(offs)) or offs[-1] != last_offset or \
+            idents != sorted(set(idents)):
+        raise AssertionError(f"soak: offsets {offs}, identifiers {idents}")
+    if not final.fsck().ok:
+        raise AssertionError("soak: fsck found violations")
+    return {"events": n, "kills": done_k, "storms": done_s,
+            "incarnations": incarnations, "ops_failed": fio.failed,
+            "checkpoints": len(offs)}
+
+
+def cov_flight(work: str, dev) -> dict:
+    """A loop forced to die for good (max-restarts 0, a broken source)
+    leaves a flight dump with its loop.crash event under
+    obs.flight.dump.dir."""
+    from paimon_tpu_torch.obs import flight
+    from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+    from paimon_tpu_torch.table import FileStoreTable
+
+    class Broken:
+        def poll(self, after, n):
+            raise OSError("source connection lost")
+
+        def backlog(self, after):
+            return 0
+
+    dump_dir = os.path.join(work, "flight")
+    table = FileStoreTable.create(os.path.join(work, "cdc_flight"),
+                                  cdc_schema(), device=dev)
+    d = StreamDaemon(table, Broken(), compact=False, serve=False,
+                     dynamic_options={"obs.flight.dump.dir": dump_dir,
+                                      "stream.restart.max-restarts": "0",
+                                      "stream.restart.backoff": "1"})
+    try:
+        d.start()
+        t0 = time.monotonic()
+        while not d.status()["loops"]["ingest"]["failed"]:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError(f"flight: {d.status()}")
+            time.sleep(0.01)
+        d.stop()
+    finally:
+        # no dump at this process's exit
+        flight.recorder().dump_dir = None
+    dumps = sorted(os.listdir(dump_dir))
+    with open(os.path.join(dump_dir, dumps[-1])) as f:
+        doc = json.load(f)
+    crash = [e for e in doc["events"] if e["kind"] == "loop.crash"]
+    if len(dumps) != 1 or not crash or crash[-1]["loop"] != "ingest":
+        raise AssertionError(f"flight: dumps {dumps}, events "
+                             f"{doc['events'][-3:]}")
+    return {"dumps": len(dumps), "events": len(doc["events"])}
+
+
+class StreamCli:
+    """`python -m paimon_tpu_torch table stream` as a process on the card
+    (on the CPU in a rehearsal) tailing a JSONL file, with tracing on and
+    its spool under `spool`; started early, fed in two halves, stopped
+    with SIGTERM."""
+
+    def __init__(self, work: str, dev, n: int, spool: str):
+        from paimon_tpu_torch.catalog import create_catalog
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.wh = os.path.join(work, "cli_wh")
+        self.dev = dev
+        catalog = create_catalog({"warehouse": self.wh}, device=dev)
+        catalog.create_database("appdb")
+        catalog.create_table("appdb.cli", cdc_schema())
+        changes = cdc_changes(53, n)
+        self.want = cdc_oracle(changes, ["id", "name", "amount", "qty"])
+        self.lines = [json.dumps(ev) for op, b, a in changes
+                      for ev in cdc_render("debezium", op, b, a)]
+        self.source = os.path.join(work, "cli_events.jsonl")
+        self._append(self.lines[:len(self.lines) // 2])
+        device = ["--device", "cpu"] if dev.type == "cpu" else []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paimon_tpu_torch", "--warehouse",
+             self.wh, *device, "table", "stream", "appdb.cli",
+             "--source", self.source,
+             "--option", "stream.checkpoint.interval=200",
+             "--option", "stream.ingest.poll-interval=20",
+             "--option", "trace.enabled=true",
+             "--option", f"trace.export.dir={spool}"],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def _append(self, lines) -> None:
+        with open(self.source, "a") as f:
+            f.write("\n".join(lines) + "\n")
+
+    def feed_rest(self) -> None:
+        self._append(self.lines[len(self.lines) // 2:])
+
+    def finish(self, timeout: float = 120.0) -> dict:
+        """Wait for the last offset's checkpoint, SIGTERM, and check the
+        drain and the table."""
+        import signal
+
+        from paimon_tpu_torch.service.stream_daemon import (
+            recover_checkpoint,
+        )
+        from paimon_tpu_torch.table import FileStoreTable
+        path = os.path.join(self.wh, "appdb.db", "cli")
+        last = len(self.lines) - 1
+        deadline = time.perf_counter() + timeout
+        while recover_checkpoint(FileStoreTable.load(path, device=self.dev),
+                                 "stream-daemon")[0] < last:
+            if self.proc.poll() is not None or \
+                    time.perf_counter() > deadline:
+                self.stop()
+                raise AssertionError(f"`table stream` exited "
+                                     f"{self.proc.returncode} or stalled: "
+                                     f"{self.proc.stderr.read()[-800:]}")
+            time.sleep(0.05)
+        caught_up = time.perf_counter() - self.t0
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = self.proc.communicate(timeout=60)
+        finally:
+            self.stop()
+        status = json.loads(out)
+        if self.proc.returncode != 0 or \
+                status["offset_committed"] != last or \
+                any(lp["failed"] for lp in status["loops"].values()):
+            raise AssertionError(f"`table stream` did not drain: exit "
+                                 f"{self.proc.returncode}, {status}, "
+                                 f"{err[-800:]}")
+        same_rows("`table stream`", FileStoreTable.load(
+            path, device=self.dev), self.want)
+        return {"events": len(self.lines), "caught_up_s": caught_up,
+                "s": time.perf_counter() - self.t0}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def stream_coverage(work: str, rec: Recorder, dev, scale: int,
+                    spool: str) -> dict:
+    """The coverage checks of the streaming slice but the CLI's; each is
+    a check, not a metric (their seconds are logged)."""
+    import paimon_tpu_torch.obs.trace as T
+
+    out = {}
+
+    def part(name, fn):
+        rec.capture.where = f"stream_coverage {name}"
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["s"] = time.perf_counter() - t0
+        log(f"  stream_coverage {name}: {out[name]}")
+
+    part("database_sync", lambda: cov_database_sync(
+        work, dev, STREAM_DB_EVENTS // scale))
+    # this process's spans for the merged trace
+    T.enable_tracing()
+    T.set_export_dir(spool)
+    try:
+        part("formats", lambda: cov_formats(
+            work, dev, STREAM_FORMAT_EVENTS // scale))
+        T.spool_flush()
+    finally:
+        T.set_export_dir(None)
+        T.disable_tracing()
+        T.collector().clear()
+    part("computed", lambda: cov_computed(
+        work, dev, STREAM_FORMAT_EVENTS // scale))
+    part("aggregation", lambda: cov_aggregation(
+        work, dev, STREAM_AGG_EVENTS // scale))
+    part("soak", lambda: cov_soak(work, dev, 5.0))
+    part("flight", lambda: cov_flight(work, dev))
+    return out
+
+
+def merged_trace(work: str, spool: str) -> dict:
+    """`fleet trace --merge` over the spools of the `table stream`
+    process and of this one: a trace of at least 2 processes."""
+    import contextlib
+    import io
+
+    from paimon_tpu_torch.cli import main as cli_main
+    merged = os.path.join(work, "fleet-trace.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["fleet", "trace", "--merge", spool, "--out", merged])
+    stats = json.loads(buf.getvalue())
+    if rc != 0 or stats["processes"] < 2:
+        raise AssertionError(f"fleet trace --merge: exit {rc}, {stats}")
+    return {k: stats[k] for k in ("processes", "spans", "flows")}
+
+
+def stream_cdc(work: str, rec: Recorder, device="cuda",
+               scale: int = 1) -> dict:
+    """CDC ingest and the streaming daemon on the card (`scale` divides
+    the event counts, for a rehearsal): the `table stream` process and
+    stream_orders_2M's events start in processes of their own, then
+    stream_coverage runs, then stream_orders_2M, then the process is
+    stopped and the trace spools merged; all on a metric registry of
+    their own (the soak's injected faults retry; the run's retry check
+    counts the other phases).  Returns what the phase reports."""
+    import torch
+
+    import paimon_tpu_torch.metrics as M
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    saved = M._GLOBAL
+    M._GLOBAL = M.MetricRegistry()
+    spool = os.path.join(work, "spool")
+    gen = OrderEvents(work, STREAM_EVENTS // scale,
+                      STREAM_SNAPSHOT // scale, STREAM_CHUNK // scale)
+    cli = None
+    try:
+        cli = StreamCli(work, dev, STREAM_CLI_EVENTS // scale, spool)
+        cli.feed_rest()
+        cov = stream_coverage(work, rec, dev, scale, spool)
+        # the cell's stream metrics only: a registry of its own
+        M._GLOBAL = M.MetricRegistry()
+        orders = stream_orders(work, rec, dev, scale, gen)
+        rec.capture.where = "stream_coverage cli"
+        t0 = time.perf_counter()
+        cov["cli"] = cli.finish()
+        cov["cli"]["s_finish"] = time.perf_counter() - t0
+        log(f"  stream_coverage cli: {cov['cli']}")
+        cov["merged_trace"] = merged_trace(work, spool)
+        log(f"  stream_coverage merged trace: {cov['merged_trace']}")
+    finally:
+        gen.stop()
+        if cli is not None:
+            cli.stop()
+        M._GLOBAL = saved
+        shutil.rmtree(gen.out, ignore_errors=True)
+    name = next(p["table"] for p in rec.phases
+                if p["table"].startswith("stream_orders"))
+    k2 = sum(v for k, v in rec.capture.calls.items()
+             if k[0] == "stream_coverage" and k[1] == "ovc")
+    cov["launches_ovc"] = k2
+    if device != "cpu" and (orders["launches_plain"] == 0 or k2 == 0):
+        raise AssertionError(f"stream_cdc: K1 in {name} "
+                             f"{orders['launches_plain']} times, K2 in "
+                             f"stream_coverage {k2} times")
+    out = {name: orders, "stream_coverage": cov,
+           "s": time.perf_counter() - t_phase}
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
-APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_4M",
+APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_2M",
                  "ap_queue_coverage")
 
 
@@ -7003,7 +8411,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               c5: dict, decode_timer: DecodeTimer, decoded: dict,
               mesh: dict, served: dict, bucketed: dict,
               maintained: dict, planes: dict, indexed: dict,
-              appended: dict, formatted: dict, sqled: dict) -> tuple:
+              appended: dict, formatted: dict, sqled: dict,
+              streamed: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -7169,6 +8578,13 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # and the CLI on the card
             sqled.update(path("catalog_sql",
                               lambda: catalog_sql(work, rec)))
+            # CDC ingest and the streaming daemon: a growing JSONL file
+            # tailed by the daemon's ingest, compaction and serve loops,
+            # a kill and its recovery, two changelog consumers, and the
+            # coverage of the CDC formats, database sync, the CLI, flight
+            # dumps and the merged trace
+            streamed.update(path("stream_cdc",
+                                 lambda: stream_cdc(work, rec)))
         moved = counter_delta(planes0)
         injected = sum(planes["faults_1M"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
@@ -7273,10 +8689,11 @@ def main() -> int:
     appended: dict = {}
     formatted: dict = {}
     sqled: dict = {}
+    streamed: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
-                         appended, formatted, sqled)
+                         appended, formatted, sqled, streamed)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -7313,6 +8730,18 @@ def main() -> int:
     print(json.dumps({"append_tables": appended}))
     print(json.dumps({"formats_types": formatted}))
     print(json.dumps({"catalog_sql": sqled}))
+    print(json.dumps({"stream_cdc": streamed}))
+    orders = next(v for k, v in streamed.items()
+                  if k.startswith("stream_orders"))
+    print(json.dumps({"stream": {
+        "card": streamed["card"],
+        **{k: orders[k] for k in (
+            "events", "change_rows", "events_per_s", "change_rows_per_s",
+            "s", "freshness_ms", "checkpoint_ms", "checkpoints",
+            "compactions", "compactions_paused", "loop_restarts",
+            "recover_s", "drain_s", "k1_by_shape", "k1_by_thread",
+            "peak_gib", "rss_gib")},
+        "phase_s": streamed["s"]}}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

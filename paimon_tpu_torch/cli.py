@@ -18,10 +18,11 @@ or the PAIMON_WAREHOUSE environment variable.
 
 --device picks the device the catalog's tables run on: the card
 ("cuda") unless given, which raises without one; `--device cpu` runs
-on the CPU.  Not ported yet, each raising NotImplementedError naming
-its ROADMAP.md item: `table stream` (service/stream_daemon.py, A.7b),
-`fleet` (parallel/distributed.py, A.8.9) and `lint` (analysis/,
-A.8.9).
+on the CPU.  `table stream` runs the streaming daemon over a JSONL file
+of CDC events until SIGTERM or --duration, and `fleet trace --merge DIR`
+merges the trace spools under DIR.  Not ported yet, each raising
+NotImplementedError naming its ROADMAP.md item: the rest of `fleet`
+(parallel/distributed.py, A.8.9) and `lint` (analysis/, A.8.9).
 """
 
 import argparse
@@ -262,9 +263,55 @@ def cmd_table(args):
             out = out.filter(pc.equal(out.column("group"), args.group))
         _print_table(out, args.format)
     elif cmd == "stream":
-        raise NotImplementedError(
-            "`table stream` needs service/stream_daemon.py, which is not "
-            "ported to paimon_tpu_torch yet (ROADMAP.md: A.7b)")
+        table = _table(catalog, args.table)
+        from paimon_tpu_torch.cdc.source import FileCdcSource
+        from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+        dynamic = {}
+        for opt in args.option or []:
+            k, _, v = opt.partition("=")
+            dynamic[k] = v
+        source = FileCdcSource(args.source)
+        daemon = StreamDaemon(
+            table, source, format=args.cdc_format,
+            commit_user=args.commit_user,
+            compact=not args.no_compact, serve=not args.no_serve,
+            dynamic_options=dynamic or None)
+        server = None
+        with _TraceScope(getattr(args, "trace", None)):
+            daemon.install_signal_handlers()
+            daemon.start()
+            if not args.no_serve:
+                # the CLI has no in-process consumer: drain the bounded
+                # changelog buffer (keeping the serve loop and its
+                # freshness measurement live); remote consumers use
+                # /changelog, which runs its own per-consumer scans
+                from paimon_tpu_torch.parallel.executors import (
+                    spawn_thread,
+                )
+
+                def _drain_buffer():
+                    while daemon.poll_changelog(timeout=1.0) or \
+                            daemon._serve_alive():
+                        pass
+
+                spawn_thread(_drain_buffer,
+                             name="paimon-stream-cli-drain")
+            if args.serve_port is not None:
+                from paimon_tpu_torch.service.query_service import (
+                    KvQueryServer,
+                )
+                server = KvQueryServer(table,
+                                       port=args.serve_port).start()
+                print(f"query service (with /changelog) at "
+                      f"{server.address}", file=sys.stderr)
+            try:
+                status = daemon.run_forever(args.duration)
+            finally:
+                if server is not None:
+                    server.stop()
+        print(json.dumps(status, indent=2, default=str))
+        if any(lp["failed"] for lp in status["loops"].values()):
+            raise SystemExit(1)
     elif cmd == "debug-bundle":
         table = _table(catalog, args.table)
         out_path = args.out or "debug-bundle.json"
@@ -402,10 +449,16 @@ def build_debug_bundle(table, serving: Optional[str] = None,
 
 
 def cmd_fleet(args):
+    if args.fleet_cmd == "trace":
+        from paimon_tpu_torch.obs.merge import export_merged
+        stats = export_merged(args.merge, args.out)
+        print(json.dumps(stats, indent=2))
+        if stats["processes"] == 0:
+            raise SystemExit(1)
+        return
     raise NotImplementedError(
-        f"`fleet {args.fleet_cmd}` needs parallel/distributed.py and "
-        f"obs/merge.py, which are not ported to paimon_tpu_torch yet "
-        f"(ROADMAP.md: A.8.9)")
+        f"`fleet {args.fleet_cmd}` needs parallel/distributed.py, which "
+        f"is not ported to paimon_tpu_torch yet (ROADMAP.md: A.8.9)")
 
 
 def cmd_sql(args):

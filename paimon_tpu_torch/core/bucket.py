@@ -164,28 +164,31 @@ class KeyHasher:
         return self._murmur_rows(mat)
 
     def _murmur_rows(self, mat: np.ndarray) -> np.ndarray:
+        """Murmur3 of each row of `mat` in uint32 arithmetic, which wraps
+        modulo 2^32 as the masked uint64 steps of `murmur_hash_bytes`
+        do; the hashes widened to uint64."""
         n, row_len = mat.shape
         if n == 0:
             return np.empty(0, dtype=np.uint64)
-        words = mat[:, :row_len - (row_len % 4)] \
-            .reshape(n, -1, 4).view("<u4")[:, :, 0].astype(np.uint64)
-        h1 = np.full(n, _SEED, dtype=np.uint64)
-        m32 = np.uint64(_M32)
-        for w in range(words.shape[1]):
-            k1 = words[:, w]
-            k1 = (k1 * np.uint64(_C1)) & m32
-            k1 = ((k1 << np.uint64(15)) | (k1 >> np.uint64(17))) & m32
-            k1 = (k1 * np.uint64(_C2)) & m32
-            h1 = (h1 ^ k1) & m32
-            h1 = ((h1 << np.uint64(13)) | (h1 >> np.uint64(19))) & m32
-            h1 = (h1 * np.uint64(5) + np.uint64(0xE6546B64)) & m32
-        h1 = (h1 ^ np.uint64(row_len)) & m32
-        h1 ^= h1 >> np.uint64(16)
-        h1 = (h1 * np.uint64(0x85EBCA6B)) & m32
-        h1 ^= h1 >> np.uint64(13)
-        h1 = (h1 * np.uint64(0xC2B2AE35)) & m32
-        h1 ^= h1 >> np.uint64(16)
-        return h1
+        words = np.ascontiguousarray(
+            mat[:, :row_len - (row_len % 4)]).view("<u4")
+        h1 = np.full(n, _SEED, dtype=np.uint32)
+        c1, c2 = np.uint32(_C1), np.uint32(_C2)
+        with np.errstate(over="ignore"):
+            for w in range(words.shape[1]):
+                k1 = words[:, w] * c1
+                k1 = (k1 << np.uint32(15)) | (k1 >> np.uint32(17))
+                k1 *= c2
+                h1 ^= k1
+                h1 = (h1 << np.uint32(13)) | (h1 >> np.uint32(19))
+                h1 = h1 * np.uint32(5) + np.uint32(0xE6546B64)
+            h1 ^= np.uint32(row_len)
+            h1 ^= h1 >> np.uint32(16)
+            h1 *= np.uint32(0x85EBCA6B)
+            h1 ^= h1 >> np.uint32(13)
+            h1 *= np.uint32(0xC2B2AE35)
+            h1 ^= h1 >> np.uint32(16)
+        return h1.astype(np.uint64)
 
 
 class FixedBucketAssigner:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import time as _time
 import uuid
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from paimon_tpu_torch.core.write import CommitMessage
 from paimon_tpu_torch.data.binary_row import BinaryRowCodec
@@ -83,6 +83,10 @@ class FileStoreCommit:
         self.row_tracking = (
             options.get(CoreOptions.ROW_TRACKING_ENABLED)
             and not table_schema.primary_keys)
+        # optional () -> {str: str} of snapshot properties, evaluated
+        # once per CAS attempt and merged under the explicit ones (the
+        # CDC sink's `properties_provider`)
+        self.properties_provider: Optional[Callable] = None
 
     # -- public API ----------------------------------------------------------
 
@@ -355,6 +359,11 @@ class FileStoreCommit:
                 (e.file.row_count if e.kind == FileKind.ADD
                  else -e.file.row_count) for e in entries)
             changelog_rows = sum(e.file.row_count for e in changelog_entries)
+            attempt_props = properties
+            if self.properties_provider is not None:
+                attempt_props = dict(self.properties_provider() or {})
+                attempt_props.update(properties or {})
+                attempt_props = attempt_props or None
             snapshot = Snapshot(
                 id=new_id,
                 schema_id=self.schema.id,
@@ -372,7 +381,7 @@ class FileStoreCommit:
                 total_record_count=prev_total + delta_rows,
                 delta_record_count=delta_rows,
                 changelog_record_count=changelog_rows or None,
-                properties=properties,
+                properties=attempt_props,
                 statistics=statistics,
                 next_row_id=next_row_id,
                 watermark=max(wm_vals) if wm_vals else None,

@@ -27,12 +27,6 @@ from paimon_tpu_torch.snapshot import Snapshot
 
 __all__ = ["expire_snapshots", "ExpireResult"]
 
-# the offset checkpoint property of the reference's stream daemon
-# (paimon_tpu/service/stream_daemon.py PROP_OFFSET): a snapshot that
-# carries it is a recovery point and never folds
-PROP_OFFSET = "stream.source.offset"
-
-
 @dataclass
 class ExpireResult:
     expired_snapshots: List[int] = field(default_factory=list)
@@ -249,6 +243,9 @@ def _fold_heartbeats(table, dry_run: bool = False) -> List[int]:
     shared.  Folded ids are durably recorded in `snapshot/FOLDED`
     BEFORE deletion so fsck's chain check can tell a fold from torn
     expiry."""
+    # a snapshot carrying the stream daemon's offset is a recovery
+    # point and never folds
+    from paimon_tpu_torch.service.stream_daemon import PROP_OFFSET
     from paimon_tpu_torch.snapshot.snapshot import CommitKind
 
     sm = table.snapshot_manager

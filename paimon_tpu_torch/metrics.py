@@ -16,7 +16,9 @@ plan's ms; write: sort; commit: CAS and manifest encode, with the commit
 group's counters), and the compaction group's task counters with the
 busy window of `CompactTimer`.  `snapshot_rows` is the one
 serialization behind `snapshot()` and the Prometheus text of
-obs/export.py.  The reference's stream and multihost groups and the
+obs/export.py; and the stream daemon's stream group (events, checkpoints
+and their ms, loop restarts, freshness, changelog rows, compactions and
+pauses, the source backlog).  The reference's multihost group and the
 rest of the fleet and cache_disk groups are not ported yet.
 
 reference: paimon-core/.../metrics/ (MetricRegistry, Counter, Gauge,
@@ -73,7 +75,11 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
            "PLAN_SIDECAR_FALLBACKS", "SCAN_MERGE_MS", "IO_READ_MS",
            "IO_DECODE_MS", "IO_ENCODE_MS", "IO_UPLOAD_MS",
            "COMMIT_CAS_MS", "COMMIT_MANIFEST_ENCODE_MS",
-           "SCAN_DEVICE_DECODE_FILES"]
+           "SCAN_DEVICE_DECODE_FILES", "STREAM_EVENTS_INGESTED",
+           "STREAM_CHECKPOINTS", "STREAM_CHECKPOINT_MS",
+           "STREAM_LOOP_RESTARTS", "STREAM_FRESHNESS_MS",
+           "STREAM_CHANGELOG_ROWS", "STREAM_COMPACTIONS",
+           "STREAM_COMPACTIONS_PAUSED", "STREAM_SOURCE_BACKLOG"]
 
 # fault-tolerance counters of the compaction group (producer:
 # parallel/mesh_engine.py):
@@ -144,6 +150,19 @@ COMPACTION_WINDOW_MS = "window_ms"          # one mesh window merge
 COMPACTION_FALLBACK_MS = "fallback_ms"      # one single-chip rescue
 COMMIT_CAS_MS = "cas_ms"                    # commit: one CAS publish
 COMMIT_MANIFEST_ENCODE_MS = "manifest_encode_ms"
+
+# stream group (producer service/stream_daemon.py).  freshness_ms is end
+# to end: event pulled from the CDC source -> its checkpoint's rows
+# visible to a changelog scan.
+STREAM_EVENTS_INGESTED = "events_ingested"    # CDC events written
+STREAM_CHECKPOINTS = "checkpoints"            # offset commits that landed
+STREAM_CHECKPOINT_MS = "checkpoint_ms"        # one checkpoint commit
+STREAM_LOOP_RESTARTS = "loop_restarts"        # supervised loop restarts
+STREAM_FRESHNESS_MS = "freshness_ms"          # event -> changelog-visible
+STREAM_CHANGELOG_ROWS = "changelog_rows_served"
+STREAM_COMPACTIONS = "compactions"            # triggered compaction runs
+STREAM_COMPACTIONS_PAUSED = "compactions_paused"  # skipped: ingest pressure
+STREAM_SOURCE_BACKLOG = "source_backlog"      # gauge: unpulled events
 
 # service group (service/admission.py, async_server.py, delta.py,
 # query_service.py); per-tenant in-flight bytes are one gauge per
@@ -369,6 +388,10 @@ class MetricRegistry:
     def maintenance_metrics(self, table: str = "") -> MetricGroup:
         """Expire / orphan-clean / fsck plane."""
         return self.group("maintenance", table)
+
+    def stream_metrics(self, table: str = "") -> MetricGroup:
+        """Streaming-daemon plane (service/stream_daemon.py)."""
+        return self.group("stream", table)
 
     def plan_metrics(self, table: str = "") -> MetricGroup:
         return self.group("plan", table)

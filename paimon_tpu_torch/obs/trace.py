@@ -10,12 +10,12 @@ process-global and synced from a table's options at pipeline entry
 (`sync_from_options`): an explicitly set key wins, an absent key
 leaves the current state.  `maybe_export` writes the ring as Chrome
 trace-event JSON to trace.export.path and appends new spans to a
-per-process spool under trace.export.dir, whose first line names the
-process and its serving replica (`set_replica_id`).  The serving plane
-carries a request's context across processes: the client's hop span
-stamps X-Trace-Id / X-Parent-Span (`inject_headers`) and the server
-adopts them around its handler (`server_span`).  The fleet merge of
-spools (obs/merge.py) is not ported yet (ROADMAP.md A.7b).
+per-process spool under trace.export.dir (`spool_flush`), whose first
+line names the process and its serving replica (`set_replica_id`).
+The serving plane carries a request's context across processes: the
+client's hop span stamps X-Trace-Id / X-Parent-Span (`inject_headers`)
+and the server adopts them around its handler (`server_span`).
+obs/merge.py merges the spools of several processes into one trace.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ __all__ = ["Span", "TraceCollector", "span", "enable_tracing",
            "metrics_enabled", "collector", "take_spans",
            "sync_from_options", "maybe_export", "export_chrome_trace",
            "set_replica_id", "inject_headers", "server_span",
+           "spool_flush", "reset_spool", "set_export_dir",
            "STAGE_SERVE_REQUEST", "STAGE_CLIENT_REQUEST",
            "STAGE_PLAN_LINK", "HDR_TRACE_ID", "HDR_PARENT_SPAN"]
 
@@ -341,7 +342,7 @@ def sync_from_options(options) -> None:
     """Sync the process-global switches from a table's CoreOptions at a
     pipeline entry point: explicitly set keys win, absent keys leave
     the current state."""
-    global _export_path, _export_dir
+    global _export_path
     raw = getattr(options, "options", None)
     if raw is None:
         return
@@ -360,7 +361,7 @@ def sync_from_options(options) -> None:
     if raw.contains(CoreOptions.TRACE_EXPORT_PATH):
         _export_path = raw.get(CoreOptions.TRACE_EXPORT_PATH)
     if raw.contains(CoreOptions.TRACE_EXPORT_DIR):
-        _export_dir = raw.get(CoreOptions.TRACE_EXPORT_DIR)
+        set_export_dir(raw.get(CoreOptions.TRACE_EXPORT_DIR))
 
 
 # -- export ----------------------------------------------------------------
@@ -394,34 +395,67 @@ def export_chrome_trace(path: str, spans=None) -> str:
     return path
 
 
-def _spool_flush() -> None:
+def spool_flush() -> Optional[str]:
     """Append spans newer than the last flush to
     `<trace.export.dir>/<process tag>.jsonl`, after a first line naming
-    the process, its replica and a (wall clock, perf_counter) anchor."""
+    the process, its replica and a (wall clock, perf_counter) anchor
+    that obs/merge.py rebases each process's spans by; returns the
+    spool's path, or None without an export dir.  The stream daemon
+    calls it when a loop dies for good, on kill and on SIGTERM, the
+    crash hooks on an uncaught exception and at exit.  A failed write
+    warns instead of raising."""
     global _spooled_through, _spool_header_done
+    if _export_dir is None:
+        return None
     path = os.path.join(_export_dir, _PROC + ".jsonl")
     with _spool_lock:
         fresh = [s for s in _collector.snapshot()
                  if s.span_id > _spooled_through]
-        os.makedirs(_export_dir, exist_ok=True)
-        with open(path, "a") as f:
-            if not _spool_header_done:
-                f.write(json.dumps({
-                    "proc": _PROC, "pid": os.getpid(),
-                    "host": platform.node(), "replica": _replica_id,
-                    "wall_s": time.time(),
-                    "perf_s": time.perf_counter()}) + "\n")
-                _spool_header_done = True
-            for s in fresh:
-                f.write(json.dumps({
-                    "sid": s.span_id, "parent": s.parent_id,
-                    "name": s.name, "cat": s.cat,
-                    "ts": round(s.start_us, 3), "dur": round(s.dur_us, 3),
-                    "tid": s.tid, "thread": s.thread,
-                    "attrs": {k: _jsonable(v)
-                              for k, v in s.attrs.items()}}) + "\n")
+        try:
+            os.makedirs(_export_dir, exist_ok=True)
+            with open(path, "a") as f:
+                if not _spool_header_done:
+                    f.write(json.dumps({
+                        "proc": _PROC, "pid": os.getpid(),
+                        "host": platform.node(), "replica": _replica_id,
+                        "wall_s": time.time(),
+                        "perf_s": time.perf_counter()}) + "\n")
+                    _spool_header_done = True
+                for s in fresh:
+                    f.write(json.dumps({
+                        "sid": s.span_id, "parent": s.parent_id,
+                        "name": s.name, "cat": s.cat,
+                        "ts": round(s.start_us, 3),
+                        "dur": round(s.dur_us, 3),
+                        "tid": s.tid, "thread": s.thread,
+                        "attrs": {k: _jsonable(v)
+                                  for k, v in s.attrs.items()}}) + "\n")
+        except OSError as e:
+            warnings.warn(f"trace spool to {path!r} failed: {e}",
+                          RuntimeWarning)
+            return None
         if fresh:
-            _spooled_through = max(s.span_id for s in fresh)
+            _spooled_through = max(_spooled_through,
+                                   max(s.span_id for s in fresh))
+    return path
+
+
+def reset_spool() -> None:
+    """Forget the spool's state: the next flush writes the first line
+    again and spools the whole ring."""
+    global _spooled_through, _spool_header_done
+    with _spool_lock:
+        _spooled_through = 0
+        _spool_header_done = False
+
+
+def set_export_dir(d: Optional[str]) -> None:
+    """Spool under `d` (None: no spool); a new directory starts a new
+    spool file."""
+    global _export_dir
+    if d != _export_dir:
+        _export_dir = d
+        reset_spool()
 
 
 def maybe_export() -> Optional[str]:
@@ -431,11 +465,11 @@ def maybe_export() -> Optional[str]:
     raising: tracing must never fail the data path it observes."""
     if not _enabled:
         return None
+    if _export_dir is not None:
+        spool_flush()
+    if _export_path is None:
+        return None
     try:
-        if _export_dir is not None:
-            _spool_flush()
-        if _export_path is None:
-            return None
         return export_chrome_trace(_export_path)
     except OSError as e:
         warnings.warn(f"trace export failed: {e}", RuntimeWarning)

@@ -508,7 +508,82 @@ class CoreOptions:
         "Capacity of the flight recorder's event ring")
     OBS_FLIGHT_DUMP_DIR = ConfigOption(
         "obs.flight.dump.dir", str, None,
-        "Dump the flight ring on crash into this directory (A.7b)")
+        "Crash hooks and the stream daemon's signal handler dump the "
+        "flight ring to flight-<host>-<pid>-<ms>.json under this "
+        "directory")
+
+    # -- streaming daemon (service/stream_daemon.py) ------------------------
+    STREAM_CHECKPOINT_INTERVAL = ConfigOption(
+        "stream.checkpoint.interval", _parse_duration_ms, 1000,
+        "How often the ingest loop commits a checkpoint: one snapshot "
+        "carrying the data AND the CDC source offset in its commit "
+        "properties (atomic, exactly-once across restarts)")
+    STREAM_INGEST_MAX_BATCH = ConfigOption(
+        "stream.ingest.max-batch", int, 1024,
+        "Max CDC events pulled from the source per poll; together with "
+        "the writer's write.flush.max-bytes budget (which blocks "
+        "write_events) this bounds ingest memory — the daemon never "
+        "queues events internally")
+    STREAM_INGEST_POLL_INTERVAL = ConfigOption(
+        "stream.ingest.poll-interval", _parse_duration_ms, 25,
+        "Idle sleep between source polls when the source has no events")
+    STREAM_COMPACTION_INTERVAL = ConfigOption(
+        "stream.compaction.interval", _parse_duration_ms, 2000,
+        "How often the compaction loop checks the per-bucket sorted-run "
+        "trigger (num-sorted-run.compaction-trigger) and, when over it, "
+        "runs a compaction")
+    STREAM_COMPACTION_FULL = ConfigOption(
+        "stream.compaction.full", _parse_bool, True,
+        "Triggered compactions run full (eligible for the mesh engine "
+        "with its retry/fallback ladder); false picks incremental "
+        "units through the single-chip universal-compaction manager")
+    STREAM_MANIFEST_COMPACTION_INTERVAL = ConfigOption(
+        "stream.manifest-compaction.interval", _parse_duration_ms,
+        60_000,
+        "How often the compaction loop probes the manifest "
+        "full-compaction trigger (the probe reads the snapshot's "
+        "manifest lists — too frequent is wasted metadata IO); "
+        "None disables the probe")
+    STREAM_COMPACTION_PAUSE_RATIO = ConfigOption(
+        "stream.compaction.pause-ratio", float, 0.5,
+        "Graceful degradation: the compaction loop SKIPS its round "
+        "while the write pipeline's in-flight bytes exceed this "
+        "fraction of write.flush.max-bytes (ingest pressure wins)")
+    STREAM_COMPACTION_PAUSE_BACKLOG = ConfigOption(
+        "stream.compaction.pause-backlog", int, 8192,
+        "Also pause compaction while more than this many source events "
+        "are waiting to be pulled (ingest is behind)")
+    STREAM_SERVE_POLL_INTERVAL = ConfigOption(
+        "stream.serve.poll-interval", _parse_duration_ms, 50,
+        "Changelog-serving loop sleep between stream-scan polls once "
+        "caught up")
+    STREAM_SERVE_BUFFER_ROWS = ConfigOption(
+        "stream.serve.buffer.rows", int, 65536,
+        "Bound on buffered changelog rows awaiting consumers; the "
+        "serving loop BLOCKS (backpressure) instead of dropping or "
+        "growing without bound when consumers lag")
+    STREAM_RESTART_BACKOFF = ConfigOption(
+        "stream.restart.backoff", _parse_duration_ms, 200,
+        "Base wait before a crashed daemon loop (ingest/compact/serve) "
+        "is restarted by its supervisor; waits use capped decorrelated "
+        "jitter (utils/backoff.py)")
+    STREAM_RESTART_BACKOFF_CAP = ConfigOption(
+        "stream.restart.backoff.cap", _parse_duration_ms, 10_000,
+        "Cap on the jittered supervised-restart wait")
+    STREAM_RESTART_HEALTHY_MS = ConfigOption(
+        "stream.restart.healthy-threshold", _parse_duration_ms, 30_000,
+        "A loop that ran at least this long counts as healthy and "
+        "resets its restart backoff schedule")
+    STREAM_RESTART_MAX = ConfigOption(
+        "stream.restart.max-restarts", int, None,
+        "Give up supervising a loop after this many consecutive "
+        "unhealthy restarts (None = restart forever); the daemon "
+        "records the terminal error in its status")
+    STREAM_EXPIRE_INTERVAL = ConfigOption(
+        "stream.expire.interval", _parse_duration_ms, None,
+        "When set, the compaction loop also expires old snapshots at "
+        "this interval (bounds metadata growth on long-running "
+        "daemons); None leaves snapshot expiry to external maintenance")
     LOOKUP_CACHE_MAX_MEMORY_SIZE = ConfigOption(
         "lookup.cache-max-memory-size", parse_memory_size, 256 << 20,
         "Block-cache memory bound of the SST lookup store")

@@ -1,7 +1,8 @@
-"""Query service: remote point lookups, scans and changelog polls.
+"""Query service: remote point lookups, scans and changelog polls; the
+streaming daemon (stream_daemon.py) in its single-host mode.
 
-Counterpart of paimon_tpu/service/ for one replica (the router, warm
-boot and the stream daemon are ROADMAP.md A.7b).  reference:
+Counterpart of paimon_tpu/service/ for one replica (the router and warm
+boot are ROADMAP.md A.7b).  reference:
 paimon-service/ (KvQueryServer, KvQueryClient, ServiceManager).
 """
 

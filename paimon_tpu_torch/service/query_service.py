@@ -147,8 +147,6 @@ def _refuse_a7b(opts: CoreOptions):
         refuse("service.replicas > 1 (the replica router)")
     if opts.get(CoreOptions.SERVICE_WARMBOOT_ENABLED):
         refuse("service.warmboot.enabled (warm boot)")
-    if opts.get(CoreOptions.OBS_FLIGHT_DUMP_DIR):
-        refuse("obs.flight.dump.dir (flight dumps)")
 
 
 class KvQueryServer:

@@ -87,9 +87,7 @@ def test_refused_sub_commands_print_their_item(tmp_path, capsys):
     wh = str(tmp_path / "wh")
     _bootstrap(wh)
     capsys.readouterr()
-    for argv, item in ((["table", "stream", "d1.t", "--source", "x.jsonl"],
-                        "A.7b"),
-                       (["fleet", "status", "d1.t"], "A.8.9"),
+    for argv, item in ((["fleet", "status", "d1.t"], "A.8.9"),
                        (["lint"], "A.8.9")):
         assert port_main(["--device", "cpu", "-w", wh, *argv]) == 1
         assert f"(ROADMAP.md: {item})" in capsys.readouterr().err

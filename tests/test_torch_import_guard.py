@@ -126,7 +126,15 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.sql.parser",
                  "paimon_tpu_torch.sql.executor",
                  "paimon_tpu_torch.cli",
-                 "paimon_tpu_torch.__main__"):
+                 "paimon_tpu_torch.__main__",
+                 "paimon_tpu_torch.cdc",
+                 "paimon_tpu_torch.cdc.formats",
+                 "paimon_tpu_torch.cdc.computed",
+                 "paimon_tpu_torch.cdc.source",
+                 "paimon_tpu_torch.cdc.sink",
+                 "paimon_tpu_torch.cdc.database_sync",
+                 "paimon_tpu_torch.service.stream_daemon",
+                 "paimon_tpu_torch.obs.merge"):
         assert name in out["modules"]
 
 
@@ -152,7 +160,7 @@ def test_reference_module_name_check(name, expected):
         is expected
 
 
-def test_entry_points_raise_without_cuda(tmp_path):
+def test_entry_points_raise_without_cuda(tmp_path, capsys):
     """device=None means cuda; without a card the port raises instead of
     running on the CPU."""
     import torch
@@ -175,6 +183,57 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    _cdc_and_stream_raise_without_cuda(tmp_path, capsys)
+
+
+def _cdc_and_stream_raise_without_cuda(tmp_path, capsys):
+    """The CDC sink, the database sync, the stream daemon and `table
+    stream` reach their tables through the port's entry points, so
+    without a card and without device="cpu" (--device cpu) they raise
+    naming CUDA instead of running on the CPU."""
+    import json
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.catalog import create_catalog
+    from paimon_tpu_torch.cdc import CdcDatabaseSync, CdcSinkWriter
+    from paimon_tpu_torch.cdc.source import FileCdcSource
+    from paimon_tpu_torch.cli import main
+    from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType
+
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v", BigIntType()).primary_key("id")
+              .options({"bucket": "1"}).build())
+    path = str(tmp_path / "s")
+    FileStoreTable.create(path, schema, device="cpu")
+    events = str(tmp_path / "events.jsonl")
+    with open(events, "w") as f:
+        f.write(json.dumps({"op": "c", "after": {"id": 1, "v": 1}}) + "\n")
+    source = FileCdcSource(events)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamDaemon(FileStoreTable.load(path), source)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CdcSinkWriter(FileStoreTable.load(path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CdcDatabaseSync(create_catalog({"warehouse": str(tmp_path / "w")}),
+                        "appdb")
+    # the CPU asked for runs
+    table = FileStoreTable.load(path, device="cpu")
+    assert StreamDaemon(table, source).device.type == "cpu"
+    sink = CdcSinkWriter(table)
+    sink.write_events([{"op": "c", "after": {"id": 2, "v": 2}}])
+    assert sink.commit(1) is not None
+    sink.close()
+    wh = str(tmp_path / "wh")
+    assert main(["--device", "cpu", "-w", wh, "db", "create", "d1"]) == 0
+    assert main(["--device", "cpu", "-w", wh, "table", "create", "d1.t",
+                 "--column", "id:BIGINT NOT NULL", "--column", "v:BIGINT",
+                 "--primary-key", "id"]) == 0
+    capsys.readouterr()
+    assert main(["-w", wh, "table", "stream", "d1.t", "--source", events,
+                 "--duration", "0.1"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 def _keys_read_by(module_file):
@@ -222,7 +281,7 @@ def test_every_bucket_mode_and_schema_option_key_is_defined_or_refused(
 # a path that another, refused key opens (hedging needs
 # read.hedge.enabled).  Each names the ROADMAP.md item that ports it.
 _NOT_YET_READ = {
-    # fs/resilience.py hedging and breakers, service/stream_daemon.py
+    # fs/resilience.py hedging and breakers
     "read.hedge.max-ratio": "A.7b",
     "read.hedge.min-delay": "A.7b",
     "read.hedge.quantile": "A.7b",
@@ -232,21 +291,6 @@ _NOT_YET_READ = {
     "store.breaker.half-open-probes": "A.7b",
     "store.breaker.open-ms": "A.7b",
     "store.breaker.window": "A.7b",
-    "stream.checkpoint.interval": "A.7b",
-    "stream.compaction.full": "A.7b",
-    "stream.compaction.interval": "A.7b",
-    "stream.compaction.pause-backlog": "A.7b",
-    "stream.compaction.pause-ratio": "A.7b",
-    "stream.expire.interval": "A.7b",
-    "stream.ingest.max-batch": "A.7b",
-    "stream.ingest.poll-interval": "A.7b",
-    "stream.manifest-compaction.interval": "A.7b",
-    "stream.restart.backoff": "A.7b",
-    "stream.restart.backoff.cap": "A.7b",
-    "stream.restart.healthy-threshold": "A.7b",
-    "stream.restart.max-restarts": "A.7b",
-    "stream.serve.buffer.rows": "A.7b",
-    "stream.serve.poll-interval": "A.7b",
     # parallel/distributed.py and parallel/maintenance_plane.py
     "multihost.commit.arbitration": "A.8.9",
     "multihost.scan.pin-snapshot": "A.8.9",
@@ -374,4 +418,24 @@ def test_ported_append_keys_match_reference(key):
     """Each append-table key the port now reads is defined with the
     reference's spelling, parser and default, and a module of the port
     reads it."""
+    _assert_ported_key_matches_reference(key)
+
+
+# the keys _NOT_YET_READ listed until the stream daemon was ported
+_STREAM_KEYS = ["stream.checkpoint.interval", "stream.compaction.full",
+                "stream.compaction.interval",
+                "stream.compaction.pause-backlog",
+                "stream.compaction.pause-ratio", "stream.expire.interval",
+                "stream.ingest.max-batch", "stream.ingest.poll-interval",
+                "stream.manifest-compaction.interval",
+                "stream.restart.backoff", "stream.restart.backoff.cap",
+                "stream.restart.healthy-threshold",
+                "stream.restart.max-restarts", "stream.serve.buffer.rows",
+                "stream.serve.poll-interval"]
+
+
+@pytest.mark.parametrize("key", _STREAM_KEYS)
+def test_ported_stream_keys_match_reference(key):
+    """Each stream daemon key is defined with the reference's spelling,
+    parser and default, and a module of the port reads it."""
     _assert_ported_key_matches_reference(key)

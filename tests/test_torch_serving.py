@@ -815,7 +815,7 @@ def test_delta_ineligible_configurations_and_overflow(tmp_path):
 @pytest.mark.parametrize("key,value,where", [
     ("service.replicas", "2", "server"),
     ("service.warmboot.enabled", "true", "server"),
-    ("obs.flight.dump.dir", "/nonexistent-dump-dir", "server"),
+    ("request.timeout", "1 s", "table"),
     ("cache.disk.dir", "/nonexistent-cache-dir", "table"),
     ("read.hedge.enabled", "true", "table"),
 ])
@@ -826,6 +826,26 @@ def test_a7b_options_raise(tmp_path, key, value, where):
         table = t.copy({key: value})
         assert where == "server"
         KvQueryServer(table)
+    assert no_serving_threads()
+
+
+def test_flight_dump_dir_is_accepted_and_dumps(tmp_path, monkeypatch):
+    """obs.flight.dump.dir (refused until the flight dumps were ported)
+    sets the recorder's dump directory at server construction."""
+    from paimon_tpu_torch.obs import flight
+    rec = flight.FlightRecorder()
+    monkeypatch.setattr(flight, "_recorder", rec)
+    monkeypatch.setattr(flight, "_hooks_installed", True)
+    dump_dir = str(tmp_path / "dumps")
+    t = pk_table(str(tmp_path / "t"))
+    commit(t, seeded_rows(3, seed=17))
+    server = KvQueryServer(t.copy({"obs.flight.dump.dir": dump_dir}))
+    try:
+        assert flight.self_dump_dir() == dump_dir
+        path = flight.dump(trigger={"kind": "manual"})
+        assert path is not None and os.path.dirname(path) == dump_dir
+    finally:
+        server.stop()
     assert no_serving_threads()
 
 
@@ -852,9 +872,8 @@ def _read_keys(module_file):
 def test_every_serving_option_key_is_defined_or_refused():
     """Each CoreOptions key that paimon_tpu/lookup/ and
     paimon_tpu/service/ read is defined by the port (spelled as the
-    reference spells it) or belongs to a module the port does not have
-    yet (the stream daemon, ROADMAP.md A.7b), whose options nothing in
-    the port reads."""
+    reference spells it); the stream daemon's are read by the port's
+    service/stream_daemon.py."""
     port_keys = {v.key for v in vars(CoreOptions).values()
                  if hasattr(v, "key")}
     missing = {}
@@ -864,11 +883,12 @@ def test_every_serving_option_key_is_defined_or_refused():
             if not fname.endswith(".py"):
                 continue
             keys = _read_keys(os.path.join(d, fname))
+            port_module = os.path.join(REPO, "paimon_tpu_torch", pkg, fname)
             if fname == "stream_daemon.py":
-                with pytest.raises(ImportError):
-                    importlib.import_module(
-                        "paimon_tpu_torch.service.stream_daemon")
-                continue
+                importlib.import_module(
+                    "paimon_tpu_torch.service.stream_daemon")
+                assert keys <= _read_keys(port_module) | {
+                    k for k in keys if k.startswith("multihost.")}
             if keys - port_keys:
                 missing[f"{pkg}/{fname}"] = sorted(keys - port_keys)
     assert missing == {}
