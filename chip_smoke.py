@@ -15,7 +15,7 @@ then):
    host merge routes' C library from paimon_tpu_torch/native with the
    host compiler (the run fails if it does not load);
 3. the port's device_sorted_winners on cuda against cpu (identical
-   perm/winner/prev) for 4M random rows, and its segment reductions
+   perm/winner/prev) for 2M random rows, and its segment reductions
    (sum, product, max, min of int32, int64, float32, float64) on cuda
    against cpu;
 4. the main path, four tables, each with the kernels' launch counts
@@ -41,7 +41,7 @@ then):
      longer than the 16-byte key prefix, so full-order merges of
      truncated keys run the code variant too (a coverage check: its
      rates are not metrics);
-   - partial_update_coverage: config 3's shape cut to 32K keys x 5
+   - partial_update_coverage: config 3's shape cut to 16K keys x 5
      commits of 64 columns (a sequence group of 8, a DOUBLE sum, an INT
      count, 1 row in 100 a DELETE), held against the same table run by
      the port on the CPU (exact; the float sum within rtol 1e-12), its
@@ -56,17 +56,17 @@ then):
      reports sustained upsert rows/s, changelog latency, the stream
      read's rows/s and where the producer's time goes (ChangelogTimer);
    - changelog_producers_coverage: input, lookup and full-compaction at
-     32K keys x 5 commits with deletes, each held file for file
+     16K keys x 5 commits with deletes, each held file for file
      against the same table run by the port on the CPU;
-   - device_decode_coverage: 512K rows of INT32, INT64, FLOAT, DOUBLE and
+   - device_decode_coverage: 256K rows of INT32, INT64, FLOAT, DOUBLE and
      DATE columns (dictionary pages, 1 value in 8 null, several row
      groups and pages a chunk) read on the card equal to pyarrow, a
      string-keyed table that falls back once and reads the same, and
      fused_decode_merge at 2^22 on the card equal to its CPU run;
    - mesh_compaction: parallel/dryrun.run_engines' tables (id BIGINT
      NOT NULL key, v DOUBLE, 8 buckets, write-only; deduplicate and
-     aggregation with v sum; commits of 625K ids uniform in [0, 1.25M)
-     from seed 6 until >= 1.25M rows enter the compaction) compacted by
+     aggregation with v sum; commits of 312.5K ids uniform in [0, 625K)
+     from seed 6 until >= 625K rows enter the compaction) compacted by
      compact_table_mesh on 8 lanes of the card, one batched merge a
      window step; each held against a numpy oracle (exact; sums within
      rtol 1e-12), with no retry, fallback or cleanup error and the
@@ -76,13 +76,13 @@ then):
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
    - serving: point lookups and the one-replica query service on the
-     card (`serving` says what it drives): serve_dedup_625K, the
-     reference serving benchmark's table at 625K rows (cold and warm
+     card (`serving` says what it drives): serve_dedup_312K, the
+     reference serving benchmark's table at 312.5K rows (cold and warm
      /lookup, 64 keep-alive clients of 90% point gets and 10%
      scan(limit=100), the engine's native and numpy probes, a serving
      writer's read-your-writes through the delta tier, a full
      compaction under 8 readers, a /scan of 50K rows), and
-     serve_agg_625K, the same rows under aggregation, whose every
+     serve_agg_312K, the same rows under aggregation, whose every
      lookup merges a bucket on the card (4 cold buckets built at once
      from the server's handler threads).  Every answer is held against
      a numpy oracle; no native probe may fall back; the flush, the
@@ -97,16 +97,16 @@ then):
      writer, a merge-on-read scan, a full compaction and a scan; the
      hash index against the rows: each id in one bucket, every bucket
      but the last at 2M hashes, the files' total the distinct 32-bit
-     hashes; a fresh table object's 250K upserts of existing ids landing
+     hashes; a fresh table object's 125K upserts of existing ids landing
      in their old buckets; then ADD COLUMN v4 DOUBLE, v3 INT -> BIGINT,
-     RENAME v2 -> v2r and 2 commits of 500K upserts, a merge-on-read
+     RENAME v2 -> v2r and 2 commits of 250K upserts, a merge-on-read
      scan over runs of both schemas, a full compaction and a scan),
-     xpart_upsert_250K (cross-partition upsert, partition dt INT of 4
-     values: 250K keys in 4 commits, then a fresh table object's 4
-     commits of 31.25K upserts, a quarter moving partition and some twice
+     xpart_upsert_125K (cross-partition upsert, partition dt INT of 4
+     values: 125K keys in 4 commits, then a fresh table object's 4
+     commits of 15.625K upserts, a quarter moving partition and some twice
      in one batch, so the global index bootstraps; each id once, in the
      partition of its last write, before and after a full compaction)
-     and postpone_1M (bucket=-2: 1M rows in 4 commits that a scan does
+     and postpone_500K (bucket=-2: 500K rows in 4 commits that a scan does
      not see, then rescale_postpone at the postpone defaults and a
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
@@ -142,21 +142,21 @@ then):
      commit, so 8 spills of 3M rows, each merged on the card, then
      stream-merged into rolling L0 files at prepare-commit; the L0
      files sorted and disjoint, the spill directory gone, a scan, a full
-     compaction and a read), spill_fold_coverage (2 MB spills, 4 file
-     handles and a 16 MB disk cap: runs fold and early flushes land in
+     compaction and a read), spill_fold_coverage (1 MB spills, 4 file
+     handles and an 8 MB disk cap: runs fold and early flushes land in
      L0; its files equal file for file to the same writes on the CPU),
-     local_merge_hot_2M (bucket=4, local-merge-buffer-size=64mb, 8
-     streaming commits of 250K rows, half on 1,000 hot ids: each commit's
-     L0 rows are its distinct ids), plan_daily_1.2M (bench.py's columns
+     local_merge_hot_1M (bucket=4, local-merge-buffer-size=64mb, 8
+     streaming commits of 125K rows, half on 1,000 hot ids: each commit's
+     L0 rows are its distinct ids), plan_daily_600K (bench.py's columns
      plus dt STRING as the partition, key (dt, id), bucket=2, inline
      compaction, the plan cache and stats sidecar at their defaults:
-     24 streaming commits of 50K rows over 12 days with a `latest`
+     12 streaming commits of 50K rows over 12 days with a `latest`
      stream consumer, the cached plan after every commit equal to a
      cold plan of a fresh table object every 10th; then an INSERT
      OVERWRITE of a day, a late correction of an id band, a one-day and
      an id < 1000 plan served cached and walked cold by the sidecar
      prune, and rollback_to, each followed by a plan equal to a cold
-     one) and faults_1M (bucket=4, 4 commits of 250K rows over a FileIO
+     one) and faults_500K (bucket=4, 4 commits of 125K rows over a FileIO
      that fails every 20th data-file write and read once, retried
      under write.retry.* and read.retry.*, with write.stage.dir; the
      prefetch byte budget at 1 MiB; a data file's head zeroed: a read
@@ -202,7 +202,7 @@ then):
      a nullable INT and a DOUBLE with -0.0 and NaN: z-order on 3
      columns, so bit 63 is set, Hilbert on 1 and on 4, order on 2, each
      permutation on the card equal to its plain numpy version),
-     ap_tracked_2M (row-tracking.enabled, 4 commits of 2^19 rows: two
+     ap_tracked_1M (row-tracking.enabled, 4 commits of 2^18 rows: two
      update_columns of v1 and a delete_by_row_ids on 1% of the row ids,
      the global index on id built with one launch and 10,000 lookups
      held against numpy, a compaction that keeps the row ids, reads
@@ -248,8 +248,8 @@ then):
      row; sys.create_tag, sys.compact, time travel to the tag,
      $snapshots, sys.expire_snapshots, sys.clone into backup.orders and
      sys.all_tables) and sql_coverage (sys.migrate_table of a hive-style
-     parquet directory of 2^17 rows in 4 dt= partitions; an aggregation
-     table made by DDL, 4 inserts of 2^17 rows read and compacted, so
+     parquet directory of 2^16 rows in 4 dt= partitions; an aggregation
+     table made by DDL, 4 inserts of 2^16 rows read and compacted, so
      the offset-value-code variant launches; INSERT OVERWRITE, a view, a
      SQL function and a window query; the JDBC (sqlite) and the REST
      catalog on loopback, each creating, filling with 2^16 rows and
@@ -288,6 +288,35 @@ then):
      oracle; `fleet trace --merge` over its spool and this process's).
      It prints a {"stream_cdc": ...} line and a {"stream": ...} line of
      the recorded figures;
+   - search: vector, full-text and hybrid search (vector/, index/
+     fulltext.py, the four sys.* search procedures) through
+     create_catalog and SQLContext on the card.  vec_sift_1M, SIFT1M's
+     shape from ann-benchmarks' sift-128-euclidean (1M base vectors of
+     128 float32 dims, 10,000 queries, l2, recall@10) on a seeded
+     mixture of 1,000 Gaussian clusters drawn on the card, in a
+     `VECTOR<FLOAT, 128>` table of 2 buckets written in 4 commits: a
+     read held against the rows written; vector_search of every query
+     (l2) and of 1,000 (cosine, dot) over a BruteForceIndex on the card,
+     500 of each held against a float64 numpy oracle under the
+     exactness rule of tests/test_torch_vector.py; 3 CALL
+     sys.vector_search against the Python API's rows; CALL
+     sys.create_vector_index for IVF-PQ (m=16) and IVF-SQ, each loaded
+     and queried 500 times (IVF-PQ at nprobe 16 with refine 100 and at
+     nprobe 8 without), recall@10 at least the reference's test floors;
+     a commit that makes the index stale and load_or_build's rebuild.
+     search_coverage: HNSW through CALL sys.create_vector_index on 2^11
+     vectors of 32 dims, IVF-Flat on 2^16 of 64, a BEIR-shaped docs
+     table (2^16 docs of 8-64 Zipf words, row tracking) whose
+     PersistedFullTextIndex is built, refreshed over two more commits
+     and optimized, 50 queries held against a numpy BM25 oracle and the
+     in-memory FullTextIndex (1 through CALL sys.full_text_search, which
+     builds an in-memory index of every row a call), and CALL
+     sys.hybrid_search under each ranker against rank_hybrid over the
+     routes' own results.  The device programs of vector/ann.py
+     (_topk_scores, _kmeans, the coarse _assign, _kmeans_batch,
+     _pq_encode) are counted and timed between CUDA events against
+     their bound (FLOPs at 67 TFLOP/s float32, bytes at 3.35 TB/s).  It
+     prints a {"search": ...} line of the recorded figures;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -300,7 +329,9 @@ then):
    it that shape gave there, and at further sizes of synthetic keys
    (among them 10 clustered coded runs, where the codes decide almost
    every pair).  At each such shape it reports the kernel's device time
-   per launch (the profiler's kernel durations over 10 launches), the
+   per launch (CUDA events around each of 10 launches queued behind a
+   sleep on the card; `--compare-timers` holds them within 2% of the
+   profiler's kernel durations at 2^27 rows and exits), the
    wrapper's host time per call (host clock over 300 calls, 50 above
    2^20 rows), the time of back-to-back calls between two
    CUDA events and the plain version's, beside the
@@ -331,7 +362,7 @@ config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the merge routes, the bucket modes, the maintenance
 phase, the read and write planes, the file indexes, the append tables,
 the formats and types, the catalog and SQL, the streaming phase and
-its figures, the stage split
+its figures, the search phase's figures, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -344,6 +375,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -447,6 +479,62 @@ def device_ms(fns, iters: int = 20) -> list:
                              f"{KERNEL_NAME}, expected {iters * len(fns)}")
     return [sum(us for _, us in spans[k * iters:(k + 1) * iters])
             / iters / 1e3 for k in range(len(fns))]
+
+
+SLEEP_CYCLES = 20_000_000         # ~10 ms of the card's clock
+
+
+def event_ms(fns, iters: int = 10) -> list:
+    """Each kernel's device time per launch (ms), between two CUDA events
+    around each launch.  A sleep on the card holds the stream while the
+    host queues every (event, launch, event), so no host time falls
+    between an event and its launch.  Run after every host-clock timing,
+    as device_ms is."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for fn in fns:
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        out.append(sum(a.elapsed_time(b) for a, b in events) / iters)
+    return out
+
+
+def compare_timers() -> dict:
+    """K1 and K2 on 2^27-row inputs (sorted 2-lane keys; 10 coded runs)
+    timed both ways in one process: the profiler's kernel durations
+    (device_ms, the kernel checks' earlier method) and CUDA events
+    around each launch (event_ms, which it uses since).  Fails if they
+    differ by more than 2%."""
+    from paimon_tpu_torch.ops import kernels
+    rng = np.random.default_rng(11)
+    n = 1 << 27
+    plain = sorted_int_keys(rng, n)
+    coded = coded_runs(rng, n)
+    fns = [lambda: kernels.eq_next_mask(plain[0], plain[1]),
+           lambda: kernels.eq_next_mask(*coded, 2)]
+    events = event_ms(fns)
+    profiled = device_ms(fns, iters=10)
+    out = {"n": n, "card": card_line()}
+    for name, e, p in zip(("eq_next_mask", "eq_next_mask_ovc"), events,
+                          profiled):
+        out[name] = {"event_ms": e, "profiler_ms": p, "ratio": e / p}
+    log(json.dumps({"timer_check": out}))
+    bad = [k for k in ("eq_next_mask", "eq_next_mask_ovc")
+           if abs(out[k]["ratio"] - 1) > 0.02]
+    if bad:
+        raise AssertionError(f"CUDA events and the profiler differ by more "
+                             f"than 2% for {bad}: {out}")
+    return out
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -674,12 +762,14 @@ def host_breakdown(rng) -> dict:
 
 
 def report_device_times(stats_list) -> None:
-    """Device time per launch of every case, in one profiler session;
-    then one line per case with all its numbers.  Drops the inputs."""
+    """Device time per launch of every case, between CUDA events
+    (event_ms; earlier a profiler session, whose start took most of
+    its 9-11 s); then one line per case with all its numbers.  Drops the
+    inputs."""
     import torch
 
     cases = [(st, c) for st in stats_list for c in st.cases]
-    times = device_ms([c.pop("call") for _, c in cases], iters=10)
+    times = event_ms([c.pop("call") for _, c in cases], iters=10)
     for (st, c), dev_ms in zip(cases, times):
         c["device_ms"] = dev_ms
         earlier = c["earlier_ms"]
@@ -790,7 +880,7 @@ def check_kernels(captured: LaunchCapture, k1: KernelStats,
     t2 = time.perf_counter()
     report_device_times([k1, k2])
     log(f"kernel checks: {len(shapes)} main-path shapes {t1 - t0:.1f} s, "
-        f"host breakdown and synthetic keys {t2 - t1:.1f} s, profiled "
+        f"host breakdown and synthetic keys {t2 - t1:.1f} s, event-timed "
         f"device times {time.perf_counter() - t2:.1f} s")
 
 
@@ -936,7 +1026,7 @@ def check_sorted_winners() -> None:
     from paimon_tpu_torch.ops.merge import device_sorted_winners
 
     rng = np.random.default_rng(5)
-    n = 4 << 20
+    n = 2 << 20                      # 4M until the search phase came
     lanes = rng.integers(0, 1 << 21, (n, 2), dtype=np.uint64) \
         .astype(np.uint32)
     seq = rng.permutation(n).astype(np.int64)
@@ -968,7 +1058,7 @@ def check_sorted_winners() -> None:
 
 def check_segment_reductions(device: str = "cuda") -> None:
     """The port's segment reductions on `device` against the same calls
-    on the CPU, 4M rows in segments of 1 to 8: integers and float
+    on the CPU, 2M rows in segments of 1 to 8: integers and float
     max/min exact (NaN, infinities and -0.0 among the floats; a NaN's
     payload may differ), float sum and product within rtol 1e-12
     (float64) and 1e-5 (float32); says whether the float folds were
@@ -976,7 +1066,7 @@ def check_segment_reductions(device: str = "cuda") -> None:
     from paimon_tpu_torch.ops.agg import Segments, segment_reduce
 
     rng = np.random.default_rng(19)
-    n = 1 << 22
+    n = 1 << 21                      # 2^22 until the search phase came
     seg = np.repeat(np.arange(n), rng.integers(1, 9, n))[:n]
     num = int(seg[-1]) + 1
     card, cpu = Segments(seg, num, device), Segments(seg, num, "cpu")
@@ -1341,7 +1431,7 @@ def bigint_batches(rows: int, runs: int = 10, seed: int = 7):
                        pa.int32())}) for _ in range(runs)]
 
 
-def string_key_batches(rows: int = 1 << 17, runs: int = 10, seed: int = 7):
+def string_key_batches(rows: int = 1 << 16, runs: int = 10, seed: int = 7):
     """Kernel coverage: string keys, 1 in 64 ids longer than the 16-byte
     key prefix, so merges take the full-order path with run codes."""
     import pyarrow as pa
@@ -1363,7 +1453,7 @@ PU_PLAIN = [f"c{i}" for i in range(52)]
 PU_TYPES = ("BIGINT", "DOUBLE", "INT", "STRING")
 
 
-COVERAGE_KEYS = 1 << 15          # keys of the partial-update and
+COVERAGE_KEYS = 1 << 14          # keys of the partial-update and
                                  # changelog-producer coverage tables
                                  # (2^16 until the stream phase came)
 
@@ -1908,7 +1998,7 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
     return out
 
 
-def check_joint_ranks(n: int = 1 << 21, seed: int = 23) -> dict:
+def check_joint_ranks(n: int = 1 << 19, seed: int = 23) -> dict:
     """The diff's key ranks on the card against their plain numpy
     version (np.unique over the lanes, the reference's computation) on
     the host, on three tables shaped like a lookup replay's before,
@@ -2021,8 +2111,8 @@ def changelog_producers_coverage(work: str, rec: Recorder) -> None:
                           ignore_errors=True)
 
 
-MESH_ROWS = 1_250_000            # cut from 10M, then 5M, 2.5M (script
-                                 # time)
+MESH_ROWS = 625_000              # cut from 10M, then 5M, 2.5M, 1.25M
+                                 # (script time)
 MESH_LANES = 8
 
 
@@ -2209,16 +2299,18 @@ BM_TARGET = 2_000_000            # dynamic-bucket.target-row-num's default
 DYN_ROWS = 3_500_000             # dyn_dedup_3.5M: 7 commits of 500K (10
 DYN_KEYS = 4_000_000             # until the stream phase came), ids
 DYN_COMMITS = 7                  # uniform in [0, 4M): 2.33M distinct
-DYN_FRESH = 250_000              # upserts of existing ids, a fresh table
-DYN_EVOLVED = 500_000            # upserts a commit under the new schema
-#                                  (500K and 1M until the SQL phase came)
-XPART_KEYS = 250_000             # xpart_upsert_250K: 4 commits of 62.5K
-XPART_UPSERTS = 31_250           # keys, then 4 commits of 31.25K upserts
+DYN_FRESH = 125_000              # upserts of existing ids, a fresh table
+DYN_EVOLVED = 250_000            # upserts a commit under the new schema
+#                                  (500K and 1M until the SQL phase came,
+#                                  250K and 500K until the search phase)
+XPART_KEYS = 125_000             # xpart_upsert_125K: 4 commits of 31.25K
+XPART_UPSERTS = 15_625           # keys, then 4 commits of 15.625K upserts
+                                 # (250K keys, 31.25K upserts until search)
 #                                  (2M and 250K until the formats phase
 #                                  came, 1M and 125K until the SQL phase,
 #                                  500K and 62.5K until the stream phase)
 XPART_PARTS = 4
-POSTPONE_ROWS = 1_000_000        # postpone_1M: 4 commits of 250K (8M
+POSTPONE_ROWS = 500_000          # postpone_500K: 4 commits of 125K (8M
                                  # until the append phase came, 4M until
                                  # the SQL phase, 2M until the stream
                                  # phase)
@@ -2463,10 +2555,10 @@ def dyn_dedup(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
-    """xpart_upsert_250K: cross-partition upsert (primary key id,
-    partition dt INT of 4 values, bucket unset): 500K keys in 4 commits
+    """xpart_upsert_125K: cross-partition upsert (primary key id,
+    partition dt INT of 4 values, bucket unset): 125K keys in 4 commits
     from one writer; then a fresh table object's writer (the global index
-    bootstraps from the table) upserts 62.5K ids a commit for 4 commits, a
+    bootstraps from the table) upserts 15.625K ids a commit for 4 commits, a
     quarter of them moving partition and 1% of those moving again later
     in the same batch; each id held once, in the partition of its last
     write, before and after a full compaction."""
@@ -2476,7 +2568,7 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
 
-    name = "xpart_upsert_250K"
+    name = "xpart_upsert_125K"
     path = os.path.join(work, name)
     keys, target = XPART_KEYS // scale, BM_TARGET // scale
     opts = {"write-only": "true", "parquet.enable.dictionary": "false"}
@@ -2550,14 +2642,14 @@ def xpart_upsert(work: str, rec: Recorder, device, scale: int) -> dict:
 
 
 def postpone(work: str, rec: Recorder, device, scale: int) -> dict:
-    """postpone_1M: bucket=-2, deduplicate, write-only; 2M rows in 4
+    """postpone_500K: bucket=-2, deduplicate, write-only; 500K rows in 4
     commits staged un-hashed (a scan sees none of them, as the
     reference's does), then rescale_postpone at the postpone defaults
     (5M rows a bucket) and a scan held against the oracle, the rescaled
     hash index against the rows."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "postpone_1M"
+    name = "postpone_500K"
     path = os.path.join(work, name)
     rows, per_bucket = POSTPONE_ROWS // scale, POSTPONE_TARGET // scale
     opts = {"bucket": "-2", "write-only": "true",
@@ -2609,8 +2701,8 @@ def bucket_modes(work: str, rec: Recorder, device="cuda",
     out = {}
     t_all = time.perf_counter()
     for name, fn in (("dyn_dedup_3.5M", dyn_dedup),
-                     ("xpart_upsert_250K", xpart_upsert),
-                     ("postpone_1M", postpone)):
+                     ("xpart_upsert_125K", xpart_upsert),
+                     ("postpone_500K", postpone)):
         t0 = time.perf_counter()
         out[name] = fn(work, rec, device, scale)
         out[name]["s"] = time.perf_counter() - t0
@@ -3212,30 +3304,31 @@ WRP_SPILL_CALLS = 24             # spill_bucket_24M: 24 write_arrow calls
 WRP_SPILL_PER_CALL = 1_000_000   # of 1M ids uniform in [0, 12M)
 WRP_SPILL_KEYS = 12_000_000
 WRP_SPILL_RUNS = 8               # 3 calls of 28 MB >= 64 MiB: 8 spills
-WRP_FOLD_PER_CALL = 50_000       # spill_fold_coverage: 24 calls of 50K
-WRP_FOLD_KEYS = 6_000_000        # ids uniform in [0, 6M), 2 MB spills,
-WRP_FOLD_SPILL_MB = 2            # a 16 MB disk cap (100K, 12M, 4 MB and
-WRP_FOLD_DISK_MB = 16            # 32 MB until the append phase came)
-WRP_LM_COMMITS = 8               # local_merge_hot_2M: 8 commits of 250K
-WRP_LM_PER_COMMIT = 250_000      # (8M rows until the append phase came,
+WRP_FOLD_PER_CALL = 25_000       # spill_fold_coverage: 24 calls of 25K
+WRP_FOLD_KEYS = 3_000_000        # ids uniform in [0, 3M), 1 MB spills,
+WRP_FOLD_SPILL_MB = 1            # an 8 MB disk cap (100K, 12M, 4 MB and
+WRP_FOLD_DISK_MB = 8             # 32 MB until the append phase came;
+                                 # 50K, 6M, 2 MB, 16 MB until search)
+WRP_LM_COMMITS = 8               # local_merge_hot_1M: 8 commits of 250K
+WRP_LM_PER_COMMIT = 125_000      # (8M rows until the append phase came,
 #                                  4M until the SQL phase)
 WRP_LM_HOT = 1_000               # half of each commit on 1,000 hot ids,
 WRP_LM_KEYS = 1_000_000          # the other half uniform in [0, 1M)
-WRP_PLAN_COMMITS = 24            # plan_daily_1.2M: 24 commits of 50K rows
+WRP_PLAN_COMMITS = 12            # plan_daily_600K: 12 commits of 50K rows
                                  # (120 until the file-index phase came)
 WRP_PLAN_PER_COMMIT = 50_000
 WRP_PLAN_DAYS = 12
 WRP_PLAN_KEYS = 200_000          # ids uniform in [0, 200K) a day
 WRP_PLAN_COLD_EVERY = 10         # a cold plan every 10th commit
-WRP_FAULT_COMMITS = 4            # faults_1M: 4 commits of 250K rows
-WRP_FAULT_PER_COMMIT = 250_000   # (4M rows until the append phase came,
+WRP_FAULT_COMMITS = 4            # faults_500K: 4 commits of 250K rows
+WRP_FAULT_PER_COMMIT = 125_000   # (4M rows until the append phase came,
 WRP_FAULT_KEYS = 500_000         # 2M until the SQL phase)
 WRP_FAULT_ONE_IN = 20            # data-file writes and reads failing once
 MiB = 1 << 20
 
 
 class FaultyFileIO:
-    """faults_1M's store: the first attempt at every WRP_FAULT_ONE_IN-th
+    """faults_500K's store: the first attempt at every WRP_FAULT_ONE_IN-th
     data-file write, and once armed every such read, raises
     TransientStoreError (by a seeded count of calls; a retry of a file
     that failed goes through, since staged uploads and read retries keep
@@ -3461,7 +3554,7 @@ def spill_bucket(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
                scale: int) -> dict:
-    """spill_fold_coverage: 2 MB spills, 4 file handles and a 16 MB disk
+    """spill_fold_coverage: 1 MB spills, 4 file handles and an 8 MB disk
     cap, so runs fold and the cap forces early flushes; its L0 files
     held file for file against the same writes run by the port on the
     CPU (serial flushes, so the disk cap sees the same bytes on both)."""
@@ -3517,11 +3610,11 @@ def spill_fold(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
                     scale: int) -> dict:
-    """local_merge_hot_2M: skewed streaming upserts folded before bucket
+    """local_merge_hot_1M: skewed streaming upserts folded before bucket
     routing (the Paimon docs' Local Merging, at its suggested 64 MB)."""
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "local_merge_hot_2M"
+    name = "local_merge_hot_1M"
     per, keys = WRP_LM_PER_COMMIT // scale, WRP_LM_KEYS // scale
     opts = {"bucket": "4", "local-merge-buffer-size": "64mb"}
     table = FileStoreTable.create(os.path.join(work, name),
@@ -3573,7 +3666,7 @@ def local_merge_hot(work: str, rec: Recorder, timer: SpillTimer, dev,
 
 
 def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """plan_daily_1.2M: the delta-apply plan cache and the stats sidecar at
+    """plan_daily_600K: the delta-apply plan cache and the stats sidecar at
     the defaults on a daily-partitioned table with inline compaction."""
     import pyarrow as pa
 
@@ -3584,7 +3677,7 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "plan_daily_1.2M"
+    name = "plan_daily_600K"
     per, keys = WRP_PLAN_PER_COMMIT // scale, WRP_PLAN_KEYS // scale
     days = WRP_PLAN_DAYS
     daily = WRP_PLAN_COMMITS // days
@@ -3774,7 +3867,7 @@ def plan_daily(work: str, rec: Recorder, dev, scale: int) -> dict:
 
 
 def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """faults_1M: retries, upload staging, the prefetch byte budget and
+    """faults_500K: retries, upload staging, the prefetch byte budget and
     the corrupt-file skip on a 4-bucket table over FaultyFileIO."""
     import warnings
 
@@ -3782,7 +3875,7 @@ def faults(work: str, rec: Recorder, dev, scale: int) -> dict:
     from paimon_tpu_torch.parallel.scan_pipeline import iter_split_tables
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "faults_1M"
+    name = "faults_500K"
     per, keys = WRP_FAULT_PER_COMMIT // scale, WRP_FAULT_KEYS // scale
     stage = tempfile.mkdtemp(prefix="paimon-stage-")
     path = os.path.join(work, name)
@@ -3897,10 +3990,10 @@ def write_read_planes(work: str, rec: Recorder, device="cuda",
         out["spill_bucket_24M"] = spill_bucket(work, rec, timer, dev, scale)
         out["spill_fold_coverage"] = spill_fold(work, rec, timer, dev,
                                                 scale)
-        out["local_merge_hot_2M"] = local_merge_hot(work, rec, timer, dev,
+        out["local_merge_hot_1M"] = local_merge_hot(work, rec, timer, dev,
                                                     scale)
-    out["plan_daily_1.2M"] = plan_daily(work, rec, dev, scale)
-    out["faults_1M"] = faults(work, rec, dev, scale)
+    out["plan_daily_600K"] = plan_daily(work, rec, dev, scale)
+    out["faults_500K"] = faults(work, rec, dev, scale)
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
     out["launches_plain"] = sum(p["launches_plain"] for p in mine)
@@ -3924,10 +4017,11 @@ FI_KEYS = 8_000_000
 FI_QUERIES = 5                   # present ids, and as many absent ones
 #                                  (50 until the formats phase came)
 FI_READ_PLANS = 10               # absent-id plans timed per sidecar reader
-FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 62.5K
-FI_RW_PER_COMMIT = 62_500        # ids uniform in [0, 125K) (8x that until
-FI_RW_KEYS = 125_000             # the append phase came, 4x until the SQL
-#                                  phase, 2x until the stream phase)
+FI_RW_COMMITS = 4                # fi_rewrite_coverage: 4 commits of 31.25K
+FI_RW_PER_COMMIT = 31_250        # ids uniform in [0, 62.5K) (16x that until
+FI_RW_KEYS = 62_500              # the append phase came, 8x until the SQL
+#                                  phase, 4x until the stream phase, 2x
+#                                  until the search phase)
 FI_RW_QUERIES = 5
 # the Paimon docs' "Data File Index" options, file-index.in-manifest-
 # threshold at its 500-byte default
@@ -4261,7 +4355,7 @@ def fi_rewrite(work: str, rec: Recorder, timer: IndexTimer, dev,
         oracle.win[pc.equal(names, x).to_numpy(zero_copy_only=False)], "id")
 
     # a retried write of indexed files: a data file or sidecar write
-    # fails once (faults_1M's store)
+    # fails once (faults_500K's store)
     store = FaultyFileIO(get_file_io(path))
     faulty = FileStoreTable.load(path, file_io=store, device=dev,
                                  dynamic_options={
@@ -4337,13 +4431,13 @@ AP_SORT_ROWS = 1 << 17           # ap_sort_coverage (2^20 until the
 #                                  formats phase came)
 AP_SORT_CASES = (("zorder", ("s", "n", "d")), ("hilbert", ("d",)),
                  ("hilbert", ("id", "s", "n", "d")), ("order", ("n", "s")))
-AP_TRACKED_COMMITS = 4           # ap_tracked_2M: 4 commits of 2^19 rows
-AP_TRACKED_PER_COMMIT = 1 << 19  # (2^20 until the formats phase came, 8
+AP_TRACKED_COMMITS = 4           # ap_tracked_1M: 4 commits of 2^18 rows
+AP_TRACKED_PER_COMMIT = 1 << 18  # (2^20 until the formats phase came, 8
 #                                  commits until the stream phase)
 AP_TRACKED_SHARE = 100           # 1 row id in 100 updated (twice), deleted
 AP_LOOKUPS = 10_000              # global-index lookups, half present
 AP_QUEUE_COMMITS = 4             # ap_queue_coverage: bucket=4 by id,
-AP_QUEUE_PER_COMMIT = 1 << 18    # 4 commits of 2^18 rows (8 until the
+AP_QUEUE_PER_COMMIT = 1 << 17    # 4 commits of 2^17 rows (8 until the
 #                                  SQL phase came)
 AP_QUEUE_QUERIES = 25            # present ids, and as many absent ones
 
@@ -4636,14 +4730,14 @@ def ap_sort(rec: Recorder, dev, scale: int) -> dict:
 
 
 def ap_tracked(work: str, rec: Recorder, dev, scale: int) -> dict:
-    """ap_tracked_2M: a row-tracked table (the Paimon docs' "Row
+    """ap_tracked_1M: a row-tracked table (the Paimon docs' "Row
     Tracking" page): column updates and deletes by row id, the global
     index on id and its lookups, a compaction that keeps the row ids."""
     import pyarrow as pa
 
     from paimon_tpu_torch.table import FileStoreTable
 
-    name = "ap_tracked_2M"
+    name = "ap_tracked_1M"
     path = os.path.join(work, name)
     rows = AP_TRACKED_PER_COMMIT * AP_TRACKED_COMMITS // scale
     batches = bigint_batches(rows, runs=AP_TRACKED_COMMITS)
@@ -4822,7 +4916,7 @@ def append_tables(work: str, rec: Recorder, device="cuda",
     t_phase = time.perf_counter()
     out = {"ap_log_16M": ap_log(work, rec, dev, scale),
            "ap_sort_coverage": ap_sort(rec, dev, scale),
-           "ap_tracked_2M": ap_tracked(work, rec, dev, scale),
+           "ap_tracked_1M": ap_tracked(work, rec, dev, scale),
            "ap_queue_coverage": ap_queue(work, rec, dev, scale)}
     names = set(out)
     mine = [p for p in rec.phases if p["table"] in names]
@@ -4852,12 +4946,12 @@ FT_MEDIA_PER_COMMIT = 4096       # ids uniform in [0, 16,384), bucket=2:
 FT_MEDIA_KEYS = 16_384           # ~2 GiB of image bytes, ~1 GiB a bucket
 FT_IMAGE_BYTES = (8 << 10, 120 << 10)   # uniform, a 64 KiB mean
 FT_COV_COMMITS = 2               # formats_coverage: 2 commits of 2^14
-FT_COV_PER_COMMIT = 1 << 14      # rows, ids uniform in [0, 2^15), bucket=1
-FT_COV_KEYS = 1 << 15
+FT_COV_PER_COMMIT = 1 << 13      # rows, ids uniform in [0, 2^14), bucket=1
+FT_COV_KEYS = 1 << 14
 FT_FORMATS = ("avro", "csv", "json", "mosaic")
-FT_FORMAT_TABLE_ROWS = 1 << 15   # a FormatTable's rows, in 4 dt partitions
+FT_FORMAT_TABLE_ROWS = 1 << 14   # a FormatTable's rows, in 4 dt partitions
 #                                  (2^16 until the stream phase came)
-FT_TRACKED_ROWS = 1 << 14        # the row-tracked table of $row_tracking
+FT_TRACKED_ROWS = 1 << 13        # the row-tracked table of $row_tracking
 FT_DAYS = ("2024-06-01", "2024-06-02", "2024-06-03", "2024-06-04")
 
 
@@ -5456,9 +5550,10 @@ SQL_REGIONS = 100                # shop.regions: one row a v3 value
 SQL_RETAIN = 3                   # sys.expire_snapshots' retain_max; the
 SQL_RETAIN_MIN = 10              # snapshot.num-retained.min default keeps
 #                                  the newest 10
-SQL_COV_ROWS = 1 << 17           # sql_coverage's migrated directory, and
+SQL_COV_ROWS = 1 << 16           # sql_coverage's migrated directory, and
 #                                  each of its aggregation table's inserts
-#                                  (2^18 until the stream phase came)
+#                                  (2^18 until the stream phase came, 2^17
+#                                  until the search phase)
 SQL_COV_CAT_ROWS = 1 << 16       # each JDBC and REST catalog's table
 
 
@@ -6024,7 +6119,8 @@ def catalog_sql(work: str, rec: Recorder, device="cuda",
 
 # -- the serving plane: point lookups and the one-replica query service ------
 
-SERVE_ROWS = 625_000             # cut from 10M, then 5M, 2.5M, 1.25M
+SERVE_ROWS = 312_500             # cut from 10M, then 5M, 2.5M, 1.25M,
+                                 # 625K
                                  # (script time)
 SERVE_COMMITS = 4
 SERVE_BUCKETS = 4
@@ -6278,7 +6374,7 @@ def thread_launches(capture, name: str) -> dict:
 
 def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
                 clients: int, seconds: float) -> dict:
-    """serve_dedup_625K: the reference serving benchmark's table at
+    """serve_dedup_312K: the reference serving benchmark's table at
     `rows`, served by one KvQueryServer on the card; see `serving`."""
     import torch
 
@@ -6291,7 +6387,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
     from paimon_tpu_torch import Schema
 
-    name = "serve_dedup_625K"
+    name = "serve_dedup_312K"
     path = os.path.join(work, name)
     dev = torch.device(device)
     lookups = global_registry().lookup_metrics()
@@ -6489,7 +6585,7 @@ def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
 
 def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
               clients: int, seconds: float) -> dict:
-    """serve_agg_625K: the same rows under aggregation (v sum), whose
+    """serve_agg_312K: the same rows under aggregation (v sum), whose
     every /lookup takes the merged fallback; see `serving`."""
     import torch
 
@@ -6498,7 +6594,7 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
     from paimon_tpu_torch.table import FileStoreTable
     from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
 
-    name = "serve_agg_625K"
+    name = "serve_agg_312K"
     path = os.path.join(work, name)
     dev = torch.device(device)
     schema = (Schema.builder().column("id", BigIntType(False))
@@ -6600,7 +6696,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
             agg_seconds: float = 0.25) -> dict:
     """The serving plane on the card.
 
-    serve_dedup_625K: benchmarks/serve_bench.py's table (id BIGINT NOT
+    serve_dedup_312K: benchmarks/serve_bench.py's table (id BIGINT NOT
     NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
     dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
     11) served by one KvQueryServer with a refresh interval of 1000 ms:
@@ -6613,7 +6709,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     delta tier before its commit and from the LSM after), a full
     compaction while 8 clients read, and one /scan of SERVE_SCAN_LIMIT
     rows.
-    serve_agg_625K: the same rows under aggregation (v sum): 4 cold
+    serve_agg_312K: the same rows under aggregation (v sum): 4 cold
     buckets built at once from 4 client threads, each a full
     merge-on-read on the card, a 2048-key warm-up, then `clients` client
     threads of point gets for `agg_seconds`.  Every answer is held
@@ -6627,10 +6723,10 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
                                seconds)
     launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
-                for p in rec.phases if p["table"] == "serve_dedup_625K"}
+                for p in rec.phases if p["table"] == "serve_dedup_312K"}
     for what in ("mixed 90/10", "serving writer", "compact"):
         if launches[what][0] == 0:
-            raise AssertionError(f"serve_dedup_625K {what}: no launch of the "
+            raise AssertionError(f"serve_dedup_312K {what}: no launch of the "
                                  f"winner-select ({launches})")
     out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
                            agg_seconds)
@@ -6639,7 +6735,7 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
                        out["agg"]["cold_thread_launches"].items()
                        if t.startswith("paimon-serve"))
     if ovc == 0 or from_workers == 0:
-        raise AssertionError(f"serve_agg_625K: the offset-value-code "
+        raise AssertionError(f"serve_agg_312K: the offset-value-code "
                              f"variant did not launch from the handler "
                              f"threads ({out['agg']['cold_thread_launches']})")
     out["launches"] = {f"{p['table']} {p['phase']}":
@@ -6749,7 +6845,7 @@ def device_decode_dedup(path: str, rows: int, rec: Recorder, cols: dict,
     return out
 
 
-def device_decode_coverage(work: str, rows: int = 1 << 19,
+def device_decode_coverage(work: str, rows: int = 1 << 18,
                            seed: int = 29, device: str = "cuda") -> dict:
     """read_parquet_device on the card against pyarrow on ~1M rows of
     INT32, INT64, FLOAT, DOUBLE and DATE columns (dictionary pages on,
@@ -7046,7 +7142,8 @@ STREAM_CHUNK = 62_500            # lines appended while the backlog is under
 STREAM_KILL_AFTER = 1_000_000    # the kill, once the committed offset passes
 STREAM_STATUSES = ("CREATED", "PAID", "SHIPPED", "DELIVERED", "CANCELLED")
 STREAM_TS0 = 1_717_200_000_000   # updated_at of the first event (epoch ms)
-STREAM_DB_EVENTS = 1 << 14       # database sync: each of 3 tables
+STREAM_DB_EVENTS = 1 << 13       # database sync: each of 3 tables (2^14
+                                 # until the search phase came)
 STREAM_FORMAT_EVENTS = 1 << 12   # canal, maxwell, ogg, dms, aliyun each
 STREAM_CLI_EVENTS = 1 << 14      # the `table stream` process's file
 STREAM_AGG_EVENTS = 1 << 16      # the aggregation table fed by CDC
@@ -8401,8 +8498,804 @@ def stream_cdc(work: str, rec: Recorder, device="cuda",
     return out
 
 
+# -- search: vector, full-text and hybrid search on the card ------------------
+
+SEARCH_ROWS = 1_000_000          # vec_sift_1M: ann-benchmarks' sift-128-
+SEARCH_DIM = 128                 # euclidean (SIFT1M) shape: 1M base vectors
+SEARCH_QUERIES = 10_000          # of 128 float32 dims, 10,000 queries, l2,
+SEARCH_K = 10                    # recall@10
+SEARCH_COMMITS = 4               # 4 commits of 250,000 rows, bucket=2
+SEARCH_CLUSTERS = 1_000          # the seeded mixture: 1,000 Gaussian
+SEARCH_LATENT = 16               # clusters in one 16-dim subspace (SIFT's
+SEARCH_CENTRE_SD = 1.0           # intrinsic dimension is low), centres
+SEARCH_SPREAD_SD = 0.5           # N(0, I), each cluster N(0, 0.5^2 I)
+SEARCH_NOISE_SD = 0.17           # about its centre there, plus N(0,
+                                 # 0.17^2 I) noise in every dimension
+SEARCH_METRIC_QUERIES = 1_000    # cosine and dot queries each
+SEARCH_SQL_QUERIES = 3           # CALL sys.vector_search
+SEARCH_SAMPLE = 500              # queries held against the float64 oracle,
+                                 # and the IVF queries
+SEARCH_PQ_M = 16                 # PQ subspaces of the IVF-PQ index
+SEARCH_REFINE = 100              # ADC candidates reranked exactly
+SEARCH_APPEND = 1_000            # rows committed after the builds
+# recall@10 floors of the reference's own tests: IVF-PQ with refine
+# (tests/test_ivfpq.py:32), IVF-SQ (tests/test_ann_sq_hnsw.py:18), HNSW
+# (tests/test_ann_sq_hnsw.py:73), IVF-Flat (tests/test_vector_search.py:58)
+RECALL_FLOOR = 0.9
+FLAT_RECALL_FLOOR = 0.7
+HNSW_ROWS, HNSW_DIM, HNSW_QUERIES = 1 << 11, 32, 50
+FLAT_ROWS, FLAT_DIM, FLAT_QUERIES, FLAT_NPROBE = 1 << 16, 64, 100, 8
+DOCS = 1 << 16                   # the BEIR-shaped docs table: 2^16 docs of
+DOC_VOCAB = 1 << 15              # 8-64 words of a Zipf vocabulary of 2^15
+DOC_WORDS = (8, 64)              # terms, 2 later commits of 2^12 docs
+DOC_LATE = 1 << 12
+DOC_DIM = 64                     # its emb column, for hybrid search
+DOC_QUERIES = (30, 10, 10)       # OR terms, +required terms, phrases
+DOC_SQL_QUERIES = 1              # CALL sys.full_text_search (it builds an
+                                 # in-memory index of every row a call)
+BM25_K1, BM25_B = 1.2, 0.75      # the reference's BM25 constants
+FP32_FLOPS = 67e12               # H100 SXM, float32 outside the tensor
+                                 # cores (NVIDIA data sheet)
+SEARCH_PROGRAMS = ("_topk_scores", "_kmeans", "_assign", "_kmeans_batch",
+                   "_pq_encode")
+
+
+def program_cost(name: str, args) -> tuple:
+    """(FLOPs, bytes, shape) a device program of vector/ann.py must do
+    and move on these inputs: each input read once, each output written
+    once."""
+    if name == "_topk_scores":
+        q, corpus, _, k, metric = args
+        (nq, d), n = q.shape, corpus.shape[0]
+        return (2 * nq * n * d, 4 * (nq * d + n * d + n) + 12 * nq * k,
+                ("Q", nq, "N", n, "D", d, "k", k, metric))
+    if name in ("_kmeans", "_assign"):
+        v, c = args[0], args[1]
+        (n, d), nc = v.shape, c.shape[0]
+        iters = args[2] if name == "_kmeans" else 1
+        out = 8 * n if name == "_assign" else 4 * nc * d
+        return (iters * 2 * n * nc * d, 4 * (n * d + nc * d) + out,
+                ("N", n, "C", nc, "D", d, "iters", iters))
+    v, c = args[0], args[1]
+    m, n, dsub = v.shape
+    ksub = c.shape[1]
+    iters = args[2] if name == "_kmeans_batch" else 1
+    out = n * m if name == "_pq_encode" else 4 * m * ksub * dsub
+    return (iters * 2 * m * n * ksub * dsub,
+            4 * (m * n * dsub + m * ksub * dsub) + out,
+            ("M", m, "N", n, "ksub", ksub, "dsub", dsub, "iters", iters))
+
+
+class ProgramTimer:
+    """Wraps the device programs of vector/ann.py for the search phase:
+    each outermost call is counted and timed between two CUDA events on
+    the card (host clock on a CPU rehearsal, which is no device time),
+    with the FLOPs and bytes its inputs need; the persisted index's write
+    is timed on the host clock.  The functions themselves are left as
+    they are."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.stats = {p: {"launches": 0, "ms": 0.0, "host_s": 0.0,
+                          "flop": 0, "bytes": 0, "shapes": {}}
+                      for p in SEARCH_PROGRAMS}
+        self.write_s = 0.0
+        self._inside = False
+
+    def snapshot(self) -> dict:
+        out = {p: (s["ms"], s["host_s"]) for p, s in self.stats.items()}
+        out["write"] = (0.0, self.write_s)
+        return out
+
+    def since(self, snap: dict) -> dict:
+        now = self.snapshot()
+        return {p: {"device_ms": now[p][0] - snap[p][0],
+                    "host_s": now[p][1] - snap[p][1]} for p in now}
+
+    def _shim(self, name, fn):
+        import torch
+        on_card = self.dev.type == "cuda"
+
+        def run(*args, **kw):
+            if self._inside:            # a program inside another one
+                return fn(*args, **kw)
+            self._inside = True
+            try:
+                if on_card:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                if on_card:
+                    end.record()
+                    torch.cuda.synchronize()
+                host_s = time.perf_counter() - t0
+            finally:
+                self._inside = False
+            flop, nbytes, shape = program_cost(name, args)
+            ms = start.elapsed_time(end) if on_card else host_s * 1e3
+            st = self.stats[name]
+            by_shape = st["shapes"].setdefault(
+                shape, {"launches": 0, "ms": 0.0, "flop": 0, "bytes": 0})
+            for acc in (st, by_shape):
+                acc["launches"] += 1
+                acc["ms"] += ms
+                acc["flop"] += flop
+                acc["bytes"] += nbytes
+            st["host_s"] += host_s
+            return out
+        return run
+
+    def __enter__(self):
+        from paimon_tpu_torch.vector import ann
+        self._saved = {p: getattr(ann, p) for p in SEARCH_PROGRAMS}
+        for p, fn in self._saved.items():
+            setattr(ann, p, self._shim(p, fn))
+        self._write = ann.PersistedVectorIndex._write
+        timer = self
+
+        def write(index, *args):
+            t0 = time.perf_counter()
+            try:
+                return timer._write(index, *args)
+            finally:
+                timer.write_s += time.perf_counter() - t0
+        ann.PersistedVectorIndex._write = write
+        return self
+
+    def __exit__(self, *exc):
+        from paimon_tpu_torch.vector import ann
+        for p, fn in self._saved.items():
+            setattr(ann, p, fn)
+        ann.PersistedVectorIndex._write = self._write
+
+    def report(self) -> dict:
+        """Per program, in all and at each shape: launches, device ms,
+        bound ms and what bounds it, share; at each _topk_scores shape
+        also the time its [Q, N] blocks take to write and read once each
+        (float32 scores and int64 ranking keys)."""
+        def figures(acc):
+            by_ops = acc["flop"] / FP32_FLOPS
+            by_bytes = acc["bytes"] / HBM_BYTES_PER_S
+            bound = max(by_ops, by_bytes) * 1e3
+            return {"launches": acc["launches"], "ms": acc["ms"],
+                    "bound_ms": bound,
+                    "bound_by": "operations" if by_ops >= by_bytes
+                    else "bytes",
+                    "share": bound / acc["ms"] if acc["ms"] else None}
+        out = {}
+        for p, st in self.stats.items():
+            if not st["launches"]:
+                continue
+            out[p] = {**figures(st), "host_s": st["host_s"], "shapes": []}
+            for shape, acc in st["shapes"].items():
+                row = {"shape": list(shape), **figures(acc)}
+                if p == "_topk_scores":
+                    row["blocks_ms"] = 24 * shape[1] * shape[3] \
+                        * acc["launches"] / HBM_BYTES_PER_S * 1e3
+                out[p]["shapes"].append(row)
+        return out
+
+
+class Mixture:
+    """A seeded mixture of Gaussian clusters in `dim` dimensions, drawn on
+    `dev`: centres in a random SEARCH_LATENT-dimensional subspace, each
+    cluster spread within it, noise in every dimension; draw() hands
+    back float32 host arrays."""
+
+    def __init__(self, dev, dim: int, clusters: int, seed: int):
+        import torch
+        self.dev, self.dim, self.clusters = dev, dim, clusters
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.basis = torch.randn((SEARCH_LATENT, dim), generator=self.gen,
+                                 device=dev) / dim ** 0.5
+        self.centres = SEARCH_CENTRE_SD * torch.randn(
+            (clusters, SEARCH_LATENT), generator=self.gen, device=dev)
+
+    def draw(self, n: int) -> np.ndarray:
+        import torch
+        out = np.empty((n, self.dim), np.float32)
+        step = 1 << 18
+        for lo in range(0, n, step):
+            m = min(step, n - lo)
+            c = torch.randint(0, self.clusters, (m,), generator=self.gen,
+                              device=self.dev)
+            latent = self.centres[c] + SEARCH_SPREAD_SD * torch.randn(
+                (m, SEARCH_LATENT), generator=self.gen, device=self.dev)
+            x = latent @ self.basis + SEARCH_NOISE_SD * torch.randn(
+                (m, self.dim), generator=self.gen, device=self.dev)
+            out[lo:lo + m] = x.cpu().numpy()
+        return out
+
+
+class VectorOracle:
+    """Exact top-k over a corpus in float64.  The float64 scores of a
+    result's own k ids bound the oracle's k-th score from below; every
+    row scoring at least that (less a margin for rounding) is a
+    candidate, found in blocks on `dev` in float64, and the candidates
+    are scored and ranked in float64 numpy (score descending, lower id
+    first)."""
+
+    BLOCK = 1 << 17
+
+    def __init__(self, x: np.ndarray, dev):
+        import torch
+        self.x = x.astype(np.float64)
+        self.dev = dev
+        self.xd = torch.from_numpy(self.x).to(dev)
+        self.sqd = (self.xd * self.xd).sum(dim=1)
+
+    def scores(self, q: np.ndarray, ids: np.ndarray, metric: str):
+        """float64 scores of the pairs (q[i], x[ids[i, j]])."""
+        q = q.astype(np.float64)
+        dots = np.einsum("qd,qkd->qk", q, self.x[ids])
+        if metric == "dot":
+            return dots
+        sq = np.einsum("qkd,qkd->qk", self.x[ids], self.x[ids])
+        if metric == "cosine":
+            return dots / np.maximum(
+                np.linalg.norm(q, axis=1)[:, None] * np.sqrt(sq), 1e-12)
+        return -(np.sum(q * q, axis=1)[:, None] + sq - 2 * dots)
+
+    def top(self, q: np.ndarray, metric: str, k: int, got_ids) -> tuple:
+        import torch
+        floor = self.scores(q, np.asarray(got_ids, np.int64),
+                            metric).min(axis=1)
+        floor = torch.from_numpy(
+            floor - 1e-9 * np.maximum(1.0, np.abs(floor))).to(self.dev)
+        qd = torch.from_numpy(q.astype(np.float64)).to(self.dev)
+        qn = qd.norm(dim=1, keepdim=True)
+        cand_q, cand_i = [], []
+        for lo in range(0, len(self.x), self.BLOCK):
+            xb = self.xd[lo:lo + self.BLOCK]
+            s = qd @ xb.T
+            if metric == "cosine":
+                s = s / torch.clamp(qn * self.sqd[lo:lo + self.BLOCK]
+                                    .sqrt()[None, :], min=1e-12)
+            elif metric == "l2":
+                s = -((qd * qd).sum(dim=1, keepdim=True)
+                      + self.sqd[lo:lo + self.BLOCK][None, :] - 2 * s)
+            qi, j = torch.nonzero(s >= floor[:, None], as_tuple=True)
+            cand_q.append(qi.cpu().numpy())
+            cand_i.append(j.cpu().numpy() + lo)
+        cq, ci = np.concatenate(cand_q), np.concatenate(cand_i)
+        cs = self.scores(q[cq], ci[:, None], metric)[:, 0]
+        order = np.lexsort((ci, -cs, cq))
+        cq, ci, cs = cq[order], ci[order], cs[order]
+        starts = np.searchsorted(cq, np.arange(len(q) + 1))
+        if np.any(np.diff(starts) < k):
+            raise AssertionError("oracle: fewer than k candidates")
+        ids = np.stack([ci[s:s + k] for s in starts[:-1]])
+        return np.stack([cs[s:s + k] for s in starts[:-1]]), ids
+
+
+def search_tau(scores):
+    """The exactness rule's tolerance on float32 scores."""
+    return 1e-5 * np.maximum(1.0, np.abs(scores))
+
+
+def topk_agree(what: str, ref_scores, ref_ids, got_scores, got_ids) -> int:
+    """The exactness rule (tests/test_torch_vector.py): scores within
+    tau; ids equal position by position except inside a run of
+    near-ties (reference scores within tau), where the sets agree, and
+    one swap at the last position.  Returns the positions that differ."""
+    ref_scores = np.asarray(ref_scores, np.float64)
+    err = np.abs(np.asarray(got_scores, np.float64) - ref_scores)
+    bad = err > search_tau(ref_scores)
+    if bad.any():
+        qi, j = np.argwhere(bad)[0]
+        raise AssertionError(f"{what}: score {got_scores[qi, j]} against "
+                             f"{ref_scores[qi, j]} (query {qi}, rank {j})")
+    k = ref_ids.shape[1]
+    for qi, (s, want, got) in enumerate(zip(ref_scores, ref_ids, got_ids)):
+        start = 0
+        for j in range(k):
+            if j + 1 < k and abs(s[j] - s[j + 1]) <= search_tau(s[j]):
+                continue
+            run = slice(start, j + 1)
+            missing = set(want[run].tolist()) - set(got[run].tolist())
+            if len(missing) > (1 if j + 1 == k else 0):
+                raise AssertionError(f"{what}: query {qi} ids {got} "
+                                     f"against the oracle's {want}")
+            start = j + 1
+    return int((np.asarray(ref_ids) != np.asarray(got_ids)).sum())
+
+
+def recall_at(got, exact, k: int) -> float:
+    return float(np.mean([len(set(g[:k].tolist()) & set(e[:k].tolist()))
+                          for g, e in zip(got, exact)]) / k)
+
+
+def result_matrix(res, nq: int, k: int) -> tuple:
+    """(ids, scores) [nq, k] of a vector_search result of nq queries."""
+    ids = res.column("id").to_numpy().reshape(nq, k)
+    scores = res.column("_score").to_numpy().reshape(nq, k)
+    if "_query" in res.column_names and not np.array_equal(
+            res.column("_query").to_numpy(), np.repeat(np.arange(nq), k)):
+        raise AssertionError("vector_search: rows out of query order")
+    return ids, scores
+
+
+def write_vectors(table, ids, x: np.ndarray, extra=None) -> None:
+    import pyarrow as pa
+    cols = {"id": pa.array(ids, pa.int64())}
+    cols.update(extra or {})
+    cols["emb"] = pa.FixedSizeListArray.from_arrays(
+        pa.array(x.ravel()), x.shape[1])
+    wb = table.new_batch_write_builder()
+    w = wb.new_write()
+    w.write_arrow(pa.table(cols))
+    wb.new_commit().commit(w.prepare_commit())
+    w.close()
+
+
+def vector_literal(v) -> str:
+    """A float32 vector as sys.*_search's comma string (each value's
+    shortest repr, which parses back to the same float32)."""
+    return ",".join(repr(float(x)) for x in v)
+
+
+def vec_sift(work: str, rec: Recorder, dev, scale: int,
+             timer: ProgramTimer) -> dict:
+    """vec_sift_1M through create_catalog, SQLContext and the Python API
+    (the phase's docstring says what it drives); returns what it
+    reports."""
+    import pyarrow as pa
+    import torch
+
+    from paimon_tpu_torch import create_catalog
+    from paimon_tpu_torch.sql import SQLContext
+    from paimon_tpu_torch.vector import ann
+
+    n = SEARCH_ROWS // scale // SEARCH_COMMITS * SEARCH_COMMITS
+    nq = SEARCH_QUERIES // scale
+    nm, ns = min(SEARCH_METRIC_QUERIES, nq), min(SEARCH_SAMPLE, nq)
+    k = SEARCH_K
+    name = "vec_sift_1M" if scale == 1 else f"vec_sift_{n}"
+    out: dict = {"rows": n, "queries": nq}
+    steps: dict = {}
+    programs: dict = {}
+
+    def step(what, rows, fn):
+        snap = timer.snapshot()
+        t0 = time.perf_counter()
+        res = rec.run(name, what, rows, dev, fn)
+        steps[what] = time.perf_counter() - t0
+        programs[what] = timer.since(snap)
+        return res
+
+    t0 = time.perf_counter()
+    mix = Mixture(dev, SEARCH_DIM, max(1, SEARCH_CLUSTERS // scale), 7)
+    x, q = mix.draw(n), mix.draw(nq)
+    out["data_s"] = time.perf_counter() - t0
+    catalog = create_catalog({"warehouse": os.path.join(work, "search_wh")},
+                             device=dev)
+    ctx = SQLContext(catalog)
+    ctx.sql("CREATE DATABASE IF NOT EXISTS default")
+    step("create table", 0, lambda: ctx.sql(
+        "CREATE TABLE vec (id BIGINT NOT NULL, emb VECTOR<FLOAT, 128>, "
+        "PRIMARY KEY (id) NOT ENFORCED) WITH ('bucket' = '2')"))
+    table = catalog.get_table("default.vec")
+    per = n // SEARCH_COMMITS
+
+    def write():
+        for c in range(SEARCH_COMMITS):
+            lo = c * per
+            write_vectors(table, np.arange(lo, lo + per), x[lo:lo + per])
+    step(f"write x{SEARCH_COMMITS}", n, write)
+    data = step("read", n, table.to_arrow)
+    # the read's order is the one vector_search's own read gives its
+    # index positions in
+    read = ann._as_matrix(data.column("emb"))
+    read_ids = data.column("id").to_numpy()
+    order = np.argsort(read_ids, kind="stable")
+    if not np.array_equal(read_ids[order],
+                          np.arange(n)) or not np.array_equal(
+            read[order], x):
+        raise AssertionError(f"{name} read: rows differ from the written")
+    del data
+
+    # brute force: the index on the card; every query through
+    # vector_search (l2), which reads the table again, then 1,000 each
+    # through the index (cosine, dot)
+    got = {}
+    for metric, count in (("l2", nq), ("cosine", nm), ("dot", nm)):
+        def search(metric=metric, count=count):
+            idx = ann.BruteForceIndex(read, metric, device=dev)
+            if metric == "l2":
+                return result_matrix(ann.vector_search(
+                    table, "emb", q[:count], k=k, metric=metric,
+                    index=idx), count, k)
+            scores, pos = idx.search(q[:count], k)
+            return read_ids[pos], scores
+        what = (f"vector_search {metric} x{count}" if metric == "l2" else
+                f"BruteForceIndex {metric} x{count}")
+        got[metric] = step(what, count, search)
+        dev_ms = programs[what]["_topk_scores"]["device_ms"]
+        out[f"bruteforce_{metric}"] = {
+            "queries": count, "s": steps[what],
+            "queries_per_s": count / steps[what],
+            "device_s": dev_ms / 1e3, "host_s": steps[what] - dev_ms / 1e3}
+    t0 = time.perf_counter()
+    oracle = VectorOracle(x, dev)
+    exact = {}
+    for metric in ("l2", "cosine", "dot"):
+        ids, scores = got[metric]
+        ref_s, ref_i = oracle.top(q[:ns], metric, k, ids[:ns])
+        exact[metric] = ref_i
+        out[f"bruteforce_{metric}"]["oracle_positions_differ"] = topk_agree(
+            f"{name} {metric} against the float64 oracle", ref_s, ref_i,
+            scores[:ns], ids[:ns])
+    out["oracle_s"] = time.perf_counter() - t0
+    log(f"  {name}: brute force l2, cosine, dot equal the float64 oracle "
+        f"under the exactness rule on {ns} queries each "
+        f"({out['oracle_s']:.2f} s)")
+
+    # the SQL procedure: reads the table and builds its index each call
+    for i in range(SEARCH_SQL_QUERIES):
+        res = step(f"CALL sys.vector_search {i}", n, lambda i=i: ctx.sql(
+            f"CALL sys.vector_search('vec', 'emb', '{vector_literal(q[i])}', "
+            f"{k})"))
+        ids, scores = result_matrix(res, 1, k)
+        topk_agree(f"{name} sys.vector_search {i} against the Python API",
+                   got["cosine"][1][i:i + 1], got["cosine"][0][i:i + 1],
+                   scores, ids)
+
+    pvi = ann.PersistedVectorIndex(table, "emb")
+    for kind in ("ivfpq", "ivfsq"):
+        what = f"create_vector_index {kind}"
+        line = step(what, n, lambda kind=kind: ctx.sql(
+            f"CALL sys.create_vector_index('vec', 'emb', {SEARCH_PQ_M}, "
+            f"'l2', '{kind}')")).column(0)[0].as_py()
+        idx = pvi.load()
+        if idx is None or idx.__class__.__name__ != \
+                {"ivfpq": "IVFPQIndex", "ivfsq": "IVFSQIndex"}[kind] or \
+                f"{n} vectors, {idx.memory_bytes()} bytes" not in line:
+            raise AssertionError(f"{name} {kind}: {line!r}, loaded {idx}")
+        p = programs[what]
+        parts = {"coarse_kmeans": p["_kmeans"]["host_s"],
+                 "assignment": p["_assign"]["host_s"],
+                 "codebooks": p["_kmeans_batch"]["host_s"],
+                 "encode": p["_pq_encode"]["host_s"],
+                 "index_write": p["write"]["host_s"]}
+        parts["read_and_host"] = steps[what] - sum(parts.values())
+        rep = {"s": steps[what], "parts_s": parts,
+               "memory_bytes": idx.memory_bytes(), "result": line}
+        searches = [(16, SEARCH_REFINE), (8, 0)] if kind == "ivfpq" \
+            else [(16, 0)]
+        for nprobe, refine in searches:
+            what = f"{kind} nprobe {nprobe} refine {refine} x{ns}"
+            # the index's positions are those of the build's read
+            res = step(what, ns, lambda: idx.search(
+                q[:ns], k, nprobe=nprobe, refine=refine, vectors=read))
+            got_ids = np.where(res[1] >= 0, read_ids[res[1]], -1)
+            rep[what] = {"queries_per_s": ns / steps[what],
+                         "recall_at_10": recall_at(got_ids, exact["l2"], k)}
+        out[kind] = rep
+        log(f"  {name} {kind}: {rep}")
+    for what in ("ivfpq nprobe 16 refine 100", "ivfsq nprobe 16 refine 0"):
+        r = out[what[:5]][f"{what} x{ns}"]["recall_at_10"]
+        if r < RECALL_FLOOR:
+            raise AssertionError(f"{name} {what}: recall@10 {r:.3f} under "
+                                 f"the reference's floor {RECALL_FLOOR}")
+
+    # a commit makes the index stale: load() returns None, and
+    # load_or_build rebuilds it over every row.  The commit is write-only:
+    # the compaction its fifth sorted run would start (8.6 s, both
+    # buckets rewritten, in a whole-script run) belongs to the table, not
+    # to search
+    step(f"commit {SEARCH_APPEND} rows", SEARCH_APPEND, lambda: write_vectors(
+        table.copy({"write-only": "true"}), np.arange(n, n + SEARCH_APPEND),
+        mix.draw(SEARCH_APPEND)))
+    if pvi.load() is not None:
+        raise AssertionError(f"{name}: a stale index loaded")
+    idx = step("load_or_build ivfpq", n + SEARCH_APPEND,
+               lambda: pvi.load_or_build(m=SEARCH_PQ_M, metric="l2"))
+    if len(idx) != n + SEARCH_APPEND or pvi.load() is None:
+        raise AssertionError(f"{name}: the rebuild holds {len(idx)} rows")
+    del read, read_ids
+    out["steps_s"] = steps
+    mine = [r for r in rec.phases if r["table"] == name]
+    out["launches_plain"] = sum(r["launches_plain"] for r in mine)
+    peaks = [r["peak_gib"] for r in mine if r["peak_gib"] is not None]
+    out["peak_gib"] = max(peaks) if peaks else None
+    del x, q, oracle
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def docs_corpus(n: int, seed: int = 7) -> tuple:
+    """(token ids [n] arrays, texts): n documents of DOC_WORDS words from
+    a Zipf vocabulary of DOC_VOCAB terms `t<hex>`."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, DOC_VOCAB + 1)
+    lens = rng.integers(DOC_WORDS[0], DOC_WORDS[1] + 1, n)
+    flat = np.searchsorted(np.cumsum(p / p.sum()), rng.random(lens.sum()))
+    flat = np.minimum(flat, DOC_VOCAB - 1)
+    docs = np.split(flat, np.cumsum(lens)[:-1])
+    words = np.array([f"t{j:x}" for j in range(DOC_VOCAB)], dtype=object)
+    return docs, [" ".join(words[d]) for d in docs], words
+
+
+class Bm25Oracle:
+    """BM25 over the generated token ids in numpy (the reference's K1, B
+    and float32 contributions, summed in float64), doc id = row id; OR,
+    AND (`+a +b`) and phrase queries; ties by the lower row id."""
+
+    def __init__(self, docs: list, row_ids: np.ndarray):
+        self.docs = docs
+        self.row_ids = row_ids
+        self.dl = np.array([len(d) for d in docs], np.float32)
+        self.avgdl = float(sum(len(d) for d in docs)) / len(docs)
+        doc = np.repeat(np.arange(len(docs)), [len(d) for d in docs])
+        key = np.concatenate(docs).astype(np.int64) * len(docs) + doc
+        uniq, tf = np.unique(key, return_counts=True)
+        self.term, self.doc, self.tf = uniq // len(docs), \
+            uniq % len(docs), tf
+        self.bounds = np.searchsorted(self.term, np.arange(DOC_VOCAB + 1))
+
+    def _postings(self, t):
+        lo, hi = self.bounds[t], self.bounds[t + 1]
+        return self.doc[lo:hi], self.tf[lo:hi].astype(np.float64)
+
+    def search(self, terms: list, mode: str, k: int) -> tuple:
+        n = len(self.docs)
+        scores = np.zeros(n)
+        hits = np.zeros(n, np.int64)
+        for t in terms:
+            d, tf = self._postings(t)
+            idf = math.log(1.0 + (n - len(d) + 0.5) / (len(d) + 0.5))
+            denom = tf + BM25_K1 * (1.0 - BM25_B + BM25_B * self.dl[d]
+                                    / max(self.avgdl, 1e-9))
+            scores[d] += (idf * tf * (BM25_K1 + 1.0) / denom) \
+                .astype(np.float32)
+            hits[d] += 1
+        keep = hits > 0 if mode == "or" else hits == len(terms)
+        if mode == "phrase":
+            for d in np.flatnonzero(keep):
+                toks = self.docs[d]
+                starts = np.flatnonzero(toks[:len(toks) - len(terms) + 1]
+                                        == terms[0])
+                keep[d] = any(all(toks[s + j] == t
+                                  for j, t in enumerate(terms))
+                              for s in starts)
+        d = np.flatnonzero(keep)
+        rid = self.row_ids[d]
+        order = np.lexsort((rid, -scores[d]))[:k]
+        return rid[order], scores[d][order].astype(np.float32)
+
+
+def doc_queries(docs: list, words, rng) -> list:
+    """(query text, term ids, mode): OR queries of 1-3 terms of mid
+    frequency, +required pairs from one document, phrases of 2-3
+    consecutive words of a document."""
+    out = []
+    n_or, n_and, n_phrase = DOC_QUERIES
+    for _ in range(n_or):
+        t = rng.integers(20, 2000, rng.integers(1, 4))
+        out.append((" ".join(words[t]), list(t), "or"))
+    for _ in range(n_and):
+        d = docs[rng.integers(len(docs))]
+        t = rng.choice(d, 2, replace=False)
+        out.append((" ".join("+" + w for w in words[t]), list(t), "and"))
+    for _ in range(n_phrase):
+        d = docs[rng.integers(len(docs))]
+        w = int(rng.integers(2, 4))
+        s = int(rng.integers(0, len(d) - w + 1))
+        out.append(('"' + " ".join(words[d[s:s + w]]) + '"',
+                    list(d[s:s + w]), "phrase"))
+    return out
+
+
+def same_ranked(what: str, got_ids, got_scores, want_ids, want_scores,
+                oracle_score=None) -> None:
+    """Equal ranked lists; with `oracle_score` (row id -> score) a list
+    whose ties may order otherwise: the same scores in order, each row's
+    its oracle score."""
+    got_ids, want_ids = np.asarray(got_ids), np.asarray(want_ids)
+    got_scores = np.asarray(got_scores, np.float32)
+    want_scores = np.asarray(want_scores, np.float32)
+    if oracle_score is None:
+        ok = np.array_equal(got_ids, want_ids) and \
+            np.array_equal(got_scores, want_scores)
+    else:
+        ok = np.array_equal(got_scores, want_scores) and all(
+            oracle_score.get(int(i)) == s for i, s in zip(got_ids,
+                                                          got_scores))
+    if not ok:
+        raise AssertionError(f"{what}: {list(zip(got_ids, got_scores))} "
+                             f"against {list(zip(want_ids, want_scores))}")
+
+
+def search_coverage(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """HNSW, IVF-Flat, full-text search over a docs table and hybrid
+    search on it; each part a check, not a metric (seconds logged)."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch import create_catalog
+    from paimon_tpu_torch.index.fulltext import (FullTextIndex,
+                                                 PersistedFullTextIndex)
+    from paimon_tpu_torch.sql import SQLContext
+    from paimon_tpu_torch.vector import ann
+    from paimon_tpu_torch.vector.hybrid import RANKERS, rank_hybrid
+
+    out: dict = {}
+    k = SEARCH_K
+    catalog = create_catalog({"warehouse": os.path.join(work, "search_wh")},
+                             device=dev)
+    ctx = SQLContext(catalog)
+    ctx.sql("CREATE DATABASE IF NOT EXISTS default")
+
+    def part(what, fn):
+        rec.capture.where = f"search_coverage {what}"
+        t0 = time.perf_counter()
+        out[what] = fn()
+        out[what]["s"] = time.perf_counter() - t0
+        log(f"  search_coverage {what}: {out[what]}")
+
+    def hnsw():
+        mix = Mixture(dev, HNSW_DIM, 16, 8)
+        v, q = mix.draw(HNSW_ROWS), mix.draw(HNSW_QUERIES)
+        ctx.sql(f"CREATE TABLE hnsw (id BIGINT NOT NULL, emb VECTOR<FLOAT, "
+                f"{HNSW_DIM}>, PRIMARY KEY (id) NOT ENFORCED) WITH "
+                f"('bucket' = '1')")
+        table = catalog.get_table("default.hnsw")
+        write_vectors(table, np.arange(len(v)), v)
+        line = ctx.sql("CALL sys.create_vector_index('hnsw', 'emb', 16, "
+                       "'l2', 'hnsw')").column(0)[0].as_py()
+        idx = ann.PersistedVectorIndex(table, "emb").load()
+        _, ids = idx.search(q, k)
+        ref_s, ref_i = VectorOracle(v, dev).top(q, "l2", k, ids)
+        r = recall_at(ids, ref_i, k)
+        if r < RECALL_FLOOR or type(idx).__name__ != "HNSWIndex":
+            raise AssertionError(f"hnsw: recall@10 {r:.3f}, {line}")
+        return {"recall_at_10": r, "result": line}
+
+    def ivf_flat():
+        mix = Mixture(dev, FLAT_DIM, 64, 9)
+        v, q = mix.draw(FLAT_ROWS // scale), mix.draw(FLAT_QUERIES)
+        idx = ann.IVFFlatIndex(v, metric="l2", device=dev)
+        scores, ids = idx.search(q, k, nprobe=FLAT_NPROBE)
+        oracle = VectorOracle(v, dev)
+        ref_s, ref_i = oracle.top(q, "l2", k, ids)
+        r = recall_at(ids, ref_i, k)
+        own = oracle.scores(q, ids, "l2")
+        if r < FLAT_RECALL_FLOOR or np.any(
+                np.abs(scores - own) > search_tau(own)):
+            raise AssertionError(f"ivf_flat: recall@10 {r:.3f}, or a score "
+                                 f"off its float64 value")
+        return {"recall_at_10": r}
+
+    def fulltext():
+        n = DOCS // scale
+        late = DOC_LATE // scale
+        docs, texts, words = docs_corpus(n)
+        emb = Mixture(dev, DOC_DIM, 64, 10).draw(n)
+        ctx.sql(f"CREATE TABLE docs (id BIGINT NOT NULL, body STRING, "
+                f"emb VECTOR<FLOAT, {DOC_DIM}>) WITH ('bucket' = '-1', "
+                f"'row-tracking.enabled' = 'true')")
+        table = catalog.get_table("default.docs")
+        first = n - 2 * late
+
+        def commit(lo, hi):
+            write_vectors(table, np.arange(lo, hi), emb[lo:hi],
+                          {"body": pa.array(texts[lo:hi], pa.string())})
+        rep: dict = {}
+        t0 = time.perf_counter()
+        commit(0, first)
+        rep["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx = PersistedFullTextIndex.open(table, "body")
+        if idx.refresh() != first:
+            raise AssertionError("fulltext: the build missed rows")
+        rep["build_s"] = time.perf_counter() - t0
+        commit(first, first + late)
+        commit(first + late, n)
+        t0 = time.perf_counter()
+        if idx.refresh() != 2 * late or len(idx.meta["segments"]) != 2:
+            raise AssertionError("fulltext: refresh missed rows")
+        rep["refresh_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx.optimize()
+        rep["optimize_s"] = time.perf_counter() - t0
+        data = table.to_arrow(with_row_ids=True)
+        rid = data.column("_ROW_ID").to_numpy()
+        ids = data.column("id").to_numpy()
+        row_of = np.empty(n, np.int64)
+        row_of[ids] = rid
+        oracle = Bm25Oracle(docs, row_of)
+        t0 = time.perf_counter()
+        by_row = np.argsort(rid)
+        memory = FullTextIndex([texts[i] for i in ids[by_row]])
+        rep["in_memory_build_s"] = time.perf_counter() - t0
+        queries = doc_queries(docs, words, np.random.default_rng(7))
+        t0 = time.perf_counter()
+        for text, terms, mode in queries:
+            want = oracle.search(terms, mode, k)
+            got = idx.search(text, k)
+            same_ranked(f"fulltext persisted {text!r}", *got, *want)
+            pos, sc = memory.search(text, k)
+            same_ranked(f"fulltext in-memory {text!r}", rid[by_row][pos],
+                        sc, *want)
+        rep["queries"] = len(queries)
+        rep["queries_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for text, terms, mode in queries[:DOC_SQL_QUERIES]:
+            res = ctx.sql(f"CALL sys.full_text_search('docs', 'body', "
+                          f"'{text}', {k})")
+            want = oracle.search(terms, mode, len(docs))
+            same_ranked(f"sys.full_text_search {text!r}",
+                        row_of[res.column("id").to_numpy()],
+                        res.column("_score").to_numpy(), *(
+                            a[:k] for a in want),
+                        dict(zip(want[0].tolist(), want[1].tolist())))
+        rep["sql_queries"] = DOC_SQL_QUERIES
+        rep["sql_s"] = time.perf_counter() - t0
+        # hybrid: each ranker through SQL against rank_hybrid over the
+        # routes' own results
+        t0 = time.perf_counter()
+        vec = ann.BruteForceIndex(ann._as_matrix(data.column("emb")),
+                                  "cosine", device=dev)
+        pos_of = {int(r): i for i, r in enumerate(rid)}
+        qvs = Mixture(dev, DOC_DIM, 64, 11).draw(len(RANKERS))
+        for ranker, qv, (text, _, _) in zip(RANKERS, qvs, queries[3:]):
+            res = ctx.sql(f"CALL sys.hybrid_search('docs', 'emb', "
+                          f"'{vector_literal(qv)}', 'body', '{text}', {k}, "
+                          f"'{ranker}')")
+            vs, vi = vec.search(qv, k)
+            trid, ts = idx.search(text, k)
+            want_pos, fused = rank_hybrid(
+                [(vi[0].astype(np.int64), vs[0], 1.0),
+                 (np.array([pos_of[int(r)] for r in trid], np.int64), ts,
+                  1.0)], ranker=ranker, limit=k)
+            same_ranked(f"sys.hybrid_search {ranker}",
+                        res.column("id").to_numpy(),
+                        res.column("_score").to_numpy(),
+                        ids[want_pos], fused)
+        rep["hybrid_s"] = time.perf_counter() - t0
+        return rep
+
+    part("hnsw", hnsw)
+    part("ivf_flat", ivf_flat)
+    part("fulltext", fulltext)
+    return out
+
+
+def search(work: str, rec: Recorder, device="cuda", scale: int = 1) -> dict:
+    """Search on the card (`scale` divides the row and query counts, for a
+    rehearsal): vec_sift_1M, then search_coverage.  Returns what the
+    phase reports: the device programs' launches, device ms against
+    their bounds, and each path's figures."""
+    import torch
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    timer = ProgramTimer(dev)
+    with timer:
+        vec = vec_sift(work, rec, dev, scale, timer)
+        t0 = time.perf_counter()
+        cov = search_coverage(work, rec, dev, scale)
+        cov["s"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(work, "search_wh"), ignore_errors=True)
+    name = next(p["table"] for p in rec.phases
+                if p["table"].startswith("vec_sift"))
+    if device != "cpu" and vec["launches_plain"] == 0:
+        raise AssertionError(f"search: K1 never launched in {name}")
+    out = {name: vec, "search_coverage": cov, "programs": timer.report(),
+           "s": time.perf_counter() - t_phase}
+    for p in ("_topk_scores", "_kmeans", "_assign", "_kmeans_batch",
+              "_pq_encode"):
+        if p not in out["programs"]:
+            raise AssertionError(f"search: {p} never ran")
+    if device != "cpu":
+        out["card"] = card_line()
+    return out
+
+
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
-APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_2M",
+APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_1M",
                  "ap_queue_coverage")
 
 
@@ -8412,7 +9305,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               mesh: dict, served: dict, bucketed: dict,
               maintained: dict, planes: dict, indexed: dict,
               appended: dict, formatted: dict, sqled: dict,
-              streamed: dict) -> tuple:
+              streamed: dict, searched: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -8426,7 +9319,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
     totals = [0, 0]
     work = tempfile.mkdtemp(prefix="paimon-chip-smoke-")
     rec = Recorder(counts, phases, capture, reducer)
-    # retries and sidecar fallbacks of the whole run: only faults_1M's
+    # retries and sidecar fallbacks of the whole run: only faults_500K's
     # injected faults may retry
     planes0 = plane_counters()
 
@@ -8585,13 +9478,17 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # dumps and the merged trace
             streamed.update(path("stream_cdc",
                                  lambda: stream_cdc(work, rec)))
+            # search: brute force, IVF-PQ and IVF-SQ over SIFT1M's shape
+            # through SQL and the Python API, HNSW, IVF-Flat, full-text
+            # and hybrid search
+            searched.update(path("search", lambda: search(work, rec)))
         moved = counter_delta(planes0)
-        injected = sum(planes["faults_1M"]["faults"].values()) + \
+        injected = sum(planes["faults_500K"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
         if moved["read_retries"] + moved["write_retries"] != injected or \
                 moved["sidecar_fallbacks"]:
             raise AssertionError(f"the run retried or fell back beyond "
-                                 f"the {injected} faults faults_1M and "
+                                 f"the {injected} faults faults_500K and "
                                  f"fi_rewrite_coverage injected: {moved}")
         log(f"read and write planes over the run: {moved}")
         for what in ("scan", "read"):
@@ -8652,6 +9549,9 @@ def main() -> int:
                     help="streaming commits of config 5")
     ap.add_argument("--c5-rows-per-commit", type=int, default=C5_PER_COMMIT,
                     help="upserts in each config-5 commit")
+    ap.add_argument("--compare-timers", action="store_true",
+                    help="only build the kernels and time K1 and K2 at "
+                         "2^27 rows by the profiler and by CUDA events")
     args = ap.parse_args()
 
     import torch
@@ -8671,6 +9571,9 @@ def main() -> int:
                              "build or load")
     log(f"C library build and load: {time.perf_counter() - t0:.2f} s "
         f"({native.load()._name})")
+    if args.compare_timers:
+        compare_timers()
+        return 0
 
     with switched("PAIMON_FORCE_DEVICE_SORT"):
         check_sorted_winners()
@@ -8690,10 +9593,11 @@ def main() -> int:
     formatted: dict = {}
     sqled: dict = {}
     streamed: dict = {}
+    searched: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
-                         appended, formatted, sqled, streamed)
+                         appended, formatted, sqled, streamed, searched)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -8742,6 +9646,18 @@ def main() -> int:
             "recover_s", "drain_s", "k1_by_shape", "k1_by_thread",
             "peak_gib", "rss_gib")},
         "phase_s": streamed["s"]}}))
+    vec = next(v for k, v in searched.items() if k.startswith("vec_sift"))
+    print(json.dumps({"search": {
+        "card": searched["card"], "phase_s": searched["s"],
+        "programs": searched["programs"],
+        **{k: vec[k] for k in (
+            "rows", "queries", "bruteforce_l2", "bruteforce_cosine",
+            "bruteforce_dot", "ivfpq", "ivfsq", "launches_plain",
+            "peak_gib")},
+        "write_rows_per_s": vec["rows"] / vec["steps_s"][
+            f"write x{SEARCH_COMMITS}"],
+        "read_s": vec["steps_s"]["read"],
+        "coverage_s": searched["search_coverage"]["s"]}}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

@@ -331,8 +331,10 @@ def _resolve(src: DataType, dst: DataType) -> Optional[Callable]:
     if isinstance(src, _INT_TYPES) and isinstance(dst, _INT_TYPES):
         return _int_to_int
     if isinstance(src, _INT_TYPES) and isinstance(dst, _FLOAT_TYPES):
+        # Java's (double) long: lossy beyond 2^53, rounded to nearest
+        # even, where a safe cast raises
         return lambda a, s, d: pc.cast(_chunked(a),
-                                       data_type_to_arrow(d))
+                                       data_type_to_arrow(d), safe=False)
     if isinstance(src, _FLOAT_TYPES) and isinstance(dst, _FLOAT_TYPES):
         return lambda a, s, d: pc.cast(_chunked(a),
                                        data_type_to_arrow(d), safe=False)

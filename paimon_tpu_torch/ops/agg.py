@@ -46,7 +46,8 @@ import torch
 
 from paimon_tpu_torch.device import resolve_device
 from paimon_tpu_torch.ops.merge import (
-    KIND_COL, SEQ_COL, device_sorted_winners, user_seq_order_lanes,
+    KIND_COL, SEQ_COL, concat_runs, device_sorted_winners,
+    user_seq_order_lanes,
 )
 from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
 from paimon_tpu_torch.options import CoreOptions, MergeEngine
@@ -281,7 +282,7 @@ def merge_runs_agg(runs: Sequence[pa.Table], key_cols: Sequence[str],
     `encoded`: optional (lanes, truncated[, packed]) per run, when the
     caller already lane-encoded them (streamed compaction windows)."""
     device = resolve_device(device)
-    table = pa.concat_tables(runs, promote_options="none")
+    table = concat_runs(runs)
     n = table.num_rows
     if n == 0:
         return table

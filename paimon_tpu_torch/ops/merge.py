@@ -57,6 +57,30 @@ KIND_COL = "_VALUE_KIND"
 
 _INT32_MIN = -0x80000000
 
+# the system columns' types as parquet and orc files hold them; avro,
+# csv and json files give them back as int64
+_SYSTEM_TYPES = ((SEQ_COL, pa.int64()), (KIND_COL, pa.int8()))
+
+
+def concat_runs(runs: Sequence[pa.Table]) -> pa.Table:
+    """The runs of one merge as one table.  Where their schemas differ
+    (a table whose levels mix formats) the system columns are cast to
+    their parquet types first; runs that agree keep theirs, so the files
+    a merge writes stay the reference's byte for byte."""
+    if any(not r.schema.equals(runs[0].schema) for r in runs[1:]):
+        runs = [_canonical_system_columns(r) for r in runs]
+    return pa.concat_tables(runs, promote_options="none")
+
+
+def _canonical_system_columns(table: pa.Table) -> pa.Table:
+    for name, typ in _SYSTEM_TYPES:
+        i = table.schema.get_field_index(name)
+        if i >= 0 and table.schema.field(i).type != typ:
+            table = table.set_column(
+                i, table.schema.field(i).with_type(typ),
+                table.column(i).cast(typ))
+    return table
+
 
 @dataclass
 class MergeResult:
@@ -738,7 +762,7 @@ def merge_runs(runs: Sequence[pa.Table], key_names: Sequence[str],
             f"merge_runs folds deduplicate and first-row only; "
             f"merge-engine {merge_engine!r} merges through "
             f"ops.agg.merge_runs_agg")
-    table = pa.concat_tables(runs, promote_options="none")
+    table = concat_runs(runs)
     n = table.num_rows
     if n == 0:
         return MergeResult(table, np.zeros(0, dtype=np.int64))

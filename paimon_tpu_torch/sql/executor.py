@@ -10,9 +10,9 @@ pushdown is purely an optimization.
 
 Counterpart of paimon_tpu/sql/executor.py.  A context runs on its
 catalog's device: every table it reads, writes or compacts merges
-there.  The search procedures (full_text_search, vector_search,
-hybrid_search, create_vector_index) raise NotImplementedError until
-index/fulltext.py and vector/ are ported (ROADMAP.md A.8.9).
+there, the search procedures (full_text_search, vector_search,
+hybrid_search, create_vector_index) included: their table reads and
+their brute-force and IVF indexes run on that device.
 """
 
 import re
@@ -1831,13 +1831,50 @@ class SQLContext:
         if proc == "analyze":
             n = table.analyze()
             return _result([f"{n or 0} rows analyzed"])
-        if proc in ("full_text_search", "vector_search", "hybrid_search",
-                    "create_vector_index"):
-            # the reference's search procedures sit on index/fulltext.py
-            # and vector/, which are not ported yet
-            raise NotImplementedError(
-                f"CALL sys.{proc} is not ported to paimon_tpu_torch yet "
-                f"(ROADMAP.md: A.8.9)")
+        if proc == "full_text_search":
+            # CALL sys.full_text_search('db.t', 'col', 'query'[, k])
+            # (reference flink/procedure/FullTextSearchProcedure.java)
+            from paimon_tpu_torch.index.fulltext import full_text_search
+            return full_text_search(table, str(rest[0]), str(rest[1]),
+                                    k=int(rest[2]) if len(rest) > 2
+                                    else 10)
+        if proc == "vector_search":
+            # CALL sys.vector_search('db.t', 'col', '0.1,0.2,...'[, k])
+            # (reference flink/procedure/VectorSearchProcedure.java)
+            from paimon_tpu_torch.vector import vector_search
+            vec = [float(x) for x in str(rest[1]).split(",")]
+            return vector_search(table, str(rest[0]), vec,
+                                 k=int(rest[2]) if len(rest) > 2 else 10)
+        if proc == "hybrid_search":
+            # CALL sys.hybrid_search('db.t', 'vcol', '0.1,...', 'tcol',
+            #                        'terms'[, k[, ranker]])
+            from paimon_tpu_torch.vector import hybrid_search
+            vec = [float(x) for x in str(rest[1]).split(",")]
+            kk = int(rest[4]) if len(rest) > 4 else 10
+            return hybrid_search(
+                table,
+                routes=[{"type": "vector", "column": str(rest[0]),
+                         "query": vec, "limit": kk},
+                        {"type": "text", "column": str(rest[2]),
+                         "query": str(rest[3]), "limit": kk}],
+                k=kk,
+                ranker=str(rest[5]) if len(rest) > 5 else "rrf")
+        if proc == "create_vector_index":
+            # CALL sys.create_vector_index('db.t', 'col'[, m[, metric
+            #   [, kind]]]) — kind in ivfpq|ivfsq|hnsw — builds +
+            # persists the index in the table layout (reference
+            # NativeVectorIndexLoader.java:28 + IvfHnswSq/Flat
+            # factories)
+            from paimon_tpu_torch.vector.ann import PersistedVectorIndex
+            p = PersistedVectorIndex(table, str(rest[0]))
+            kind = str(rest[3]) if len(rest) > 3 else "ivfpq"
+            idx = p.build(m=int(rest[1]) if len(rest) > 1 else 8,
+                          metric=str(rest[2]) if len(rest) > 2
+                          else "l2", kind=kind)
+            mem = (f", {idx.memory_bytes()} bytes resident"
+                   if hasattr(idx, "memory_bytes") else "")
+            return _result([f"{kind} index built: {len(idx)} vectors"
+                            f"{mem}"])
         if proc == "mark_partition_done":
             # reference flink/procedure/MarkPartitionDoneProcedure.java:
             # CALL sys.mark_partition_done('db.t', 'dt=2026-07-29', ...)

@@ -376,3 +376,55 @@ def test_properties_provider_stamps_each_commit_as_reference(tmp_path):
     assert got["port"] == got["reference"] == [
         {"lease": "1", "stream.source.offset": "1"},
         {"lease": "2", "stream.source.offset": "2"}]
+
+
+# -- C.9: a line is one JSON value, as the reference parses it ----------------
+
+MALFORMED_JSONL = {
+    # ROADMAP C.9's file: two values on line 0, one value over lines 1-2
+    "two_values_then_a_split_value":
+        '{"op":"c","after":{"id":1}},{"op":"c","after":{"id":2}}\n'
+        '{"op":"c","after":{"id":3}\n"x":1}\n',
+    "split_value": '{"op":"c","after":{"id":1}}\n{"op":"c","after":\n'
+                   '{"id":2}}\n',
+    "two_values": '{"op":"c","after":{"id":1}}{"op":"c","after":{"id":2}}\n',
+    # a list context joins lines 1-2; line 3's second value makes the
+    # count of values equal the count of lines again
+    "split_list_and_two_values":
+        '{"op":"c","after":{"id":1}}\n{"op":"c","after":{"l":[{"a":1}\n'
+        '{"b":2}]}}\n{"op":"c"},{"op":"d"}\n',
+}
+
+
+@pytest.mark.parametrize("body", list(MALFORMED_JSONL.values()),
+                         ids=list(MALFORMED_JSONL))
+def test_file_source_raises_on_lines_that_are_not_one_value(tmp_path, body):
+    """C.9: a line holding two values, or a value split over lines,
+    raises the reference's JSONDecodeError from the port's first poll
+    (the port used to read such files as events)."""
+    from paimon_tpu.cdc.source import FileCdcSource as RefSource
+    from paimon_tpu_torch.cdc.source import FileCdcSource as PortSource
+    path = tmp_path / "events.jsonl"
+    path.write_text(body)
+    errors = {}
+    for name, cls in (("port", PortSource), ("reference", RefSource)):
+        with pytest.raises(json.JSONDecodeError) as err:
+            cls(str(path)).poll(-1, 10)
+        errors[name] = str(err.value)
+    assert errors["port"] == errors["reference"]
+
+
+def test_file_source_events_equal_per_line_parse(tmp_path):
+    """The port's one decode and scan a line gives each line's
+    json.loads, non-ASCII, scalars and arrays included."""
+    from paimon_tpu.cdc.source import FileCdcSource as RefSource
+    from paimon_tpu_torch.cdc.source import FileCdcSource as PortSource
+    lines = [json.dumps(ev, ensure_ascii=False) for ev in
+             seeded_events("debezium", seed=3, n=200)]
+    lines += ['{"op":"c","after":{"name":"é{[\\"}"}}', "[1, 2]", "3",
+              '"s"', '  {"op":"d","before":{"id":5}}  ']
+    path = tmp_path / "events.jsonl"
+    path.write_text("\n".join(lines) + "\n\n", encoding="utf-8")
+    got = PortSource(str(path)).poll(-1, 1000)
+    assert got == RefSource(str(path)).poll(-1, 1000)
+    assert len(got) == len(lines)

@@ -134,7 +134,11 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.cdc.sink",
                  "paimon_tpu_torch.cdc.database_sync",
                  "paimon_tpu_torch.service.stream_daemon",
-                 "paimon_tpu_torch.obs.merge"):
+                 "paimon_tpu_torch.obs.merge",
+                 "paimon_tpu_torch.vector",
+                 "paimon_tpu_torch.vector.ann",
+                 "paimon_tpu_torch.vector.hybrid",
+                 "paimon_tpu_torch.index.fulltext"):
         assert name in out["modules"]
 
 
@@ -184,6 +188,60 @@ def test_entry_points_raise_without_cuda(tmp_path, capsys):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
     _cdc_and_stream_raise_without_cuda(tmp_path, capsys)
+    _search_raises_without_cuda(tmp_path)
+
+
+def _search_raises_without_cuda(tmp_path):
+    """The vector indexes that train or search on a device, the persisted
+    index's build and the table searches take device=None as cuda (the
+    searches take their table's), so without a card and without
+    device="cpu" they raise naming CUDA; HNSW is host code and takes no
+    device."""
+    import numpy as np
+    import pyarrow as pa
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import ArrayType, BigIntType, FloatType
+    from paimon_tpu_torch.vector import hybrid_search, vector_search
+    from paimon_tpu_torch.vector.ann import (BruteForceIndex, HNSWIndex,
+                                             IVFFlatIndex, IVFPQIndex,
+                                             IVFSQIndex,
+                                             PersistedVectorIndex)
+
+    v = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
+    for make in (lambda: BruteForceIndex(v, "l2"),
+                 lambda: IVFFlatIndex(v, n_clusters=4),
+                 lambda: IVFPQIndex(v, m=2),
+                 lambda: IVFSQIndex(v)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert len(HNSWIndex(v, m=4)) == 64
+    path = str(tmp_path / "vecs")
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("emb", ArrayType(FloatType()))
+              .options({"bucket": "-1"}).build())
+    t = FileStoreTable.create(path, schema, device="cpu")
+    wb = t.new_batch_write_builder()
+    w = wb.new_write()
+    w.write_arrow(pa.table({"id": pa.array(range(64), pa.int64()),
+                            "emb": pa.array(v.tolist(),
+                                            pa.list_(pa.float32()))}))
+    wb.new_commit().commit(w.prepare_commit())
+    w.close()
+    route = [{"type": "vector", "column": "emb", "query": v[0].tolist()}]
+    for run in (lambda: PersistedVectorIndex(FileStoreTable.load(path),
+                                             "emb").build(m=2),
+                lambda: vector_search(FileStoreTable.load(path), "emb",
+                                      v[0]),
+                lambda: hybrid_search(FileStoreTable.load(path), route)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    # a table asked onto the CPU searches and builds there
+    cpu = FileStoreTable.load(path, device="cpu")
+    assert vector_search(cpu, "emb", v[0], k=3).num_rows == 3
+    assert hybrid_search(cpu, route, k=2).num_rows == 2
+    assert len(PersistedVectorIndex(cpu, "emb").build(m=2)) == 64
 
 
 def _cdc_and_stream_raise_without_cuda(tmp_path, capsys):

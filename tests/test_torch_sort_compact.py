@@ -2,9 +2,9 @@
 paimon_tpu.
 
 The cases of tests/test_sort_compact.py run on both packages (see
-tests/test_torch_append.py `reference_module`), all but three that need
+tests/test_torch_append.py `reference_module`), all but two that need
 a plane the port has not (the metrics registry's timers, csv and json
-files, vector search).  The port's z-order and Hilbert keys and the
+files); the vector search case runs since the search plane came.  The port's z-order and Hilbert keys and the
 three permutations, ranked and sorted on the device (the CPU here),
 equal `paimon_tpu.ops.zorder`'s and their own `*_plain` numpy versions
 over seeds and 1-8 columns of integers, nullable integers, doubles with
@@ -28,8 +28,7 @@ from tests.test_torch_append import (
 )
 
 CASES = reference_cases("test_sort_compact", skip=(
-    "test_metrics_registry", "test_csv_json_formats",
-    "test_vector_search_batch_queries"))
+    "test_metrics_registry", "test_csv_json_formats"))
 
 
 @pytest.mark.parametrize("pkg", ["port", "reference"])

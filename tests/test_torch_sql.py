@@ -2,10 +2,9 @@
 
 All cases of tests/test_sql.py (its test classes included) run on both
 packages through tests/test_torch_append.py's `run_reference_case`, the
-port's catalog and tables on the CPU.  The port refuses the search
-procedures until index/fulltext.py and vector/ are ported (ROADMAP.md
-A.8.9): its run of the one case that calls them checks the refusal.
-Then one seeded SQL script (DDL, inserts, update, delete, merge,
+port's catalog and tables on the CPU, the search procedures' case among
+them; each of the four search procedures returns the reference's result
+on one table.  Then one seeded SQL script (DDL, inserts, update, delete, merge,
 compaction, a tag, time travel, group by, a join, a window) runs on both
 packages, each statement's result table equal; and each package reads
 the tables the other's script left.
@@ -33,29 +32,50 @@ def test_reference_cases_are_all_listed():
 @pytest.mark.parametrize("pkg", ["port", "reference"])
 @pytest.mark.parametrize("case", CASES, ids=[c for _, c in CASES])
 def test_reference_case(tmp_path, monkeypatch, request, case, pkg):
-    if pkg == "port" and case == SEARCH:
-        with pytest.raises(NotImplementedError,
-                           match=r"\(ROADMAP.md: A.8.9\)"):
-            run_reference_case(case, pkg, tmp_path, monkeypatch, request)
-        return
     run_reference_case(case, pkg, tmp_path, monkeypatch, request)
 
 
-@pytest.mark.parametrize("call", [
-    "CALL sys.full_text_search('docs', 'title', 'tpu', 2)",
-    "CALL sys.vector_search('docs', 'emb', '1.0,0.05', 1)",
-    "CALL sys.hybrid_search('docs', 'emb', '0.9,0.1', 'title', 'tpu', 2)",
-    "CALL sys.create_vector_index('docs', 'emb')"])
-def test_search_procedures_refuse_naming_their_item(tmp_path, call):
-    cat = port_pkg.create_catalog({"warehouse": str(tmp_path / "wh")},
-                                  device="cpu")
+def _search_docs(pkg, sql, root):
+    """A docs table of 300 rows written by SQL, on one package."""
+    cat = pkg.create_catalog({"warehouse": str(root / "wh")},
+                             **({"device": "cpu"} if pkg is port_pkg
+                                else {}))
     cat.create_database("default")
-    ctx = PortSQL(cat)
+    ctx = sql(cat)
     ctx.sql("CREATE TABLE docs (id BIGINT NOT NULL, title STRING, "
             "emb ARRAY<FLOAT>, PRIMARY KEY (id)) WITH ('bucket' = '1')")
-    with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP.md: A.8.9\)"):
-        ctx.sql(call)
+    rng = np.random.default_rng(3)
+    words = ["tpu", "lakehouse", "kernels", "pasta", "guide", "cooking"]
+    values = ", ".join(
+        f"({i}, '{' '.join(rng.choice(words, 4))}', ARRAY["
+        f"{', '.join(f'{x:.4f}' for x in rng.normal(size=4))}])"
+        for i in range(300))
+    ctx.sql(f"INSERT INTO docs VALUES {values}")
+    return ctx
+
+
+@pytest.mark.parametrize("call", [
+    "CALL sys.full_text_search('docs', 'title', 'tpu kernels', 7)",
+    "CALL sys.vector_search('docs', 'emb', '1.0,0.05,-0.3,0.2', 6)",
+    "CALL sys.hybrid_search('docs', 'emb', '0.9,0.1,0.0,-1.0', 'title', "
+    "'tpu guide', 8, 'weighted_score')",
+    "CALL sys.create_vector_index('docs', 'emb', 2, 'l2', 'ivfsq')"])
+def test_search_procedures_refuse_naming_their_item(tmp_path, call):
+    """Each search procedure, refused until the search plane was ported
+    (A.8.9), returns a result table equal to the reference's on the same
+    rows (scores of a device program within 1e-5 * max(1, |s|); the
+    index build's line names the same vectors and bytes)."""
+    got = _search_docs(port_pkg, PortSQL, tmp_path / "port").sql(call)
+    want = _search_docs(ref_pkg, RefSQL, tmp_path / "ref").sql(call)
+    assert got.column_names == want.column_names
+    if "_score" not in got.column_names:
+        assert got.equals(want)
+        return
+    assert got.drop_columns(["_score"]).equals(
+        want.drop_columns(["_score"]))
+    ws = np.asarray(want.column("_score"), np.float64)
+    gs = np.asarray(got.column("_score"), np.float64)
+    assert np.all(np.abs(gs - ws) <= 1e-5 * np.maximum(1.0, np.abs(ws)))
 
 
 # -- one seeded script on both packages --------------------------------------

@@ -314,8 +314,8 @@ def test_compact_manifests_matches_reference(tmp_path):
 
 def _search_procedure(tmp_path, call="CALL sys.vector_search('docs', "
                       "'emb', '1.0,0.05', 1)"):
-    """A search procedure through SQL on the CPU (index/fulltext.py and
-    vector/ are not ported: A.8.9)."""
+    """A search procedure through SQL on the CPU, on a docs table of 3
+    rows."""
     from paimon_tpu_torch import create_catalog
     from paimon_tpu_torch.sql import SQLContext
     cat = create_catalog({"warehouse": str(tmp_path / "wh")}, device="cpu")
@@ -324,7 +324,9 @@ def _search_procedure(tmp_path, call="CALL sys.vector_search('docs', "
     ctx.sql("CREATE TABLE IF NOT EXISTS docs (id BIGINT NOT NULL, "
             "title STRING, emb ARRAY<FLOAT>, PRIMARY KEY (id)) "
             "WITH ('bucket' = '1')")
-    ctx.sql(call)
+    ctx.sql("INSERT INTO docs VALUES (1, 'tpu guide', ARRAY[1.0, 0.0]), "
+            "(2, 'pasta', ARRAY[0.0, 1.0]), (3, 'tpu', ARRAY[0.9, 0.1])")
+    return ctx.sql(call)
 
 
 def _append_blob_field_write(tmp_path, **options):
@@ -341,14 +343,15 @@ def _append_blob_field_write(tmp_path, **options):
 # buckets, row tracking and deletion vectors with append tables, system
 # tables and blob columns with the formats and types; their places hold
 # other unported planes
-_UNPORTED_ACTIONS = {"vector search": _search_procedure,
+_UNPORTED_ACTIONS = {"stream plane": lambda tmp_path:
+                     _distributed_stream_daemon(),
                      "append blob-field": functools.partial(
                          _append_blob_field_write, **{"blob-field": "b"})}
 
 
 @pytest.mark.parametrize("options, item", [
     ({"cache.disk.dir": "cache"}, "A.7b"),
-    ("vector search", "A.8.9"),
+    ("stream plane", "A.8.9"),
     ("append blob-field", "A.8.8b"),
     ({"request.timeout": "30 s"}, "A.7b")])
 def test_unported_table_options_raise(tmp_path, options, item):
@@ -396,10 +399,14 @@ def test_unread_expiry_bounds_raise_on_expire(tmp_path, key, value):
 def test_append_table_and_other_planes_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A.8.8b"):
         _append_blob_field_write(tmp_path, **{"blob-as-descriptor": "true"})
-    for call in ("CALL sys.full_text_search('docs', 'title', 'tpu', 2)",
-                 "CALL sys.create_vector_index('docs', 'emb')"):
-        with pytest.raises(NotImplementedError, match="A.8.9"):
-            _search_procedure(tmp_path, call)
+    # the search procedures run since the search plane was ported
+    out = _search_procedure(
+        tmp_path, "CALL sys.full_text_search('docs', 'title', 'tpu', 2)")
+    assert sorted(out.column("id").to_pylist()) == [1, 3]
+    out = _search_procedure(
+        tmp_path, "CALL sys.create_vector_index('docs', 'emb', 2, 'l2', "
+        "'hnsw')")
+    assert out.column(0).to_pylist() == ["hnsw index built: 3 vectors"]
 
 
 def _multi_process_mesh():
@@ -445,10 +452,26 @@ def _distributed_stream_daemon():
         StreamDaemon(table, MemoryCdcSource(), plane=object())
 
 
-def _sql_procedure(call):
+def _plane_stamps():
+    from paimon_tpu_torch.service.stream_daemon import recover_plane_stamps
+    with tempfile.TemporaryDirectory() as d:
+        recover_plane_stamps(FileStoreTable.create(
+            os.path.join(d, "t"), pk_schema(), device="cpu"), "daemon")
+
+
+def _serving_replicas(what):
+    """A replica-router surface of the query service (A.7b)."""
     def run():
+        from paimon_tpu_torch.service import KvQueryClient, KvQueryServer
         with tempfile.TemporaryDirectory() as d:
-            _search_procedure(pathlib.Path(d), call)
+            table = FileStoreTable.create(os.path.join(d, "t"), pk_schema(),
+                                          device="cpu")
+            if what == "follow_topology":
+                KvQueryClient(table, follow_topology=True)
+            elif what == "router":
+                KvQueryServer(table).register_with_router("127.0.0.1:1")
+            else:
+                KvQueryServer(table.copy({"service.replicas": "2"}))
     return run
 
 
@@ -466,14 +489,10 @@ def _cli_command(*argv):
 @pytest.mark.parametrize("call, item", [
     (_blob_descriptor_reads, "A.8.8b"), (_variant_shredding, "A.8.8b"),
     (_multi_process_mesh, "A.8.9"), (_object_store_path, "A.7b"),
-    (_sql_procedure("CALL sys.full_text_search('docs', 'title', 'tpu')"),
-     "A.8.9"),
-    (_sql_procedure("CALL sys.vector_search('docs', 'emb', '1.0,0.0')"),
-     "A.8.9"),
-    (_sql_procedure("CALL sys.hybrid_search('docs', 'emb', '1.0,0.0', "
-                    "'title', 'tpu')"), "A.8.9"),
-    (_sql_procedure("CALL sys.create_vector_index('docs', 'emb')"),
-     "A.8.9"),
+    (_plane_stamps, "A.8.9"),
+    (_serving_replicas("follow_topology"), "A.7b"),
+    (_serving_replicas("router"), "A.7b"),
+    (_serving_replicas("replicas"), "A.7b"),
     (_table_read_deadline, "A.7b"),
     (_cli_command("fleet", "status", "d1.t"), "A.8.9"),
     (_distributed_stream_daemon, "A.8.9"),
