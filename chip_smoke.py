@@ -75,20 +75,35 @@ then):
      row in its formula's bucket, the schema's bucket option set, no row
      dropped.  It reports windows, packing, the window merges' seconds
      against the host run codes', and the launches by (B, N, L);
-   - serving: point lookups and the one-replica query service on the
-     card (`serving` says what it drives): serve_dedup_312K, the
-     reference serving benchmark's table at 312.5K rows (cold and warm
-     /lookup, 64 keep-alive clients of 90% point gets and 10%
-     scan(limit=100), the engine's native and numpy probes, a serving
-     writer's read-your-writes through the delta tier, a full
-     compaction under 8 readers, a /scan of 50K rows), and
-     serve_agg_312K, the same rows under aggregation, whose every
-     lookup merges a bucket on the card (4 cold buckets built at once
-     from the server's handler threads).  Every answer is held against
-     a numpy oracle; no native probe may fall back; the flush, the
-     compaction, /scan and the merged builds must launch the kernel.
-     It prints a {"serving": ...} line with the card's name and power
-     limit;
+   - serving: serve_agg_312K, the reference serving benchmark's table
+     at 312.5K rows under aggregation, whose every lookup merges a
+     bucket on the card (4 cold buckets built at once from the server's
+     handler threads, then 64 keep-alive clients of point gets), every
+     answer held against a numpy oracle and the merged builds launching
+     the offset-value-code variant from the handler threads.  It prints
+     a {"serving": ...} line with the card's name and power limit;
+   - serving_fleet: serve_fleet_4M, Paimon's query service for lookup
+     joins (the Paimon docs' "Query Service" page, sys.query_service
+     with a parallelism) over serve_bench.py's table at 4M rows on an
+     object store (ObjectStoreFileIO over LocalObjectStoreBackend under
+     LatencyInjectingObjectStoreBackend: 8 ms a call, 1% of GETs 20x
+     slow) with the host-SSD tier, warm boot, hedged reads, breakers,
+     and 4 replicas behind the router plus one in a process of its own
+     (`serving_fleet` says what it drives): the cold and the
+     warm-booted first lookups (zero reader builds, the SSD tier
+     serving reads inside its bound), 64 clients over 256 tenants
+     through the router and as smart clients (all 5 replicas answering,
+     each tenant on its ring replica), the remote SIGKILLed and
+     suspended within 4 health intervals plus 1 s, a serving writer's
+     50K upserts read back on every replica before each commit (its
+     commits stamping trace.context), a full compaction under 8 readers
+     evicting the dropped files from both tiers, /scan, hedged against
+     unhedged whole-table scans (identical rows, hedges within the
+     cap), a 200 ms deadline over a stalled store raising within 1 s,
+     and the fleet's /slo.  Every answer is held against a numpy
+     oracle; no native probe may fall back; the flushes, the
+     compaction and /scan must launch the kernel.  It prints a
+     {"serving_fleet": ...} line with the card's name and power limit;
    - bucket_modes: primary-key tables as users create them without a
      `bucket` option, bench.py's rows (id BIGINT NOT NULL key, v1
      BIGINT, v2 DOUBLE, v3 INT), each read held against a numpy oracle:
@@ -359,8 +374,8 @@ then):
 
 The last lines of standard output are one JSON object per line: the
 config-5 metrics, the device decode results, the mesh compaction, the
-serving phase, the merge routes, the bucket modes, the maintenance
-phase, the read and write planes, the file indexes, the append tables,
+serving phase, the serving fleet, the merge routes, the bucket modes,
+the maintenance phase, the read and write planes, the file indexes, the append tables,
 the formats and types, the catalog and SQL, the streaming phase and
 its figures, the search phase's figures, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
@@ -6136,6 +6151,7 @@ def serving_batches(rows: int, commits: int = SERVE_COMMITS, seed: int = 11):
     batches of rows / commits ids uniform in [0, rows), v uniform in
     [0, 1), name "c<commit>-<id % 997>", from `seed`."""
     import pyarrow as pa
+    import pyarrow.compute as pc
     rng = np.random.default_rng(seed)
     per = rows // commits
     out = []
@@ -6144,8 +6160,9 @@ def serving_batches(rows: int, commits: int = SERVE_COMMITS, seed: int = 11):
         out.append(pa.table({
             "id": pa.array(ids, pa.int64()),
             "v": pa.array(rng.random(per), pa.float64()),
-            "name": pa.array(np.char.add(f"c{c}-",
-                                         (ids % 997).astype(str)))}))
+            "name": pc.binary_join_element_wise(
+                pa.scalar(f"c{c}"), pc.cast(pa.array(ids % 997),
+                                            pa.string()), "-")}))
     return out
 
 
@@ -6173,8 +6190,11 @@ class ServeOracle:
                 self.upsert(ids, v, c)
 
     def upsert(self, ids, v, tag: int) -> None:
-        # within a batch the last occurrence of an id wins
-        keep = len(ids) - 1 - np.unique(ids[::-1], return_index=True)[1]
+        # within a batch the last occurrence of an id wins: each id's
+        # largest position, scattered by id
+        last = np.full(self.rows, -1, np.int64)
+        np.maximum.at(last, ids, np.arange(len(ids)))
+        keep = last[last >= 0]
         self.live[ids[keep]] = True
         self.v[ids[keep]] = v[keep]
         self.tag[ids[keep]] = tag
@@ -6220,54 +6240,6 @@ class ServeOracle:
         if not np.array_equal(v, self.v[ids]) or \
                 [r["name"] for r in rows] != names.tolist():
             raise AssertionError(f"{what}: a row differs from the oracle")
-
-
-class BuildTimer:
-    """Seconds of the lookup store's SST builds: each `_spill` (lane
-    encode, host sort, SST write) with its rows, and each data-file read
-    of the fast path; the merged fallback's reads are timed by the
-    caller on its query's reader."""
-
-    def __init__(self):
-        self.spills = []         # (seconds, rows)
-        self.reads = []          # seconds
-
-    def __enter__(self):
-        from paimon_tpu_torch.lookup.local_query import LocalTableQuery
-        self._cls = LocalTableQuery
-        self._orig = (LocalTableQuery._spill,
-                      LocalTableQuery._file_reader_load)
-        spill, load = self._orig
-
-        def timed_spill(q, key, t):
-            t0 = time.perf_counter()
-            out = spill(q, key, t)
-            self.spills.append((time.perf_counter() - t0, t.num_rows))
-            return out
-
-        def timed_load(q, split, meta):
-            t0 = time.perf_counter()
-            out = load(q, split, meta)
-            self.reads.append(time.perf_counter() - t0)
-            return out
-        LocalTableQuery._spill = timed_spill
-        LocalTableQuery._file_reader_load = timed_load
-        return self
-
-    def __exit__(self, *exc):
-        self._cls._spill, self._cls._file_reader_load = self._orig
-
-    def summary(self, since=(0, 0)) -> dict:
-        spills = self.spills[since[0]:]
-        reads = self.reads[since[1]:]
-        return {"ssts": len(spills),
-                "sst_rows": sum(r for _, r in spills),
-                "spill_s": sum(s for s, _ in spills),
-                "max_spill_s": max((s for s, _ in spills), default=0.0),
-                "file_reads": len(reads), "file_read_s": sum(reads)}
-
-    def mark(self):
-        return len(self.spills), len(self.reads)
 
 
 def pct(vals, p: float) -> float:
@@ -6369,217 +6341,6 @@ def thread_launches(capture, name: str) -> dict:
         if table == name:
             c = out.setdefault(thread, [0, 0])
             c[variant == "ovc"] += n
-    return out
-
-
-def serve_dedup(work: str, rec: Recorder, batches, rows: int, device,
-                clients: int, seconds: float) -> dict:
-    """serve_dedup_312K: the reference serving benchmark's table at
-    `rows`, served by one KvQueryServer on the card; see `serving`."""
-    import torch
-
-    from paimon_tpu_torch.lookup.sst import force_python_probe
-    from paimon_tpu_torch.metrics import (
-        LOOKUP_NATIVE_FALLBACKS, LOOKUP_NATIVE_PROBES, global_registry,
-    )
-    from paimon_tpu_torch.service import KvQueryClient, KvQueryServer
-    from paimon_tpu_torch.table import FileStoreTable
-    from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
-    from paimon_tpu_torch import Schema
-
-    name = "serve_dedup_312K"
-    path = os.path.join(work, name)
-    dev = torch.device(device)
-    lookups = global_registry().lookup_metrics()
-    probes0 = lookups.counter(LOOKUP_NATIVE_PROBES).count
-    fallbacks0 = lookups.counter(LOOKUP_NATIVE_FALLBACKS).count
-    schema = (Schema.builder().column("id", BigIntType(False))
-              .column("v", DoubleType())
-              .column("name", VarCharType.string_type()).primary_key("id")
-              .options({"bucket": str(SERVE_BUCKETS), "write-only": "true",
-                        "parquet.enable.dictionary": "false"}).build())
-    table = FileStoreTable.create(path, schema, device=device)
-
-    def write():
-        for b in batches:
-            wb = table.new_batch_write_builder()
-            with wb.new_write() as w:
-                w.write_arrow(b)
-                wb.new_commit().commit(w.prepare_commit())
-    rec.run(name, "write", rows, dev, write)
-    oracle = ServeOracle(rows, batches)
-    out = {"rows": rows, "live": int(oracle.live.sum())}
-    served = FileStoreTable.load(path, device=device, dynamic_options={
-        "service.lookup.refresh-interval": "1000"})
-    rng = np.random.default_rng(3)
-    timer = BuildTimer()
-    server = KvQueryServer(served).start()
-    try:
-        with timer, KvQueryClient(address=server.address) as c:
-            ids = rng.integers(0, rows, SERVE_BATCH)
-            t0 = time.perf_counter()
-            got = c.lookup([{"id": int(i)} for i in ids])
-            out["cold_lookup_ms"] = (time.perf_counter() - t0) * 1000.0
-            oracle.check(f"{name} cold lookup", ids, got)
-            out["cold_builds"] = timer.summary()
-            mark = timer.mark()
-            ids = rng.integers(0, rows, 2048)
-            got = rec.run(name, "warm-up lookup", len(ids), dev,
-                          lambda: c.lookup([{"id": int(i)} for i in ids]))
-            oracle.check(f"{name} warm-up", ids, got)
-            out["warmup_builds"] = timer.summary(mark)
-            q = server.query()
-            n_files = sum(len(s.data_files) for s in q._splits.values())
-            if len(q.store.keys()) != n_files:
-                raise AssertionError(f"{name}: {len(q.store.keys())} SSTs "
-                                     f"after the warm-up, {n_files} files")
-            warm, single = [], []
-            for _ in range(300):
-                ids = rng.integers(0, rows, SERVE_BATCH)
-                t0 = time.perf_counter()
-                got = c.lookup([{"id": int(i)} for i in ids])
-                warm.append((time.perf_counter() - t0) * 1000.0)
-                oracle.check(f"{name} warm batch", ids, got)
-            for _ in range(100):
-                i = int(rng.integers(0, rows))
-                t0 = time.perf_counter()
-                got = c.lookup_row({"id": i})
-                single.append((time.perf_counter() - t0) * 1000.0)
-                oracle.check(f"{name} warm single", [i], [got])
-            out["warm_batch_p50_ms"] = pct(warm, 50)
-            out["warm_single_p50_ms"] = pct(single, 50)
-        out["mixed"] = mixed = {}
-        rec.run(name, "mixed 90/10", lambda: served_rows(mixed), dev,
-                lambda: mixed.update(client_load(
-                    server, oracle, clients, seconds, 0.1,
-                    f"{name} mixed")))
-        # the engine's warm probe over the same readers, native and numpy
-        keys = [{"id": int(i)} for i in rng.integers(0, rows, SERVE_BATCH)]
-        q.lookup(keys)
-
-        def per_batch_us():
-            reps, t0 = 0, time.perf_counter()
-            while time.perf_counter() - t0 < 0.5:
-                q.lookup(keys)
-                reps += 1
-            return (time.perf_counter() - t0) / reps * 1e6
-        out["engine_native_us_per_batch"] = per_batch_us()
-        with force_python_probe():
-            out["engine_numpy_us_per_batch"] = per_batch_us()
-        out["engine_native_again_us_per_batch"] = per_batch_us()
-
-        def serving_writer():
-            wr = np.random.default_rng(5)
-            sw = server.new_serving_writer()
-            res = {"batches": 0, "delta_read_s": 0.0, "commit_s": 0.0}
-            try:
-                with KvQueryClient(address=server.address) as wc:
-                    for k in range(SERVE_WRITER_ROWS // SERVE_WRITER_BATCH):
-                        live = np.flatnonzero(oracle.live)
-                        ids = wr.choice(live, SERVE_WRITER_BATCH,
-                                        replace=False)
-                        v = wr.random(len(ids))
-                        tag = 100 + k
-                        import pyarrow as pa
-                        sw.write_arrow(pa.table({
-                            "id": pa.array(ids, pa.int64()),
-                            "v": pa.array(v, pa.float64()),
-                            "name": pa.array(np.char.add(
-                                f"w{k}-", (ids % 997).astype(str)))}))
-                        oracle.upsert(ids, v, tag)
-                        t0 = time.perf_counter()
-                        for part in np.array_split(ids, 10):
-                            oracle.check(f"{name} writer batch {k} before "
-                                         f"commit", part, wc.lookup(
-                                             [{"id": int(i)} for i in part]))
-                        res["delta_read_s"] += time.perf_counter() - t0
-                        t0 = time.perf_counter()
-                        if sw.commit() is None:
-                            raise AssertionError(f"{name}: writer batch "
-                                                 f"{k} committed nothing")
-                        res["commit_s"] += time.perf_counter() - t0
-                        q.refresh()
-                        for part in np.array_split(ids, 10):
-                            oracle.check(f"{name} writer batch {k} after "
-                                         f"commit", part, wc.lookup(
-                                             [{"id": int(i)} for i in part]))
-                        delta = server._delta.stats()
-                        if delta["rows"]:
-                            raise AssertionError(f"{name}: delta tier holds "
-                                                 f"{delta} after the plan "
-                                                 f"covers the commit")
-                        res["batches"] += 1
-            finally:
-                sw.close()
-            return res
-        out["writer"] = rec.run(name, "serving writer", SERVE_WRITER_ROWS,
-                                dev, serving_writer)
-        out["writer"]["launches"] = rec.phases[-1]["launches_plain"]
-
-        # full compaction while 8 clients keep reading
-        old = {f.file_name for s in q._splits.values()
-               for f in s.data_files}
-        stop = threading.Event()
-        answers, errors = [], []
-
-        def reader(seed):
-            r = np.random.default_rng(2000 + seed)
-            try:
-                with KvQueryClient(address=server.address) as rc:
-                    while not stop.is_set():
-                        ids = r.integers(0, rows, SERVE_BATCH)
-                        answers.append((ids, rc.lookup(
-                            [{"id": int(i)} for i in ids])))
-            except Exception as e:      # noqa: BLE001 -- raised below
-                errors.append(repr(e))
-        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
-                   for i in range(8)]
-        for t in threads:
-            t.start()
-        try:
-            sid = rec.run(name, "compact", rows, dev,
-                          lambda: served.copy({"write-only": "false"})
-                          .compact(full=True))
-            q.refresh()
-            time.sleep(0.5)
-        finally:
-            stop.set()
-            for t in threads:
-                t.join(timeout=120)
-        if sid is None or errors:
-            raise AssertionError(f"{name} compaction: snapshot {sid}, "
-                                 f"reader errors {errors[:3]}")
-        for ids, got in answers:
-            oracle.check(f"{name} during compaction", ids, got)
-        stale = [k for k in q.store.keys() if any(f in k for f in old)]
-        if stale:
-            raise AssertionError(f"{name}: readers of compacted-away files "
-                                 f"survive: {stale[:3]}")
-        out["compaction"] = {"reads": len(answers),
-                             "s": rec.phases[-1]["s"],
-                             "launches": rec.phases[-1]["launches_plain"]}
-        limit = min(SERVE_SCAN_LIMIT, out["live"])
-        with KvQueryClient(address=server.address) as c:
-            part = rec.run(name, "bounded scan", limit, dev,
-                           lambda: c.scan(limit=limit))
-        oracle.check_scan(f"{name} bounded scan", part)
-        if len(part) != limit:
-            raise AssertionError(f"{name} bounded scan: {len(part)} rows, "
-                                 f"limit {limit}")
-        out["bounded_scan_s"] = rec.phases[-1]["s"]
-        stats = server.stats()
-    finally:
-        server.stop()
-    out["native_probes"] = lookups.counter(LOOKUP_NATIVE_PROBES).count \
-        - probes0
-    out["native_fallbacks"] = \
-        lookups.counter(LOOKUP_NATIVE_FALLBACKS).count - fallbacks0
-    out["server_lookup_p95_ms"] = stats["lookup_ms"]["p95"]
-    out["handler_cpu_per_key_ms_p50"] = stats["lookup_cpu_per_key_ms"]["p50"]
-    if out["native_probes"] <= 0 or out["native_fallbacks"]:
-        raise AssertionError(f"{name}: native probes {out['native_probes']}, "
-                             f"fallbacks {out['native_fallbacks']}")
-    shutil.rmtree(path, ignore_errors=True)
     return out
 
 
@@ -6692,42 +6453,25 @@ def serve_agg(work: str, rec: Recorder, batches, rows: int, device,
 
 
 def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
-            device="cuda", clients: int = 64, seconds: float = 0.5,
+            device="cuda", clients: int = 64,
             agg_seconds: float = 0.25) -> dict:
-    """The serving plane on the card.
+    """The merged lookups of the serving plane on the card.
 
-    serve_dedup_312K: benchmarks/serve_bench.py's table (id BIGINT NOT
+    serve_agg_312K: benchmarks/serve_bench.py's table (id BIGINT NOT
     NULL key, v DOUBLE, name STRING; bucket=4, write-only, no parquet
     dictionary; 4 commits of rows / 4 ids uniform in [0, rows) from seed
-    11) served by one KvQueryServer with a refresh interval of 1000 ms:
-    the cold first /lookup of 8 keys, a 2048-key warm-up that builds
-    every file's SST, 300 warm batches of 8 and 100 single gets on one
-    keep-alive client, `clients` client threads for `seconds` (90% gets
-    of 8 keys, 10% scan(limit=100)), the engine's warm probe native
-    against numpy over the same readers, a serving writer's 50k
-    upserts of live ids in batches of 10k (each read back through the
-    delta tier before its commit and from the LSM after), a full
-    compaction while 8 clients read, and one /scan of SERVE_SCAN_LIMIT
-    rows.
-    serve_agg_312K: the same rows under aggregation (v sum): 4 cold
+    11) under aggregation (v sum), served by one KvQueryServer: 4 cold
     buckets built at once from 4 client threads, each a full
-    merge-on-read on the card, a 2048-key warm-up, then `clients` client
-    threads of point gets for `agg_seconds`.  Every answer is held
-    against a numpy oracle; native probes must run and none fall back;
-    the flush, the compaction, /scan and the merged builds must launch
-    the winner-select kernel."""
+    merge-on-read on the card, a 2048-key warm-up, then `clients`
+    client threads of point gets for `agg_seconds`.  Every answer is
+    held against a numpy oracle; the merged builds must launch the
+    offset-value-code variant from the handler threads.  The
+    deduplicate table of this phase until the serving fleet came
+    (serve_dedup_312K) is served by the fleet now (`serving_fleet`)."""
     t0 = time.perf_counter()
     batches = serving_batches(rows)
     out = {"card": card_line() if device == "cuda" else None,
            "batch": SERVE_BATCH, "make_rows_s": time.perf_counter() - t0}
-    out["dedup"] = serve_dedup(work, rec, batches, rows, device, clients,
-                               seconds)
-    launches = {p["phase"]: (p["launches_plain"], p["launches_ovc"])
-                for p in rec.phases if p["table"] == "serve_dedup_312K"}
-    for what in ("mixed 90/10", "serving writer", "compact"):
-        if launches[what][0] == 0:
-            raise AssertionError(f"serve_dedup_312K {what}: no launch of the "
-                                 f"winner-select ({launches})")
     out["agg"] = serve_agg(work, rec, batches, rows, device, clients,
                            agg_seconds)
     ovc = sum(o for _, o in out["agg"]["cold_thread_launches"].values())
@@ -6741,10 +6485,1275 @@ def serving(work: str, rec: Recorder, rows: int = SERVE_ROWS,
     out["launches"] = {f"{p['table']} {p['phase']}":
                        [p["launches_plain"], p["launches_ovc"]]
                        for p in rec.phases
-                       if p["table"].startswith("serve_")}
+                       if p["table"].startswith("serve_agg")}
     out["peak_gib"] = {f"{p['table']} {p['phase']}": p["peak_gib"]
-                       for p in rec.phases if p["table"].startswith("serve_")}
+                       for p in rec.phases
+                       if p["table"].startswith("serve_agg")}
     out["s"] = time.perf_counter() - t0
+    return out
+
+
+# -- serving_fleet: the query service for lookup joins over an object store
+
+FLEET_ROWS = 4_000_000           # serve_fleet_4M: 4 commits of 1M ids
+FLEET_REPLICAS = 4
+FLEET_REMOTE_ID = 4              # the replica in a process of its own
+FLEET_TENANTS = 256
+FLEET_CLIENTS = 64
+FLEET_SECONDS = 4.0              # each load window: router, smart clients
+# a percentile of a window is reported where at least this many samples
+# lie beyond it (p99 wants 1,000 requests), else null
+FLEET_TAIL_SAMPLES = 10
+# GETs that build the store's latency model before the scans of step 9
+FLEET_HEDGE_WARMUP = 400
+FLEET_HEALTH_MS = 500
+FLEET_SCHEME = "fleet"
+FLEET_WARMUP = 2048              # warm-up keys, spread over the replicas
+FLEET_READERS = 8                # clients reading through the compaction
+FLEET_DISK_BYTES = 1 << 30
+# the store's round trip: chaos_bench's tail shape, 1% of GETs 20x slow
+FLEET_STORE = {"base_ms": 8.0, "jitter_ms": 1.0, "tail_rate": 0.01,
+               "tail_multiplier": 20.0, "seed": 42}
+FLEET_DEADLINE_MS = 200
+FLEET_STUCK_MS = 5000
+
+
+def fleet_options(ssd: str) -> dict:
+    """The deployment's options over the base table's: Paimon's query
+    service with a parallelism (service.replicas) on the host-SSD cache
+    and tail-tolerance options of tier_bench and chaos_bench."""
+    return {"service.replicas": str(FLEET_REPLICAS),
+            "service.warmboot.enabled": "true",
+            "cache.disk.dir": ssd, "cache.disk.max-bytes": "1 gb",
+            "read.hedge.enabled": "true", "read.hedge.min-delay": "2",
+            "store.breaker.enabled": "true",
+            "service.replicas.health-interval": f"{FLEET_HEALTH_MS} ms",
+            "service.lookup.refresh-interval": "1000"}
+
+
+class StoreCounter:
+    """An object-store backend that counts its inner store's calls by op
+    with their wall milliseconds (the injected latency included), the
+    GETs of data files apart, and keeps each GET's milliseconds; it
+    sits under the resilient layer, so hedges and retries count as the
+    store sees them."""
+
+    OPS = ("put", "get", "head", "list", "delete", "data_get")
+
+    def __init__(self, inner):
+        self.inner = inner
+        self._lock = threading.Lock()
+        self.calls = dict.fromkeys(self.OPS, 0)
+        self.ms = dict.fromkeys(self.OPS, 0.0)
+        self.get_ms: list = []
+
+    def _timed(self, op, fn, key=""):
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            ms = (time.perf_counter() - t0) * 1000.0
+            with self._lock:
+                self.calls[op] += 1
+                self.ms[op] += ms
+                if op == "get":
+                    self.get_ms.append(ms)
+                    if key.rsplit("/", 1)[-1].startswith("data-"):
+                        self.calls["data_get"] += 1
+                        self.ms["data_get"] += ms
+
+    def put(self, key, data, if_none_match=False):
+        return self._timed("put", lambda: self.inner.put(
+            key, data, if_none_match=if_none_match))
+
+    def get(self, key, offset=0, length=None):
+        return self._timed("get", lambda: self.inner.get(key, offset,
+                                                         length), key)
+
+    def head(self, key):
+        return self._timed("head", lambda: self.inner.head(key))
+
+    def list(self, prefix):
+        return self._timed("list", lambda: self.inner.list(prefix))
+
+    def delete(self, key):
+        return self._timed("delete", lambda: self.inner.delete(key))
+
+    def mark(self) -> tuple:
+        with self._lock:
+            return dict(self.calls), dict(self.ms), len(self.get_ms)
+
+    def since(self, mark: tuple) -> dict:
+        calls, ms, gets = mark
+        with self._lock:
+            return {"calls": {k: self.calls[k] - calls[k] for k in self.OPS},
+                    "ms": {k: self.ms[k] - ms[k] for k in self.OPS},
+                    "get_p50_ms": pct(self.get_ms[gets:], 50),
+                    "get_p99_ms": pct(self.get_ms[gets:], 99)}
+
+
+def fleet_store(root: str, **extra):
+    """(the counted store, its FileIO): LocalObjectStoreBackend at `root`
+    under LatencyInjectingObjectStoreBackend in FLEET_STORE's shape."""
+    from paimon_tpu_torch.fs.object_store import (
+        LatencyInjectingObjectStoreBackend, LocalObjectStoreBackend,
+        ObjectStoreFileIO,
+    )
+    store = StoreCounter(LatencyInjectingObjectStoreBackend(
+        LocalObjectStoreBackend(root), **{**FLEET_STORE, **extra}))
+    return store, ObjectStoreFileIO(store, scheme=f"{FLEET_SCHEME}://")
+
+
+def fleet_child_start(root: str, device: str, out: str):
+    """The start of a process of serve_fleet's (FleetChild): it reaches
+    the card at once, registers the fleet's scheme over its own FileIO
+    of the store and waits for `out`.go, written by its parent; (the
+    counted store, the seconds to the card, the contents of `out`.go,
+    the seconds it waited for them), or None when the parent exits
+    first."""
+    import torch
+
+    from paimon_tpu_torch.fs import register_file_io
+
+    t0 = time.perf_counter()
+    parent = os.getppid()
+    if device == "cuda":
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    store, fio = fleet_store(root)
+    register_file_io(FLEET_SCHEME, lambda: fio)
+    t1 = time.perf_counter()
+    while not os.path.exists(out + ".go"):
+        if os.getppid() != parent:
+            return None
+        time.sleep(0.02)
+    with open(out + ".go") as f:
+        return store, card_s, f.read().strip(), time.perf_counter() - t1
+
+
+def fleet_child_done(out: str, result: dict) -> None:
+    with open(out + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(out + ".tmp", out + ".json")
+
+
+def fleet_remote(root: str, path: str, ssd: str, out: str,
+                 device: str) -> None:
+    """serve_fleet's remote replica, a process of its own (FleetChild):
+    given the router's address in `out`.go, it serves the table over
+    the same store and SSD directory as replica FLEET_REMOTE_ID,
+    registers with the router and writes `out`.json; it serves until it
+    is killed or its parent exits."""
+    from paimon_tpu_torch.service import KvQueryServer
+    from paimon_tpu_torch.table import FileStoreTable
+
+    started = fleet_child_start(root, device, out)
+    if started is None:
+        return
+    _, card_s, router, waited_s = started
+    parent = os.getppid()
+    t1 = time.perf_counter()
+    table = FileStoreTable.load(path, dynamic_options=fleet_options(ssd),
+                                device=device)
+    server = KvQueryServer(table, replica_id=FLEET_REMOTE_ID)
+    server.server.start()
+    registered = server.register_with_router(router)
+    fleet_child_done(out, {"address": server.address,
+                           "registered": registered, "card_s": card_s,
+                           "waited_s": waited_s,
+                           "join_s": time.perf_counter() - t1})
+    while os.getppid() == parent:
+        time.sleep(0.2)
+
+
+def fleet_restarted(root: str, path: str, ssd: str, out: str,
+                    device: str) -> None:
+    """serve_fleet's step 4, a process of its own (FleetChild) as a
+    restarted host runs it: empty memory tiers and counters, the SSD
+    directory and the warm-boot state on disk.  Given the id range in
+    `out`.go, it starts a ReplicaSet of FLEET_REPLICAS with warm boot,
+    sends each replica's first tenant a lookup of SERVE_BATCH keys,
+    then one scan(limit=100), and writes `out`.json: the answers (the
+    parent holds them against its oracle), each replica's warm restore,
+    the process's reader builds and SSD-tier hits, the store's calls
+    and the tier's bytes.  Then it stops the set and exits."""
+    from paimon_tpu_torch.fs.caching import shared_cache_state
+    from paimon_tpu_torch.metrics import (
+        CACHE_DISK_HITS, LOOKUP_READER_BUILDS, global_registry,
+    )
+    from paimon_tpu_torch.service import KvQueryClient, ReplicaSet
+    from paimon_tpu_torch.table import FileStoreTable
+
+    started = fleet_child_start(root, device, out)
+    if started is None:
+        return
+    store, card_s, rows, waited_s = started
+    reg = global_registry()
+    builds0 = reg.lookup_metrics().counter(LOOKUP_READER_BUILDS).count
+    hits0 = reg.cache_disk_metrics().counter(CACHE_DISK_HITS).count
+    mark = store.mark()
+    rng = np.random.default_rng(4)
+    t0 = time.perf_counter()
+    fleet = ReplicaSet(FileStoreTable.load(
+        path, dynamic_options=fleet_options(ssd), device=device)).start()
+    try:
+        start_s = time.perf_counter() - t0
+        first = {rid: ts[0] for rid, ts in
+                 sorted(tenants_by_replica(fleet.router.ring).items())}
+        lookups = []
+        t1 = time.perf_counter()
+        for tenant in first.values():
+            ids = rng.integers(0, int(rows), SERVE_BATCH)
+            with KvQueryClient(address=fleet.address, tenant=tenant) as c:
+                got = c.lookup([{"id": int(i)} for i in ids])
+                lookups.append({"tenant": tenant, "ids": ids.tolist(),
+                                "rows": got, "replica": int(c.last_replica)})
+        first_ms = (time.perf_counter() - t1) * 1000.0
+        built = reg.lookup_metrics().counter(LOOKUP_READER_BUILDS).count \
+            - builds0
+        # one scan reads the data files: from the SSD tier, then from
+        # the memory tier for any replica after it
+        with KvQueryClient(address=fleet.address,
+                           tenant=next(iter(first.values()))) as c:
+            scans = [c.scan(limit=100)]
+        tier = shared_cache_state().disk
+        result = {
+            "card_s": card_s, "waited_s": waited_s, "start_s": start_s,
+            "work_s": time.perf_counter() - t0, "first_lookups_ms": first_ms,
+            "reader_builds": built,
+            "restored": [s.last_warm_restore for s in fleet.servers],
+            "disk_hits": reg.cache_disk_metrics().counter(
+                CACHE_DISK_HITS).count - hits0,
+            "store": store.since(mark), "tier_bytes": tier.total_bytes,
+            "tier_entries": len(tier), "lookups": lookups, "scans": scans}
+    finally:
+        fleet.stop()
+    fleet_child_done(out, result)
+
+
+class FleetChild:
+    """A function of this script (`fleet_remote`, `fleet_restarted`) in
+    a process of its own, started steps before serve_fleet needs it so
+    that its start on the card overlaps the phase's work."""
+
+    def __init__(self, fn: str, root: str, path: str, ssd: str, out: str,
+                 dev):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.out = out
+        self.t0 = time.perf_counter()
+        self.err = open(out + ".err", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import sys, chip_smoke; "
+             f"chip_smoke.{fn}(*sys.argv[1:])", root, path, ssd, out,
+             dev.type], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+            stdout=subprocess.DEVNULL, stderr=self.err)
+
+    def join(self, go: str, timeout: float = 300.0) -> dict:
+        """Hand it `go`; wait for what it writes."""
+        with open(self.out + ".go.tmp", "w") as f:
+            f.write(go)
+        os.replace(self.out + ".go.tmp", self.out + ".go")
+        deadline = time.perf_counter() + timeout
+        while not os.path.exists(self.out + ".json"):
+            if self.proc.poll() is not None or \
+                    time.perf_counter() > deadline:
+                self.stop()
+                with open(self.out + ".err") as f:
+                    err = f.read()[-800:]
+                raise AssertionError(f"{os.path.basename(self.out)}: exit "
+                                     f"{self.proc.returncode}: {err}")
+            time.sleep(0.02)
+        with open(self.out + ".json") as f:
+            return json.load(f)
+
+    def kill(self) -> None:
+        self.proc.kill()            # SIGKILL: no shutdown, no persist
+        self.proc.wait()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+
+
+def http_json(address: str, path: str, body=None, timeout: float = 30.0):
+    """GET (or POST `body`) `path` of a server; (status, parsed JSON or
+    text)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        address + path, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read()
+    try:
+        return status, json.loads(data)
+    except ValueError:
+        return status, data.decode()
+
+
+def tenants_by_replica(ring, n: int = FLEET_TENANTS) -> dict:
+    """{replica id: [tenant, ...]} of tenants t0..t<n-1> on `ring`."""
+    out: dict = {}
+    for i in range(n):
+        out.setdefault(ring.pick(f"t{i}")["id"], []).append(f"t{i}")
+    return out
+
+
+def tail_pct(vals, p: float):
+    """pct(vals, p) where FLEET_TAIL_SAMPLES samples or more lie beyond
+    it, else None: too few samples to support that percentile."""
+    return pct(vals, p) \
+        if len(vals) * (100 - p) / 100 >= FLEET_TAIL_SAMPLES else None
+
+
+def fleet_load(address: str, oracle: ServeOracle, clients: int,
+               seconds: float, follow: bool, what: str) -> dict:
+    """`clients` client threads over FLEET_TENANTS tenants (each thread
+    round-robin over its tenants' keep-alive clients): 90% gets of
+    SERVE_BATCH keys, 10% scan(limit=100), through the router
+    (`follow`=False) or to each tenant's replica (`follow`=True).
+
+    Each client makes one lookup before the window opens, so that its
+    connections and its /topology probe are paid outside it.  The
+    window is `seconds` long and opens when every thread is ready; the
+    rate and the latencies count the requests that finish inside it,
+    and the rate divides by `seconds`.  Every answer, inside the window
+    or not, is held against the oracle afterwards, and its (tenant,
+    replica) kept."""
+    from paimon_tpu_torch.service import KvQueryClient, ServiceBusyError
+    stop = threading.Event()
+    ready = threading.Barrier(clients + 1)
+    lock = threading.Lock()
+    # done: (finish time, ms, "lookup" or "scan") of every request
+    got = {"lookups": [], "scans": [], "done": [], "seen": [], "busy": 0,
+           "errors": [], "warm": 0}
+
+    def worker(i):
+        r = np.random.default_rng(3000 + i)
+        mine = {"lookups": [], "scans": [], "done": [], "seen": [],
+                "busy": 0}
+        cs = [KvQueryClient(address=address, tenant=f"t{k}",
+                            follow_topology=follow)
+              for k in range(i, FLEET_TENANTS, clients)]
+        try:
+            try:
+                for c in cs:
+                    ids = r.integers(0, oracle.rows, SERVE_BATCH)
+                    mine["lookups"].append(
+                        (ids, c.lookup([{"id": int(x)} for x in ids])))
+                    mine["seen"].append((c.tenant, int(c.last_replica)))
+            finally:
+                ready.wait(timeout=300)
+            j = 0
+            while not stop.is_set():
+                c = cs[j % len(cs)]
+                j += 1
+                try:
+                    t1 = time.perf_counter()
+                    if r.random() >= 0.1:
+                        ids = r.integers(0, oracle.rows, SERVE_BATCH)
+                        rows = c.lookup([{"id": int(x)} for x in ids])
+                        mine["lookups"].append((ids, rows))
+                        kind = "lookup"
+                    else:
+                        mine["scans"].append(c.scan(limit=100))
+                        kind = "scan"
+                    t2 = time.perf_counter()
+                    mine["done"].append((t2, (t2 - t1) * 1000.0, kind))
+                    mine["seen"].append((c.tenant, int(c.last_replica)))
+                except ServiceBusyError:
+                    mine["busy"] += 1
+                    time.sleep(0.002)
+        except Exception as e:      # noqa: BLE001 -- reported, then raised
+            with lock:
+                got["errors"].append(repr(e))
+        finally:
+            for c in cs:
+                c.close()
+        with lock:
+            for k in ("lookups", "scans", "done", "seen"):
+                got[k].extend(mine[k])
+            got["busy"] += mine["busy"]
+            got["warm"] += len(cs)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    ready.wait(timeout=300)
+    opened = time.perf_counter()
+    time.sleep(seconds)
+    closed = time.perf_counter()
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    drained = time.perf_counter()
+    if got["errors"] or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{what}: client errors {got['errors'][:3]}")
+    t1 = time.perf_counter()
+    for ids, rows in got["lookups"]:
+        oracle.check(what, ids, rows)
+    for rows in got["scans"]:
+        if len(rows) != 100:
+            raise AssertionError(f"{what}: scan(limit=100) gave "
+                                 f"{len(rows)} rows")
+        oracle.check_scan(what, rows)
+    inside = [(ms, kind) for end, ms, kind in got["done"]
+              if opened <= end <= closed]
+    lat = [ms for ms, _ in inside]
+    lookup_lat = [ms for ms, kind in inside if kind == "lookup"]
+    by_replica: dict = {}
+    for _, rid in got["seen"]:
+        by_replica[str(rid)] = by_replica.get(str(rid), 0) + 1
+    n_scans = sum(kind == "scan" for _, kind in inside)
+    return {"clients": clients, "tenants": FLEET_TENANTS,
+            "follow_topology": follow, "window_s": seconds,
+            "ready_s": opened - t0, "drain_s": drained - closed,
+            "warm_requests": got["warm"], "requests": len(inside),
+            "requests_per_s": len(inside) / seconds,
+            "lookups": len(inside) - n_scans, "scans": n_scans,
+            "after_window": len(got["done"]) - len(inside),
+            "busy_429": got["busy"],
+            "p50_ms": tail_pct(lat, 50), "p95_ms": tail_pct(lat, 95),
+            "p99_ms": tail_pct(lat, 99),
+            "lookup_p50_ms": tail_pct(lookup_lat, 50),
+            "lookup_p99_ms": tail_pct(lookup_lat, 99),
+            "by_replica": by_replica, "seen": got["seen"],
+            "checked_s": time.perf_counter() - t1}
+
+
+def data_paths(table) -> set:
+    """The paths of the data files of `table`'s latest snapshot."""
+    from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
+    paths = FileStorePathFactory(table.path, table.schema.partition_keys)
+    return {f.external_path or
+            paths.data_file_path(s.partition, s.bucket, f.file_name)
+            for s in table.new_read_builder().new_scan().plan().splits
+            for f in s.data_files}
+
+
+def reload_plans(fleet) -> None:
+    """Every replica of `fleet` reloads its plan now: refresh() lifts
+    its snapshot check's interval, and a lookup of no keys makes the
+    check, building no reader."""
+    for s in fleet.servers:
+        q = s.query()
+        q.refresh()
+        q.lookup([])
+
+
+def launches_since(capture, name: str, before: dict) -> dict:
+    """{thread-name prefix: [plain, ovc]} launches of table `name` since
+    `before`, a thread_launches reading."""
+    return {t: [a - b for a, b in zip(n, before.get(t, (0, 0)))]
+            for t, n in thread_launches(capture, name).items()
+            if list(n) != list(before.get(t, (0, 0)))}
+
+
+def warm_latency_model(fio, small: list, large: list, calls: int) -> None:
+    """`calls` GETs through `fio`, 16 threads at a time, round-robin:
+    whole reads of the `small` objects and the first 4 KiB of the
+    `large` ones, so that the latency model of the resilient layer
+    under `fio` has its samples for both kinds of GET, as a serving
+    process's has."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def get(k):
+        if k % 2:
+            fio.read_range(large[k // 2 % len(large)], 0, 4096)
+        else:
+            fio.read_bytes(small[k // 2 % len(small)])
+    with ThreadPoolExecutor(16) as pool:
+        list(pool.map(get, range(calls)))
+
+
+def check_fleet_table(what: str, oracle: ServeOracle, t) -> None:
+    """A whole-table read against the oracle, vectorized: every live id
+    once, with its last writer's v and name."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    ids = t.column("id").to_numpy()
+    if len(ids) != int(oracle.live.sum()) or \
+            len(np.unique(ids)) != len(ids) or not oracle.live[ids].all():
+        raise AssertionError(f"{what}: {len(ids)} rows, "
+                             f"{int(oracle.live.sum())} live ids")
+    if not np.array_equal(t.column("v").to_numpy(), oracle.v[ids]):
+        raise AssertionError(f"{what}: a v differs from the oracle")
+    tags = oracle.tag[ids].astype(np.int64)
+    codes, index = np.unique(tags, return_inverse=True)
+    prefix = pa.array([f"c{c}" if c < 100 else f"w{c - 100}"
+                       for c in codes]).take(pa.array(index))
+    want = pc.binary_join_element_wise(
+        prefix, pc.cast(pa.array(ids % 997), pa.string()), "-")
+    if not t.column("name").combine_chunks().equals(want):
+        raise AssertionError(f"{what}: a name differs from the oracle")
+
+
+class TimedReads:
+    """A table's FileIO with each read's wall milliseconds kept: the
+    latency the scan sees, after hedging."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.ms: list = []
+
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.ms.append((time.perf_counter() - t0) * 1000.0)
+        return out
+
+    def read_bytes(self, path):
+        return self._timed(self.inner.read_bytes, path)
+
+    def read_range(self, path, offset, length):
+        return self._timed(self.inner.read_range, path, offset, length)
+
+    def read_ranges(self, path, ranges):
+        return self._timed(self.inner.read_ranges, path, ranges)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def serving_fleet(work: str, rec: Recorder, rows: int = FLEET_ROWS,
+                  device="cuda", clients: int = FLEET_CLIENTS,
+                  seconds: float = FLEET_SECONDS) -> dict:
+    """serve_fleet_4M: Paimon's query service for lookup joins (the
+    Paimon docs' "Query Service" page, sys.query_service with a
+    parallelism) over a table on an object store, with the host-SSD
+    cache and the tail-tolerance options of the reference's
+    benchmarks/tier_bench.py and chaos_bench.py, served by replicas
+    behind the router as in benchmarks/serve_bench.py's replicated rig.
+
+    The table is serve_bench.py's (id BIGINT NOT NULL key, v DOUBLE,
+    name STRING; bucket=4, write-only, no parquet dictionary; 4 commits
+    of rows / 4 ids uniform in [0, rows) from seed 11) on
+    ObjectStoreFileIO over LocalObjectStoreBackend under
+    LatencyInjectingObjectStoreBackend (8 ms a call, 1 ms jitter, 1% of
+    GETs 20x slow), registered under a scheme of its own; the served
+    tables take `fleet_options`.  Steps, every answer held against a
+    numpy oracle:
+     1. a remote replica (id 4) and the restarted host of step 5b start
+        in processes of their own, so that both are idle before the load
+        windows of step 5;
+     2. the write, with the store's calls and K1 at each flush;
+     3. a ReplicaSet of 4: the cold first /lookup of 8 keys and a
+        2,048-key warm-up of one tenant through the router, so that its
+        replica builds every file's SST; POST /warmboot to each (the
+        warm one persists); /scan(limit=100) on as many replicas as
+        cache.disk.promote-after-hits; stop;
+     4. this process's warm-booted ReplicaSet and the engine's probe,
+        native and numpy;
+     5. the first scan on each replica of this process launches K1 from
+        the replicas' scan threads; the remote registers; `clients`
+        threads over 256
+        tenants for a `seconds` window through the router, then as smart
+        clients (`fleet_load`): all 5 replicas answer, each tenant on
+        its HashRing replica, /healthz rolls up 5 and /metrics carries
+        replica="4";
+    5b. the restarted host (`fleet_restarted`, before any commit): a
+        ReplicaSet restoring the warm state, each replica's first lookup
+        with zero reader builds, a /scan(limit=100) served by the SSD
+        tier (disk hits > 0, fewer data-file GETs from the store than
+        step 3), the tier inside cache.disk.max-bytes;
+     6. SIGKILL of the remote: suspended within 4 health intervals plus
+        1 s, its tenants rehashed and answered exactly;
+     7. the fleet's serving writer upserts 50,000 live ids in batches of
+        10,000, each read back on every replica before its commit, each
+        commit inside a span stamping trace.context;
+     8. a /scan of 50,000 rows through the router (merging the writer's
+        runs), a full compaction while 8 clients read, the dropped files
+        gone from both tiers (the SSD tier's evictions counted) and
+        from every replica's SSTs, the /scan again (one sorted run a
+        bucket: a raw read);
+     9. the whole table read twice through copies without the disk
+        tier, unhedged and hedged, each over a store whose latency
+        model FLEET_HEDGE_WARMUP GETs have built first: rows identical
+        and exact, the GETs' p50 and p99, hedges issued and won on the
+        hedged store, and within the cap of hedgeable calls;
+    10. a read with request.timeout=200 ms over a store whose every call
+        stalls 5 s raises the deadline error within 1 s; the next read
+        without the stall is exact;
+    11. GET /slo through the router: aggregate_slo over the replicas.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.fs import register_file_io
+    from paimon_tpu_torch.fs.caching import (
+        reset_disk_tiers, shared_cache_state,
+    )
+    from paimon_tpu_torch.lookup.sst import force_python_probe
+    from paimon_tpu_torch.metrics import (
+        CACHE_DISK_EVICTIONS, LOOKUP_NATIVE_FALLBACKS, LOOKUP_NATIVE_PROBES,
+        LOOKUP_READER_BUILDS, RESILIENCE_HEDGES_ABANDONED, RESILIENCE_HEDGES_ISSUED,
+        RESILIENCE_HEDGES_WON, SERVICE_SCAN_CACHE_HITS,
+        SERVICE_SCAN_CACHE_MISSES, global_registry,
+    )
+    from paimon_tpu_torch.obs import trace
+    from paimon_tpu_torch.options import CoreOptions
+    from paimon_tpu_torch.service import KvQueryClient, ReplicaSet
+    from paimon_tpu_torch.service.delta import reset_delta_tiers
+    from paimon_tpu_torch.service.router import HashRing
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
+    from paimon_tpu_torch.utils.deadline import DeadlineExceededError
+
+    t_phase = time.perf_counter()
+    name = f"serve_fleet_{rows // 1_000_000}M"
+    dev = torch.device(device)
+    root = os.path.join(work, "fleet-bucket")
+    ssd = os.path.join(work, "fleet-ssd")
+    path = f"{FLEET_SCHEME}://{name}"
+    reg = global_registry()
+
+    def counter(group, metric):
+        return getattr(reg, f"{group}_metrics")().counter(metric).count
+
+    out = {"card": card_line() if dev.type == "cuda" else None,
+           "rows": rows, "replicas": FLEET_REPLICAS, "steps_s": {},
+           "store": {}}
+    steps = out["steps_s"]
+
+    def step(what, t0):
+        steps[what] = time.perf_counter() - t0
+        log(f"  {name} {what}: {steps[what]:.2f} s")
+
+    t0 = time.perf_counter()
+    remote = FleetChild("fleet_remote", root, path, ssd,
+                        os.path.join(work, "fleet-remote"), dev)
+    restart = FleetChild("fleet_restarted", root, path, ssd,
+                         os.path.join(work, "fleet-restarted"), dev)
+    sets = []
+    probes0 = counter("lookup", LOOKUP_NATIVE_PROBES)
+    fallbacks0 = counter("lookup", LOOKUP_NATIVE_FALLBACKS)
+    try:
+        store, fio = fleet_store(root)
+        register_file_io(FLEET_SCHEME, lambda: fio)
+        batches = serving_batches(rows)
+        step("1 remote and restarted host started, batches made", t0)
+
+        # -- 2. the write ------------------------------------------------
+        t0 = time.perf_counter()
+        schema = (Schema.builder().column("id", BigIntType(False))
+                  .column("v", DoubleType())
+                  .column("name", VarCharType.string_type())
+                  .primary_key("id")
+                  .options({"bucket": str(SERVE_BUCKETS),
+                            "write-only": "true",
+                            "parquet.enable.dictionary": "false"}).build())
+        table = FileStoreTable.create(path, schema, device=device)
+        mark = store.mark()
+        flushes = []
+
+        def write():
+            for b in batches:
+                before = rec.counts()[0]
+                wb = table.new_batch_write_builder()
+                with wb.new_write() as w:
+                    w.write_arrow(b)
+                    wb.new_commit().commit(w.prepare_commit())
+                flushes.append(rec.counts()[0] - before)
+        rec.run(name, "write", rows, dev, write)
+        out["write"] = {"rows_per_s": rec.phases[-1]["rows_per_s"],
+                        "k1_by_commit": flushes}
+        out["store"]["write"] = store.since(mark)
+        if min(flushes) == 0:
+            raise AssertionError(f"{name}: a commit's flush launched no K1 "
+                                 f"({flushes})")
+        oracle = ServeOracle(rows, batches)
+        del batches
+        out["live"] = int(oracle.live.sum())
+        step("2 write", t0)
+
+        def served():
+            return FileStoreTable.load(path, device=device,
+                                       dynamic_options=fleet_options(ssd))
+
+        def lookup_on(address, tenant, ids, follow=True):
+            with KvQueryClient(address=address, tenant=tenant,
+                               follow_topology=follow) as c:
+                rows_ = c.lookup([{"id": int(i)} for i in ids])
+                return rows_, int(c.last_replica)
+
+        rng = np.random.default_rng(3)
+
+        # -- 3. the first ReplicaSet: cold, warm-up, persist -------------
+        t0 = time.perf_counter()
+        mark = store.mark()
+        fleet1 = ReplicaSet(served()).start()
+        sets.append(fleet1)
+        if len(tenants_by_replica(fleet1.router.ring)) != FLEET_REPLICAS:
+            raise AssertionError(f"{name}: a replica owns no tenant")
+        # one tenant: its replica builds every file's SST, the state
+        # every replica of the next set restores
+        ids = rng.integers(0, rows, SERVE_BATCH)
+        t1 = time.perf_counter()
+        got, warm_id = lookup_on(fleet1.address, "t0", ids)
+        out["cold_lookup_ms"] = (time.perf_counter() - t1) * 1000.0
+        oracle.check(f"{name} cold lookup", ids, got)
+
+        def warm_up():
+            ids_ = rng.integers(0, rows, FLEET_WARMUP)
+            got_, by = lookup_on(fleet1.address, "t0", ids_, follow=False)
+            oracle.check(f"{name} warm-up", ids_, got_)
+            if by != warm_id:
+                raise AssertionError(f"{name}: tenant t0 answered by {by}, "
+                                     f"then {warm_id}")
+        rec.run(name, "warm-up lookup", FLEET_WARMUP, dev, warm_up)
+        warm = fleet1.servers[warm_id].query()
+        n_files = len(data_paths(served()))
+        if len(warm.store.keys()) != n_files:
+            raise AssertionError(f"{name}: replica {warm_id} holds "
+                                 f"{len(warm.store.keys())} SSTs, "
+                                 f"{n_files} files")
+        # POST /warmboot to each replica: the warm one persists, the
+        # others have served nothing and persist nothing
+        persisted = []
+        for s in fleet1.servers:
+            status, body = http_json(s.address, "/warmboot", {})
+            want = n_files if s.replica_id == warm_id else 0
+            if status != 200 or body["ssts"] != want or \
+                    bool(body["plan"]) != bool(want):
+                raise AssertionError(f"{name}: POST /warmboot to replica "
+                                     f"{s.replica_id}: {status} {body}")
+            persisted.append(body["ssts"])
+        # /scan(limit=100) on as many replicas as a file needs memory
+        # hits to earn its promotion to the SSD tier
+        # (cache.disk.promote-after-hits): each replica's first scan
+        # reads once the files that the build put in memory
+        promote = served().options.get(CoreOptions.CACHE_DISK_PROMOTE_HITS)
+        for r_id, ts in sorted(
+                tenants_by_replica(fleet1.router.ring).items())[:promote]:
+            with KvQueryClient(address=fleet1.address, tenant=ts[0]) as c:
+                oracle.check_scan(f"{name} cold scan", c.scan(limit=100))
+        fleet1.stop()
+        sets.remove(fleet1)
+        out["store"]["cold"] = store.since(mark)
+        out["persisted_ssts"] = persisted
+        step("3 cold set, warm-up, persist", t0)
+
+        # -- 4. this process's warm-booted set -----------------------------
+        t0 = time.perf_counter()
+        builds0 = counter("lookup", LOOKUP_READER_BUILDS)
+        fleet = ReplicaSet(served()).start()
+        sets.append(fleet)
+        q = fleet.servers[0].query()
+        ids = rng.integers(0, rows, SERVE_BATCH)
+        keys = [{"id": int(i)} for i in ids]
+        oracle.check(f"{name} engine probe, native", ids, q.lookup(keys))
+        out["warm_set"] = {
+            "start_s": time.perf_counter() - t0,
+            "reader_builds": counter("lookup", LOOKUP_READER_BUILDS)
+            - builds0}
+        with force_python_probe():
+            oracle.check(f"{name} engine probe, numpy", ids, q.lookup(keys))
+
+        def per_batch_us():
+            reps, t1 = 0, time.perf_counter()
+            while time.perf_counter() - t1 < 0.25:
+                q.lookup(keys)
+                reps += 1
+            return (time.perf_counter() - t1) / reps * 1e6
+        out["engine_native_us_per_batch"] = per_batch_us()
+        with force_python_probe():
+            out["engine_numpy_us_per_batch"] = per_batch_us()
+        step("4 warm-booted set", t0)
+
+        # -- 5. first scans; the remote joins; load through the router
+        # and direct
+        t0 = time.perf_counter()
+        # the first scan(limit=100) at this snapshot on each replica of
+        # this process, all at once through the router, while the remote
+        # still starts: each merges on the card from the replica's scan
+        # threads; the windows' scans are then served by the replicas'
+        # snapshot-keyed result caches, as a fleet's are between commits
+        # (the remote's first scan merges in its own process)
+        firsts = [ts[0] for ts in
+                  tenants_by_replica(fleet.router.ring).values()]
+
+        def first_scan(tenant):
+            with KvQueryClient(address=fleet.address, tenant=tenant,
+                               follow_topology=False) as c:
+                return c.scan(limit=100)
+        before = thread_launches(rec.capture, name)
+        with ThreadPoolExecutor(len(firsts)) as pool:
+            got = rec.run(name, "first scans", 100 * len(firsts), dev,
+                          lambda: list(pool.map(first_scan, firsts)))
+        for rows_ in got:
+            oracle.check_scan(f"{name} first scan", rows_)
+        out["first_scans"] = {
+            "s": rec.phases[-1]["s"],
+            "k1_by_thread": launches_since(rec.capture, name, before)}
+        from_scans = sum(n[0] for t, n in
+                         out["first_scans"]["k1_by_thread"].items()
+                         if t.startswith("paimon-scan"))
+        if dev.type == "cuda" and from_scans == 0:
+            raise AssertionError(f"{name} first scans: no K1 from the scan "
+                                 f"threads ({out['first_scans']})")
+        t1 = time.perf_counter()
+        out["remote"] = remote.join(fleet.address)
+        out["remote"]["joined_s"] = time.perf_counter() - t1
+        out["remote"]["ready_s"] = time.perf_counter() - remote.t0
+        status, topo = http_json(fleet.address, "/topology")
+        if [r["id"] for r in topo["replicas"]] != \
+                list(range(FLEET_REPLICAS + 1)):
+            raise AssertionError(f"{name}: topology {topo}")
+        ring = HashRing(topo["replicas"], topo["virtual_nodes"])
+        svc = reg.service_metrics(fleet.servers[0].table.name)
+
+        def scan_cache():
+            return {k: svc.counter(m).count for k, m in (
+                ("hits", SERVICE_SCAN_CACHE_HITS),
+                ("misses", SERVICE_SCAN_CACHE_MISSES))}
+        for key, follow, what in (("router_load", False, "router load"),
+                                  ("smart_load", True, "smart load")):
+            load: dict = {}
+            before, cache0 = thread_launches(rec.capture, name), scan_cache()
+            rec.run(name, what, lambda: served_rows(load), dev,
+                    lambda: load.update(fleet_load(
+                        fleet.address, oracle, clients, seconds, follow,
+                        f"{name} {what}")))
+            load["k1_by_thread"] = launches_since(rec.capture, name, before)
+            load["scan_cache"] = {k: v - cache0[k]
+                                  for k, v in scan_cache().items()}
+            out[key] = load
+            log(f"  {name} {what}: {load['requests']} requests in the "
+                f"{seconds:.1f} s window = {load['requests_per_s']:.1f}/s; "
+                f"p50 / p95 / p99 {load['p50_ms']} / {load['p95_ms']} / "
+                f"{load['p99_ms']} ms; ready {load['ready_s']:.2f} s, "
+                f"drain {load['drain_s']:.2f} s; K1 "
+                f"{load['k1_by_thread']}; scan cache {load['scan_cache']}")
+        routed, smart = out["router_load"], out["smart_load"]
+        answered = set(routed["by_replica"]) | set(smart["by_replica"])
+        wrong = [(t, r) for t, r in routed.pop("seen") + smart.pop("seen")
+                 if ring.pick(t)["id"] != r]
+        if answered != {str(i) for i in range(FLEET_REPLICAS + 1)} or wrong:
+            raise AssertionError(f"{name}: answered by {sorted(answered)}; "
+                                 f"off their ring replica {wrong[:5]}")
+        status, health = http_json(fleet.address, "/healthz")
+        if status != 200 or health["replica_count"] != FLEET_REPLICAS + 1 \
+                or any("error" in h for h in health["replicas"].values()):
+            raise AssertionError(f"{name}: /healthz {health}")
+        status, metrics = http_json(fleet.address, "/metrics")
+        if f'replica="{FLEET_REMOTE_ID}"' not in metrics:
+            raise AssertionError(f"{name}: /metrics carries no "
+                                 f"replica=\"{FLEET_REMOTE_ID}\" series")
+        out["healthz"] = {"status": health["status"],
+                          "replica_count": health["replica_count"]}
+        step("5 remote joined, loads", t0)
+
+        # -- 5b. the restarted host ---------------------------------------
+        # after the loads, which commit nothing: the persisted state is
+        # still the table's, and the host's start has long overlapped
+        t0 = time.perf_counter()
+        back = restart.join(str(rows))
+        restart.stop()
+        for a in back["lookups"]:
+            oracle.check(f"{name} warm-booted first lookup on replica "
+                         f"{a['replica']}", np.array(a["ids"]), a["rows"])
+        for rows_ in back["scans"]:
+            oracle.check_scan(f"{name} warm scan", rows_)
+        out["warm_first_lookups_ms"] = back["first_lookups_ms"]
+        out["restarted"] = {k: back[k] for k in (
+            "card_s", "waited_s", "start_s", "work_s", "reader_builds",
+            "restored", "disk_hits")}
+        out["restarted"]["joined_s"] = time.perf_counter() - t0
+        out["store"]["warm"] = back["store"]
+        on_disk = sum(os.path.getsize(os.path.join(ssd, f))
+                      for f in os.listdir(ssd) if f.endswith(".pce"))
+        out["disk_tier"] = {"hits": back["disk_hits"],
+                            "bytes": back["tier_bytes"],
+                            "bytes_on_disk": on_disk,
+                            "entries": back["tier_entries"]}
+        if back["reader_builds"] or any(
+                r["ssts"] != n_files or not r["plan"]
+                for r in back["restored"]):
+            raise AssertionError(f"{name}: warm boot built "
+                                 f"{back['reader_builds']} readers; "
+                                 f"restored {back['restored']}")
+        # the data files the scan read came from the SSD tier, not the
+        # store (snapshot-N and the hints are never cached)
+        if back["disk_hits"] <= 0 or \
+                back["store"]["calls"]["data_get"] >= \
+                out["store"]["cold"]["calls"]["data_get"] or \
+                max(back["tier_bytes"], on_disk) > FLEET_DISK_BYTES:
+            raise AssertionError(f"{name}: disk hits {back['disk_hits']}, "
+                                 f"GETs warm {back['store']['calls']} "
+                                 f"against cold "
+                                 f"{out['store']['cold']['calls']}, tier "
+                                 f"{out['disk_tier']}")
+        step("5b restarted host", t0)
+
+        # -- 6. SIGKILL the remote ----------------------------------------
+        t0 = time.perf_counter()
+        orphans = tenants_by_replica(ring)[FLEET_REMOTE_ID]
+        stop, failed, lock = threading.Event(), [], threading.Lock()
+
+        def knock():
+            # the remote's tenants, through the router, until suspended
+            k = 0
+            while not stop.is_set():
+                try:
+                    lookup_on(fleet.address, orphans[k % len(orphans)],
+                              [k], follow=False)
+                except Exception as e:    # noqa: BLE001 -- counted
+                    with lock:
+                        failed.append(repr(e))
+                k += 1
+        knocker = threading.Thread(target=knock, daemon=True)
+        remote.kill()
+        t_kill = time.perf_counter()
+        knocker.start()
+        limit_s = 4 * FLEET_HEALTH_MS / 1000.0 + 1.0
+        while True:
+            status, topo = http_json(fleet.address, "/topology")
+            if FLEET_REMOTE_ID in topo["suspended"]:
+                break
+            if time.perf_counter() - t_kill > 30.0:
+                break
+            time.sleep(0.02)
+        suspend_s = time.perf_counter() - t_kill
+        stop.set()
+        knocker.join(timeout=60)
+        out["suspend"] = {"s": suspend_s, "limit_s": limit_s,
+                          "errors_5xx": len(failed),
+                          "errors": sorted(set(e[:80] for e in failed))[:3]}
+        # the router's 502 answers for a replica it cannot reach
+        if suspend_s > limit_s or any("unreachable" not in e and
+                                      "left the ring" not in e
+                                      for e in failed):
+            raise AssertionError(f"{name}: suspension {out['suspend']}")
+        survivors = HashRing(
+            [r for r in topo["replicas"] if r["id"] != FLEET_REMOTE_ID],
+            topo["virtual_nodes"])
+        for tenant in orphans:
+            ids = rng.integers(0, rows, SERVE_BATCH)
+            got, by = lookup_on(fleet.address, tenant, ids)
+            oracle.check(f"{name} rehashed tenant", ids, got)
+            if by != survivors.pick(tenant)["id"]:
+                raise AssertionError(f"{name}: tenant {tenant} answered by "
+                                     f"{by}")
+        out["rehashed_tenants"] = len(orphans)
+        step("6 remote killed, suspended", t0)
+
+        # -- 7. the fleet's serving writer --------------------------------
+        t0 = time.perf_counter()
+        import pyarrow as pa
+        wr = np.random.default_rng(5)
+        res = {"batches": 0, "delta_read_s": 0.0, "commit_s": 0.0,
+               "trace_context": []}
+
+        def serving_writer():
+            sw = fleet.new_serving_writer()
+            try:
+                for k in range(SERVE_WRITER_ROWS // SERVE_WRITER_BATCH):
+                    live = np.flatnonzero(oracle.live)
+                    ids = wr.choice(live, SERVE_WRITER_BATCH, replace=False)
+                    v = wr.random(len(ids))
+                    sw.write_arrow(pa.table({
+                        "id": pa.array(ids, pa.int64()),
+                        "v": pa.array(v, pa.float64()),
+                        "name": pa.array(np.char.add(
+                            f"w{k}-", (ids % 997).astype(str)))}))
+                    oracle.upsert(ids, v, 100 + k)
+                    t1 = time.perf_counter()
+                    for s in fleet.servers:
+                        for part in np.array_split(ids, 5):
+                            got_, by = lookup_on(s.address, "w", part,
+                                                 follow=False)
+                            oracle.check(f"{name} writer batch {k} on "
+                                         f"replica {by}", part, got_)
+                    res["delta_read_s"] += time.perf_counter() - t1
+                    t1 = time.perf_counter()
+                    trace.enable_tracing()
+                    try:
+                        with trace.span("fleet.writer.commit", cat="serve"):
+                            token = trace.current_context_token()
+                            sid = sw.commit()
+                    finally:
+                        trace.disable_tracing()
+                    res["commit_s"] += time.perf_counter() - t1
+                    if sid is None:
+                        raise AssertionError(f"{name}: writer batch {k} "
+                                             f"committed nothing")
+                    props = table.snapshot_manager.snapshot(sid).properties
+                    if (props or {}).get("trace.context") != token:
+                        raise AssertionError(f"{name}: snapshot {sid} "
+                                             f"properties {props}, span "
+                                             f"{token}")
+                    res["trace_context"].append(token)
+                    # every replica reloads its plan past the commit
+                    # (the delta generation retires once all of them
+                    # have), then the batch reads from the LSM
+                    reload_plans(fleet)
+                    part = ids[:1000]
+                    got_, _ = lookup_on(fleet.address, "w", part)
+                    oracle.check(f"{name} writer batch {k} after commit",
+                                 part, got_)
+                    res["batches"] += 1
+                delta = fleet.servers[0].stats()["delta"]
+                if delta["rows"]:
+                    raise AssertionError(f"{name}: the delta tier holds "
+                                         f"{delta} once every replica's "
+                                         f"plan covers the commits")
+            finally:
+                sw.close()
+        rec.run(name, "serving writer", SERVE_WRITER_ROWS, dev,
+                serving_writer)
+        res["launches"] = rec.phases[-1]["launches_plain"]
+        res["trace_context"] = res["trace_context"][:1]
+        out["writer"] = res
+        if res["launches"] == 0:
+            raise AssertionError(f"{name}: the writer's flushes launched no "
+                                 f"K1")
+        step("7 serving writer", t0)
+
+        # -- 8. /scan, a full compaction under readers, /scan -------------
+        t0 = time.perf_counter()
+        limit = min(SERVE_SCAN_LIMIT, int(oracle.live.sum()))
+
+        def bounded_scan():
+            with KvQueryClient(address=fleet.address, tenant="scan",
+                               follow_topology=False) as c:
+                return c.scan(limit=limit)
+        part = rec.run(name, "bounded scan", limit, dev, bounded_scan)
+        oracle.check_scan(f"{name} bounded scan", part)
+        scan_k1 = rec.phases[-1]["launches_plain"]
+        if len(part) != limit or scan_k1 == 0:
+            raise AssertionError(f"{name} bounded scan: {len(part)} rows, "
+                                 f"{scan_k1} K1")
+        t1 = time.perf_counter()
+        old = data_paths(served())
+        names = {p.rsplit("/", 1)[-1] for p in old}
+        tier = shared_cache_state().disk
+        # the SSD tier's entries of the files the compaction will drop,
+        # read through the tier
+        held = [p for p in old if tier.get(tier.file_key(p)) is not None]
+        evictions0 = counter("cache_disk", CACHE_DISK_EVICTIONS)
+        parts = {"plan and SSD reads": time.perf_counter() - t1}
+        t1 = time.perf_counter()
+        stop.clear()
+        answers, errors = [], []
+
+        def reader(seed):
+            r = np.random.default_rng(2000 + seed)
+            try:
+                with KvQueryClient(address=fleet.address,
+                                   tenant=f"t{seed}") as rc:
+                    while not stop.is_set():
+                        ids_ = r.integers(0, rows, SERVE_BATCH)
+                        answers.append((ids_, rc.lookup(
+                            [{"id": int(i)} for i in ids_])))
+            except Exception as e:      # noqa: BLE001 -- raised below
+                errors.append(repr(e))
+        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+                   for i in range(FLEET_READERS)]
+        for t in threads:
+            t.start()
+        try:
+            sid = rec.run(name, "compact", rows, dev,
+                          lambda: served().copy({"write-only": "false"})
+                          .compact(full=True))
+            # the readers go on across the commit
+            time.sleep(0.3)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        compact_k1 = rec.phases[-1]["launches_plain"]
+        parts["compaction under readers"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if sid is None or errors or compact_k1 == 0:
+            raise AssertionError(f"{name} compaction: snapshot {sid}, K1 "
+                                 f"{compact_k1}, reader errors {errors[:3]}")
+        for ids, got in answers:
+            oracle.check(f"{name} during compaction", ids, got)
+        # every replica reloads its plan: a replica still on the old
+        # plan may have built an SST from a dropped file, re-reading it
+        # into the tiers, after another's reload evicted it
+        reload_plans(fleet)
+        ids = rng.integers(0, rows, SERVE_BATCH)
+        got, _ = lookup_on(fleet.address, "w", ids)
+        oracle.check(f"{name} after compaction", ids, got)
+        evicted = counter("cache_disk", CACHE_DISK_EVICTIONS) - evictions0
+        state = shared_cache_state()
+        with state.lock:
+            cached = [p for p in state.cache if p in old] + \
+                [k[0] for k in state.ranges if k[0] in old]
+        cached += [p for p in old if tier.get(tier.file_key(p)) is not None]
+        stale = [k for s in fleet.servers for k in s.query().store.keys()
+                 if any(f in k for f in names)]
+        if not held or evicted < len(held) or cached or stale:
+            raise AssertionError(f"{name}: of {len(held)} SSD entries of "
+                                 f"compacted-away files {evicted} evicted; "
+                                 f"still cached {cached[:3]} or served "
+                                 f"{stale[:3]}")
+        parts["reads checked, reloads, eviction checks"] = \
+            time.perf_counter() - t1
+        t1 = time.perf_counter()
+        again = bounded_scan()
+        oracle.check_scan(f"{name} bounded scan after compaction", again)
+        parts["bounded scan after"] = time.perf_counter() - t1
+        out["compaction"] = {"reads": len(answers),
+                             "s": rec.phases[-1]["s"], "k1": compact_k1,
+                             "dropped_files": len(old),
+                             "ssd_entries_dropped": len(held),
+                             "ssd_evictions": evicted, "steps_s": parts}
+        out["bounded_scan"] = {"rows": limit, "k1": scan_k1,
+                               "s": next(p["s"] for p in rec.phases
+                                         if p["table"] == name and
+                                         p["phase"] == "bounded scan")}
+        step("8 scan, compaction under readers", t0)
+
+        # -- 9. hedged and unhedged scans of the whole table ---------------
+        t0 = time.perf_counter()
+        scans = {}
+        sm = table.snapshot_manager
+        small = [sm.snapshot_path(i) for i in range(
+            sm.earliest_snapshot_id(), sm.latest_snapshot_id() + 1)]
+        large = sorted(data_paths(served()) | old)
+
+        def hedge_counts():
+            return {k: counter("resilience", m) for k, m in (
+                ("issued", RESILIENCE_HEDGES_ISSUED),
+                ("won", RESILIENCE_HEDGES_WON),
+                ("abandoned", RESILIENCE_HEDGES_ABANDONED))}
+
+        def hedgeable(calls):
+            return sum(calls["calls"][k] for k in ("get", "head", "list"))
+        for hedge in ("false", "true"):
+            s_store, s_fio = fleet_store(root)
+            t = FileStoreTable.load(path, file_io=s_fio, device=device,
+                                    dynamic_options={
+                                        "read.hedge.enabled": hedge,
+                                        "read.hedge.min-delay": "2",
+                                        "store.breaker.enabled": "true"})
+            h0, mark0 = hedge_counts(), s_store.mark()
+            warm_latency_model(t.file_io, small, large, FLEET_HEDGE_WARMUP)
+            # a GET that a hedge beat runs on to its end: the warm-up's
+            # finish before the scan's counts start
+            time.sleep(FLEET_STORE["base_ms"] * FLEET_STORE["tail_multiplier"]
+                       / 1000.0)
+            h1, mark = hedge_counts(), s_store.mark()
+            t.file_io = timed = TimedReads(t.file_io)
+            got = rec.run(name, f"scan hedge={hedge}", out["live"], dev,
+                          t.to_arrow)
+            h2 = hedge_counts()
+            calls, total = s_store.since(mark), s_store.since(mark0)
+            # every hedge is one more call on the store
+            issued = h2["issued"] - h1["issued"]
+            life = {k: h2[k] - h0[k] for k in h2}
+            scans[hedge] = {
+                "s": rec.phases[-1]["s"],
+                "read_p50_ms": pct(timed.ms, 50),
+                "read_p99_ms": pct(timed.ms, 99),
+                "store": calls, "hedges": issued,
+                "hedgeable": hedgeable(calls) - issued,
+                "store_life": {"gets": total["calls"]["get"],
+                               "get_p50_ms": total["get_p50_ms"],
+                               "get_p99_ms": total["get_p99_ms"],
+                               "injected_tails":
+                                   s_store.inner.stats["tail_hits"],
+                               "hedges": life,
+                               "hedgeable": hedgeable(total)
+                               - life["issued"]},
+                "table": got.sort_by("id")}
+            life["ratio"] = life["issued"] / max(
+                1, scans[hedge]["store_life"]["hedgeable"])
+            cap = t.options.get(CoreOptions.READ_HEDGE_MAX_RATIO)
+        hedged = scans["true"]["store_life"]["hedges"]
+        # the hedged store's latency model fired hedges at its GET tail,
+        # a hedge beat its primary, and the hedges stayed inside the cap
+        # of read.hedge.max-ratio
+        if not scans["false"]["table"].equals(scans["true"]["table"]) or \
+                scans["false"]["store_life"]["hedges"]["issued"] or \
+                hedged["issued"] == 0 or hedged["won"] == 0 or \
+                hedged["ratio"] > cap:
+            raise AssertionError(f"{name}: hedged scan rows differ, or "
+                                 f"hedges {hedged} against the cap {cap} "
+                                 f"(unhedged store "
+                                 f"{scans['false']['store_life']})")
+        check_fleet_table(f"{name} scan", oracle, scans["true"]["table"])
+        for s in scans.values():
+            del s["table"]
+        out["scans"] = scans
+        step("9 hedged and unhedged scans", t0)
+
+        # -- 10. a stalled store under a 200 ms deadline -------------------
+        t0 = time.perf_counter()
+        _, stuck_fio = fleet_store(root, stuck_rate=1.0,
+                                   stuck_ms=FLEET_STUCK_MS)
+        stuck = FileStoreTable(stuck_fio, path, table.schema, {
+            "request.timeout": f"{FLEET_DEADLINE_MS} ms",
+            "read.hedge.enabled": "true"}, device=device)
+        t1 = time.perf_counter()
+        try:
+            stuck.to_arrow()
+            raise AssertionError(f"{name}: the stalled read returned")
+        except DeadlineExceededError:
+            deadline_s = time.perf_counter() - t1
+        if deadline_s > 1.0:
+            raise AssertionError(f"{name}: the deadline error came after "
+                                 f"{deadline_s:.2f} s")
+        _, plain_fio = fleet_store(root)
+        after = FileStoreTable(plain_fio, path, table.schema, {
+            "request.timeout": "30 s"}, device=device).to_arrow(
+                limit=10_000)
+        oracle.check_scan(f"{name} read after the stall",
+                          after.to_pylist())
+        out["deadline"] = {"timeout_ms": FLEET_DEADLINE_MS,
+                           "raised_after_s": deadline_s,
+                           "next_read_rows": after.num_rows}
+        step("10 deadline", t0)
+
+        # -- 11. the fleet's SLO --------------------------------------------
+        t0 = time.perf_counter()
+        status, slo = http_json(fleet.address, "/slo")
+        if status != 200 or not slo.get("router") or \
+                slo["replicas"] != FLEET_REPLICAS or \
+                slo["unreachable"] != [str(FLEET_REMOTE_ID)] or \
+                set(slo["objectives"]) != {"availability", "latency"}:
+            raise AssertionError(f"{name}: /slo {slo}")
+        out["slo"] = {k: slo[k] for k in ("replicas", "unreachable", "alert",
+                                          "objectives", "good_events",
+                                          "bad_events")}
+        step("11 slo", t0)
+        fleet.stop()
+        sets.remove(fleet)
+    finally:
+        for s in sets:
+            s.stop()
+        remote.stop()
+        restart.stop()
+        reset_delta_tiers()
+        reset_disk_tiers()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ssd, ignore_errors=True)
+    out["native_probes"] = counter("lookup", LOOKUP_NATIVE_PROBES) - probes0
+    out["native_fallbacks"] = \
+        counter("lookup", LOOKUP_NATIVE_FALLBACKS) - fallbacks0
+    if out["native_probes"] <= 0 or out["native_fallbacks"]:
+        raise AssertionError(f"{name}: native probes {out['native_probes']}, "
+                             f"fallbacks {out['native_fallbacks']}")
+    out["k1_by_thread"] = {t: n[0] for t, n in
+                           thread_launches(rec.capture, name).items()}
+    out["launches"] = {p["phase"]: p["launches_plain"] for p in rec.phases
+                       if p["table"] == name}
+    out["peak_gib"] = {p["phase"]: p["peak_gib"] for p in rec.phases
+                       if p["table"] == name}
+    out["s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -8419,7 +9428,8 @@ def stream_coverage(work: str, rec: Recorder, dev, scale: int,
         work, dev, STREAM_FORMAT_EVENTS // scale))
     part("aggregation", lambda: cov_aggregation(
         work, dev, STREAM_AGG_EVENTS // scale))
-    part("soak", lambda: cov_soak(work, dev, 5.0))
+    # 5 s until the serving fleet came; the 3 kills and 3 storms stay
+    part("soak", lambda: cov_soak(work, dev, 2.5))
     part("flight", lambda: cov_flight(work, dev))
     return out
 
@@ -9305,7 +10315,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               mesh: dict, served: dict, bucketed: dict,
               maintained: dict, planes: dict, indexed: dict,
               appended: dict, formatted: dict, sqled: dict,
-              streamed: dict, searched: dict) -> tuple:
+              streamed: dict, searched: dict, fleet: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -9437,8 +10447,14 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # the all_to_all rescale
             mesh.update(path("mesh_compaction",
                              lambda: mesh_compaction(work, rec)))
-            # point lookups and the one-replica query service
+            # merged point lookups from the query service's handler
+            # threads
             served.update(path("serving", lambda: serving(work, rec)))
+            # the serving fleet: replicas behind the router over an
+            # object store, the host-SSD tier, warm boot, hedged reads,
+            # breakers and deadlines
+            fleet.update(path("serving_fleet",
+                              lambda: serving_fleet(work, rec)))
             # primary-key tables in Paimon's default (dynamic), postpone
             # and cross-partition bucket modes, and schema evolution
             bucketed.update(path("bucket_modes",
@@ -9594,10 +10610,12 @@ def main() -> int:
     sqled: dict = {}
     streamed: dict = {}
     searched: dict = {}
+    fleet: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
-                         appended, formatted, sqled, streamed, searched)
+                         appended, formatted, sqled, streamed, searched,
+                         fleet)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -9626,6 +10644,7 @@ def main() -> int:
     print(json.dumps({"device_decode": decoded}))
     print(json.dumps({"mesh_compaction": mesh}))
     print(json.dumps({"serving": served}))
+    print(json.dumps({"serving_fleet": fleet}))
     print(json.dumps({"merge_routes": routes}))
     print(json.dumps({"bucket_modes": bucketed}))
     print(json.dumps({"maintenance": maintained}))

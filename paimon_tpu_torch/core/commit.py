@@ -1,7 +1,6 @@
 """FileStoreCommit: two-phase snapshot commit with optimistic retry.
 
-Counterpart of paimon_tpu/core/commit.py without request deadlines (not
-ported yet).  A commit's index entries (the dynamic-bucket hash index,
+Counterpart of paimon_tpu/core/commit.py.  A commit's index entries (the dynamic-bucket hash index,
 deletion vectors) fold into the previous snapshot's index manifest on
 every CAS attempt.  Append tables with row-tracking.enabled get dense
 row ids at commit, re-assigned on every CAS attempt from the latest
@@ -9,7 +8,11 @@ snapshot's next row id; a caller that planned against a snapshot
 (`expected_latest_id`) gets CommitConflictError when another commit
 landed first, and replans.  Each commit records the reference's
 commit metric group (commits, retries, duration_ms) and spans
-(commit.backoff, commit.manifest_encode, commit.cas).
+(commit.backoff, commit.manifest_encode, commit.cas).  A request
+deadline (request.timeout) is checked before the snapshot CAS, and a
+commit it aborts deletes every file its attempt wrote.  A commit made
+inside a span stamps the span's context into the snapshot's
+`trace.context` property.
 
 reference: operation/FileStoreCommitImpl.java:139 (javadoc :122-132:
 conflict check -> CAS publish; tryCommit retry loop :756), conflict
@@ -230,8 +233,13 @@ class FileStoreCommit:
         from paimon_tpu_torch.metrics import (
             COMMIT_CAS_MS, COMMIT_MANIFEST_ENCODE_MS, global_registry,
         )
-        from paimon_tpu_torch.obs.trace import span, sync_from_options
+        from paimon_tpu_torch.obs.trace import (
+            current_context_token, span, sync_from_options,
+        )
         from paimon_tpu_torch.utils.backoff import Backoff
+        from paimon_tpu_torch.utils.deadline import (
+            DeadlineExceededError, check_deadline,
+        )
 
         sync_from_options(self.options)
         metrics = global_registry().commit_metrics()
@@ -255,154 +263,23 @@ class FileStoreCommit:
                 return self.manifest_file.write(
                     manifest_entries, schema_id=self.schema.id)
 
-        while True:
-            if attempts > max_retries or \
-                    (attempts > 0 and backoff.budget_exhausted()):
-                # the per-attempt cleanup keeps the (reusable) delta and
-                # changelog manifest FILES; on giving up they would be
-                # orphaned with no snapshot referencing them
-                for m in (new_manifest, changelog_manifest):
-                    if m is not None:
-                        self.file_io.delete_quietly(
-                            self.manifest_file.path(m.file_name))
-                raise CommitConflictError(
-                    f"Commit lost the snapshot CAS race {attempts - 1} "
-                    f"times (commit.max-retries={max_retries}, "
-                    f"commit.timeout); giving up")
-            if attempts > 0:
-                with span("commit.backoff", cat="commit",
-                          attempt=attempts, table=self.table_path):
-                    backoff.pause()
-            attempts += 1
-            latest = self.snapshot_manager.latest_snapshot()
-            if expected_latest_id is not ... and \
-                    (latest.id if latest else None) != expected_latest_id:
-                # the caller's plan is stale (deletion vectors or
-                # overlays built against an older snapshot): surface a
-                # conflict so it replans instead of losing a change
-                raise CommitConflictError(
-                    f"Snapshot advanced past {expected_latest_id} before "
-                    f"commit; replan required")
-            if entries_fn is not None:
-                # delete/add set depends on the latest snapshot (e.g.
-                # overwrite): recompute per attempt
-                entries = entries_fn(latest)
-                new_manifest = None
-            else:
-                entries = entries_orig
-            next_row_id = latest.next_row_id if latest else None
-            ids_assigned = False
-            if self.row_tracking and any(
-                    e.kind == FileKind.ADD and e.file.first_row_id is None
-                    for e in entries):
-                # the row-id start depends on the latest snapshot, so the
-                # assignment re-runs from the unassigned entries (and the
-                # manifest is rewritten) on every CAS attempt
-                from paimon_tpu_torch.core.row_tracking import (
-                    assign_row_ids,
-                )
-                start = next_row_id
-                if start is None:
-                    # tracking enabled on an existing table: old files
-                    # keep no ids; new ids start past every row
-                    start = latest.total_record_count if latest else 0
-                entries, next_row_id = assign_row_ids(entries, start)
-                new_manifest = None
-                ids_assigned = True
-            if check_deleted_files and latest is not None:
-                self._assert_files_exist(latest, entries)
-            if new_manifest is None and entries:
-                new_manifest = write_manifest(entries, "delta")
-            if changelog_manifest is None and changelog_entries:
-                changelog_manifest = write_manifest(changelog_entries,
-                                                    "changelog")
+        # this attempt's files, bound before the loop so the deadline
+        # handler deletes whatever the current attempt had written when
+        # the deadline tripped (any store read inside an attempt checks
+        # it, not only the CAS gate)
+        base_name = delta_name = changelog_name = None
+        index_manifest = prev_index = None
+        merged_manifests: List[ManifestFileMeta] = []
 
-            if latest is None:
-                base_metas: List[ManifestFileMeta] = []
-                new_id = 1
-                prev_total = 0
-                prev_index = None
-            else:
-                base_metas = self.manifest_list.read_all(
-                    latest.base_manifest_list, latest.delta_manifest_list)
-                new_id = latest.id + 1
-                prev_total = latest.total_record_count
-                prev_index = latest.index_manifest
-
-            base_metas, merged_manifests = self._maybe_merge_manifests(
-                base_metas, force=force_full_manifest_merge,
-                skip_missing=skip_missing_manifests)
-            base_name, base_size = self.manifest_list.write(base_metas)
-            delta_metas = [new_manifest] if new_manifest else []
-            delta_name, delta_size = self.manifest_list.write(delta_metas)
-            changelog_name = changelog_size = None
-            if changelog_manifest is not None:
-                changelog_name, changelog_size = self.manifest_list.write(
-                    [changelog_manifest])
-            # the full index set at this attempt's base: recombined on
-            # every attempt, so a lost race never publishes over another
-            # writer's index entries
-            index_manifest = self.index_manifest_file.combine(
-                prev_index, index_entries or [])
-            # watermarks only advance (reference FileStoreCommitImpl:
-            # max of provided and previous)
-            wm_vals = [w for w in
-                       (watermark, latest.watermark if latest else None)
-                       if w is not None]
-            if force_full_manifest_merge and \
-                    getattr(self, "_force_merge_total", None) is not None:
-                # the full rewrite recounted every live entry — use the
-                # true total (skip_missing may have dropped manifests)
-                prev_total = self._force_merge_total
-                self._force_merge_total = None
-            delta_rows = sum(
-                (e.file.row_count if e.kind == FileKind.ADD
-                 else -e.file.row_count) for e in entries)
-            changelog_rows = sum(e.file.row_count for e in changelog_entries)
-            attempt_props = properties
-            if self.properties_provider is not None:
-                attempt_props = dict(self.properties_provider() or {})
-                attempt_props.update(properties or {})
-                attempt_props = attempt_props or None
-            snapshot = Snapshot(
-                id=new_id,
-                schema_id=self.schema.id,
-                base_manifest_list=base_name,
-                base_manifest_list_size=base_size,
-                delta_manifest_list=delta_name,
-                delta_manifest_list_size=delta_size,
-                changelog_manifest_list=changelog_name,
-                changelog_manifest_list_size=changelog_size,
-                index_manifest=index_manifest,
-                commit_user=self.commit_user,
-                commit_identifier=commit_identifier,
-                commit_kind=kind,
-                time_millis=int(_time.time() * 1000),
-                total_record_count=prev_total + delta_rows,
-                delta_record_count=delta_rows,
-                changelog_record_count=changelog_rows or None,
-                properties=attempt_props,
-                statistics=statistics,
-                next_row_id=next_row_id,
-                watermark=max(wm_vals) if wm_vals else None,
-            )
-            with span("commit.cas", cat="commit", group="commit",
-                      metric=COMMIT_CAS_MS, attempt=attempts,
-                      snapshot=new_id, table=self.table_path) as cas:
-                won = self.snapshot_manager.try_commit(snapshot)
-                cas.set(won=won)
-            if won:
-                metrics.counter("commits").inc()
-                if attempts > 1:
-                    metrics.counter("retries").inc(attempts - 1)
-                metrics.histogram("duration_ms").update(
-                    (_time.perf_counter() - t0) * 1000)
-                return new_id
-            # lost the race: clean up everything written for this
-            # attempt and retry against the new latest (the delta
-            # manifest is reusable unless the entry set is dynamic)
-            self.manifest_list.delete(base_name)
-            self.manifest_list.delete(delta_name)
+        def delete_attempt_lists():
+            """Drop the current attempt's manifest lists, index manifest
+            and merged manifests: the lost-CAS retry and the deadline
+            abort share it (every delete is quiet and deadline-
+            shielded)."""
+            if base_name:
+                self.manifest_list.delete(base_name)
+            if delta_name:
+                self.manifest_list.delete(delta_name)
             if changelog_name:
                 self.manifest_list.delete(changelog_name)
             if index_manifest is not None and index_manifest != prev_index:
@@ -411,13 +288,183 @@ class FileStoreCommit:
             for m in merged_manifests:
                 self.file_io.delete_quietly(
                     self.manifest_file.path(m.file_name))
-            if (entries_fn is not None or ids_assigned) and \
-                    new_manifest is not None:
-                # the entry set was rebuilt for this attempt (dynamic
-                # entries or row ids): its manifest is stale too
-                self.file_io.delete_quietly(
-                    self.manifest_file.path(new_manifest.file_name))
-                new_manifest = None
+
+        try:
+            while True:
+                if attempts > max_retries or \
+                        (attempts > 0 and backoff.budget_exhausted()):
+                    # the per-attempt cleanup keeps the (reusable) delta and
+                    # changelog manifest FILES; on giving up they would be
+                    # orphaned with no snapshot referencing them
+                    for m in (new_manifest, changelog_manifest):
+                        if m is not None:
+                            self.file_io.delete_quietly(
+                                self.manifest_file.path(m.file_name))
+                    raise CommitConflictError(
+                        f"Commit lost the snapshot CAS race {attempts - 1} "
+                        f"times (commit.max-retries={max_retries}, "
+                        f"commit.timeout); giving up")
+                if attempts > 0:
+                    with span("commit.backoff", cat="commit",
+                              attempt=attempts, table=self.table_path):
+                        backoff.pause()
+                attempts += 1
+                latest = self.snapshot_manager.latest_snapshot()
+                if expected_latest_id is not ... and \
+                        (latest.id if latest else None) != expected_latest_id:
+                    # the caller's plan is stale (deletion vectors or
+                    # overlays built against an older snapshot): surface a
+                    # conflict so it replans instead of losing a change
+                    raise CommitConflictError(
+                        f"Snapshot advanced past {expected_latest_id} before "
+                        f"commit; replan required")
+                if entries_fn is not None:
+                    # delete/add set depends on the latest snapshot (e.g.
+                    # overwrite): recompute per attempt
+                    entries = entries_fn(latest)
+                    new_manifest = None
+                else:
+                    entries = entries_orig
+                next_row_id = latest.next_row_id if latest else None
+                ids_assigned = False
+                if self.row_tracking and any(
+                        e.kind == FileKind.ADD and e.file.first_row_id is None
+                        for e in entries):
+                    # the row-id start depends on the latest snapshot, so the
+                    # assignment re-runs from the unassigned entries (and the
+                    # manifest is rewritten) on every CAS attempt
+                    from paimon_tpu_torch.core.row_tracking import (
+                        assign_row_ids,
+                    )
+                    start = next_row_id
+                    if start is None:
+                        # tracking enabled on an existing table: old files
+                        # keep no ids; new ids start past every row
+                        start = latest.total_record_count if latest else 0
+                    entries, next_row_id = assign_row_ids(entries, start)
+                    new_manifest = None
+                    ids_assigned = True
+                if check_deleted_files and latest is not None:
+                    self._assert_files_exist(latest, entries)
+                if new_manifest is None and entries:
+                    new_manifest = write_manifest(entries, "delta")
+                if changelog_manifest is None and changelog_entries:
+                    changelog_manifest = write_manifest(changelog_entries,
+                                                        "changelog")
+
+                if latest is None:
+                    base_metas: List[ManifestFileMeta] = []
+                    new_id = 1
+                    prev_total = 0
+                    prev_index = None
+                else:
+                    base_metas = self.manifest_list.read_all(
+                        latest.base_manifest_list, latest.delta_manifest_list)
+                    new_id = latest.id + 1
+                    prev_total = latest.total_record_count
+                    prev_index = latest.index_manifest
+
+                base_metas, merged_manifests = self._maybe_merge_manifests(
+                    base_metas, force=force_full_manifest_merge,
+                    skip_missing=skip_missing_manifests)
+                base_name, base_size = self.manifest_list.write(base_metas)
+                delta_metas = [new_manifest] if new_manifest else []
+                delta_name, delta_size = self.manifest_list.write(delta_metas)
+                changelog_name = changelog_size = None
+                if changelog_manifest is not None:
+                    changelog_name, changelog_size = self.manifest_list.write(
+                        [changelog_manifest])
+                # the full index set at this attempt's base: recombined on
+                # every attempt, so a lost race never publishes over another
+                # writer's index entries
+                index_manifest = self.index_manifest_file.combine(
+                    prev_index, index_entries or [])
+                # watermarks only advance (reference FileStoreCommitImpl:
+                # max of provided and previous)
+                wm_vals = [w for w in
+                           (watermark, latest.watermark if latest else None)
+                           if w is not None]
+                if force_full_manifest_merge and \
+                        getattr(self, "_force_merge_total", None) is not None:
+                    # the full rewrite recounted every live entry — use the
+                    # true total (skip_missing may have dropped manifests)
+                    prev_total = self._force_merge_total
+                    self._force_merge_total = None
+                delta_rows = sum(
+                    (e.file.row_count if e.kind == FileKind.ADD
+                     else -e.file.row_count) for e in entries)
+                changelog_rows = sum(e.file.row_count for e in changelog_entries)
+                attempt_props = properties
+                if self.properties_provider is not None:
+                    attempt_props = dict(self.properties_provider() or {})
+                    attempt_props.update(properties or {})
+                    attempt_props = attempt_props or None
+                ctx = current_context_token()
+                if ctx is not None:
+                    # the store carries the trace context: readers of this
+                    # snapshot link their spans to the committing span in
+                    # the merged fleet trace; an explicit or provider
+                    # context wins
+                    attempt_props = dict(attempt_props or {})
+                    attempt_props.setdefault("trace.context", ctx)
+                snapshot = Snapshot(
+                    id=new_id,
+                    schema_id=self.schema.id,
+                    base_manifest_list=base_name,
+                    base_manifest_list_size=base_size,
+                    delta_manifest_list=delta_name,
+                    delta_manifest_list_size=delta_size,
+                    changelog_manifest_list=changelog_name,
+                    changelog_manifest_list_size=changelog_size,
+                    index_manifest=index_manifest,
+                    commit_user=self.commit_user,
+                    commit_identifier=commit_identifier,
+                    commit_kind=kind,
+                    time_millis=int(_time.time() * 1000),
+                    total_record_count=prev_total + delta_rows,
+                    delta_record_count=delta_rows,
+                    changelog_record_count=changelog_rows or None,
+                    properties=attempt_props,
+                    statistics=statistics,
+                    next_row_id=next_row_id,
+                    watermark=max(wm_vals) if wm_vals else None,
+                )
+                # the point of no return is the CAS itself: a request whose
+                # deadline is spent raises here, before publishing (the
+                # handler around the loop cleans this attempt's files)
+                check_deadline("commit CAS")
+                with span("commit.cas", cat="commit", group="commit",
+                          metric=COMMIT_CAS_MS, attempt=attempts,
+                          snapshot=new_id, table=self.table_path) as cas:
+                    won = self.snapshot_manager.try_commit(snapshot)
+                    cas.set(won=won)
+                if won:
+                    metrics.counter("commits").inc()
+                    if attempts > 1:
+                        metrics.counter("retries").inc(attempts - 1)
+                    metrics.histogram("duration_ms").update(
+                        (_time.perf_counter() - t0) * 1000)
+                    return new_id
+                # lost the race: clean up everything written for this
+                # attempt and retry against the new latest (the delta
+                # manifest is reusable unless the entry set is dynamic)
+                delete_attempt_lists()
+                if (entries_fn is not None or ids_assigned) and \
+                        new_manifest is not None:
+                    # the entry set was rebuilt for this attempt (dynamic
+                    # entries or row ids): its manifest is stale too
+                    self.file_io.delete_quietly(
+                        self.manifest_file.path(new_manifest.file_name))
+                    new_manifest = None
+        except DeadlineExceededError:
+            # the lost-CAS cleanup plus the manifests that giving up
+            # drops: nothing this attempt wrote outlives the abort
+            delete_attempt_lists()
+            for m in (new_manifest, changelog_manifest):
+                if m is not None:
+                    self.file_io.delete_quietly(
+                        self.manifest_file.path(m.file_name))
+            raise
 
     def _assert_files_exist(self, latest: Snapshot,
                             entries: List[ManifestEntry]):

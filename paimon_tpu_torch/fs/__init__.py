@@ -9,5 +9,6 @@ fs/RenamingTwoPhaseOutputStream.java).
 """
 
 from paimon_tpu_torch.fs.fileio import (  # noqa: F401
-    FileIO, FileStatus, LocalFileIO, get_file_io, safe_join,
+    FileIO, FileStatus, LocalFileIO, MemoryFileIO, get_file_io,
+    register_file_io, safe_join,
 )

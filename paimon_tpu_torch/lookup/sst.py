@@ -3,8 +3,8 @@ caches.
 
 Counterpart of paimon_tpu/lookup/sst.py; the file format (PTSST1) is
 the reference's byte for byte, so an SST written by either package is
-probed by the other.  Warm boot's `LookupStore.adopt` is not ported
-(ROADMAP.md A.7b).
+probed by the other, and warm boot's `LookupStore.adopt` registers one
+persisted by either package.
 
 reference: paimon-common/.../sst/SstFileReader.java and paimon-core
 .../lookup/sort/SortLookupStoreFactory.java:39,65: lookup files spill
@@ -592,6 +592,27 @@ class LookupStore:
         path = os.path.join(self.dir,
                             f"{digest}-{uuid.uuid4().hex[:8]}.sst")
         (writer or SstWriter()).write(path, lanes, table)
+        reader = SstReader(path, self.block_cache,
+                           native_probe=self.native_probe)
+        return self._publish(key, reader)
+
+    def adopt(self, key: str, src_path: str) -> SstReader:
+        """Register an already-built SST file under `key` (warm boot's
+        restore: another process persisted the file through the shared
+        SSD tier).  The file is hard-linked, or copied across file
+        systems, into the store directory under the usual naming, so
+        eviction and the disk budget treat it as a locally built SST.
+        No reader build is counted: that is the point of warm boot."""
+        import hashlib
+        import shutil
+        import uuid
+        digest = hashlib.sha1(key.encode("utf-8")).hexdigest()[:24]
+        path = os.path.join(self.dir,
+                            f"{digest}-{uuid.uuid4().hex[:8]}.sst")
+        try:
+            os.link(src_path, path)
+        except OSError:
+            shutil.copyfile(src_path, path)
         reader = SstReader(path, self.block_cache,
                            native_probe=self.native_probe)
         return self._publish(key, reader)

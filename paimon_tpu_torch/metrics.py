@@ -7,8 +7,9 @@ byte-cache counters, and the serving plane's service, lookup,
 resilience and slo groups, the maintenance plane's counters
 (maintenance and fleet groups: fsck violations, incremental fsck
 sweeps), the read and write planes' retries, prefetch budget and flush
-counters (scan and write groups), the upload stager's counters
-(cache_disk group) and the incremental metadata plane (plan group:
+counters (scan and write groups), the host-SSD tier's and the upload
+stager's counters (cache_disk group), the hedges and breakers of the
+resilience group, the replica router's counters (service group) and the incremental metadata plane (plan group:
 plans, delta applies, manifests read and pruned, entries decoded,
 sidecar fallbacks, manifest compactions), the stage histograms of the
 ported planes (io: read, decode, encode, upload; scan: merge and the
@@ -19,7 +20,7 @@ serialization behind `snapshot()` and the Prometheus text of
 obs/export.py; and the stream daemon's stream group (events, checkpoints
 and their ms, loop restarts, freshness, changelog rows, compactions and
 pauses, the source backlog).  The reference's multihost group and the
-rest of the fleet and cache_disk groups are not ported yet.
+rest of the fleet group are not ported yet.
 
 reference: paimon-core/.../metrics/ (MetricRegistry, Counter, Gauge,
 Histogram) with groups CommitMetrics / ScanMetrics / CompactionMetrics,
@@ -69,6 +70,13 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
            "WRITE_FLUSHES", "WRITE_FLUSHED_BYTES", "WRITE_FLUSH_WAIT_MS",
            "WRITE_INFLIGHT_BYTES", "WRITE_RETRIES", "WRITE_SORT_MS",
            "WRITE_FLUSH_TASK_MS", "CACHE_DISK_STAGED_UPLOADS",
+           "CACHE_DISK_HITS", "CACHE_DISK_MISSES", "CACHE_DISK_PROMOTIONS",
+           "CACHE_DISK_DEMOTIONS", "CACHE_DISK_EVICTIONS", "CACHE_DISK_BYTES",
+           "RESILIENCE_HEDGES_ISSUED", "RESILIENCE_HEDGES_WON",
+           "RESILIENCE_HEDGES_ABANDONED", "RESILIENCE_BREAKER_STATE",
+           "RESILIENCE_BREAKER_FAST_FAILS", "RESILIENCE_HEDGE_WAIT_MS",
+           "SERVICE_ROUTER_FORWARDED", "SERVICE_ROUTER_UPSTREAM_ERRORS",
+           "SERVICE_ROUTER_RING_CHANGES",
            "CACHE_DISK_STAGE_MS", "PLAN_PLANS", "PLAN_MS",
            "PLAN_DELTA_APPLIES", "PLAN_MANIFESTS_READ",
            "PLAN_MANIFESTS_PRUNED", "PLAN_ENTRIES_DECODED",
@@ -134,7 +142,17 @@ WRITE_FLUSH_WAIT_MS = "flush_wait_ms"       # producer ms blocked on the
                                             # in-flight byte budget
 WRITE_INFLIGHT_BYTES = "inflight_bytes"     # gauge: bytes in flight now
 WRITE_RETRIES = "write_retries"             # transient flush retries
-# cache_disk group: the write path's staged uploads (UploadStager)
+# cache_disk group: the host-SSD read tier (fs/caching.py DiskCacheTier;
+# promotions are hit-earned memory->disk writes, demotions entries
+# pushed to disk by memory pressure, evictions disk entries dropped by
+# the max-bytes bound or failed validation) and the write path's staged
+# uploads (UploadStager)
+CACHE_DISK_HITS = "hits"                      # served from SSD
+CACHE_DISK_MISSES = "misses"                  # disk tier consulted, absent
+CACHE_DISK_PROMOTIONS = "promotions"          # hit-earned mem->disk writes
+CACHE_DISK_DEMOTIONS = "demotions"            # pressure-driven mem->disk
+CACHE_DISK_EVICTIONS = "evictions"            # bound/validation drops
+CACHE_DISK_BYTES = "bytes"                    # gauge: on-disk bytes now
 CACHE_DISK_STAGED_UPLOADS = "staged_uploads"  # uploads acked from stage
 CACHE_DISK_STAGE_MS = "stage_ms"              # one encode->staged write
 # latency histograms (ms) fed by obs/trace.py spans that name them
@@ -183,6 +201,10 @@ SERVICE_CONNECTIONS = "connections"           # gauge: open sockets now
 SERVICE_DELTA_ROWS = "delta_rows"             # gauge: delta-tier rows
 SERVICE_DELTA_BYTES = "delta_bytes"           # gauge: delta-tier bytes
 SERVICE_DELTA_OVERFLOWS = "delta_overflow"    # writes past max-bytes
+SERVICE_ROUTER_FORWARDED = "router_forwarded"     # proxied requests
+SERVICE_ROUTER_UPSTREAM_ERRORS = "router_upstream_errors"
+SERVICE_ROUTER_RING_CHANGES = "router_ring_changes"   # join/leave/
+# suspend/re-admit events (service/router.py)
 SERVICE_SCAN_CACHE_HITS = "scan_cache_hits"       # snapshot-keyed
 SERVICE_SCAN_CACHE_MISSES = "scan_cache_misses"   # /scan result cache
 
@@ -199,8 +221,16 @@ LOOKUP_DELTA_HITS = "delta_hits"              # keys answered by delta
 LOOKUP_NATIVE_PROBES = "native_probes"
 LOOKUP_NATIVE_FALLBACKS = "native_fallbacks"
 
-# resilience group (utils/deadline.py, service/brownout.py,
-# service/admission.py)
+# resilience group (fs/resilience.py, utils/deadline.py,
+# service/brownout.py, service/admission.py).  The breaker state gauge
+# is one series per backend: group("resilience", backend name);
+# 0 closed, 1 half-open, 2 open
+RESILIENCE_HEDGES_ISSUED = "hedges_issued"      # hedge requests sent
+RESILIENCE_HEDGES_WON = "hedges_won"            # hedge beat the primary
+RESILIENCE_HEDGES_ABANDONED = "hedges_abandoned"  # loser left running
+RESILIENCE_BREAKER_STATE = "breaker_state"      # gauge, per backend
+RESILIENCE_BREAKER_FAST_FAILS = "breaker_fast_fails"  # open-circuit rejects
+RESILIENCE_HEDGE_WAIT_MS = "hedge_wait_ms"      # delay before the hedge
 RESILIENCE_DEADLINE_EXCEEDED = "deadline_exceeded"    # tripped scopes
 RESILIENCE_BROWNOUT_SHEDS = "brownout_sheds"    # requests shed
 RESILIENCE_BROWNOUT_LEVEL = "brownout_level"    # gauge: current rung
@@ -381,8 +411,8 @@ class MetricRegistry:
         return self.group("write", table)
 
     def cache_disk_metrics(self, table: str = "") -> MetricGroup:
-        """The write path's staged uploads (the reference's host-SSD
-        read tier of this group waits for ROADMAP.md A.7b)."""
+        """The host-SSD read tier and the write path's staged
+        uploads."""
         return self.group("cache_disk", table)
 
     def maintenance_metrics(self, table: str = "") -> MetricGroup:

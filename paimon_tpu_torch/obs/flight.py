@@ -1,7 +1,7 @@
 """Black-box flight recorder: an always-on bounded ring of the
 operationally interesting events, the ones an operator wants to see from
 the minutes before a crash: retry ladder arms (parallel/fault.py),
-brownout rung moves and 429 / 504 answers (service/brownout.py), loop
+circuit-breaker flips (fs/resilience.py), brownout rung moves and 429 / 504 answers (service/brownout.py), loop
 crashes and SIGTERM / SIGINT (service/stream_daemon.py) and uncaught
 exceptions (the crash hooks below).
 
@@ -28,13 +28,14 @@ from typing import Dict, List, Optional
 __all__ = [
     "FlightRecorder", "recorder", "record", "dump", "install_crash_hooks",
     "self_dump_dir", "sync_from_options",
-    "EV_RETRY", "EV_BROWNOUT", "EV_HTTP_429", "EV_HTTP_504",
+    "EV_RETRY", "EV_BREAKER", "EV_BROWNOUT", "EV_HTTP_429", "EV_HTTP_504",
     "EV_LOOP_CRASH", "EV_SIGTERM", "EV_CRASH",
 ]
 
 DEFAULT_EVENTS = 512
 
 EV_RETRY = "retry"
+EV_BREAKER = "breaker"
 EV_BROWNOUT = "brownout"
 EV_HTTP_429 = "http.429"
 EV_HTTP_504 = "http.504"

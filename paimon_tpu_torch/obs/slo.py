@@ -1,13 +1,13 @@
 """Declarative SLOs evaluated as multi-window burn rates.
 
-Counterpart of paimon_tpu/obs/slo.py without the router's fleet rollup
-(`aggregate_slo`, ROADMAP.md A.7b).  An objective such as "99.9% of
+Counterpart of paimon_tpu/obs/slo.py.  An objective such as "99.9% of
 requests succeed" or "99% finish under 250 ms" becomes a burn rate: the
 observed bad-event rate over the error budget 1 - target.  The alert
 fires only when a fast and a slow window both burn above the threshold
 (multi-window multi-burn-rate alerting).  Each query server feeds one
 evaluator per response and serves it at GET /slo; `evaluate()` also
-refreshes the `slo` metric group.
+refreshes the `slo` metric group.  The replica router folds the
+replicas' documents with `aggregate_slo` (the worst burn wins).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from paimon_tpu_torch.metrics import (
     SLO_LATENCY_BURN_SLOW,
 )
 
-__all__ = ["SloConfig", "SloEvaluator"]
+__all__ = ["SloConfig", "SloEvaluator", "aggregate_slo"]
 
 # Availability bad-events: everything the objective's user would call
 # a failed request — load-shed (429) and server errors including
@@ -170,3 +170,38 @@ class SloEvaluator:
             "good_events": self._good,
             "bad_events": self._bad,
         }
+
+
+def aggregate_slo(per_replica: Dict[str, Dict]) -> Dict:
+    """Fleet rollup of per-replica `/slo` documents (router): the
+    fleet burn for each objective is the WORST replica's burn (an SLO
+    is violated wherever any user lands), the alert is the OR, and
+    event counts sum.  Replicas that failed to answer are listed in
+    `unreachable` instead of poisoning the rollup."""
+    worst = {"availability": {"burn_fast": 0.0, "burn_slow": 0.0},
+             "latency": {"burn_fast": 0.0, "burn_slow": 0.0}}
+    alert = False
+    good = bad = 0
+    reachable = {}
+    unreachable = []
+    for rid, doc in sorted(per_replica.items()):
+        if not isinstance(doc, dict) or "objectives" not in doc:
+            unreachable.append(rid)
+            continue
+        reachable[rid] = doc
+        alert = alert or bool(doc.get("alert"))
+        good += int(doc.get("good_events", 0))
+        bad += int(doc.get("bad_events", 0))
+        for obj in ("availability", "latency"):
+            for w in ("burn_fast", "burn_slow"):
+                v = float(doc["objectives"][obj].get(w, 0.0))
+                worst[obj][w] = max(worst[obj][w], v)
+    return {
+        "replicas": len(reachable),
+        "unreachable": unreachable,
+        "alert": alert,
+        "objectives": worst,
+        "good_events": good,
+        "bad_events": bad,
+        "per_replica": reachable,
+    }

@@ -36,6 +36,7 @@ __all__ = ["Span", "TraceCollector", "span", "enable_tracing",
            "metrics_enabled", "collector", "take_spans",
            "sync_from_options", "maybe_export", "export_chrome_trace",
            "set_replica_id", "inject_headers", "server_span",
+           "current_context_token",
            "spool_flush", "reset_spool", "set_export_dir",
            "STAGE_SERVE_REQUEST", "STAGE_CLIENT_REQUEST",
            "STAGE_PLAN_LINK", "HDR_TRACE_ID", "HDR_PARENT_SPAN"]
@@ -242,6 +243,18 @@ def set_replica_id(replica_id: Optional[str]) -> None:
     """Name the serving replica in this process's spool header."""
     global _replica_id
     _replica_id = replica_id
+
+
+def current_context_token() -> Optional[str]:
+    """``<process_tag>:<span_id>`` of the current span, or None when no
+    span is open or tracing is off: what a commit stamps into its
+    snapshot's properties and a request into X-Parent-Span."""
+    if not _enabled:
+        return None
+    sid = _current.get()
+    if sid is None:
+        return None
+    return f"{_PROC}:{sid}"
 
 
 def inject_headers(headers: Dict[str, str]) -> Dict[str, str]:

@@ -368,11 +368,15 @@ class CoreOptions:
         "upload pool; upload retries re-read the staged bytes, and "
         "prepare_commit() still waits for every upload's ack.  None = "
         "the inline upload path")
-    # read by the reference and refused by table/table.py until its
-    # plane is ported (ROADMAP.md A.7b)
+    # tail tolerance (utils/deadline.py, fs/resilience.py)
     REQUEST_TIMEOUT = ConfigOption(
         "request.timeout", _parse_duration_ms, None,
-        "End-to-end deadline for table entry points")
+        "End-to-end deadline for table entry points (reads, commits, "
+        "CLI ops): a Deadline is installed at entry and honored by "
+        "every blocking wait downstream — retry-ladder sleeps, "
+        "scan/write byte-budget blocks, admission queues, store IO — "
+        "raising the typed DeadlineExceededError once spent (never "
+        "retried, never orphan-committed).  None = no deadline")
 
     # -- query serving plane (service/, lookup/; reference options.py
     #    :325, :544-650, :865-985, :1165) ------------------------------------
@@ -470,36 +474,114 @@ class CoreOptions:
         "service.delta.max-bytes", parse_memory_size, 256 << 20,
         "Soft bound on the delta tier's bytes: crossing it counts "
         "delta_overflow (uncommitted rows are never dropped)")
-    # read by the reference's router, warm boot and disk tier; a
-    # server over a table that turns them on raises until ROADMAP A.7b
+    # the replica router (service/router.py), warm boot
+    # (service/warmboot.py) and the host-SSD tier (fs/caching.py)
     SERVICE_REPLICAS = ConfigOption(
         "service.replicas", int, 1,
-        "Read replicas behind a consistent-hash router (A.7b)")
+        "Read replicas started by ReplicaSet (service/router.py): N "
+        "query servers over one table — sharing the process-wide "
+        "byte-cache tier and the host-SSD tier — fronted by a router "
+        "that consistent-hashes tenants across them; 1 = the classic "
+        "single-server plane, no router")
     SERVICE_REPLICA_VNODES = ConfigOption(
         "service.replicas.virtual-nodes", int, 64,
-        "Virtual nodes per replica on the router's ring (A.7b)")
+        "Virtual nodes per replica on the router's consistent-hash "
+        "ring: more vnodes = smoother tenant spread and smaller "
+        "reassignment when the replica count changes")
     SERVICE_REPLICA_HEALTH_INTERVAL = ConfigOption(
         "service.replicas.health-interval", _parse_duration_ms, 1_000,
-        "Router health-check period of remote replicas (A.7b)")
+        "How often the router health-checks REMOTE replicas "
+        "(processes on other machines registered via POST /register): "
+        "an unreachable replica is taken out of the hash ring after "
+        "two consecutive failures and re-admitted on the first "
+        "successful check; in-process replicas are never checked — "
+        "their liveness is the process's")
     SERVICE_WARMBOOT_ENABLED = ConfigOption(
         "service.warmboot.enabled", _parse_bool, False,
-        "Boot serving replicas warm from persisted SSTs (A.7b)")
+        "Boot serving replicas WARM from state persisted through the "
+        "shared SSD tier: on stop (or an explicit POST /warmboot) a "
+        "replica serializes its plan-cache state and hard-links its "
+        "built SST files under service.warmboot.dir; the next replica "
+        "over the same table restores them at query-engine "
+        "construction and serves its first lookup with zero reader "
+        "builds and no manifest walk.  Requires service.warmboot.dir "
+        "or cache.disk.dir")
     SERVICE_WARMBOOT_DIR = ConfigOption(
         "service.warmboot.dir", str, None,
-        "Directory the warm-boot state persists into (A.7b)")
+        "Directory the warm-boot state persists into — a shared SSD "
+        "mount reachable by every machine's replicas (the same "
+        "sharing contract as cache.disk.dir, which is also the "
+        "default location: <cache.disk.dir>/warmboot)")
     CACHE_DISK_DIR = ConfigOption(
         "cache.disk.dir", str, None,
-        "Host-SSD second cache tier under the byte caches (A.7b)")
+        "Directory of the host-SSD second cache tier under the "
+        "in-memory byte caches (fs/caching.py DiskCacheTier): whole-"
+        "file and block-range entries are promoted here on repeated "
+        "hits or memory demotion and served on memory miss, each "
+        "validated by a stored key/length/crc32 header so a stale or "
+        "corrupted cache dir degrades to the object store instead of "
+        "serving wrong bytes.  One tier per directory per process; "
+        "None disables the disk tier")
     CACHE_DISK_MAX_BYTES = ConfigOption(
         "cache.disk.max-bytes", parse_memory_size, 1 << 30,
-        "Bound on the cache.disk.dir tier's bytes (A.7b)")
+        "Hard bound on the on-disk bytes of the cache.disk.dir tier; "
+        "space is reserved under the tier lock before any entry file "
+        "is written, so concurrent readers can never overshoot it "
+        "(oldest entries evict first)")
     CACHE_DISK_PROMOTE_HITS = ConfigOption(
         "cache.disk.promote-after-hits", int, 2,
-        "Memory hits after which an entry is written to the disk tier "
-        "(A.7b)")
+        "In-memory hits of one entry after which it is also written "
+        "to the disk tier (so a later memory demotion costs nothing); "
+        "entries evicted from memory under pressure are demoted to "
+        "disk regardless of hit count")
     READ_HEDGE_ENABLED = ConfigOption(
         "read.hedge.enabled", _parse_bool, False,
-        "Hedge slow object-store reads (A.7b)")
+        "Hedge slow store reads (fs/resilience.py): GET/ranged-GET/"
+        "HEAD/LIST track an online per-op-class latency quantile and "
+        "a call still in flight past that delay issues ONE duplicate "
+        "request — first success wins, the loser is abandoned.  Never "
+        "applied to mutating ops; disabled automatically under "
+        "brownout")
+    READ_HEDGE_QUANTILE = ConfigOption(
+        "read.hedge.quantile", float, 95.0,
+        "Latency percentile of the op class's recent successes at "
+        "which the hedge fires (95 = hedge the slowest ~5% of reads)")
+    READ_HEDGE_MIN_DELAY = ConfigOption(
+        "read.hedge.min-delay", _parse_duration_ms, 1,
+        "Floor on the adaptive hedge delay, so a very fast store "
+        "cannot drive the hedge trigger into micro-duplication")
+    READ_HEDGE_MAX_RATIO = ConfigOption(
+        "read.hedge.max-ratio", float, 0.05,
+        "Hard cap on hedges as a fraction of hedgeable calls (0.05 = "
+        "at most 5% extra load on the store, the classic tail-at-"
+        "scale budget)")
+    STORE_BREAKER_ENABLED = ConfigOption(
+        "store.breaker.enabled", _parse_bool, False,
+        "Per-backend circuit breaker (fs/resilience.py): a sick store "
+        "trips closed->open and calls fail fast (<10ms, "
+        "CircuitOpenError) instead of queueing retry ladders onto it; "
+        "half-open probes re-close after store.breaker.open-ms")
+    STORE_BREAKER_FAILURE_THRESHOLD = ConfigOption(
+        "store.breaker.failure-threshold", int, 5,
+        "Consecutive store failures that trip the breaker open")
+    STORE_BREAKER_ERROR_RATE = ConfigOption(
+        "store.breaker.error-rate", float, 0.5,
+        "Windowed error-rate trip wire: the breaker also opens when "
+        "at least this fraction of the last store.breaker.window "
+        "outcomes failed (catches sustained partial sickness that "
+        "never produces a long consecutive run)")
+    STORE_BREAKER_WINDOW = ConfigOption(
+        "store.breaker.window", int, 32,
+        "Outcome window for the error-rate trip wire (must be full "
+        "before the rate can trip)")
+    STORE_BREAKER_OPEN_MS = ConfigOption(
+        "store.breaker.open-ms", _parse_duration_ms, 5000,
+        "How long an open breaker rejects before letting half-open "
+        "probes through; a failed probe re-arms the full window")
+    STORE_BREAKER_HALF_OPEN_PROBES = ConfigOption(
+        "store.breaker.half-open-probes", int, 1,
+        "Concurrent trial calls admitted in the half-open state; the "
+        "first success re-closes the breaker")
     OBS_FLIGHT_ENABLED = ConfigOption(
         "obs.flight.enabled", _parse_bool, True,
         "Keep the flight recorder's bounded event ring (obs/flight.py)")

@@ -402,8 +402,9 @@ class UploadStager:
       serializes sort/encode/stage, not the PUTs);
     * an upload retry (write.retry.*) re-reads the staged bytes — it
       never re-sorts or re-encodes;
-    * (the reference also seeds its host-SSD read tier with a completed
-      upload; that tier waits for ROADMAP.md A.7b);
+    * a completed upload seeds the host-SSD read tier
+      (fs/caching.seed_read_cache): newly written files are the
+      hottest reads;
     * `drain()` is the durability barrier: prepare_commit() calls it
       LAST, so by the time commit messages leave the writer every file
       they name is acked by the object store — the commit contract is
@@ -541,6 +542,15 @@ class UploadStager:
                     raise
 
             flush_retrying(attempt, self.options, what="staged upload")
+            from paimon_tpu_torch.fs.caching import (
+                CachingFileIO, seed_read_cache,
+            )
+            # seed the tier this writer's table actually reads: the
+            # staged wrapper sits over the table's own CachingFileIO,
+            # whose state may be private rather than the shared one
+            seed_read_cache(path, data,
+                            state=inner.state
+                            if isinstance(inner, CachingFileIO) else None)
             self._c_uploads.inc()
             ok = True
         except BaseException as e:      # noqa: BLE001 — latched

@@ -6,16 +6,16 @@ traffic:
 
     rung 0  normal
     rung 1  degrade   the process is marked degraded (fs/resilience.py):
-                      scans stop prefetching past their workers
+                      hedged reads stop and scans stop prefetching past
+                      their workers
     rung 2  shed      rung 1 + requests below service.brownout.shed-
                       priority answer HTTP 429 at once
 
 The rung is the count of firing signals, capped at 2: any circuit
-breaker open (none exist until the object-store backend is ported,
-ROADMAP.md A.7b), admission-queue pressure, and the recent rate of 429
-and 504 answers.  A rung holds service.brownout.hold-ms before it may
-step down.  Everything shows on /healthz and in the `resilience`
-metric group.
+breaker of a resilient store backend open, admission-queue pressure,
+and the recent rate of 429 and 504 answers.  A rung holds
+service.brownout.hold-ms before it may step down.  Everything shows on
+/healthz and in the `resilience` metric group.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""KV query service over LocalTableQuery: one replica.
+"""KV query service over LocalTableQuery: one replica of the fleet.
 
 Counterpart of paimon_tpu/service/query_service.py.  reference:
 paimon-service/.../KvQueryServer.java, KvQueryClient.java and
@@ -19,13 +19,18 @@ HTTP + JSON on the event-loop engine (service/async_server.py):
   and GET /healthz, /stats, /slo and /metrics (Prometheus) report the
   plane;
 * the hot delta tier (service/delta.py) makes a serving writer's rows
-  readable by /lookup before any flush or commit.
+  readable by /lookup before any flush or commit;
+* replicas (`replica_id=`) run behind the consistent-hash router of
+  service/router.py, sharing the byte-cache, SSD and delta tiers; a
+  remote replica joins with `register_with_router`, and the client
+  follows the router's /topology to the owning replica;
+* warm boot (service.warmboot.enabled, service/warmboot.py) restores
+  persisted SSTs and plan state at query-engine construction and
+  persists them on shutdown or POST /warmboot.
 
 Every read runs on the table's device: the merged fallback of
 non-deduplicate tables and /scan merge with the winner-select kernel
-on the card.  Read replicas behind a router (service.replicas > 1),
-the client's topology following and warm boot are not ported yet
-(ROADMAP.md A.7b) and raise.
+on the card.
 """
 
 from __future__ import annotations
@@ -135,35 +140,19 @@ class ServiceManager:
         return json.loads(self.file_io.read_bytes(self._path(service)))
 
 
-def _refuse_a7b(opts: CoreOptions):
-    """The serving options whose planes are not ported yet raise; the
-    table itself refuses cache.disk.dir and read.hedge.enabled
-    (table/table.py check_readable)."""
-    def refuse(what):
-        raise NotImplementedError(
-            f"{what} is not ported to paimon_tpu_torch yet "
-            f"(ROADMAP.md: A.7b)")
-    if opts.get(CoreOptions.SERVICE_REPLICAS) > 1:
-        refuse("service.replicas > 1 (the replica router)")
-    if opts.get(CoreOptions.SERVICE_WARMBOOT_ENABLED):
-        refuse("service.warmboot.enabled (warm boot)")
-
-
 class KvQueryServer:
-    def __init__(self, table, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, table, host: str = "127.0.0.1", port: int = 0,
+                 replica_id: int = 0, delta=None):
         opts = table.options
-        _refuse_a7b(opts)
         if opts.get(CoreOptions.SERVICE_CACHE_SHARED):
             table = self._join_shared_cache(table)
         self.table = table
         self.options = table.options
-        # one replica until the router (ROADMAP A.7b) numbers them
-        self.replica_id = 0
+        self.replica_id = int(replica_id)
         # hot delta tier: unflushed serving-writer rows merged into
-        # every /lookup (shared process-wide by table path, so the
-        # server and the serving writer see ONE tier)
-        delta = None
-        if table.primary_keys and \
+        # every /lookup (shared process-wide by table path, so N
+        # in-process replicas and the serving writer see ONE tier)
+        if delta is None and table.primary_keys and \
                 opts.get(CoreOptions.SERVICE_DELTA_ENABLED):
             from paimon_tpu_torch.service.delta import (
                 delta_eligible, shared_delta_tier,
@@ -222,6 +211,16 @@ class KvQueryServer:
         # behind qps headlines — wall latency can hide in IO waits,
         # CPU per key cannot
         self._m_lookup_cpu = g.histogram(SERVICE_LOOKUP_CPU_MS)
+        # warm boot (service/warmboot.py): restore at query-engine
+        # construction, persist on shutdown or explicit POST /warmboot
+        from paimon_tpu_torch.service import warmboot as _warmboot
+        self._warmboot_dir = None
+        if opts.get(CoreOptions.SERVICE_WARMBOOT_ENABLED):
+            base = _warmboot.warmboot_dir(opts)
+            if base:
+                self._warmboot_dir = _warmboot.table_state_dir(
+                    base, table)
+        self.last_warm_restore: Optional[dict] = None
         # the event-loop engine (service/async_server.py): handlers
         # run on the bounded service.workers pool; the loop thread
         # owns every socket and pipelined keep-alive parse
@@ -274,7 +273,7 @@ class KvQueryServer:
         one bounded cache.  The rewrapped table keeps the caller's
         device and dynamic options (its schema carries them)."""
         from paimon_tpu_torch.fs.caching import (
-            CachingFileIO, shared_cache_state,
+            CachingFileIO, shared_cache_state, shared_disk_tier,
         )
         # grow the shared tier FIRST: a table already wrapped by
         # read.cache.range rides the shared state with whole-file
@@ -283,6 +282,16 @@ class KvQueryServer:
         state = shared_cache_state(
             256 << 20,
             table.options.get(CoreOptions.READ_CACHE_RANGE_MAX_BYTES))
+        disk_dir = table.options.get(CoreOptions.CACHE_DISK_DIR)
+        if disk_dir:
+            # the serving plane rides the host-SSD second tier too:
+            # memory-LRU demotions land on disk and cold requests are
+            # answered from SSD before the object store
+            state.attach_disk(
+                shared_disk_tier(disk_dir, table.options.get(
+                    CoreOptions.CACHE_DISK_MAX_BYTES)),
+                promote_hits=table.options.get(
+                    CoreOptions.CACHE_DISK_PROMOTE_HITS))
         if isinstance(table.file_io, CachingFileIO):
             # already caching (shared state grown above if it rides
             # it; an explicitly-constructed private wrapper keeps its
@@ -290,7 +299,7 @@ class KvQueryServer:
             return table
         wrapped = CachingFileIO(table.file_io, state=state)
         return type(table)(wrapped, table.path, table.schema,
-                           device=table.device)
+                           device=table.device, branch=table.branch)
 
     def query(self) -> LocalTableQuery:
         """The shared serving-side point-lookup engine (pk tables)."""
@@ -301,8 +310,27 @@ class KvQueryServer:
                     refresh_interval_ms=self.options.get(
                         CoreOptions.SERVICE_LOOKUP_REFRESH_INTERVAL),
                     delta=self._delta)
+                if self._warmboot_dir is not None:
+                    # adopt persisted SSTs and plan state before the
+                    # first lookup: a warm replica's first batch runs
+                    # with reader_builds == 0 and no cold manifest walk
+                    from paimon_tpu_torch.service import warmboot
+                    self.last_warm_restore = \
+                        warmboot.restore_serving_state(
+                            q, self._warmboot_dir)
                 self._query = q
             return self._query
+
+    def persist_warm_state(self) -> dict:
+        """Persist the current serving state (built SSTs and plan-cache
+        state) for warm boot; {"ssts": 0, ...} when warm boot is off or
+        nothing is built yet."""
+        with self._query_lock:
+            q = self._query
+        if q is None or self._warmboot_dir is None:
+            return {"ssts": 0, "snapshot_id": None, "plan": False}
+        from paimon_tpu_torch.service import warmboot
+        return warmboot.persist_serving_state(q, self._warmboot_dir)
 
     def new_serving_writer(self, commit_user: Optional[str] = None):
         """A writer whose rows are readable via /lookup IMMEDIATELY —
@@ -326,13 +354,36 @@ class KvQueryServer:
         return self
 
     def register_with_router(self, router_address: str) -> dict:
-        """Joining a router's hash ring is not ported yet."""
-        raise NotImplementedError(
-            "register_with_router (the replica router) is not ported to "
-            "paimon_tpu_torch yet (ROADMAP.md: A.7b)")
+        """Join a (possibly cross-machine) router's hash ring: POST
+        this replica's (id, address) to the router's /register.  The
+        router health-checks us from then on; pair with a warm-boot
+        restore for a joiner that serves its first lookup hot."""
+        import http.client
+        host, port = KvQueryClient._hostport(router_address)
+        conn = http.client.HTTPConnection(host, port, timeout=30)
+        try:
+            conn.request(
+                "POST", "/register",
+                json.dumps({"id": self.replica_id,
+                            "address": self.address}).encode(),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read() or b"{}")
+            if resp.status != 200:
+                raise RuntimeError(
+                    f"router refused registration: {body}")
+            return body
+        finally:
+            conn.close()
 
     def stop(self):
         self.services.unregister(PRIMARY_KEY_LOOKUP)
+        self.shutdown()
+
+    def shutdown(self):
+        """Teardown minus the service-registry unregister (ReplicaSet
+        replicas never registered; the router did): stop the engine,
+        restore the process-wide degraded switch, drop lookup state."""
         self.server.stop()
         # the process-wide degraded switch must not outlive the server
         self.brownout.reset()
@@ -341,6 +392,15 @@ class KvQueryServer:
         # points
         from paimon_tpu_torch.obs.trace import maybe_export
         maybe_export()
+        # persist before close drops the SST store: a restarting replica
+        # finds this one's warm state on the shared SSD tier
+        if self._warmboot_dir is not None:
+            try:
+                self.persist_warm_state()
+            # warm-state persist is advisory: a failed snapshot must not
+            # block shutdown; the next boot is simply cold
+            except Exception:
+                pass
         with self._query_lock:
             if self._query is not None:
                 self._query.close()
@@ -464,15 +524,20 @@ class KvQueryServer:
                     "native_fallbacks":
                         lg.counter(LOOKUP_NATIVE_FALLBACKS).count,
                 },
+                "warm_restore": self.last_warm_restore,
                 "delta": None if self._delta is None
                 else self._delta.stats()}
 
     def _handle_post(self, req: HttpRequest) -> HttpResponse:
         if req.path == "/warmboot":
-            # the reference's answer with warm boot off: nothing is
-            # persisted (warm boot is ROADMAP.md A.7b)
-            return self._json_response(
-                200, {"ssts": 0, "snapshot_id": None, "plan": False})
+            # explicit persist: hard-link the built SSTs and the plan
+            # state onto the shared SSD tier now, so replicas that
+            # register after this call boot warm
+            try:
+                return self._json_response(200,
+                                           self.persist_warm_state())
+            except Exception as e:      # noqa: BLE001 -- answered 500
+                return self._json_response(500, {"error": str(e)})
         if req.path == "/lookup":
             handle, timer = self._lookup, self._m_lookup_ms
         elif req.path == "/scan":
@@ -690,20 +755,19 @@ class KvQueryClient:
     dropped the socket (one retry, then the error surfaces).
     Thread-safe: a lock serializes requests on the shared connections.
 
-    Following a replica router's topology (`follow_topology=True`)
-    is not ported yet (ROADMAP.md A.7b): the client talks to its one
-    address.  `last_replica` surfaces which replica answered the most
+    It follows the router (service/router.py): on first use the
+    client probes GET /topology once; against a ReplicaRouter it builds
+    the same consistent-hash ring and talks to this tenant's owning
+    replica directly (one connection per replica), skipping the proxy
+    hop.  Against a plain replica the probe 404s and the single-address
+    path runs.  `last_replica` surfaces which replica answered the most
     recent request (the X-Replica-Id debug header)."""
 
     def __init__(self, table=None, address: Optional[str] = None,
                  tenant: str = "default",
                  priority: Optional[int] = None,
                  timeout_ms: Optional[float] = None,
-                 follow_topology: bool = False):
-        if follow_topology:
-            raise NotImplementedError(
-                "following a replica router's topology is not ported to "
-                "paimon_tpu_torch yet (ROADMAP.md: A.7b)")
+                 follow_topology: bool = True):
         if address is None:
             if table is None:
                 raise ValueError("need a table or an address")
@@ -717,6 +781,9 @@ class KvQueryClient:
         self.tenant = tenant
         self.priority = priority          # None = server default (100)
         self.timeout_ms = timeout_ms      # per-request deadline -> 504
+        self._follow = follow_topology
+        self._ring = None                 # HashRing once discovered
+        self._topology_checked = False
         self._conns: dict = {}            # address -> HTTPConnection
         self._lock = threading.Lock()
         self.reconnects = 0          # observable: stale-socket reopens
@@ -747,9 +814,47 @@ class KvQueryClient:
         self.close()
         return False
 
+    def _ensure_topology_locked(self, timeout: int):
+        """One-shot router discovery: a ReplicaRouter answers
+        /topology with the ring; a plain replica 404s (or refuses) and
+        the classic single-address path stays."""
+        if self._topology_checked or not self._follow:
+            return
+        self._topology_checked = True
+        host, port = self._hostport(self.address)
+        conn = http.client.HTTPConnection(host, port, timeout=timeout)
+        try:
+            conn.request("GET", "/topology")
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                return
+            topo = json.loads(data)
+            if not topo.get("router"):
+                return
+            from paimon_tpu_torch.service.router import HashRing
+            # the router's own ring: suspended replicas left it (the
+            # reference builds the ring over every replica, suspended
+            # ones too, and sends their tenants to a dead address)
+            suspended = set(topo.get("suspended") or ())
+            self._ring = HashRing(
+                [r for r in topo["replicas"] if r["id"] not in suspended],
+                topo.get("virtual_nodes", 64))
+        except (http.client.HTTPException, ConnectionError, OSError,
+                ValueError, KeyError):
+            pass          # no topology: single-address path
+        finally:
+            conn.close()
+
+    def _target_address(self) -> str:
+        if self._ring is None:
+            return self.address
+        return self._ring.pick(self.tenant)["address"].rstrip("/")
+
     def _post(self, endpoint: str, body: dict, timeout: int,
               idempotent: bool = True) -> dict:
-        """POST json on the persistent connection.  429 raises
+        """POST json on the persistent connection to this tenant's
+        target (the owning replica when a ring is known).  429 raises
         ServiceBusyError (admission control pushed back); other
         server-side errors ({"error"} bodies) surface as RuntimeError
         with the server's message.
@@ -786,7 +891,8 @@ class KvQueryClient:
     def _post_conn(self, endpoint: str, payload: bytes, headers: dict,
                    timeout: int, idempotent: bool) -> dict:
         with self._lock:
-            address = self.address
+            self._ensure_topology_locked(timeout)
+            address = self._target_address()
             host, port = self._hostport(address)
             for attempt in (0, 1):
                 conn = self._conns.get(address)

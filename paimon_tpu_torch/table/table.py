@@ -19,7 +19,10 @@ manifest compaction, commit and tag callbacks, per-file indexes
 retrofitted by maintenance/repair.py rewrite_file_index); data files in
 parquet, orc, avro, csv, json or mosaic, BLOB columns in `.blob`
 sidecars and VARIANT columns; the system tables, ANALYZE and its
-statistics.  Every table
+statistics; tables on any registered FileIO (object stores among them)
+with the host-SSD cache tier, hedged reads and circuit breakers
+(cache.disk.*, read.hedge.*, store.breaker.*) and a request deadline on
+reads, plans and commits (request.timeout).  Every table
 carries the torch device its merges run on (None means "cuda"; with no
 card, pass device="cpu").
 
@@ -64,17 +67,6 @@ def _not_ported(feature: str, item: str):
     raise NotImplementedError(
         f"{feature} is not ported to paimon_tpu_torch yet "
         f"(ROADMAP.md: {item})")
-
-
-def check_readable(schema: TableSchema, options: CoreOptions) -> None:
-    """Raise NotImplementedError for a table whose reads this package
-    cannot yet serve, naming the ROADMAP.md item that will port it."""
-    # deadlines on the table's own reads, the host-SSD cache tier and
-    # hedged store reads
-    for key in (CoreOptions.REQUEST_TIMEOUT, CoreOptions.CACHE_DISK_DIR,
-                CoreOptions.READ_HEDGE_ENABLED):
-        if options.get(key):
-            _not_ported(key.key, "A.7b")
 
 
 def check_writable(options: CoreOptions) -> None:
@@ -130,21 +122,38 @@ class FileStoreTable:
         self.schema = table_schema.copy(opts) \
             if dynamic_options else table_schema
         self.options = CoreOptions(Options(opts))
-        check_readable(self.schema, self.options)
         self.device = resolve_device(device)
-        if self.options.get(CoreOptions.READ_CACHE_RANGE):
+        if self.options.get(CoreOptions.STORE_BREAKER_ENABLED) or \
+                self.options.get(CoreOptions.READ_HEDGE_ENABLED):
+            # tail tolerance sits closest to the store, under the
+            # caching wrap below: cache hits never pay breaker or hedge
+            # accounting, and every real store attempt does
+            from paimon_tpu_torch.fs.resilience import maybe_wrap_resilience
+            file_io = maybe_wrap_resilience(file_io, self.options)
+        disk_dir = self.options.get(CoreOptions.CACHE_DISK_DIR)
+        if self.options.get(CoreOptions.READ_CACHE_RANGE) or disk_dir:
             from paimon_tpu_torch.fs.caching import (
-                CachingFileIO, shared_cache_state,
+                CachingFileIO, shared_cache_state, shared_disk_tier,
             )
+            range_bytes = self.options.get(
+                CoreOptions.READ_CACHE_RANGE_MAX_BYTES) \
+                if self.options.get(CoreOptions.READ_CACHE_RANGE) else 0
             if not isinstance(file_io, CachingFileIO):
                 # range-only: whole-file capacity 0 keeps read_bytes a
-                # pass-through; ranged reads hit the process-wide tier
-                range_bytes = self.options.get(
-                    CoreOptions.READ_CACHE_RANGE_MAX_BYTES)
+                # pass-through; ranged reads hit the process-wide tier.
+                # With cache.disk.dir set, memory misses (capacity 0:
+                # every whole-file read) demote to the host-SSD tier and
+                # are served from it before the store
                 file_io = CachingFileIO(
                     file_io, capacity_bytes=0,
                     range_cache_bytes=range_bytes,
                     state=shared_cache_state(0, range_bytes))
+            if disk_dir:
+                file_io.state.attach_disk(
+                    shared_disk_tier(disk_dir, self.options.get(
+                        CoreOptions.CACHE_DISK_MAX_BYTES)),
+                    promote_hits=self.options.get(
+                        CoreOptions.CACHE_DISK_PROMOTE_HITS))
         self.file_io = file_io
         self.branch = branch if branch != "main" else self.options.branch
         self.snapshot_manager = SnapshotManager(file_io, self.path,
@@ -162,10 +171,7 @@ class FileStoreTable:
                device=None) -> "FileStoreTable":
         dev = resolve_device(device)
         fio = file_io or get_file_io(path)
-        sm = SchemaManager(fio, path)
-        ts = TableSchema.from_schema(0, schema)
-        check_readable(ts, CoreOptions(Options(dict(ts.options))))
-        ts = sm.create_table(schema)
+        ts = SchemaManager(fio, path).create_table(schema)
         return FileStoreTable(fio, path, ts, device=dev)
 
     @staticmethod
@@ -224,6 +230,19 @@ class FileStoreTable:
         return FileStoreScan(self.file_io, self.path, self.schema,
                              self.options, self.branch)
 
+    def new_distributed_write(self, base_user: str = "writer",
+                              process_index: Optional[int] = None,
+                              process_count: Optional[int] = None):
+        """This process's slice of the multi-host write plane
+        (parallel/distributed.py), not ported yet."""
+        _not_ported("new_distributed_write (the multi-host write plane)",
+                    "A.8.9")
+
+    def sync_iceberg(self, committer=None) -> Optional[str]:
+        """Export the current snapshot as Iceberg v2 metadata (iceberg/),
+        not ported yet."""
+        _not_ported("sync_iceberg (iceberg/)", "A.8.9")
+
     def new_stream_write_builder(self) -> "StreamWriteBuilder":
         return StreamWriteBuilder(self)
 
@@ -249,16 +268,23 @@ class FileStoreTable:
                  predicate: Optional[Predicate] = None,
                  with_row_ids: bool = False,
                  limit: Optional[int] = None) -> pa.Table:
-        rb = self.new_read_builder()
-        if projection:
-            rb = rb.with_projection(projection)
-        if predicate is not None:
-            rb = rb.with_filter(predicate)
-        if with_row_ids:
-            rb = rb.with_row_ids()
-        if limit is not None:
-            rb = rb.with_limit(limit)
-        return rb.new_read().to_arrow(rb.new_scan().plan().splits)
+        # request.timeout's entry point covers the plan too: the
+        # manifest walk is store IO and rides the same deadline as the
+        # read (TableRead.to_arrow's own scope guards reads of plans
+        # built before it)
+        from paimon_tpu_torch.utils.deadline import deadline_scope
+        with deadline_scope(self.options.get(CoreOptions.REQUEST_TIMEOUT),
+                            entry=True):
+            rb = self.new_read_builder()
+            if projection:
+                rb = rb.with_projection(projection)
+            if predicate is not None:
+                rb = rb.with_filter(predicate)
+            if with_row_ids:
+                rb = rb.with_row_ids()
+            if limit is not None:
+                rb = rb.with_limit(limit)
+            return rb.new_read().to_arrow(rb.new_scan().plan().splits)
 
     def compact(self, full: bool = False,
                 partition_filter: Optional[dict] = None) -> Optional[int]:
@@ -613,7 +639,20 @@ class TableCommit:
         advances — and drives watermark-mode auto-tags.  `properties`
         are stored on the snapshot itself (ignored on the overwrite
         path).  After a snapshot lands: auto-tags, `commit.callbacks`,
-        and `partition.end-input-to-done` for a batch commit."""
+        and `partition.end-input-to-done` for a batch commit.
+
+        A configured `request.timeout` installs an end-to-end deadline
+        (entry point): retry and CAS backoffs stop sleeping once it is
+        spent and the snapshot CAS is never attempted past it, so a
+        timed-out commit raises instead of orphan-committing."""
+        from paimon_tpu_torch.utils.deadline import deadline_scope
+        with deadline_scope(self.table.options.get(
+                CoreOptions.REQUEST_TIMEOUT), entry=True):
+            return self._commit_with_deadline(
+                messages, commit_identifier, watermark, properties)
+
+    def _commit_with_deadline(self, messages, commit_identifier,
+                              watermark, properties) -> Optional[int]:
         # empty batch commits produce no snapshot unless forced
         # (reference snapshot.ignore-empty-commit, default on for batch
         # writers; streaming keeps empty snapshots for exactly-once
@@ -918,7 +957,15 @@ class TableRead:
         return self._finalize(self._read.read_split(split))
 
     def to_arrow(self, splits) -> pa.Table:
-        """Accepts a ScanPlan or a list of DataSplits."""
+        """Accepts a ScanPlan or a list of DataSplits.  A configured
+        `request.timeout` installs an end-to-end deadline here (entry
+        point; an already-active request deadline wins)."""
+        from paimon_tpu_torch.utils.deadline import deadline_scope
+        with deadline_scope(self.builder.table.options.get(
+                CoreOptions.REQUEST_TIMEOUT), entry=True):
+            return self._to_arrow(splits)
+
+    def _to_arrow(self, splits) -> pa.Table:
         if isinstance(splits, ScanPlan):
             split_list, streaming = splits.splits, splits.streaming
         else:

@@ -2,16 +2,20 @@
 
 Counterpart of paimon_tpu/utils/deadline.py.  A `Deadline` is created
 once at a request entry point (the query service's /lookup, /scan and
-/changelog, from service.request.timeout or the client's timeout_ms)
-and consulted by the blocking waits downstream: the admission queue
-(service/admission.py), the lookup store's wait on an in-flight SST
-build (lookup/local_query.py) and `wait_future`.  An exceeded deadline
-raises `DeadlineExceededError` (HTTP 504 at the service); it is not an
-OSError, so the fault taxonomy (parallel/fault.py) never retries it.
-Pools made by parallel/executors.new_thread_pool carry the submitter's
-deadline into each task (`run_with_deadline`).  The table's own
-request.timeout stays refused (table/table.py check_readable) until
-ROADMAP A.7b.
+/changelog, from service.request.timeout or the client's timeout_ms;
+the table's reads, plans and commits, from request.timeout) and
+consulted by the blocking waits downstream: retry-ladder sleeps
+(utils/backoff.py), the admission queue (service/admission.py), the
+scan and write pipelines' byte-budget blocks, the lookup store's wait
+on an in-flight SST build (lookup/local_query.py), `wait_future`, and
+store IO (fs/object_store.py checks before each read; the resilient
+backend of fs/resilience.py abandons a hung call).  An exceeded
+deadline raises `DeadlineExceededError` (HTTP 504 at the service); it
+is not an OSError, so the fault taxonomy (parallel/fault.py) never
+retries it, and a commit checks it before the snapshot CAS, so a
+timed-out request is never orphan-committed.  Pools made by
+parallel/executors.new_thread_pool carry the submitter's deadline into
+each task (`run_with_deadline`).
 """
 
 from __future__ import annotations

@@ -335,20 +335,9 @@ def test_every_bucket_mode_and_schema_option_key_is_defined_or_refused(
 
 
 # Keys the reference reads that the port neither defines nor refuses:
-# each is read only by a reference module that is not ported, or only on
-# a path that another, refused key opens (hedging needs
-# read.hedge.enabled).  Each names the ROADMAP.md item that ports it.
+# each is read only by a reference module that is not ported.  Each
+# names the ROADMAP.md item that ports it.
 _NOT_YET_READ = {
-    # fs/resilience.py hedging and breakers
-    "read.hedge.max-ratio": "A.7b",
-    "read.hedge.min-delay": "A.7b",
-    "read.hedge.quantile": "A.7b",
-    "store.breaker.enabled": "A.7b",
-    "store.breaker.error-rate": "A.7b",
-    "store.breaker.failure-threshold": "A.7b",
-    "store.breaker.half-open-probes": "A.7b",
-    "store.breaker.open-ms": "A.7b",
-    "store.breaker.window": "A.7b",
     # parallel/distributed.py and parallel/maintenance_plane.py
     "multihost.commit.arbitration": "A.8.9",
     "multihost.scan.pin-snapshot": "A.8.9",

@@ -55,6 +55,9 @@ from paimon_tpu_torch.types import (
 from paimon_tpu_torch.utils.deadline import (
     DeadlineExceededError, check_deadline, current_deadline, deadline_scope,
 )
+from tests.test_torch_object_store import (  # noqa: F401 -- a fixture
+    clean_process_state,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ADMISSION = {"port": admission, "reference": ref_admission}
@@ -810,22 +813,135 @@ def test_delta_ineligible_configurations_and_overflow(tmp_path):
         assert c.count > before and tier.stats()["rows"] == 50
 
 
-# -- what is refused until ROADMAP.md A.7b -----------------------------------
+# -- the options the serving fleet opened (they were refused) ---------------
 
-@pytest.mark.parametrize("key,value,where", [
-    ("service.replicas", "2", "server"),
-    ("service.warmboot.enabled", "true", "server"),
-    ("request.timeout", "1 s", "table"),
-    ("cache.disk.dir", "/nonexistent-cache-dir", "table"),
-    ("read.hedge.enabled", "true", "table"),
+def _fleet_answers(pkg, path, options, keys):
+    """/lookup answers of `keys` over the table at `path` loaded with
+    `options`, served by one server (or the ReplicaSet that
+    service.replicas asks for), and what the option left behind."""
+    if pkg == "port":
+        from paimon_tpu_torch.service import ReplicaSet
+        table = FileStoreTable.load(path, dynamic_options=options,
+                                    device="cpu")
+        server_cls, client_cls = KvQueryServer, KvQueryClient
+    else:
+        from paimon_tpu.service import ReplicaSet
+        table = RefTable.load(path, dynamic_options=options)
+        server_cls, client_cls = RefServer, RefClient
+    out = {}
+    if int(options.get("service.replicas", 1)) > 1:
+        with ReplicaSet(table) as rs:
+            rs.start()
+            out["replicas"] = len(rs.servers)
+            seen, answers = set(), []
+            for i, k in enumerate(keys):
+                with client_cls(address=rs.address, tenant=f"t{i}") as c:
+                    answers.append(c.lookup_row(k))
+                    seen.add(int(c.last_replica))
+            out["answered_by"] = len(seen) > 1
+        out["answers"] = answers
+        return out
+    server = server_cls(table)
+    server.server.start()
+    try:
+        with client_cls(address=server.address) as c:
+            out["answers"] = c.lookup(keys)
+        state = table.file_io.state if hasattr(table.file_io, "state") \
+            else None
+        out["disk_tier"] = state is not None and state.disk is not None
+        out["table_rows"] = table.to_arrow().sort_by("id").to_pylist()
+    finally:
+        server.shutdown()
+    warm = options.get("service.warmboot.dir")
+    if warm:
+        (state_dir,) = os.listdir(warm)
+        out["warm_files"] = sorted(
+            n.endswith(".sst") for n in os.listdir(
+                os.path.join(warm, state_dir)))[-1]
+    return out
+
+
+@pytest.mark.usefixtures("clean_process_state")
+@pytest.mark.parametrize("key,value", [
+    ("service.replicas", "2"),
+    ("service.warmboot.enabled", "true"),
+    ("request.timeout", "30 s"),
+    ("cache.disk.dir", "ssd"),
+    ("read.hedge.enabled", "true"),
 ])
-def test_a7b_options_raise(tmp_path, key, value, where):
-    t = pk_table(str(tmp_path / "t"))
-    commit(t, seeded_rows(3, seed=17))
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        table = t.copy({key: value})
-        assert where == "server"
-        KvQueryServer(table)
+def test_fleet_options_serve_equal_to_reference(tmp_path, key, value):
+    """Each option the fleet opened serves the reference's answers, and
+    does what it says: two replicas answer, warm boot persists SSTs, the
+    disk tier attaches."""
+    path = str(tmp_path / "t")
+    t = pk_table(path)
+    commit(t, seeded_rows(300, seed=17))
+    keys = [{"id": i} for i in range(0, 320, 7)]
+    got = {}
+    for pkg in ("port", "reference"):
+        opts = {key: value}
+        if key == "cache.disk.dir":
+            opts[key] = str(tmp_path / f"{pkg}-ssd")
+        if key == "service.warmboot.enabled":
+            opts["service.warmboot.dir"] = str(tmp_path / f"{pkg}-warm")
+        got[pkg] = _fleet_answers(pkg, path, opts, keys)
+    assert got["port"] == got["reference"]
+    assert any(a is None for a in got["port"]["answers"])
+    assert sum(a is not None for a in got["port"]["answers"]) > 30
+    if key == "service.replicas":
+        assert got["port"]["replicas"] == 2 and got["port"]["answered_by"]
+    if key == "cache.disk.dir":
+        assert got["port"]["disk_tier"]
+    if key == "service.warmboot.enabled":
+        assert got["port"]["warm_files"]
+    assert no_serving_threads()
+
+
+@pytest.mark.usefixtures("clean_process_state")
+def test_router_following_and_registration(tmp_path):
+    """A topology-following client (the default) against a plain
+    server takes its one address; against a router with a registered
+    remote it talks to the owning replica directly, as the
+    reference's."""
+    from paimon_tpu.service import ReplicaRouter as RefRouter
+    from paimon_tpu_torch.service import ReplicaRouter
+    path = str(tmp_path / "t")
+    t = pk_table(path)
+    commit(t, seeded_rows(40, seed=18))
+    ref_t = RefTable.load(path)
+    got = {}
+    for pkg, table, server_cls, client_cls, router_cls in (
+            ("port", t, KvQueryServer, KvQueryClient, ReplicaRouter),
+            ("reference", ref_t, RefServer, RefClient, RefRouter)):
+        a = server_cls(table, replica_id=0)
+        b = server_cls(table, replica_id=7)
+        a.server.start()
+        b.server.start()
+        router = router_cls(servers=[a]).start()
+        try:
+            with client_cls(address=a.address) as c:
+                plain = c.lookup_row({"id": 3})
+                assert c._ring is None and c.last_replica == "0"
+            reg = b.register_with_router(router.address)
+            assert reg == {"registered": 7, "replica_count": 2}
+            seen = {}
+            for i in range(24):
+                with client_cls(address=router.address,
+                                tenant=f"x{i}") as c:
+                    row = c.lookup_row({"id": i})
+                    seen[f"x{i}"] = (int(c.last_replica), row)
+                    assert c._ring is not None
+            assert {r for r, _ in seen.values()} == {0, 7}
+            assert all(router.ring.pick(k)["id"] == r
+                       for k, (r, _) in seen.items())
+            # the ring hashes addresses, which differ by package: the
+            # rows must agree, each package's replica is its own ring's
+            got[pkg] = (plain, {k: row for k, (_, row) in seen.items()})
+        finally:
+            router.stop()
+            a.shutdown()
+            b.shutdown()
+    assert got["port"] == got["reference"]
     assert no_serving_threads()
 
 
@@ -847,19 +963,6 @@ def test_flight_dump_dir_is_accepted_and_dumps(tmp_path, monkeypatch):
     finally:
         server.stop()
     assert no_serving_threads()
-
-
-def test_router_following_and_registration_raise(tmp_path):
-    t = pk_table(str(tmp_path / "t"))
-    commit(t, seeded_rows(3, seed=18))
-    server = KvQueryServer(t).start()
-    try:
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            KvQueryClient(address=server.address, follow_topology=True)
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            server.register_with_router("http://127.0.0.1:1")
-    finally:
-        server.stop()
 
 
 def _read_keys(module_file):

@@ -29,6 +29,9 @@ from paimon_tpu_torch.table import FileStoreTable
 from paimon_tpu_torch.types import (
     BigIntType, DoubleType, IntType, RowKind, VarCharType,
 )
+from tests.test_torch_object_store import (  # noqa: F401 -- a fixture
+    clean_process_state,
+)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden_v1")
 OPTIONS = {"bucket": "1", "write-only": "true",
@@ -350,10 +353,8 @@ _UNPORTED_ACTIONS = {"stream plane": lambda tmp_path:
 
 
 @pytest.mark.parametrize("options, item", [
-    ({"cache.disk.dir": "cache"}, "A.7b"),
     ("stream plane", "A.8.9"),
-    ("append blob-field", "A.8.8b"),
-    ({"request.timeout": "30 s"}, "A.7b")])
+    ("append blob-field", "A.8.8b")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
         if isinstance(options, str):
@@ -361,6 +362,43 @@ def test_unported_table_options_raise(tmp_path, options, item):
         else:
             FileStoreTable.create(str(tmp_path / "t"), pk_schema(**options),
                                   device="cpu")
+
+
+def _ref_pk_table(path, **options):
+    from paimon_tpu.types import VarCharType as RefVarChar
+    schema = (RefSchema.builder().column("id", RefBigInt(False))
+              .column("name", RefVarChar.string_type())
+              .column("score", RefDouble()).primary_key("id")
+              .options({"bucket": "2", **options}).build())
+    return RefTable.create(path, schema)
+
+
+@pytest.mark.usefixtures("clean_process_state")
+@pytest.mark.parametrize("key", ["cache.disk.dir", "request.timeout"])
+def test_fleet_table_options_read_equal_to_reference(tmp_path, key):
+    """The table options the serving fleet opened: a table with the
+    host-SSD tier or a request deadline writes, reads and compacts as
+    the reference's does."""
+    got = {}
+    for pkg in ("port", "reference"):
+        value = str(tmp_path / f"{pkg}-ssd") if key == "cache.disk.dir" \
+            else "30 s"
+        path = str(tmp_path / pkg)
+        t = new_table(pathlib.Path(path), pk_schema(**{key: value})) \
+            if pkg == "port" else _ref_pk_table(path + "/t", **{key: value})
+        rows = [{"id": i, "name": f"n{i}", "score": i / 4}
+                for i in range(0, 300, 3)]
+        write_rows(t, rows[:60])
+        write_rows(t, rows[40:])
+        out = [read_sorted(t)]
+        t.compact(full=True)
+        out.append(read_sorted(t))
+        if key == "cache.disk.dir":
+            # the scan went through the disk tier
+            out.append(t.file_io.state.disk is not None)
+        got[pkg] = out
+    assert got["port"] == got["reference"]
+    assert len(got["port"][0]) == 100
 
 
 @pytest.mark.parametrize("options, item", [
@@ -425,22 +463,10 @@ def _variant_shredding():
         table.new_batch_write_builder().new_write()
 
 
-def _object_store_path():
-    from paimon_tpu_torch.fs import get_file_io
-    get_file_io("s3://bucket/t")
-
-
 def _blob_descriptor_reads():
     with tempfile.TemporaryDirectory() as d:
         _append_blob_field_write(pathlib.Path(d),
                                  **{"blob-as-descriptor": "true"})
-
-
-def _table_read_deadline():
-    with tempfile.TemporaryDirectory() as d:
-        FileStoreTable.create(os.path.join(d, "t"),
-                              pk_schema(**{"request.timeout": "1 s"}),
-                              device="cpu")
 
 
 def _distributed_stream_daemon():
@@ -459,22 +485,6 @@ def _plane_stamps():
             os.path.join(d, "t"), pk_schema(), device="cpu"), "daemon")
 
 
-def _serving_replicas(what):
-    """A replica-router surface of the query service (A.7b)."""
-    def run():
-        from paimon_tpu_torch.service import KvQueryClient, KvQueryServer
-        with tempfile.TemporaryDirectory() as d:
-            table = FileStoreTable.create(os.path.join(d, "t"), pk_schema(),
-                                          device="cpu")
-            if what == "follow_topology":
-                KvQueryClient(table, follow_topology=True)
-            elif what == "router":
-                KvQueryServer(table).register_with_router("127.0.0.1:1")
-            else:
-                KvQueryServer(table.copy({"service.replicas": "2"}))
-    return run
-
-
 def _cli_command(*argv):
     """One of the CLI's sub-command handlers, called as main() would."""
     def run():
@@ -486,14 +496,27 @@ def _cli_command(*argv):
     return run
 
 
+def _table_method(name):
+    """One of FileStoreTable's A.8.9 methods, called as the reference's
+    signature allows."""
+    def run():
+        with tempfile.TemporaryDirectory() as d:
+            table = FileStoreTable.create(os.path.join(d, "t"), pk_schema(),
+                                          device="cpu")
+            if name == "sync_iceberg":
+                table.sync_iceberg(committer=None)
+            else:
+                table.new_distributed_write("writer", process_index=0,
+                                            process_count=1)
+    return run
+
+
 @pytest.mark.parametrize("call, item", [
     (_blob_descriptor_reads, "A.8.8b"), (_variant_shredding, "A.8.8b"),
-    (_multi_process_mesh, "A.8.9"), (_object_store_path, "A.7b"),
+    (_multi_process_mesh, "A.8.9"),
     (_plane_stamps, "A.8.9"),
-    (_serving_replicas("follow_topology"), "A.7b"),
-    (_serving_replicas("router"), "A.7b"),
-    (_serving_replicas("replicas"), "A.7b"),
-    (_table_read_deadline, "A.7b"),
+    (_table_method("sync_iceberg"), "A.8.9"),
+    (_table_method("new_distributed_write"), "A.8.9"),
     (_cli_command("fleet", "status", "d1.t"), "A.8.9"),
     (_distributed_stream_daemon, "A.8.9"),
     (_cli_command("lint"), "A.8.9")])
@@ -506,6 +529,79 @@ def test_refusals_name_their_items(call, item):
         call()
     assert f"(ROADMAP.md: {item})" in str(e.value)
     assert f"**{item} " in roadmap
+
+
+# -- the surfaces the serving fleet opened (they were refused) --------------
+
+def _fleet_surface(what, tmp_path):
+    """One surface of the serving fleet on one package: what it
+    answers."""
+    from paimon_tpu.fs import get_file_io as ref_get_file_io
+    from paimon_tpu_torch.fs import get_file_io
+    from paimon_tpu_torch.service import (
+        KvQueryClient, KvQueryServer, ReplicaRouter,
+    )
+    from paimon_tpu_torch.utils.deadline import DeadlineExceededError
+    if what == "object_store_path":
+        # an unregistered scheme: the reference's ValueError
+        out = []
+        for fn in (get_file_io, ref_get_file_io):
+            with pytest.raises(ValueError) as e:
+                fn("s3://bucket/t")
+            out.append(str(e.value))
+        return out
+    table = new_table(tmp_path, pk_schema(**{
+        "service.replicas": "2", "request.timeout": "1 s"}))
+    rows = [{"id": i, "name": f"n{i}", "score": i / 2} for i in range(20)]
+    write_rows(table, rows)
+    if what == "table_read_deadline":
+        ok = read_sorted(table)
+        with pytest.raises(DeadlineExceededError):
+            read_sorted(table.copy({"request.timeout": "0 ms"}))
+        return ok
+    if what == "replicas":
+        from paimon_tpu_torch.service import ReplicaSet
+        with ReplicaSet(table) as rs:
+            rs.start()
+            with KvQueryClient(table) as c:      # discovers the router
+                return [len(rs.servers), c.lookup_row({"id": 4}),
+                        c._ring is not None]
+    server = KvQueryServer(table, replica_id=3)
+    server.server.start()
+    try:
+        if what == "follow_topology":
+            with KvQueryClient(address=server.address,
+                               follow_topology=True) as c:
+                return [c.lookup_row({"id": 5}), c._ring, c.last_replica]
+        router = ReplicaRouter(addresses={9: "http://127.0.0.1:1"}).start()
+        try:
+            router.deregister_replica(9)
+            reg = server.register_with_router(router.address)
+            with KvQueryClient(address=router.address) as c:
+                return [reg, c.lookup_row({"id": 6}), c.last_replica]
+        finally:
+            router.stop()
+    finally:
+        server.shutdown()
+
+
+@pytest.mark.usefixtures("clean_process_state")
+@pytest.mark.parametrize("what, want", [
+    ("object_store_path",
+     ["No FileIO registered for scheme 's3'"] * 2),
+    ("follow_topology",
+     [{"id": 5, "name": "n5", "score": 2.5}, None, "3"]),
+    ("router",
+     [{"registered": 3, "replica_count": 1},
+      {"id": 6, "name": "n6", "score": 3.0}, "3"]),
+    ("replicas", [2, {"id": 4, "name": "n4", "score": 2.0}, True]),
+    ("table_read_deadline",
+     [{"id": i, "name": f"n{i}", "score": i / 2} for i in range(20)])])
+def test_fleet_surfaces_answer(tmp_path, what, want):
+    """The object-store scheme registry, the client's topology
+    following, registration with a router, replicas and the table's
+    read deadline answer as the reference's do."""
+    assert _fleet_surface(what, tmp_path) == want
 
 
 # -- options the maintenance plane opened (they were refused) ---------------
