@@ -126,14 +126,14 @@ then):
      scan).  It logs the dynamic assigner's and the index bootstrap's
      host seconds and each table's seconds, and prints a
      {"bucket_modes": ...} line;
-   - maintenance: maint_daily_750K, a daily-partitioned table as the
+   - maintenance: maint_daily_375K, a daily-partitioned table as the
      Paimon docs' Maintenance pages set one up (bench.py's columns plus
      dt STRING yyyyMMdd as the partition, primary key (dt, id),
      bucket=2, deduplicate, changelog-producer=input, inline
      compaction; daily watermark auto-tags keeping 4, snapshots kept
      10-20, decoupled changelog, partitions expiring after 3 days,
      success-file and done-partition mark-done, a counting commit
-     callback): 24 streaming commits of 31.25K rows (6 days of 4 commits,
+     callback): 24 streaming commits of 15,625 rows (6 days of 4 commits,
      the watermark 6 hours a commit, ids uniform in [0, 1M) a day, 2%
      -D, seed 7) with a consumer-id consumer polled each day; then each
      kept tag read, incremental reads between two tags and from a tag
@@ -141,7 +141,7 @@ then):
      disk exactly those the snapshots, tags and changelog entries
      reference; a fresh consumer from the earliest changelog), partition
      expiry of the 3 oldest days and an end-input batch commit marking
-     its partitions done, a branch from the oldest tag with 62.5K upserts
+     its partitions done, a branch from the oldest tag with 31.25K upserts
      to an expired day, a fallback-branch read, fast_forward and
      rollback_to, compact_manifests, an orphan clean of planted files,
      fsck (deep), a lost data file found, repaired and merged around,
@@ -240,8 +240,8 @@ then):
      clean leaving no sidecar without its data file, $files against the
      files on disk and $audit_log, all +I), formats_coverage (one table
      per file.format avro, csv, json and mosaic, and a parquet table
-     with file.format.per.level=0:avro, each 2 commits of 2^14 rows with
-     ids in [0, 2^15): write, scan, full compaction and read, and the
+     with file.format.per.level=0:avro, each 2 commits of 2^12 rows with
+     ids in [0, 2^13): write, scan, full compaction and read, and the
      avro row codec's own rates) and surfaces_coverage (every system
      table on blob_media_2G and on the avro table, ANALYZE and
      $statistics against the oracle, $row_tracking's ranges contiguous
@@ -319,9 +319,9 @@ then):
      and queried 500 times (IVF-PQ at nprobe 16 with refine 100 and at
      nprobe 8 without), recall@10 at least the reference's test floors;
      a commit that makes the index stale and load_or_build's rebuild.
-     search_coverage: HNSW through CALL sys.create_vector_index on 2^11
+     search_coverage: HNSW through CALL sys.create_vector_index on 2^10
      vectors of 32 dims, IVF-Flat on 2^16 of 64, a BEIR-shaped docs
-     table (2^16 docs of 8-64 Zipf words, row tracking) whose
+     table (2^15 docs of 8-64 Zipf words, row tracking) whose
      PersistedFullTextIndex is built, refreshed over two more commits
      and optimized, 50 queries held against a numpy BM25 oracle and the
      in-memory FullTextIndex (1 through CALL sys.full_text_search, which
@@ -332,6 +332,31 @@ then):
      _pq_encode) are counted and timed between CUDA events against
      their bound (FLOPs at 67 TFLOP/s float32, bytes at 3.35 TB/s).  It
      prints a {"search": ...} line of the recorded figures;
+   - lake_interop: the Iceberg export, the data loaders, the multi-writer
+     ingest topology and the VFS through create_catalog on the card.
+     ice_orders_16M (the Paimon docs' "Iceberg Compatibility",
+     "Dedicated Compaction Job" and "Data Distribution" pages): bench.py's
+     columns keyed by id, bucket=2, write-only; a StreamIngestTopology of
+     2 writer threads commits 8 checkpoints of 2M ids uniform in [0, 8M)
+     and a replay of the 8th that must commit nothing; a full compaction
+     on the card; sync_iceberg through an IcebergRestCommitter to an
+     in-process IcebergRESTCatalogServer; the rows read back by
+     IcebergTable from the file metadata and from the REST catalog's
+     metadata location, equal to the oracle (the last writer per id) and
+     to the table's read; 2 checkpoints of 500K upserts and a sync
+     without compaction that leaves the Iceberg view's files as they
+     were, with the first export's snapshot as its CAS base; a second
+     full compaction and sync, read back equal to the oracle; one epoch
+     of jax_batches (65,536 rows, 4 columns, the masked tail) whose
+     column sums on the card equal the oracle's; the VFS listing the
+     table and opening a snapshot file byte for byte.  lake_coverage: an
+     append table with deletion vectors whose export raises and writes
+     nothing (its files hold the deleted rows), an ORC-topped table
+     partitioned by dt through a DLF-signed REST catalog, the topology's
+     round-robin append and dynamic-bucket refusal, split_read_tasks
+     covering a table, and a DataLoader of 2 spawn workers seeing each
+     of 2^18 rows once.  It prints a {"lake_interop": ...} line of the
+     recorded figures;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -355,7 +380,7 @@ then):
    wrapper's host cost at n = 1024 split into allocation, the C entry
    point and the launch;
 6. both variants held exactly against the plain version at edge sizes
-   (n from 1 to 2^21 + 4 around every boundary of the rows a thread,
+   (n from 1 to 2^20 + 4 around every boundary of the rows a thread,
    a warp and a block take, L in 1, 2, 5, 8), and with inputs that are
    not 16-byte aligned; then the lane stride (B lanes of N rows in one
    launch: B in 1, 8, N in 1024, 2^18, L in 1, 2, 5, random lanes
@@ -369,7 +394,8 @@ then):
    path's merge shapes (2 lanes, packed BIGINT keys, 10 sorted runs) at
    2^14 and 2^20, held equal under each route's contract and
    timed; the link rates at 8 MiB (the cost model's) and 256 MiB; the
-   cost model's rates measured on this machine; the model's pick at
+   cost model's rates measured on this machine (the device's at 2^24,
+   the host routes' at 2^20); the model's pick at
    each shape at a winner fraction of 1.0 and at dedup_bigint's.
 
 The last lines of standard output are one JSON object per line: the
@@ -377,7 +403,8 @@ config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the serving fleet, the merge routes, the bucket modes,
 the maintenance phase, the read and write planes, the file indexes, the append tables,
 the formats and types, the catalog and SQL, the streaming phase and
-its figures, the search phase's figures, the stage split
+its figures, the search phase's figures, the lake phase's, the stage
+split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -901,8 +928,8 @@ def check_kernels(captured: LaunchCapture, k1: KernelStats,
 
 EDGE_SIZES = (1, 2, 3, 4, 5, 8, 31, 32, 33, 124, 127, 128, 129, 132, 252,
               256, 260, 508, 512, 516, 1020, 1023, 1024, 1025, 1028, 2044,
-              2048, 2052, (1 << 20) + 3, (1 << 20) + 4, (1 << 20) + 37,
-              (1 << 21) + 4)
+              2048, 2052, (1 << 20) + 3, (1 << 20) + 4)
+# ((1 << 20) + 37 and (1 << 21) + 4 until the lake phase came)
 EDGE_LANES = (1, 2, 5, 8)
 
 
@@ -1157,15 +1184,74 @@ def dense_positions(what: str, got_ids: np.ndarray,
     return at
 
 
+CARD_CHECK_ROWS = 1 << 22        # reads this long are compared on the card
+
+
+def to_card(a: np.ndarray):
+    """A copy of host array `a` on the card (Arrow's read-only buffers
+    are only read here)."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+
+def card_positions(what: str, got_ids, want_ids):
+    """dense_positions on the card, for tensors there; None when
+    `want_ids` is not increasing."""
+    import torch
+    n = len(want_ids)
+    if n and not bool((want_ids[1:] > want_ids[:-1]).all()):
+        return None
+    pos = torch.full((int(want_ids[-1]) + 1 if n else 0,), -1,
+                     dtype=torch.int64, device=want_ids.device)
+    pos[want_ids] = torch.arange(n, device=want_ids.device)
+    if len(got_ids) and (int(got_ids.min()) < 0 or
+                         int(got_ids.max()) >= len(pos)):
+        raise AssertionError(f"{what}: an id outside the oracle's")
+    at = pos[got_ids]
+    if len(at) and (bool((at < 0).any()) or
+                    int(torch.bincount(at, minlength=n).max()) != 1):
+        raise AssertionError(f"{what}: the ids differ from the oracle's")
+    return at
+
+
+def same_column_on_card(got_col, want) -> bool:
+    """A read column (Arrow, no nulls) equal to `want` on the card."""
+    return got_col.null_count == 0 and bool(
+        (to_card(got_col.to_numpy()) == want).all())
+
+
 def check_rows(what: str, got, cols: dict, win: np.ndarray,
                key: str) -> None:
     import pyarrow as pa
     import pyarrow.compute as pc
+    import torch
     if got.num_rows != len(win):
         raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
                              f"{len(win)}")
     full_key = cols[key]
     rows = np.flatnonzero(win) if win.dtype == bool else win
+    if len(rows) >= CARD_CHECK_ROWS and torch.cuda.is_available() and \
+            all(not isinstance(c, pa.Array) for c in cols.values()) and \
+            dense_ids(full_key):
+        # the same check on the card: each read row's oracle row by a
+        # scatter by id, every column gathered and compared there
+        src = to_card(rows)
+        at = card_positions(what, to_card(got.column(key).combine_chunks()
+                                          .to_numpy()),
+                            to_card(full_key)[src])
+        if at is not None:
+            src = src[at]
+            for name, full in cols.items():
+                if not same_column_on_card(got.column(name)
+                                           .combine_chunks(),
+                                           to_card(full)[src]):
+                    raise AssertionError(f"{what}: column {name} differs "
+                                         f"from the oracle")
+            return
     if not isinstance(full_key, pa.Array) and dense_ids(full_key) and \
             (np.diff(full_key[rows]) > 0).all():
         # dense integer keys in key order: each read row's oracle row by
@@ -1225,11 +1311,25 @@ def agg_oracle(cols: dict) -> dict:
 
 
 def check_agg(what: str, got, want: dict) -> None:
-    """Row for row, every column exactly equal to the oracle's."""
+    """Row for row, every column exactly equal to the oracle's (on the
+    card for long reads)."""
     import pyarrow.compute as pc
+    import torch
     if got.num_rows != len(want["id"]):
         raise AssertionError(f"{what}: {got.num_rows} rows, oracle "
                              f"{len(want['id'])}")
+    if len(want["id"]) >= CARD_CHECK_ROWS and torch.cuda.is_available() \
+            and dense_ids(want["id"]):
+        at = card_positions(what, to_card(got.column("id").combine_chunks()
+                                          .to_numpy()), to_card(want["id"]))
+        if at is not None:
+            for name, col in want.items():
+                if not same_column_on_card(got.column(name)
+                                           .combine_chunks(),
+                                           to_card(col)[at]):
+                    raise AssertionError(f"{what}: column {name} differs "
+                                         f"from the oracle")
+            return
     if dense_ids(want["id"]) and (np.diff(want["id"]) > 0).all():
         at = dense_positions(what, got.column("id").combine_chunks()
                              .to_numpy(), want["id"])
@@ -1434,16 +1534,80 @@ def drive_table(path, schema, batches, check, rec: Recorder,
 
 def bigint_batches(rows: int, runs: int = 10, seed: int = 7):
     """bench.py's build_table batches: `runs` commits of uniform ids in
-    [0, rows/2), v1 BIGINT, v2 DOUBLE, v3 INT, from `seed`."""
+    [0, rows/2), v1 BIGINT, v2 DOUBLE, v3 INT, from `seed`: each batch
+    from a generator of its own (spawned from `seed`), made in threads
+    (numpy's generators release the GIL while they fill arrays)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import pyarrow as pa
     per_run = rows // runs
-    rng = np.random.default_rng(seed)
-    return [pa.table({
-        "id": pa.array(rng.integers(0, rows // 2, per_run), pa.int64()),
-        "v1": pa.array(rng.integers(0, 1 << 40, per_run), pa.int64()),
-        "v2": pa.array(rng.random(per_run), pa.float64()),
-        "v3": pa.array(rng.integers(0, 100, per_run).astype(np.int32),
-                       pa.int32())}) for _ in range(runs)]
+
+    def batch(seq):
+        rng = np.random.default_rng(seq)
+        return pa.table({
+            "id": pa.array(rng.integers(0, rows // 2, per_run), pa.int64()),
+            "v1": pa.array(rng.integers(0, 1 << 40, per_run), pa.int64()),
+            "v2": pa.array(rng.random(per_run), pa.float64()),
+            "v3": pa.array(rng.integers(0, 100, per_run).astype(np.int32),
+                           pa.int32())})
+    with ThreadPoolExecutor(min(runs, os.cpu_count() or 1)) as pool:
+        return list(pool.map(batch, np.random.SeedSequence(seed)
+                             .spawn(runs)))
+
+
+def oracle_child(rows: int, out: str) -> None:
+    """The 100M-row cells' numpy oracles in a process of their own, run
+    as `python -c "import chip_smoke; chip_smoke.oracle_child(...)"` so
+    that their ufunc.at passes (which hold the GIL) overlap the dedup
+    write: the same batches made again from the seed, dedup_bigint's
+    last writers and config 4's sums and maxima saved as .npy files in
+    `out`, then an empty `done` file."""
+    batches = bigint_batches(rows)
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    del batches
+    np.save(os.path.join(out, "win.npy"), last_writer_oracle(cols["id"]))
+    for c, v in agg_oracle(cols).items():
+        np.save(os.path.join(out, f"agg_{c}.npy"), v)
+    open(os.path.join(out, "done"), "w").close()
+
+
+class OracleChild:
+    """oracle_child in a process started now; `get()` waits for it and
+    returns (last writers, the aggregation oracle)."""
+
+    def __init__(self, rows: int, work: str):
+        self.out = os.path.join(work, "oracles")
+        os.makedirs(self.out)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+             f"oracle_child({rows}, {self.out!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stderr=subprocess.PIPE, text=True)
+        self.got = None
+
+    def get(self) -> tuple:
+        if self.got is None:
+            t0 = time.perf_counter()
+            err = self.proc.communicate()[1]
+            if self.proc.returncode or not os.path.exists(
+                    os.path.join(self.out, "done")):
+                raise AssertionError(f"the oracle process failed "
+                                     f"({self.proc.returncode}): {err}")
+            load = lambda f: np.load(os.path.join(self.out, f))  # noqa: E731
+            self.got = (load("win.npy"), {c: load(f"agg_{c}.npy")
+                                          for c in ("id", "v1", "v2", "v3")})
+            log(f"numpy oracles of the 100M-row cells: ready "
+                f"{time.perf_counter() - self.t0:.1f} s after their "
+                f"process started, waited for {time.perf_counter() - t0:.1f}"
+                f" s")
+        return self.got
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def string_key_batches(rows: int = 1 << 16, runs: int = 10, seed: int = 7):
@@ -2738,14 +2902,16 @@ MAINT_COMMITS = 24               # 4 a day: the watermark 6 hours apart
 #                                  (48, 8 a day, until the stream phase)
 MAINT_DAILY = MAINT_COMMITS // MAINT_DAYS
 MAINT_HOURS = 24 // MAINT_DAILY
-MAINT_PER_COMMIT = 31_250        # 750K rows in all (3M until the formats
+MAINT_PER_COMMIT = 15_625        # 375K rows in all (3M until the formats
 #                                  phase came, 12M until the append
                                  # phase came, then 6M, 1.5M until the
-                                 # stream phase: the script's time)
+                                 # stream phase, 750K until the lake
+                                 # phase: the script's time)
 MAINT_KEYS = 1_000_000           # ids uniform in [0, 1M) within a day
 MAINT_DELETE_SHARE = 0.02        # -D rows
-MAINT_BRANCH_UPSERTS = 62_500    # 250K until the formats phase came,
-                                 # 125K until the stream phase
+MAINT_BRANCH_UPSERTS = 31_250    # 250K until the formats phase came,
+                                 # 125K until the stream phase, 62.5K
+                                 # until the lake phase
 MAINT_END_INPUT = 100_000        # the end-input batch commit
 HOUR_MS = 3_600_000
 DAY_MS = 24 * HOUR_MS
@@ -2942,7 +3108,7 @@ def kv_rows(path: str) -> dict:
 
 def maintenance(work: str, rec: Recorder, device="cuda",
                 scale: int = 1) -> dict:
-    """maint_daily_750K: a production daily-partitioned primary-key table
+    """maint_daily_375K: a production daily-partitioned primary-key table
     maintained as the Paimon docs' Maintenance pages set it up, every
     read held against a numpy oracle (`scale` divides the row and key
     counts, for a rehearsal).  Returns what the phase reports."""
@@ -2963,7 +3129,7 @@ def maintenance(work: str, rec: Recorder, device="cuda",
         BigIntType, DoubleType, IntType, VarCharType,
     )
 
-    name = "maint_daily_750K"
+    name = "maint_daily_375K"
     path = os.path.join(work, name)
     per, keys = MAINT_PER_COMMIT // scale, MAINT_KEYS // scale
     dates = maint_dates()
@@ -4960,12 +5126,13 @@ FT_MEDIA_COMMITS = 8             # blob_media_2G: 8 commits of 4,096 rows,
 FT_MEDIA_PER_COMMIT = 4096       # ids uniform in [0, 16,384), bucket=2:
 FT_MEDIA_KEYS = 16_384           # ~2 GiB of image bytes, ~1 GiB a bucket
 FT_IMAGE_BYTES = (8 << 10, 120 << 10)   # uniform, a 64 KiB mean
-FT_COV_COMMITS = 2               # formats_coverage: 2 commits of 2^14
-FT_COV_PER_COMMIT = 1 << 13      # rows, ids uniform in [0, 2^14), bucket=1
-FT_COV_KEYS = 1 << 14
+FT_COV_COMMITS = 2               # formats_coverage: 2 commits of 2^12
+FT_COV_PER_COMMIT = 1 << 12      # rows, ids uniform in [0, 2^13), bucket=1
+FT_COV_KEYS = 1 << 13            # (2^13 in [0, 2^14) until the lake phase)
 FT_FORMATS = ("avro", "csv", "json", "mosaic")
-FT_FORMAT_TABLE_ROWS = 1 << 14   # a FormatTable's rows, in 4 dt partitions
-#                                  (2^16 until the stream phase came)
+FT_FORMAT_TABLE_ROWS = 1 << 13   # a FormatTable's rows, in 4 dt partitions
+#                                  (2^16 until the stream phase came, 2^14
+#                                  until the lake phase)
 FT_TRACKED_ROWS = 1 << 13        # the row-tracked table of $row_tracking
 FT_DAYS = ("2024-06-01", "2024-06-02", "2024-06-03", "2024-06-04")
 
@@ -8018,7 +8185,8 @@ def measure_constants(dev) -> dict:
     """The cost model's rates on this machine: the device's sort passes
     plus the winner-select kernel on resident data (2 lanes, 2^24), and
     the host's C radix fast route, numpy argsort fast route and general
-    lexsort route at 2^22, each the best of 3 host-clock runs."""
+    lexsort route at 2^20 (2^22 until the lake phase came), each the best
+    of 3 host-clock runs."""
     import torch
 
     from paimon_tpu_torch.ops import merge
@@ -8039,7 +8207,7 @@ def measure_constants(dev) -> dict:
     out = {"device_sort_rows_per_s": n / best(
         lambda: merge.segmented_merge_body(*args, "last", 2))}
     del args
-    m = HOST_GENERAL_MAX
+    m = 1 << 20
     lanes, seq, packed, _ = route_inputs(m)
     out["host_fast_native_rows_per_s"] = m / best(
         lambda: merge._host_sorted_winners_fast(lanes, seq, "last", packed))
@@ -9533,12 +9701,13 @@ SEARCH_APPEND = 1_000            # rows committed after the builds
 # (tests/test_ann_sq_hnsw.py:73), IVF-Flat (tests/test_vector_search.py:58)
 RECALL_FLOOR = 0.9
 FLAT_RECALL_FLOOR = 0.7
-HNSW_ROWS, HNSW_DIM, HNSW_QUERIES = 1 << 11, 32, 50
+HNSW_ROWS, HNSW_DIM, HNSW_QUERIES = 1 << 10, 32, 50   # 2^11 rows until
+#                                                      the lake phase came
 FLAT_ROWS, FLAT_DIM, FLAT_QUERIES, FLAT_NPROBE = 1 << 16, 64, 100, 8
-DOCS = 1 << 16                   # the BEIR-shaped docs table: 2^16 docs of
+DOCS = 1 << 15                   # the BEIR-shaped docs table: 2^15 docs of
 DOC_VOCAB = 1 << 15              # 8-64 words of a Zipf vocabulary of 2^15
-DOC_WORDS = (8, 64)              # terms, 2 later commits of 2^12 docs
-DOC_LATE = 1 << 12
+DOC_WORDS = (8, 64)              # terms, 2 later commits of 2^11 docs
+DOC_LATE = 1 << 11               # (2^16 and 2^12 until the lake phase came)
 DOC_DIM = 64                     # its emb column, for hybrid search
 DOC_QUERIES = (30, 10, 10)       # OR terms, +required terms, phrases
 DOC_SQL_QUERIES = 1              # CALL sys.full_text_search (it builds an
@@ -10304,6 +10473,544 @@ def search(work: str, rec: Recorder, device="cuda", scale: int = 1) -> dict:
     return out
 
 
+# -- Iceberg export, the loaders, the ingest topology and the VFS ------------
+
+LAKE_CHECKPOINTS = 8             # ice_orders_16M: 8 checkpoints of 2M ids
+LAKE_PER_CHECKPOINT = 2_000_000  # uniform in [0, 8M) through 2 writers,
+LAKE_KEYS = 8_000_000            # bucket=2: about 224 MB of raw rows a
+LAKE_WRITES = 4                  # bucket; each checkpoint in 4 writes
+LAKE_WRITERS = 2
+LAKE_UPSERT_CHECKPOINTS = 2      # then 2 checkpoints of 500K upserts,
+LAKE_UPSERTS = 500_000           # synced before a second full compaction
+LAKE_BATCH = 65_536              # jax_batches' rows a batch
+LAKE_COLUMNS = ["id", "v1", "v2", "v3"]
+LAKE_NS = "lake"
+LAKE_DV_ROWS = 1 << 16           # lake_coverage's append table with
+LAKE_DV_SHARE = 10               # deletion vectors, 1/10 of it deleted
+LAKE_ORC_ROWS = 1 << 15          # the ORC-topped partitioned table: 2
+LAKE_LOADER_ROWS = 1 << 18       # commits; the DataLoader's 4-bucket
+LAKE_LOADER_WORKERS = 2          # table under 2 spawn workers
+LAKE_RR_BATCHES = 9              # round-robin append: 9 batches of 2^12
+LAKE_DLF_KEYS = {"lake-ak": "lake-sk"}
+
+
+class TimedCommitter:
+    """An IcebergRestCommitter that records each commit's CAS base and
+    its seconds on the host clock."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.bases: list = []
+        self.seconds: list = []
+
+    def commit_metadata(self, metadata: dict, base_snapshot_id):
+        t0 = time.perf_counter()
+        out = self.inner.commit_metadata(metadata, base_snapshot_id)
+        self.seconds.append(time.perf_counter() - t0)
+        self.bases.append(base_snapshot_id)
+        return out
+
+
+def iceberg_views(table, client, name: str) -> dict:
+    """The table's Iceberg views: from its file metadata and from the
+    REST catalog's metadata location."""
+    from paimon_tpu_torch.iceberg.reader import IcebergTable
+    loaded = client.load_table(LAKE_NS, name)
+    with open(loaded["metadata-location"]) as f:
+        rest = IcebergTable(json.load(f), table.file_io)
+    return {"files": IcebergTable.load(table.path), "rest": rest}
+
+
+def lake_sync(table, committer, name: str, rec: Recorder, dev,
+              what: str) -> dict:
+    """sync_iceberg through `committer`, timed: the seconds split into
+    the metadata write and the REST commit."""
+    n = len(committer.seconds)
+    t0 = time.perf_counter()
+    path = rec.run(name, what, 0, dev, lambda: table.sync_iceberg(
+        committer=committer))
+    total = time.perf_counter() - t0
+    rest = committer.seconds[n] if len(committer.seconds) > n else 0.0
+    log(f"  {name} {what}: {total:.3f} s = metadata {total - rest:.3f} s "
+        f"+ REST commit {rest:.3f} s -> {os.path.basename(path)}")
+    return {"s": total, "metadata_s": total - rest, "rest_s": rest,
+            "path": path}
+
+
+def ice_orders(work: str, rec: Recorder, dev, scale: int, catalog,
+               server) -> dict:
+    """ice_orders_16M: a primary-key table ingested by a
+    StreamIngestTopology of 2 writers (8 checkpoints, the 8th replayed),
+    fully compacted on the card, exported to Iceberg through a REST
+    catalog and read back by IcebergTable from both metadata locations;
+    then 2 checkpoints of upserts and a sync without compaction (the
+    view unchanged, the CAS base the first export's snapshot), a second
+    compaction and sync; one epoch of jax_batches on the card; the VFS
+    over the catalog.  Every answer against a numpy oracle."""
+    import torch
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.iceberg.rest import (
+        IcebergRestClient, IcebergRestCommitter,
+    )
+    from paimon_tpu_torch.integrations.jax_data import jax_batches
+    from paimon_tpu_torch.table.topology import StreamIngestTopology
+    from paimon_tpu_torch.types import BigIntType, DoubleType, IntType
+    from paimon_tpu_torch.vfs import Vfs
+
+    name = f"ice_orders_{16 // scale}M" if scale <= 16 else "ice_orders"
+    per, keys = LAKE_PER_CHECKPOINT // scale, LAKE_KEYS // scale
+    upserts = LAKE_UPSERTS // scale
+    rng = np.random.default_rng(7)
+    out: dict = {"rows": LAKE_CHECKPOINTS * per}
+    steps: dict = {}
+
+    def step(what, rows, fn):
+        t0 = time.perf_counter()
+        res = rec.run(name, what, rows, dev, fn)
+        steps[what] = time.perf_counter() - t0
+        return res
+
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v1", BigIntType()).column("v2", DoubleType())
+              .column("v3", IntType()).primary_key("id")
+              .options({"bucket": "2", "write-only": "true"}).build())
+    table = catalog.create_table(f"{LAKE_NS}.{name}", schema)
+    oracle = SqlOracle(keys)
+    t0 = time.perf_counter()
+    batches = [[sql_batch(rng, per // LAKE_WRITES, keys)
+                for _ in range(LAKE_WRITES)]
+               for _ in range(LAKE_CHECKPOINTS)]
+    log(f"  {name}: {LAKE_CHECKPOINTS} x {LAKE_WRITES} batches of "
+        f"{per // LAKE_WRITES} rows made in {time.perf_counter() - t0:.2f} s")
+    threads0 = thread_launches(rec.capture, name)
+    topo = StreamIngestTopology(table, num_writers=LAKE_WRITERS,
+                                commit_user="lake-ingest")
+    try:
+        def ingest(ckpts, first):
+            for k, ckpt in enumerate(ckpts, first):
+                for b in ckpt:
+                    topo.write(b)
+                if topo.checkpoint(k) is None:
+                    raise AssertionError(f"{name}: checkpoint {k} "
+                                         f"committed nothing")
+        step(f"topology write x{LAKE_CHECKPOINTS}", out["rows"],
+             lambda: ingest(batches, 1))
+        out["k1_by_thread"] = launches_since(rec.capture, name, threads0)
+        latest = table.latest_snapshot().id
+
+        def replay():
+            for b in batches[-1]:
+                topo.write(b)
+            return topo.checkpoint(LAKE_CHECKPOINTS)
+        if step("replayed checkpoint", per, replay) is not None or \
+                table.latest_snapshot().id != latest:
+            raise AssertionError(f"{name}: the replayed checkpoint "
+                                 f"{LAKE_CHECKPOINTS} committed")
+        t0 = time.perf_counter()
+        oracle.upsert(*(np.concatenate(c) for c in zip(
+            *(columns_of(b) for ckpt in batches for b in ckpt))))
+        del batches
+        log(f"  {name}: oracle of the checkpoints in "
+            f"{time.perf_counter() - t0:.2f} s")
+        live = int(oracle.live.sum())
+        out["live"] = live
+
+        if step("full compaction", out["rows"],
+                lambda: table.compact(full=True)) is None:
+            raise AssertionError(f"{name}: the full compaction committed "
+                                 f"nothing")
+        client = IcebergRestClient(server.uri)
+        committer = TimedCommitter(IcebergRestCommitter(client, LAKE_NS,
+                                                        name))
+        syncs = [lake_sync(table, committer, name, rec, dev, "sync")]
+        first_snap = table.latest_snapshot().id
+
+        def read_views(what):
+            views = iceberg_views(table, client, name)
+            got = {}
+            for where, view in views.items():
+                got[where] = step(f"iceberg read ({where}) {what}", live,
+                                  view.to_arrow)
+                oracle.check(f"{name} iceberg view ({where}) {what}",
+                             got[where])
+            return views, got
+        views, _ = read_views("after the compaction")
+        oracle.check(f"{name} table read",
+                     step("table read", live, table.to_arrow))
+        files0 = sorted(f.file_path for f in views["files"].plan_files())
+
+        # upserts that only a merge-on-read scan sees until the next
+        # full compaction
+        ups = [sql_batch(rng, upserts, keys)
+               for _ in range(LAKE_UPSERT_CHECKPOINTS)]
+        step(f"topology upserts x{LAKE_UPSERT_CHECKPOINTS}",
+             upserts * LAKE_UPSERT_CHECKPOINTS,
+             lambda: ingest([[b] for b in ups], LAKE_CHECKPOINTS + 1))
+        syncs.append(lake_sync(table, committer, name, rec, dev,
+                               "sync without compaction"))
+        if committer.bases[-1] != first_snap:
+            raise AssertionError(f"{name}: the CAS base {committer.bases[-1]}"
+                                 f" is not the first export's snapshot "
+                                 f"{first_snap}")
+        views, _ = read_views("after the upserts, not compacted")
+        for where, view in views.items():
+            if sorted(f.file_path for f in view.plan_files()) != files0:
+                raise AssertionError(f"{name}: the un-compacted sync "
+                                     f"changed the {where} view's files")
+        for b in ups:
+            oracle.upsert(*columns_of(b))
+        merged_in = live + upserts * LAKE_UPSERT_CHECKPOINTS
+        live = int(oracle.live.sum())
+        if step("full compaction 2", merged_in,
+                lambda: table.compact(full=True)) is None:
+            raise AssertionError(f"{name}: the second full compaction "
+                                 f"committed nothing")
+        syncs.append(lake_sync(table, committer, name, rec, dev, "sync 2"))
+        if committer.bases[-1] != table.latest_snapshot().id - 1:
+            raise AssertionError(f"{name}: the second CAS base is "
+                                 f"{committer.bases[-1]}")
+        views, _ = read_views("after the second compaction")
+        oracle.check(f"{name} table read 2",
+                     step("table read 2", live, table.to_arrow))
+    finally:
+        topo.close()
+
+    # one epoch of device batches
+    on_card = dev.type == "cuda"
+    sums = {c: torch.zeros((), dtype=torch.float64 if c == "v2"
+                           else torch.int64, device=dev)
+            for c in LAKE_COLUMNS}
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    moved = batches_seen = 0
+    waited = 0.0
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = jax_batches(table, LAKE_BATCH, projection=LAKE_COLUMNS,
+                     drop_remainder=False)
+    while True:
+        t1 = time.perf_counter()
+        batch = next(it, None)
+        waited += time.perf_counter() - t1
+        if batch is None:
+            break
+        batches_seen += 1
+        mask = batch.pop("_mask", None)
+        for c, x in batch.items():
+            if x.device.type != dev.type or x.shape != (LAKE_BATCH,):
+                raise AssertionError(f"{name} jax_batches: {c} {x.shape} "
+                                     f"on {x.device}")
+            moved += x.numel() * x.element_size()
+            sums[c] += (x if mask is None else x[mask]).sum(
+                dtype=sums[c].dtype)
+        count += LAKE_BATCH if mask is None else mask.sum()
+        if mask is not None:
+            moved += mask.numel()
+    if on_card:
+        torch.cuda.synchronize()
+    epoch = time.perf_counter() - t0
+    ids = oracle.ids()
+    want = {"id": int(ids.sum()), "v1": int(oracle.v1[ids].sum()),
+            "v3": int(oracle.v3[ids].astype(np.int64).sum())}
+    got = {c: sums[c].item() for c in LAKE_COLUMNS}
+    if int(count.item()) != len(ids) or \
+            any(got[c] != want[c] for c in want) or \
+            not math.isclose(got["v2"], float(oracle.v2[ids].sum()),
+                             rel_tol=1e-12):
+        raise AssertionError(f"{name} jax_batches: rows {count.item()}, "
+                             f"sums {got} against the oracle's {len(ids)}, "
+                             f"{want}")
+    rec.add(name, "jax_batches epoch", len(ids), dev, epoch, (0, 0))
+    out["loader"] = {
+        "batches": batches_seen, "rows_per_s": len(ids) / epoch,
+        "epoch_s": epoch, "h2d_bytes": moved,
+        "h2d_gb_per_s_epoch": moved / epoch / 1e9,
+        "consumer_wait_share": waited / epoch}
+    if on_card:
+        # the copy engine's rate at the loader's batch: one batch's
+        # columns from pinned buffers, 20 times, by CUDA events
+        host = torch.empty(moved // batches_seen, dtype=torch.uint8,
+                           pin_memory=True)
+        dst = torch.empty_like(host, device=dev)
+        dst.copy_(host, non_blocking=True)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(20):
+            dst.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out["loader"]["h2d_gb_per_s_copy"] = \
+            20 * host.numel() / (start.elapsed_time(end) / 1e3) / 1e9
+    log(f"  {name} jax_batches: {batches_seen} batches of {LAKE_BATCH} in "
+        f"{epoch:.2f} s: {out['loader']}")
+
+    # the VFS over the catalog
+    t0 = time.perf_counter()
+    vfs = Vfs(catalog)
+    listed = {s.path.rsplit("/", 1)[-1]
+              for s in vfs.listdir(f"/{LAKE_NS}/{name}")}
+    if not {"snapshot", "manifest", "schema", "metadata", "bucket-0",
+            "bucket-1"} <= listed:
+        raise AssertionError(f"{name} vfs: {sorted(listed)}")
+    sid = table.latest_snapshot().id
+    with open(os.path.join(table.path, "snapshot", f"snapshot-{sid}"),
+              "rb") as f:
+        if vfs.open(f"/{LAKE_NS}/{name}/snapshot/snapshot-{sid}") != \
+                f.read():
+            raise AssertionError(f"{name} vfs: snapshot-{sid} differs from "
+                                 f"the file")
+    steps["vfs"] = time.perf_counter() - t0
+    out.update(syncs=[{k: v for k, v in s.items() if k != "path"}
+                      for s in syncs],
+               steps_s=steps, cas_bases=committer.bases)
+    return out
+
+
+def lake_coverage(work: str, rec: Recorder, dev, scale: int, catalog,
+                  loader) -> dict:
+    """lake_coverage: the deletion-vector refusal, an ORC-topped
+    partitioned export, a DLF-signed REST round trip, the topology's
+    round-robin append and dynamic-bucket refusal, the split tasks, and
+    (started by the caller) a DataLoader's spawn workers."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from paimon_tpu_torch import Schema, predicate as P
+    from paimon_tpu_torch.catalog.auth import (
+        DLFAuthProvider, verify_dlf_request,
+    )
+    from paimon_tpu_torch.iceberg.reader import IcebergTable
+    from paimon_tpu_torch.iceberg.rest import (
+        IcebergRESTCatalogServer, IcebergRestClient, IcebergRestCommitter,
+    )
+    from paimon_tpu_torch.integrations.ray_data import split_read_tasks
+    from paimon_tpu_torch.table.topology import StreamIngestTopology
+    from paimon_tpu_torch.types import BigIntType, DoubleType, VarCharType
+
+    out: dict = {}
+    t_all = time.perf_counter()
+
+    # the deletion vectors of an append table: the export refuses
+    n = LAKE_DV_ROWS // scale
+    t0 = time.perf_counter()
+    dv = catalog.create_table(f"{LAKE_NS}.dv_append", Schema.builder()
+                              .column("id", BigIntType(False))
+                              .column("v", DoubleType())
+                              .options({"bucket": "-1",
+                                        "deletion-vectors.enabled": "true"})
+                              .build())
+    wb = dv.new_batch_write_builder()
+    with wb.new_write() as w:
+        w.write_arrow(pa.table({"id": pa.array(np.arange(n), pa.int64()),
+                                "v": pa.array(np.arange(n) / 2)}))
+        wb.new_commit().commit(w.prepare_commit())
+    dv.delete_where(P.less_than("id", n // LAKE_DV_SHARE))
+    reads = dv.to_arrow().num_rows
+    files = [f.file_name for s in dv.new_scan().plan().splits
+             for f in s.data_files]
+    whole = sum(pq.ParquetFile(os.path.join(dv.path, "bucket-0", f))
+                .metadata.num_rows for f in files)
+    try:
+        dv.sync_iceberg()
+        raise AssertionError("dv_append: sync_iceberg exported a table "
+                             "whose files carry deletion vectors")
+    except ValueError as e:
+        if dv.path not in str(e) or not any(f in str(e) for f in files):
+            raise AssertionError(f"dv_append: the refusal names neither "
+                                 f"the table nor the file: {e}")
+    if os.path.exists(os.path.join(dv.path, "metadata")) or \
+            reads != n - n // LAKE_DV_SHARE or whole != n:
+        raise AssertionError(f"dv_append: {reads} rows read, {whole} in "
+                             f"the files")
+    dv.compact(full=True)
+    dv.sync_iceberg()
+    if IcebergTable.load(dv.path).to_arrow().num_rows != reads:
+        raise AssertionError("dv_append: the export after compaction")
+    out["dv_append"] = {"rows": n, "table_reads": reads,
+                        "files_hold": whole,
+                        "s": time.perf_counter() - t0}
+
+    # ORC at the top level, a dt partition, a DLF-signed REST catalog
+    t0 = time.perf_counter()
+    m = LAKE_ORC_ROWS // scale
+    orc = catalog.create_table(f"{LAKE_NS}.orc_dt", Schema.builder()
+                               .column("id", BigIntType(False))
+                               .column("dt", VarCharType(nullable=False))
+                               .column("v", DoubleType())
+                               .partition_keys("dt").primary_key("id", "dt")
+                               .options({"bucket": "2", "write-only": "true",
+                                         "file.format.per.level": "5:orc"})
+                               .build())
+    rng = np.random.default_rng(7)
+    days = np.array(["2024-06-01", "2024-06-02", "2024-06-03"])
+    for _ in range(2):
+        wb = orc.new_batch_write_builder()
+        with wb.new_write() as w:
+            w.write_arrow(pa.table({
+                "id": pa.array(rng.integers(0, m, m), pa.int64()),
+                "dt": pa.array(days[rng.integers(0, 3, m)]),
+                "v": pa.array(rng.random(m))}))
+            wb.new_commit().commit(w.prepare_commit())
+    orc.compact(full=True)
+    signed = IcebergRESTCatalogServer(
+        os.path.join(work, "lake_rest_signed"),
+        auth_check=lambda h, method, path, body: verify_dlf_request(
+            h, method, path, None, body, LAKE_DLF_KEYS,
+            region="r-1")).start()
+    try:
+        client = IcebergRestClient(signed.uri, auth_provider=DLFAuthProvider(
+            "lake-ak", "lake-sk", region="r-1"))
+        orc.sync_iceberg(committer=IcebergRestCommitter(client, LAKE_NS,
+                                                        "orc_dt"))
+        views = iceberg_views(orc, client, "orc_dt")
+        try:
+            IcebergRestClient(signed.uri).load_table(LAKE_NS, "orc_dt")
+            raise AssertionError("orc_dt: an unsigned request was served")
+        except RuntimeError as e:
+            if "401" not in str(e):
+                raise
+    finally:
+        signed.stop()
+    want = orc.to_arrow().sort_by([("dt", "ascending"), ("id", "ascending")])
+    for where, view in views.items():
+        planned = view.plan_files()
+        if {f.file_format for f in planned} != {"orc"} or \
+                {f.partition["dt"] for f in planned} != set(days):
+            raise AssertionError(f"orc_dt {where}: {planned}")
+        got = view.to_arrow().sort_by([("dt", "ascending"),
+                                       ("id", "ascending")])
+        if got.column_names != want.column_names or not all(
+                got.column(c).combine_chunks().equals(
+                    want.column(c).combine_chunks())
+                for c in want.column_names):
+            raise AssertionError(f"orc_dt {where}: rows differ from the "
+                                 f"table's")
+    out["orc_dt"] = {"rows": want.num_rows, "s": time.perf_counter() - t0}
+
+    # the topology's round-robin append, and its refusal
+    t0 = time.perf_counter()
+    rr = catalog.create_table(f"{LAKE_NS}.rr_append", Schema.builder()
+                              .column("id", BigIntType(False))
+                              .options({"bucket": "-1"}).build())
+    topo = StreamIngestTopology(rr, num_writers=3)
+    try:
+        for b in range(LAKE_RR_BATCHES):
+            topo.write(pa.table({"id": pa.array(
+                np.arange(b << 12, (b + 1) << 12), pa.int64())}))
+        topo.checkpoint(1)
+    finally:
+        topo.close()
+    ids = np.sort(rr.to_arrow().column("id").to_numpy())
+    if not np.array_equal(ids, np.arange(LAKE_RR_BATCHES << 12)):
+        raise AssertionError("rr_append: rows differ")
+    dyn = catalog.create_table(f"{LAKE_NS}.dyn", Schema.builder()
+                               .column("id", BigIntType(False))
+                               .primary_key("id").build())
+    try:
+        StreamIngestTopology(dyn, num_writers=2)
+        raise AssertionError("dyn: a dynamic-bucket table took 2 writers")
+    except ValueError as e:
+        if "dynamic-bucket" not in str(e):
+            raise
+    out["topology"] = {"rows": len(ids), "s": time.perf_counter() - t0}
+
+    # the split tasks and the DataLoader's workers over one table
+    t0 = time.perf_counter()
+    table, dl_iter = loader
+    total = table.to_arrow().column("id").to_numpy()
+    got = []
+    tasks = split_read_tasks(table, projection=["id"])
+    for task in tasks:
+        got.append(task["fn"]().column("id").to_numpy())
+    if len(tasks) < 2 or sum(t["num_rows"] for t in tasks) != len(total) or \
+            not np.array_equal(np.sort(np.concatenate(got)), np.sort(total)):
+        raise AssertionError("split tasks: they do not cover the table once")
+    seen = np.concatenate([b["id"].numpy() for b in dl_iter])
+    if not np.array_equal(np.sort(seen), np.sort(total)):
+        raise AssertionError(f"DataLoader: {len(seen)} rows seen, the table "
+                             f"holds {len(total)}")
+    out["loader_workers"] = {"rows": len(seen), "tasks": len(tasks),
+                             "s": time.perf_counter() - t0}
+    out["s"] = time.perf_counter() - t_all
+    log(f"  lake_coverage: {out}")
+    return out
+
+
+def lake_loader(catalog, scale: int) -> tuple:
+    """lake_coverage's 4-bucket append table of 2^18 rows and an iterator
+    of its DataLoader under 2 spawn workers, started now so that the
+    workers come up while the rest of the phase runs."""
+    import pyarrow as pa
+
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.integrations.torch_data import to_torch_dataloader
+    from paimon_tpu_torch.types import BigIntType, DoubleType
+
+    n = LAKE_LOADER_ROWS // scale
+    table = catalog.create_table(f"{LAKE_NS}.loader", Schema.builder()
+                                 .column("id", BigIntType(False))
+                                 .column("v", DoubleType())
+                                 .options({"bucket": "4", "bucket-key": "id"})
+                                 .build())
+    rng = np.random.default_rng(7)
+    wb = table.new_batch_write_builder()
+    with wb.new_write() as w:
+        w.write_arrow(pa.table({"id": pa.array(rng.permutation(n),
+                                               pa.int64()),
+                                "v": pa.array(rng.random(n))}))
+        wb.new_commit().commit(w.prepare_commit())
+    dl = to_torch_dataloader(table, projection=["id", "v"],
+                             batch_size=n // 16,
+                             num_workers=LAKE_LOADER_WORKERS,
+                             multiprocessing_context="spawn")
+    return table, iter(dl)
+
+
+def lake_interop(work: str, rec: Recorder, device="cuda",
+                 scale: int = 1) -> dict:
+    """Iceberg export, the data loaders, the ingest topology and the VFS
+    on the card (`scale` divides the row counts, for a rehearsal):
+    ice_orders_16M, then lake_coverage, every table through
+    create_catalog on the card.  Returns what the phase reports."""
+    import torch
+
+    from paimon_tpu_torch import create_catalog
+    from paimon_tpu_torch.iceberg.rest import IcebergRESTCatalogServer
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    first = len(rec.phases)
+    wh = os.path.join(work, "lake_wh")
+    catalog = create_catalog({"warehouse": wh}, device=dev)
+    catalog.create_database(LAKE_NS)
+    loader = lake_loader(catalog, scale)
+    server = IcebergRESTCatalogServer(os.path.join(work, "lake_rest")).start()
+    try:
+        ice = ice_orders(work, rec, dev, scale, catalog, server)
+    finally:
+        server.stop()
+    name = next(p["table"] for p in rec.phases
+                if p["table"].startswith("ice_orders"))
+    if dev.type == "cuda" and not all(
+            p["launches_plain"] for p in rec.phases if p["table"] == name and
+            (p["phase"].startswith("topology write") or
+             p["phase"].startswith("full compaction"))):
+        raise AssertionError(f"lake_interop: K1 did not launch in every "
+                             f"write and compaction of {name}")
+    cov = lake_coverage(work, rec, dev, scale, catalog, loader)
+    shutil.rmtree(wh, ignore_errors=True)
+    # each recorded step resets the card's peak: the phase's is theirs
+    peaks = [p["peak_gib"] for p in rec.phases[first:]
+             if p["peak_gib"] is not None]
+    out = {name: ice, "lake_coverage": cov,
+           "peak_gib": max(peaks) if peaks else None,
+           "s": time.perf_counter() - t_phase}
+    if dev.type == "cuda":
+        out["card"] = card_line()
+    return out
+
+
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_1M",
                  "ap_queue_coverage")
@@ -10315,7 +11022,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               mesh: dict, served: dict, bucketed: dict,
               maintained: dict, planes: dict, indexed: dict,
               appended: dict, formatted: dict, sqled: dict,
-              streamed: dict, searched: dict, fleet: dict) -> tuple:
+              streamed: dict, searched: dict, fleet: dict,
+              laked: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -10355,17 +11063,17 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             return out
         return path(name, run)
 
+    oracles = None
     try:
         t0 = time.perf_counter()
         batches = bigint_batches(rows)
         log(f"batches of {rows} rows made in {time.perf_counter() - t0:.1f} "
             f"s")
+        # started once this process's batches are made: the two do not
+        # contend for the cores while they fill their arrays
+        oracles = OracleChild(rows, work)
         cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
                 for c in ("id", "v1", "v2", "v3")}
-        t0 = time.perf_counter()
-        win = last_writer_oracle(cols["id"])
-        agg_want = agg_oracle(cols)
-        log(f"numpy oracles of {rows} rows: {time.perf_counter() - t0:.1f} s")
         base = {"bucket": "1", "write-only": "true",
                 "parquet.enable.dictionary": "false"}
 
@@ -10378,9 +11086,13 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                 f"device_decode_dedup in {time.perf_counter() - t0:.1f} s")
 
         with capture, reducer, timer, decode_timer:
+            # the oracles come from their process at the first check,
+            # after the dedup write
             drive("dedup_bigint", bigint_schema(base), batches,
-                  lambda what, got: check_rows(what, got, cols, win, "id"),
+                  lambda what, got: check_rows(what, got, cols,
+                                               oracles.get()[0], "id"),
                   after_write=copy_dedup)
+            win, agg_want = oracles.get()
             # the same files read through the device decode plane
             decoded["dedup"] = path("device_decode_dedup",
                                     lambda: device_decode_dedup(
@@ -10498,6 +11210,10 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # through SQL and the Python API, HNSW, IVF-Flat, full-text
             # and hybrid search
             searched.update(path("search", lambda: search(work, rec)))
+            # the Iceberg export through a REST catalog, the multi-writer
+            # ingest topology, the loaders and the VFS
+            laked.update(path("lake_interop",
+                              lambda: lake_interop(work, rec)))
         moved = counter_delta(planes0)
         injected = sum(planes["faults_500K"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
@@ -10552,6 +11268,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                                  f"path: {totals}")
         return tuple(totals)
     finally:
+        if oracles is not None:
+            oracles.stop()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -10611,11 +11329,12 @@ def main() -> int:
     streamed: dict = {}
     searched: dict = {}
     fleet: dict = {}
+    laked: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
                          appended, formatted, sqled, streamed, searched,
-                         fleet)
+                         fleet, laked)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -10677,6 +11396,19 @@ def main() -> int:
             f"write x{SEARCH_COMMITS}"],
         "read_s": vec["steps_s"]["read"],
         "coverage_s": searched["search_coverage"]["s"]}}))
+    ice = next(v for k, v in laked.items() if k.startswith("ice_orders"))
+    ice_phase = {p["phase"]: p for p in phases
+                 if p["table"].startswith("ice_orders")}
+    print(json.dumps({"lake_interop": {
+        "card": laked["card"], "phase_s": laked["s"],
+        "peak_gib": laked["peak_gib"], "rows": ice["rows"],
+        "live": ice["live"], "k1_by_thread": ice["k1_by_thread"],
+        **{f"{k}_rows_per_s": ice_phase[k]["rows_per_s"] for k in (
+            f"topology write x{LAKE_CHECKPOINTS}", "full compaction",
+            "full compaction 2", "iceberg read (files) after the compaction",
+            "iceberg read (rest) after the compaction")},
+        "syncs": ice["syncs"], "loader": ice["loader"],
+        "coverage_s": laked["lake_coverage"]["s"]}}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

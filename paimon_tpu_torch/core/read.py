@@ -239,12 +239,15 @@ class MergeFileSplitRead:
             out = out.filter(self._predicate.to_arrow())
         return out
 
-    def iter_splits(self, splits: Sequence[DataSplit]
+    def iter_splits(self, splits: Sequence[DataSplit], *,
+                    ordered: bool = True
                     ) -> Iterator[Tuple[int, DataSplit, pa.Table]]:
-        """(index, split, table) in split order, read by the split pool
-        (parallel/scan_pipeline.py)."""
+        """(index, split, table) read by the split pool
+        (parallel/scan_pipeline.py), in split order, or in completion
+        order with ordered=False."""
         from paimon_tpu_torch.parallel.scan_pipeline import iter_split_tables
-        return iter_split_tables(self, splits, self.options)
+        return iter_split_tables(self, splits, self.options,
+                                 ordered=ordered)
 
     def read_splits(self, splits: Sequence[DataSplit],
                     streaming: Optional[bool] = None) -> pa.Table:

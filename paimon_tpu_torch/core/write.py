@@ -591,11 +591,14 @@ class LocalMerger:
         self.buffer_bytes = buffer_bytes
         self._tables: List[pa.Table] = []
         self._kinds: List[np.ndarray] = []
+        self._buckets: List[Optional[np.ndarray]] = []
         self._nbytes = 0
 
-    def add(self, table: pa.Table, kinds: np.ndarray):
+    def add(self, table: pa.Table, kinds: np.ndarray,
+            buckets: Optional[np.ndarray] = None):
         self._tables.append(table)
         self._kinds.append(kinds)
+        self._buckets.append(buckets)
         self._nbytes += table.nbytes
         if self._nbytes >= self.buffer_bytes:
             self.flush()
@@ -605,7 +608,11 @@ class LocalMerger:
             return
         raw = pa.concat_tables(self._tables, promote_options="none")
         kinds = np.concatenate(self._kinds)
-        self._tables, self._kinds = [], []
+        # buckets assigned by the caller survive the fold when every
+        # buffered batch carried them (the topology's shuffle does)
+        buckets = np.concatenate(self._buckets) \
+            if all(b is not None for b in self._buckets) else None
+        self._tables, self._kinds, self._buckets = [], [], []
         self._nbytes = 0
         if raw.num_rows == 0:
             return
@@ -624,7 +631,8 @@ class LocalMerger:
             seq_desc=store.options.sequence_field_descending,
             device=store.device)
         idx = res.indices
-        store._dispatch(raw.take(pa.array(idx)), kinds[idx])
+        store._dispatch(raw.take(pa.array(idx)), kinds[idx],
+                        None if buckets is None else buckets[idx])
 
 
 class KeyValueFileStoreWrite:
@@ -757,16 +765,20 @@ class KeyValueFileStoreWrite:
     # -- writes --------------------------------------------------------------
 
     def write_arrow(self, table: pa.Table,
-                    row_kinds: Optional[np.ndarray] = None):
+                    row_kinds: Optional[np.ndarray] = None,
+                    buckets: Optional[np.ndarray] = None):
         """Write a batch of rows (full table schema). Optional `row_kinds`
-        int8[N] (RowKind codes); a `_ROW_KIND` column is also honored."""
+        int8[N] (RowKind codes); a `_ROW_KIND` column is also honored.
+        `buckets` skips re-hashing when the caller already assigned
+        them (the multi-writer topology's shuffle)."""
         table, row_kinds = extract_row_kinds(table, row_kinds)
         if self._local_merger is not None and not self._postpone:
-            self._local_merger.add(table, row_kinds)
+            self._local_merger.add(table, row_kinds, buckets)
             return
-        self._dispatch(table, row_kinds)
+        self._dispatch(table, row_kinds, buckets)
 
-    def _dispatch(self, table: pa.Table, row_kinds: np.ndarray):
+    def _dispatch(self, table: pa.Table, row_kinds: np.ndarray,
+                  precomputed_buckets: Optional[np.ndarray] = None):
         from paimon_tpu_torch.parallel.write_pipeline import lpt_order
 
         if self._postpone:
@@ -801,8 +813,9 @@ class KeyValueFileStoreWrite:
         # runs on a prep worker while the previous batch routes.
         # Routing (and therefore sequence reservation) stays on this
         # thread, in batch order.
-        def prep(table=table, kinds=row_kinds):
-            buckets = self.bucket_assigner.assign(table)
+        def prep(table=table, kinds=row_kinds, pre=precomputed_buckets):
+            buckets = pre if pre is not None \
+                else self.bucket_assigner.assign(table)
             out = []
             for (part, bucket), idx in lpt_order(
                     group_by_partition_bucket(

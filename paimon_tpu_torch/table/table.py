@@ -239,9 +239,14 @@ class FileStoreTable:
                     "A.8.9")
 
     def sync_iceberg(self, committer=None) -> Optional[str]:
-        """Export the current snapshot as Iceberg v2 metadata (iceberg/),
-        not ported yet."""
-        _not_ported("sync_iceberg (iceberg/)", "A.8.9")
+        """Export the current snapshot as Iceberg v2 metadata under
+        <table>/metadata/ (reference iceberg/IcebergCommitCallback);
+        `committer` also publishes it to an Iceberg REST catalog
+        (reference IcebergRestMetadataCommitter).  Raises ValueError,
+        writing nothing, where an exported file has rows deleted by a
+        deletion vector."""
+        from paimon_tpu_torch.iceberg import sync_iceberg
+        return sync_iceberg(self, committer=committer)
 
     def new_stream_write_builder(self) -> "StreamWriteBuilder":
         return StreamWriteBuilder(self)
@@ -555,8 +560,13 @@ class TableWrite:
             self._write = CrossPartitionUpsertWrite(self._write, table)
 
     def write_arrow(self, data: pa.Table,
-                    row_kinds: Optional[np.ndarray] = None):
-        self._write.write_arrow(self._apply_field_defaults(data), row_kinds)
+                    row_kinds: Optional[np.ndarray] = None,
+                    buckets=None):
+        data = self._apply_field_defaults(data)
+        if buckets is not None:
+            self._write.write_arrow(data, row_kinds, buckets=buckets)
+        else:
+            self._write.write_arrow(data, row_kinds)
 
     def _apply_field_defaults(self, data: pa.Table) -> pa.Table:
         """NULL incoming values become the column's configured default
@@ -956,6 +966,18 @@ class TableRead:
     def read_split(self, split: DataSplit) -> pa.Table:
         return self._finalize(self._read.read_split(split))
 
+    def iter_splits(self, splits, *, ordered: bool = True):
+        """Yield `(index, split, finalized_table)` through the bounded
+        prefetch pipeline (parallel/scan_pipeline.py).  Accepts a
+        ScanPlan or a list of DataSplits; `ordered=False` yields splits
+        in completion order for throughput-only consumers."""
+        if isinstance(splits, ScanPlan):
+            splits = splits.splits
+        for i, s, t in self._read.iter_splits(splits, ordered=ordered):
+            # a with_limit() bound applies to the whole read (to_arrow),
+            # not to each yielded split table
+            yield i, s, self._finalize(t, apply_limit=False)
+
     def to_arrow(self, splits) -> pa.Table:
         """Accepts a ScanPlan or a list of DataSplits.  A configured
         `request.timeout` installs an end-to-end deadline here (entry
@@ -989,7 +1011,8 @@ class TableRead:
             out = self._read.read_splits(split_list, streaming)
         return self._finalize(out)
 
-    def _finalize(self, t: pa.Table) -> pa.Table:
+    def _finalize(self, t: pa.Table,
+                  apply_limit: bool = True) -> pa.Table:
         if self.builder._projection:
             from paimon_tpu_torch.core.read import ROW_KIND_COL
             from paimon_tpu_torch.core.row_tracking import ROW_ID_COL
@@ -1000,7 +1023,7 @@ class TableRead:
             if ROW_ID_COL in t.column_names and self.builder._with_row_ids:
                 cols.append(ROW_ID_COL)
             t = t.select(cols)
-        if self.builder._limit is not None:
+        if apply_limit and self.builder._limit is not None:
             t = t.slice(0, self.builder._limit)
         return t
 

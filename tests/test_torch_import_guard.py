@@ -138,7 +138,18 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.vector",
                  "paimon_tpu_torch.vector.ann",
                  "paimon_tpu_torch.vector.hybrid",
-                 "paimon_tpu_torch.index.fulltext"):
+                 "paimon_tpu_torch.index.fulltext",
+                 "paimon_tpu_torch.iceberg",
+                 "paimon_tpu_torch.iceberg.metadata",
+                 "paimon_tpu_torch.iceberg.reader",
+                 "paimon_tpu_torch.iceberg.rest",
+                 "paimon_tpu_torch.integrations",
+                 "paimon_tpu_torch.integrations.torch_data",
+                 "paimon_tpu_torch.integrations.jax_data",
+                 "paimon_tpu_torch.integrations.ray_data",
+                 "paimon_tpu_torch.integrations.daft_data",
+                 "paimon_tpu_torch.table.topology",
+                 "paimon_tpu_torch.vfs"):
         assert name in out["modules"]
 
 

@@ -10,6 +10,11 @@ the same input is pinned, so a change on either side shows.
 - C.11: widening a BIGINT holding values beyond 2^53 to DOUBLE made
   every read raise (a safe Arrow cast).  The port casts as Java's
   `(double) long` does, rounding to nearest even.
+- The Iceberg export of an append table lists every live data file
+  whole and never looks at the snapshot's deletion vectors, so an
+  Iceberg reader reads rows back that Paimon deleted.  The port's
+  `sync_iceberg` raises ValueError naming the table and the file, and
+  writes nothing.
 """
 
 from __future__ import annotations
@@ -108,3 +113,43 @@ def test_update_column_type_to_double_reads_as_java(tmp_path, value, want):
                                        {"id": 2, "x": 7.0}]
     with pytest.raises(pa.ArrowInvalid, match="not in range"):
         got["reference"].to_arrow()
+
+
+def _dv_append_table(pkg, root):
+    """An append table with `bucket=-1` and deletion vectors, ids 0-99
+    in one commit, then delete_where(id < 10)."""
+    t = pkg.create(root, pkg.schema(
+        [("id", "BigIntType", False), ("v", "DoubleType", True)], pk=(),
+        options={"bucket": "-1", "deletion-vectors.enabled": "true"}))
+    commit(t, [{"id": i, "v": i / 2} for i in range(100)])
+    t.delete_where(pkg.P.less_than("id", 10))
+    return t
+
+
+def test_iceberg_export_of_deleted_append_rows(tmp_path):
+    """The reference's Iceberg view reads the 10 deleted rows back (100
+    rows where the table reads 90); the port refuses the export, names
+    the file, and leaves no metadata behind.  After a full compaction
+    the port exports the 90 rows."""
+    import os
+
+    from paimon_tpu.iceberg.reader import IcebergTable as RefIcebergTable
+    from paimon_tpu_torch.iceberg.reader import IcebergTable
+
+    ref = _dv_append_table(REF, str(tmp_path))
+    assert ref.to_arrow().num_rows == 90
+    ref.sync_iceberg()
+    assert RefIcebergTable.load(ref.path).to_arrow().num_rows == 100
+
+    t = _dv_append_table(PORT, str(tmp_path))
+    assert t.to_arrow().num_rows == 90
+    (data_file,) = [f.file_name for s in t.new_scan().plan().splits
+                    for f in s.data_files]
+    with pytest.raises(ValueError) as e:
+        t.sync_iceberg()
+    assert t.path in str(e.value) and data_file in str(e.value)
+    assert not os.path.exists(os.path.join(t.path, "metadata"))
+    assert t.compact(full=True) is not None
+    t.sync_iceberg()
+    got = IcebergTable.load(t.path).to_arrow()
+    assert sorted(got.column("id").to_pylist()) == list(range(10, 100))

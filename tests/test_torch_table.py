@@ -503,11 +503,7 @@ def _table_method(name):
         with tempfile.TemporaryDirectory() as d:
             table = FileStoreTable.create(os.path.join(d, "t"), pk_schema(),
                                           device="cpu")
-            if name == "sync_iceberg":
-                table.sync_iceberg(committer=None)
-            else:
-                table.new_distributed_write("writer", process_index=0,
-                                            process_count=1)
+            getattr(table, name)("writer", process_index=0, process_count=1)
     return run
 
 
@@ -515,7 +511,6 @@ def _table_method(name):
     (_blob_descriptor_reads, "A.8.8b"), (_variant_shredding, "A.8.8b"),
     (_multi_process_mesh, "A.8.9"),
     (_plane_stamps, "A.8.9"),
-    (_table_method("sync_iceberg"), "A.8.9"),
     (_table_method("new_distributed_write"), "A.8.9"),
     (_cli_command("fleet", "status", "d1.t"), "A.8.9"),
     (_distributed_stream_daemon, "A.8.9"),
