@@ -357,6 +357,39 @@ then):
      covering a table, and a DataLoader of 2 spawn workers seeing each
      of 2^18 rows once.  It prints a {"lake_interop": ...} line of the
      recorded figures;
+   - multihost_planes: the multi-host planes (parallel/multihost.py,
+     distributed.py, maintenance_plane.py, the stream daemon's plane
+     mode) across OS processes that share the card: two hosts of one
+     gloo group on 127.0.0.1 and a third process, host 1 restarted, all
+     started with lake_interop so that their start overlaps it (the
+     Paimon docs' "Concurrency Control" and "Data Distribution" pages,
+     with the reference's benchmarks/multihost_bench.py and
+     tests/multihost_soak.py rigs; seed 7).  mh_orders_16M: bench.py's
+     columns keyed by id, v1 in [0, 2^32), bucket=4, write-only, the
+     multihost.* keys at their defaults ('exchange' routing, 'cas'
+     arbitration; buckets 0 and 2 owned by host 0, 1 and 3 by host 1);
+     8 rounds in which each host writes 1M rows of its own (ids uniform
+     in [0, 8M)), half routed to their owner by allgather_bytes, and
+     commits under writer-p<i>; pinned-snapshot scans after rounds 4 and
+     8, each host reading its assign_splits share; compact_table_mesh in
+     each host over the groups it owns; rescale_buckets(8) and a pinned
+     scan; fsck with its ownership check.  Every read is held per bucket
+     against the last writers of every row regenerated on the card (a
+     multiset digest), the two hosts pinning one snapshot id.
+     mh_coverage: a 2^18-row table under 'coordinator' arbitration and
+     'spmd' routing equal to the same rows under 'cas', a column of
+     process_local_batch summed across the hosts against its oracle,
+     which collectives gloo runs on the card's tensors, and the plane
+     soak: a StreamDaemon with plane=MaintenancePlane in each host over
+     2^16 events of 2^12 keys at tests/multihost_soak.py's options, host
+     1 SIGKILLed at a third of the stream, host 0 taking its buckets
+     over, host 1 restarted as a store-only rejoiner and readmitted,
+     the table equal to the stream's state, each commit user's offsets
+     rising, fsck clean and `fleet status` equal to the plane's view.
+     Each process holds its first K1 launch of each shape against the
+     plain version and reports its launches (counted in the `kernels`
+     line) and its peak device memory.  It prints a
+     {"multihost_planes": ...} line with the card;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -403,8 +436,8 @@ config-5 metrics, the device decode results, the mesh compaction, the
 serving phase, the serving fleet, the merge routes, the bucket modes,
 the maintenance phase, the read and write planes, the file indexes, the append tables,
 the formats and types, the catalog and SQL, the streaming phase and
-its figures, the search phase's figures, the lake phase's, the stage
-split
+its figures, the search phase's figures, the lake phase's, the
+multihost phase's, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -1843,37 +1876,51 @@ def value_table(ids: np.ndarray, vals: dict):
 
 class DenseState:
     """The visible rows of a table whose ids are dense non-negative
-    integers, held in numpy: the oracle of the changelog and the fold of
-    a consumer's stream."""
+    integers, held in tensors on `dev` (the card in the run): the oracle
+    of the changelog and the fold of a consumer's stream.  Every
+    operation is a sort, scatter or gather there, so the oracle's work
+    stays off the host between the phase's steps."""
 
-    def __init__(self, capacity: int):
-        self.live = np.zeros(capacity, dtype=bool)
-        self.cols = {"v1": np.zeros(capacity, np.int64),
-                     "v2": np.zeros(capacity, np.float64),
-                     "v3": np.zeros(capacity, np.int32)}
+    def __init__(self, capacity: int, dev):
+        import torch
+        self.dev = dev
+        self.live = torch.zeros(capacity, dtype=torch.bool, device=dev)
+        self.cols = {"v1": torch.zeros(capacity, dtype=torch.int64,
+                                       device=dev),
+                     "v2": torch.zeros(capacity, dtype=torch.float64,
+                                       device=dev),
+                     "v3": torch.zeros(capacity, dtype=torch.int32,
+                                       device=dev)}
 
-    def transitions(self, ids: np.ndarray, vals: dict) -> dict:
-        """Apply one commit of upserts (the last value of an id in the
-        commit wins) and return the changelog it implies: +I for an id
-        that was not live, -U with the old row then +U with the new one
-        for a changed value, nothing for an unchanged one."""
-        order = np.argsort(ids, kind="stable")
+    def transitions(self, ids, vals: dict) -> dict:
+        """Apply one commit of upserts (tensors; the last value of an id
+        in the commit wins) and return the changelog it implies: +I for
+        an id that was not live, -U with the old row then +U with the
+        new one for a changed value, nothing for an unchanged one."""
+        import torch
+        order = torch.sort(ids, stable=True).indices
         s = ids[order]
-        last = order[np.r_[s[1:] != s[:-1], True]]
+        ends = torch.ones(len(s), dtype=torch.bool, device=self.dev)
+        ends[:-1] = s[1:] != s[:-1]
+        last = order[ends]
         u = ids[last]
         new = {c: v[last] for c, v in vals.items()}
         was = self.live[u]
-        changed = was & np.any([self.cols[c][u] != new[c]
-                                for c in C5_VALUE_COLS], axis=0)
-        ins, upd = ~was, u[changed]
-        out = {"id": np.concatenate([u[ins], upd, upd]),
-               "kind": np.concatenate([
-                   np.full(int(ins.sum()), 0, np.int8),
-                   np.full(len(upd), 1, np.int8),
-                   np.full(len(upd), 2, np.int8)])}
+        diff = torch.zeros_like(was)
         for c in C5_VALUE_COLS:
-            out[c] = np.concatenate([new[c][ins], self.cols[c][upd],
-                                     new[c][changed]])
+            diff |= self.cols[c][u] != new[c]
+        changed = was & diff
+        ins, upd = ~was, u[changed]
+        n_ins, n_upd = int(ins.sum()), len(upd)
+        kind = torch.cat([torch.full((n_ins,), k, dtype=torch.int8,
+                                     device=self.dev)
+                          for k in (0,)] +
+                         [torch.full((n_upd,), k, dtype=torch.int8,
+                                     device=self.dev) for k in (1, 2)])
+        out = {"id": torch.cat([u[ins], upd, upd]), "kind": kind}
+        for c in C5_VALUE_COLS:
+            out[c] = torch.cat([new[c][ins], self.cols[c][upd],
+                                new[c][changed]])
         self.live[u] = True
         for c in C5_VALUE_COLS:
             self.cols[c][u] = new[c]
@@ -1883,10 +1930,13 @@ class DenseState:
         """Apply changelog rows in their order: an id's last row decides
         (+I/+U sets the row, -U/-D removes it); the last row of each id
         is found by a scatter of row numbers by id."""
+        import torch
         ids = rows["id"]
-        at = np.full(len(self.live), -1, dtype=np.int64)
-        np.maximum.at(at, ids, np.arange(len(ids)))
-        u = np.flatnonzero(at >= 0)
+        at = torch.full((len(self.live),), -1, dtype=torch.int64,
+                        device=self.dev)
+        at.scatter_reduce_(0, ids, torch.arange(len(ids), device=self.dev),
+                           reduce="amax")
+        u = torch.nonzero(at >= 0).flatten()
         last = at[u]
         kinds = rows["kind"][last]
         keep = (kinds == 0) | (kinds == 2)
@@ -1896,47 +1946,45 @@ class DenseState:
             self.cols[c][u[keep]] = rows[c][last][keep]
 
     def rows(self) -> dict:
-        ids = np.flatnonzero(self.live)
+        import torch
+        ids = torch.nonzero(self.live).flatten()
         return {"id": ids, **{c: v[ids] for c, v in self.cols.items()}}
 
 
-def arrow_rows(t) -> dict:
-    """Column arrays of a stream read: id, the values, kind, sequence."""
+def arrow_rows(t, dev) -> dict:
+    """Column tensors on `dev` of a stream read: id, the values, kind,
+    sequence."""
+    import torch
+
     from paimon_tpu_torch.core.read import ROW_KIND_COL
     from paimon_tpu_torch.ops.merge import SEQ_COL
-    out = {c: t.column(c).combine_chunks().to_numpy()
-           for c in ("id",) + C5_VALUE_COLS}
-    out["kind"] = t.column(ROW_KIND_COL).combine_chunks().to_numpy()
-    out["seq"] = t.column(SEQ_COL).combine_chunks().to_numpy()
-    return out
+    cols = {c: t.column(c) for c in ("id",) + C5_VALUE_COLS}
+    cols["kind"] = t.column(ROW_KIND_COL)
+    cols["seq"] = t.column(SEQ_COL)
+    return {c: torch.from_numpy(np.array(col.combine_chunks().to_numpy()))
+            .to(dev) for c, col in cols.items()}
 
 
-def canonical_order(rows: dict) -> np.ndarray:
-    """The rows' order by (id, kind, v1, v2, v3): one argsort of a
-    combined (id, kind) key (kinds are 0-3), the values ordering only
-    the rows that tie on it."""
-    key = rows["id"].astype(np.int64) * 4 + rows["kind"]
-    order = np.argsort(key, kind="stable")
-    k = key[order]
-    tie = np.flatnonzero(k[1:] == k[:-1])
-    if len(tie):
-        at = np.unique(np.concatenate([tie, tie + 1]))
-        sub = order[at]
-        order[at] = sub[np.lexsort([rows[c][sub] for c in
-                                    reversed(C5_VALUE_COLS)] + [key[sub]])]
+def canonical_order(rows: dict):
+    """The rows' order by (id, kind, v1, v2, v3): stable sorts from the
+    least significant column to the most."""
+    import torch
+    order = torch.arange(len(rows["id"]), device=rows["id"].device)
+    for c in reversed(("id", "kind") + C5_VALUE_COLS):
+        order = order[torch.sort(rows[c][order], stable=True).indices]
     return order
 
 
 def same_multiset(what: str, got: dict, want: dict) -> None:
     """Equal rows (kind, id, values) counted with multiplicity: equal
     columns in one canonical order of each side."""
-    cols = ("kind", "id") + C5_VALUE_COLS
+    import torch
     if len(got["id"]) != len(want["id"]):
         raise AssertionError(f"{what}: {len(got['id'])} changelog rows, "
                              f"oracle {len(want['id'])}")
     og, ow = canonical_order(got), canonical_order(want)
-    for c in cols:
-        if not np.array_equal(got[c][og], want[c][ow]):
+    for c in ("kind", "id") + C5_VALUE_COLS:
+        if not torch.equal(got[c][og], want[c][ow]):
             raise AssertionError(f"{what}: column {c} differs from the "
                                  f"oracle")
 
@@ -1945,10 +1993,11 @@ def check_adjacent_updates(what: str, rows: dict) -> None:
     """Every -U directly followed by the +U of the same id, and no +U
     without its -U."""
     kinds, ids = rows["kind"], rows["id"]
-    ub = np.flatnonzero(kinds == 1)
+    ub = (kinds == 1).nonzero().flatten()
     nxt = ub + 1
-    if (nxt >= len(kinds)).any() or not (kinds[nxt] == 2).all() or \
-            not (ids[nxt] == ids[ub]).all() or \
+    if len(ub) and int(nxt.max()) >= len(kinds) or \
+            not bool((kinds[nxt] == 2).all()) or \
+            not bool((ids[nxt] == ids[ub]).all()) or \
             int((kinds == 2).sum()) != len(ub):
         raise AssertionError(f"{what}: a -U is not directly followed by "
                              f"its +U")
@@ -1980,6 +2029,8 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
     the state transitions, the folded stream against the batch read,
     and a restored consumer must find nothing new.  Returns the
     config's metrics."""
+    import torch
+
     from paimon_tpu_torch.table import FileStoreTable
 
     name = "changelog_lookup_upsert"
@@ -1990,10 +2041,16 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
     capture = rec.capture
     rng = np.random.default_rng(7)
     capacity = keys + commits * per_commit
-    oracle = DenseState(capacity)
+    oracle = DenseState(capacity, dev)
+
+    def on_dev(ids, vals):
+        import torch
+        return (torch.from_numpy(ids).to(dev),
+                {c: torch.from_numpy(v).to(dev) for c, v in vals.items()})
+
     ids = np.arange(keys, dtype=np.int64)
     vals = random_values(rng, keys)
-    oracle.transitions(ids, vals)
+    oracle.transitions(*on_dev(ids, vals))
 
     def write_state():
         wb = table.new_batch_write_builder()
@@ -2019,16 +2076,17 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
     rb = consumer.new_read_builder()
     scan, read = rb.new_stream_scan(), rb.new_read()
     first = arrow_rows(rec.run(name, "stream first plan (latest-full)",
-                               keys, dev, lambda: read.to_arrow(scan.plan())))
+                               keys, dev, lambda: read.to_arrow(scan.plan())),
+                       dev)
     scan.notify_checkpoint_complete(scan.checkpoint())
     want = oracle.rows()
-    order = np.argsort(first["id"], kind="stable")
-    if (first["kind"] != 0).any() or not all(
-            np.array_equal(first[c][order], want[c])
+    order = torch.sort(first["id"], stable=True).indices
+    if bool((first["kind"] != 0).any()) or not all(
+            torch.equal(first[c][order], want[c])
             for c in ("id",) + C5_VALUE_COLS):
         raise AssertionError(f"{name}: the first plan is not the state "
                              f"as +I")
-    fold = DenseState(capacity)
+    fold = DenseState(capacity, dev)
     fold.fold(first)
     del first, want, order
 
@@ -2056,19 +2114,18 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
             stats["poll_rows"] += got.num_rows
             if not got.num_rows:
                 continue
-            rows = arrow_rows(got)
+            rows = arrow_rows(got, dev)
             stats["changelog_snapshots"] += 1
             newer = (rows["kind"] == 0) | (rows["kind"] == 2)
             commit_of = (rows["seq"][newer] - seq0) // per_commit + 1
-            covered = commit_of if (commit_of < 1).any() else \
-                np.flatnonzero(np.bincount(commit_of))
+            covered = torch.unique(commit_of).tolist()
             what = f"{name} snapshot {plan.snapshot_id}"
-            if covered.min() < 1 or covered.max() > at or \
-                    any(int(c) in delivered for c in covered):
+            if not covered or covered[0] < 1 or covered[-1] > at or \
+                    any(c in delivered for c in covered):
                 raise AssertionError(f"{what}: changelog of commits "
-                                     f"{covered.tolist()} at commit {at}")
-            want = [expected.pop(int(c)) for c in covered]
-            same_multiset(what, rows, {c: np.concatenate([w[c] for w in want])
+                                     f"{covered} at commit {at}")
+            want = [expected.pop(c) for c in covered]
+            same_multiset(what, rows, {c: torch.cat([w[c] for w in want])
                                        for c in want[0]})
             check_adjacent_updates(what, rows)
             for c in covered:
@@ -2082,7 +2139,6 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
     launches_before = rec.counts()
     t_before = timer.snapshot()
     if dev.type == "cuda":
-        import torch
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     capture.where = f"{name} upsert"
@@ -2095,7 +2151,7 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
             ids[~update] = live + np.arange(fresh)
             live += fresh
             vals = random_values(rng, per_commit)
-            expected[k] = oracle.transitions(ids, vals)
+            expected[k] = oracle.transitions(*on_dev(ids, vals))
             batch = value_table(ids, vals)
             copied = capture.seconds
             t0 = time.perf_counter()
@@ -2130,14 +2186,17 @@ def changelog_lookup_upsert(work: str, rec: Recorder, timer: ChangelogTimer,
                              f"{sorted(expected)}")
     batch_read = table.to_arrow()
     want = fold.rows()
-    order = np.argsort(batch_read.column("id").to_numpy(), kind="stable")
+    got = {c: torch.from_numpy(np.ascontiguousarray(
+               batch_read.column(c).combine_chunks().to_numpy())).to(dev)
+           for c in ("id",) + C5_VALUE_COLS}
+    order = torch.sort(got["id"], stable=True).indices
     if batch_read.num_rows != len(want["id"]) or not all(
-            np.array_equal(batch_read.column(c).combine_chunks()
-                           .to_numpy()[order], want[c])
+            torch.equal(got[c][order], want[c])
             for c in ("id",) + C5_VALUE_COLS):
         raise AssertionError(f"{name}: the folded stream differs from the "
                              f"batch read")
-    if not all(np.array_equal(want[c], v) for c, v in oracle.rows().items()):
+    del got, order
+    if not all(torch.equal(want[c], v) for c, v in oracle.rows().items()):
         raise AssertionError(f"{name}: the folded stream differs from the "
                              f"oracle")
     restored = rb.new_stream_scan()
@@ -11011,6 +11070,1045 @@ def lake_interop(work: str, rec: Recorder, device="cuda",
     return out
 
 
+MH_ROUNDS = 8                    # mh_orders_16M: 8 rounds; in each, each
+MH_PER_ROUND = 1_000_000         # of 2 processes writes 1M rows, ids
+MH_KEYS = 8_000_000              # uniform in [0, 8M): 16M rows, bucket=4
+MH_BUCKETS = 4
+MH_RESCALED = 8                  # rescale_buckets(8) after the compaction
+MH_READS_AFTER = (4, 8)          # pinned scans after these rounds
+MH_PROCESSES = 2
+MH_COV_ROWS = 1 << 18            # mh_coverage: coordinator/spmd vs cas
+MH_LOCAL_ROWS = 1 << 20          # process_local_batch's rows a process
+MH_SOAK_EVENTS = 1 << 16         # the plane soak: 2^16 events over 2^12
+MH_SOAK_KEYS = 1 << 12           # keys, appended 2^12 a tick
+MH_SOAK_CHUNK = 1 << 12
+MH_SEED = 7
+MH_TIMEOUT_S = 300.0             # each wait of the phase
+# tests/multihost_soak.py's SOAK_TABLE_OPTIONS: a 200 ms lease interval
+# and a 1,500 ms lease timeout
+MH_SOAK_OPTIONS = {
+    "bucket": "4",
+    "stream.checkpoint.interval": "60",
+    "stream.compaction.interval": "120",
+    "stream.ingest.poll-interval": "10",
+    "stream.serve.poll-interval": "15",
+    "num-sorted-run.compaction-trigger": "3",
+    "multihost.lease.interval": "200",
+    "multihost.lease.timeout": "1500",
+    "snapshot.num-retained.min": "100000",
+    "snapshot.num-retained.max": "100000",
+}
+
+
+def mh_soak_event(n: int, keys: int) -> dict:
+    """The n-th event of the soak's global stream, a pure function of n
+    (the port's copy of tests/multihost_soak.py's generator): an upsert
+    of key n % keys with value n, a crc32-chosen twelfth of them
+    deletes."""
+    import zlib
+    key = n % keys
+    if zlib.crc32(f"soak-{n}".encode()) % 12 == 0:
+        return {"op": "d", "before": {"id": key, "v": n}}
+    return {"op": "c", "after": {"id": key, "v": n}}
+
+
+def mh_soak_events(n0: int, n1: int, keys: int) -> list:
+    return [mh_soak_event(n, keys) for n in range(n0, n1)]
+
+
+def mh_expected_state(total: int, keys: int) -> dict:
+    """{key: value} after events 0 .. total-1."""
+    state: dict = {}
+    for n in range(total):
+        e = mh_soak_event(n, keys)
+        if e["op"] == "d":
+            state.pop(n % keys, None)
+        else:
+            state[n % keys] = n
+    return state
+
+
+def mh_batch(pid: int, rnd: int, n: int, keys: int, dev):
+    """One process's rows of one round, made on `dev` from a generator
+    seeded by (MH_SEED, pid, rnd): (id, v1 in [0, 2^32), v2, v3) tensors.
+    The parent makes the same tensors for its oracle."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(MH_SEED * 1_000_003 + pid * 1009 + rnd)
+    ids = torch.randint(0, keys, (n,), generator=g, device=dev)
+    v1 = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+    v2 = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    v3 = torch.randint(0, 100, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    return ids, v1, v2, v3
+
+
+def mh_table(ids, v1, v2, v3):
+    """The Arrow batch of bench.py's columns from tensors."""
+    import pyarrow as pa
+    return pa.table({"id": pa.array(ids.cpu().numpy(), pa.int64()),
+                     "v1": pa.array(v1.cpu().numpy(), pa.int64()),
+                     "v2": pa.array(v2.cpu().numpy(), pa.float64()),
+                     "v3": pa.array(v3.cpu().numpy(), pa.int32())})
+
+
+def _mul32(a, c: int):
+    """a * c mod 2^32 for int64 tensors a < 2^32 (c split in halves, so
+    no product leaves int64)."""
+    lo = (a * (c & 0xFFFF)) & 0xFFFFFFFF
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def _rotl32(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & 0xFFFFFFFF
+
+
+def mh_buckets(ids, num_buckets: int):
+    """Paimon's fixed bucket of BIGINT NOT NULL keys on the keys' device:
+    murmur3 (seed 42) over the key's 16-byte BinaryRow (8 null-bit bytes,
+    then the value), Java's abs(hash % n); core/bucket.KeyHasher's
+    function, held equal to it on a sample by the caller."""
+    import torch
+    h = torch.full_like(ids, 42)
+    lo = ids & 0xFFFFFFFF
+    hi = (ids >> 32) & 0xFFFFFFFF
+    for word in (None, None, lo, hi):
+        if word is not None:
+            k = _mul32(_rotl32(_mul32(word, 0xCC9E2D51), 15), 0x1B873593)
+            h = h ^ k
+        h = (_mul32(_rotl32(h, 13), 5) + 0xE6546B64) & 0xFFFFFFFF
+    h = h ^ 16
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    signed = torch.where(h >= 1 << 31, h - (1 << 32), h)
+    return torch.fmod(signed, num_buckets).abs()
+
+
+def _i64(c: int) -> int:
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def mh_row_hash(ids, v1, v2, v3):
+    """int64 per row of bench.py's columns on their device (a
+    multiplicative mix, wrapping), for per-bucket multiset digests."""
+    h = ids * _i64(0x9E3779B97F4A7C15)
+    for v, k in ((v1, 0xBF58476D1CE4E5B9), (v2.view(ids.dtype)
+                                            if v2.is_floating_point()
+                                            else v2, 0x94D049BB133111EB),
+                 (v3.to(ids.dtype), 0xD6E8FEB86659FD93)):
+        h = (h ^ ((h >> 31) & ((1 << 33) - 1))) * _i64(k) + v
+    return h
+
+
+def mh_digests(buckets, h, num_buckets: int) -> dict:
+    """{bucket: [rows, sum of hashes, sum of squares]} (wrapping sums)."""
+    import torch
+    out = {}
+    for name, vals in (("n", torch.ones_like(h)), ("s", h), ("q", h * h)):
+        acc = torch.zeros(num_buckets, dtype=torch.int64, device=h.device)
+        acc.index_add_(0, buckets, vals)
+        out[name] = acc.tolist()
+    return {b: [out["n"][b], out["s"][b], out["q"][b]]
+            for b in range(num_buckets) if out["n"][b]}
+
+
+class ChildLaunches:
+    """A multihost process's K1/K2 launches: the merge's and the diff's
+    references to kernels.eq_next_mask wrapped for the process's run,
+    launches counted by (variant, lanes, rows, thread), the first launch
+    of each shape held exactly against eq_next_mask_plain on its own
+    inputs (no extra launch), and the largest shape's inputs kept for
+    the timing that follows the run."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.checked: dict = {}
+        self.largest = None
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from paimon_tpu_torch.ops import diff, kernels, merge
+        self._modules = (merge, diff)
+        self._kernel = kernels.eq_next_mask
+        self._plain = kernels.eq_next_mask_plain
+        merge.eq_next_mask = self._shim
+        diff.eq_next_mask = self._shim
+        return self
+
+    def __exit__(self, *exc):
+        for module in self._modules:
+            module.eq_next_mask = self._kernel
+
+    def _shim(self, lanes, invalid, ovc_off=None, perm=None,
+              num_key_lanes=None, seg_len=None):
+        out = self._kernel(lanes, invalid, ovc_off, perm, num_key_lanes,
+                           seg_len)
+        n = lanes.shape[1]
+        shape = ("ovc" if ovc_off is not None else "plain",
+                 lanes.shape[0], n)
+        thread = threading.current_thread().name.rsplit("_", 1)[0]
+        with self._lock:
+            key = (*shape, thread)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            first = shape not in self.checked
+            if first:
+                self.checked[shape] = 0
+        if first:
+            want = self._plain(lanes, invalid, ovc_off, perm,
+                               num_key_lanes, seg_len)
+            err = int((out != want).sum())
+            if err:
+                self.checked[shape] = err
+                raise AssertionError(f"K1 != plain at {shape}: {err} rows")
+            kept = tuple(None if t is None else t.clone()
+                         for t in (lanes, invalid, ovc_off, perm))
+            with self._lock:
+                if self.largest is None or n > self.largest[0][2]:
+                    self.largest = (shape, kept, num_key_lanes, seg_len)
+        return out
+
+    def report(self) -> dict:
+        """Launches by shape and thread; the largest shape timed between
+        CUDA events (kernel and plain version), beside its bound."""
+        import torch
+
+        from paimon_tpu_torch.ops import kernels
+        by = {}
+        for (variant, lanes, n, thread), k in sorted(self.calls.items()):
+            by[f"{variant} L{lanes} n{n} {thread}"] = k
+        out = {"launches_plain": sum(k for key, k in self.calls.items()
+                                     if key[0] == "plain"),
+               "launches_ovc": sum(k for key, k in self.calls.items()
+                                   if key[0] == "ovc"),
+               "by_shape_thread": by,
+               "checked_shapes": len(self.checked),
+               "max_abs_err": max(self.checked.values(), default=0)}
+        if self.largest is not None and self.largest[1][0].is_cuda:
+            shape, (lanes, inv, off, perm), nkl, seg = self.largest
+
+            def kernel():
+                return kernels.eq_next_mask(lanes, inv, off, perm, nkl, seg)
+            ms = event_ms([kernel])[0]
+            plain_ms = cuda_ms(lambda: kernels.eq_next_mask_plain(
+                lanes, inv, off, perm, nkl, seg), 5)
+            nbytes, _ = needed_bytes(lanes, off, perm, seg)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            out["timed"] = {"variant": shape[0], "lanes": shape[1],
+                            "n": shape[2], "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound, "share": bound / ms}
+            torch.cuda.synchronize()
+        return out
+
+
+def _mh_write_json(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _mh_until(cond, what: str, timeout: float = MH_TIMEOUT_S,
+              parent=None) -> None:
+    """Wait for `cond()`; raise after `timeout`, or once the process
+    whose pid is `parent` is no longer this process's parent."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if parent is not None and os.getppid() != parent:
+            raise AssertionError(f"{what}: the parent exited")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout:.0f} s")
+        time.sleep(0.01)
+
+
+def _mh_wait(path: str, what: str, timeout: float = MH_TIMEOUT_S,
+             parent=None) -> None:
+    """Wait for `path` to exist (as _mh_until)."""
+    _mh_until(lambda: os.path.exists(path), what, timeout, parent)
+
+
+def _mh_share(plane, dev, num_buckets: int) -> dict:
+    """This process's pinned split share read and digested per bucket on
+    `dev`: the snapshot id, the rows, the seconds, the digests."""
+    import torch
+    t0 = time.perf_counter()
+    sid, splits = plane.pinned_scan()
+    read = plane.table.new_read_builder().new_read()
+    digests, rows = {}, 0
+    for s in splits:
+        t = read.read_split(s)
+        cols = [torch.from_numpy(np.ascontiguousarray(
+                    t.column(c).combine_chunks().to_numpy())).to(dev)
+                for c in ("id", "v1", "v2", "v3")]
+        got = mh_digests(torch.full_like(cols[0], int(s.bucket)),
+                         mh_row_hash(*cols), num_buckets)
+        digests[int(s.bucket)] = got.get(int(s.bucket), [0, 0, 0])
+        rows += t.num_rows
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"sid": sid, "rows": rows, "s": time.perf_counter() - t0,
+            "buckets": digests}
+
+
+def mh_orders(pid: int, root: str, dev, cfg: dict) -> dict:
+    """mh_orders_16M in one process of the plane: rounds of process-local
+    rows through the write plane ('exchange' routing, 'cas' arbitration),
+    pinned scans, the mesh compaction of the owned groups, the rescale,
+    fsck."""
+    import torch
+
+    from paimon_tpu_torch.metrics import (
+        MULTIHOST_BARRIER_WAIT_MS, MULTIHOST_COMMIT_CONFLICTS,
+        MULTIHOST_COMMIT_RETRIES, MULTIHOST_FOREIGN_ROWS, global_registry,
+    )
+    from paimon_tpu_torch.parallel import multihost as MH
+    from paimon_tpu_torch.parallel.mesh_engine import compact_table_mesh
+    from paimon_tpu_torch.parallel.sharded_merge import BucketMesh
+    from paimon_tpu_torch.table import FileStoreTable
+
+    path = os.path.join(root, "mh_orders")
+    if pid == 0:
+        FileStoreTable.create(path, bigint_schema({
+            "bucket": str(MH_BUCKETS), "write-only": "true",
+            "parquet.enable.dictionary": "false"}), device=dev)
+    MH.barrier("mh_orders created")
+    plane = FileStoreTable.load(path, device=dev).new_distributed_write()
+    if (plane.routing, plane.arbitration) != ("exchange", "cas"):
+        raise AssertionError(f"mh_orders: {plane.routing}, "
+                             f"{plane.arbitration}")
+    out = {"writes_s": [], "commits_s": [], "reads": {}}
+    for r in range(cfg["rounds"]):
+        batch = mh_table(*mh_batch(pid, r, cfg["per_round"], cfg["keys"],
+                                   dev))
+        t0 = time.perf_counter()
+        plane.write_arrow(batch)
+        t1 = time.perf_counter()
+        if plane.commit(commit_identifier=r + 1) is None:
+            raise AssertionError(f"mh_orders: round {r + 1} committed "
+                                 f"nothing")
+        out["writes_s"].append(t1 - t0)
+        out["commits_s"].append(time.perf_counter() - t1)
+        if r + 1 in MH_READS_AFTER:
+            out["reads"][str(r + 1)] = _mh_share(plane, dev, MH_BUCKETS)
+    own = {b for b in range(MH_BUCKETS)
+           if plane.ownership.owner_of((), b) == pid}
+    MH.barrier("mh_orders written")
+    t0 = time.perf_counter()
+    stats = compact_table_mesh(
+        plane.table, mesh=BucketMesh(1, dev),
+        group_filter=lambda part, b: plane.ownership.owner_of(part, b)
+        == pid, commit_user=plane.commit_user,
+        properties=plane.history.to_properties())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    out["compact"] = {"buckets": stats.buckets, "input_rows":
+                      stats.input_rows, "output_rows": stats.output_rows,
+                      "windows": stats.windows,
+                      "snapshot_id": stats.snapshot_id, "owned": sorted(own)}
+    if stats.buckets != len(own) or stats.retries or stats.fallbacks:
+        raise AssertionError(f"mh_orders: compaction {out['compact']}, "
+                             f"retries {stats.retries}, fallbacks "
+                             f"{stats.fallbacks}")
+    MH.barrier("mh_orders compacted")
+    t0 = time.perf_counter()
+    plane.rescale_buckets(MH_RESCALED)
+    out["rescale_s"] = time.perf_counter() - t0
+    out["rescale_written"] = plane.last_rescale_written_buckets
+    if plane.table.options.bucket != MH_RESCALED or \
+            plane.ownership.version != 2:
+        raise AssertionError("mh_orders: the rescale did not hand off")
+    out["reads"]["rescaled"] = _mh_share(plane, dev, MH_RESCALED)
+    if pid == 0:
+        t0 = time.perf_counter()
+        report = FileStoreTable.load(path, device=dev).fsck()
+        out["fsck_s"] = time.perf_counter() - t0
+        if not report.ok:
+            raise AssertionError(f"mh_orders: fsck "
+                                 f"{[v.to_dict() for v in report.violations]}")
+    MH.barrier("mh_orders checked")
+    plane.close()
+    g = global_registry().multihost_metrics()
+    wait = g.histogram(MULTIHOST_BARRIER_WAIT_MS)
+    out.update({
+        "foreign_rows_routed": g.counter(MULTIHOST_FOREIGN_ROWS).count,
+        "commit_conflicts": g.counter(MULTIHOST_COMMIT_CONFLICTS).count,
+        "commit_retries": g.counter(MULTIHOST_COMMIT_RETRIES).count,
+        "barrier_wait_ms_p50": wait.percentile(50),
+        "barrier_wait_ms_max": wait.max, "barriers": wait.total_count})
+    return out
+
+
+def mh_coverage(pid: int, root: str, dev, cfg: dict) -> dict:
+    """mh_coverage in one process: a table under 'coordinator'
+    arbitration and 'spmd' routing against the same rows under 'cas'
+    and 'exchange', process_local_batch's global sum, and which
+    collectives gloo runs on the card's tensors."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from paimon_tpu_torch.parallel import multihost as MH
+    from paimon_tpu_torch.table import FileStoreTable
+
+    out = {}
+    n = cfg["cov_rows"]
+    rng = np.random.default_rng(MH_SEED + 1)   # the same on both
+    ids = rng.permutation(4 * n)[:n].astype(np.int64)
+    batch = value_table(ids, random_values(rng, n))
+    t0 = time.perf_counter()
+    for name, opts, rows in (
+            ("coordinator", {"multihost.write.routing": "spmd",
+                             "multihost.commit.arbitration":
+                             "coordinator"}, batch),
+            ("cas", {}, batch.filter(pa_mask(n, pid)))):
+        path = os.path.join(root, f"mh_cov_{name}")
+        if pid == 0:
+            FileStoreTable.create(path, bigint_schema(
+                {"bucket": str(MH_BUCKETS), **opts}), device=dev)
+        MH.barrier(f"mh_cov {name} created")
+        plane = FileStoreTable.load(path, device=dev) \
+            .new_distributed_write()
+        plane.write_arrow(rows)
+        plane.commit(commit_identifier=1)
+        plane.close()
+    if pid == 0:
+        tabs = {name: FileStoreTable.load(
+            os.path.join(root, f"mh_cov_{name}"), device=dev)
+            for name in ("coordinator", "cas")}
+        a, b = (tabs[k].to_arrow().sort_by("id")
+                for k in ("coordinator", "cas"))
+        if a.num_rows != n or not a.equals(b):
+            raise AssertionError("mh_coverage: the coordinator table "
+                                 "differs from the cas table")
+        users = {k: sorted({s.commit_user for s in
+                            t.snapshot_manager.snapshots()})
+                 for k, t in tabs.items()}
+        if users != {"coordinator": ["writer-committer"],
+                     "cas": ["writer-p0", "writer-p1"]}:
+            raise AssertionError(f"mh_coverage: commit users {users}")
+        out["commit_users"] = users
+    out["arbitration_s"] = time.perf_counter() - t0
+    # one column sharded along the processes, its global sum
+    t0 = time.perf_counter()
+    local = mh_batch(pid, 99, cfg["local_rows"], cfg["keys"], dev)[1]
+    col = MH.process_local_batch(MH.global_mesh(device=dev),
+                                 {"v1": local.cpu().numpy()})["v1"]
+    got = int(col.sum())
+    want = sum(int(mh_batch(p, 99, cfg["local_rows"], cfg["keys"],
+                            dev)[1].sum()) for p in range(MH_PROCESSES))
+    if got != want or col.shape != (MH_PROCESSES * cfg["local_rows"],):
+        raise AssertionError(f"process_local_batch: sum {got}, oracle "
+                             f"{want}, shape {col.shape}")
+    out["local_batch"] = {"rows": col.shape[0], "sum": got,
+                          "s": time.perf_counter() - t0,
+                          "shard_device": str(col.local.device)}
+    if dev.type == "cuda":
+        # which collectives gloo runs on the card's tensors (the planes
+        # stage through host memory by hand and need none of them)
+        group = dist.new_group(backend="gloo",
+                               timeout=datetime.timedelta(seconds=30))
+        x = torch.ones(4, device=dev)
+        probes = {}
+        for op, fn in (
+                ("all_reduce", lambda: dist.all_reduce(x.clone(),
+                                                       group=group)),
+                ("broadcast", lambda: dist.broadcast(x.clone(), src=0,
+                                                     group=group)),
+                ("all_gather", lambda: dist.all_gather(
+                    [torch.empty_like(x) for _ in range(MH_PROCESSES)], x,
+                    group=group)),
+                ("all_to_all_single", lambda: dist.all_to_all_single(
+                    torch.empty_like(x), x.clone(), group=group))):
+            try:
+                fn()
+                torch.cuda.synchronize()
+                probes[op] = "ok"
+            except Exception as e:          # noqa: BLE001 — the finding
+                probes[op] = f"{type(e).__name__}: {str(e)[:200]}"
+        out["gloo_cuda"] = probes
+    MH.barrier("mh_coverage done")
+    return out
+
+
+def pa_mask(n: int, pid: int):
+    """Rows i of an n-row batch with i % MH_PROCESSES == pid."""
+    import pyarrow as pa
+    return pa.array(np.arange(n) % MH_PROCESSES == pid)
+
+
+def mh_soak_table(path: str, dev):
+    from paimon_tpu_torch import Schema
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.types import BigIntType
+    schema = (Schema.builder().column("id", BigIntType(False))
+              .column("v", BigIntType()).primary_key("id")
+              .options(MH_SOAK_OPTIONS).build())
+    return FileStoreTable.create(path, schema, device=dev)
+
+
+def mh_soak_host(pid: int, root: str, dev, cfg: dict, launches) -> dict:
+    """The plane soak on one host: a distributed StreamDaemon with
+    plane=MaintenancePlane over the shared table and the identical
+    stream.  Process 1 SIGKILLs itself at a third of the stream (after
+    writing what it reports); process 0 adopts its buckets, readmits the
+    restarted host and checks the table, the offsets, fsck and the
+    fleet view."""
+    import signal
+
+    from paimon_tpu_torch.cdc.source import MemoryCdcSource
+    from paimon_tpu_torch.cli import _fleet_view
+    from paimon_tpu_torch.metrics import (
+        FLEET_REJOINS, MULTIHOST_MAINTENANCE_TAKEOVERS, global_registry,
+    )
+    from paimon_tpu_torch.parallel import multihost as MH
+    from paimon_tpu_torch.parallel.distributed import resume_ownership_map
+    from paimon_tpu_torch.parallel.maintenance_plane import (
+        MaintenancePlane,
+    )
+    from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+    from paimon_tpu_torch.table import FileStoreTable
+
+    path = os.path.join(root, "mh_soak")
+    n, keys = cfg["soak_events"], MH_SOAK_KEYS
+    if pid == 0:
+        mh_soak_table(path, dev)
+    MH.barrier("mh_soak created")
+    # no collective runs from here on: a dead peer cannot join one
+    t = FileStoreTable.load(path, device=dev)
+    plane = MaintenancePlane(t, base_user="stream-daemon")
+    source = MemoryCdcSource()
+    daemon = StreamDaemon(t, source, commit_user="stream-daemon",
+                          plane=plane).start()
+    t0 = time.perf_counter()
+    emitted = 0
+    chunk = min(MH_SOAK_CHUNK, n)
+    try:
+        while emitted < n:
+            source.append(*mh_soak_events(emitted, emitted + chunk, keys))
+            emitted += chunk
+            _mh_until(lambda: daemon.poll_changelog(timeout=0.0) == [] and
+                      daemon.status()["offset_pending"] >= emitted - 1,
+                      f"mh_soak p{pid} ingest to {emitted}")
+            if pid == 1 and emitted >= n // 3:
+                _mh_until(lambda: daemon.status()["offset_committed"]
+                          >= emitted - 1, "mh_soak p1 checkpoint")
+                rep = {"killed_at_offset": emitted - 1,
+                       "k1": launches.report(), "kill_time": time.time(),
+                       "ingest_s": time.perf_counter() - t0}
+                _mh_write_json(os.path.join(root, "p1.killed.json"), rep)
+                os.kill(os.getpid(), signal.SIGKILL)
+        _mh_wait(os.path.join(root, "p1.killed.json"), "mh_soak kill")
+        with open(os.path.join(root, "p1.killed.json")) as f:
+            kill_time = json.load(f)["kill_time"]
+        # the adoption is durable once the store records host 1 dead
+        # (the daemon's ledger names it before its commit lands)
+        _mh_until(lambda: daemon.poll_changelog(timeout=0.0) == [] and
+                  daemon.status()["distributed"]["adopted"] == [1] and
+                  1 in getattr(resume_ownership_map(FileStoreTable.load(
+                      path, device=dev)), "dead", ()),
+                  "mh_soak takeover")
+        takeover_s = time.time() - kill_time
+        _mh_write_json(os.path.join(root, "adopted-p1.json"),
+                       {"time": time.time()})
+        _mh_until(lambda: daemon.poll_changelog(timeout=0.0) == [] and
+                  daemon.status()["offset_committed"] >= n - 1 and
+                  not plane.ownership.dead and os.path.exists(
+                      os.path.join(root, "rejoined-p1.json")),
+                  "mh_soak readmission and convergence")
+        st = daemon.status()
+        _mh_write_json(os.path.join(root, "fleet-converged.json"), {})
+        # the restarted host drains and stops first: the store is final
+        _mh_wait(os.path.join(root, "rejoiner-stopped.json"),
+                 "mh_soak rejoiner stop")
+    finally:
+        daemon.stop(drain=True)
+    plane.refresh_ownership()
+    view = _fleet_view(FileStoreTable.load(path, device=dev),
+                       "stream-daemon", 16)
+    want = {"distributed": True, "version": plane.ownership.version,
+            "processes": MH_PROCESSES, "buckets": 4,
+            "dead": sorted(plane.ownership.dead),
+            "generations": [{"version": m.version,
+                             "processes": m.num_processes,
+                             "buckets": m.num_buckets,
+                             "dead": sorted(m.dead)}
+                            for m in plane.history.entries]}
+    if {k: view[k] for k in want} != want or want["dead"] or any(
+            view["hosts"][str(p)]["owned_buckets"] !=
+            [b for b in range(4) if plane.ownership.owner_of((), b) == p]
+            for p in range(MH_PROCESSES)):
+        raise AssertionError(f"fleet status {view} differs from the "
+                             f"plane's view {want}")
+    g = global_registry()
+    out = {"events": n, "s": time.perf_counter() - t0,
+           "takeover_s": takeover_s, "status": st["distributed"],
+           "takeovers": g.multihost_metrics().counter(
+               MULTIHOST_MAINTENANCE_TAKEOVERS).count,
+           "rejoins": g.fleet_metrics().counter(FLEET_REJOINS).count,
+           "fleet_view_version": view["version"],
+           "generations": [[m.version, sorted(m.dead)]
+                           for m in plane.history.entries]}
+    if out["takeovers"] < 1 or out["rejoins"] < 1:
+        raise AssertionError(f"mh_soak: takeovers {out['takeovers']}, "
+                             f"rejoins {out['rejoins']}")
+    final = FileStoreTable.load(path, device=dev)
+    got = dict(zip(*(final.to_arrow().column(c).to_pylist()
+                     for c in ("id", "v"))))
+    if got != mh_expected_state(n, keys):
+        raise AssertionError("mh_soak: the table differs from the "
+                             "stream's state")
+    offsets = {p: [] for p in range(MH_PROCESSES)}
+    for snap in final.snapshot_manager.snapshots():
+        for p in offsets:
+            if snap.commit_user == f"stream-daemon-p{p}" and \
+                    "stream.source.offset" in (snap.properties or {}):
+                offsets[p].append(
+                    int(snap.properties["stream.source.offset"]))
+    for p, offs in offsets.items():
+        if not offs or offs != sorted(set(offs)) or offs[-1] != n - 1:
+            raise AssertionError(f"mh_soak: offsets of p{p} {offs[-5:]}")
+    t1 = time.perf_counter()
+    report = final.fsck()
+    out["fsck_s"] = time.perf_counter() - t1
+    if not report.ok:
+        raise AssertionError(f"mh_soak: fsck "
+                             f"{[v.to_dict() for v in report.violations]}")
+    out["checkpoints"] = {f"p{p}": len(o) for p, o in offsets.items()}
+    return out
+
+
+def mh_child(role: str, pid: str, port: str, root: str,
+             device: str) -> None:
+    """A process of the multihost_planes phase, started before the phase
+    so that its start overlaps earlier work: a host of the gloo group
+    ("host", pid 0 or 1), or the restarted host 1 ("rejoiner", no group:
+    it rejoins through the table's snapshots alone).  It reaches the
+    card, imports the port, joins the group, writes `<root>/<name>.ready`
+    and waits for `<root>/go.json`; it reports to `<root>/<name>.json`,
+    or its error to `<root>/<name>.err`, and leaves through os._exit."""
+    import traceback
+
+    name = f"p{pid}" if role == "host" else "rejoiner"
+    parent = os.getppid()
+    try:
+        import torch
+        t0 = time.perf_counter()
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        import pyarrow  # noqa: F401
+
+        from paimon_tpu_torch.parallel import multihost as MH
+        from paimon_tpu_torch.table import FileStoreTable  # noqa: F401
+        import_s = time.perf_counter() - t0 - card_s
+        if role == "host":
+            MH.initialize(f"127.0.0.1:{port}", MH_PROCESSES, int(pid),
+                          timeout_s=MH_TIMEOUT_S)
+        start = {"card_s": card_s, "import_s": import_s,
+                 "start_s": time.perf_counter() - t0}
+        _mh_write_json(os.path.join(root, f"{name}.ready"), start)
+        _mh_wait(os.path.join(root, "go.json"), f"{name} go",
+                 timeout=3 * MH_TIMEOUT_S, parent=parent)
+        with open(os.path.join(root, "go.json")) as f:
+            cfg = json.load(f)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with ChildLaunches() as launches:
+            if role == "host":
+                out = mh_host(int(pid), root, dev, cfg, launches)
+            else:
+                out = mh_rejoiner(root, dev, cfg, parent)
+        out["start"] = start
+        out["k1"] = launches.report()
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if dev.type == "cuda" else None)
+        _mh_write_json(os.path.join(root, f"{name}.json"), out)
+    except BaseException:                   # noqa: BLE001 — reported
+        with open(os.path.join(root, f"{name}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.stdout.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def mh_host(pid: int, root: str, dev, cfg: dict, launches) -> dict:
+    import torch
+    t0 = time.perf_counter()
+    out = {"orders": mh_orders(pid, root, dev, cfg)}
+    out["orders"]["s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["coverage"] = mh_coverage(pid, root, dev, cfg)
+    out["coverage"]["s"] = time.perf_counter() - t1
+    out["before_soak"] = {
+        "k1": launches.report(),
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                     if dev.type == "cuda" else None)}
+    # process 1 dies in the soak: its report so far lands first
+    _mh_write_json(os.path.join(root, f"p{pid}.before_soak.json"), out)
+    out["soak"] = mh_soak_host(pid, root, dev, cfg, launches)
+    return out
+
+
+def mh_rejoiner(root: str, dev, cfg: dict, parent: int) -> dict:
+    """Host 1 restarted after its death: it waits until host 0 has
+    adopted its buckets, then runs a distributed StreamDaemon whose
+    plane starts `rejoining`, is readmitted, replays its offset gap and
+    ingests to the end of the stream; it stops once the fleet has
+    converged."""
+    from paimon_tpu_torch.cdc.source import MemoryCdcSource
+    from paimon_tpu_torch.parallel.maintenance_plane import (
+        MaintenancePlane,
+    )
+    from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+    from paimon_tpu_torch.table import FileStoreTable
+
+    _mh_wait(os.path.join(root, "adopted-p1.json"), "rejoiner start",
+             parent=parent)
+    t0 = time.perf_counter()
+    n = cfg["soak_events"]
+    t = FileStoreTable.load(os.path.join(root, "mh_soak"), device=dev)
+    plane = MaintenancePlane(t, base_user="stream-daemon",
+                             process_index=1, process_count=MH_PROCESSES)
+    if not plane.rejoining:
+        raise AssertionError("the restarted host 1 is not rejoining")
+    source = MemoryCdcSource()
+    source.append(*mh_soak_events(0, n, MH_SOAK_KEYS))
+    daemon = StreamDaemon(t, source, commit_user="stream-daemon",
+                          plane=plane).start()
+    try:
+        _mh_until(lambda: daemon.poll_changelog(timeout=0.0) == [] and
+                  not daemon.status()["distributed"]["rejoining"],
+                  "rejoiner readmission")
+        readmit_s = time.perf_counter() - t0
+        _mh_until(lambda: daemon.poll_changelog(timeout=0.0) == [] and
+                  daemon.status()["offset_committed"] >= n - 1,
+                  "rejoiner convergence")
+        st = daemon.status()
+        _mh_write_json(os.path.join(root, "rejoined-p1.json"), {})
+        _mh_wait(os.path.join(root, "fleet-converged.json"),
+                 "rejoiner release", parent=parent)
+    finally:
+        daemon.stop(drain=True)
+        _mh_write_json(os.path.join(root, "rejoiner-stopped.json"), {})
+    return {"readmit_s": readmit_s, "s": time.perf_counter() - t0,
+            "rejoin_replayed": st["distributed"]["rejoin_replayed"],
+            "offset_committed": st["offset_committed"],
+            "ownership_version": st["distributed"]["ownership_version"]}
+
+
+class MhChildren:
+    """The phase's three processes (hosts 0 and 1 of the gloo group, the
+    restarted host 1), started together before the phase runs."""
+
+    NAMES = ("p0", "p1", "rejoiner")
+
+    def __init__(self, work: str, device: str):
+        import socket
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.root = os.path.join(work, "multihost")
+        os.makedirs(self.root)
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for name, role, pid in (("p0", "host", 0), ("p1", "host", 1),
+                                ("rejoiner", "rejoiner", 1)):
+            err = open(os.path.join(self.root, f"{name}.stderr"), "w")
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.mh_child(*sys.argv[1:])", role, str(pid),
+                 str(port), self.root, device], cwd=here,
+                env=dict(os.environ, PYTHONPATH=here),
+                stdout=subprocess.DEVNULL, stderr=err), err)
+
+    def _failed(self, name: str) -> str:
+        path = os.path.join(self.root, f"{name}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                return f.read()[-3000:]
+        with open(os.path.join(self.root, f"{name}.stderr")) as f:
+            return f.read()[-3000:]
+
+    def wait_file(self, path: str, what: str,
+                  timeout: float = MH_TIMEOUT_S) -> dict:
+        """The JSON `path` once it exists; fails as soon as a process
+        ends otherwise than it should (host 1 by its own SIGKILL, the
+        others with 0)."""
+        deadline = time.monotonic() + timeout
+        while not os.path.exists(path):
+            for other, (proc, _) in self.procs.items():
+                rc = proc.poll()
+                if rc is not None and rc != (-9 if other == "p1" else 0):
+                    raise AssertionError(
+                        f"multihost {other} exited {rc} before {what}: "
+                        f"{self._failed(other)}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"multihost: {what} not within "
+                                     f"{timeout:.0f} s")
+            time.sleep(0.02)
+        with open(path) as f:
+            return json.load(f)
+
+    def ready(self) -> dict:
+        return {name: self.wait_file(os.path.join(self.root,
+                                                  f"{name}.ready"),
+                                     f"{name} ready")
+                for name in self.NAMES}
+
+    def go(self, cfg: dict) -> None:
+        _mh_write_json(os.path.join(self.root, "go.json"), cfg)
+
+    def join(self, timeout: float = MH_TIMEOUT_S) -> dict:
+        """Every process's report: host 1 dies by SIGKILL (its report
+        before the soak and at the kill), the others exit 0."""
+        out = {}
+        out["p1"] = self.wait_file(
+            os.path.join(self.root, "p1.before_soak.json"), "p1's report",
+            timeout)
+        out["p1_killed"] = self.wait_file(
+            os.path.join(self.root, "p1.killed.json"), "p1's kill", timeout)
+        for name in ("p0", "rejoiner"):
+            out[name] = self.wait_file(
+                os.path.join(self.root, f"{name}.json"), f"{name}'s report",
+                timeout)
+        deadline = time.monotonic() + 30
+        for name, (proc, _) in self.procs.items():
+            while proc.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.02)
+            want = -9 if name == "p1" else 0
+            if proc.returncode != want:
+                raise AssertionError(f"multihost {name} exited "
+                                     f"{proc.returncode}, expected {want}: "
+                                     f"{self._failed(name)}")
+        return out
+
+    def stop(self) -> None:
+        for proc, err in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+
+
+def mh_oracle(cfg: dict, dev) -> dict:
+    """The oracle's per-bucket digests on `dev`: every row of both
+    processes regenerated, each id's last writer (later rounds win;
+    within a round the owner writes its own rows, then the peer's it
+    receives, each in batch order), after rounds 4 and 8 (4 buckets) and
+    after the rescale (8)."""
+    import torch
+
+    from paimon_tpu_torch.parallel.distributed import owner_of
+    owner = torch.tensor([owner_of((), b, MH_PROCESSES)
+                          for b in range(MH_BUCKETS)], device=dev)
+    parts = []
+    for r in range(cfg["rounds"]):
+        for p in range(MH_PROCESSES):
+            ids, v1, v2, v3 = mh_batch(p, r, cfg["per_round"], cfg["keys"],
+                                       dev)
+            foreign = (owner[mh_buckets(ids, MH_BUCKETS)] != p).long()
+            key = (r << 22) | (foreign << 21) | torch.arange(
+                len(ids), device=dev)
+            parts.append((r, ids, v1, v2, v3, key))
+    out = {}
+    for upto in MH_READS_AFTER:
+        sel = [q for q in parts if q[0] < upto]
+        ids, v1, v2, v3, key = (torch.cat([q[i] for q in sel])
+                                for i in range(1, 6))
+        best = torch.full((cfg["keys"],), -1, dtype=torch.int64,
+                          device=dev)
+        best.scatter_reduce_(0, ids, key, reduce="amax")
+        win = key == best[ids]
+        cols = (ids[win], v1[win], v2[win], v3[win])
+        h = mh_row_hash(*cols)
+        out[str(upto)] = mh_digests(mh_buckets(cols[0], MH_BUCKETS), h,
+                                    MH_BUCKETS)
+        if upto == cfg["rounds"]:
+            out["rescaled"] = mh_digests(mh_buckets(cols[0], MH_RESCALED),
+                                         h, MH_RESCALED)
+            out["live"] = int(win.sum())
+    return out
+
+
+def multihost_planes(work: str, rec: Recorder, children: MhChildren,
+                     device="cuda", scale: int = 1) -> dict:
+    """The multi-host planes on the card, across OS processes that share
+    it: mh_orders_16M, then mh_coverage with the plane soak, every answer
+    held against an oracle (`children` were started earlier; `scale`
+    divides the row counts, for a rehearsal).  Returns what the phase
+    reports."""
+    import pyarrow as pa
+    import torch
+
+    from paimon_tpu_torch.core.bucket import FixedBucketAssigner
+    from paimon_tpu_torch.parallel.distributed import owner_of
+    from paimon_tpu_torch.types import BigIntType
+
+    dev = torch.device(device)
+    cfg = {"rounds": MH_ROUNDS, "per_round": MH_PER_ROUND // scale,
+           "keys": MH_KEYS // scale, "cov_rows": MH_COV_ROWS // scale,
+           "local_rows": MH_LOCAL_ROWS // scale,
+           "soak_events": max(1 << 10, MH_SOAK_EVENTS // scale)}
+    name = f"mh_orders_{2 * MH_ROUNDS * cfg['per_round'] // 1_000_000}M" \
+        if scale == 1 else f"mh_orders_{2 * MH_ROUNDS * cfg['per_round']}"
+    owners = [owner_of((), b, MH_PROCESSES) for b in range(MH_BUCKETS)]
+    if owners != [0, 1, 0, 1]:
+        raise AssertionError(f"ownership of buckets 0..3: {owners}")
+    compute_mode = None
+    if dev.type == "cuda":
+        # several processes hold a context on the card at once
+        compute_mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        log(f"  multihost: the card's compute mode {compute_mode}")
+        if compute_mode != "Default":
+            raise AssertionError(f"compute mode {compute_mode}: the "
+                                 f"phase's processes share the card")
+    t_phase = time.perf_counter()
+    ready = children.ready()
+    waited = time.perf_counter() - t_phase
+    started = time.perf_counter() - children.t0
+    log(f"  multihost: the 3 processes ready {started:.1f} s after their "
+        f"start (waited {waited:.1f} s here): " + ", ".join(f"{k} card {v['card_s']:.1f} s + imports "
+                              f"{v['import_s']:.1f} s, ready at "
+                              f"{v['start_s']:.1f} s" for k, v in
+                              ready.items()))
+    t_go = time.perf_counter()
+    children.go(cfg)
+    # the oracle on the card while the processes work, its bucket
+    # function held against the port's on a sample
+    sample = torch.randint(0, 1 << 62, (1 << 16,), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(MH_SEED))
+    want = FixedBucketAssigner(["id"], [BigIntType(False)], MH_RESCALED) \
+        .assign(pa.table({"id": pa.array(sample.cpu().numpy())}))
+    if not np.array_equal(mh_buckets(sample, MH_RESCALED).cpu().numpy(),
+                          want):
+        raise AssertionError("mh_buckets differs from the port's bucket "
+                             "function")
+    t0 = time.perf_counter()
+    oracle = mh_oracle(cfg, dev)
+    oracle_s = time.perf_counter() - t0
+    got = children.join()
+    run_s = time.perf_counter() - t_go
+    hosts = {"p0": got["p0"], "p1": got["p1"]}
+    orders = {k: v["orders"] for k, v in hosts.items()}
+    # the union of the pinned shares is the oracle, at one snapshot id
+    for when in (*map(str, MH_READS_AFTER), "rescaled"):
+        reads = [orders[k]["reads"][when] for k in hosts]
+        if len({r["sid"] for r in reads}) != 1:
+            raise AssertionError(f"{name} read {when}: the processes "
+                                 f"pinned {[r['sid'] for r in reads]}")
+        union: dict = {}
+        for r in reads:
+            for b, d in r["buckets"].items():
+                if b in union:
+                    raise AssertionError(f"{name} read {when}: bucket {b} "
+                                         f"read twice")
+                union[b] = d
+        want_d = {str(b): d for b, d in oracle[when].items()}
+        if union != want_d:
+            raise AssertionError(f"{name} read {when}: the shares differ "
+                                 f"from the oracle ({sorted(union)} vs "
+                                 f"{sorted(want_d)})")
+    written = sorted(b for k in hosts
+                     for b in orders[k]["rescale_written"])
+    if written != list(range(MH_RESCALED)):
+        raise AssertionError(f"{name}: rescale shares {written}")
+    soak = got["p0"]["soak"]
+    rej = got["rejoiner"]
+    k1 = {"p0": got["p0"]["k1"], "p1": got["p1_killed"]["k1"],
+          "rejoiner": rej["k1"]}
+    launches = (sum(v["launches_plain"] for v in k1.values()),
+                sum(v["launches_ovc"] for v in k1.values()))
+    if dev.type == "cuda" and not all(
+            v["launches_plain"] for v in (k1["p0"], k1["p1"])):
+        raise AssertionError(f"multihost: K1 did not launch in both hosts: "
+                             f"{k1}")
+    rows = 2 * MH_ROUNDS * cfg["per_round"]
+    write_s = max(sum(o["writes_s"]) + sum(o["commits_s"])
+                  for o in orders.values())
+    peaks = {k: v["before_soak"]["peak_gib"] for k, v in hosts.items()}
+    peaks["p0"] = got["p0"]["peak_gib"]
+    peaks["rejoiner"] = rej["peak_gib"]
+    peak = None if dev.type != "cuda" else max(peaks.values())
+    k1_orders = (sum(v["before_soak"]["k1"]["launches_plain"]
+                     for v in hosts.values()), 0)
+    for what, n_rows, secs in (
+            (f"plane write x{MH_ROUNDS} (2 processes, exchange, cas)",
+             rows, write_s),
+            (f"pinned scan after round {MH_READS_AFTER[0]}",
+             rows // 2, max(o["reads"][str(MH_READS_AFTER[0])]["s"]
+                            for o in orders.values())),
+            (f"pinned scan after round {MH_READS_AFTER[1]}", rows,
+             max(o["reads"][str(MH_READS_AFTER[1])]["s"]
+                 for o in orders.values())),
+            ("mesh compaction of the owned groups", rows,
+             max(o["compact_s"] for o in orders.values())),
+            (f"rescale to {MH_RESCALED} buckets", oracle["live"],
+             max(o["rescale_s"] for o in orders.values())),
+            ("pinned scan after the rescale", oracle["live"],
+             max(o["reads"]["rescaled"]["s"] for o in orders.values()))):
+        rec.add(name, what, n_rows, dev, secs,
+                k1_orders if what.startswith("plane write") else (0, 0),
+                peak_gib=peak)
+    out = {name: {
+        "rows": rows, "live": oracle["live"], "processes": MH_PROCESSES,
+        "owners": owners, "oracle_s": oracle_s,
+        "write_rows_per_s": rows / write_s, "write_s": write_s,
+        "steps_s": {k: {s: orders[k][s] for s in (
+            "writes_s", "commits_s", "compact_s", "rescale_s")}
+            for k in orders},
+        "reads": {k: {w: {x: r[x] for x in ("sid", "rows", "s")}
+                      for w, r in orders[k]["reads"].items()}
+                  for k in orders},
+        "fsck_s": orders["p0"].get("fsck_s"),
+        **{m: {k: orders[k][m] for k in orders} for m in (
+            "foreign_rows_routed", "commit_conflicts", "commit_retries",
+            "barrier_wait_ms_p50", "barrier_wait_ms_max", "barriers",
+            "compact")}},
+        "mh_coverage": {
+            "coverage": {k: v["coverage"] for k, v in hosts.items()},
+            "soak": soak, "rejoiner": {k: rej[k] for k in (
+                "readmit_s", "s", "rejoin_replayed", "offset_committed",
+                "ownership_version")},
+            "kill_to_takeover_s": soak["takeover_s"],
+            "restart_to_readmission_s": rej["readmit_s"],
+            "p1_killed_at_offset": got["p1_killed"]["killed_at_offset"]},
+        "start": {**ready, "overlapped_s": t_phase - children.t0,
+                  "waited_s": waited},
+        "k1": k1, "k1_launches": {"plain": launches[0],
+                                  "ovc": launches[1]},
+        "peak_gib": peaks, "run_s": run_s,
+        "s": time.perf_counter() - t_phase}
+    log(f"  {name}: write {rows / write_s:,.0f} rows/s; "
+        f"foreign rows routed {out[name]['foreign_rows_routed']}; commit "
+        f"conflicts {out[name]['commit_conflicts']}, retries "
+        f"{out[name]['commit_retries']}; barrier wait p50 "
+        f"{out[name]['barrier_wait_ms_p50']} ms, max "
+        f"{out[name]['barrier_wait_ms_max']} ms; kill -> takeover "
+        f"{soak['takeover_s']:.2f} s, restart -> readmission "
+        f"{rej['readmit_s']:.2f} s; K1 {launches[0]} (K2 {launches[1]}) "
+        f"by process: " + ", ".join(f"{k} {v['launches_plain']}"
+                                    for k, v in k1.items())
+        + f"; peak device memory {peaks}; oracle on the card "
+        f"{oracle_s:.2f} s; checks passed")
+    if dev.type == "cuda":
+        out["card"] = card_line()
+        out["compute_mode"] = compute_mode
+    return out
+
+
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_1M",
                  "ap_queue_coverage")
@@ -11023,7 +12121,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               maintained: dict, planes: dict, indexed: dict,
               appended: dict, formatted: dict, sqled: dict,
               streamed: dict, searched: dict, fleet: dict,
-              laked: dict) -> tuple:
+              laked: dict, multihost: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -11064,6 +12162,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
         return path(name, run)
 
     oracles = None
+    mh_children = None
     try:
         t0 = time.perf_counter()
         batches = bigint_batches(rows)
@@ -11210,10 +12309,21 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
             # through SQL and the Python API, HNSW, IVF-Flat, full-text
             # and hybrid search
             searched.update(path("search", lambda: search(work, rec)))
+            # the multihost phase's processes start here, so that their
+            # start on the card overlaps lake_interop
+            mh_children = MhChildren(work, "cuda")
             # the Iceberg export through a REST catalog, the multi-writer
             # ingest topology, the loaders and the VFS
             laked.update(path("lake_interop",
                               lambda: lake_interop(work, rec)))
+            # the multi-host planes: the write plane, the maintenance
+            # plane and the plane-mode stream daemon across processes
+            # that share the card; their launches join the main path's
+            multihost.update(path("multihost_planes",
+                                  lambda: multihost_planes(work, rec,
+                                                           mh_children)))
+            totals[0] += multihost["k1_launches"]["plain"]
+            totals[1] += multihost["k1_launches"]["ovc"]
         moved = counter_delta(planes0)
         injected = sum(planes["faults_500K"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
@@ -11270,6 +12380,8 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
     finally:
         if oracles is not None:
             oracles.stop()
+        if mh_children is not None:
+            mh_children.stop()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -11330,11 +12442,12 @@ def main() -> int:
     searched: dict = {}
     fleet: dict = {}
     laked: dict = {}
+    multihost: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
                          appended, formatted, sqled, streamed, searched,
-                         fleet, laked)
+                         fleet, laked, multihost)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -11409,6 +12522,7 @@ def main() -> int:
             "iceberg read (rest) after the compaction")},
         "syncs": ice["syncs"], "loader": ice["loader"],
         "coverage_s": laked["lake_coverage"]["s"]}}))
+    print(json.dumps({"multihost_planes": multihost}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

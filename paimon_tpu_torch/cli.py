@@ -19,10 +19,11 @@ or the PAIMON_WAREHOUSE environment variable.
 --device picks the device the catalog's tables run on: the card
 ("cuda") unless given, which raises without one; `--device cpu` runs
 on the CPU.  `table stream` runs the streaming daemon over a JSONL file
-of CDC events until SIGTERM or --duration, and `fleet trace --merge DIR`
-merges the trace spools under DIR.  Not ported yet, each raising
-NotImplementedError naming its ROADMAP.md item: the rest of `fleet`
-(parallel/distributed.py, A.8.9) and `lint` (analysis/, A.8.9).
+of CDC events until SIGTERM or --duration, `fleet status` reads the
+multi-host planes' ownership generations, leases and ledgers from a
+table's snapshots, and `fleet trace --merge DIR` merges the trace
+spools under DIR.  Not ported yet, raising NotImplementedError naming
+its ROADMAP.md item: `lint` (analysis/, A.8.9).
 """
 
 import argparse
@@ -381,12 +382,56 @@ def cmd_branch(args):
 
 def _fleet_view(table, base_user: str, lease_walk: int) -> Dict:
     """Fleet-plane introspection, read purely from snapshot
-    properties through the sanctioned history API
-    (parallel/distributed.py — the `ownership-history` lint rule
-    forbids raw `multihost.ownership.*` parsing here too)."""
-    raise NotImplementedError(
-        "the fleet view needs parallel/distributed.py, which is not "
-        "ported to paimon_tpu_torch yet (ROADMAP.md: A.8.9)")
+    properties through parallel/distributed.py's stamp readers (no raw
+    `multihost.ownership.*` parsing here)."""
+    import time as _time
+
+    from paimon_tpu_torch.parallel.distributed import (
+        merge_lease_view, merge_rejoin_requests,
+        resume_generation_history,
+    )
+    from paimon_tpu_torch.service.stream_daemon import recover_plane_stamps
+
+    hist = resume_generation_history(table)
+    if hist is None:
+        return {"distributed": False}
+    current = hist.current()
+    now = int(_time.time() * 1000)
+    leases = merge_lease_view(table, max_walk=lease_walk)
+    requests = merge_rejoin_requests(table)
+    hosts = {}
+    for p in range(current.num_processes):
+        ledger, floors = recover_plane_stamps(
+            table, f"{base_user}-p{p}")
+        # bucket shares for the default partition — partitioned
+        # tables shard per (partition, bucket), so per-partition
+        # ownership can differ; this is the representative view
+        owned = [b for b in range(current.num_buckets)
+                 if current.owner_of((), b) == p]
+        lease_ms = leases.get(p)
+        hosts[str(p)] = {
+            "dead": p in current.dead,
+            "rejoin_requested": p in requests,
+            "lease_age_ms": None if lease_ms is None
+            else max(0, now - lease_ms),
+            "adopted": sorted(ledger),
+            "floors": {str(k): v for k, v in sorted(floors.items())},
+            "owned_buckets": owned,
+        }
+    out = {
+        "distributed": True,
+        "version": current.version,
+        "processes": current.num_processes,
+        "buckets": current.num_buckets,
+        "dead": sorted(current.dead),
+        "rejoining": sorted(p for p in requests if p in current.dead),
+        "hosts": hosts,
+        "generations": [
+            {"version": m.version, "processes": m.num_processes,
+             "buckets": m.num_buckets, "dead": sorted(m.dead)}
+            for m in hist.entries],
+    }
+    return out
 
 
 def _options_diff(table) -> Dict:
@@ -456,9 +501,20 @@ def cmd_fleet(args):
         if stats["processes"] == 0:
             raise SystemExit(1)
         return
-    raise NotImplementedError(
-        f"`fleet {args.fleet_cmd}` needs parallel/distributed.py, which "
-        f"is not ported to paimon_tpu_torch yet (ROADMAP.md: A.8.9)")
+    catalog = _load_catalog(args)
+    table = _table(catalog, args.table)
+    out = _fleet_view(table, args.base_user, args.lease_walk)
+    if getattr(args, "serving", None):
+        # the store plane above is read from snapshots; the serving
+        # plane (SLO burn rates) lives behind HTTP — best-effort so a
+        # downed router never hides the store-side view
+        try:
+            from paimon_tpu_torch.service.query_service import KvQueryClient
+            out["slo"] = KvQueryClient(address=args.serving,
+                                       follow_topology=False).slo()
+        except Exception as e:             # noqa: BLE001 — diagnostic
+            out["slo"] = {"error": f"{type(e).__name__}: {e}"}
+    print(json.dumps(out, indent=2))
 
 
 def cmd_sql(args):

@@ -70,11 +70,21 @@ def _read_bucket(table, path_factory, partition, bucket, files,
 
 
 def compact_table(table, full: bool = False,
-                  partition_filter: Optional[dict] = None
-                  ) -> Optional[int]:
+                  partition_filter: Optional[dict] = None,
+                  group_filter=None, commit_user: Optional[str] = None,
+                  properties: Optional[Dict[str, str]] = None,
+                  properties_provider=None) -> Optional[int]:
     """Compact every (partition, bucket) that has work on the table's
     device; commit one COMPACT snapshot.  Returns the snapshot id or
     None if there was nothing to do.
+
+    `group_filter` is a `(partition_tuple, bucket) -> bool` scheduling
+    predicate: the sharded maintenance plane passes its ownership filter
+    so each host compacts only the groups it owns.  `commit_user` and
+    `properties` land on the COMPACT snapshot; `properties_provider`
+    (FileStoreCommit.properties_provider) is evaluated per CAS attempt,
+    so a long compaction cannot publish stale lease or ownership stamps
+    after losing a race to a takeover commit.
 
     With `tpu.mesh.compact`, full compactions route per merge engine:
     engines the mesh engine runs (parallel/mesh_engine.py) compact every
@@ -89,7 +99,10 @@ def compact_table(table, full: bool = False,
         if (table.options.merge_engine in SUPPORTED_MERGE_ENGINES
                 and table.options.changelog_producer
                 == ChangelogProducer.NONE):
-            return compact_table_mesh(table).snapshot_id
+            return compact_table_mesh(
+                table, group_filter=group_filter,
+                commit_user=commit_user, properties=properties,
+                properties_provider=properties_provider).snapshot_id
     scan = table.new_scan()
     if partition_filter:
         scan.with_partition_filter(partition_filter)
@@ -113,6 +126,9 @@ def compact_table(table, full: bool = False,
     messages: List[CommitMessage] = []
     for (pbytes, bucket), files in groups.items():
         partition = scan._partition_codec.from_bytes(pbytes)
+        if group_filter is not None and \
+                not group_filter(tuple(partition), bucket):
+            continue              # another host's share
         if is_append:
             result = _append_compact(
                 table, scan, partition, bucket, files, full,
@@ -137,10 +153,14 @@ def compact_table(table, full: bool = False,
     if not messages:
         return None
     commit = FileStoreCommit(table.file_io, table.path, table.schema,
-                             table.options, branch=table.branch)
+                             table.options, commit_user=commit_user,
+                             branch=table.branch)
+    if properties_provider is not None:
+        commit.properties_provider = properties_provider
     index_list = [e for m in messages for e in m.index_entries]
     return commit.commit(messages, BATCH_COMMIT_IDENTIFIER,
-                         index_entries=index_list or None)
+                         index_entries=index_list or None,
+                         properties=properties)
 
 
 def rescale_postpone(table) -> Optional[int]:

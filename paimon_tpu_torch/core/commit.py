@@ -86,9 +86,15 @@ class FileStoreCommit:
         self.row_tracking = (
             options.get(CoreOptions.ROW_TRACKING_ENABLED)
             and not table_schema.primary_keys)
+        # optional lost-CAS observer (the attempt number of each loss):
+        # the multi-host write plane (parallel/distributed.py) counts its
+        # commit_conflicts / commit_retries here; commit arbitration IS
+        # this retry loop, observed from outside
+        self.conflict_listener: Optional[Callable] = None
         # optional () -> {str: str} of snapshot properties, evaluated
         # once per CAS attempt and merged under the explicit ones (the
-        # CDC sink's `properties_provider`)
+        # CDC sink's, and the multi-host planes' lease and ownership
+        # stamps, which stay fresh across retries this way)
         self.properties_provider: Optional[Callable] = None
 
     # -- public API ----------------------------------------------------------
@@ -157,7 +163,8 @@ class FileStoreCommit:
                   partition_filter: Optional[dict] = None,
                   commit_identifier: int = BATCH_COMMIT_IDENTIFIER,
                   index_entries: Optional[list] = None,
-                  watermark: Optional[int] = None
+                  watermark: Optional[int] = None,
+                  properties: Optional[Dict[str, str]] = None
                   ) -> Optional[int]:
         """INSERT OVERWRITE: delete current files (optionally restricted to
         a partition spec) and add new ones atomically
@@ -189,6 +196,7 @@ class FileStoreCommit:
         return self._try_commit([], [], commit_identifier,
                                 CommitKind.OVERWRITE, entries_fn=entries_fn,
                                 index_entries=index_entries,
+                                properties=properties,
                                 watermark=watermark)
 
     def filter_committed(self, commit_identifiers: Sequence[int]
@@ -448,6 +456,13 @@ class FileStoreCommit:
                 # lost the race: clean up everything written for this
                 # attempt and retry against the new latest (the delta
                 # manifest is reusable unless the entry set is dynamic)
+                if self.conflict_listener is not None:
+                    self.conflict_listener(attempts)
+                from paimon_tpu_torch.obs.flight import (
+                    EV_COMMIT_CONFLICT, record,
+                )
+                record(EV_COMMIT_CONFLICT, attempt=attempts,
+                       snapshot=new_id, user=self.commit_user)
                 delete_attempt_lists()
                 if (entries_fn is not None or ids_assigned) and \
                         new_manifest is not None:

@@ -276,12 +276,30 @@ class LocalFileIO(FileIO):
         return out
 
     def write_bytes(self, path: str, data: bytes, overwrite: bool = True):
+        """Write `data` whole.  An overwrite goes through a hidden
+        temporary file renamed over `p`, so a reader (or a host that
+        dies mid-write and the survivor that reads after it) sees the
+        old bytes or the new ones, never a truncated file: the
+        reference truncates `p` in place, and a consumer position left
+        empty by a killed host crash-loops the survivor's serve catch-up
+        (ROADMAP.md C)."""
         p = self._strip(path)
         if not overwrite and os.path.exists(p):
             raise FileExistsError(p)
         os.makedirs(os.path.dirname(p), exist_ok=True)
-        with open(p, "wb") as f:
-            f.write(data)
+        if not overwrite:
+            with open(p, "wb") as f:
+                f.write(data)
+            return
+        head, name = os.path.split(p)
+        tmp = os.path.join(head, f".{name}.{uuid.uuid4().hex}.tmp")
+        try:
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, p)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
     def try_to_write_atomic(self, path: str, data: bytes) -> bool:
         p = self._strip(path)

@@ -36,9 +36,8 @@ remove_unexisting_manifests / compact_manifests) — the CLI surface is
 `paimon table fsck db.t [--deep] [--fix]`.
 
 Counterpart of paimon_tpu/maintenance/fsck.py: the same walk, kinds and
-reports.  The ownership stamps are parsed by this module's own copy of
-the reference's `parallel/distributed.py` `stamp_from_properties`
-(the current generation only; fsck reads nothing else of a stamp).
+reports.  The ownership stamps are parsed through
+`parallel/distributed.py` `stamp_from_properties`, as the reference's.
 """
 
 from __future__ import annotations
@@ -52,42 +51,7 @@ from paimon_tpu_torch.snapshot.snapshot_manager import (
     EARLIEST, LATEST, SNAPSHOT_PREFIX,
 )
 
-__all__ = ["ViolationKind", "FsckViolation", "FsckReport", "fsck",
-           "OwnershipStamp", "stamp_from_properties"]
-
-# the multi-host planes' ownership stamp (reference
-# paimon_tpu/parallel/distributed.py:94-97)
-OWNERSHIP_VERSION_PROP = "multihost.ownership.version"
-OWNERSHIP_PROCESSES_PROP = "multihost.ownership.processes"
-OWNERSHIP_BUCKETS_PROP = "multihost.ownership.buckets"
-OWNERSHIP_DEAD_PROP = "multihost.ownership.dead"
-
-
-@dataclass(frozen=True)
-class OwnershipStamp:
-    """One generation of the sharded write-ownership map, as a snapshot
-    records it (reference distributed.OwnershipMap)."""
-    version: int
-    num_processes: int
-    num_buckets: int
-    dead: frozenset = frozenset()
-
-
-def stamp_from_properties(props: Dict[str, str]
-                          ) -> Optional[OwnershipStamp]:
-    """The current ownership generation recorded in one snapshot's
-    properties, or None when the snapshot is unstamped; ValueError
-    when the stamp does not parse (reference
-    distributed.stamp_from_properties and _map_from_properties)."""
-    if OWNERSHIP_VERSION_PROP not in (props or {}):
-        return None
-    dead = frozenset(
-        int(p) for p in (props.get(OWNERSHIP_DEAD_PROP) or "").split(",")
-        if p.strip())
-    return OwnershipStamp(
-        int(props[OWNERSHIP_VERSION_PROP]),
-        int(props.get(OWNERSHIP_PROCESSES_PROP) or 0),
-        int(props.get(OWNERSHIP_BUCKETS_PROP) or 0), dead)
+__all__ = ["ViolationKind", "FsckViolation", "FsckReport", "fsck"]
 
 
 class ViolationKind:
@@ -515,6 +479,7 @@ def _check_ownership_chain(table, report: FsckReport, ids: List[int]):
     (A new generation MAY clear the dead set — a full-cohort rejoin
     bumps the version; what it may never do is reuse an old one.)
     """
+    from paimon_tpu_torch.parallel.distributed import stamp_from_properties
     sm = table.snapshot_manager
     prev_sid = prev_version = None
     by_version: dict = {}
@@ -533,7 +498,7 @@ def _check_ownership_chain(table, report: FsckReport, ids: List[int]):
             continue
         if stamp is None:
             continue
-        stamped_map = stamp
+        stamped_map, _history = stamp
         version = stamped_map.version
         shape = (stamped_map.num_processes, stamped_map.num_buckets)
         dead = stamped_map.dead

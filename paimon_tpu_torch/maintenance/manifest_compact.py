@@ -13,14 +13,12 @@ every mutating op), so concurrent writers retry normally and the
 delta-apply plan cache rides across it untouched (a COMPACT snapshot
 with an empty delta folds as a no-op).
 
-Counterpart of paimon_tpu/maintenance/manifest_compact.py without the
-reference's `properties_provider` seam, which only the multi-host
-maintenance plane passes (ROADMAP.md A.8.9).
+Counterpart of paimon_tpu/maintenance/manifest_compact.py.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 __all__ = ["manifest_compaction_needed", "compact_manifests"]
 
@@ -51,7 +49,10 @@ def manifest_compaction_needed(table) -> bool:
                if m.file_size < small_bound) >= threshold
 
 
-def compact_manifests(table, force: bool = False) -> Optional[int]:
+def compact_manifests(table, force: bool = False,
+                      commit_user: Optional[str] = None,
+                      properties: Optional[Dict[str, str]] = None,
+                      properties_provider=None) -> Optional[int]:
     """Run one manifest full-compaction when the threshold trigger
     fires (or unconditionally with `force=True`).  Returns the new
     snapshot id, or None when nothing was done."""
@@ -62,8 +63,11 @@ def compact_manifests(table, force: bool = False) -> Optional[int]:
         PLAN_MANIFEST_COMPACTIONS, global_registry,
     )
     commit = FileStoreCommit(table.file_io, table.path, table.schema,
-                             table.options, branch=table.branch)
-    sid = commit.compact_manifests()
+                             table.options, commit_user=commit_user,
+                             branch=table.branch)
+    if properties_provider is not None:
+        commit.properties_provider = properties_provider
+    sid = commit.compact_manifests(properties=properties)
     if sid is not None:
         global_registry().plan_metrics().counter(
             PLAN_MANIFEST_COMPACTIONS).inc()

@@ -19,8 +19,10 @@ busy window of `CompactTimer`.  `snapshot_rows` is the one
 serialization behind `snapshot()` and the Prometheus text of
 obs/export.py; and the stream daemon's stream group (events, checkpoints
 and their ms, loop restarts, freshness, changelog rows, compactions and
-pauses, the source backlog).  The reference's multihost group and the
-rest of the fleet group are not ported yet.
+pauses, the source backlog); the multi-host planes' multihost group
+(commit conflicts and retries, ownership handoffs, barrier waits,
+foreign rows routed, config warnings, owned buckets, takeovers, lease
+renewals and expiries) and the fleet group's rejoins and generations.
 
 reference: paimon-core/.../metrics/ (MetricRegistry, Counter, Gauge,
 Histogram) with groups CommitMetrics / ScanMetrics / CompactionMetrics,
@@ -64,7 +66,13 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricGroup",
            "SLO_ALERT", "SLO_GOOD_EVENTS", "SLO_BAD_EVENTS",
            "FSCK_VIOLATIONS", "PLAN_MANIFEST_COMPACTIONS",
            "FLEET_FSCK_INCREMENTAL_RUNS", "FLEET_FSCK_OBJECTS_CHECKED",
-           "FLEET_FSCK_WATERMARK_AGE_MS",
+           "FLEET_FSCK_WATERMARK_AGE_MS", "FLEET_REJOINS",
+           "FLEET_GENERATIONS", "MULTIHOST_COMMIT_CONFLICTS",
+           "MULTIHOST_COMMIT_RETRIES", "MULTIHOST_OWNERSHIP_HANDOFFS",
+           "MULTIHOST_BARRIER_WAIT_MS", "MULTIHOST_FOREIGN_ROWS",
+           "MULTIHOST_CONFIG_WARNINGS", "MULTIHOST_OWNED_BUCKETS",
+           "MULTIHOST_MAINTENANCE_TAKEOVERS", "MULTIHOST_LEASE_RENEWALS",
+           "MULTIHOST_LEASE_EXPIRED",
            "SCAN_PIPELINE_SPLITS", "SCAN_PIPELINE_BYTES",
            "SCAN_READ_RETRIES", "SCAN_SPLIT_MS",
            "WRITE_FLUSHES", "WRITE_FLUSHED_BYTES", "WRITE_FLUSH_WAIT_MS",
@@ -119,6 +127,29 @@ PLAN_MANIFEST_COMPACTIONS = "manifest_compactions"  # full rewrites
 FLEET_FSCK_INCREMENTAL_RUNS = "fsck_incremental_runs"
 FLEET_FSCK_OBJECTS_CHECKED = "fsck_objects_checked"
 FLEET_FSCK_WATERMARK_AGE_MS = "fsck_watermark_age_ms"
+# the rest of the fleet group (parallel/maintenance_plane.py): hosts the
+# elected granter readmitted, and a gauge of the current ownership-map
+# version (every takeover, rejoin and rescale advances it)
+FLEET_REJOINS = "rejoins"
+FLEET_GENERATIONS = "generations"
+# multihost group (parallel/multihost.py, parallel/distributed.py,
+# parallel/maintenance_plane.py): snapshot-CAS losses of distributed
+# commits, distributed commits that needed more than one CAS attempt,
+# (partition, bucket) owners moved between ownership versions, the wall
+# time in cross-process barriers, rows exchanged to their owners,
+# collective-configuration warnings; the maintenance plane's owned
+# groups (a gauge that jumps on a takeover), lease renewals, peers its
+# detector declared dead and completed adoptions
+MULTIHOST_COMMIT_CONFLICTS = "commit_conflicts"
+MULTIHOST_COMMIT_RETRIES = "commit_retries"
+MULTIHOST_OWNERSHIP_HANDOFFS = "ownership_handoffs"
+MULTIHOST_BARRIER_WAIT_MS = "barrier_wait_ms"
+MULTIHOST_FOREIGN_ROWS = "foreign_rows_routed"
+MULTIHOST_CONFIG_WARNINGS = "config_warnings"
+MULTIHOST_OWNED_BUCKETS = "owned_buckets"
+MULTIHOST_MAINTENANCE_TAKEOVERS = "maintenance_takeovers"
+MULTIHOST_LEASE_RENEWALS = "lease_renewals"
+MULTIHOST_LEASE_EXPIRED = "lease_expired"
 # scan group: parquet files the device decode plane streamed, and those
 # it handed back to the pyarrow host path
 SCAN_DEVICE_DECODE_FILES = "device_decode_files"
@@ -427,8 +458,16 @@ class MetricRegistry:
         return self.group("plan", table)
 
     def fleet_metrics(self, table: str = "") -> MetricGroup:
-        """Incremental fsck sweeps (maintenance/fsck.py)."""
+        """Self-healing fleet plane: coordinated rejoin
+        (parallel/maintenance_plane.py) and incremental fsck sweeps
+        (maintenance/fsck.py)."""
         return self.group("fleet", table)
+
+    def multihost_metrics(self, table: str = "") -> MetricGroup:
+        """Multi-host planes: barriers (parallel/multihost.py), the
+        sharded write plane (parallel/distributed.py) and the
+        maintenance plane's leases and takeovers."""
+        return self.group("multihost", table)
 
     def service_metrics(self, table: str = "") -> MetricGroup:
         """Query-serving plane; `table` doubles as the tenant id of the

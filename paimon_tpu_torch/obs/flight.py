@@ -1,9 +1,11 @@
 """Black-box flight recorder: an always-on bounded ring of the
 operationally interesting events, the ones an operator wants to see from
 the minutes before a crash: retry ladder arms (parallel/fault.py),
-circuit-breaker flips (fs/resilience.py), brownout rung moves and 429 / 504 answers (service/brownout.py), loop
-crashes and SIGTERM / SIGINT (service/stream_daemon.py) and uncaught
-exceptions (the crash hooks below).
+circuit-breaker flips (fs/resilience.py), brownout rung moves and 429 / 504 answers (service/brownout.py), CAS
+conflicts (core/commit.py), lease expiries, takeovers and rejoin grants
+(parallel/maintenance_plane.py), loop crashes and SIGTERM / SIGINT
+(service/stream_daemon.py) and uncaught exceptions (the crash hooks
+below).
 
 Counterpart of paimon_tpu/obs/flight.py with those event kinds.
 Recording is one dict append under a leaf lock and is on by default.
@@ -29,7 +31,8 @@ __all__ = [
     "FlightRecorder", "recorder", "record", "dump", "install_crash_hooks",
     "self_dump_dir", "sync_from_options",
     "EV_RETRY", "EV_BREAKER", "EV_BROWNOUT", "EV_HTTP_429", "EV_HTTP_504",
-    "EV_LOOP_CRASH", "EV_SIGTERM", "EV_CRASH",
+    "EV_COMMIT_CONFLICT", "EV_LEASE_EXPIRED", "EV_TAKEOVER",
+    "EV_REJOIN_GRANT", "EV_LOOP_CRASH", "EV_SIGTERM", "EV_CRASH",
 ]
 
 DEFAULT_EVENTS = 512
@@ -39,6 +42,10 @@ EV_BREAKER = "breaker"
 EV_BROWNOUT = "brownout"
 EV_HTTP_429 = "http.429"
 EV_HTTP_504 = "http.504"
+EV_COMMIT_CONFLICT = "commit.conflict"
+EV_LEASE_EXPIRED = "lease.expired"
+EV_TAKEOVER = "takeover"
+EV_REJOIN_GRANT = "rejoin.grant"
 EV_LOOP_CRASH = "loop.crash"
 EV_SIGTERM = "sigterm"
 EV_CRASH = "crash"

@@ -39,7 +39,8 @@ __all__ = ["Span", "TraceCollector", "span", "enable_tracing",
            "current_context_token",
            "spool_flush", "reset_spool", "set_export_dir",
            "STAGE_SERVE_REQUEST", "STAGE_CLIENT_REQUEST",
-           "STAGE_PLAN_LINK", "HDR_TRACE_ID", "HDR_PARENT_SPAN"]
+           "STAGE_PLAN_LINK", "STAGE_LEASE_FOLD", "HDR_TRACE_ID",
+           "HDR_PARENT_SPAN"]
 
 DEFAULT_BUFFER_SPANS = 8192
 
@@ -50,6 +51,9 @@ STAGE_CLIENT_REQUEST = "client.request"
 # a scan plan of a snapshot whose commit carried a trace context
 # (`trace.context` in its properties): the link back to the committer
 STAGE_PLAN_LINK = "plan.link"
+# a lease fold (parallel/distributed.merge_lease_view) that read a peer's
+# commit carrying a trace context: the link from one host to another
+STAGE_LEASE_FOLD = "lease.fold"
 HDR_TRACE_ID = "X-Trace-Id"
 HDR_PARENT_SPAN = "X-Parent-Span"
 

@@ -666,6 +666,78 @@ class CoreOptions:
         "When set, the compaction loop also expires old snapshots at "
         "this interval (bounds metadata growth on long-running "
         "daemons); None leaves snapshot expiry to external maintenance")
+    # -- multi-host write plane (ours; parallel/multihost.py +
+    #    parallel/distributed.py) --------------------------------------------
+    MULTIHOST_COMMIT_ARBITRATION = ConfigOption(
+        "multihost.commit.arbitration", str, "cas",
+        "How concurrent per-process commits publish on a multi-host "
+        "mesh (parallel/distributed.py): 'cas' = every process "
+        "commits its own messages and the snapshot CAS serializes "
+        "them with conflict re-resolution (reference FileStoreCommit "
+        "optimistic retry); 'coordinator' = commit messages are "
+        "gathered to an elected committer process over the mesh and "
+        "published as ONE snapshot per global checkpoint (reference "
+        "committer-operator singleton)")
+    MULTIHOST_WRITE_ROUTING = ConfigOption(
+        "multihost.write.routing", str, "exchange",
+        "What a distributed writer does with rows whose "
+        "(partition,bucket) is owned by another process: 'exchange' = "
+        "reroute them to their owners with one cross-host allgather "
+        "per batch (input streams must be DISJOINT across processes); "
+        "'spmd' = silently keep only owned rows (every process must "
+        "see the IDENTICAL global batch — the SPMD shape); "
+        "'local-only' = raise, for pre-partitioned pipelines where a "
+        "foreign row is a routing bug")
+    MULTIHOST_SCAN_PIN = ConfigOption(
+        "multihost.scan.pin-snapshot", _parse_bool, True,
+        "Snapshot-consistent cross-host scans: all processes agree on "
+        "ONE pinned snapshot id (broadcast from process 0) before "
+        "planning, so every host reads the same table version and "
+        "split ownership covers exactly one consistent state.  false "
+        "= each process plans its own latest snapshot (scans may "
+        "straddle concurrent commits)")
+    MULTIHOST_LEASE_INTERVAL = ConfigOption(
+        "multihost.lease.interval", _parse_duration_ms, 10000,
+        "Target lease-renewal cadence of the multi-host maintenance "
+        "plane (parallel/maintenance_plane.py): every plane-issued "
+        "commit renews the committer's lease as snapshot properties; "
+        "when no commit happened within this interval the plane "
+        "publishes a small heartbeat snapshot so an idle-but-alive "
+        "host is never mistaken for a dead one")
+    MULTIHOST_LEASE_TIMEOUT = ConfigOption(
+        "multihost.lease.timeout", _parse_duration_ms, 60000,
+        "Failure-detector threshold: a maintenance-plane participant "
+        "whose newest lease renewal (max-merged over the recent "
+        "snapshot chain) is older than this is presumed DEAD, and its "
+        "(partition,bucket) groups are deterministically re-assigned "
+        "to the survivors (ownership version bump, dead set recorded "
+        "in snapshot properties).  Must comfortably exceed "
+        "multihost.lease.interval plus worst-case commit latency — a "
+        "premature declaration splits ownership of live buckets")
+    MULTIHOST_MAINTENANCE_TAKEOVER = ConfigOption(
+        "multihost.maintenance.takeover", _parse_bool, True,
+        "Whether survivors automatically adopt a dead host's buckets "
+        "(compaction, expiry election, changelog serving and — for "
+        "distributed stream daemons — its committed CDC offsets, "
+        "exactly-once).  false = the failure detector still reports "
+        "lease_expired, but ownership stays frozen until an operator "
+        "intervenes")
+    MULTIHOST_MAINTENANCE_LEASE_WALK = ConfigOption(
+        "multihost.maintenance.lease-walk", int, 16,
+        "How many recent snapshots the lease reader max-merges to "
+        "build the failure-detector view.  One snapshot would race "
+        "concurrent committers (each stamps the view IT knew); a "
+        "small window resolves the interleaving by max()")
+    MULTIHOST_REJOIN_ENABLED = ConfigOption(
+        "multihost.rejoin.enabled", _parse_bool, True,
+        "Whether a restarted host that the ownership map records DEAD "
+        "enters the coordinated rejoin protocol (publish a rejoin "
+        "request, wait for the elected survivor to readmit it into a "
+        "new ownership generation, replay its offset gap up to the "
+        "granted floor, resume).  false refuses the resurrected host: "
+        "plane construction raises OwnershipError and rejoin needs an "
+        "operator-driven whole-cohort restart")
+
     LOOKUP_CACHE_MAX_MEMORY_SIZE = ConfigOption(
         "lookup.cache-max-memory-size", parse_memory_size, 256 << 20,
         "Block-cache memory bound of the SST lookup store")
@@ -1348,3 +1420,6 @@ class CoreOptions:
     def record_level_time_field(self):
         return self.options.get(CoreOptions.RECORD_LEVEL_TIME_FIELD)
 
+
+    def to_map(self) -> Dict[str, str]:
+        return self.options.to_map()

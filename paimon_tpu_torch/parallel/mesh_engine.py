@@ -80,14 +80,23 @@ class MeshCompactStats:
     cleanup_errors: int = 0     # best-effort partial-file deletes failed
 
 
-def _single_process(mesh) -> None:
-    """Table-level mesh compaction runs in one process: a multi-process
-    plane (each rank committing its own buckets) is
-    parallel/distributed.py, which is not ported yet."""
-    if mesh.world > 1:
-        raise NotImplementedError(
-            "table compaction over a multi-process mesh is not ported to "
-            "paimon_tpu_torch yet (ROADMAP.md: A.8.9)")
+def _process_share(mesh, group_filter):
+    """(this process's part of `mesh`, the groups it compacts).  Over a
+    multi-process mesh every rank compacts its own (partition, bucket)
+    groups on its own lanes and card, with no collective between the
+    ranks (their window steps differ): the groups `group_filter` gives
+    it, by default those `distributed.owner_of` gives this rank."""
+    if mesh.world == 1:
+        return mesh, group_filter
+    from paimon_tpu_torch.parallel.sharded_merge import BucketMesh
+    if group_filter is None:
+        from paimon_tpu_torch.parallel.distributed import owner_of
+        rank, world = mesh.rank, mesh.world
+
+        def group_filter(partition, bucket):
+            return owner_of(partition, bucket, world) == rank
+    return BucketMesh(mesh.n_lanes // mesh.world, mesh.device), \
+        group_filter
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +427,9 @@ def _needs_rewrite(split, max_level: int) -> bool:
                 and (fs[0].delete_row_count or 0) == 0)
 
 
-def compact_table_mesh(table, mesh=None, retry_policy=None
+def compact_table_mesh(table, mesh=None, retry_policy=None,
+                       group_filter=None, commit_user=None,
+                       properties=None, properties_provider=None
                        ) -> MeshCompactStats:
     """Full compaction of every bucket of a primary-key table through
     the streaming mesh engine: engine-dispatched window merges over a
@@ -426,9 +437,14 @@ def compact_table_mesh(table, mesh=None, retry_policy=None
     Host memory per bucket is about runs x window rows.
 
     `mesh`: a parallel.bucket_mesh (None: one lane on the table's
-    device).  Transient failures are isolated per bucket (module
-    docstring, point 4); `retry_policy` overrides the table's
-    compaction.retry.* and compaction.mesh.fallback options."""
+    device); over several processes each compacts its own groups
+    (`_process_share`) and commits them.  `group_filter`: a (partition,
+    bucket) -> bool scheduling predicate, the sharded maintenance
+    plane's ownership filter.  `commit_user`, `properties` and
+    `properties_provider` land on the COMPACT snapshot.  Transient
+    failures are isolated per bucket (module docstring, point 4);
+    `retry_policy` overrides the table's compaction.retry.* and
+    compaction.mesh.fallback options."""
     from paimon_tpu_torch.core.commit import FileStoreCommit
     from paimon_tpu_torch.core.write import CommitMessage
     from paimon_tpu_torch.metrics import (
@@ -462,12 +478,17 @@ def compact_table_mesh(table, mesh=None, retry_policy=None
 
     if mesh is None:
         mesh = bucket_mesh(device=table.device)
-    _single_process(mesh)
+    mesh, group_filter = _process_share(mesh, group_filter)
     n_lanes = mesh.n_lanes
 
     max_level = table.options.max_level
     splits = [s for s in table.new_read_builder().new_scan().plan().splits
               if s.data_files]
+    if group_filter is not None:
+        # the sharded maintenance plane: this host compacts only the
+        # groups it owns, its peers run the same program over theirs
+        splits = [s for s in splits
+                  if group_filter(tuple(s.partition), s.bucket)]
     jobs_splits = [s for s in splits if _needs_rewrite(s, max_level)]
     stats = MeshCompactStats(lanes=n_lanes)
     if not jobs_splits:
@@ -712,7 +733,10 @@ def compact_table_mesh(table, mesh=None, retry_policy=None
 
     if messages:
         commit = FileStoreCommit(table.file_io, table.path, table.schema,
-                                 table.options, branch=table.branch)
-        stats.snapshot_id = commit.commit(messages)
+                                 table.options, commit_user=commit_user,
+                                 branch=table.branch)
+        if properties_provider is not None:
+            commit.properties_provider = properties_provider
+        stats.snapshot_id = commit.commit(messages, properties=properties)
     _trace.maybe_export()
     return stats

@@ -206,11 +206,14 @@ def rescale_write_messages(table, values, routing, new_buckets: int,
     return messages
 
 
-def rescale_commit(table, new_buckets: int, messages) -> Optional[int]:
+def rescale_commit(table, new_buckets: int, messages,
+                   properties: Optional[Dict[str, str]] = None
+                   ) -> Optional[int]:
     """Publish a rescale: set the bucket option first, then overwrite
     with the reorganised data (the reference procedure's order; writers
-    pause for the whole rescale).  If the overwrite fails, the option is
-    set back, so the old layout stays consistent with the schema."""
+    pause for the whole rescale), stamped with `properties`.  If the
+    overwrite fails, the option is set back, so the old layout stays
+    consistent with the schema."""
     from paimon_tpu_torch.core.commit import FileStoreCommit
     from paimon_tpu_torch.schema import SchemaChange, SchemaManager
 
@@ -219,7 +222,7 @@ def rescale_commit(table, new_buckets: int, messages) -> Optional[int]:
     try:
         sid = FileStoreCommit(table.file_io, table.path, table.schema,
                               table.options, branch=table.branch) \
-            .overwrite(messages)
+            .overwrite(messages, properties=properties)
     except BaseException:
         sm.commit_changes(SchemaChange.set_option(
             "bucket", str(table.options.bucket)))
@@ -227,22 +230,32 @@ def rescale_commit(table, new_buckets: int, messages) -> Optional[int]:
     return sid
 
 
-def rescale_table_buckets(table, new_buckets: int, mesh=None
+def rescale_table_buckets(table, new_buckets: int, mesh=None,
+                          properties: Optional[Dict[str, str]] = None
                           ) -> Optional[int]:
     """Rewrite a fixed-bucket primary-key table to `new_buckets`: the
     mesh computes the routing (abs(hash % B) and the all_to_all), the
     host moves rows, writes the new bucket files and commits an
-    overwrite, after recording the new bucket count in the schema."""
-    from paimon_tpu_torch.parallel.mesh_engine import _single_process
+    overwrite (stamped with `properties`, e.g. the distributed write
+    plane's ownership generation), after recording the new bucket count
+    in the schema.  A mesh over several processes is refused: each of
+    them would publish the whole rewrite; the multi-process rescale is
+    DistributedWritePlane.rescale_buckets, whose processes each rewrite
+    the buckets they will own."""
     from paimon_tpu_torch.parallel.sharded_merge import bucket_mesh
 
     _validate_rescale(table, new_buckets)
     if mesh is None:
         mesh = bucket_mesh(device=table.device)
-    _single_process(mesh)
+    if mesh.world > 1:
+        raise ValueError(
+            "rescale_table_buckets runs in one process; over a "
+            "multi-process group use the distributed write plane's "
+            "rescale_buckets (table.new_distributed_write())")
     values = table.to_arrow()      # the merged current state
     if values.num_rows == 0:
         return None
     routing = rescale_routing(table, values, new_buckets, mesh)
     messages = rescale_write_messages(table, values, routing, new_buckets)
-    return rescale_commit(table, new_buckets, messages)
+    return rescale_commit(table, new_buckets, messages,
+                          properties=properties)

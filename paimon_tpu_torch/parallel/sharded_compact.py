@@ -86,7 +86,7 @@ def compact_table_sharded(table, mesh=None) -> ShardedCompactStats:
     from paimon_tpu_torch.ops.merge import KIND_COL, SEQ_COL
     from paimon_tpu_torch.options import MergeEngine
     from paimon_tpu_torch.parallel.mesh_engine import (
-        UnsupportedMergeEngineError, _EngineContext, _single_process,
+        UnsupportedMergeEngineError, _EngineContext,
     )
     from paimon_tpu_torch.parallel.sharded_merge import (
         bucket_mesh, pad_bucket_batches,
@@ -105,7 +105,13 @@ def compact_table_sharded(table, mesh=None) -> ShardedCompactStats:
         raise ValueError("sharded compaction targets primary-key tables")
     if mesh is None:
         mesh = bucket_mesh(device=table.device)
-    _single_process(mesh)
+    if mesh.world > 1:
+        # every rank gets every bucket's merge back: each would publish
+        # the whole compaction
+        raise ValueError(
+            "compact_table_sharded runs in one process; over a "
+            "multi-process group use compact_table_mesh, whose ranks "
+            "each compact their own groups")
     plan = table.new_read_builder().new_scan().plan()
     splits = [s for s in plan.splits if len(s.data_files) > 0]
     if not splits:

@@ -234,9 +234,18 @@ class FileStoreTable:
                               process_index: Optional[int] = None,
                               process_count: Optional[int] = None):
         """This process's slice of the multi-host write plane
-        (parallel/distributed.py), not ported yet."""
-        _not_ported("new_distributed_write (the multi-host write plane)",
-                    "A.8.9")
+        (parallel/distributed.py): sharded (partition, bucket) ownership
+        over the processes of a torch.distributed group, arbitrated
+        commits (multihost.commit.arbitration), pinned-snapshot
+        cross-host scans and online bucket rescale, on the table's
+        device.  process_index/count default from the group
+        (parallel/multihost.initialize)."""
+        from paimon_tpu_torch.parallel.distributed import (
+            DistributedWritePlane,
+        )
+        return DistributedWritePlane(self, base_user=base_user,
+                                     process_index=process_index,
+                                     process_count=process_count)
 
     def sync_iceberg(self, committer=None) -> Optional[str]:
         """Export the current snapshot as Iceberg v2 metadata under
@@ -292,24 +301,39 @@ class FileStoreTable:
             return rb.new_read().to_arrow(rb.new_scan().plan().splits)
 
     def compact(self, full: bool = False,
-                partition_filter: Optional[dict] = None) -> Optional[int]:
+                partition_filter: Optional[dict] = None,
+                group_filter=None, commit_user: Optional[str] = None,
+                properties: Optional[Dict[str, str]] = None,
+                properties_provider=None) -> Optional[int]:
         """Compact every (partition, bucket) and commit the result
-        (reference flink CompactAction, engine-free here)."""
+        (reference flink CompactAction, engine-free here).
+        `group_filter` is a (partition, bucket) -> bool scheduling
+        predicate (the sharded maintenance plane passes its ownership
+        filter, so each host compacts only its own groups);
+        `commit_user`, `properties` and `properties_provider` land on
+        the COMPACT snapshot."""
         from paimon_tpu_torch.compact.compact_action import compact_table
         check_writable(self.options)
         return compact_table(self, full=full,
-                             partition_filter=partition_filter)
+                             partition_filter=partition_filter,
+                             group_filter=group_filter,
+                             commit_user=commit_user,
+                             properties=properties,
+                             properties_provider=properties_provider)
 
-    def rescale_buckets(self, new_buckets: int, mesh=None
+    def rescale_buckets(self, new_buckets: int, mesh=None,
+                        properties: Optional[Dict[str, str]] = None
                         ) -> Optional[int]:
         """Change a fixed-bucket primary-key table's bucket count: the
         mesh computes the row routing (abs(hash % B) and an all_to_all
         repartition), the host rewrites the files and commits an
         overwrite (reference rescale-bucket procedure via
-        ChannelComputer)."""
+        ChannelComputer) stamped with `properties` (the distributed
+        write plane records its ownership generation so)."""
         from paimon_tpu_torch.parallel.rescale import rescale_table_buckets
         check_writable(self.options)
-        return rescale_table_buckets(self, new_buckets, mesh=mesh)
+        return rescale_table_buckets(self, new_buckets, mesh=mesh,
+                                     properties=properties)
 
     def rescale_postpone(self) -> Optional[int]:
         """Move bucket-postpone staging data into real buckets (reference
@@ -358,7 +382,10 @@ class FileStoreTable:
         return SortedGlobalIndex.load_or_build(self, column,
                                                rebuild=rebuild)
 
-    def compact_manifests(self, force: bool = True) -> Optional[int]:
+    def compact_manifests(self, force: bool = True,
+                          commit_user: Optional[str] = None,
+                          properties: Optional[Dict[str, str]] = None,
+                          properties_provider=None) -> Optional[int]:
         """Manifest full-compaction: fold the accumulated delta
         manifests into sorted, partition-clustered base manifests
         (maintenance/manifest_compact.py).  `force=False` runs only
@@ -366,7 +393,10 @@ class FileStoreTable:
         from paimon_tpu_torch.maintenance.manifest_compact import (
             compact_manifests,
         )
-        return compact_manifests(self, force=force)
+        return compact_manifests(self, force=force,
+                                 commit_user=commit_user,
+                                 properties=properties,
+                                 properties_provider=properties_provider)
 
     # -- maintenance ---------------------------------------------------------
 

@@ -87,10 +87,48 @@ def test_refused_sub_commands_print_their_item(tmp_path, capsys):
     wh = str(tmp_path / "wh")
     _bootstrap(wh)
     capsys.readouterr()
-    for argv, item in ((["fleet", "status", "d1.t"], "A.8.9"),
-                       (["lint"], "A.8.9")):
+    for argv, item in ((["lint"], "A.8.9"),):
         assert port_main(["--device", "cpu", "-w", wh, *argv]) == 1
         assert f"(ROADMAP.md: {item})" in capsys.readouterr().err
+
+
+def test_fleet_status_matches_the_reference(tmp_path, capsys):
+    """`fleet status` (it raised naming A.8.9) prints the reference's
+    view of a table two plane daemons stamped: generations, dead and
+    adopted sets, floors, rejoin requests and bucket shares (lease ages
+    are ages now, so only their presence is compared)."""
+    from paimon_tpu.parallel.distributed import (
+        GenerationHistory, OwnershipMap, lease_props, rejoin_request_props,
+    )
+    from paimon_tpu.table import FileStoreTable as RefTable
+    from paimon_tpu.core.commit import FileStoreCommit
+
+    wh = str(tmp_path / "wh")
+    _bootstrap(wh)
+    t = RefTable.load(os.path.join(wh, "d1.db", "t"))
+    m1 = OwnershipMap(1, 3, 2)
+    hist = GenerationHistory.initial(m1).with_map(m1.with_dead({2}))
+    stamps = [("stream-daemon-p0", {**hist.to_properties(),
+                                    **lease_props(0, 10_000, {1: 9_000}),
+                                    "stream.adopted": "2",
+                                    "stream.floor.p2": "17"}),
+              ("stream-daemon-p2", {**hist.to_properties(),
+                                    **rejoin_request_props(2, 11_000)})]
+    for user, props in stamps:
+        FileStoreCommit(t.file_io, t.path, t.schema, t.options,
+                        commit_user=user).commit(
+            [], properties=props, force_create=True)
+    capsys.readouterr()
+    outs = []
+    for main, device in ((port_main, ["--device", "cpu"]), (ref_main, [])):
+        assert main([*device, "-w", wh, "fleet", "status", "d1.t"]) == 0
+        out = json.loads(capsys.readouterr().out)
+        for host in out["hosts"].values():
+            host["lease_age_ms"] = host["lease_age_ms"] is not None
+        outs.append(out)
+    assert outs[0] == outs[1]
+    assert outs[0]["dead"] == [2] and outs[0]["rejoining"] == [2]
+    assert outs[0]["hosts"]["0"]["floors"] == {"2": 17}
 
 
 def test_trace_option_writes_a_chrome_trace(tmp_path, capsys):

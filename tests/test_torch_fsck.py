@@ -505,15 +505,21 @@ def test_stamp_parsing_matches_reference():
     from paimon_tpu.parallel.distributed import (
         stamp_from_properties as ref_stamp,
     )
-    from paimon_tpu_torch.maintenance.fsck import stamp_from_properties
-    for props in (stamp(3, 4, 8, "1,2"), stamp(1), {}, {"x": "1"}):
+    from paimon_tpu_torch.parallel.distributed import (
+        stamp_from_properties,
+    )
+    for props in (stamp(3, 4, 8, "1,2"), stamp(1), {}, {"x": "1"},
+                  {**stamp(3, 4, 8, "2"), "multihost.ownership.history":
+                   "1:4:8:|2:4:8:1|3:4:8:2"}):
         got, want = stamp_from_properties(props), ref_stamp(props)
         if want is None:
             assert got is None
             continue
-        m = want[0]
-        assert (got.version, got.num_processes, got.num_buckets,
-                got.dead) == (m.version, m.num_processes, m.num_buckets,
-                              m.dead)
+        for g, w in ((got[0], want[0]),
+                     *zip(got[1].entries, want[1].entries)):
+            assert (g.version, g.num_processes, g.num_buckets,
+                    g.dead) == (w.version, w.num_processes, w.num_buckets,
+                                w.dead)
+        assert len(got[1].entries) == len(want[1].entries)
     with pytest.raises(ValueError):
         stamp_from_properties({"multihost.ownership.version": "v"})

@@ -10,7 +10,8 @@ and kills every mutating op of the port's offset-commit path
 seeded events gives equal tables, offsets, identifiers and commit kinds,
 and each package recovers the other's checkpoint; one daemon run gives
 the reference's stream-group (group, metric) pairs and span names.
-`plane=` raises naming ROADMAP.md A.8.9.  Waits are bounded waits on
+`plane=` runs the distributed mode (tests/test_torch_maintenance_plane.py
+holds it against the reference).  Waits are bounded waits on
 conditions; no fixed sleep decides a pass.
 """
 
@@ -598,14 +599,40 @@ def test_daemon_runs_on_its_tables_device(tmp_path):
     assert d.table.device.type == "cpu"
 
 
-# -- refusals ----------------------------------------------------------------
+# -- the distributed mode (it raised naming A.8.9) ---------------------------
 
-def test_plane_raises_naming_a89(tmp_path):
-    port, _ = _both_tables(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md: A\.8\.9"):
-        StreamDaemon(port, MemoryCdcSource(), plane=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md: A\.8\.9"):
-        port_daemon.recover_plane_stamps(port, "stream-daemon")
+def test_plane_mode_recovers_the_references_plane_stamps(tmp_path):
+    """`plane=` runs, and `recover_plane_stamps` reads a distributed
+    daemon's adoption ledger and floors as the reference's does, from a
+    table either package stamped."""
+    from paimon_tpu.core.commit import FileStoreCommit as RefCommit
+    from paimon_tpu.parallel.distributed import OwnershipMap as RefMap
+    from paimon_tpu_torch.core.commit import FileStoreCommit
+    from paimon_tpu_torch.parallel.maintenance_plane import MaintenancePlane
+
+    port, ref = _both_tables(tmp_path)
+    props = {**RefMap(2, 3, 2, frozenset({2})).to_properties(),
+             "stream.adopted": "2", "stream.floor.p2": "41",
+             PROP_OFFSET: "50", "stream.ingest.ts-ms": "1"}
+    for t, commit in ((port, FileStoreCommit), (ref, RefCommit)):
+        commit(t.file_io, t.path, t.schema, t.options,
+               commit_user="stream-daemon-p0").commit(
+            [], properties=props, force_create=True)
+    for t in (port, ref):
+        got = port_daemon.recover_plane_stamps(t, "stream-daemon-p0")
+        assert got == ref_daemon.recover_plane_stamps(t,
+                                                      "stream-daemon-p0")
+        assert got == (frozenset({2}), {2: 41})
+    plane = MaintenancePlane(port, base_user="stream-daemon",
+                             process_index=0, process_count=3,
+                             clock=lambda: 0)
+    d = StreamDaemon(port, MemoryCdcSource(), commit_user="stream-daemon",
+                     plane=plane)
+    assert d.commit_user == "stream-daemon-p0"
+    assert plane.ownership.dead == frozenset({2})
+    with pytest.raises(ValueError, match="base_user"):
+        StreamDaemon(port, MemoryCdcSource(), commit_user="other",
+                     plane=plane)
 
 
 def test_file_source_parses_a_line_when_first_polled(tmp_path):

@@ -344,16 +344,14 @@ def _append_blob_field_write(tmp_path, **options):
 
 # bucket -1 and deletion-vectors.enabled opened with the dynamic
 # buckets, row tracking and deletion vectors with append tables, system
-# tables and blob columns with the formats and types; their places hold
-# other unported planes
-_UNPORTED_ACTIONS = {"stream plane": lambda tmp_path:
-                     _distributed_stream_daemon(),
-                     "append blob-field": functools.partial(
-                         _append_blob_field_write, **{"blob-field": "b"})}
+# tables and blob columns with the formats and types, the distributed
+# stream daemon with the multi-host planes; their places hold other
+# unported planes
+_UNPORTED_ACTIONS = {"append blob-field": functools.partial(
+    _append_blob_field_write, **{"blob-field": "b"})}
 
 
 @pytest.mark.parametrize("options, item", [
-    ("stream plane", "A.8.9"),
     ("append blob-field", "A.8.8b")])
 def test_unported_table_options_raise(tmp_path, options, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -447,13 +445,6 @@ def test_append_table_and_other_planes_raise(tmp_path):
     assert out.column(0).to_pylist() == ["hnsw index built: 3 vectors"]
 
 
-def _multi_process_mesh():
-    from types import SimpleNamespace
-
-    from paimon_tpu_torch.parallel.mesh_engine import _single_process
-    _single_process(SimpleNamespace(world=2))
-
-
 def _variant_shredding():
     with tempfile.TemporaryDirectory() as d:
         table = FileStoreTable.create(
@@ -469,22 +460,6 @@ def _blob_descriptor_reads():
                                  **{"blob-as-descriptor": "true"})
 
 
-def _distributed_stream_daemon():
-    from paimon_tpu_torch.cdc.source import MemoryCdcSource
-    from paimon_tpu_torch.service.stream_daemon import StreamDaemon
-    with tempfile.TemporaryDirectory() as d:
-        table = FileStoreTable.create(os.path.join(d, "t"), pk_schema(),
-                                      device="cpu")
-        StreamDaemon(table, MemoryCdcSource(), plane=object())
-
-
-def _plane_stamps():
-    from paimon_tpu_torch.service.stream_daemon import recover_plane_stamps
-    with tempfile.TemporaryDirectory() as d:
-        recover_plane_stamps(FileStoreTable.create(
-            os.path.join(d, "t"), pk_schema(), device="cpu"), "daemon")
-
-
 def _cli_command(*argv):
     """One of the CLI's sub-command handlers, called as main() would."""
     def run():
@@ -496,24 +471,8 @@ def _cli_command(*argv):
     return run
 
 
-def _table_method(name):
-    """One of FileStoreTable's A.8.9 methods, called as the reference's
-    signature allows."""
-    def run():
-        with tempfile.TemporaryDirectory() as d:
-            table = FileStoreTable.create(os.path.join(d, "t"), pk_schema(),
-                                          device="cpu")
-            getattr(table, name)("writer", process_index=0, process_count=1)
-    return run
-
-
 @pytest.mark.parametrize("call, item", [
     (_blob_descriptor_reads, "A.8.8b"), (_variant_shredding, "A.8.8b"),
-    (_multi_process_mesh, "A.8.9"),
-    (_plane_stamps, "A.8.9"),
-    (_table_method("new_distributed_write"), "A.8.9"),
-    (_cli_command("fleet", "status", "d1.t"), "A.8.9"),
-    (_distributed_stream_daemon, "A.8.9"),
     (_cli_command("lint"), "A.8.9")])
 def test_refusals_name_their_items(call, item):
     """Each refusal names its ROADMAP.md item, and that item exists."""
@@ -524,6 +483,83 @@ def test_refusals_name_their_items(call, item):
         call()
     assert f"(ROADMAP.md: {item})" in str(e.value)
     assert f"**{item} " in roadmap
+
+
+# -- the surfaces the multi-host planes opened (they were refused) ---------
+
+def _multihost_surface(what, tmp_path):
+    """One surface of the multi-host planes on the port: what it
+    answers, to hold against the reference's."""
+    if what == "multi_process_mesh":
+        # a rank of a 2-process mesh compacts its own groups on its own
+        # lane, by the ownership map, with no collective
+        from types import SimpleNamespace
+
+        from paimon_tpu_torch.parallel.distributed import owner_of
+        from paimon_tpu_torch.parallel.mesh_engine import _process_share
+        import torch
+        mesh = SimpleNamespace(world=2, rank=1, n_lanes=4,
+                               device=torch.device("cpu"))
+        local, mine = _process_share(mesh, None)
+        assert (local.world, local.n_lanes) == (1, 2)
+        return [b for b in range(16) if mine((), b)], \
+            [b for b in range(16) if owner_of((), b, 2) == 1]
+    if what == "plane_stamps":
+        from paimon_tpu.service.stream_daemon import (
+            recover_plane_stamps as ref_stamps,
+        )
+        from paimon_tpu_torch.service.stream_daemon import (
+            recover_plane_stamps,
+        )
+        port = new_table(tmp_path)
+        write_rows(port, [{"id": 1, "name": "a", "score": 1.0}])
+        ref = _ref_pk_table(str(tmp_path / "ref"))
+        return [recover_plane_stamps(port, "stream-daemon-p0")], \
+            [ref_stamps(ref, "stream-daemon-p0")]
+    if what == "new_distributed_write":
+        table = new_table(tmp_path)
+        plane = table.new_distributed_write("writer", process_index=0,
+                                            process_count=1)
+        plane.write_dicts([{"id": i, "name": f"n{i}", "score": i / 2}
+                           for i in range(10)])
+        sid = plane.commit()
+        plane.close()
+        snap = table.snapshot_manager.snapshot(sid)
+        return (snap.commit_user, read_sorted(table)), \
+            ("writer-p0", [{"id": i, "name": f"n{i}", "score": i / 2}
+                           for i in range(10)])
+    if what == "fleet_status":
+        from paimon_tpu_torch.cli import _fleet_view
+        return _fleet_view(new_table(tmp_path), "stream-daemon", 16), \
+            {"distributed": False}
+    if what == "stream_plane":
+        from paimon_tpu_torch.cdc.source import MemoryCdcSource
+        from paimon_tpu_torch.parallel.maintenance_plane import (
+            MaintenancePlane,
+        )
+        from paimon_tpu_torch.service.stream_daemon import StreamDaemon
+        table = new_table(tmp_path)
+        plane = MaintenancePlane(table, base_user="stream-daemon",
+                                 process_index=1, process_count=2,
+                                 clock=lambda: 0)
+        d = StreamDaemon(table, MemoryCdcSource(),
+                         commit_user="stream-daemon", plane=plane)
+        return (d.commit_user, d.status()["distributed"]), \
+            ("stream-daemon-p1", {
+                "process_index": 1, "process_count": 2,
+                "ownership_version": 1, "dead": [], "adopted": [],
+                "floors": {}, "rejoining": False, "rejoin_replayed": 0})
+    raise AssertionError(what)
+
+
+@pytest.mark.parametrize("what", [
+    "multi_process_mesh", "plane_stamps", "new_distributed_write",
+    "fleet_status", "stream_plane"])
+def test_multihost_surfaces_run(what, tmp_path):
+    """The surfaces the multi-host planes opened (each raised naming
+    A.8.9): each gives the reference's answer."""
+    got, want = _multihost_surface(what, tmp_path)
+    assert got == want
 
 
 # -- the surfaces the serving fleet opened (they were refused) --------------
