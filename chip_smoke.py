@@ -390,6 +390,23 @@ then):
      plain version and reports its launches (counted in the `kernels`
      line) and its peak device memory.  It prints a
      {"multihost_planes": ...} line with the card;
+   - analysis: the whole-program analysis plane (analysis/, `paimon
+     lint`) on the card's machine: `python -m paimon_tpu_torch lint
+     --json` in a process of its own over the checked-out package must
+     exit 0 with no unsuppressed finding and the 15 rule ids plus the 2
+     meta ids, equal to the same run in this process (both timed); a
+     package named paimon_tpu_torch with one known-bad site for each
+     rule (torch spellings for collectives, distributed-init and
+     host-materialization), a reasonless and an orphaned marker, on
+     which each rule reports exactly its site and `paimon lint` exits 1;
+     and ROADMAP C.12 on the card: c12_stream_4M (bench.py's columns, 8
+     commits of 2^19 rows, ids uniform in [0, 2^21) from seed 12,
+     tpu.merge.stream-threshold-rows 2^20) compacted with every run's
+     prefetch pump stalled for 3 s inside deadline_scope(200), which
+     must raise DeadlineExceededError from the prefetch poll within
+     1.5 s and commit nothing, then compacted unstalled with K1 launched
+     and read back equal to the last-writer oracle.  It prints an
+     {"analysis": ...} line with the card;
    Each phase reports rows/s, launches, the merge routes it took
    (ops/merge.PATH_COUNTS), peak device memory, the seconds spent in
    segment reductions (the port's reduction entry point timed between
@@ -437,7 +454,7 @@ serving phase, the serving fleet, the merge routes, the bucket modes,
 the maintenance phase, the read and write planes, the file indexes, the append tables,
 the formats and types, the catalog and SQL, the streaming phase and
 its figures, the search phase's figures, the lake phase's, the
-multihost phase's, the stage split
+multihost phase's, the analysis phase's, the stage split
 (the summed milliseconds of the io.read, decode, encode, io.upload,
 scan.merge, write.sort, commit and compaction histograms in the write,
 scan and compaction of dedup_bigint, agg_sum_max_orc and
@@ -12109,6 +12126,421 @@ def multihost_planes(work: str, rec: Recorder, children: MhChildren,
     return out
 
 
+LINT_RULES = ("collectives", "deadline-wait", "distributed-init",
+              "fault-taxonomy", "host-materialization", "lock-order",
+              "loop-blocking", "metric-drift", "obs-drift", "options-drift",
+              "ownership-history", "sleeps", "sockets", "swallow", "threads")
+LINT_META = ("bad-suppression", "stale-suppression")
+C12_ROWS = 1 << 22               # c12_stream_4M: 8 commits of 2^19 rows,
+C12_RUNS = 8                     # ids uniform in [0, 2^21), seed 12,
+C12_THRESHOLD = 1 << 20          # streamed above 2^20 rows
+C12_SEED = 12
+C12_DEADLINE_MS = 200            # the stalled pumps' request deadline
+C12_STALL_S = 3.0                # and how long they stall
+
+# one known-bad site for each rule, in a package named paimon_tpu_torch
+# (the drift rules run on no other name); file -> source
+LINT_BAD_FILES = {
+    "quiet.py": """
+def quiet(f):
+    try:
+        f()
+    except Exception:
+        pass
+""",
+    "spin.py": """
+import threading
+
+
+def spin(f):
+    return threading.Thread(target=f)
+
+
+def orphan():
+    return 1  # lint-ok: swallow nothing is swallowed here
+""",
+    "nap.py": """
+import time
+
+
+def nap():
+    time.sleep(1)  # lint-ok: sleeps
+""",
+    "net.py": "import socket\n",
+    "sync.py": """
+import torch.distributed as dist
+
+
+def sync():
+    dist.barrier()
+
+
+def mesh_step(parts, t, group):
+    dist.all_gather(parts, t, group=group)
+""",
+    "boot.py": """
+import torch.distributed as dist
+
+
+def boot():
+    dist.init_process_group("gloo")
+""",
+    "ops/kernels.py": """
+def launch(t):
+    return t.cpu()
+""",
+    "obs/trace.py": """
+STAGE_GHOST = "ghost.stage"
+""",
+    "options.py": """
+class ConfigOption:
+    def __init__(self, key, typ, default, description=""):
+        self.key, self.typ, self.default = key, typ, default
+        self.description = description
+
+
+class CoreOptions:
+    BUCKET = ConfigOption("bucket", int, -1, "Bucket count")
+    WRITE_ONLY_DEFAULT_TRUE = ConfigOption("write-only", bool, True, "")
+""",
+    "service/locks.py": """
+import threading
+
+ALPHA_LOCK = threading.Lock()
+BETA_LOCK = threading.Lock()
+
+
+def forward():
+    with ALPHA_LOCK:
+        take_beta()
+
+
+def take_beta():
+    with BETA_LOCK:
+        pass
+
+
+def backward():
+    with BETA_LOCK:
+        take_alpha()
+
+
+def take_alpha():
+    with ALPHA_LOCK:
+        pass
+""",
+    "parallel/executors.py": """
+def spawn_thread(fn, name=None):
+    return fn
+""",
+    "service/async_server.py": """
+import threading
+
+from paimon_tpu_torch.parallel.executors import spawn_thread
+
+
+class Server:
+    def __init__(self):
+        self._done_lock = threading.Lock()
+
+    def start(self):
+        spawn_thread(self._loop, name="srv-loop")
+
+    def _loop(self):
+        while True:
+            self._drain()
+
+    def _drain(self):
+        with self._done_lock:
+            return 1
+""",
+    "work.py": """
+def consume(q):
+    return q.get()
+""",
+    "client.py": """
+def fetch(store):
+    try:
+        return store.read()
+    except TransientStoreError:
+        return None
+""",
+    "service/daemon.py": """
+def resume(props):
+    return props.get("multihost.ownership.version")
+""",
+}
+LINT_BAD_DOC = """\
+| Key | Type | Default | Description |
+|---|---|---|---|
+| `bucket` | int | -1 | Bucket count |
+| `write-only` | boolean | false | Skip compaction |
+"""
+# rule -> (file, a text of the flagged line)
+LINT_BAD_SITES = {
+    "swallow": ("quiet.py", "except Exception:"),
+    "threads": ("spin.py", "threading.Thread("),
+    "sleeps": ("nap.py", "time.sleep(1)"),
+    "sockets": ("net.py", "import socket"),
+    "collectives": ("sync.py", "dist.barrier()"),
+    "distributed-init": ("boot.py", "init_process_group"),
+    "host-materialization": ("ops/kernels.py", ".cpu()"),
+    "obs-drift": ("obs/trace.py", "STAGE_GHOST"),
+    "options-drift": ("options.py", '"write-only"'),
+    "lock-order": ("service/locks.py", "take_beta()"),
+    "loop-blocking": ("service/async_server.py", "with self._done_lock"),
+    "deadline-wait": ("work.py", "q.get()"),
+    "fault-taxonomy": ("client.py", "except TransientStoreError"),
+    "ownership-history": ("service/daemon.py", "multihost.ownership"),
+    "bad-suppression": ("nap.py", "time.sleep(1)"),
+    "stale-suppression": ("spin.py", "return 1"),
+}
+
+
+def lint_bad_package(root: str) -> tuple:
+    """Writes the known-bad package under `root` (with a docs/options.md
+    beside it) and returns (its directory, {rule: (display path,
+    line)}): each of the 15 rules flags exactly one site, metric-drift
+    the one of paimon_tpu_torch.metrics' constants that the package's
+    producers.py does not name, plus a reasonless and an orphaned
+    marker."""
+    import paimon_tpu_torch.metrics as M
+
+    pkg = os.path.join(root, "paimon_tpu_torch")
+    names = [n for n in M.__all__ if n.isupper()]
+    # a constant that no other contains, so naming the rest misses it
+    orphan = next(n for n in names
+                  if not any(n in m for m in names if m != n))
+    files = {**LINT_BAD_FILES, "__init__.py": "",
+             "metrics.py": "".join(f'{n} = "{n.lower()}"\n'
+                                   for n in names),
+             "producers.py": "".join(f"# {n}\n" for n in names
+                                     if n != orphan)}
+    for rel, src in files.items():
+        path = os.path.join(pkg, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src.lstrip("\n"))
+    os.makedirs(os.path.join(root, "docs"), exist_ok=True)
+    with open(os.path.join(root, "docs", "options.md"), "w") as f:
+        f.write(LINT_BAD_DOC)
+    want = {"metric-drift": ("paimon_tpu_torch/metrics.py",
+                             names.index(orphan) + 1)}
+    for rid, (rel, text) in LINT_BAD_SITES.items():
+        lines = files[rel].lstrip("\n").splitlines()
+        want[rid] = (f"paimon_tpu_torch/{rel}",
+                     next(i + 1 for i, line in enumerate(lines)
+                          if text in line))
+    return pkg, want
+
+
+def check_known_bad(root: str) -> dict:
+    """Every rule against the known-bad package: each reports exactly
+    its finding (none suppressed), and `paimon lint` exits 1 on it."""
+    import contextlib
+    import io
+
+    from paimon_tpu_torch import cli
+    from paimon_tpu_torch.analysis import run_package
+
+    t0 = time.perf_counter()
+    pkg, want = lint_bad_package(root)
+    report = run_package(pkg)
+    got = {}
+    for f in report.findings:
+        if f.rule in got or f.suppressed:
+            raise AssertionError(f"known-bad package: a second or "
+                                 f"suppressed finding {f}")
+        got[f.rule] = (f.file, f.line)
+    if got != want:
+        raise AssertionError(f"known-bad package: findings {got}, "
+                             f"expected {want}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["lint", "--package-dir", pkg])
+    last = out.getvalue().splitlines()[-1]
+    if rc != 1 or not last.endswith(f"{len(want)} finding(s), 0 "
+                                    f"suppressed"):
+        raise AssertionError(f"paimon lint on the known-bad package: "
+                             f"exit {rc}, {last!r}")
+    return {"findings": len(report.findings), "cli_exit": rc,
+            "s": time.perf_counter() - t0}
+
+
+class LintChild:
+    """`python -m paimon_tpu_torch lint --json` over the checkout's
+    package, started now from the checkout's root; a thread of its own
+    waits for it, so its wall time is its own."""
+
+    def __init__(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.t0 = time.perf_counter()
+        self.s = None
+        self.out = self.err = ""
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paimon_tpu_torch", "lint", "--json"],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self):
+        self.out, self.err = self.proc.communicate()
+        self.s = time.perf_counter() - self.t0
+
+    def report(self, timeout: float = 120.0) -> dict:
+        self.thread.join(timeout)
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.thread.join()
+            raise AssertionError(f"paimon lint did not end in {timeout} s")
+        if self.proc.returncode != 0:
+            raise AssertionError(f"paimon lint: exit {self.proc.returncode}"
+                                 f": {self.out[-500:]} {self.err[-500:]}")
+        return json.loads(self.out)
+
+
+def c12_compaction(work: str, rec: Recorder, dev, scale: int) -> dict:
+    """ROADMAP C.12 on the card: c12_stream_4M, bench.py's columns in 8
+    commits, compacted down the streamed path (stream-threshold-rows
+    below its rows, so _prefetch, _collect and flush run).  With every
+    run's pump stalled for C12_STALL_S inside deadline_scope(200) the
+    compaction raises DeadlineExceededError within 1.5 s and commits
+    nothing; then, unstalled and with no deadline, it commits rows equal
+    to the last-writer oracle, its merges launching K1."""
+    import paimon_tpu_torch.compact.manager as manager
+    from paimon_tpu_torch.table import FileStoreTable
+    from paimon_tpu_torch.utils.deadline import (
+        DeadlineExceededError, deadline_scope,
+    )
+
+    t_phase = time.perf_counter()
+    rows = C12_ROWS // scale
+    name = f"c12_stream_{rows >> 20}M" if scale == 1 else \
+        f"c12_stream_{rows}"
+    batches = bigint_batches(rows, runs=C12_RUNS, seed=C12_SEED)
+    cols = {c: np.concatenate([b.column(c).to_numpy() for b in batches])
+            for c in ("id", "v1", "v2", "v3")}
+    win = last_writer_oracle(cols["id"])
+    path = os.path.join(work, name)
+    table = FileStoreTable.create(path, bigint_schema({
+        "bucket": "1", "write-only": "true",
+        "parquet.enable.dictionary": "false",
+        "tpu.merge.stream-threshold-rows": str(C12_THRESHOLD // scale)}),
+        device=dev)
+
+    def write():
+        for b in batches:
+            wb = table.new_batch_write_builder()
+            with wb.new_write() as w:
+                w.write_arrow(b)
+                wb.new_commit().commit(w.prepare_commit())
+    rec.run(name, "write", rows, dev, write)
+    snapshot = table.snapshot_manager.latest_snapshot_id()
+    release = threading.Event()
+    prefetch = manager._prefetch
+
+    def stalled_prefetch(it, depth=2):
+        def stalled_run():
+            release.wait(C12_STALL_S)
+            yield from it
+        return prefetch(stalled_run(), depth)
+
+    manager._prefetch = stalled_prefetch
+    t0 = time.perf_counter()
+    try:
+        with deadline_scope(C12_DEADLINE_MS):
+            table.compact(full=True)
+    except DeadlineExceededError as e:
+        raised_s, raised = time.perf_counter() - t0, str(e)
+    else:
+        raise AssertionError(f"{name}: the stalled compaction under "
+                             f"deadline_scope({C12_DEADLINE_MS}) did not "
+                             f"raise")
+    finally:
+        manager._prefetch = prefetch
+        release.set()
+    if raised_s >= 1.5 or "compaction prefetch" not in raised:
+        raise AssertionError(f"{name}: the stalled compaction raised "
+                             f"{raised!r} after {raised_s:.2f} s")
+    if table.snapshot_manager.latest_snapshot_id() != snapshot:
+        raise AssertionError(f"{name}: the stalled compaction committed")
+    # the released pumps see the cancel flag and end
+    t1 = time.perf_counter()
+    while any(t.name.startswith("paimon-prefetch-pump")
+              for t in threading.enumerate()):
+        if time.perf_counter() - t1 > C12_STALL_S + 5:
+            raise AssertionError(f"{name}: a prefetch pump outlived its "
+                                 f"compaction")
+        time.sleep(0.01)
+    if rec.run(name, "compact", rows, dev,
+               lambda: table.compact(full=True)) is None:
+        raise AssertionError(f"{name}: the compaction committed nothing")
+    got = rec.run(name, "read", rows, dev, table.to_arrow)
+    check_rows(f"{name} read after compaction", got, cols, win, "id")
+    compact = next(p for p in reversed(rec.phases)
+                   if p["table"] == name and p["phase"] == "compact")
+    if dev.type == "cuda" and compact["launches_plain"] == 0:
+        raise AssertionError(f"{name}: the streamed compaction launched "
+                             f"no K1")
+    shutil.rmtree(path, ignore_errors=True)
+    return {"table": name, "rows": rows, "runs": C12_RUNS,
+            "stream_threshold_rows": C12_THRESHOLD // scale,
+            "deadline_ms": C12_DEADLINE_MS, "stall_s": C12_STALL_S,
+            "raised_after_s": raised_s, "raised": raised,
+            "compact_rows_per_s": compact["rows_per_s"],
+            "k1_compact": compact["launches_plain"],
+            "live_rows": got.num_rows, "s": time.perf_counter() - t_phase}
+
+
+def analysis(work: str, rec: Recorder, device="cuda", scale: int = 1) -> dict:
+    """The whole-program analysis plane on the card's machine (`scale`
+    divides C.12's rows, for a rehearsal): `paimon lint --json` in a
+    process of its own over the checked-out package (exit 0, no
+    unsuppressed finding, the 15 rules and 2 meta ids), the same run in
+    this process, every rule against the known-bad package, and C.12's
+    compaction on the card.  Returns what the phase reports."""
+    import torch
+
+    import paimon_tpu_torch
+    from paimon_tpu_torch.analysis import run_package
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    child = LintChild()
+    known_bad = check_known_bad(os.path.join(work, "lint_bad"))
+    c12 = c12_compaction(work, rec, dev, scale)
+    t0 = time.perf_counter()
+    mine = run_package(os.path.dirname(paimon_tpu_torch.__file__))
+    in_process_s = time.perf_counter() - t0
+    report = child.report()
+    rules = sorted(LINT_RULES) + list(LINT_META)
+    if report["rules"] != rules or report["summary"]["unsuppressed"] or \
+            mine.unsuppressed or \
+            report["summary"] != mine.to_dict()["summary"]:
+        raise AssertionError(f"paimon lint over the checkout: rules "
+                             f"{report['rules']}, summary "
+                             f"{report['summary']}; in process "
+                             f"{mine.to_dict()['summary']}")
+    out = {"cli": {"files": report["files"], "rules": len(report["rules"]),
+                   "unsuppressed": report["summary"]["unsuppressed"],
+                   "suppressed": report["summary"]["suppressed"],
+                   "s": child.s},
+           "in_process_s": in_process_s, "known_bad": known_bad,
+           "c12": c12, "s": time.perf_counter() - t_phase}
+    log(f"  analysis: paimon lint over {report['files']} files in "
+        f"{child.s:.1f} s (its process), {in_process_s:.1f} s in this one: "
+        f"0 findings, {report['summary']['suppressed']} suppressed; the "
+        f"known-bad package's {known_bad['findings']} findings exact; "
+        f"{c12['table']} stalled under a {C12_DEADLINE_MS} ms deadline "
+        f"raised in {c12['raised_after_s']:.2f} s, compacted at "
+        f"{c12['compact_rows_per_s']:,.0f} rows/s with {c12['k1_compact']} "
+        f"K1 launches; phase {out['s']:.1f} s")
+    if dev.type == "cuda":
+        out["card"] = card_line()
+    return out
+
+
 BIG_TABLES = ("dedup_bigint", "agg_sum_max_orc", "device_decode_dedup")
 APPEND_TABLES = ("ap_log_16M", "ap_sort_coverage", "ap_tracked_1M",
                  "ap_queue_coverage")
@@ -12121,7 +12553,7 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
               maintained: dict, planes: dict, indexed: dict,
               appended: dict, formatted: dict, sqled: dict,
               streamed: dict, searched: dict, fleet: dict,
-              laked: dict, multihost: dict) -> tuple:
+              laked: dict, multihost: dict, analysed: dict) -> tuple:
     import pyarrow as pa
 
     from paimon_tpu_torch import Schema
@@ -12324,6 +12756,10 @@ def main_path(rows: int, phases: list, capture: LaunchCapture,
                                                            mh_children)))
             totals[0] += multihost["k1_launches"]["plain"]
             totals[1] += multihost["k1_launches"]["ovc"]
+            # the analysis plane: `paimon lint` over the checkout, every
+            # rule against a known-bad package, and the request deadline
+            # in the streamed compaction's waits (ROADMAP C.12)
+            analysed.update(path("analysis", lambda: analysis(work, rec)))
         moved = counter_delta(planes0)
         injected = sum(planes["faults_500K"]["faults"].values()) + \
             sum(indexed["fi_rewrite_coverage"]["faults"].values())
@@ -12443,11 +12879,12 @@ def main() -> int:
     fleet: dict = {}
     laked: dict = {}
     multihost: dict = {}
+    analysed: dict = {}
     launches = main_path(args.rows, phases, capture, ReduceTimer(),
                          ChangelogTimer(), c5, DecodeTimer(), decoded, mesh,
                          served, bucketed, maintained, planes, indexed,
                          appended, formatted, sqled, streamed, searched,
-                         fleet, laked, multihost)
+                         fleet, laked, multihost, analysed)
     k1 = KernelStats("eq_next_mask", "paimon_tpu/ops/pallas_kernels.py:72")
     k2 = KernelStats("eq_next_mask_ovc",
                      "paimon_tpu/ops/pallas_kernels.py:72")
@@ -12523,6 +12960,7 @@ def main() -> int:
         "syncs": ice["syncs"], "loader": ice["loader"],
         "coverage_s": laked["lake_coverage"]["s"]}}))
     print(json.dumps({"multihost_planes": multihost}))
+    print(json.dumps({"analysis": analysed}))
     print(json.dumps({"stages": {
         "card": card_line(),
         **stage_split(phases, ("dedup_bigint", "agg_sum_max_orc",

@@ -11,6 +11,7 @@ a yaml catalog config).  This is the same surface as paimon_tpu's
   paimon --warehouse /wh tag list|create|delete <db.table> [...]
   paimon --warehouse /wh branch list|create|delete|fast-forward ...
   paimon --warehouse /wh sql "SELECT ..." | sql   (interactive REPL)
+  paimon lint [--json] [--rule ID] [--list-rules]
 
 Catalog selection: --warehouse PATH (filesystem), or --config FILE — a
 JSON file of catalog options ({"warehouse": ..., "metastore": ...}),
@@ -22,8 +23,10 @@ on the CPU.  `table stream` runs the streaming daemon over a JSONL file
 of CDC events until SIGTERM or --duration, `fleet status` reads the
 multi-host planes' ownership generations, leases and ledgers from a
 table's snapshots, and `fleet trace --merge DIR` merges the trace
-spools under DIR.  Not ported yet, raising NotImplementedError naming
-its ROADMAP.md item: `lint` (analysis/, A.8.9).
+spools under DIR.  `lint [--json] [--rule ID]` runs the whole-program
+analysis plane (analysis/) over the installed package, or over
+`--package-dir`; it opens no catalog and no device, so it takes no
+`--device`.
 """
 
 import argparse
@@ -549,9 +552,42 @@ def cmd_sql(args):
 
 
 def cmd_lint(args):
-    raise NotImplementedError(
-        "`lint` needs analysis/, which is not ported to "
-        "paimon_tpu_torch yet (ROADMAP.md: A.8.9)")
+    """Whole-program static analysis: the same engine pass the tests
+    run (paimon_tpu_torch/analysis/), for humans and external CI.  It
+    parses source only: no catalog, no device.  Exit 1 when any
+    unsuppressed finding exists."""
+    from paimon_tpu_torch.analysis import META_RULES, all_rules, run_package
+
+    if args.list_rules:
+        for r in all_rules():
+            print(f"{r.id:22s} {r.title}")
+        return
+    if args.rules:
+        known = {r.id for r in all_rules()} | set(META_RULES)
+        unknown = sorted(set(args.rules) - known)
+        if unknown:
+            raise SystemExit(
+                f"unknown rule id(s): {', '.join(unknown)} "
+                f"(see `paimon lint --list-rules`)")
+    package_dir = args.package_dir or os.path.dirname(
+        os.path.abspath(__file__))
+    report = run_package(package_dir,
+                         rule_ids=args.rules if args.rules else None)
+    if args.json:
+        print(report.to_json())
+    else:
+        for f in report.findings:
+            if f.suppressed and not args.show_suppressed:
+                continue
+            tag = " [suppressed]" if f.suppressed else ""
+            print(f"{f.file}:{f.line}: [{f.rule}]{tag} {f.message}")
+        s = report.to_dict()["summary"]
+        print(f"{len(report.model.modules)} files, "
+              f"{len(report.rules)} rules: "
+              f"{s['unsuppressed']} finding(s), "
+              f"{s['suppressed']} suppressed")
+    if report.unsuppressed:
+        raise SystemExit(1)
 
 
 # -- parser -----------------------------------------------------------------

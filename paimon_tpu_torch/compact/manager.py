@@ -45,6 +45,7 @@ from paimon_tpu_torch.ops.merge import KIND_COL, merge_runs
 from paimon_tpu_torch.ops.normkey import NormalizedKeyEncoder
 from paimon_tpu_torch.schema.table_schema import TableSchema
 from paimon_tpu_torch.types import RowKind, data_type_to_arrow
+from paimon_tpu_torch.utils.deadline import check_deadline, wait_future
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
 __all__ = ["MergeTreeCompactManager", "CompactResult"]
@@ -94,7 +95,14 @@ def _prefetch(it, depth: int = 2):
     spawn_thread(pump, name="paimon-prefetch-pump")
     try:
         while True:
-            item = q.get()
+            # bounded poll so a request whose deadline is spent stops
+            # waiting on a stalled pump (the cancel flag in `finally`
+            # then releases the pump thread and its pinned chunks)
+            try:
+                item = q.get(timeout=0.2)
+            except _queue.Empty:
+                check_deadline("compaction prefetch")
+                continue
             if item is _SENTINEL:
                 return
             if isinstance(item, tuple) and len(item) == 2 and \
@@ -357,12 +365,15 @@ class MergeTreeCompactManager:
                 # every remaining window first
                 for f in futures:
                     if f.done() and f.exception() is not None:
+                        # lint-ok: deadline-wait the f.done() guard
+                        # means the result is already available — this
+                        # re-raise cannot block
                         f.result()
                 # backpressure: at most 3 file-sized tables in flight so
                 # a slow disk can't unbound the streamed path's memory
                 pending = [f for f in futures if not f.done()]
                 if len(pending) >= 3:
-                    pending[0].result()
+                    wait_future(pending[0], "compaction write backpressure")
                 merged = pa.concat_tables(acc, promote_options="none")
                 futures.append(pool.submit(_write_one, merged))
                 acc, acc_bytes = [], 0
@@ -371,7 +382,7 @@ class MergeTreeCompactManager:
 
             def _collect(fut) -> None:
                 nonlocal acc_bytes
-                window = fut.result()
+                window = wait_future(fut, "compaction merge window")
                 if window.num_rows == 0:
                     return
                 acc.append(window)
@@ -398,7 +409,7 @@ class MergeTreeCompactManager:
             flush()
             out: List[DataFileMeta] = []
             for f in futures:
-                out.extend(f.result())
+                out.extend(wait_future(f, "compaction file write"))
         return out
 
     # -- changelog producers -------------------------------------------------

@@ -50,6 +50,7 @@ from paimon_tpu_torch.ops.merge import (
     KIND_COL, SEQ_COL, merge_runs, sort_table,
 )
 from paimon_tpu_torch.schema.table_schema import TableSchema
+from paimon_tpu_torch.utils.deadline import wait_future
 from paimon_tpu_torch.utils.path_factory import FileStorePathFactory
 
 __all__ = ["CommitMessage", "KeyValueFileStoreWrite", "build_kv_table"]
@@ -832,9 +833,11 @@ class KeyValueFileStoreWrite:
         # bounded lookahead: at most 4 batches prepped ahead (each holds
         # a batch-sized copy), routed strictly in submission order
         while len(self._prep) > 4:
-            self._route(self._prep.popleft().result())
+            self._route(wait_future(self._prep.popleft(),
+                                    "write prep backpressure"))
         while self._prep and self._prep[0].done():
-            self._route(self._prep.popleft().result())
+            self._route(wait_future(self._prep.popleft(),
+                                    "write prep drain"))
 
     def _route(self, groups):
         for (part, bucket), sub, kinds in groups:
@@ -842,7 +845,8 @@ class KeyValueFileStoreWrite:
 
     def _drain_prep(self):
         while self._prep:
-            self._route(self._prep.popleft().result())
+            self._route(wait_future(self._prep.popleft(),
+                                    "write prep drain"))
 
     def _prep_executor(self):
         """Lookahead pool (up to 4 workers, bounded by the flush

@@ -566,7 +566,7 @@ class LookupStore:
             self.block_cache.drop_file(reader.path)
             try:
                 os.remove(reader.path)
-            # an eviction sweep, not a retry:
+            # lint-ok: fault-taxonomy eviction sweep, not a retry:
             # popitem guarantees progress and a vanished spill file is
             # the eviction's desired end state
             except OSError:

@@ -106,9 +106,7 @@ def build_sidecar(metas: Sequence, partition_types: list,
                     for i in range(len(p_arrow)):
                         p_mins[i][row] = mins[i]
                         p_maxs[i][row] = maxs[i]
-                # stats are advisory: an undecodable partition row
-                # leaves the column null, which the prune keeps
-                except Exception:           # noqa: BLE001
+                except Exception:  # lint-ok: swallow stats are advisory — an undecodable partition row leaves the column null, which the prune keeps
                     pass
         if k_codec is not None:
             mk = getattr(m, "min_key", None)
@@ -117,8 +115,7 @@ def build_sidecar(metas: Sequence, partition_types: list,
                 try:
                     k_min[row] = k_codec.from_bytes(mk)[0]
                     k_max[row] = k_codec.from_bytes(xk)[0]
-                # an undecodable key leaves the bound null (kept)
-                except Exception:           # noqa: BLE001
+                except Exception:  # lint-ok: swallow stats are advisory — an undecodable key leaves the bound null, which the prune keeps
                     pass
 
     cols: Dict[str, pa.Array] = {

@@ -170,8 +170,7 @@ def install_crash_hooks() -> None:
                                     "message": str(exc)})
             from paimon_tpu_torch.obs.trace import spool_flush
             spool_flush()
-        # a failing dump must not mask the crash
-        except Exception:   # noqa: BLE001
+        except Exception:   # lint-ok: swallow a failing black-box dump must never mask the original crash being re-raised to prev_hook
             pass
         prev_hook(exc_type, exc, tb)
 
@@ -183,8 +182,7 @@ def install_crash_hooks() -> None:
                 _recorder.dump(trigger={"kind": "atexit"})
             from paimon_tpu_torch.obs.trace import spool_flush
             spool_flush()
-        # raising here would abort the other atexit handlers
-        except Exception:   # noqa: BLE001
+        except Exception:   # lint-ok: swallow best-effort flush during interpreter teardown; raising here aborts other atexit handlers
             pass
 
     atexit.register(_at_exit)

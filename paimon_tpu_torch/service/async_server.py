@@ -342,7 +342,7 @@ class AsyncHttpServer:
             try:
                 sock.setsockopt(socket.IPPROTO_TCP,
                                 socket.TCP_NODELAY, 1)
-            # a best-effort socket option on a
+            # lint-ok: fault-taxonomy best-effort socket option on a
             # fresh connection, never re-attempted: losing TCP_NODELAY
             # degrades latency, not correctness — not a store retry
             except OSError:
@@ -436,7 +436,7 @@ class AsyncHttpServer:
         anything was pending."""
         moved = False
         while True:
-            # a micro critical section shared
+            # lint-ok: loop-blocking micro critical section shared
             # with workers: both sides only append/popleft under the
             # lock, never block inside it — the hand-off IS the
             # event-loop completion design (loop lag is measured one

@@ -397,9 +397,7 @@ class KvQueryServer:
         if self._warmboot_dir is not None:
             try:
                 self.persist_warm_state()
-            # warm-state persist is advisory: a failed snapshot must not
-            # block shutdown; the next boot is simply cold
-            except Exception:
+            except Exception:  # lint-ok: swallow warm-state persist is advisory — a failed snapshot must not block shutdown; next boot is simply cold
                 pass
         with self._query_lock:
             if self._query is not None:
@@ -913,7 +911,7 @@ class KvQueryClient:
                     data = resp.read()
                     status = resp.status
                     replica = resp.getheader("X-Replica-Id")
-                # the stale keep-alive reconnect,
+                # lint-ok: fault-taxonomy stale keep-alive reconnect,
                 # deliberately narrower than the store ladder: exactly
                 # one resend, only for idempotent work on a reused
                 # socket, never on timeout (see the guard below)

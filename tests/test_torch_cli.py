@@ -83,13 +83,41 @@ def test_module_entry_point_without_device_needs_the_card(tmp_path):
         _load_catalog(build_parser().parse_args(["-w", wh, "db", "list"]))
 
 
-def test_refused_sub_commands_print_their_item(tmp_path, capsys):
-    wh = str(tmp_path / "wh")
-    _bootstrap(wh)
-    capsys.readouterr()
-    for argv, item in ((["lint"], "A.8.9"),):
-        assert port_main(["--device", "cpu", "-w", wh, *argv]) == 1
-        assert f"(ROADMAP.md: {item})" in capsys.readouterr().err
+def test_lint_matches_the_reference(tmp_path, capsys):
+    """`lint` (it raised naming A.8.9) prints the reference's lines and
+    JSON report, and exits as it does, on one fixture package: a
+    finding, a reviewed suppression, a reasonless and a stale marker.
+    It opens no catalog and no device, so it runs without --device."""
+    pkg = tmp_path / "fixturepkg"
+    pkg.mkdir()
+    (pkg / "__init__.py").write_text("")
+    (pkg / "util.py").write_text(
+        "import time\n\n\n"
+        "def nap():\n    time.sleep(1)\n\n\n"
+        "def reviewed():\n    time.sleep(2)  # lint-ok: sleeps fixture\n\n\n"
+        "def reasonless(q):\n    return q.get()  # lint-ok: deadline-wait\n"
+        "\n\ndef stale():\n    return 1  # lint-ok: swallow nothing here\n")
+    outs = {}
+    for argv in (["lint"], ["lint", "--show-suppressed"],
+                 ["lint", "--json"], ["lint", "--rule", "threads"],
+                 ["lint", "--json", "--rule", "sleeps",
+                  "--rule", "stale-suppression"]):
+        runs = [(main([*argv, "--package-dir", str(pkg)]),
+                 capsys.readouterr().out) for main in (port_main, ref_main)]
+        assert runs[0] == runs[1], argv
+        # the reasonless marker is a finding whatever rules run
+        assert runs[0][0] == 1
+        outs[" ".join(argv)] = runs[0][1]
+    report = json.loads(outs["lint --json"])
+    assert sorted((f["rule"], f["line"], f["suppressed"])
+                  for f in report["findings"]) == [
+        ("bad-suppression", 13, False), ("deadline-wait", 13, False),
+        ("sleeps", 5, False), ("sleeps", 9, True),
+        ("stale-suppression", 17, False)]
+    got = _cli("lint", "--json", "--package-dir", str(pkg))
+    assert got.returncode == 1, got.stderr
+    assert port_main(["lint", "--json", "--package-dir", str(pkg)]) == 1
+    assert got.stdout == capsys.readouterr().out
 
 
 def test_fleet_status_matches_the_reference(tmp_path, capsys):

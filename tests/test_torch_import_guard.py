@@ -73,6 +73,10 @@ def test_no_jax_and_no_reference_package_loaded():
                  "paimon_tpu_torch.parallel.multihost",
                  "paimon_tpu_torch.parallel.distributed",
                  "paimon_tpu_torch.parallel.maintenance_plane",
+                 "paimon_tpu_torch.analysis.engine",
+                 "paimon_tpu_torch.analysis.model",
+                 "paimon_tpu_torch.analysis.rules.hygiene",
+                 "paimon_tpu_torch.analysis.rules.drift",
                  "paimon_tpu_torch.utils.deadline",
                  "paimon_tpu_torch.fs.resilience",
                  "paimon_tpu_torch.obs.slo",

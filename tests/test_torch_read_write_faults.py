@@ -693,3 +693,101 @@ def test_backoff_pause_honours_the_request_deadline(pkg):
             wait_for(5.0)
             wait_for(5.0)
     assert time.monotonic() - t0 < 0.2
+
+
+# -- request deadlines in compaction and write-prep waits (ROADMAP.md C.12) --
+
+def _deadline_of(pkg):
+    if pkg is PORT:
+        from paimon_tpu_torch.utils.deadline import (
+            DeadlineExceededError, deadline_scope,
+        )
+    else:
+        from paimon_tpu.utils.deadline import (
+            DeadlineExceededError, deadline_scope,
+        )
+    return DeadlineExceededError, deadline_scope
+
+
+def _stalled(fn, release):
+    """`fn` that first waits up to 3 s for `release`: a stalled worker,
+    ended early by `release.set()`."""
+    def stalled(*args, **kwargs):
+        release.wait(3.0)
+        return fn(*args, **kwargs)
+    return stalled
+
+
+@BOTH
+def test_compaction_prefetch_honours_the_request_deadline(tmp_path, pkg,
+                                                          monkeypatch):
+    """A streamed compaction whose run pumps stall for 3 s raises the
+    package's DeadlineExceededError under deadline_scope(200) within
+    1.5 s, commits nothing, and compacts to the same rows once the
+    stall and the deadline are gone."""
+    if pkg is PORT:
+        import paimon_tpu_torch.compact.manager as manager
+    else:
+        import paimon_tpu.compact.manager as manager
+    exceeded, deadline_scope = _deadline_of(pkg)
+    t = make_table(pkg, tmp_path, buckets=1, commits=4, opts={
+        "tpu.merge.stream-threshold-rows": "64",
+        "tpu.merge.chunk-rows": "128"})
+    want = rows_of(t)
+    snapshot = t.snapshot_manager.latest_snapshot_id()
+    release = threading.Event()
+    prefetch = manager._prefetch
+
+    def stalled_prefetch(it, depth=2):
+        def stalled_run():
+            release.wait(3.0)
+            yield from it
+        return prefetch(stalled_run(), depth)
+    monkeypatch.setattr(manager, "_prefetch", stalled_prefetch)
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(exceeded, match="compaction prefetch"):
+            with deadline_scope(200):
+                t.compact(full=True)
+        assert time.monotonic() - t0 < 1.5
+    finally:
+        release.set()
+    _wait_no_threads("paimon-prefetch-pump")
+    assert t.snapshot_manager.latest_snapshot_id() == snapshot
+    monkeypatch.setattr(manager, "_prefetch", prefetch)
+    t.compact(full=True)
+    assert t.snapshot_manager.latest_snapshot_id() == snapshot + 1
+    assert rows_of(t) == want
+
+
+@BOTH
+def test_write_prep_honours_the_request_deadline(tmp_path, pkg,
+                                                  monkeypatch):
+    """With write.flush.parallelism=4 a batch's bucket grouping runs on
+    a prep worker; one stalled for 3 s makes prepare_commit raise the
+    package's DeadlineExceededError under deadline_scope(200) within
+    1.5 s."""
+    if pkg is PORT:
+        import paimon_tpu_torch.core.write as write
+    else:
+        import paimon_tpu.core.write as write
+    exceeded, deadline_scope = _deadline_of(pkg)
+    t = pkg.create(str(tmp_path), pkg.schema(ID_V, options={
+        "bucket": "2", "write.flush.parallelism": "4"}))
+    release = threading.Event()
+    monkeypatch.setattr(write, "group_by_partition_bucket", _stalled(
+        write.group_by_partition_bucket, release))
+    rng = np.random.default_rng(5)
+    batch = pa.table({"id": pa.array(rng.integers(0, 100, 100), pa.int64()),
+                      "v": pa.array(rng.random(100))})
+    w = t.new_batch_write_builder().new_write()
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(exceeded, match="write prep"):
+            with deadline_scope(200):
+                w.write_arrow(batch)
+                w.prepare_commit()
+        assert time.monotonic() - t0 < 1.5
+    finally:
+        release.set()
+        w.close()
